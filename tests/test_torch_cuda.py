@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 and K2 of videorenderer_tpu_torch on the card,
-against their plain PyTorch versions on the same card and inputs.
+"""The CUDA kernels K1, K2, K5 and K6 of videorenderer_tpu_torch on the
+card, against their plain PyTorch versions on the same card and inputs.
 
 Every test here needs an NVIDIA card with nvcc (marker ``cuda``) and skips
 elsewhere.  The file imports no JAX, so it runs on a machine without it:
@@ -12,7 +12,11 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
  * K1 mid16 <= 1 code: that difference flips a rounding at most once;
  * K2 quantized <= 1 code per channel on < 2% of the channels; float output
    <= 1e-5 without a PQ/HLG correction and <= 2e-4 with one (the PQ curve
-   multiplies a float32 rounding step by up to ~400).
+   multiplies a float32 rounding step by up to ~400);
+ * K5 and K6 float output <= 1e-5 (outputs ~[0,1]: the kernels and the
+   plain versions round every operation alike, only sinf's last bits
+   differ); quantized <= 1 code on < 1% of the channels; K6's transposed
+   store bit-equal to the transpose of its plain store.
 """
 
 import numpy as np
@@ -22,8 +26,9 @@ import torch
 from videorenderer_tpu_torch import config as C, csputils as S
 from videorenderer_tpu_torch import pipeline as P
 from videorenderer_tpu_torch.formats import ColorFormat
+from videorenderer_tpu_torch.kernels import jinc2 as jk
 from videorenderer_tpu_torch.kernels import resize as rk
-from videorenderer_tpu_torch.ops import chroma, scale
+from videorenderer_tpu_torch.ops import chroma, geometry, scale
 
 pytestmark = pytest.mark.cuda
 
@@ -178,7 +183,8 @@ def test_slice_on_card_matches_cpu(dev, src_rect):
     rk.reset_launches()
     got = gpu.process(planes)
     torch.cuda.synchronize()
-    assert rk.launches == {"banded_resize_last_axis": 3, "rows3_tail": 1}
+    assert rk.launches == {"banded_resize_last_axis": 3, "rows3_tail": 1,
+                           "jinc2_resize_fused": 0, "jinc2_convert_fused": 0}
     ref = cpu.process(planes)
     d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
     assert (d <= 1).mean() >= 0.999 and (d > 0).mean() < 0.02
@@ -189,3 +195,185 @@ def test_kernels_refuse_noncontiguous(dev):
     x = torch.zeros((64, 8), device=dev).mT
     with pytest.raises(ValueError, match="contiguous"):
         rk.banded_resize_last_axis(x, mat)
+
+
+def _k2_kconvert_case(rng, sub):
+    """The staged convert's K2 call: raw uint8 luma read directly, chroma
+    already W-upsampled to float32 by K1, the chroma H upsample, a
+    colour-matrix-only epilogue, float output."""
+    h, w = 48, 96
+    ux, uy = chroma.chroma_upsample_matrices(
+        w // 2, h // 2 if sub == 420 else h, sub, C.ChromaScaling.BILINEAR,
+        S.ChromaLocation.MPEG2)
+    hc = h // 2 if sub == 420 else h
+    y = torch.from_numpy(rng.integers(16, 236, (2, h, w), dtype=np.uint8))
+    u8 = torch.from_numpy(rng.integers(16, 241, (2, hc, w // 2), dtype=np.uint8))
+    v8 = torch.from_numpy(rng.integers(16, 241, (2, hc, w // 2), dtype=np.uint8))
+    return h, y, u8, v8, ux, uy
+
+
+@pytest.mark.parametrize("sub", [420, 422])
+def test_k2_kconvert_mode(dev, sub):
+    rng = np.random.default_rng(5)
+    h, y, u8, v8, ux, uy = _k2_kconvert_case(rng, sub)
+    kw = rk.BandedMatrix(ux, pre_scale=1 / 255.0)
+    kh = None if uy is None else rk.BandedMatrix(uy)
+    cmat = np.concatenate([np.eye(3, dtype=np.float32) * 1.1,
+                           np.full((3, 1), -0.05, np.float32)], axis=1)
+    epi = rk.Epilogue(cmat=cmat, correction=rk.CORR_NONE, luminance_scale=1.0,
+                      dither_bits=0, gamut=np.eye(3, dtype=np.float32),
+                      plain=lambda a, b, c: P._apply_cmat(cmat[:, :3],
+                                                          cmat[:, 3], a, b, c))
+    y, u8, v8 = y.to(dev), u8.to(dev), v8.to(dev)
+    u = rk.banded_resize_last_axis(u8, kw)
+    v = rk.banded_resize_last_axis(v8, kw)
+    assert u.dtype == torch.float32
+    got = rk.rows3_tail(y, u, v, None, kh, h, epi, y_scale=1 / 255.0)
+    torch.cuda.synchronize()
+    ref = rk.rows3_tail_plain(y, u, v, None, kh, h, epi, y_scale=1 / 255.0)
+    assert got.shape == ref.shape == (2, 3, h, y.shape[-1])
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def _q_codes(x, bits):
+    return (x * (2 ** bits - 1)).round().int()
+
+
+@pytest.mark.parametrize("dither_bits", [0, 8, -10])
+@pytest.mark.parametrize("sizes", [(27, 48, 54, 96), (30, 40, 61, 90),
+                                   (27, 48, 96, 54), (32, 48, 64, 48)])
+def test_k5_kernel_matches_plain(dev, sizes, dither_bits):
+    h, w, oh, ow = sizes
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((3, h, w), dtype=np.float32)).to(dev)
+    epi = jk.dither_epilogue(dither_bits) if dither_bits else None
+    before = rk.launches["jinc2_resize_fused"]
+    got = jk.jinc2_resize_fused(x, oh, ow, epi)
+    torch.cuda.synchronize()
+    assert rk.launches["jinc2_resize_fused"] == before + 1
+    ref = jk.jinc2_resize_fused_plain(x, oh, ow, epi)
+    assert got.shape == ref.shape == (3, oh, ow)
+    if dither_bits == 0:
+        assert (got - ref).abs().max().item() <= 1e-5
+    else:
+        d = (_q_codes(got, abs(dither_bits)) - _q_codes(ref, abs(dither_bits))).abs()
+        assert d.max().item() <= 1 and (d > 0).double().mean().item() < 0.01
+
+
+def _k6_case(rng, dtype, sub, h=48, w=64):
+    hc = h // 2 if sub == 420 else h
+    cw = w if sub == 444 else w // 2
+
+    def mk(shape):
+        if dtype == torch.float32:
+            return torch.from_numpy(rng.random(shape, dtype=np.float32))
+        hi = 256 if dtype == torch.uint8 else 65536
+        return torch.from_numpy(rng.integers(hi // 16, hi - hi // 16, shape)
+                                .astype(np.uint8 if hi == 256 else np.uint16))
+
+    y, u, v = mk((2, h, w)), mk((2, hc, cw)), mk((2, hc, cw))
+    ux, uy = chroma.chroma_upsample_matrices(
+        cw, hc, sub, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    comp_x = None if ux is None else rk.BandedMatrix(ux)
+    comp_y = None if uy is None else rk.BandedMatrix(uy)
+    plan = P.plan_pipeline(
+        C.Settings(upscaling=C.Upscaling.JINC2),
+        P.SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
+                           matrix=S.CSP.BT_709),
+        P.OutputDescriptor(width=2 * w, height=2 * h, bits=8))
+    cmat = np.concatenate([np.asarray(plan.cmat_m, np.float32),
+                           np.asarray(plan.cmat_c, np.float32)[:, None]], 1)
+    norm = {torch.uint8: 1 / 255.0, torch.uint16: 1 / 65535.0,
+            torch.float32: 1.0}[dtype]
+    return (y, u, v), comp_y, comp_x, cmat, norm
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("pack,dither_bits", [("rgba8", 8), ("rgb10a2", -10),
+                                              (None, 8), (None, 0)])
+@pytest.mark.parametrize("sub", [420, 422, 444])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32])
+def test_k6_kernel_matches_plain(dev, dtype, sub, pack, dither_bits,
+                                 transpose):
+    rng = np.random.default_rng(7)
+    planes, comp_y, comp_x, cmat, norm = _k6_case(rng, dtype, sub)
+    planes = tuple(p.to(dev) for p in planes)
+    h, w = planes[0].shape[-2:]
+    oh, ow = (2 * h, 2 * w) if sub == 420 else (85, 72)
+    epi = jk.dither_epilogue(dither_bits) if dither_bits else None
+    args = (*planes, comp_y, comp_x, cmat, oh, ow, norm, norm)
+    kw = dict(epilogue=epi, pack_format=pack)
+    before = rk.launches["jinc2_convert_fused"]
+    got = jk.jinc2_convert_fused(*args, **kw, out_transpose=transpose)
+    torch.cuda.synchronize()
+    assert rk.launches["jinc2_convert_fused"] == before + 1
+    ref = jk.jinc2_convert_fused_plain(*args, **kw, out_transpose=transpose)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if pack is not None:
+        d = np.abs(_codes(got, pack) - _codes(ref, pack))
+        assert d.max() <= 1 and (d > 0).mean() < 0.01
+    elif dither_bits:
+        d = (_q_codes(got, 8) - _q_codes(ref, 8)).abs()
+        assert d.max().item() <= 1 and (d > 0).double().mean().item() < 0.01
+    else:
+        assert (got - ref).abs().max().item() <= 1e-5
+    if transpose:
+        flat = jk.jinc2_convert_fused(*args, **kw)
+        assert torch.equal(got, flat.transpose(-2, -1))
+
+
+def test_kernels_raise_instead_of_plain(dev):
+    """A CUDA tensor that the kernel cannot take raises; it never gets the
+    plain result."""
+    with pytest.raises(TypeError):
+        jk.jinc2_resize_fused(torch.zeros((1, 8, 8), dtype=torch.float64,
+                                          device=dev), 16, 16)
+    rng = np.random.default_rng(8)
+    planes, comp_y, comp_x, cmat, norm = _k6_case(rng, torch.uint8, 420,
+                                                  h=48, w=4096)
+    planes = tuple(p.to(dev) for p in planes)
+    with pytest.raises(ValueError, match="shared"):   # a 4096 -> 8 window
+        jk.jinc2_convert_fused(*planes, comp_y, comp_x, cmat, 96, 8,
+                               norm, norm)
+
+
+def _c3_like(w=128, h=64, **settings):
+    return (C.Settings(upscaling=C.Upscaling.JINC2, use_dither=True,
+                       **settings),
+            P.SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
+                               matrix=S.CSP.BT_709),
+            P.OutputDescriptor(width=2 * w, height=2 * h, bits=8))
+
+
+def test_jinc2_path_on_card_matches_cpu(dev):
+    """The c3 route on the card (K6) against the staged plain route on the
+    CPU, its rotations and their launch counts."""
+    rng = np.random.default_rng(9)
+    w, h = 128, 64
+    planes = (rng.integers(16, 236, (2, h, w), dtype=np.uint8),
+              rng.integers(16, 241, (2, h // 2, w // 2), dtype=np.uint8),
+              rng.integers(16, 241, (2, h // 2, w // 2), dtype=np.uint8))
+    cuda_planes = tuple(torch.from_numpy(p).to(dev) for p in planes)
+    plan = P.plan_pipeline(*_c3_like(w, h))
+    ref = P.VideoProcessor(*_c3_like(w, h), device="cpu",
+                           pack_surface=True).process(planes)
+    rk.reset_launches()
+    got = P.VideoProcessor(*_c3_like(w, h), device=dev,
+                           pack_surface=True).process(planes)
+    torch.cuda.synchronize()
+    assert dict(rk.launches) == {"banded_resize_last_axis": 0, "rows3_tail": 0,
+                                 "jinc2_resize_fused": 0,
+                                 "jinc2_convert_fused": 1}
+    d = np.abs(_codes(got, "rgba8") - _codes(ref, "rgba8"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01
+    rot = P.make_frame_fn(plan, pack_surface=True, rotation=90, flip=True)
+    assert torch.equal(rot(cuda_planes), got.transpose(-2, -1))
+    rk.reset_launches()
+    r270 = P.make_frame_fn(plan, pack_surface=True, rotation=270)(cuda_planes)
+    torch.cuda.synchronize()
+    assert dict(rk.launches) == {"banded_resize_last_axis": 2, "rows3_tail": 1,
+                                 "jinc2_resize_fused": 1,
+                                 "jinc2_convert_fused": 0}
+    d = np.abs(_codes(r270, "rgba8")
+               - _codes(geometry.rotate_flip(got, 270), "rgba8"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02

@@ -242,7 +242,9 @@ def _hl(**kw):
     dict(dovi=object()), dict(dovi_ext=object()), dict(hdr10plus=object()),
     dict(format=tfmt.ColorFormat.Y16),
     dict(settings=tcfg.Settings(vp_scaling=False)),
-    dict(settings=tcfg.Settings(upscaling=tcfg.Upscaling.JINC2),
+    # Jinc2 itself is ported; in the shader order it stays refused
+    dict(settings=tcfg.Settings(upscaling=tcfg.Upscaling.JINC2,
+                                vp_scaling=False),
          dst=tpipe.OutputDescriptor(width=256, height=128, bits=10)),
     dict(settings=tcfg.Settings(hdr_local_tone_mapping=True),
          dst=tpipe.OutputDescriptor(width=64, height=32, bits=10, hdr=True)),
@@ -256,9 +258,12 @@ def test_unported_plans_refused(case):
 
 
 def test_rotation_refused():
+    """Rotation and flip are ported; angles other than 0/90/180/270 are
+    refused."""
     plan = tpipe.plan_pipeline(*_hl())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.make_frame_fn(plan, rotation=90)
+    tpipe.make_frame_fn(plan, rotation=90, flip=True)
+    with pytest.raises(ValueError, match="rotation"):
+        tpipe.make_frame_fn(plan, rotation=45)
 
 
 @pytest.mark.parametrize("dst", [
@@ -306,7 +311,9 @@ def test_build_names_library_by_sources_and_needs_nvcc(monkeypatch):
 def test_import_keeps_jax_out():
     code = ("import sys, videorenderer_tpu_torch, videorenderer_tpu_torch.oracle, "
             "videorenderer_tpu_torch.kernels.build, "
-            "videorenderer_tpu_torch.kernels.resize; "
+            "videorenderer_tpu_torch.kernels.resize, "
+            "videorenderer_tpu_torch.kernels.jinc2, "
+            "videorenderer_tpu_torch.ops.geometry; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('videorenderer_tpu.') or m == 'videorenderer_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

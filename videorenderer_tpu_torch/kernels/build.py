@@ -1,15 +1,16 @@
 """Builds the CUDA kernels of ``videorenderer_tpu_torch/csrc`` and loads them.
 
-The sources have a plain C interface, so ``nvcc`` compiles them in seconds
+The sources have a plain C interface, so ``nvcc`` compiles them in seconds,
+one process per ``.cu`` file, all started together, and links the objects
 into one shared library, loaded with ``ctypes``: every pointer and the
 stream pass as ``c_void_p``, ints as ``c_int``, floats as ``c_float``.  Each
 entry point returns ``cudaGetLastError()`` after its launch; the wrappers
 raise on anything but 0, with ``vrt_error_string``'s text.
 
 The library goes to ``videorenderer_tpu_torch/_build/<hash>/`` (listed in
-``.gitignore``), named by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads at once.  Nothing is built at
-import: the first kernel launch builds.
+``.gitignore``), named by a hash of the sources, headers and flags, so a
+changed source rebuilds and an unchanged one loads at once.  Nothing is
+built at import: the first kernel launch builds.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point, in the order of its parameters
@@ -41,6 +42,15 @@ SIGNATURES = {
     "vrt_rows3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P, _P, _I,
                        _F, _F, _P, _I, _I, _F, _I, _I, _P, _P),
+    # x, planes, h, w, oh, ow, by, d2y, bx, d2x, dither_bits, out, stream
+    "vrt_jinc2_resize": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    # y, u, v, dtype, batch, h, w, ch, cw, oh, ow, by, d2y, bx, d2x,
+    # ux_starts, ux_taps, n_ux, uy_starts, uy_taps, n_uy, y_scale, c_scale,
+    # cmat (host, 12 floats), dither_bits, pack, transpose, win_h, win_w,
+    # out, stream
+    "vrt_jinc2_convert": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F,
+                          _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -49,6 +59,10 @@ _lib: ctypes.CDLL | None = None
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -65,10 +79,29 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / "libvrt_kernels.so"
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that fails.  No process outlives the call."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        logs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
 
 
 def build() -> Path:
@@ -79,18 +112,14 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+        objs = [os.path.join(tmp_dir, src.stem + ".o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                  for src, obj in zip(_sources(), objs)])
+        tmp = os.path.join(tmp_dir, out.name)
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

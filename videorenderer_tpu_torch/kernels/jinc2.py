@@ -1,0 +1,301 @@
+"""The two kernels of the Jinc2 upscale path — K5, the one-pass 2D Jinc2
+resample of float planes, and K6, raw Y/U/V to the finished Jinc2-upscaled
+surface — with their plain PyTorch versions.
+
+Replaces ``videorenderer_tpu/kernels/jinc2_pallas.py``:
+``jinc2_resize_fused`` (K5, ``csrc/jinc2_resize.cu``) and
+``jinc2_convert_fused`` (K6, ``csrc/jinc2_convert.cu``).
+
+The Pallas kernels expanded the non-separable Jinc2 weights into a low-rank
+sum of separable banded matrices (an SVD with a 1e-4 singular-value cutoff)
+because Mosaic has no gather and the TPU's matrix unit wants products.  The
+port computes the resample directly, as the JAX package's ``_jinc2_gather``
+does: for each output its 16 source taps (clamped to the plane), the 16
+weights ``g(d2y + d2x)`` from the per-axis tables of
+``ops/scale.jinc2_axis_tables``, the weight-sum normalisation, and the
+anti-ringing lerp toward the centre 2x2 min/max.  So the port agrees with
+the JAX gather to float32 rounding, and with the JAX kernels within their
+cutoff band (about 1e-3 at the rotation geometry, exact rank at 2x).
+
+A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
+launches the kernel or raises.  Each launch adds one to the launch counter
+that every kernel of the package shares, ``kernels.resize.launches``.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..ops import dither as dither_ops
+from ..ops import scale as scale_ops
+from . import resize as rk
+
+TILE = 32                       # K6's output tile edge (csrc/jinc2_convert.cu)
+_SMEM_LIMIT = 227 * 1024        # shared memory one block may use on Hopper
+_K6_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 3}
+
+
+@dataclass(frozen=True)
+class Jinc2Epilogue:
+    """What K5 and K6 run on each output after anti-ringing: ``dither_bits``
+    +b ordered dither to b bits (the 32x32 pattern at the output's global
+    row and column), -b round to b bits, 0 none; b is 8 or 10.  ``plain``
+    is the same step in torch on a whole (..., H, W) output, for the plain
+    versions."""
+
+    dither_bits: int
+    plain: Callable[[torch.Tensor], torch.Tensor]
+
+    def validate(self) -> None:
+        if self.dither_bits not in (0, 8, 10, -8, -10):
+            raise NotImplementedError(
+                f"Jinc2 epilogue: dither_bits {self.dither_bits} is not ported")
+
+
+def dither_epilogue(dither_bits: int) -> Jinc2Epilogue:
+    """The final pass of ``pipeline._final_pass`` as a Jinc2 epilogue:
+    ordered dither (+b) or rounding (-b) of the clipped output; 0 leaves
+    the output as it is."""
+    def plain(x: torch.Tensor) -> torch.Tensor:
+        if dither_bits == 0:
+            return x
+        x = torch.clamp(x, 0.0, 1.0)
+        if dither_bits < 0:
+            return dither_ops.quantize(x, -dither_bits)
+        return dither_ops.ordered_dither_iota(x, dither_bits)
+
+    epi = Jinc2Epilogue(dither_bits=dither_bits, plain=plain)
+    epi.validate()
+    return epi
+
+
+@functools.lru_cache(maxsize=32)
+def _axis_on(in_size: int, out_size: int, device: torch.device
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One axis's Jinc2 tables (base (out,) int32, d2 (4, out) float32) on
+    ``device``, uploaded once."""
+    base, d2 = scale_ops.jinc2_axis_tables(in_size, out_size)
+    return torch.tensor(base, device=device), torch.tensor(d2, device=device)
+
+
+def _jinc2_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Direct 4x4-tap Jinc2 with anti-ringing of float32 (..., H, W), a port
+    of the JAX package's ``ops/scale._jinc2_gather``: one gathered
+    (..., out_h, out_w) tensor and one weight field per tap."""
+    h, w = x.shape[-2], x.shape[-1]
+    by, dy = _axis_on(h, out_h, x.device)
+    bx, dx = _axis_on(w, out_w, x.device)
+    wa = scale_ops._JINC2_WINDOW_SINC * np.pi
+    wb = scale_ops._JINC2_SINC * np.pi
+    rows = [torch.clamp(by + o, 0, h - 1) for o in range(-1, 3)]
+    cols = [torch.clamp(bx + o, 0, w - 1) for o in range(-1, 3)]
+
+    out = wsum = None
+    center = []
+    for jo, r in enumerate(rows):
+        xr = torch.index_select(x, -2, r)
+        for io, c in enumerate(cols):
+            tap = torch.index_select(xr, -1, c)
+            if jo in (1, 2) and io in (1, 2):
+                center.append(tap)
+            d2 = dy[jo][:, None] + dx[io][None, :]
+            d = torch.sqrt(d2)
+            zero = d2 == 0.0
+            wgt = torch.where(zero, wa * wb, torch.sin(d * wa) * torch.sin(d * wb)
+                              / torch.where(zero, 1.0, d2))
+            term = tap * wgt
+            out = term if out is None else out + term
+            wsum = wgt if wsum is None else wsum + wgt
+    out = out / wsum
+    mn = torch.minimum(torch.minimum(center[0], center[1]),
+                       torch.minimum(center[2], center[3]))
+    mx = torch.maximum(torch.maximum(center[0], center[1]),
+                       torch.maximum(center[2], center[3]))
+    clamped = torch.minimum(torch.maximum(out, mn), mx)
+    return out + (clamped - out) * scale_ops._JINC2_AR_STRENGTH
+
+
+# ---------------------------------------------------------------------------
+# K5: the 2D Jinc2 resample of float planes
+# ---------------------------------------------------------------------------
+
+
+def jinc2_resize_fused_plain(x: torch.Tensor, out_h: int, out_w: int,
+                             epilogue: Jinc2Epilogue | None = None
+                             ) -> torch.Tensor:
+    """Plain K5: the direct gather, then the epilogue."""
+    out = _jinc2_plain(x, out_h, out_w)
+    return out if epilogue is None else epilogue.plain(out)
+
+
+def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
+                       epilogue: Jinc2Epilogue | None = None) -> torch.Tensor:
+    """float32 (..., H, W) -> (..., out_h, out_w): the 2D Jinc2 with
+    anti-ringing and the optional epilogue, leading dims flattened into
+    planes.
+
+    Kernel K5 (``csrc/jinc2_resize.cu``), replacing
+    ``jinc2_pallas.jinc2_resize_fused``.  One thread per output pixel
+    gathers its 16 taps (L1-cached, shared with its neighbours) and computes
+    their 16 weights with accurate sqrtf, sinf and division: bound by that
+    arithmetic, not by its ~4 bytes per output of device memory."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"K5 takes float32 planes, got {x.dtype}")
+    if x.dim() < 2 or min(x.shape[-2:]) == 0 or min(out_h, out_w) <= 0:
+        raise ValueError(f"K5 cannot resize {tuple(x.shape)} to "
+                         f"({out_h}, {out_w})")
+    if epilogue is not None:
+        epilogue.validate()
+    if not rk._kernel_device(x):
+        return jinc2_resize_fused_plain(x, out_h, out_w, epilogue)
+    h, w = x.shape[-2], x.shape[-1]
+    planes = x.numel() // (h * w)
+    if planes == 0 or planes > 65535 or out_h >= 8 * 65535:
+        raise ValueError(f"K5 cannot take {planes} planes of {out_h} rows")
+    out = torch.empty(x.shape[:-2] + (out_h, out_w), dtype=torch.float32,
+                      device=x.device)
+    by, dy = _axis_on(h, out_h, x.device)
+    bx, dx = _axis_on(w, out_w, x.device)
+    rk._launch("jinc2_resize_fused", "vrt_jinc2_resize", x.device,
+               x.data_ptr(), planes, h, w, out_h, out_w, by.data_ptr(),
+               dy.data_ptr(), bx.data_ptr(), dx.data_ptr(),
+               0 if epilogue is None else epilogue.dither_bits,
+               out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: raw Y/U/V -> chroma upsample + colour matrix + Jinc2 + epilogue + pack
+# ---------------------------------------------------------------------------
+
+
+def _window(in_size: int, out_size: int) -> int:
+    """The largest source window (taps of one TILE of outputs) along an
+    axis."""
+    base, _ = scale_ops.jinc2_axis_tables(in_size, out_size)
+    first = np.arange(0, out_size, TILE)
+    last = np.minimum(first + TILE, out_size) - 1
+    return int((base[last] - base[first]).max()) + 4
+
+
+def jinc2_convert_fused_plain(y, u, v, comp_y: rk.BandedMatrix | None,
+                              comp_x: rk.BandedMatrix | None,
+                              cmat: np.ndarray, out_h: int, out_w: int,
+                              y_scale: float, c_scale: float,
+                              epilogue: Jinc2Epilogue | None = None,
+                              pack_format: str | None = None,
+                              out_transpose: bool = False) -> torch.Tensor:
+    """Plain K6: normalise, upsample the chroma by dense float32 products
+    (W then H), the colour matrix, the direct Jinc2 on the RGB planes, the
+    epilogue, the pack, the transpose."""
+    rk._no_tf32()
+
+    def chroma(p):
+        x = p.to(torch.float32)
+        if comp_x is not None:
+            x = x @ comp_x.dense_on(x.device)
+        if comp_y is not None:
+            x = comp_y.dense_on(x.device).T @ x
+        return x * float(np.float32(c_scale))
+
+    yf = y.to(torch.float32) * float(np.float32(y_scale))
+    uf, vf = chroma(u), chroma(v)
+    m = np.asarray(cmat, np.float32)
+    rgb = torch.stack(
+        [float(m[i, 0]) * yf + float(m[i, 1]) * uf + float(m[i, 2]) * vf
+         + float(m[i, 3]) for i in range(3)], dim=-3)
+    out = jinc2_resize_fused_plain(rgb, out_h, out_w, epilogue)
+    if pack_format is not None:
+        out = rk.pack_surface(out, pack_format)
+    return out.transpose(-2, -1).contiguous() if out_transpose else out
+
+
+def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                        comp_y: rk.BandedMatrix | None,
+                        comp_x: rk.BandedMatrix | None, cmat: np.ndarray,
+                        out_h: int, out_w: int, y_scale: float,
+                        c_scale: float,
+                        epilogue: Jinc2Epilogue | None = None,
+                        pack_format: str | None = None,
+                        out_transpose: bool = False) -> torch.Tensor:
+    """Raw luma (..., H, W) and chroma (..., Hc, Wc) planes (uint8, uint16 or
+    float32, one dtype) -> the Jinc2-upscaled RGB: chroma upsample by
+    ``comp_y`` (Hc, H) and ``comp_x`` (Wc, W) (None: that axis is not
+    subsampled), ``y_scale``/``c_scale`` normalisation, the (3, 4) colour
+    matrix ``cmat`` (rows m0 m1 m2 c), the 2D Jinc2 with anti-ringing on the
+    RGB taps, the epilogue.  Returns (..., 3, out_h, out_w) float32, or with
+    ``pack_format`` ("rgba8"/"rgb10a2") (..., out_h, out_w) int32 dwords;
+    ``out_transpose`` swaps the last two dims of either, bit for bit.
+
+    Kernel K6 (``csrc/jinc2_convert.cu``), replacing
+    ``jinc2_pallas.jinc2_convert_fused``.  One block per (frame, 32x32
+    output tile) builds the tile's RGB source window in shared memory, then
+    resolves each output with one set of 16 weights for three channels; no
+    intermediate reaches device memory.  Bound by the weights' accurate
+    sqrtf/sinf/division."""
+    if epilogue is not None:
+        epilogue.validate()
+    if pack_format not in rk.PACK_CODES:
+        raise NotImplementedError(f"K6: pack format {pack_format!r}")
+    if y.dtype not in _K6_DTYPES or u.dtype != y.dtype or v.dtype != y.dtype:
+        raise TypeError(f"K6 takes uint8, uint16 or float32 planes of one "
+                        f"dtype, got {y.dtype}, {u.dtype}, {v.dtype}")
+    if y.dim() < 2 or u.shape != v.shape or u.shape[:-2] != y.shape[:-2]:
+        raise ValueError(f"K6: planes {tuple(y.shape)}, {tuple(u.shape)}, "
+                         f"{tuple(v.shape)} differ in batch")
+    (h, w), (ch, cw) = y.shape[-2:], u.shape[-2:]
+    for name, mat, c_in, l_out in (("comp_y", comp_y, ch, h),
+                                   ("comp_x", comp_x, cw, w)):
+        maps = (c_in, c_in) if mat is None else (mat.in_size, mat.out_size)
+        if maps != (c_in, l_out):
+            raise ValueError(f"K6: {name} maps {maps[0]} -> {maps[1]} but "
+                             f"the planes need {c_in} -> {l_out}")
+    if min(h, w, out_h, out_w) <= 0:
+        raise ValueError(f"K6 cannot resize ({h}, {w}) to ({out_h}, {out_w})")
+    if np.shape(cmat) != (3, 4):
+        raise ValueError(f"cmat must be (3, 4), got {np.shape(cmat)}")
+    if not rk._kernel_device(y, u, v):
+        return jinc2_convert_fused_plain(y, u, v, comp_y, comp_x, cmat,
+                                         out_h, out_w, y_scale, c_scale,
+                                         epilogue, pack_format, out_transpose)
+    batch = y.numel() // (h * w)
+    win_h, win_w = _window(h, out_h), _window(w, out_w)
+    smem = 4 * (3 * win_h * win_w + (3 * TILE * (TILE + 1) if out_transpose
+                                      else 0))
+    if batch == 0 or batch > 65535 or smem > _SMEM_LIMIT:
+        raise ValueError(f"K6 cannot take batch {batch} with a {win_h}x"
+                         f"{win_w} source window ({smem} bytes of shared "
+                         "memory)")
+    lead = y.shape[:-2]
+    oh_, ow_ = (out_w, out_h) if out_transpose else (out_h, out_w)
+    if pack_format is None:
+        out = torch.empty(lead + (3, oh_, ow_), dtype=torch.float32,
+                          device=y.device)
+    else:
+        out = torch.empty(lead + (oh_, ow_), dtype=torch.int32,
+                          device=y.device)
+    by, dy = _axis_on(h, out_h, y.device)
+    bx, dx = _axis_on(w, out_w, y.device)
+
+    def taps(mat):   # (starts, taps, T) pointers; NULL and T = 0: no matrix
+        if mat is None:
+            return None, None, 0
+        s, t = mat.taps_on(y.device)
+        return s.data_ptr(), t.data_ptr(), mat.n_taps
+
+    host_cmat = np.ascontiguousarray(np.asarray(cmat, np.float32).reshape(-1))
+    rk._launch("jinc2_convert_fused", "vrt_jinc2_convert", y.device,
+               y.data_ptr(), u.data_ptr(), v.data_ptr(), _K6_DTYPES[y.dtype],
+               batch, h, w, ch, cw, out_h, out_w, by.data_ptr(),
+               dy.data_ptr(), bx.data_ptr(), dx.data_ptr(), *taps(comp_x),
+               *taps(comp_y), float(y_scale), float(c_scale),
+               host_cmat.ctypes.data,
+               0 if epilogue is None else epilogue.dither_bits,
+               rk.PACK_CODES[pack_format], int(out_transpose), win_h, win_w,
+               out.data_ptr())
+    return out

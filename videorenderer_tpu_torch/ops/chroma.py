@@ -1,20 +1,23 @@
 """Chroma upsampling (4:2:0 / 4:2:2 -> 4:4:4) with chroma-location siting,
-as (in, out) weight matrices.
+as (in, out) weight matrices and as stencils on tensors.
 
 Port of the reference's convert-color shader codegen chroma section
 (ShaderGetPixels, Source/Shaders.cpp:82-529) as ``videorenderer_tpu.ops.chroma``
 expresses it: because the scale factor is exactly 2, every output pixel falls
 into one of two sampling phases per axis with constant filter weights.  The
 fused pipeline composes these upsample matrices with the resize matrices, so
-chroma upsampling runs inside the banded kernels.  Derivation of the phase
-weights (MPEG-2 siting: horizontal phases (exact), (1/2, 1/2); vertical
-(1/4, 3/4), (3/4, 1/4)) is at the JAX original.  Numpy only, bit-identical to
-the JAX package's builders (tests/test_torch_host.py).
+chroma upsampling runs inside the banded kernels; the staged pipeline runs
+:func:`upsample_chroma`, the same stencils as shifted multiply-adds.
+Derivation of the phase weights (MPEG-2 siting: horizontal phases (exact),
+(1/2, 1/2); vertical (1/4, 3/4), (3/4, 1/4)) is at the JAX original.  The
+matrix builders are numpy, bit-identical to the JAX package's
+(tests/test_torch_host.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import ChromaScaling
 from ..csputils import ChromaLocation
@@ -90,6 +93,36 @@ def _phase_taps_422(method: ChromaScaling) -> PhaseTaps:
     raise ValueError(method)
 
 
+def _shift(p: torch.Tensor, off: int, axis: int) -> torch.Tensor:
+    """Edge-clamped shifted copy: result[i] = p[clamp(i + off)] along axis."""
+    if off == 0:
+        return p
+    n = p.shape[axis]
+    idx = torch.clamp(torch.arange(n, device=p.device) + off, 0, n - 1)
+    return torch.index_select(p, axis, idx)
+
+
+def _apply_stencil(p: torch.Tensor,
+                   taps: tuple[tuple[int, ...], tuple[float, ...]],
+                   axis: int) -> torch.Tensor:
+    offs, ws = taps
+    out = None
+    for off, w in zip(offs, ws):
+        term = _shift(p, off, axis) * float(np.float32(w))
+        out = term if out is None else out + term
+    return out
+
+
+def _upsample2x_axis(p: torch.Tensor, taps: PhaseTaps, axis: int) -> torch.Tensor:
+    """2x upsample along ``axis`` (non-negative) by computing both parity
+    phases and interleaving (out[2k + phase] = stencil_phase(p)[k])."""
+    ph0 = _apply_stencil(p, taps[0], axis)
+    ph1 = _apply_stencil(p, taps[1], axis)
+    stacked = torch.stack([ph0, ph1], dim=axis + 1)  # (..., n, 2, ...)
+    new_shape = list(p.shape)
+    new_shape[axis] *= 2
+    return stacked.reshape(new_shape)
+
 
 def upsample2x_matrix(n_in: int, taps: PhaseTaps) -> np.ndarray:
     """The 1D 2x upsample expressed as an (n_in, 2*n_in) weight matrix —
@@ -133,3 +166,26 @@ def blend_deinterlace_matrix(n: int) -> np.ndarray:
         m[min(max(r + 1, 0), n - 1), r] += 0.25
     return m
 
+
+def upsample_chroma(c: torch.Tensor, subsampling: int,
+                    method: ChromaScaling = ChromaScaling.BILINEAR,
+                    loc: ChromaLocation = ChromaLocation.MPEG2) -> torch.Tensor:
+    """Upsample a float chroma plane (or stacked planes) (..., Hc, Wc) to
+    luma resolution: 2x2 for 4:2:0, 2x in W for 4:2:2."""
+    if subsampling in (444, 400):
+        return c
+    if subsampling == 422:
+        return _upsample2x_axis(c, _phase_taps_422(method), axis=c.dim() - 1)
+    if subsampling == 420:
+        cx = _upsample2x_axis(c, _phase_taps_420(method, loc, "x"),
+                              axis=c.dim() - 1)
+        return _upsample2x_axis(cx, _phase_taps_420(method, loc, "y"),
+                                axis=cx.dim() - 2)
+    raise ValueError(f"unsupported subsampling: {subsampling}")
+
+
+def blend_deinterlace_luma(y: torch.Tensor) -> torch.Tensor:
+    """Blend deinterlace of luma during conversion
+    (Source/Shaders.cpp:232-237): y' = (2*y[r] + y[r-1] + y[r+1]) / 4."""
+    axis = y.dim() - 2
+    return (y * 2 + _shift(y, -1, axis) + _shift(y, 1, axis)) * 0.25

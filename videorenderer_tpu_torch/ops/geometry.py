@@ -1,0 +1,50 @@
+"""Rotation and flip of rendered frames.
+
+Port of ``videorenderer_tpu.ops.geometry`` (``rotate_flip``, ``rf_decompose``,
+``rotated_size``).  The reference exposes rotation and flip through
+IExFilterConfig ("rotation", "flip", Source/VideoRenderer.cpp:1335-1559) and
+applies them during the resize pass by vertex permutation (FillVertices,
+Source/DX11VideoProcessor.cpp:130-179).  Here they are layout operations on
+the last two (H, W) dims of a tensor; the one-pass Jinc2 kernel rides the
+pure-transpose case as a transposed store (``kernels/jinc2.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rotate_flip(x: torch.Tensor, rotation: int = 0,
+                flip: bool = False) -> torch.Tensor:
+    """Rotate by 0/90/180/270 degrees (clockwise, matching the renderer's
+    display rotation) and/or mirror horizontally, on the last two (H, W)
+    dims."""
+    if rotation not in (0, 90, 180, 270):
+        raise ValueError(f"rotation must be 0/90/180/270, got {rotation}")
+    if rotation == 90:
+        x = torch.flip(x.transpose(-2, -1), dims=(-1,))
+    elif rotation == 180:
+        x = torch.flip(x, dims=(-2, -1))
+    elif rotation == 270:
+        x = torch.flip(x.transpose(-2, -1), dims=(-2,))
+    if flip:
+        x = torch.flip(x, dims=(-1,))
+    return x
+
+
+def rf_decompose(rotation: int, flip: bool) -> tuple[bool, bool, bool]:
+    """:func:`rotate_flip` as (transpose, flip_rows, flip_cols), applied in
+    that order."""
+    tr, fr, fc = {0: (False, False, False), 90: (True, False, True),
+                  180: (False, True, True), 270: (True, True, False)}[rotation]
+    if flip:
+        fc = not fc
+    return tr, fr, fc
+
+
+def rotated_size(width: int, height: int, rotation: int) -> tuple[int, int]:
+    """Source size after rotation (GetSourceRect swap,
+    Source/VideoProcessor.cpp:30-50)."""
+    if rotation in (90, 270):
+        return height, width
+    return width, height

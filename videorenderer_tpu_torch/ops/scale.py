@@ -18,6 +18,12 @@ float64.  The builders are numpy and bit-identical to the JAX package's
 Sampling semantics (texel centres at +0.5, D3D CLAMP addressing folded onto
 the edge rows, the corrected 6-tap Lanczos3 with a ``reference_bug_compat``
 switch) are documented at the JAX original.
+
+The one-pass 2D Jinc2 upscaler (Shaders/examples/resizer_onepass_jinc2.hlsl)
+is not separable: :func:`jinc2_resize` runs it as a direct 4x4-tap resample
+(kernel K5 of ``kernels/jinc2.py``), planned here per axis by
+:func:`jinc2_axis_tables`.  The JAX package's low-rank SVD expansion of the
+same weights existed for the TPU's matrix unit and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -233,3 +239,148 @@ def build_axis_matrix(choice, in_size: int, out_size: int) -> np.ndarray | None:
         return downscale_matrix(method, in_size, out_size)
     return upscale_matrix(method, in_size, out_size)
 
+
+def jinc2_passes(in_h: int, in_w: int, out_h: int, out_w: int,
+                 interpolate_at_50pct: bool):
+    """Per-axis pass roles when the upscaler is Jinc2, mirroring
+    ResizeShaderPass's selection (Source/DX11VideoProcessor.cpp:3120-3139):
+    returns (x_role, y_role), each None (no-op), "up" (the 2D Jinc2 shader
+    handles this axis) or "down" (separable convolution pass)."""
+    k = 2 if interpolate_at_50pct else 1
+
+    def role(i, o):
+        if i == o:
+            return None
+        return "down" if i > k * o else "up"
+
+    return role(in_w, out_w), role(in_h, out_h)
+
+
+def jinc2_route(in_h: int, in_w: int, out_h: int, out_w: int,
+                interpolate_at_50pct: bool) -> str | None:
+    """How a Jinc2-upscaled resize runs: "one_pass" when one 2D Jinc2 pass
+    covers both axes (W up, H up or unchanged), "mixed" when an up axis and
+    a down or unchanged axis take separate passes, None when no axis is up
+    (every pass is a separable axis matrix)."""
+    rx, ry = jinc2_passes(in_h, in_w, out_h, out_w, interpolate_at_50pct)
+    if "up" not in (rx, ry):
+        return None
+    return "one_pass" if rx == "up" and ry in ("up", None) else "mixed"
+
+
+def _axis_tensor(mat: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(mat, np.float32)).to(device)
+
+
+def resize_plane(x: torch.Tensor, out_h: int, out_w: int,
+                 upscaling: Upscaling = Upscaling.CATMULL_ROM,
+                 downscaling: Downscaling = Downscaling.HAMMING,
+                 interpolate_at_50pct: bool = True) -> torch.Tensor:
+    """Two-pass resize of float (..., H, W) to (..., out_h, out_w) with the
+    reference's per-axis up/down selection, X pass first, then Y (the
+    intermediate-texture order of ResizeShaderPass).  A Jinc2-upscaled
+    axis runs the one-pass 2D shader (:func:`jinc2_resize`); a mixed down
+    axis gets its own separable convolution pass."""
+    h, w = x.shape[-2], x.shape[-1]
+    if (h, w) == (out_h, out_w):
+        return x
+
+    if upscaling == Upscaling.JINC2:
+        route = jinc2_route(h, w, out_h, out_w, interpolate_at_50pct)
+        if route == "one_pass":
+            return jinc2_resize(x, out_h, out_w)
+        if route == "mixed":
+            rx, ry = jinc2_passes(h, w, out_h, out_w, interpolate_at_50pct)
+            if rx is not None:
+                x = (jinc2_resize(x, h, out_w) if rx == "up" else resize_axis(
+                    x, _axis_tensor(downscale_matrix(downscaling, w, out_w),
+                                    x.device), -1))
+            if ry is not None:
+                x = (jinc2_resize(x, out_h, out_w) if ry == "up" else
+                     resize_axis(x, _axis_tensor(
+                         downscale_matrix(downscaling, h, out_h), x.device),
+                         -2))
+            return x
+
+    cx = select_scaler(w, out_w, upscaling, downscaling, interpolate_at_50pct)
+    cy = select_scaler(h, out_h, upscaling, downscaling, interpolate_at_50pct)
+    mx = build_axis_matrix(cx, w, out_w)
+    my = build_axis_matrix(cy, h, out_h)
+    if mx is not None:
+        x = resize_axis(x, _axis_tensor(mx, x.device), -1)
+    if my is not None:
+        x = resize_axis(x, _axis_tensor(my, x.device), -2)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Jinc2 (one-pass 2D, non-separable) with anti-ringing: host planning
+# ---------------------------------------------------------------------------
+
+_JINC2_WINDOW_SINC = 0.416
+_JINC2_SINC = 0.985
+_JINC2_AR_STRENGTH = 0.8
+
+
+@functools.cache
+def _jinc2_tap_data(in_size: int, out_size: int):
+    """Per-output-axis base indices and fractional offsets (static)."""
+    j = np.arange(out_size)
+    tex = (j + 0.5) * in_size / out_size  # texel-space coordinate of center
+    base = np.floor(tex - 0.5).astype(np.int64)  # tc = floor(tex-0.5)+0.5
+    frac = (tex - 0.5) - base                    # pc - tc in [0,1)
+    return base, frac
+
+
+def _phase_period(in_size: int, out_size: int) -> tuple[int, int]:
+    """(q, p): output positions repeat with period q while input steps by p
+    (q = out/gcd, p = in/gcd)."""
+    g = math.gcd(in_size, out_size)
+    return out_size // g, in_size // g
+
+
+def _jinc2_g(d2: np.ndarray) -> np.ndarray:
+    """The Jinc2 weight as a function of the squared distance d2 (float64):
+    sin(d*wa)*sin(d*wb)/d^2, wa*wb at 0."""
+    wa = _JINC2_WINDOW_SINC * np.pi
+    wb = _JINC2_SINC * np.pi
+    d2 = np.asarray(d2, np.float64)
+    d = np.sqrt(d2)
+    return np.where(d2 == 0.0, wa * wb,
+                    np.sin(d * wa) * np.sin(d * wb)
+                    / np.where(d2 == 0.0, 1.0, d2))
+
+
+@functools.cache
+def jinc2_axis_tables(in_size: int, out_size: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """One axis of the 4x4-tap Jinc2 resample: ``base`` (out,) int32, the
+    source index of tap 1 (taps sit at base-1 .. base+2, clamped to the
+    plane on use), and ``d2`` (4, out) float32, the squared distance
+    (frac - (o - 1))**2 of output j to tap o.  The 2D weight of tap
+    (jo, io) is ``g(d2y[jo] + d2x[io])``, summed in float32 as the JAX
+    package's direct gather (``_jinc2_gather``) does.  Read-only arrays:
+    the cache hands the same ones to every caller."""
+    base, frac = _jinc2_tap_data(in_size, out_size)
+    offs = np.arange(-1, 3)
+    d2 = np.ascontiguousarray(((frac[:, None] - offs[None, :]) ** 2).T,
+                              np.float32)
+    base = base.astype(np.int32)
+    base.flags.writeable = False
+    d2.flags.writeable = False
+    return base, d2
+
+
+def jinc2_resize(x: torch.Tensor, out_h: int, out_w: int,
+                 epilogue=None) -> torch.Tensor:
+    """One-pass 2D Jinc2 resample with anti-ringing of float32 (..., H, W)
+    to (..., out_h, out_w) (Shaders/examples/resizer_onepass_jinc2.hlsl):
+    weights ``sin(d*wa)*sin(d*wb)/d^2`` over the 4x4 texel neighbourhood,
+    normalised by their sum; anti-ringing lerps 0.8 of the way toward the
+    clamp to the centre 2x2 min/max.  ``epilogue``: an optional
+    ``kernels.jinc2.Jinc2Epilogue`` (dither or rounding).
+
+    Kernel K5 for a CUDA tensor, its plain version for a CPU tensor, as the
+    JAX package takes its Pallas kernel whenever the backend is the TPU."""
+    from ..kernels import jinc2 as jk
+    return jk.jinc2_resize_fused(x, out_h, out_w, epilogue=epilogue)

@@ -1,4 +1,4 @@
-"""Float64 reference of the main path, in torch so it runs on the card.
+"""Float64 references of the port's paths, in torch so they run on the card.
 
 The same math as ``bench.py::numpy_oracle`` (the JAX package's headline
 oracle), parametrised by sizes, bit depth, colour matrix, transfer and
@@ -10,9 +10,16 @@ dither depth so it also covers SDR plans such as c1 (1080p NV12 -> RGB8):
 
 Independent of the code under test: no tap tables, no mid16 codes, no
 float32.  Returns (3, out_h, out_w) float64 quantized codes / (2**bits-1).
+
+:func:`oracle_jinc2` is the staged Jinc2 chain of c3 and c3rot: the same
+convert, then a direct 4x4-tap Jinc2 with anti-ringing in float64
+(Shaders/examples/resizer_onepass_jinc2.hlsl), the ordered dither, and an
+optional rotation and flip of the finished frame.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -34,6 +41,30 @@ def _up420_bilinear_mpeg2(c: torch.Tensor) -> torch.Tensor:
     return out.reshape(2 * hx.shape[0], hx.shape[1])
 
 
+def _convert(y, u, v, bits_in: int, matrix: CSP, levels: Levels):
+    """Normalise, upsample 4:2:0 chroma bilinearly (MPEG-2 siting), apply
+    the colour matrix: (3, H, W) float64."""
+    f64 = torch.float64
+    scale = 1.0 / (2.0 ** bits_in - 1.0)
+    yf = y.to(f64) * scale
+    uu = _up420_bilinear_mpeg2(u.to(f64) * scale)
+    vv = _up420_bilinear_mpeg2(v.to(f64) * scale)
+    cm = get_csp_matrix(CSPParams(color=Colorspace(matrix, levels),
+                                  input_bits=bits_in, texture_bits=bits_in))
+    m, c = cm.m.tolist(), cm.c.tolist()
+    return torch.stack([m[i][0] * yf + m[i][1] * uu + m[i][2] * vv + c[i]
+                        for i in range(3)])
+
+
+def _dither(x: torch.Tensor, dither_bits: int) -> torch.Tensor:
+    out_h, out_w = x.shape[-2], x.shape[-1]
+    q = 2.0 ** dither_bits - 1.0
+    pat = bayer_matrix(32).astype(np.float64)
+    d = np.tile(pat, ((out_h + 31) // 32, (out_w + 31) // 32))[:out_h, :out_w]
+    d = torch.from_numpy(d).to(x.device)
+    return torch.floor(torch.clamp(x, 0.0, 1.0) * q + d) / q
+
+
 def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            out_w: int, out_h: int, *, bits_in: int = 16,
            matrix: CSP = CSP.BT_2020_NC, levels: Levels = Levels.TV,
@@ -44,15 +75,7 @@ def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     ``bits_in`` bits (16 for P010, 8 for NV12) on any device."""
     dev = y.device
     f64 = torch.float64
-    scale = 1.0 / (2.0 ** bits_in - 1.0)
-    yf = y.to(f64) * scale
-    uu = _up420_bilinear_mpeg2(u.to(f64) * scale)
-    vv = _up420_bilinear_mpeg2(v.to(f64) * scale)
-    cm = get_csp_matrix(CSPParams(color=Colorspace(matrix, levels),
-                                  input_bits=bits_in, texture_bits=bits_in))
-    m, c = cm.m.tolist(), cm.c.tolist()
-    rgb = torch.stack([m[i][0] * yf + m[i][1] * uu + m[i][2] * vv + c[i]
-                       for i in range(3)])
+    rgb = _convert(y, u, v, bits_in, matrix, levels)
 
     h, w = y.shape
     if w != out_w:
@@ -81,8 +104,62 @@ def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         x = torch.einsum("ij,jhw->ihw", gm, x)
         x = torch.pow(torch.clamp(x, 0.0, 1.0), 1 / 2.2)
 
-    q = 2.0 ** dither_bits - 1.0
-    pat = bayer_matrix(32).astype(np.float64)
-    d = np.tile(pat, ((out_h + 31) // 32, (out_w + 31) // 32))[:out_h, :out_w]
-    d = torch.from_numpy(d).to(dev)
-    return torch.floor(torch.clamp(x, 0.0, 1.0) * q + d) / q
+    return _dither(x, dither_bits)
+
+
+def _jinc2_f64(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Direct 2D Jinc2 of (C, H, W) float64: for output (r, c) the texel
+    position ((r + 0.5) * H / out_h - 0.5, likewise for c), its 4x4 texel
+    neighbourhood (clamped to the plane), weights
+    sin(d * 0.416 pi) * sin(d * 0.985 pi) / d^2 (0.416 pi * 0.985 pi at
+    d = 0) normalised by their sum, then 0.8 of the way to the clamp to the
+    centre 2x2 taps' range."""
+    h, w = x.shape[-2], x.shape[-1]
+    dev, f64 = x.device, torch.float64
+    wa, wb = 0.416 * math.pi, 0.985 * math.pi
+
+    def axis(n_in, n_out):
+        pos = (torch.arange(n_out, dtype=f64, device=dev) + 0.5) \
+            * n_in / n_out - 0.5
+        base = torch.floor(pos)
+        return base.long(), pos - base
+
+    by, fy = axis(h, out_h)
+    bx, fx = axis(w, out_w)
+    acc = wsum = None
+    center = []
+    for jo in range(4):
+        xr = x[:, torch.clamp(by + jo - 1, 0, h - 1), :]
+        for io in range(4):
+            tap = xr[:, :, torch.clamp(bx + io - 1, 0, w - 1)]
+            if jo in (1, 2) and io in (1, 2):
+                center.append(tap)
+            d2 = (fy - (jo - 1))[:, None] ** 2 + (fx - (io - 1))[None, :] ** 2
+            d = torch.sqrt(d2)
+            g = torch.where(d2 == 0, wa * wb, torch.sin(d * wa)
+                            * torch.sin(d * wb) / torch.where(d2 == 0, 1.0, d2))
+            acc = tap * g if acc is None else acc + tap * g
+            wsum = g if wsum is None else wsum + g
+    out = acc / wsum
+    c4 = torch.stack(center)
+    clamped = torch.minimum(torch.maximum(out, c4.amin(0)), c4.amax(0))
+    return out + (clamped - out) * 0.8
+
+
+def oracle_jinc2(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 out_w: int, out_h: int, *, bits_in: int = 8,
+                 matrix: CSP = CSP.BT_709, levels: Levels = Levels.TV,
+                 dither_bits: int = 8, rotation: int = 0,
+                 flip: bool = False) -> torch.Tensor:
+    """One frame of the staged Jinc2 chain (c3): ``y`` (H, W), ``u``/``v``
+    (H/2, W/2) raw 4:2:0 planes -> (3, out_h, out_w) float64 codes /
+    (2**dither_bits - 1), the dither phase from the unrotated frame, then
+    a clockwise rotation by ``rotation`` degrees and, with ``flip``, a
+    horizontal mirror."""
+    rgb = _jinc2_f64(_convert(y, u, v, bits_in, matrix, levels), out_h, out_w)
+    out = _dither(rgb, dither_bits)
+    if rotation not in (0, 90, 180, 270):
+        raise ValueError(f"rotation must be 0/90/180/270, got {rotation}")
+    # torch.rot90 turns counter-clockwise for positive k
+    out = torch.rot90(out, -(rotation // 90), dims=(-2, -1))
+    return torch.flip(out, dims=(-1,)) if flip else out

@@ -7,16 +7,27 @@ Source/DX11VideoProcessor.cpp:1742-1959), shader codegen
 (GetShaderConvertColor, Source/Shaders.cpp:593-930) and render passes
 (CDX11VideoProcessor::Process, Source/DX11VideoProcessor.cpp:3297-3436).
 
-The path is the fused linear-resample one (VP order): chroma upsampling and
-the separable resize compose into one banded matrix per plane and axis, so
-the colour matrix, transfer functions, tone map and dither all run at
-output resolution.  With ``Settings.use_accel_backend`` (the default) it
-runs as kernel K1 (the W pass of each plane, int16 "mid16" intermediates)
-and kernel K2 (the H pass of all three planes, the colour matrix, the
-corrections, the dither and the surface pack); their wrappers take the
-plain versions for CPU tensors.  With ``use_accel_backend=False`` the same
-math runs as plain PyTorch (dense float32 products, then the tail), like the
-JAX package's XLA path.
+Two paths, chosen as the JAX package chooses them (``_can_fuse``):
+
+ * The fused linear-resample path (VP order, separable scalers): chroma
+   upsampling and the separable resize compose into one banded matrix per
+   plane and axis, so the colour matrix, transfer functions, tone map and
+   dither all run at output resolution.  With ``Settings.use_accel_backend``
+   (the default) it runs as kernel K1 (the W pass of each plane, int16
+   "mid16" intermediates) and kernel K2 (the H pass of all three planes, the
+   colour matrix, the corrections, the dither and the surface pack); their
+   wrappers take the plain versions for CPU tensors.  With
+   ``use_accel_backend=False`` the same math runs as plain PyTorch (dense
+   float32 products, then the tail), like the JAX package's XLA path.
+ * The staged path (the Jinc2 upscaler, whose 2D one-pass shader is not
+   separable, or ``fused=False``): convert at source resolution, resize,
+   then the tail.  On a CUDA device YUV planes take the kernels: K6 does
+   everything from the raw planes to the dithered surface when the tail is
+   a dither only; otherwise K1 and K2 convert, and K5 runs the Jinc2 (with
+   the dither inside, or before the torch tail).
+
+Rotation and flip apply to the finished surface, except rotation 90 with
+flip, a pure transpose, which K6 does as a transposed store.
 
 What this port does not carry yet is refused with ``NotImplementedError``
 naming the ROADMAP item that brings it, never routed elsewhere.
@@ -35,9 +46,11 @@ from .config import Settings, TexFormat, Upscaling
 from .csputils import (CSP, ChromaLocation, Colorspace, CSPParams, Levels,
                        Primaries, TRC)
 from .formats import ColorFormat, ColorSystem, FormatInfo, get_format_info
+from .kernels import jinc2 as jk
 from .kernels import resize as rk
 from .ops import chroma as chroma_ops
 from .ops import dither as dither_ops
+from .ops import geometry as geo_ops
 from .ops import scale as scale_ops
 from .ops import tonemap as tonemap_ops
 from .ops import transfer as transfer_ops
@@ -161,7 +174,6 @@ class PipelinePlan:
 _ROADMAP = {
     "staged": "item 3 (staged and fallback path)",
     "serving": "item 4 (serving and local tone mapping)",
-    "jinc2": "item 5 (Jinc2 upscale and rotation)",
     "dovi": "item 6 (Dolby Vision)",
 }
 
@@ -230,9 +242,6 @@ def _check_ported(plan: PipelinePlan) -> None:
         _refuse("the shader-order pipeline (vp_scaling=False)", "staged")
     if dst.video_rect is not None:
         _refuse("video_rect placement", "staged")
-    _, _, cx, cy = _axis_choices(s, src, plan.src_rect, dst)
-    if ("up", Upscaling.JINC2) in (cx, cy):
-        _refuse("the Jinc2 upscaler", "jinc2")
 
 
 def plan_pipeline(settings: Settings, src: SourceDescriptor,
@@ -296,6 +305,11 @@ def plan_pipeline(settings: Settings, src: SourceDescriptor,
 # ---------------------------------------------------------------------------
 
 
+def _normalize_planes(plan: PipelinePlan, planes) -> list[torch.Tensor]:
+    scale = float(np.float32(1.0 / (2.0 ** plan.info.plane_bits - 1.0)))
+    return [p.to(torch.float32) * scale for p in planes]
+
+
 def _crop_planes(plan: PipelinePlan, planes):
     """Source-rect crop (IBasicVideo SetSourcePosition analogue): a
     contiguous copy of each plane's rect (the kernels take contiguous
@@ -321,6 +335,27 @@ def _apply_cmat(m: np.ndarray, c: np.ndarray, y, u, v) -> torch.Tensor:
     return torch.stack(
         [float(m[i, 0]) * y + float(m[i, 1]) * u + float(m[i, 2]) * v
          + float(c[i]) for i in range(3)], dim=-3)
+
+
+def _convert_color(plan: PipelinePlan, planes) -> torch.Tensor:
+    """ConvertColorPass analogue: normalise, (blend deinterlace luma),
+    chroma upsample, 3x3+c matrix.  Returns (..., 3, H, W) float32."""
+    info, s = plan.info, plan.settings
+    norm = _normalize_planes(plan, _crop_planes(plan, planes))
+    if info.cs_type == ColorSystem.YUV:
+        y, u, v = norm
+        if s.deint_blend and plan.src.interlaced and info.subsampling == 420:
+            y = chroma_ops.blend_deinterlace_luma(y)
+        uv = chroma_ops.upsample_chroma(torch.stack([u, v], dim=-3),
+                                        info.subsampling, s.chroma_scaling,
+                                        plan.src.chroma_location)
+        u, v = uv[..., 0, :, :], uv[..., 1, :, :]
+    else:
+        y, u, v = norm
+    if plan.apply_matrix:
+        return _apply_cmat(np.asarray(plan.cmat_m, np.float32),
+                           np.asarray(plan.cmat_c, np.float32), y, u, v)
+    return torch.stack([y, u, v], dim=-3)
 
 
 def _gamut_2020_to_709(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -403,6 +438,30 @@ def _vp_format_allowed(s: Settings, info: FormatInfo) -> bool:
     return s.vp_formats.other
 
 
+def _separable_geometry(plan: PipelinePlan) -> bool:
+    """True when every resize pass is a separable axis matrix (Jinc2's 2D
+    one-pass shader is the only non-separable case)."""
+    s = plan.settings
+    src_w, src_h, _, _ = _axis_choices(s, plan.src, plan.src_rect, plan.dst)
+    vid_w, vid_h = plan.dst.video_size
+    return (s.upscaling != Upscaling.JINC2
+            or scale_ops.jinc2_route(src_h, src_w, vid_h, vid_w,
+                                     s.interpolate_at_50pct) is None)
+
+
+def _can_fuse(plan: PipelinePlan) -> bool:
+    """The fused linear-resample path applies when everything between plane
+    normalisation and the first nonlinearity is linear: the VP-order
+    pipeline with a separable scaler."""
+    return plan.settings.vp_scaling and _separable_geometry(plan)
+
+
+def _on_card(planes) -> bool:
+    """The staged path's kernel choice, made per call from the tensors (the
+    JAX package asks for the TPU backend instead)."""
+    return all(p.device.type == "cuda" for p in planes)
+
+
 def _tail_common(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
     """Corrections, then the final pass: the torch version of K2's epilogue
     after the colour matrix."""
@@ -434,6 +493,15 @@ def _make_tail_epilogue(plan: PipelinePlan) -> rk.Epilogue:
         dither_bits=plan.dither_bits,
         gamut=np.asarray(csputils.bt2020_to_bt709_matrix(), np.float32),
         plain=plain)
+
+
+def cmat_epilogue(cmat: np.ndarray) -> rk.Epilogue:
+    """K2's epilogue of the staged convert: the (3, 4) colour matrix only,
+    float32 out (no corrections, no dither)."""
+    return rk.Epilogue(
+        cmat=cmat, correction=rk.CORR_NONE, luminance_scale=1.0,
+        dither_bits=0, gamut=np.eye(3, dtype=np.float32),
+        plain=lambda y, u, v: _apply_cmat(cmat[:, :3], cmat[:, 3], y, u, v))
 
 
 def _compose(a: np.ndarray | None, b: np.ndarray | None):
@@ -550,22 +618,137 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     return kernel_fn
 
 
+def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
+                    flip: bool):
+    """The staged pipeline (the JAX package's non-fused ``make_frame_fn``
+    branch): convert at source resolution, resize, corrections, final pass,
+    pack to ``fmt``, with the Jinc2 kernels where they apply."""
+    s, dst, info = plan.settings, plan.dst, plan.info
+    want_rot = rotation != 0 or flip
+    src_w, src_h, _, _ = _axis_choices(s, plan.src, plan.src_rect, dst)
+    vid_w, vid_h = dst.video_size
+
+    # Jinc2 with a dither-only tail: the quantization runs inside the Jinc2
+    # kernel's epilogue, from the global row and column
+    j2_tail = (s.upscaling == Upscaling.JINC2 and s.vp_scaling
+               and not (plan.convert_to_sdr or plan.hlg_to_pq
+                        or plan.fix_bt2020_sdr)
+               and dst.video_rect is None and plan.dither_bits != 0)
+    j2_epi = jk.dither_epilogue(plan.dither_bits) if j2_tail else None
+
+    # the convert through the kernels (on a CUDA device): chroma W upsample
+    # by K1, chroma H upsample + colour matrix by K2 reading the luma
+    # directly; or, for a Jinc2 up/up geometry with the dither-only tail,
+    # everything by K6
+    blend = (s.deint_blend and plan.src.interlaced and info.subsampling == 420
+             and info.cs_type == ColorSystem.YUV)
+    use_kconvert = (s.use_accel_backend and _vp_format_allowed(s, info)
+                    and info.cs_type == ColorSystem.YUV
+                    and plan.apply_matrix and not blend)
+    # the pure transpose (rotation 90 + flip) rides K6 as a transposed store
+    k3_transpose = (want_rot and
+                    geo_ops.rf_decompose(rotation, flip) == (True, False, False))
+    use_k3 = False
+    if use_kconvert:
+        dw, dh = info.chroma_div
+        kux, kuy = chroma_ops.chroma_upsample_matrices(
+            src_w // dw, src_h // dh, info.subsampling, s.chroma_scaling,
+            plan.src.chroma_location)
+        knorm = 1.0 / (2.0 ** info.plane_bits - 1.0)
+        kcmat = np.concatenate([np.asarray(plan.cmat_m, np.float32),
+                                np.asarray(plan.cmat_c, np.float32)[:, None]],
+                               axis=1)
+        # the chroma normalisation folds into the W upsample's taps (K1,
+        # K6); with no W upsample (a 4:4:4 source, which has no H upsample
+        # either) K2 and K6 scale the chroma instead
+        kw_c = None if kux is None else rk.BandedMatrix(kux, pre_scale=knorm)
+        kh_c = None if kuy is None else rk.BandedMatrix(kuy)
+        c_scale = knorm if kw_c is None else None
+        cmat_epi = cmat_epilogue(kcmat)
+        use_k3 = (j2_tail and not (want_rot and not k3_transpose)
+                  and scale_ops.jinc2_route(src_h, src_w, vid_h, vid_w,
+                                            s.interpolate_at_50pct)
+                  == "one_pass")
+
+    def kernels_apply(planes) -> bool:
+        return use_kconvert and len(planes) == 3 and _on_card(planes)
+
+    def kconvert(planes):
+        y, u, v = planes
+        if kw_c is not None:
+            u = rk.banded_resize_last_axis(u, kw_c)
+            v = rk.banded_resize_last_axis(v, kw_c)
+        return rk.rows3_tail(y, u, v, None, kh_c, src_h, cmat_epi,
+                             y_scale=knorm, c_scale=c_scale)
+
+    def k3_call(planes):
+        y, u, v = _crop_planes(plan, planes)
+        return jk.jinc2_convert_fused(y, u, v, kh_c, kw_c, kcmat, vid_h,
+                                      vid_w, knorm,
+                                      1.0 if c_scale is None else c_scale,
+                                      epilogue=j2_epi, pack_format=fmt,
+                                      out_transpose=k3_transpose)
+
+    def maybe_pack(rgb):
+        return rgb if fmt is None else rk.pack_surface(rgb, fmt)
+
+    def fn(planes):
+        if kernels_apply(planes):
+            if use_k3:
+                return k3_call(planes)
+            rgb = kconvert(_crop_planes(plan, planes))
+        else:
+            rgb = _convert_color(plan, planes)
+        if j2_tail and scale_ops.jinc2_route(
+                rgb.shape[-2], rgb.shape[-1], vid_h, vid_w,
+                s.interpolate_at_50pct) == "one_pass":
+            return maybe_pack(scale_ops.jinc2_resize(
+                rgb, vid_h, vid_w, epilogue=j2_epi))
+        rgb = scale_ops.resize_plane(
+            rgb, vid_h, vid_w, upscaling=s.upscaling,
+            downscaling=s.downscaling,
+            interpolate_at_50pct=s.interpolate_at_50pct)
+        return maybe_pack(_final_pass(plan, _corrections(plan, rgb)))
+
+    if not want_rot:
+        return fn
+
+    def fn_rot(planes):
+        if use_k3 and kernels_apply(planes):
+            return k3_call(planes)      # already in the final orientation
+        return geo_ops.rotate_flip(fn(planes), rotation, flip)
+
+    return fn_rot
+
+
 def make_frame_fn(plan: PipelinePlan, pack_surface: bool = False,
-                  rotation: int = 0, flip: bool = False):
+                  rotation: int = 0, flip: bool = False,
+                  fused: bool | None = None):
     """The per-frame processing function.
 
     Input: a tuple of plane tensors (uint8/uint16), each (..., Hp, Wp) with
     matching leading batch dims, all on one device.  Output: (..., 3, out_h,
     out_w) float32 in [0,1], quantized per the plan — or, with
     ``pack_surface``, (..., out_h, out_w) int32 R10G10B10A2/RGBA8 dwords
-    (decode with formats.unpack_rgb10 / unpack_rgba8)."""
+    (decode with formats.unpack_rgb10 / unpack_rgba8).
+
+    ``fused=None`` takes the fused linear-resample path where it applies
+    (:func:`_can_fuse`), else the staged path; ``False`` forces the staged
+    path.  ``rotation``/``flip`` give ``rotate_flip(out, rotation, flip)``;
+    rotation 90 with flip (a pure transpose) on K6's route is the kernel's
+    transposed store, bit-identical to transposing the unrotated surface."""
     if rotation not in (0, 90, 180, 270):
         raise ValueError(f"rotation must be 0/90/180/270, got {rotation}")
-    if rotation or flip:
-        _refuse("rotation and flip", "jinc2")
     _check_ported(plan)
     fmt = surface_pack_format(plan.dst) if pack_surface else None
-    return _make_fused_fn(plan, pack_format=fmt)
+    if fused is None:
+        fused = _can_fuse(plan)
+    if not fused:
+        return _make_staged_fn(plan, fmt, rotation, flip)
+    base = _make_fused_fn(plan, pack_format=fmt)
+    if rotation == 0 and not flip:
+        return base
+    return lambda planes: geo_ops.rotate_flip(base(planes), rotation, flip)
 
 
 class VideoProcessor:
