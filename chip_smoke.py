@@ -35,12 +35,33 @@ Phases, one line each:
               within 2e-5; K2 with the colour matrix only, float within
               1e-5), then the route, K1 x2 + K2 x1 + K5 x1 per call and the
               rotation of the surface; >= 55 dB.
+ 12. K7       deinterlace of both fields + H resize vs its plain version
+              on 2 frames at c5's shapes (4K P010 -> 1080 rows), top and
+              bottom field first, prev == next on the left half (float32
+              within 2e-5); timed on a 16-frame window;
+ 13. K9       W resize + c5's HLG -> SDR tail + RGBA8 vs its plain version
+              on K7's 2-frame output read as 4 fields (within 1 code on
+              < 2% of the channels); timed on 32 fields;
+ 14. c5       DeinterlaceSession(plan, double_rate=True, pack_surface=True)
+              on 4K P010 HLG interlaced -> 1080p RGBA8: two distinct
+              batches of 16 through push_batch, then flush_batch, K7 x1 +
+              K9 x1 per step and nothing else; field 0 and field 1 of
+              stream frame 0 (prev clamped to it) >= 55 dB against
+              oracle_deint; ms per field back to back and per frame at batch
+              1; the plain path's ms per field; and single rate,
+              make_deint_frame_fn at batch 16: K1 x3 + K2 x1 per call,
+              >= 55 dB, and on 2 frames each of those calls (K1 on the
+              float32 deinterlaced planes, K2 with the HLG tail and RGBA8)
+              against its plain version on the same inputs (K1 mid16
+              within 1 code, float32 within 2e-5; K2 within 1 code on < 2%
+              of the channels).
 Then the kernels' JSON line, nvidia-smi's line, and last the result line.
 Any failure raises and the exit code is not 0.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -52,19 +73,23 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from videorenderer_tpu_torch import (ColorFormat, OutputDescriptor,  # noqa: E402
+from videorenderer_tpu_torch import (ColorFormat,  # noqa: E402
+                                     DeinterlaceSession, OutputDescriptor,
                                      Settings, SourceDescriptor,
                                      VideoProcessor)
 from videorenderer_tpu_torch.config import ChromaScaling, Upscaling  # noqa: E402
 from videorenderer_tpu_torch.csputils import CSP, Levels, Primaries, TRC  # noqa: E402
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
+from videorenderer_tpu_torch.kernels import deint as dk  # noqa: E402
 from videorenderer_tpu_torch.kernels import jinc2 as jk  # noqa: E402
 from videorenderer_tpu_torch.kernels import resize as rk  # noqa: E402
-from videorenderer_tpu_torch.oracle import oracle, oracle_jinc2  # noqa: E402
+from videorenderer_tpu_torch.oracle import (oracle, oracle_deint,  # noqa: E402
+                                            oracle_jinc2)
 from videorenderer_tpu_torch.ops import chroma, scale  # noqa: E402
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
                                               _make_tail_epilogue,
                                               cmat_epilogue,
+                                              make_deint_frame_fn,
                                               make_frame_fn, plan_pipeline)
 
 DEVICE = "cuda"
@@ -146,6 +171,30 @@ def count_launches(fn):
     return out, dict(rk.launches)
 
 
+@contextlib.contextmanager
+def recording(module, *names):
+    """Wrap the kernel wrappers ``module.<name>`` so that every call made
+    inside the block is kept as (args, kwargs, result), the result being
+    the kernel's own output; the wrappers are restored after the block."""
+    calls = {n: [] for n in names}
+    originals = {n: getattr(module, n) for n in names}
+
+    def keep(n):
+        def call(*args, **kwargs):
+            out = originals[n](*args, **kwargs)
+            calls[n].append((args, kwargs, out))
+            return out
+        return call
+
+    for n in names:
+        setattr(module, n, keep(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in originals.items():
+            setattr(module, n, fn)
+
+
 def only(**counts) -> dict:
     """The launch counts of a call that launches these kernels and no
     other."""
@@ -165,6 +214,20 @@ def headline_args():
                            hdr10=HDR10Metadata())
     dst = OutputDescriptor(width=OW, height=OH, bits=10)
     return src, dst
+
+
+def c5_args(accel: bool = True):
+    """c5 (bench_common.build_plan("c5")): 4K P010 HLG, BT.2020 NCL, TV
+    range, interlaced top field first -> 1080p, Lanczos3 (2:1 on both axes,
+    the interpolating filter under the 50% rule), HLG -> SDR, 8-bit ordered
+    dither."""
+    return (Settings(convert_to_sdr=True, upscaling=Upscaling.LANCZOS3,
+                     use_accel_backend=accel),
+            SourceDescriptor(format=ColorFormat.P010, width=W, height=H,
+                             matrix=CSP.BT_2020_NC, levels=Levels.TV,
+                             primaries=Primaries.BT_2020, transfer=TRC.HLG,
+                             interlaced=True),
+            OutputDescriptor(width=OW, height=OH, bits=8))
 
 
 def headline_settings(accel: bool) -> Settings:
@@ -506,18 +569,214 @@ def main() -> None:
     del r270_out, c3_batches, b0
     torch.cuda.empty_cache()
 
+    # 12. K7 at c5's shapes: 2 frames against the plain version, both field
+    #     orders, next equal to prev on the left half (weave, ramp and bob
+    #     all occur); then timed on the 16-frame window of a c5 step
+    plan5 = plan_pipeline(*c5_args())
+    c5_batches = [p010_batch(BATCH, SEED + 9 + i, dev) for i in range(2)]
+    b0 = c5_batches[0]
+
+    def left_half_of(a, b):
+        return torch.cat([a[..., :a.shape[-1] // 2],
+                          b[..., a.shape[-1] // 2:]], dim=-1)
+
+    n = PLAIN_FRAMES
+    prev2 = tuple(p[0:n] for p in b0)
+    win2 = (prev2, tuple(p[1:1 + n] for p in b0),
+            tuple(left_half_of(a, p[2:2 + n]) for a, p in zip(prev2, b0)))
+    wx5 = scale.upscale_matrix(Upscaling.LANCZOS3, W, OW)
+    wy5 = scale.upscale_matrix(Upscaling.LANCZOS3, H, OH)
+    ux5, uy5 = chroma.chroma_upsample_matrices(
+        W // 2, H // 2, 420, ChromaScaling.BILINEAR, plan5.src.chroma_location)
+    my_y = rk.BandedMatrix(wy5, pre_scale=norm)
+    my_c = rk.BandedMatrix(uy5 @ wy5, pre_scale=norm)
+    thr = 8.0 / 255.0 * 65535.0
+    k7 = {"max_abs_err": 0.0}
+    for tff in (True, False):
+        args = (*win2, my_y, my_c, OH, thr, tff)
+        got = dk.deint3_rows_dual(*args)
+        torch.cuda.synchronize()
+        ref = dk.deint3_rows_dual_plain(*args)
+        k7["max_abs_err"] = max(k7["max_abs_err"], *(
+            (g - r).abs().max().item() for g, r in zip(got, ref)))
+        if tff:
+            k7_fields = got
+        del got, ref
+    if k7["max_abs_err"] > 2e-5:
+        raise AssertionError(f"K7 disagrees with its plain version: {k7}")
+    # a c5 step's window: the stream's first frame clamped, then 16 + 1
+    arr = tuple(torch.cat([p[:1], p, q[:1]])
+                for p, q in zip(b0, c5_batches[1]))
+    win16 = [tuple(p[i:i + BATCH] for p in arr) for i in range(3)]
+    k7_16 = (*win16, my_y, my_c, OH, thr, True)
+    k7["ms"] = cuda_ms(lambda: dk.deint3_rows_dual(*k7_16))
+    k7["plain_ms"] = cuda_ms(
+        lambda: dk.deint3_rows_dual_plain(*k7_16), reps=2)
+    line("K7", frames=n, field_orders=["top first", "bottom first"],
+         timed_frames=BATCH, tolerance="f32 <= 2e-5", **k7)
+
+    # 13. K9 at c5's shapes: K7's 2-frame output read as 4 fields, c5's
+    #     epilogue, RGBA8; then timed on the 32 fields of a c5 step
+    epi5 = _make_tail_epilogue(plan5)
+    mx_y, mx_c = rk.BandedMatrix(wx5), rk.BandedMatrix(ux5 @ wx5)
+
+    def as_fields(stacked):
+        return tuple(o.reshape((-1,) + o.shape[-2:]) for o in stacked)
+
+    k9_args = (*as_fields(k7_fields), mx_y, mx_c, OW, epi5)
+    got = dk.cols3_tail(*k9_args, pack_format="rgba8")
+    torch.cuda.synchronize()
+    ref = dk.cols3_tail_plain(*k9_args, pack_format="rgba8")
+    k9 = code_diff(got, ref, 8)
+    k9["alpha_ok"] = bool(torch.equal(got >> 24, ref >> 24))
+    del got, ref, k7_fields, k9_args
+    if k9["max_code_diff"] > 1 or k9["frac_differing"] >= 0.02 \
+            or not k9["alpha_ok"]:
+        raise AssertionError(f"K9 disagrees with its plain version: {k9}")
+    k9["max_abs_err"] = k9["max_code_diff"] / 255.0
+    k9_32 = (*as_fields(dk.deint3_rows_dual(*k7_16)), mx_y,
+             mx_c, OW, epi5)
+    k9["ms"] = cuda_ms(lambda: dk.cols3_tail(*k9_32, pack_format="rgba8"))
+    k9["plain_ms"] = cuda_ms(
+        lambda: dk.cols3_tail_plain(*k9_32, pack_format="rgba8"), reps=2)
+    line("K9", fields=2 * n, timed_fields=2 * BATCH,
+         tolerance="<= 1 code on < 2% of channels", **k9)
+    del k9_32, k7_16, win16, arr, win2, prev2
+    torch.cuda.empty_cache()
+
+    # 14. c5: the double-rate session, two distinct batches of 16 and the
+    #     flush; every step K7 x1 + K9 x1
+    sess = DeinterlaceSession(plan5, double_rate=True, pack_surface=True)
+
+    def c5_run():
+        outs = []
+        for b in c5_batches:
+            outs += sess.push_batch(b)
+        return outs + sess.flush_batch()
+
+    c5_outs, c5_launches = count_launches(c5_run)
+    steps = len(c5_batches) + 1
+    if c5_launches != only(deint3_rows_dual=steps, cols3_tail=steps):
+        raise AssertionError(f"c5 launches {c5_launches}")
+    want = [BATCH - 1] * 2 + [BATCH] * 2 + [1] * 2
+    for o, nf in zip(c5_outs, want):
+        if o.shape != (nf, OH, OW) or o.dtype != torch.int32:
+            raise AssertionError(f"c5 output {tuple(o.shape)} {o.dtype}")
+    if len(c5_outs) != len(want):
+        raise AssertionError(f"c5 gave {len(c5_outs)} outputs")
+    f0 = tuple(p[0] for p in b0)
+    f1 = tuple(p[1] for p in b0)
+    db5 = [psnr(codes(c5_outs[f][0], 8).double() / 255.0,
+                oracle_deint(f0, f0, f1, OW, OH, field=f)) for f in (0, 1)]
+    del c5_outs
+    if min(db5) < 55.0:
+        raise AssertionError(f"c5 PSNR below 55 dB: {db5}")
+    # back to back: a running stream, each push 16 frames = 32 fields
+    sess_b2b = DeinterlaceSession(plan5, pack_surface=True)
+    sess_b2b.push_batch(b0)
+    ms_field = cuda_ms(lambda: sess_b2b.push_batch(c5_batches[1]),
+                       reps=4) / (2 * BATCH)
+    # batch 1: one frame a push, synced (host clock)
+    sess_1 = DeinterlaceSession(plan5, pack_surface=True)
+    sess_1.push_batch(tuple(p[0:1] for p in b0))
+    t1 = []
+    for i in range(1, BATCH):
+        t0 = time.perf_counter()
+        sess_1.push_batch(tuple(p[i:i + 1] for p in b0))
+        torch.cuda.synchronize()
+        t1.append((time.perf_counter() - t0) * 1e3)
+    # the plain path (use_accel_backend=False): deinterlace in torch, then
+    # the plain fused pipeline per field
+    plan5p = plan_pipeline(*c5_args(accel=False))
+    sess_p = DeinterlaceSession(plan5p, pack_surface=True)
+    plain_out = sess_p.push_batch(b0)
+    db5_plain = psnr(codes(plain_out[0][0], 8).double() / 255.0,
+                     oracle_deint(f0, f0, f1, OW, OH, field=0))
+    del plain_out
+    plain_ms_field = cuda_ms(lambda: sess_p.push_batch(c5_batches[1]),
+                             reps=1) / (2 * BATCH)
+    # single rate at batch 16: the deinterlace in torch, K1 x3 + K2 x1
+    fn1 = make_deint_frame_fn(plan5, field=0, pack_surface=True)
+    prev1 = tuple(torch.cat([p[:1], p[:-1]]) for p in b0)
+    next1 = tuple(torch.cat([p[1:], p[-1:]]) for p in b0)
+    sr_out, sr_launches = count_launches(lambda: fn1(prev1, b0, next1))
+    if sr_launches != only(banded_resize_last_axis=3, rows3_tail=1):
+        raise AssertionError(f"c5 single-rate launches {sr_launches}")
+    if sr_out.shape != (BATCH, OH, OW):
+        raise AssertionError(f"c5 single-rate output {tuple(sr_out.shape)}")
+    db_sr = psnr(codes(sr_out[0], 8).double() / 255.0,
+                 oracle_deint(f0, f0, f1, OW, OH, field=0))
+    del sr_out
+    if db_sr < 55.0 or db5_plain < 55.0:
+        raise AssertionError(f"c5 PSNR below 55 dB: single rate {db_sr}, "
+                             f"plain {db5_plain}")
+    sr_ms = cuda_ms(lambda: fn1(prev1, b0, next1), reps=3) / BATCH
+    # single rate's kernels at the shapes, dtypes and epilogue the path
+    # gives them, on PLAIN_FRAMES frames: every K1 call (float32
+    # deinterlaced planes in raw code units, the path's own W maps and
+    # mid16 choice) and the K2 call (c5's HLG -> SDR tail, RGBA8), each
+    # against its plain version on the same inputs
+    with recording(rk, "banded_resize_last_axis", "rows3_tail") as calls:
+        fn1(*(tuple(p[:n] for p in f) for f in (prev1, b0, next1)))
+    torch.cuda.synchronize()
+    k1_calls, k2_calls = calls["banded_resize_last_axis"], calls["rows3_tail"]
+    if len(k1_calls) != 3 or len(k2_calls) != 1:
+        raise AssertionError("c5 single rate recorded "
+                             f"{len(k1_calls)} K1 and {len(k2_calls)} K2 calls")
+    sr_k = {"k1_inputs": sorted({str(a[0].dtype) for a, _, _ in k1_calls}),
+            "k1_outputs": sorted({str(o.dtype) for _, _, o in k1_calls}),
+            "k1_max_code_diff": 0, "k1_max_abs_err": 0.0}
+    if sr_k["k1_inputs"] != ["torch.float32"]:
+        raise AssertionError(f"c5 single rate fed K1 {sr_k['k1_inputs']}")
+    for a, kw, got in k1_calls:
+        ref = rk.banded_resize_last_axis_plain(*a, **kw)
+        err = (got.float() - ref.float()).abs().max().item()
+        if got.dtype == torch.int16:     # mid16 codes
+            sr_k["k1_max_code_diff"] = max(sr_k["k1_max_code_diff"], int(err))
+        else:
+            sr_k["k1_max_abs_err"] = max(sr_k["k1_max_abs_err"], err)
+        del ref
+    (a, kw, got), = k2_calls
+    if a[6].correction != rk.CORR_HLG_TO_SDR or kw.get("pack_format") != "rgba8":
+        raise AssertionError("c5 single rate: K2 epilogue "
+                             f"{a[6].correction}, pack {kw.get('pack_format')}")
+    ref = rk.rows3_tail_plain(*a, **kw)
+    sr_k.update({"k2_" + k: x for k, x in code_diff(got, ref, 8).items()})
+    sr_k["k2_alpha_ok"] = bool(torch.equal(got >> 24, ref >> 24))
+    del calls, k1_calls, k2_calls, a, kw, got, ref
+    if sr_k["k1_max_code_diff"] > 1 or sr_k["k1_max_abs_err"] > 2e-5 \
+            or sr_k["k2_max_code_diff"] > 1 \
+            or sr_k["k2_frac_differing"] >= 0.02 or not sr_k["k2_alpha_ok"]:
+        raise AssertionError(
+            f"c5 single rate's K1 or K2 disagrees with its plain version: {sr_k}")
+    sr_k["k2_max_abs_err"] = sr_k["k2_max_code_diff"] / 255.0
+    line("c5", batch=BATCH, steps=steps, launches=c5_launches,
+         psnr_db_field0=db5[0], psnr_db_field1=db5[1],
+         psnr_db_plain=db5_plain, ms_per_field=ms_field,
+         plain_ms_per_field=plain_ms_field,
+         ms_per_frame_batch1_median=float(np.median(t1)),
+         ms_per_frame_batch1_p90=float(np.percentile(t1, 90)),
+         single_rate={"launches": sr_launches, "psnr_db": db_sr,
+                      "ms_per_frame": sr_ms, "kernels_frames": n,
+                      "tolerance": "K1 mid16 <= 1 code, f32 <= 2e-5; K2 <= 1 "
+                                   "code on < 2% of channels", **sr_k})
+    del c5_batches, b0, prev1, next1, sess, sess_b2b, sess_1, sess_p
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "banded_resize_last_axis", "route": "cuda",
          "source": "videorenderer_tpu_torch/csrc/banded_resize.cu",
          "replaces": "videorenderer_tpu/kernels/resize_pallas.py:261",
          "launches": launches["banded_resize_last_axis"],
-         "max_abs_err": max(k1["max_abs_err"], conv["k1_max_abs_err"]),
+         "max_abs_err": max(k1["max_abs_err"], conv["k1_max_abs_err"],
+                            sr_k["k1_max_abs_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
         {"name": "rows3_tail", "route": "cuda",
          "source": "videorenderer_tpu_torch/csrc/rows3_tail.cu",
          "replaces": "videorenderer_tpu/kernels/resize_pallas.py:834",
          "launches": launches["rows3_tail"],
-         "max_abs_err": max(k2["max_abs_err"], conv["k2_max_abs_err"]),
+         "max_abs_err": max(k2["max_abs_err"], conv["k2_max_abs_err"],
+                            sr_k["k2_max_abs_err"]),
          "ms": k2["ms"],
          "plain_ms": k2["plain_ms"]},
         {"name": "jinc2_resize_fused", "route": "cuda",
@@ -533,6 +792,18 @@ def main() -> None:
                       + rot_launches["jinc2_convert_fused"]),
          "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
          "plain_ms": k6["plain_ms"]},
+        {"name": "deint3_rows_dual", "route": "cuda",
+         "source": "videorenderer_tpu_torch/csrc/deint3_rows_dual.cu",
+         "replaces": "videorenderer_tpu/kernels/deint_pallas.py:86",
+         "launches": c5_launches["deint3_rows_dual"],
+         "max_abs_err": k7["max_abs_err"], "ms": k7["ms"],
+         "plain_ms": k7["plain_ms"]},
+        {"name": "cols3_tail", "route": "cuda",
+         "source": "videorenderer_tpu_torch/csrc/cols3_tail.cu",
+         "replaces": "videorenderer_tpu/kernels/deint_pallas.py:434",
+         "launches": c5_launches["cols3_tail"],
+         "max_abs_err": k9["max_abs_err"], "ms": k9["ms"],
+         "plain_ms": k9["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

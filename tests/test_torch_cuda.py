@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K5 and K6 of videorenderer_tpu_torch on the
-card, against their plain PyTorch versions on the same card and inputs.
+"""The CUDA kernels K1, K2, K5, K6, K7 and K9 of videorenderer_tpu_torch on
+the card, against their plain PyTorch versions on the same card and inputs.
 
 Every test here needs an NVIDIA card with nvcc (marker ``cuda``) and skips
 elsewhere.  The file imports no JAX, so it runs on a machine without it:
@@ -16,7 +16,9 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
  * K5 and K6 float output <= 1e-5 (outputs ~[0,1]: the kernels and the
    plain versions round every operation alike, only sinf's last bits
    differ); quantized <= 1 code on < 1% of the channels; K6's transposed
-   store bit-equal to the transpose of its plain store.
+   store bit-equal to the transpose of its plain store;
+ * K7 float32 <= 2e-5 (the deinterlaced values are bit-equal, the tap sums
+   run in another order); K9 as K2.
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ import torch
 from videorenderer_tpu_torch import config as C, csputils as S
 from videorenderer_tpu_torch import pipeline as P
 from videorenderer_tpu_torch.formats import ColorFormat
+from videorenderer_tpu_torch.kernels import deint as dk
 from videorenderer_tpu_torch.kernels import jinc2 as jk
 from videorenderer_tpu_torch.kernels import resize as rk
 from videorenderer_tpu_torch.ops import chroma, geometry, scale
@@ -40,6 +43,12 @@ def dev():
     from videorenderer_tpu_torch.kernels import build
     build.load()
     return torch.device("cuda")
+
+
+def only(**counts):
+    """The launch counts of a call that launches these kernels and no
+    other."""
+    return {k: counts.get(k, 0) for k in rk.launches}
 
 
 def _lanczos(n_in, n_out):
@@ -183,8 +192,7 @@ def test_slice_on_card_matches_cpu(dev, src_rect):
     rk.reset_launches()
     got = gpu.process(planes)
     torch.cuda.synchronize()
-    assert rk.launches == {"banded_resize_last_axis": 3, "rows3_tail": 1,
-                           "jinc2_resize_fused": 0, "jinc2_convert_fused": 0}
+    assert rk.launches == only(banded_resize_last_axis=3, rows3_tail=1)
     ref = cpu.process(planes)
     d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
     assert (d <= 1).mean() >= 0.999 and (d > 0).mean() < 0.02
@@ -361,9 +369,7 @@ def test_jinc2_path_on_card_matches_cpu(dev):
     got = P.VideoProcessor(*_c3_like(w, h), device=dev,
                            pack_surface=True).process(planes)
     torch.cuda.synchronize()
-    assert dict(rk.launches) == {"banded_resize_last_axis": 0, "rows3_tail": 0,
-                                 "jinc2_resize_fused": 0,
-                                 "jinc2_convert_fused": 1}
+    assert rk.launches == only(jinc2_convert_fused=1)
     d = np.abs(_codes(got, "rgba8") - _codes(ref, "rgba8"))
     assert d.max() <= 1 and (d > 0).mean() < 0.01
     rot = P.make_frame_fn(plan, pack_surface=True, rotation=90, flip=True)
@@ -371,9 +377,138 @@ def test_jinc2_path_on_card_matches_cpu(dev):
     rk.reset_launches()
     r270 = P.make_frame_fn(plan, pack_surface=True, rotation=270)(cuda_planes)
     torch.cuda.synchronize()
-    assert dict(rk.launches) == {"banded_resize_last_axis": 2, "rows3_tail": 1,
-                                 "jinc2_resize_fused": 1,
-                                 "jinc2_convert_fused": 0}
+    assert rk.launches == only(banded_resize_last_axis=2, rows3_tail=1,
+                               jinc2_resize_fused=1)
     d = np.abs(_codes(r270, "rgba8")
                - _codes(geometry.rotate_flip(got, 270), "rgba8"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def _c5_plan(w=3840, h=2160, ow=1920, oh=1080):
+    """c5 (bench_common.build_plan("c5")) at any size: P010 HLG BT.2020
+    interlaced, Lanczos3, HLG -> SDR, 8-bit ordered dither."""
+    return P.plan_pipeline(
+        C.Settings(convert_to_sdr=True, upscaling=C.Upscaling.LANCZOS3),
+        P.SourceDescriptor(format=ColorFormat.P010, width=w, height=h,
+                           matrix=S.CSP.BT_2020_NC, levels=S.Levels.TV,
+                           primaries=S.Primaries.BT_2020, transfer=S.TRC.HLG,
+                           interlaced=True),
+        P.OutputDescriptor(width=ow, height=oh, bits=8))
+
+
+def _c5_window(rng, n, w, h):
+    """(prev, cur, next) P010 windows of n frames, prev == next on the left
+    half: the weave, the ramp and the bob all occur."""
+    def frame():
+        return (rng.integers(64, 941, (n, h, w), dtype=np.uint16) << 6,
+                rng.integers(64, 961, (n, h // 2, w // 2), dtype=np.uint16) << 6,
+                rng.integers(64, 961, (n, h // 2, w // 2), dtype=np.uint16) << 6)
+    p, c, x = frame(), frame(), frame()
+    x = tuple(np.concatenate([a[..., :a.shape[-1] // 2],
+                              b[..., a.shape[-1] // 2:]], -1)
+              for a, b in zip(p, x))
+    return [tuple(torch.from_numpy(a) for a in f) for f in (p, c, x)]
+
+
+@pytest.mark.parametrize("tff", [True, False])
+def test_k7_kernel_matches_plain(dev, tff):
+    """c5's geometry on 2 frames: float32 within 2e-5 (only the tap sums
+    differ in order; the deinterlaced values are bit-equal)."""
+    rng = np.random.default_rng(10)
+    win = [tuple(p.to(dev) for p in f) for f in _c5_window(rng, 2, 3840, 2160)]
+    _, uy = chroma.chroma_upsample_matrices(
+        1920, 1080, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    wy = _lanczos(2160, 1080)
+    args = (*win, rk.BandedMatrix(wy, pre_scale=1 / 65535.0),
+            rk.BandedMatrix(uy @ wy, pre_scale=1 / 65535.0), 1080,
+            8 / 255 * 65535.0, tff)
+    before = rk.launches["deint3_rows_dual"]
+    got = dk.deint3_rows_dual(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["deint3_rows_dual"] == before + 1
+    ref = dk.deint3_rows_dual_plain(*args)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert (g - r).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("case", ["c5_rgba8", "direct_float_no_cmat"])
+def test_k9_kernel_matches_plain(dev, case):
+    """c5's W maps and epilogue on K7-like float planes, packed RGBA8 (<= 1
+    code on < 2% of the channels); and raw uint16 planes read directly
+    with a colour-matrix-free epilogue, float out (within 1e-5)."""
+    rng = np.random.default_rng(11)
+    plan = _c5_plan()
+    if case == "c5_rgba8":
+        ux, _ = chroma.chroma_upsample_matrices(
+            1920, 1080, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+        wx = _lanczos(3840, 1920)
+        mx_y, mx_c = rk.BandedMatrix(wx), rk.BandedMatrix(ux @ wx)
+        y = torch.from_numpy(rng.uniform(0.06, 0.92, (4, 1080, 3840))
+                             .astype(np.float32))
+        u, v = (torch.from_numpy(rng.uniform(0.06, 0.94, (4, 1080, 1920))
+                                 .astype(np.float32)) for _ in range(2))
+        epi, pack, scale = P._make_tail_epilogue(plan), "rgba8", None
+    else:
+        mx_y = mx_c = None
+        y, u, v = (torch.from_numpy(rng.integers(0, 65536, (2, 64, 96),
+                                                 dtype=np.uint16))
+                   for _ in range(3))
+        epi = P._make_tail_epilogue(P.plan_pipeline(
+            C.Settings(), P.SourceDescriptor(format=ColorFormat.NV12,
+                                             width=96, height=64),
+            P.OutputDescriptor(width=96, height=64, bits=16)),
+            with_cmat=False)
+        pack, scale = None, 1 / 65535.0
+    y, u, v = y.to(dev), u.to(dev), v.to(dev)
+    w_out = y.shape[-1] if mx_y is None else mx_y.out_size
+    args = (y, u, v, mx_y, mx_c, w_out, epi)
+    kw = dict(y_scale=scale, c_scale=scale, pack_format=pack)
+    before = rk.launches["cols3_tail"]
+    got = dk.cols3_tail(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches["cols3_tail"] == before + 1
+    ref = dk.cols3_tail_plain(*args, **kw)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if pack is not None:
+        d = np.abs(_codes(got, pack) - _codes(ref, pack))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+        assert torch.equal(got.cpu() >> 24, ref.cpu() >> 24)
+    else:
+        assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_deint_path_on_card_matches_cpu(dev):
+    """The double-rate session at a small size: K7 x1 + K9 x1 per push on
+    the card, within 1 code of the plain versions on the CPU."""
+    from videorenderer_tpu_torch.runner import DeinterlaceSession
+    rng = np.random.default_rng(12)
+    plan = _c5_plan(256, 128, 128, 64)
+    stream = _c5_window(rng, 3, 256, 128)
+    gpu = DeinterlaceSession(plan, pack_surface=True)
+    cpu = DeinterlaceSession(plan, pack_surface=True)
+    rk.reset_launches()
+    got = []
+    for b in stream:
+        got += gpu.push_batch(tuple(p.to(dev) for p in b))
+    torch.cuda.synchronize()
+    assert rk.launches == only(deint3_rows_dual=3, cols3_tail=3)
+    got += gpu.flush_batch()
+    ref = []
+    for b in stream:
+        ref += cpu.push_batch(b)
+    ref += cpu.flush_batch()
+    assert len(got) == len(ref) == 8
+    for g, r in zip(got, ref):
+        d = np.abs(_codes(g, "rgba8") - _codes(r, "rgba8"))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+    rk.reset_launches()
+    single = P.make_deint_frame_fn(plan, field=0, pack_surface=True)
+    one = single(*[tuple(p.to(dev) for p in f) for f in stream])
+    torch.cuda.synchronize()
+    assert rk.launches == only(banded_resize_last_axis=3, rows3_tail=1)
+    assert one.shape == (3, 64, 128)
+    # single rate on the card (K1 on float32 planes, K2 with the HLG tail)
+    # against the plain versions on the CPU
+    d = np.abs(_codes(one, "rgba8") - _codes(single(*stream), "rgba8"))
     assert d.max() <= 1 and (d > 0).mean() < 0.02

@@ -313,6 +313,9 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.kernels.build, "
             "videorenderer_tpu_torch.kernels.resize, "
             "videorenderer_tpu_torch.kernels.jinc2, "
+            "videorenderer_tpu_torch.kernels.deint, "
+            "videorenderer_tpu_torch.ops.deinterlace, "
+            "videorenderer_tpu_torch.runner, "
             "videorenderer_tpu_torch.ops.geometry; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('videorenderer_tpu.') or m == 'videorenderer_tpu']; "

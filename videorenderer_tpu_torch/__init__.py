@@ -4,18 +4,33 @@ The main path (4K HDR10 -> SDR: chroma upsample, YUV->RGB, Lanczos3 resize,
 PQ EOTF, Hable, BT.2020->709, gamma, ordered dither, packed surface) runs on
 an NVIDIA Hopper card through two hand-written CUDA kernels
 (``csrc/banded_resize.cu``, ``csrc/rows3_tail.cu``), built with ``nvcc`` at
-their first launch.  On CPU tensors the same functions run their plain
+their first launch; the Jinc2 upscale and motion-adaptive deinterlacing
+have kernels of their own (``csrc/jinc2_*.cu``, ``csrc/deint3_rows_dual.cu``,
+``csrc/cols3_tail.cu``).  On CPU tensors the same functions run their plain
 PyTorch versions.  This package imports torch and numpy, never jax.
 
     vp = VideoProcessor(settings, src, dst, device="cuda", pack_surface=True)
     surface = vp.process((y, u, v))
+
+    session = DeinterlaceSession(plan, double_rate=True, pack_surface=True)
+    field0, field1 = session.push_batch((y, u, v))
 """
 
-from .config import Settings
+from .config import (ChromaScaling, Deinterlacing, Downscaling, Settings,
+                     SuperResolution, SwapEffect, TexFormat, ToneMapType,
+                     Upscaling)
+from .csputils import CSP, ChromaLocation, Levels, Primaries, TRC
 from .formats import ColorFormat, get_format_info
-from .pipeline import (OutputDescriptor, SourceDescriptor, VideoProcessor,
-                       make_frame_fn, plan_pipeline)
+from .pipeline import (HDR10Metadata, OutputDescriptor, SourceDescriptor,
+                       VideoProcessor, make_deint_fields_fn,
+                       make_deint_frame_fn, make_frame_fn, plan_pipeline)
+from .runner import DeinterlaceSession
 
-__all__ = ["Settings", "ColorFormat", "get_format_info", "SourceDescriptor",
-           "OutputDescriptor", "VideoProcessor", "make_frame_fn",
-           "plan_pipeline"]
+__all__ = [
+    "CSP", "ChromaLocation", "ChromaScaling", "ColorFormat", "Deinterlacing",
+    "DeinterlaceSession", "Downscaling", "HDR10Metadata", "Levels",
+    "OutputDescriptor", "Primaries", "Settings", "SourceDescriptor",
+    "SuperResolution", "SwapEffect", "TRC", "TexFormat", "ToneMapType",
+    "Upscaling", "VideoProcessor", "get_format_info", "make_deint_fields_fn",
+    "make_deint_frame_fn", "make_frame_fn", "plan_pipeline",
+]

@@ -31,17 +31,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The two kernels that end in the tail (tail.cuh) share one signature:
+# y, y_dtype, u, v, c_dtype, batch, then four sizes (K2: hy, hc, w, h_out;
+# K9: h, wy, wc, w_out), starts_y, taps_y, n_taps_y, starts_c, taps_c,
+# n_taps_c, y_scale, c_scale, cmat (host, 12 floats), apply_matrix,
+# correction, luminance_scale, dither_bits, pack, out, stream
+_TAIL_KERNEL = (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                _P, _P, _I, _P, _P, _I,
+                _F, _F, _P, _I, _I, _F, _I, _I, _P, _P)
 # argtypes of every C entry point, in the order of its parameters
 SIGNATURES = {
     # x, x_dtype, starts, taps, out, mid16, rows, w_in, w_out, n_taps, stream
     "vrt_banded_resize": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_out,
-    # starts_y, taps_y, n_taps_y, starts_c, taps_c, n_taps_c,
-    # y_scale, c_scale, cmat (host, 12 floats), apply_matrix, correction,
-    # luminance_scale, dither_bits, pack, out, stream
-    "vrt_rows3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _I, _P, _P, _I,
-                       _F, _F, _P, _I, _I, _F, _I, _I, _P, _P),
+    "vrt_rows3_tail": _TAIL_KERNEL,
+    "vrt_cols3_tail": _TAIL_KERNEL,
+    # planes (host array of 9 pointers), dtype, batch, hy, wy, hc, wc,
+    # h_out, starts_y, taps_y, n_taps_y, starts_c, taps_c, n_taps_c, thr,
+    # top_field_first, out_y, out_u, out_v, stream
+    "vrt_deint3_rows_dual": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                             _P, _P, _I, _F, _I, _P, _P, _P, _P),
     # x, planes, h, w, oh, ow, by, d2y, bx, d2x, dither_bits, out, stream
     "vrt_jinc2_resize": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P),
     # y, u, v, dtype, batch, h, w, ch, cw, oh, ow, by, d2y, bx, d2x,

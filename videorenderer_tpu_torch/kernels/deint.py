@@ -1,0 +1,246 @@
+"""The two kernels of motion-adaptive deinterlacing — K7, the deinterlace of
+both fields fused into the H-axis resize, and K9, the W-axis resize with the
+whole per-pixel tail — with their plain PyTorch versions.
+
+Replaces ``videorenderer_tpu/kernels/deint_pallas.py``: ``deint3_rows_dual``
+(K7, ``csrc/deint3_rows_dual.cu``) and ``cols3_tail`` (K9,
+``csrc/cols3_tail.cu``).  The double-rate chain runs H first so the vertical
+neighbours the deinterlace needs sit inside the H pass: K7 writes both
+fields' H-resized planes, K9 resizes W and runs K2's tail on them.
+
+As in ``kernels/resize.py``, the matrices are :class:`~.resize.BandedMatrix`
+tap tables with the normalisation folded in, the sums are fp32 FMAs (no
+split-bf16 products), a wrapper given CPU tensors runs the plain version and
+given CUDA tensors launches the kernel or raises, and each launch adds one
+to ``resize.launches[name]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .resize import (DTYPE_CODES, PACK_CODES, BandedMatrix, Epilogue,
+                     _check_plane, _kernel_device, _launch, _no_tf32,
+                     pack_surface)
+
+
+# ---------------------------------------------------------------------------
+# K7: motion-adaptive deinterlace of both fields + banded H resize
+# ---------------------------------------------------------------------------
+
+
+def _deint_fields(pf: torch.Tensor, cf: torch.Tensor, nf: torch.Tensor,
+                  thr: float, top_field_first: bool) -> list[torch.Tensor]:
+    """Motion-adaptive deinterlace of (..., H, W) float32 planes for both
+    temporal fields from one motion ramp — ``deint_pallas._deint_fields``
+    with the bottom clamp at the plane's last row (the port pads nothing).
+    The ramp divides by a tensor, not a Python scalar, so the card divides
+    exactly as K7 does (a CUDA division by a host scalar multiplies by its
+    reciprocal)."""
+    thr_t = torch.tensor(thr, dtype=torch.float32, device=cf.device)
+    alpha = torch.clamp((torch.abs(nf - pf) - thr_t) / thr_t, 0.0, 1.0)
+    h = cf.shape[-2]
+    rows = torch.arange(h, device=cf.device).view(h, 1)
+    up = torch.cat([cf[..., :1, :], cf[..., :-1, :]], dim=-2)
+    dn = torch.cat([cf[..., 1:, :], cf[..., -1:, :]], dim=-2)
+    outs = []
+    for field in (0, 1):
+        use_top = (field == 0) == top_field_first
+        if use_top:
+            # bottom clamp: the last odd row averages field row H-2 twice
+            u_, d_ = up, torch.where(rows == h - 1, up, dn)
+        else:
+            # top clamp: row 0 averages field row 1 twice
+            u_, d_ = torch.where(rows == 0, dn, up), dn
+        bob = (u_ + d_) * 0.5
+        mixed = cf + (bob - cf) * alpha
+        parity = (rows & 1) == (1 if use_top else 0)
+        outs.append(torch.where(parity, mixed, cf))
+    return outs
+
+
+def deint3_rows_dual_plain(prev, cur, nxt, my_y: BandedMatrix,
+                           my_c: BandedMatrix, h_out: int, thr: float,
+                           top_field_first: bool = True):
+    """Plain K7: :func:`_deint_fields` per plane, then one dense float32 H
+    product per plane and field."""
+    _no_tf32()
+    outs = []
+    for k, mat in ((0, my_y), (1, my_c), (2, my_c)):
+        f = [x[k].to(torch.float32) for x in (prev, cur, nxt)]
+        d0, d1 = _deint_fields(*f, thr, top_field_first)
+        m = mat.dense_on(f[1].device).T
+        outs.append(torch.stack([m @ d0, m @ d1], dim=-3))
+    return tuple(outs)
+
+
+def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
+                     h_out: int, thr: float, top_field_first: bool = True):
+    """Deinterlace both fields of the (prev, cur, next) window and resize
+    each along H.
+
+    ``prev``/``cur``/``nxt``: (y, u, v) raw planes, y (..., Hy, Wy) and u, v
+    (..., Hc, Wc), all of one dtype of ``DTYPE_CODES``.  ``my_y`` (Hy,
+    h_out) / ``my_c`` (Hc, h_out): the H maps, the plane normalisation
+    folded in.  ``thr``: the motion threshold in raw code units.  Returns
+    (y, u, v) float32 (..., 2, h_out, W*): field f is ``[..., f, :, :]``.
+
+    Kernel K7 (``csrc/deint3_rows_dual.cu``), replacing
+    ``deint_pallas.deint3_rows_dual``.  One thread per output column and
+    row of a plane walks the row's taps, computes the motion ramp once per
+    tap row and accumulates both fields, so the deinterlaced planes never
+    reach device memory; bound by device memory (the raw window read about
+    once, both fields written once)."""
+    for name, frames in (("prev", prev), ("cur", cur), ("nxt", nxt)):
+        if len(frames) != 3:
+            raise ValueError(f"{name}: need the (y, u, v) planes, got "
+                             f"{len(frames)}")
+    planes = [x[k] for k in range(3) for x in (prev, cur, nxt)]
+    for p in planes:
+        _check_plane("deint3_rows_dual", p)
+        if p.dtype != planes[0].dtype:
+            raise TypeError("deint3_rows_dual: the nine planes must share "
+                            f"one dtype, got {p.dtype} and {planes[0].dtype}")
+    y, u = cur[0], cur[1]
+    for k in range(3):
+        if prev[k].shape != cur[k].shape or nxt[k].shape != cur[k].shape:
+            raise ValueError("prev, cur and nxt planes differ in shape")
+    if cur[2].shape != u.shape:
+        raise ValueError("u and v must share shape")
+    lead = y.shape[:-2]
+    if u.shape[:-2] != lead:
+        raise ValueError(f"y {tuple(y.shape)} and u {tuple(u.shape)} differ "
+                         "in batch")
+    (hy, wy), (hc, wc) = y.shape[-2:], u.shape[-2:]
+    for name, mat, h_in in (("y", my_y, hy), ("c", my_c, hc)):
+        if (mat.in_size, mat.out_size) != (h_in, h_out):
+            raise ValueError(f"{name}: H matrix {mat.in_size}->"
+                             f"{mat.out_size} for {h_in}->{h_out}")
+    if not _kernel_device(*planes):
+        return deint3_rows_dual_plain(prev, cur, nxt, my_y, my_c, h_out, thr,
+                                      top_field_first)
+    batch = y.numel() // (hy * wy) if y.numel() else 0
+    col_blocks = -(-wy // 128) + 2 * -(-wc // 128)
+    if batch == 0 or batch * h_out >= 2 ** 31 or col_blocks > 65535:
+        raise ValueError(f"K7 cannot take batch {batch} x {h_out} rows x "
+                         f"{wy} columns")
+    dev = y.device
+    outs = tuple(torch.empty(lead + (2, h_out, w), dtype=torch.float32,
+                             device=dev) for w in (wy, wc, wc))
+    ptrs = (ctypes.c_void_p * 9)(*(p.data_ptr() for p in planes))
+    sy, ty = my_y.taps_on(dev)
+    sc, tc = my_c.taps_on(dev)
+    _launch("deint3_rows_dual", "vrt_deint3_rows_dual", dev,
+            ctypes.addressof(ptrs), DTYPE_CODES[y.dtype], batch, hy, wy, hc,
+            wc, h_out, sy.data_ptr(), ty.data_ptr(), my_y.n_taps,
+            sc.data_ptr(), tc.data_ptr(), my_c.n_taps, float(thr),
+            int(top_field_first), *(o.data_ptr() for o in outs))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# K9: W resize of three planes + colour matrix + corrections + dither + pack
+# ---------------------------------------------------------------------------
+
+
+def _w_plain(p: torch.Tensor, mat: BandedMatrix | None,
+             scale: float | None) -> torch.Tensor:
+    pf = p.to(torch.float32)
+    if mat is None:
+        return pf if scale is None else pf * float(np.float32(scale))
+    return pf @ mat.dense_on(p.device)
+
+
+def cols3_tail_plain(y, u, v, mx_y: BandedMatrix | None,
+                     mx_c: BandedMatrix | None, w_out: int,
+                     epilogue: Epilogue, y_scale: float | None = None,
+                     c_scale: float | None = None,
+                     pack_format: str | None = None) -> torch.Tensor:
+    """Plain K9: each plane's W contraction as a dense float32 product (or
+    the direct read times its scale), the torch epilogue, the pack."""
+    _no_tf32()
+    rgb = epilogue.plain(_w_plain(y, mx_y, y_scale), _w_plain(u, mx_c, c_scale),
+                         _w_plain(v, mx_c, c_scale))
+    return rgb if pack_format is None else pack_surface(rgb, pack_format)
+
+
+def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+               mx_y: BandedMatrix | None, mx_c: BandedMatrix | None,
+               w_out: int, epilogue: Epilogue, y_scale: float | None = None,
+               c_scale: float | None = None,
+               pack_format: str | None = None) -> torch.Tensor:
+    """W-resize the (luma, chroma, chroma) planes, then run the epilogue.
+
+    ``y`` (..., H, Wy), ``u``/``v`` (..., H, Wc): float32 or raw
+    uint8/uint16/int16.  ``mx_y`` (Wy, w_out) / ``mx_c`` (Wc, w_out): the W
+    matrices with their scale folded in, or None for a plane read directly
+    — its width is then w_out and ``y_scale``/``c_scale`` scale it.  The
+    epilogue is K2's (``cmat=None`` for planes that are R, G, B already).
+    Returns (..., 3, H, w_out) float32, or with ``pack_format``
+    ("rgb10a2"/"rgba8") (..., H, w_out) int32 dwords.
+
+    Kernel K9 (``csrc/cols3_tail.cu``), replacing
+    ``deint_pallas.cols3_tail``: K2 with the axis swapped.  One thread per
+    output pixel runs the W taps of the three planes, the shared tail
+    (``csrc/tail.cuh``), the dither from the global row and column and the
+    store, so no intermediate RGB reaches device memory."""
+    epilogue.validate()
+    if pack_format not in PACK_CODES:
+        raise NotImplementedError(f"K9: pack format {pack_format!r}")
+    for name, p in (("y", y), ("u", u), ("v", v)):
+        _check_plane(name, p)
+    if u.shape != v.shape or u.dtype != v.dtype:
+        raise ValueError("u and v must share shape and dtype")
+    lead, (h, wy) = y.shape[:-2], y.shape[-2:]
+    wc = u.shape[-1]
+    if u.shape[:-1] != y.shape[:-1]:
+        raise ValueError(f"y {tuple(y.shape)} and u {tuple(u.shape)} differ "
+                         "in batch or height")
+    for name, mat, w_in, scale in (("y", mx_y, wy, y_scale),
+                                   ("c", mx_c, wc, c_scale)):
+        if mat is None and w_in != w_out:
+            raise ValueError(f"{name}: no W matrix, so its width {w_in} "
+                             f"must be w_out {w_out}")
+        if mat is not None and (mat.in_size, mat.out_size) != (w_in, w_out):
+            raise ValueError(f"{name}: W matrix {mat.in_size}->"
+                             f"{mat.out_size} for {w_in}->{w_out}")
+        if mat is not None and scale is not None:
+            raise ValueError(f"{name}: a scale goes into the W matrix, not "
+                             "beside it")
+    if not _kernel_device(y, u, v):
+        return cols3_tail_plain(y, u, v, mx_y, mx_c, w_out, epilogue, y_scale,
+                                c_scale, pack_format)
+    batch = y.numel() // (h * wy) if y.numel() else 0
+    if batch == 0 or batch * h >= 2 ** 31 or w_out >= 128 * 65535:
+        raise ValueError(f"K9 cannot take batch {batch} x {h} rows x "
+                         f"{w_out} columns")
+    if pack_format is None:
+        out = torch.empty(lead + (3, h, w_out), dtype=torch.float32,
+                          device=y.device)
+    else:
+        out = torch.empty(lead + (h, w_out), dtype=torch.int32,
+                          device=y.device)
+    cm = (np.zeros((3, 4), np.float32) if epilogue.cmat is None
+          else np.asarray(epilogue.cmat, np.float32))
+    host_mats = np.ascontiguousarray(np.concatenate(
+        [cm.reshape(-1), np.asarray(epilogue.gamut, np.float32).reshape(-1)]))
+
+    def taps(mat):   # (starts, taps, T) pointers; NULL and T = 0: no matrix
+        if mat is None:
+            return None, None, 0
+        s, t = mat.taps_on(y.device)
+        return s.data_ptr(), t.data_ptr(), mat.n_taps
+
+    _launch("cols3_tail", "vrt_cols3_tail", y.device,
+            y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
+            DTYPE_CODES[u.dtype], batch, h, wy, wc, w_out,
+            *taps(mx_y), *taps(mx_c),
+            1.0 if y_scale is None else float(y_scale),
+            1.0 if c_scale is None else float(c_scale),
+            host_mats.ctypes.data, int(epilogue.cmat is not None),
+            epilogue.correction, float(epilogue.luminance_scale),
+            epilogue.dither_bits, PACK_CODES[pack_format], out.data_ptr())
+    return out

@@ -42,9 +42,10 @@ CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR = 0, 1, 2
 PACK_CODES = {None: 0, "rgb10a2": 1, "rgba8": 2}
 
 # launches of every kernel of the package, by name (K5 and K6 are
-# kernels/jinc2.py's)
+# kernels/jinc2.py's, K7 and K9 kernels/deint.py's)
 launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
-            "jinc2_resize_fused": 0, "jinc2_convert_fused": 0}
+            "jinc2_resize_fused": 0, "jinc2_convert_fused": 0,
+            "deint3_rows_dual": 0, "cols3_tail": 0}
 
 
 def reset_launches() -> None:

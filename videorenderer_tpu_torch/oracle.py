@@ -15,6 +15,10 @@ float32.  Returns (3, out_h, out_w) float64 quantized codes / (2**bits-1).
 convert, then a direct 4x4-tap Jinc2 with anti-ringing in float64
 (Shaders/examples/resizer_onepass_jinc2.hlsl), the ordered dither, and an
 optional rotation and flip of the finished frame.
+
+:func:`oracle_deint` is one field of c5: a motion-adaptive deinterlace of
+every raw plane by row indices (independent of ``ops/deinterlace``), then
+the same convert and resize and the HLG -> SDR tail.
 """
 
 from __future__ import annotations
@@ -65,6 +69,35 @@ def _dither(x: torch.Tensor, dither_bits: int) -> torch.Tensor:
     return torch.floor(torch.clamp(x, 0.0, 1.0) * q + d) / q
 
 
+def _resize(rgb: torch.Tensor, out_w: int, out_h: int,
+            upscaling: Upscaling) -> torch.Tensor:
+    """Per-axis upscale-filter resize of (3, H, W) float64, skipped where
+    in == out."""
+    dev = rgb.device
+    h, w = rgb.shape[-2:]
+    if w != out_w:
+        mx = torch.from_numpy(upscale_matrix(upscaling, w, out_w)).to(dev)
+        rgb = torch.einsum("chw,wx->chx", rgb, mx)
+    if h != out_h:
+        my = torch.from_numpy(upscale_matrix(upscaling, h, out_h)).to(dev)
+        rgb = torch.einsum("chw,hy->cyw", rgb, my)
+    return rgb
+
+
+def _to_sdr_display(x: torch.Tensor) -> torch.Tensor:
+    """SDR-relative linear light -> Hable (4.8 -> 1.0) -> BT.2020->709 ->
+    2.2 gamma."""
+    def hable(q):
+        A, B, C, D, E, F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+        return ((q * (A * q + C * B) + D * E)
+                / (q * (A * q + B) + D * F)) - E / F
+
+    x = hable(x) / hable(torch.tensor(4.8, dtype=torch.float64))
+    gm = torch.from_numpy(bt2020_to_bt709_matrix()).to(x.device)
+    x = torch.einsum("ij,jhw->ihw", gm, x)
+    return torch.pow(torch.clamp(x, 0.0, 1.0), 1 / 2.2)
+
+
 def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            out_w: int, out_h: int, *, bits_in: int = 16,
            matrix: CSP = CSP.BT_2020_NC, levels: Levels = Levels.TV,
@@ -73,18 +106,8 @@ def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            upscaling: Upscaling = Upscaling.LANCZOS3) -> torch.Tensor:
     """One frame: ``y`` (H, W), ``u``/``v`` (H/2, W/2) raw planes of
     ``bits_in`` bits (16 for P010, 8 for NV12) on any device."""
-    dev = y.device
-    f64 = torch.float64
-    rgb = _convert(y, u, v, bits_in, matrix, levels)
-
-    h, w = y.shape
-    if w != out_w:
-        mx = torch.from_numpy(upscale_matrix(upscaling, w, out_w)).to(dev)
-        rgb = torch.einsum("chw,wx->chx", rgb, mx)
-    if h != out_h:
-        my = torch.from_numpy(upscale_matrix(upscaling, h, out_h)).to(dev)
-        rgb = torch.einsum("chw,hy->cyw", rgb, my)
-
+    rgb = _resize(_convert(y, u, v, bits_in, matrix, levels), out_w, out_h,
+                  upscaling)
     x = rgb
     if pq_to_sdr:
         x = torch.clamp(rgb, 0.0, 1.0)
@@ -93,18 +116,54 @@ def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         x = torch.pow(torch.clamp(x, min=0.0), 1 / m2)
         x = torch.clamp(x - c1, min=0.0) / (c2 - c3 * x)
         x = torch.pow(x, 1 / m1) * (10000.0 / sdr_nits)
-
-        def hable(q):
-            A, B, C, D, E, F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
-            return ((q * (A * q + C * B) + D * E)
-                    / (q * (A * q + B) + D * F)) - E / F
-
-        x = hable(x) / hable(torch.tensor(4.8, dtype=f64))
-        gm = torch.from_numpy(bt2020_to_bt709_matrix()).to(dev)
-        x = torch.einsum("ij,jhw->ihw", gm, x)
-        x = torch.pow(torch.clamp(x, 0.0, 1.0), 1 / 2.2)
-
+        x = _to_sdr_display(x)
     return _dither(x, dither_bits)
+
+
+def _deint_f64(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
+               thr: float, field: int, top_field_first: bool) -> torch.Tensor:
+    """Motion-adaptive deinterlace of one raw (H, W) plane in float64 by
+    row indices: the rows of the other field become cur + (bob - cur) *
+    clip((|next - prev| - thr) / thr, 0, 1), bob the mean of the rows above
+    and below, row 1 standing for the missing row above row 0 and row H-2
+    for the missing row below the last odd row."""
+    p, c, n = (x.to(torch.float64) for x in (prev, cur, nxt))
+    h = c.shape[0]
+    use_top = (field == 0) == top_field_first
+    r = torch.arange(1 if use_top else 0, h, 2, device=c.device)
+    above = torch.where(r == 0, 1, r - 1)
+    below = torch.where(r < h - 1, r + 1, h - 2 if use_top else h - 1)
+    ramp = torch.clamp((torch.abs(n[r] - p[r]) - thr) / thr, 0.0, 1.0)
+    out = c.clone()
+    out[r] = c[r] + ((c[above] + c[below]) / 2 - c[r]) * ramp
+    return out
+
+
+def oracle_deint(prev, cur, nxt, out_w: int, out_h: int, *, field: int = 0,
+                 top_field_first: bool = True, bits_in: int = 16,
+                 matrix: CSP = CSP.BT_2020_NC, levels: Levels = Levels.TV,
+                 sdr_nits: float = 125.0, dither_bits: int = 8,
+                 motion_threshold: float = 8.0 / 255.0) -> torch.Tensor:
+    """One field of c5 (4K HLG interlaced -> 1080p SDR): ``prev``, ``cur``,
+    ``nxt`` are (y, u, v) raw 4:2:0 planes of one frame each.  Every plane
+    is deinterlaced at its own resolution (:func:`_deint_f64`), then the
+    convert, the Lanczos3 resize, HLG -> linear with the OOTF (system gamma
+    1.2 at 2000 nits), the reference's PQ round trip at 1000 nits as
+    clip(x / 1000, 0, 1) * 10000 / sdr_nits, Hable, BT.2020->709, the 2.2
+    gamma and the ordered dither.  Returns (3, out_h, out_w) float64 codes /
+    (2**dither_bits - 1)."""
+    thr = motion_threshold * (2.0 ** bits_in - 1.0)
+    planes = [_deint_f64(p, c, n, thr, field, top_field_first)
+              for p, c, n in zip(prev, cur, nxt)]
+    rgb = _resize(_convert(*planes, bits_in, matrix, levels), out_w, out_h,
+                  Upscaling.LANCZOS3)
+    x = torch.clamp(rgb, 0.0, 1.0)
+    a, b, c = 0.17883277, 0.28466892, 0.55991073
+    x = torch.where(x <= 0.5, x * x * 4.0, torch.exp((x - c) / a) + b)
+    ys = 2000.0 * (0.2627 * x[0] + 0.6780 * x[1] + 0.0593 * x[2])
+    x = x * torch.pow(torch.clamp(ys, min=1e-7), 0.2)
+    x = torch.clamp(x / 1000.0, 0.0, 1.0) * (10000.0 / sdr_nits)
+    return _dither(_to_sdr_display(x), dither_bits)
 
 
 def _jinc2_f64(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -29,6 +29,11 @@ Two paths, chosen as the JAX package chooses them (``_can_fuse``):
 Rotation and flip apply to the finished surface, except rotation 90 with
 flip, a pure transpose, which K6 does as a transposed store.
 
+Interlaced sources: :func:`make_deint_frame_fn` deinterlaces in torch and
+runs :func:`make_frame_fn`; :func:`make_deint_fields_fn` renders both fields
+of a frame through K7 (the deinterlace inside the H resize) and K9 (the W
+resize and the tail), H first.
+
 What this port does not carry yet is refused with ``NotImplementedError``
 naming the ROADMAP item that brings it, never routed elsewhere.
 """
@@ -46,9 +51,11 @@ from .config import Settings, TexFormat, Upscaling
 from .csputils import (CSP, ChromaLocation, Colorspace, CSPParams, Levels,
                        Primaries, TRC)
 from .formats import ColorFormat, ColorSystem, FormatInfo, get_format_info
+from .kernels import deint as dk
 from .kernels import jinc2 as jk
 from .kernels import resize as rk
 from .ops import chroma as chroma_ops
+from .ops import deinterlace as deint_ops
 from .ops import dither as dither_ops
 from .ops import geometry as geo_ops
 from .ops import scale as scale_ops
@@ -468,9 +475,11 @@ def _tail_common(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
     return _final_pass(plan, _corrections(plan, rgb))
 
 
-def _make_tail_epilogue(plan: PipelinePlan) -> rk.Epilogue:
-    """K2's epilogue for this plan: colour matrix, corrections and dither,
-    as kernel parameters and as the torch function of the plain version."""
+def _make_tail_epilogue(plan: PipelinePlan,
+                        with_cmat: bool = True) -> rk.Epilogue:
+    """K2's (and K9's) epilogue for this plan: colour matrix, corrections
+    and dither, as kernel parameters and as the torch function of the plain
+    version.  ``with_cmat=False``: the three planes are R, G, B already."""
     if plan.hlg_to_pq or plan.fix_bt2020_sdr:
         _refuse("HLG->PQ and the SDR BT.2020 fix inside kernel K2 (the "
                 "plain path, use_accel_backend=False, has them)", "staged")
@@ -480,14 +489,15 @@ def _make_tail_epilogue(plan: PipelinePlan) -> rk.Epilogue:
                       else rk.CORR_PQ_TO_SDR)
     m = np.asarray(plan.cmat_m, np.float32)
     c = np.asarray(plan.cmat_c, np.float32)
+    apply_matrix = with_cmat and plan.apply_matrix
 
     def plain(y, u, v):
-        rgb = (_apply_cmat(m, c, y, u, v) if plan.apply_matrix
+        rgb = (_apply_cmat(m, c, y, u, v) if apply_matrix
                else torch.stack([y, u, v], dim=-3))
         return _tail_common(plan, rgb)
 
     return rk.Epilogue(
-        cmat=np.concatenate([m, c[:, None]], axis=1) if plan.apply_matrix else None,
+        cmat=np.concatenate([m, c[:, None]], axis=1) if apply_matrix else None,
         correction=correction,
         luminance_scale=10000.0 / plan.settings.sdr_display_nits,
         dither_bits=plan.dither_bits,
@@ -749,6 +759,118 @@ def make_frame_fn(plan: PipelinePlan, pack_surface: bool = False,
     if rotation == 0 and not flip:
         return base
     return lambda planes: geo_ops.rotate_flip(base(planes), rotation, flip)
+
+
+def make_deint_frame_fn(plan: PipelinePlan, field: int,
+                        top_field_first: bool = True,
+                        motion_threshold: float = 8.0 / 255.0,
+                        pack_surface: bool = False):
+    """Per-field processing function for interlaced content: the
+    motion-adaptive deinterlace of every plane over a (prev, cur, next)
+    window in torch, then :func:`make_frame_fn` on the float32 planes (raw
+    code units; on a card K1 ×3 + K2 ×1) — the explicit replacement of the
+    D3D11VP rate-conversion blt with past/future reference frames
+    (Source/D3D11VP.cpp:292-331,893-960).
+
+    Signature: fn(prev_planes, cur_planes, next_planes) -> the output frame
+    of ``field`` (0 = first temporal field, 1 = second)."""
+    base = make_frame_fn(plan, pack_surface=pack_surface)
+    thr = motion_threshold * (2.0 ** plan.info.plane_bits - 1.0)
+
+    def fn(prev_planes, cur_planes, next_planes):
+        return base(tuple(
+            deint_ops.motion_adaptive(
+                c.to(torch.float32), p.to(torch.float32),
+                n.to(torch.float32), field=field,
+                top_field_first=top_field_first, threshold=thr)
+            for p, c, n in zip(prev_planes, cur_planes, next_planes)))
+
+    return fn
+
+
+def _can_kernel_deint(plan: PipelinePlan) -> bool:
+    """The kernel deinterlace path (K7 + K9) applies: a fusable VP-order
+    plan of a planar YUV source whose chroma width divides the luma's by 1
+    or 2, with no crop or placement.  The JAX package also asks for the TPU
+    backend; here the wrappers choose kernel or plain version from the
+    tensors' device."""
+    s, info = plan.settings, plan.info
+    dw, _ = info.chroma_div
+    return (s.use_accel_backend and _vp_format_allowed(s, info)
+            and _can_fuse(plan) and info.cs_type == ColorSystem.YUV
+            and dw in (1, 2) and plan.src_rect is None
+            and plan.dst.video_rect is None)
+
+
+def make_deint_fields_fn(plan: PipelinePlan, top_field_first: bool = True,
+                         motion_threshold: float = 8.0 / 255.0,
+                         pack_surface: bool = False,
+                         force_kernel: bool = False):
+    """Double-rate variant of :func:`make_deint_frame_fn`: one function
+    renders both temporal fields of a frame from one motion ramp
+    (Source/DX11VideoProcessor.cpp:2176-2197).  Returns fn(prev, cur, next)
+    -> (field0, field1).
+
+    Where :func:`_can_kernel_deint` holds (or with ``force_kernel``) the
+    chain runs H first: K7 deinterlaces both fields inside the banded H
+    resize of the three planes (the rate-converter blt analogue,
+    Source/D3D11VP.cpp:893-960), then K9 runs the W resize, colour matrix,
+    corrections, dither and pack of both fields in one launch over the
+    (B, 2, ...) output read as a batch of 2B (the dither phase depends only
+    on the row and column).  Otherwise each field is deinterlaced in torch
+    and goes through :func:`make_frame_fn`."""
+    thr = motion_threshold * (2.0 ** plan.info.plane_bits - 1.0)
+
+    if force_kernel or _can_kernel_deint(plan):
+        _check_ported(plan)
+        s, info = plan.settings, plan.info
+        fmt = surface_pack_format(plan.dst) if pack_surface else None
+        vid_w, vid_h = plan.dst.video_size
+        src_w, src_h, cx, cy = _axis_choices(s, plan.src, plan.src_rect,
+                                             plan.dst)
+        wx = scale_ops.build_axis_matrix(cx, src_w, vid_w)
+        wy = scale_ops.build_axis_matrix(cy, src_h, vid_h)
+        dw, dh = info.chroma_div
+        ux, uy = chroma_ops.chroma_upsample_matrices(
+            src_w // dw, src_h // dh, info.subsampling, s.chroma_scaling,
+            plan.src.chroma_location)
+        cwx, cwy = _compose(ux, wx), _compose(uy, wy)
+        norm = 1.0 / (2.0 ** info.plane_bits - 1.0)
+        # K7 needs an H map for every plane: the identity where a plane
+        # keeps its height
+        my_y = rk.BandedMatrix(wy if wy is not None else np.eye(src_h),
+                               pre_scale=norm)
+        my_c = rk.BandedMatrix(cwy if cwy is not None
+                               else np.eye(src_h // dh), pre_scale=norm)
+        mx_y = None if wx is None else rk.BandedMatrix(wx)
+        mx_c = None if cwx is None else rk.BandedMatrix(cwx)
+        epilogue = _make_tail_epilogue(plan)
+
+        def kernel_fn(prev_planes, cur_planes, next_planes):
+            ys, us, vs = dk.deint3_rows_dual(
+                tuple(prev_planes), tuple(cur_planes), tuple(next_planes),
+                my_y, my_c, vid_h, thr, top_field_first)
+            lead = ys.shape[:-3]
+            out = dk.cols3_tail(
+                *(t.reshape((-1,) + t.shape[-2:]) for t in (ys, us, vs)),
+                mx_y, mx_c, vid_w, epilogue, pack_format=fmt)
+            out = out.reshape(lead + (2,) + out.shape[1:])
+            return out.select(len(lead), 0), out.select(len(lead), 1)
+
+        return kernel_fn
+
+    base = make_frame_fn(plan, pack_surface=pack_surface)
+
+    def fn(prev_planes, cur_planes, next_planes):
+        d0, d1 = [], []
+        for p, c, n in zip(prev_planes, cur_planes, next_planes):
+            cf, pf, nf = (x.to(torch.float32) for x in (c, p, n))
+            kw = dict(top_field_first=top_field_first, threshold=thr)
+            d0.append(deint_ops.motion_adaptive(cf, pf, nf, field=0, **kw))
+            d1.append(deint_ops.motion_adaptive(cf, pf, nf, field=1, **kw))
+        return base(tuple(d0)), base(tuple(d1))
+
+    return fn
 
 
 class VideoProcessor:
