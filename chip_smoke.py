@@ -55,7 +55,33 @@ Phases, one line each:
               against its plain version on the same inputs (K1 mid16
               within 1 code, float32 within 2e-5; K2 within 1 code on < 2%
               of the channels).
-Then the kernels' JSON line, nvidia-smi's line, and last the result line.
+ 15. K8       c8's serving function on 2 frames with scene 2's curves, for
+              c8's metadata and a variant where neither the reshape nor the
+              LMS step folds: its K8 call against rows3_mid_plain on the
+              same inputs (float32 within 1e-5, the variant 1e-4; the
+              curves it was given are the scene's) and its K9 call against
+              cols3_tail_plain (within 1 code on < 2%);
+ 16. K3       the letterboxed path's three K3 calls on 2 frames (K1's
+              float32 output) and raw uint16 luma with the normalisation in
+              the taps, against banded_resize_rows_plain (within 2e-6);
+ 17. c8       make_serving_fn of 4K P010 Dolby Vision -> 1080p RGB10: four
+              scenes of 16 frames, each its own curves, K1 x2 + K8 x1 + K9
+              x1 per call and nothing else, no build or library load
+              between scenes; frame 0 of scene 0 and of scene 3, and the
+              variant, >= 55 dB against oracle_dovi; ms/frame back to back
+              and synced, batch 1 synced median of 15 calls, the plain
+              path's ms/frame (>= 55 dB too);
+ 18. letterbox  VideoProcessor 3840 x 1608 (a 2.39:1 film) -> the
+              (0, 138, 1920, 942) rect of a 1920 x 1080 RGB10 surface, two
+              distinct batches of 16: K1 x3 + K3 x3 per call and nothing
+              else, every dword outside the rect the packed zero, >= 55 dB
+              against the oracle with placement (the rect and the whole
+              surface); ms/frame.
+Then the kernels' JSON line (each kernel's launches on the main paths, its
+error against its plain version, its time, the plain version's, the bound
+from this run's bytes and FLOPs, and the library call's time where one
+PyTorch call computes the same function), nvidia-smi's line, and last the
+result line.
 Any failure raises and the exit code is not 0.  Imports nothing of JAX.
 """
 
@@ -84,13 +110,14 @@ from videorenderer_tpu_torch.kernels import deint as dk  # noqa: E402
 from videorenderer_tpu_torch.kernels import jinc2 as jk  # noqa: E402
 from videorenderer_tpu_torch.kernels import resize as rk  # noqa: E402
 from videorenderer_tpu_torch.oracle import (oracle, oracle_deint,  # noqa: E402
-                                            oracle_jinc2)
-from videorenderer_tpu_torch.ops import chroma, scale  # noqa: E402
+                                            oracle_dovi, oracle_jinc2)
+from videorenderer_tpu_torch.ops import chroma, dovi, scale  # noqa: E402
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
                                               _make_tail_epilogue,
                                               cmat_epilogue,
                                               make_deint_frame_fn,
-                                              make_frame_fn, plan_pipeline)
+                                              make_frame_fn, make_serving_fn,
+                                              plan_pipeline)
 
 DEVICE = "cuda"
 W, H, OW, OH = 3840, 2160, 1920, 1080     # the headline: 4K -> 1080p
@@ -99,6 +126,13 @@ C3_OW, C3_OH = 3840, 2160                 # c3: 1080p -> 4K Jinc2
 PLAIN_FRAMES = 2                          # frames of the Jinc2 plain runs
 BATCH = 16
 SEED = 0
+LB_H = 1608                               # a 2.39:1 scope film, 3840 wide
+LB_RECT = (0, 138, 1920, 942)             # ... letterboxed into 1920 x 1080
+C8_SCENES = 4
+# the card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
+# float32 outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
 
 
 def line(phase: str, **kw) -> None:
@@ -120,13 +154,107 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def p010_batch(batch: int, seed: int, dev):
-    """TV-range 10-bit codes, MSB-aligned in uint16 (bench.py's frames)."""
+def p010_batch(batch: int, seed: int, dev, h: int | None = None):
+    """TV-range 10-bit codes, MSB-aligned in uint16 (bench.py's frames), of
+    H rows unless ``h`` says otherwise."""
+    h = H if h is None else h
     rng = np.random.default_rng(seed)
-    y = rng.integers(64, 941, (batch, H, W), dtype=np.uint16) << 6
-    u = rng.integers(64, 961, (batch, H // 2, W // 2), dtype=np.uint16) << 6
-    v = rng.integers(64, 961, (batch, H // 2, W // 2), dtype=np.uint16) << 6
+    y = rng.integers(64, 941, (batch, h, W), dtype=np.uint16) << 6
+    u = rng.integers(64, 961, (batch, h // 2, W // 2), dtype=np.uint16) << 6
+    v = rng.integers(64, 961, (batch, h // 2, W // 2), dtype=np.uint16) << 6
     return tuple(torch.from_numpy(p).to(dev) for p in (y, u, v))
+
+
+def tbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def mbytes(*mats) -> int:
+    """Bytes of the tap tables a kernel reads."""
+    return sum(m.starts.nbytes + m.taps.nbytes for m in mats if m is not None)
+
+
+def map_flops(mat, lines: int) -> int:
+    """FLOPs of one axis map over ``lines`` rows (W) or columns (H): an FMA
+    for every nonzero weight of every line."""
+    return 0 if mat is None else 2 * lines * int(np.count_nonzero(mat.dense))
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the FLOPs over the float32 rate."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+    return {"bound_ms": 1e3 * max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def dovi_meta():
+    """c8's RPU metadata (bench_common.dovi_meta): identity curves, the
+    BT.2020 ycc_to_rgb matrix, LMS matrices that are mutual inverses."""
+    return dovi.DoviMetadata(
+        curves=(dovi.identity_curve(),) * 3,
+        ycc_to_rgb_matrix=np.array([[1, 0, 1.4746],
+                                    [1, -0.164553, -0.571353],
+                                    [1, 1.8814, 0]]),
+        ycc_to_rgb_offset=np.array([0.0, 0.5, 0.5]),
+        rgb_to_lms_matrix=np.linalg.inv(dovi.DOVI_LMS2RGB))
+
+
+def dovi_variant():
+    """c8's metadata where nothing folds: a 2-piece polynomial on Y, a
+    polynomial + MMR order-2 curve on Cb, an MMR order-3 curve on Cr, and
+    an LMS product with 2% crosstalk."""
+    base = dovi_meta()
+    cb = np.zeros((2, 3, 7))
+    cb[1, 0] = [0, 0.98, 0, 0.02, 0, -0.01, 0]
+    cb[1, 1] = [0, 0.01, 0, 0, 0.005, 0, 0.01]
+    cr = np.zeros((1, 3, 7))
+    cr[0, 0] = [0, 0, 0.97, 0, 0.02, 0.01, 0]
+    cr[0, 1] = [0, 0, 0.02, 0.01, 0, 0, 0]
+    cr[0, 2] = [0, 0, 0.005, 0, 0, 0, 0.003]
+    curves = (
+        dovi.ReshapeCurve(pivots=(0.45,), method=(0, 0),
+                          poly=np.array([[0.01, 0.95, 0.05],
+                                         [-0.02, 1.05, -0.03]])),
+        dovi.ReshapeCurve(pivots=(0.5,), method=(0, 1),
+                          poly=np.array([[0, 1.0, 0], [0, 0, 0]]),
+                          mmr_order=(0, 2), mmr_constant=(0.0, 0.01),
+                          mmr_coef=cb),
+        dovi.ReshapeCurve(pivots=(), method=(1,), poly=np.array([[0, 1.0, 0]]),
+                          mmr_order=(3,), mmr_constant=(-0.005,), mmr_coef=cr))
+    return dovi.DoviMetadata(
+        curves=curves, ycc_to_rgb_matrix=base.ycc_to_rgb_matrix,
+        ycc_to_rgb_offset=base.ycc_to_rgb_offset,
+        rgb_to_lms_matrix=base.rgb_to_lms_matrix @ (0.94 * np.eye(3) + 0.02))
+
+
+def dovi_rt(i: int, meta=None) -> dict:
+    """Scene i's curves (bench_common.dovi_rt): every packed array times
+    (1 - 0.01 i), float32 host arrays."""
+    return {k: v * np.float32(1.0 - 0.01 * i) for k, v in
+            dovi.pack_curves(meta or dovi_meta()).items()}
+
+
+def c8_args(meta, accel: bool = True):
+    """c8 (bench_common.build_plan("c8")): 4K P010 Dolby Vision, PQ,
+    BT.2020 NCL, TV -> 1080p RGB10, Catmull-Rom (2:1 on both axes, the
+    interpolating filter under the 50% rule), DoVi -> SDR, 10-bit dither."""
+    return (Settings(convert_to_sdr=True, upscaling=Upscaling.CATMULL_ROM,
+                     use_accel_backend=accel),
+            SourceDescriptor(format=ColorFormat.P010, width=W, height=H,
+                             matrix=CSP.BT_2020_NC, levels=Levels.TV,
+                             primaries=Primaries.BT_2020, transfer=TRC.PQ,
+                             dovi=meta, hdr10=HDR10Metadata()),
+            OutputDescriptor(width=OW, height=OH, bits=10))
+
+
+def c8_oracle(planes, meta, curves):
+    """oracle_dovi on frame 0 of a batch, with a scene's curves."""
+    return oracle_dovi(*(p[0] for p in planes), OW, OH, curves=curves,
+                       structure=dovi.curve_structure(meta),
+                       ycc_to_rgb=meta.ycc_to_rgb_matrix,
+                       ycc_offset=meta.ycc_to_rgb_offset,
+                       lms=dovi.lms_pipeline_matrix(meta))
 
 
 def codes(dwords: torch.Tensor, bits: int) -> torch.Tensor:
@@ -294,6 +422,14 @@ def main() -> None:
                                                    (v, kw_c))]
     k1["ms"] = cuda_ms(k1_all(rk.banded_resize_last_axis))
     k1["plain_ms"] = cuda_ms(k1_all(rk.banded_resize_last_axis_plain))
+    k1.update(bound(tbytes(y, u, v, *mids) + mbytes(kw_y, kw_c),
+                    map_flops(kw_y, y.numel() // W)
+                    + 2 * map_flops(kw_c, u.numel() // (W // 2))))
+    # the library call: one float32 product per plane, TF32 off
+    xf = [(p.float(), m.dense_on(dev)) for p, m in ((y, kw_y), (u, kw_c),
+                                                    (v, kw_c))]
+    k1["library_ms"] = cuda_ms(lambda: [torch.matmul(a, d) for a, d in xf])
+    del xf
     line("K1", batch=BATCH, tolerance="mid16 <= 1 code, f32 <= 2e-5", **k1)
 
     # 4. K2 at the headline shapes on the K1 mid16 planes, headline epilogue
@@ -317,6 +453,11 @@ def main() -> None:
     k2["ms"] = cuda_ms(lambda: rk.rows3_tail(*args, pack_format="rgb10a2"))
     k2["plain_ms"] = cuda_ms(
         lambda: rk.rows3_tail_plain(*args, pack_format="rgb10a2"))
+    # operations: the tap FMAs and the colour matrix (the tail's
+    # transcendentals are not counted)
+    k2.update(bound(tbytes(*mids) + BATCH * OH * OW * 4 + mbytes(kh_y, kh_c),
+                    map_flops(kh_y, BATCH * OW) + 2 * map_flops(kh_c, BATCH * OW)
+                    + 18 * BATCH * OH * OW), library_ms=None)
     line("K2", batch=BATCH, tolerance="<= 1 code on < 2% of channels", **k2)
     del mids, args, y, u, v
     torch.cuda.empty_cache()
@@ -431,6 +572,12 @@ def main() -> None:
     k6["ms"] = cuda_ms(lambda: jk.jinc2_convert_fused(*k6_args, **kw))
     k6["plain_ms"] = cuda_ms(
         lambda: jk.jinc2_convert_fused_plain(*k6_args, **kw), reps=2)
+    # operations: the 16 Jinc2 taps of three channels per output (the
+    # weights' transcendentals and the convert are not counted)
+    k6.update(bound(tbytes(*small) + PLAIN_FRAMES * C3_OH * C3_OW * 4
+                    + mbytes(k6_args[3], k6_args[4]),
+                    PLAIN_FRAMES * C3_OH * C3_OW * 3 * 16 * 2),
+              library_ms=None)
     line("K6", frames=PLAIN_FRAMES, cases="c3, c3 transposed, c3rot",
          tolerance="<= 1 code on < 1% of channels", **k6)
     del small, k6_args, k6_rot_args
@@ -456,6 +603,8 @@ def main() -> None:
     k5["ms"] = cuda_ms(lambda: jk.jinc2_resize_fused(x5, C3_OH, C3_OW, j2_epi))
     k5["plain_ms"] = cuda_ms(
         lambda: jk.jinc2_resize_fused_plain(x5, C3_OH, C3_OW, j2_epi), reps=2)
+    k5.update(bound(tbytes(x5) + x5.shape[0] * C3_OH * C3_OW * 4,
+                    x5.shape[0] * C3_OH * C3_OW * 16 * 2), library_ms=None)
     line("K5", planes=3 * PLAIN_FRAMES,
          tolerance="float <= 1e-5; dithered <= 1 code on < 1%", **k5)
     del x5
@@ -612,6 +761,14 @@ def main() -> None:
     k7["ms"] = cuda_ms(lambda: dk.deint3_rows_dual(*k7_16))
     k7["plain_ms"] = cuda_ms(
         lambda: dk.deint3_rows_dual_plain(*k7_16), reps=2)
+    # the three windows are overlapping slices of one buffer: its BATCH + 2
+    # frames are read once; both fields of three planes out; operations:
+    # the H taps of both fields
+    k7.update(bound(tbytes(*arr)
+                    + 2 * BATCH * OH * (W + W) * 4 + mbytes(my_y, my_c),
+                    2 * (map_flops(my_y, BATCH * W)
+                         + 2 * map_flops(my_c, BATCH * W // 2))),
+              library_ms=None)
     line("K7", frames=n, field_orders=["top first", "bottom first"],
          timed_frames=BATCH, tolerance="f32 <= 2e-5", **k7)
 
@@ -639,6 +796,10 @@ def main() -> None:
     k9["ms"] = cuda_ms(lambda: dk.cols3_tail(*k9_32, pack_format="rgba8"))
     k9["plain_ms"] = cuda_ms(
         lambda: dk.cols3_tail_plain(*k9_32, pack_format="rgba8"), reps=2)
+    rows9 = k9_32[0].numel() // W
+    k9.update(bound(tbytes(*k9_32[:3]) + rows9 * OW * 4 + mbytes(mx_y, mx_c),
+                    map_flops(mx_y, rows9) + 2 * map_flops(mx_c, rows9)
+                    + 18 * rows9 * OW), library_ms=None)
     line("K9", fields=2 * n, timed_fields=2 * BATCH,
          tolerance="<= 1 code on < 2% of channels", **k9)
     del k9_32, k7_16, win16, arr, win2, prev2
@@ -646,7 +807,8 @@ def main() -> None:
 
     # 14. c5: the double-rate session, two distinct batches of 16 and the
     #     flush; every step K7 x1 + K9 x1
-    sess = DeinterlaceSession(plan5, double_rate=True, pack_surface=True)
+    sess = DeinterlaceSession(plan5, double_rate=True, pack_surface=True,
+                              device=dev)
 
     def c5_run():
         outs = []
@@ -672,12 +834,12 @@ def main() -> None:
     if min(db5) < 55.0:
         raise AssertionError(f"c5 PSNR below 55 dB: {db5}")
     # back to back: a running stream, each push 16 frames = 32 fields
-    sess_b2b = DeinterlaceSession(plan5, pack_surface=True)
+    sess_b2b = DeinterlaceSession(plan5, pack_surface=True, device=dev)
     sess_b2b.push_batch(b0)
     ms_field = cuda_ms(lambda: sess_b2b.push_batch(c5_batches[1]),
                        reps=4) / (2 * BATCH)
     # batch 1: one frame a push, synced (host clock)
-    sess_1 = DeinterlaceSession(plan5, pack_surface=True)
+    sess_1 = DeinterlaceSession(plan5, pack_surface=True, device=dev)
     sess_1.push_batch(tuple(p[0:1] for p in b0))
     t1 = []
     for i in range(1, BATCH):
@@ -688,7 +850,7 @@ def main() -> None:
     # the plain path (use_accel_backend=False): deinterlace in torch, then
     # the plain fused pipeline per field
     plan5p = plan_pipeline(*c5_args(accel=False))
-    sess_p = DeinterlaceSession(plan5p, pack_surface=True)
+    sess_p = DeinterlaceSession(plan5p, pack_surface=True, device=dev)
     plain_out = sess_p.push_batch(b0)
     db5_plain = psnr(codes(plain_out[0][0], 8).double() / 255.0,
                      oracle_deint(f0, f0, f1, OW, OH, field=0))
@@ -763,47 +925,279 @@ def main() -> None:
     del c5_batches, b0, prev1, next1, sess, sess_b2b, sess_1, sess_p
     torch.cuda.empty_cache()
 
+    # 15. K8 at c8's shapes on PLAIN_FRAMES frames, through the runtime-
+    #     scalar route: each K8 (and K9) call of the serving function on a
+    #     scene's curves, held against its plain version on the same inputs;
+    #     c8's metadata and the variant where nothing folds
+    c8_batches = [p010_batch(BATCH, SEED + 20 + i, dev)
+                  for i in range(C8_SCENES)]
+    k8 = {"max_abs_err": 0.0, "max_abs_err_variant": 0.0}
+    k8_k9 = {"max_code_diff": 0, "frac_differing": 0.0}
+    two = tuple(p[:PLAIN_FRAMES] for p in c8_batches[0])
+    for meta, key, tol in ((dovi_meta(), "max_abs_err", 1e-5),
+                           (dovi_variant(), "max_abs_err_variant", 1e-4)):
+        fn = make_serving_fn(plan_pipeline(*c8_args(meta)), pack_surface=True)
+        scene = dovi_rt(2, meta)
+        with recording(dk, "rows3_mid", "cols3_tail") as calls:
+            fn(two, {"dovi_curves": scene})
+        torch.cuda.synchronize()
+        (a8, kw8, got8), = calls["rows3_mid"]
+        if not np.array_equal(a8[6].curves, dovi.flatten_curve_scalars(
+                scene, dovi.curve_structure(meta))):
+            raise AssertionError("K8 was not given the scene's curves")
+        ref8 = dk.rows3_mid_plain(*a8, **kw8)
+        k8[key] = max((g - r).abs().max().item() for g, r in zip(got8, ref8))
+        if k8[key] > tol:
+            raise AssertionError(f"K8 disagrees with its plain version: {k8}")
+        (a9, kw9, got9), = calls["cols3_tail"]
+        dd = code_diff(got9, dk.cols3_tail_plain(*a9, **kw9), 10)
+        k8_k9 = {k: max(k8_k9[k], dd[k]) for k in k8_k9}
+        del calls, a8, kw8, got8, ref8, a9, kw9, got9, fn
+    if k8_k9["max_code_diff"] > 1 or k8_k9["frac_differing"] >= 0.02:
+        raise AssertionError(f"c8's K9 disagrees with its plain version: "
+                             f"{k8_k9}")
+    line("K8", frames=PLAIN_FRAMES, route="runtime curves (scene 2)",
+         tolerance="c8 f32 <= 1e-5, variant f32 <= 1e-4; K9 <= 1 code on "
+                   "< 2%", k9_on_c8=k8_k9, **k8)
+    del two
+
+    # 16. K3 at the letterboxed path's shapes: each K3 call of the path on
+    #     PLAIN_FRAMES frames (K1's float32 output, luma 1608 -> 804 rows,
+    #     chroma 804 -> 804 through the composed upsample), and raw uint16
+    #     luma with the normalisation in the taps
+    src_b = SourceDescriptor(format=ColorFormat.P010, width=W, height=LB_H,
+                             matrix=CSP.BT_2020_NC, levels=Levels.TV,
+                             primaries=Primaries.BT_2020, transfer=TRC.PQ,
+                             hdr10=HDR10Metadata())
+    dst_b = OutputDescriptor(width=OW, height=OH, bits=10, video_rect=LB_RECT)
+    set_b = Settings(upscaling=Upscaling.LANCZOS3, convert_to_sdr=True)
+    lb_batches = [p010_batch(BATCH, SEED + 30 + i, dev, h=LB_H)
+                  for i in range(2)]
+    vp_b = VideoProcessor(set_b, src_b, dst_b, device=dev, pack_surface=True)
+    with recording(rk, "banded_resize_rows") as calls:
+        vp_b.process(tuple(p[:PLAIN_FRAMES] for p in lb_batches[0]))
+    torch.cuda.synchronize()
+    k3 = {"max_abs_err": 0.0}
+    k3_calls = calls["banded_resize_rows"]
+    if len(k3_calls) != 3 or {str(a[0].dtype) for a, _, _ in k3_calls} \
+            != {"torch.float32"}:
+        raise AssertionError(f"the path made {len(k3_calls)} K3 calls")
+    for a, kw, got in k3_calls:
+        k3["max_abs_err"] = max(k3["max_abs_err"], (
+            got - rk.banded_resize_rows_plain(*a, **kw)).abs().max().item())
+    del calls, k3_calls
+    ky_raw = rk.BandedMatrix(scale.upscale_matrix(Upscaling.LANCZOS3, LB_H,
+                                                  LB_RECT[3] - LB_RECT[1]),
+                             pre_scale=norm)
+    raw = lb_batches[0][0][:PLAIN_FRAMES]
+    got = rk.banded_resize_rows(raw, ky_raw)
+    torch.cuda.synchronize()
+    k3["max_abs_err_u16"] = (got - rk.banded_resize_rows_plain(
+        raw, ky_raw)).abs().max().item()
+    del got, raw
+    if max(k3.values()) > 2e-6:
+        raise AssertionError(f"K3 disagrees with its plain version: {k3}")
+    line("K3", frames=PLAIN_FRAMES, tolerance="f32 <= 2e-6", **k3)
+
+    # 17. c8 served: one make_serving_fn, C8_SCENES scenes of batch 16 (each
+    #     its own frames and curves), K1 x2 + K8 x1 + K9 x1 per call, no
+    #     build or library load between scenes
+    plan8 = plan_pipeline(*c8_args(dovi_meta()))
+    serve = make_serving_fn(plan8, pack_surface=True)
+    rts = [{"dovi_curves": dovi_rt(i)} for i in range(C8_SCENES)]
+    # a call recorded for the kernels' times at c8's batch (also warm-up)
+    with recording(dk, "rows3_mid", "cols3_tail") as calls:
+        serve(c8_batches[0], rts[1])
+    torch.cuda.synchronize()
+    (a8, kw8, _), = calls["rows3_mid"]
+    (a9, kw9, _), = calls["cols3_tail"]
+    del calls
+    lib_before, builds = build.load(), []
+    real_build = build.build
+    build.build = lambda: builds.append(1) or real_build()
+    c8_times = []
+
+    def c8_run():
+        outs = []
+        for b, rt in zip(c8_batches, rts):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            outs.append(serve(b, rt))
+            t1.record()
+            torch.cuda.synchronize()
+            c8_times.append(t0.elapsed_time(t1))
+        return outs
+
+    try:
+        c8_outs, c8_launches = count_launches(c8_run)
+    finally:
+        build.build = real_build
+    if c8_launches != only(banded_resize_last_axis=2 * C8_SCENES,
+                           rows3_mid=C8_SCENES, cols3_tail=C8_SCENES):
+        raise AssertionError(f"c8 launches {c8_launches}")
+    if builds or build.load() is not lib_before:
+        raise AssertionError("a scene change built or loaded the kernels")
+    for o in c8_outs:
+        if o.shape != (BATCH, OH, OW) or o.dtype != torch.int32:
+            raise AssertionError(f"c8 output {tuple(o.shape)} {o.dtype}")
+    db8 = {f"scene{i}": psnr(codes(c8_outs[i][0], 10).double() / 1023.0,
+                             c8_oracle(c8_batches[i], dovi_meta(),
+                                       rts[i]["dovi_curves"]))
+           for i in (0, C8_SCENES - 1)}
+    del c8_outs
+    variant = dovi_variant()
+    serve_v = make_serving_fn(plan_pipeline(*c8_args(variant)),
+                              pack_surface=True)
+    rt_v = dovi_rt(1, variant)
+    out_v = serve_v(c8_batches[1], {"dovi_curves": rt_v})
+    db8["variant"] = psnr(codes(out_v[0], 10).double() / 1023.0,
+                          c8_oracle(c8_batches[1], variant, rt_v))
+    del out_v, serve_v
+    c8_ms = cuda_ms(lambda: [serve(b, rt) for b, rt in zip(c8_batches, rts)],
+                    reps=1, warmup=0) / (C8_SCENES * BATCH)
+    t8 = []
+    for i in range(15):
+        one = tuple(p[i:i + 1] for p in c8_batches[1])
+        t0 = time.perf_counter()
+        serve(one, rts[i % C8_SCENES])
+        torch.cuda.synchronize()
+        t8.append((time.perf_counter() - t0) * 1e3)
+    serve_p = make_serving_fn(plan_pipeline(*c8_args(dovi_meta(), False)),
+                              pack_surface=True)
+    out_p = serve_p(c8_batches[0], rts[0])
+    db8["plain"] = psnr(codes(out_p[0], 10).double() / 1023.0,
+                        c8_oracle(c8_batches[0], dovi_meta(),
+                                  rts[0]["dovi_curves"]))
+    del out_p
+    c8_plain_ms = cuda_ms(lambda: serve_p(c8_batches[0], rts[0]), reps=1,
+                          warmup=0) / BATCH
+    if min(db8.values()) < 55.0:
+        raise AssertionError(f"c8 PSNR below 55 dB: {db8}")
+    # K8 and K9 at c8's batch, on the recorded call's inputs
+    k8["ms"] = cuda_ms(lambda: dk.rows3_mid(*a8, **kw8))
+    k8["plain_ms"] = cuda_ms(lambda: dk.rows3_mid_plain(*a8, **kw8), reps=1)
+    # operations: the in and out taps, the identity reshape (4 a channel)
+    # and the matrix (18) per mid pixel
+    k8.update(bound(tbytes(*a8[:3]) + 3 * BATCH * OH * W * 4
+                    + mbytes(a8[3], a8[4], a8[7]),
+                    2 * map_flops(a8[4], BATCH * W) + 30 * BATCH * H * W
+                    + 3 * map_flops(a8[7], BATCH * W)), library_ms=None)
+    k9_c8_ms = cuda_ms(lambda: dk.cols3_tail(*a9, **kw9))
+    del a8, kw8, a9, kw9
+    line("c8", batch=BATCH, scenes=C8_SCENES, launches=c8_launches,
+         builds_between_scenes=len(builds), psnr_db=db8,
+         ms_per_frame=c8_ms,
+         ms_per_frame_synced=sum(c8_times) / (C8_SCENES * BATCH),
+         ms_batch1_median=float(np.median(t8)),
+         ms_batch1_p90=float(np.percentile(t8, 90)),
+         plain_ms_per_frame=c8_plain_ms, k8_ms=k8["ms"],
+         k9_ms=k9_c8_ms)
+    del c8_batches, serve, serve_p
+    torch.cuda.empty_cache()
+
+    # 18. the letterboxed path: VideoProcessor 3840 x 1608 -> the 1920 x 804
+    #     rect of a 1920 x 1080 RGB10 surface, two distinct batches of 16,
+    #     K1 x3 + K3 x3 per call; the bars exactly the packed zero
+    vp_b.process(lb_batches[0])                 # warm-up, before the count
+    lb_times = []
+
+    def lb_run():
+        outs = []
+        for b in lb_batches:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            outs.append(vp_b.process(b))
+            t1.record()
+            torch.cuda.synchronize()
+            lb_times.append(t0.elapsed_time(t1))
+        return outs
+
+    lb_outs, lb_launches = count_launches(lb_run)
+    if lb_launches != only(banded_resize_last_axis=3 * len(lb_batches),
+                           banded_resize_rows=3 * len(lb_batches)):
+        raise AssertionError(f"letterbox launches {lb_launches}")
+    l, tp, r, bt = LB_RECT
+    bars_black = True
+    for o in lb_outs:
+        if o.shape != (BATCH, OH, OW) or o.dtype != torch.int32:
+            raise AssertionError(f"letterbox output {tuple(o.shape)}")
+        bars = torch.cat([o[:, :tp].reshape(-1), o[:, bt:].reshape(-1),
+                          o[:, tp:bt, :l].reshape(-1),
+                          o[:, tp:bt, r:].reshape(-1)])
+        bars_black &= bool(torch.all(bars == -1073741824).item())
+    want = oracle(*(p[0] for p in lb_batches[0]), OW, OH, video_rect=LB_RECT)
+    got0 = codes(lb_outs[0][0], 10).double() / 1023.0
+    db_lb = {"rect": psnr(got0[:, tp:bt, l:r], want[:, tp:bt, l:r]),
+             "surface": psnr(got0, want)}
+    del lb_outs, got0, want
+    if not bars_black or min(db_lb.values()) < 55.0:
+        raise AssertionError(f"letterbox: bars black {bars_black}, PSNR "
+                             f"{db_lb}")
+    lb_ms = cuda_ms(lambda: [vp_b.process(b) for b in lb_batches], reps=1,
+                    warmup=0) / (len(lb_batches) * BATCH)
+    # K3 at the path's batch: its three calls, recorded
+    with recording(rk, "banded_resize_rows") as calls:
+        vp_b.process(lb_batches[1])
+    torch.cuda.synchronize()
+    k3_args = [(a, kw) for a, kw, _ in calls["banded_resize_rows"]]
+    del calls
+    k3["ms"] = cuda_ms(lambda: [rk.banded_resize_rows(*a, **kw)
+                                for a, kw in k3_args])
+    k3["plain_ms"] = cuda_ms(lambda: [rk.banded_resize_rows_plain(*a, **kw)
+                                      for a, kw in k3_args])
+    k3["library_ms"] = cuda_ms(lambda: [
+        torch.matmul(a[1].dense_on(dev).T, a[0]) for a, _ in k3_args])
+    k3.update(bound(sum(tbytes(a[0]) + a[0].numel() // a[1].in_size
+                        * a[1].out_size * 4 + mbytes(a[1])
+                        for a, _ in k3_args),
+                    sum(map_flops(a[1], a[0].numel() // a[1].in_size)
+                        for a, _ in k3_args)))
+    del k3_args
+    line("letterbox", batch=BATCH, calls=len(lb_batches),
+         launches=lb_launches, bars_black=bars_black, psnr_db=db_lb,
+         ms_per_frame=sum(lb_times) / (len(lb_batches) * BATCH),
+         ms_per_frame_back_to_back=lb_ms)
+    del lb_batches, vp_b
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, n, k, err):
+        return {"name": name, "route": "cuda",
+                "source": f"videorenderer_tpu_torch/csrc/{source}",
+                "replaces": f"videorenderer_tpu/kernels/{replaces}",
+                "launches": n, "max_abs_err": err, "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+
     kernels = [
-        {"name": "banded_resize_last_axis", "route": "cuda",
-         "source": "videorenderer_tpu_torch/csrc/banded_resize.cu",
-         "replaces": "videorenderer_tpu/kernels/resize_pallas.py:261",
-         "launches": launches["banded_resize_last_axis"],
-         "max_abs_err": max(k1["max_abs_err"], conv["k1_max_abs_err"],
-                            sr_k["k1_max_abs_err"]),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "rows3_tail", "route": "cuda",
-         "source": "videorenderer_tpu_torch/csrc/rows3_tail.cu",
-         "replaces": "videorenderer_tpu/kernels/resize_pallas.py:834",
-         "launches": launches["rows3_tail"],
-         "max_abs_err": max(k2["max_abs_err"], conv["k2_max_abs_err"],
-                            sr_k["k2_max_abs_err"]),
-         "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
-        {"name": "jinc2_resize_fused", "route": "cuda",
-         "source": "videorenderer_tpu_torch/csrc/jinc2_resize.cu",
-         "replaces": "videorenderer_tpu/kernels/jinc2_pallas.py:242",
-         "launches": r270_launches["jinc2_resize_fused"],
-         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
-         "plain_ms": k5["plain_ms"]},
-        {"name": "jinc2_convert_fused", "route": "cuda",
-         "source": "videorenderer_tpu_torch/csrc/jinc2_convert.cu",
-         "replaces": "videorenderer_tpu/kernels/jinc2_pallas.py:705",
-         "launches": (c3_launches["jinc2_convert_fused"]
-                      + rot_launches["jinc2_convert_fused"]),
-         "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
-         "plain_ms": k6["plain_ms"]},
-        {"name": "deint3_rows_dual", "route": "cuda",
-         "source": "videorenderer_tpu_torch/csrc/deint3_rows_dual.cu",
-         "replaces": "videorenderer_tpu/kernels/deint_pallas.py:86",
-         "launches": c5_launches["deint3_rows_dual"],
-         "max_abs_err": k7["max_abs_err"], "ms": k7["ms"],
-         "plain_ms": k7["plain_ms"]},
-        {"name": "cols3_tail", "route": "cuda",
-         "source": "videorenderer_tpu_torch/csrc/cols3_tail.cu",
-         "replaces": "videorenderer_tpu/kernels/deint_pallas.py:434",
-         "launches": c5_launches["cols3_tail"],
-         "max_abs_err": k9["max_abs_err"], "ms": k9["ms"],
-         "plain_ms": k9["plain_ms"]},
+        entry("banded_resize_last_axis", "banded_resize.cu",
+              "resize_pallas.py:261",
+              launches["banded_resize_last_axis"]
+              + c8_launches["banded_resize_last_axis"]
+              + lb_launches["banded_resize_last_axis"], k1,
+              max(k1["max_abs_err"], conv["k1_max_abs_err"],
+                  sr_k["k1_max_abs_err"])),
+        entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
+              launches["rows3_tail"], k2,
+              max(k2["max_abs_err"], conv["k2_max_abs_err"],
+                  sr_k["k2_max_abs_err"])),
+        entry("banded_resize_rows", "banded_resize_rows.cu",
+              "resize_pallas.py:340", lb_launches["banded_resize_rows"], k3,
+              max(k3["max_abs_err"], k3["max_abs_err_u16"])),
+        entry("jinc2_resize_fused", "jinc2_resize.cu", "jinc2_pallas.py:242",
+              r270_launches["jinc2_resize_fused"], k5, k5["max_abs_err"]),
+        entry("jinc2_convert_fused", "jinc2_convert.cu", "jinc2_pallas.py:705",
+              c3_launches["jinc2_convert_fused"]
+              + rot_launches["jinc2_convert_fused"], k6, k6["max_abs_err"]),
+        entry("deint3_rows_dual", "deint3_rows_dual.cu", "deint_pallas.py:86",
+              c5_launches["deint3_rows_dual"], k7, k7["max_abs_err"]),
+        entry("rows3_mid", "rows3_mid.cu", "deint_pallas.py:216",
+              c8_launches["rows3_mid"], k8,
+              max(k8["max_abs_err"], k8["max_abs_err_variant"])),
+        entry("cols3_tail", "cols3_tail.cu", "deint_pallas.py:434",
+              c5_launches["cols3_tail"] + c8_launches["cols3_tail"], k9,
+              max(k9["max_abs_err"], k8_k9["max_code_diff"] / 1023.0)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2, K5, K6, K7 and K9 of videorenderer_tpu_torch on
-the card, against their plain PyTorch versions on the same card and inputs.
+"""The CUDA kernels K1, K2, K3, K5, K6, K7, K8 and K9 of
+videorenderer_tpu_torch on the card, against their plain PyTorch versions
+on the same card and inputs.
 
 Every test here needs an NVIDIA card with nvcc (marker ``cuda``) and skips
 elsewhere.  The file imports no JAX, so it runs on a machine without it:
@@ -18,7 +19,11 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
    differ); quantized <= 1 code on < 1% of the channels; K6's transposed
    store bit-equal to the transpose of its plain store;
  * K7 float32 <= 2e-5 (the deinterlaced values are bit-equal, the tap sums
-   run in another order); K9 as K2.
+   run in another order); K9 as K2;
+ * K3 float32 <= 2e-6, as K1;
+ * K8 float32 <= 1e-5 with c8's metadata (the identity LMS fold: only the
+   tap sums differ) and <= 1e-4 with the non-identity variant (the PQ
+   round trip of the LMS step amplifies the sums' rounding near black).
 """
 
 import numpy as np
@@ -32,6 +37,7 @@ from videorenderer_tpu_torch.kernels import deint as dk
 from videorenderer_tpu_torch.kernels import jinc2 as jk
 from videorenderer_tpu_torch.kernels import resize as rk
 from videorenderer_tpu_torch.ops import chroma, geometry, scale
+from videorenderer_tpu_torch.ops import dovi
 
 pytestmark = pytest.mark.cuda
 
@@ -485,8 +491,8 @@ def test_deint_path_on_card_matches_cpu(dev):
     rng = np.random.default_rng(12)
     plan = _c5_plan(256, 128, 128, 64)
     stream = _c5_window(rng, 3, 256, 128)
-    gpu = DeinterlaceSession(plan, pack_surface=True)
-    cpu = DeinterlaceSession(plan, pack_surface=True)
+    gpu = DeinterlaceSession(plan, pack_surface=True, device=dev)
+    cpu = DeinterlaceSession(plan, pack_surface=True, device="cpu")
     rk.reset_launches()
     got = []
     for b in stream:
@@ -512,3 +518,174 @@ def test_deint_path_on_card_matches_cpu(dev):
     # against the plain versions on the CPU
     d = np.abs(_codes(one, "rgba8") - _codes(single(*stream), "rgba8"))
     assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32, torch.uint8])
+@pytest.mark.parametrize("sizes", [(1608, 804), (804, 804), (37, 20)])
+def test_k3_kernel_matches_plain(dev, dtype, sizes):
+    """The letterboxed path's H maps (a 2.39:1 film's luma 1608 -> 804 rows,
+    the chroma's upsample composed with it, 804 -> 804) and a small odd
+    one."""
+    rng = np.random.default_rng(13)
+    if sizes == (804, 804):
+        _, uy = chroma.chroma_upsample_matrices(
+            150, 804, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+        m = uy @ _lanczos(1608, 804)
+    else:
+        m = _lanczos(*sizes)
+    mat = rk.BandedMatrix(m, pre_scale=NORM[dtype])
+    x = _planes(rng, dtype, (2, sizes[0], 300)).to(dev)
+    before = rk.launches["banded_resize_rows"]
+    got = rk.banded_resize_rows(x, mat)
+    torch.cuda.synchronize()
+    assert rk.launches["banded_resize_rows"] == before + 1
+    ref = rk.banded_resize_rows_plain(x, mat)
+    assert got.shape == ref.shape == (2, sizes[1], 300)
+    assert (got - ref).abs().max().item() <= 2e-6
+
+
+def _dovi_meta(kind):
+    """c8's metadata (identity curves, LMS matrices mutual inverses) or a
+    variant where nothing folds: a 2-piece polynomial on Y, a polynomial +
+    MMR order-2 curve on Cb, an MMR order-3 curve on Cr, 2% crosstalk."""
+    ycc = np.array([[1, 0, 1.4746], [1, -0.164553, -0.571353],
+                    [1, 1.8814, 0]])
+    inv = np.linalg.inv(dovi.DOVI_LMS2RGB)
+    if kind == "c8":
+        return dovi.DoviMetadata(curves=(dovi.identity_curve(),) * 3,
+                                 ycc_to_rgb_matrix=ycc,
+                                 ycc_to_rgb_offset=np.array([0, 0.5, 0.5]),
+                                 rgb_to_lms_matrix=inv)
+    cb = np.zeros((2, 3, 7))
+    cb[1, 0] = [0, 0.98, 0, 0.02, 0, -0.01, 0]
+    cb[1, 1] = [0, 0.01, 0, 0, 0.005, 0, 0.01]
+    cr = np.zeros((1, 3, 7))
+    cr[0, 0] = [0, 0, 0.97, 0, 0.02, 0.01, 0]
+    cr[0, 1] = [0, 0, 0.02, 0.01, 0, 0, 0]
+    cr[0, 2] = [0, 0, 0.005, 0, 0, 0, 0.003]
+    curves = (
+        dovi.ReshapeCurve(pivots=(0.45,), method=(0, 0),
+                          poly=np.array([[0.01, 0.95, 0.05],
+                                         [-0.02, 1.05, -0.03]])),
+        dovi.ReshapeCurve(pivots=(0.5,), method=(0, 1),
+                          poly=np.array([[0, 1.0, 0], [0, 0, 0]]),
+                          mmr_order=(0, 2), mmr_constant=(0.0, 0.01),
+                          mmr_coef=cb),
+        dovi.ReshapeCurve(pivots=(), method=(1,), poly=np.array([[0, 1.0, 0]]),
+                          mmr_order=(3,), mmr_constant=(-0.005,), mmr_coef=cr))
+    return dovi.DoviMetadata(curves=curves, ycc_to_rgb_matrix=ycc,
+                             ycc_to_rgb_offset=np.array([0, 0.5, 0.5]),
+                             rgb_to_lms_matrix=inv @ (0.94 * np.eye(3) + 0.02))
+
+
+@pytest.mark.parametrize("maps", ["c8", "blend_no_out", "direct"])
+@pytest.mark.parametrize("kind", ["c8", "variant"])
+def test_k8_kernel_matches_plain(dev, kind, maps):
+    """c8's geometry (luma read directly, chroma H upsample 540 -> 1080,
+    2:1 Catmull-Rom out) on a 1080-row strip, the blend map on the luma
+    without an out map, and raw chroma read directly; scene 2's curves."""
+    rng = np.random.default_rng(14)
+    h, w = (1080, 960) if maps == "c8" else (96, 200)
+    norm = 1 / 65535.0
+    meta = _dovi_meta(kind)
+    m, c = dovi.build_ycc_to_rgb_cmat(meta)
+    scene = {k: v * np.float32(0.98) for k, v in dovi.pack_curves(meta).items()}
+    mid = dovi.mid_stage(meta, m, c, scene)
+    y = torch.from_numpy(rng.integers(64, 941, (2, h, w), dtype=np.uint16)
+                         << 6).to(dev)
+    if maps == "direct":
+        u, v = (torch.from_numpy(rng.integers(64, 961, (2, h, w),
+                                              dtype=np.uint16) << 6).to(dev)
+                for _ in range(2))
+        kin_c, c_scale = None, norm
+    else:
+        u, v = (torch.from_numpy(rng.uniform(0.06, 0.94, (2, h // 2, w))
+                                 .astype(np.float32)).to(dev) for _ in range(2))
+        _, uy = chroma.chroma_upsample_matrices(
+            w // 2, h // 2, 420, C.ChromaScaling.BILINEAR,
+            S.ChromaLocation.MPEG2)
+        kin_c, c_scale = rk.BandedMatrix(uy), None
+    kin_y = (rk.BandedMatrix(chroma.blend_deinterlace_matrix(h),
+                             pre_scale=norm) if maps == "blend_no_out"
+             else None)
+    out = (None if maps == "blend_no_out" else
+           rk.BandedMatrix(scale.upscale_matrix(C.Upscaling.CATMULL_ROM, h,
+                                                h // 2)))
+    h_out = h if out is None else h // 2
+    args = (y, u, v, kin_y, kin_c, h, mid, out, h_out)
+    kw = dict(y_scale=None if kin_y is not None else norm, c_scale=c_scale)
+    before = rk.launches["rows3_mid"]
+    got = dk.rows3_mid(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches["rows3_mid"] == before + 1
+    ref = dk.rows3_mid_plain(*args, **kw)
+    tol = 1e-5 if kind == "c8" else 1e-4
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (2, h_out, w) and g.is_contiguous()
+        assert (g - r).abs().max().item() <= tol
+
+
+def _dovi_plan(w, h, ow, oh, kind="variant", accel=True):
+    return P.plan_pipeline(
+        C.Settings(convert_to_sdr=True, upscaling=C.Upscaling.CATMULL_ROM,
+                   use_accel_backend=accel),
+        P.SourceDescriptor(format=ColorFormat.P010, width=w, height=h,
+                           matrix=S.CSP.BT_2020_NC, levels=S.Levels.TV,
+                           primaries=S.Primaries.BT_2020, transfer=S.TRC.PQ,
+                           dovi=_dovi_meta(kind), hdr10=P.HDR10Metadata()),
+        P.OutputDescriptor(width=ow, height=oh, bits=10))
+
+
+def _p010(rng, n, w, h):
+    return tuple(torch.from_numpy(a) for a in (
+        rng.integers(64, 941, (n, h, w), dtype=np.uint16) << 6,
+        rng.integers(64, 961, (n, h // 2, w // 2), dtype=np.uint16) << 6,
+        rng.integers(64, 961, (n, h // 2, w // 2), dtype=np.uint16) << 6))
+
+
+def test_dovi_serving_on_card_matches_cpu(dev):
+    """The serving function at a small size over two scenes: K1 ×2 + K8 +
+    K9 per call on the card, within 1 code of the CPU's plain route."""
+    rng = np.random.default_rng(15)
+    plan = _dovi_plan(256, 128, 128, 64)
+    fn = P.make_serving_fn(plan, pack_surface=True)
+    planes = _p010(rng, 2, 256, 128)
+    for i in (0, 3):
+        rt = {"dovi_curves": {k: v * np.float32(1 - 0.01 * i) for k, v in
+                              fn.pack_curves(plan.dovi).items()}}
+        rk.reset_launches()
+        got = fn(tuple(p.to(dev) for p in planes), rt)
+        torch.cuda.synchronize()
+        assert rk.launches == only(banded_resize_last_axis=2, rows3_mid=1,
+                                   cols3_tail=1)
+        ref = fn(planes, rt)
+        assert got.shape == ref.shape == (2, 64, 128)
+        d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def test_letterbox_on_card_matches_cpu(dev):
+    """A 2.39:1 film letterboxed into 16:9 at a small size: K1 ×3 + K3 ×3
+    per call on the card, within 1 code of the CPU, the bars the packed
+    zero."""
+    rng = np.random.default_rng(16)
+    plan = P.plan_pipeline(
+        C.Settings(upscaling=C.Upscaling.LANCZOS3, convert_to_sdr=True),
+        P.SourceDescriptor(format=ColorFormat.P010, width=384, height=160,
+                           matrix=S.CSP.BT_2020_NC, levels=S.Levels.TV,
+                           primaries=S.Primaries.BT_2020, transfer=S.TRC.PQ,
+                           hdr10=P.HDR10Metadata()),
+        P.OutputDescriptor(width=192, height=108, bits=10,
+                           video_rect=(0, 14, 192, 94)))
+    fn = P.make_frame_fn(plan, pack_surface=True)
+    planes = _p010(rng, 2, 384, 160)
+    rk.reset_launches()
+    got = fn(tuple(p.to(dev) for p in planes))
+    torch.cuda.synchronize()
+    assert rk.launches == only(banded_resize_last_axis=3,
+                               banded_resize_rows=3)
+    ref = fn(planes)
+    d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02
+    bars = torch.cat([got[:, :14], got[:, 94:]], dim=1).cpu()
+    assert torch.all(bars == -1073741824)

@@ -489,7 +489,8 @@ def test_session_matches_jax(batched, double_rate):
     stream = _stream({}, 6, 10)
     ref = _drive(JSession(jplan, double_rate=double_rate, pack_surface=True),
                  stream, batched, False)
-    got = _drive(TSession(tplan, double_rate=double_rate, pack_surface=True),
+    got = _drive(TSession(tplan, double_rate=double_rate, pack_surface=True,
+                          device="cpu"),
                  stream, batched, True)
     # batched: three steps of one output batch per field; streamed: one
     # output per field and frame
@@ -504,8 +505,10 @@ def test_session_batched_equals_streamed():
     """One stream, both APIs: frame i's fields are the same outputs."""
     _, tplan = _plans()
     stream = _stream({}, 6, 11)
-    one = _drive(TSession(tplan, pack_surface=True), stream, False, True)
-    bat = _drive(TSession(tplan, pack_surface=True), stream, True, True)
+    one = _drive(TSession(tplan, pack_surface=True, device="cpu"), stream,
+                 False, True)
+    bat = _drive(TSession(tplan, pack_surface=True, device="cpu"), stream,
+                 True, True)
     fields = [np.concatenate(bat[f::2]) for f in (0, 1)]
     assert fields[0].shape == (6, 16, 32)
     for i in range(6):
@@ -518,8 +521,9 @@ def test_session_batched_equals_streamed():
 def test_session_post_applies_to_every_output():
     _, tplan = _plans()
     stream = _stream({}, 6, 14)
-    plain = _drive(TSession(tplan), stream, True, True)
-    post = _drive(TSession(tplan, post=lambda o: 1.0 - o), stream, True, True)
+    plain = _drive(TSession(tplan, device="cpu"), stream, True, True)
+    post = _drive(TSession(tplan, post=lambda o: 1.0 - o, device="cpu"),
+                  stream, True, True)
     assert len(post) == len(plain) == 6
     for a, b in zip(post, plain):
         assert np.array_equal(a, 1.0 - b)
@@ -528,13 +532,13 @@ def test_session_post_applies_to_every_output():
 def test_session_refuses_mixed_apis():
     _, tplan = _plans()
     frame = tuple(t(p[0]) for p in _stream({}, 1, 12))
-    s = TSession(tplan)
+    s = TSession(tplan, device="cpu")
     s.push(frame)
     with pytest.raises(RuntimeError, match="streaming mode"):
         s.push_batch(tuple(p[None] for p in frame))
     with pytest.raises(RuntimeError, match="streaming mode"):
         s.flush_batch()
-    s = TSession(tplan)
+    s = TSession(tplan, device="cpu")
     s.push_batch(tuple(p[None] for p in frame))
     with pytest.raises(RuntimeError, match="batched mode"):
         s.push(frame)
@@ -542,6 +546,31 @@ def test_session_refuses_mixed_apis():
         s.flush()
     s.reset()
     assert s.push(frame) == [] and len(s.flush()) == 2
+
+
+def test_session_moves_numpy_frames_to_its_device():
+    """numpy frames and device="cpu": CPU tensors out, as from tensors."""
+    _, tplan = _plans()
+    stream = _stream({}, 3, 15)
+    s = TSession(tplan, pack_surface=True, device="cpu")
+    outs = s.push_batch(stream) + s.flush_batch()
+    assert len(outs) == 4
+    assert all(isinstance(o, torch.Tensor) and o.device.type == "cpu"
+               for o in outs)
+    ref = _drive(TSession(tplan, pack_surface=True, device="cpu"), stream,
+                 True, True)
+    assert all(np.array_equal(o.numpy(), r) for o, r in zip(outs, ref))
+
+
+def test_session_defaults_to_the_card(monkeypatch):
+    """The default device is CUDA: without one the session raises instead
+    of running on the CPU."""
+    _, tplan = _plans()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSession(tplan)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSession(tplan, device="cuda:0")
 
 
 # --- the float64 oracle ---------------------------------------------------------

@@ -29,6 +29,7 @@ import videorenderer_tpu_torch.pipeline as tpipe
 from videorenderer_tpu_torch.kernels import resize as trk
 from videorenderer_tpu_torch.ops import chroma as tchroma
 from videorenderer_tpu_torch.ops import dither as tdither
+from videorenderer_tpu_torch.ops import dovi as tdovi
 from videorenderer_tpu_torch.ops import scale as tscale
 
 REPO = Path(__file__).resolve().parent.parent
@@ -238,8 +239,17 @@ def _hl(**kw):
     return settings, src, dst
 
 
+def _identity_dovi():
+    return tdovi.DoviMetadata(
+        curves=(tdovi.identity_curve(),) * 3,
+        ycc_to_rgb_matrix=np.eye(3), ycc_to_rgb_offset=np.zeros(3),
+        rgb_to_lms_matrix=np.linalg.inv(tdovi.DOVI_LMS2RGB))
+
+
 @pytest.mark.parametrize("case", [
-    dict(dovi=object()), dict(dovi_ext=object()), dict(hdr10plus=object()),
+    # Dolby Vision is ported (ROADMAP item 6) without its L2 trims
+    dict(dovi_trims=object()), dict(dovi_ext=object()),
+    dict(hdr10plus=object()),
     dict(format=tfmt.ColorFormat.Y16),
     dict(settings=tcfg.Settings(vp_scaling=False)),
     # Jinc2 itself is ported; in the shader order it stays refused
@@ -248,7 +258,9 @@ def _hl(**kw):
          dst=tpipe.OutputDescriptor(width=256, height=128, bits=10)),
     dict(settings=tcfg.Settings(hdr_local_tone_mapping=True),
          dst=tpipe.OutputDescriptor(width=64, height=32, bits=10, hdr=True)),
-    dict(dst=tpipe.OutputDescriptor(width=64, height=32, bits=10,
+    # placement is ported, but not together with Dolby Vision
+    dict(dovi=_identity_dovi(),
+         dst=tpipe.OutputDescriptor(width=64, height=32, bits=10,
                                     video_rect=(0, 0, 32, 32))),
 ], ids=["dovi", "dovi_ext", "hdr10plus", "gray", "shader_order", "jinc2",
         "local_tonemap", "video_rect"])
@@ -315,6 +327,7 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.kernels.jinc2, "
             "videorenderer_tpu_torch.kernels.deint, "
             "videorenderer_tpu_torch.ops.deinterlace, "
+            "videorenderer_tpu_torch.ops.dovi, "
             "videorenderer_tpu_torch.runner, "
             "videorenderer_tpu_torch.ops.geometry; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -6,14 +6,20 @@ an NVIDIA Hopper card through two hand-written CUDA kernels
 (``csrc/banded_resize.cu``, ``csrc/rows3_tail.cu``), built with ``nvcc`` at
 their first launch; the Jinc2 upscale and motion-adaptive deinterlacing
 have kernels of their own (``csrc/jinc2_*.cu``, ``csrc/deint3_rows_dual.cu``,
-``csrc/cols3_tail.cu``).  On CPU tensors the same functions run their plain
-PyTorch versions.  This package imports torch and numpy, never jax.
+``csrc/cols3_tail.cu``), as do Dolby Vision (``csrc/rows3_mid.cu``) and a
+letterboxed output (``csrc/banded_resize_rows.cu``).  On CPU tensors the
+same functions run their plain PyTorch versions.  This package imports torch and numpy, never jax.
 
     vp = VideoProcessor(settings, src, dst, device="cuda", pack_surface=True)
     surface = vp.process((y, u, v))
 
-    session = DeinterlaceSession(plan, double_rate=True, pack_surface=True)
+    session = DeinterlaceSession(plan, double_rate=True, pack_surface=True,
+                                 device="cuda")
     field0, field1 = session.push_batch((y, u, v))
+
+    serve = make_serving_fn(plan_pipeline(settings, dovi_src, dst),
+                            pack_surface=True)
+    surface = serve((y, u, v), {"dovi_curves": serve.pack_curves(scene)})
 """
 
 from .config import (ChromaScaling, Deinterlacing, Downscaling, Settings,
@@ -23,7 +29,8 @@ from .csputils import CSP, ChromaLocation, Levels, Primaries, TRC
 from .formats import ColorFormat, get_format_info
 from .pipeline import (HDR10Metadata, OutputDescriptor, SourceDescriptor,
                        VideoProcessor, make_deint_fields_fn,
-                       make_deint_frame_fn, make_frame_fn, plan_pipeline)
+                       make_deint_frame_fn, make_frame_fn, make_serving_fn,
+                       plan_pipeline)
 from .runner import DeinterlaceSession
 
 __all__ = [
@@ -32,5 +39,6 @@ __all__ = [
     "OutputDescriptor", "Primaries", "Settings", "SourceDescriptor",
     "SuperResolution", "SwapEffect", "TRC", "TexFormat", "ToneMapType",
     "Upscaling", "VideoProcessor", "get_format_info", "make_deint_fields_fn",
-    "make_deint_frame_fn", "make_frame_fn", "plan_pipeline",
+    "make_deint_frame_fn", "make_frame_fn", "make_serving_fn",
+    "plan_pipeline",
 ]

@@ -45,6 +45,15 @@ SIGNATURES = {
     "vrt_banded_resize": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vrt_rows3_tail": _TAIL_KERNEL,
     "vrt_cols3_tail": _TAIL_KERNEL,
+    # x, x_dtype, starts, taps, out, batch, h_in, h_out, w, n_taps, stream
+    "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_mid, h_out, then
+    # (starts, taps, n_taps) of the y, c and out maps, tile_lo, win,
+    # y_scale, c_scale, vals (host), n_vals, structure (host),
+    # lms_identity, out, stream
+    "vrt_rows3_mid": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _F, _F,
+                      _P, _I, _P, _I, _P, _P),
     # planes (host array of 9 pointers), dtype, batch, hy, wy, hc, wc,
     # h_out, starts_y, taps_y, n_taps_y, starts_c, taps_c, n_taps_c, thr,
     # top_field_first, out_y, out_u, out_v, stream

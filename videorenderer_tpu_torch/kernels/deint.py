@@ -1,12 +1,15 @@
-"""The two kernels of motion-adaptive deinterlacing — K7, the deinterlace of
-both fields fused into the H-axis resize, and K9, the W-axis resize with the
-whole per-pixel tail — with their plain PyTorch versions.
+"""The H-first kernels — K7, the deinterlace of both fields fused into the
+H-axis resize, K8, the H maps around the Dolby Vision convert, and K9, the
+W-axis resize with the whole per-pixel tail — with their plain PyTorch
+versions.
 
 Replaces ``videorenderer_tpu/kernels/deint_pallas.py``: ``deint3_rows_dual``
-(K7, ``csrc/deint3_rows_dual.cu``) and ``cols3_tail`` (K9,
-``csrc/cols3_tail.cu``).  The double-rate chain runs H first so the vertical
-neighbours the deinterlace needs sit inside the H pass: K7 writes both
-fields' H-resized planes, K9 resizes W and runs K2's tail on them.
+(K7, ``csrc/deint3_rows_dual.cu``), ``rows3_mid`` (K8,
+``csrc/rows3_mid.cu``) and ``cols3_tail`` (K9, ``csrc/cols3_tail.cu``).
+The double-rate chain runs H first so the vertical neighbours the
+deinterlace needs sit inside the H pass: K7 writes both fields' H-resized
+planes, K9 resizes W and runs K2's tail on them.  The Dolby Vision chain
+(c8) runs K8 between the chroma W upsample (K1) and K9.
 
 As in ``kernels/resize.py``, the matrices are :class:`~.resize.BandedMatrix`
 tap tables with the normalisation folded in, the sums are fp32 FMAs (no
@@ -22,9 +25,10 @@ import ctypes
 import numpy as np
 import torch
 
+from ..ops.dovi import MidStage
 from .resize import (DTYPE_CODES, PACK_CODES, BandedMatrix, Epilogue,
-                     _check_plane, _kernel_device, _launch, _no_tf32,
-                     pack_surface)
+                     _check_plane, _h_plain, _kernel_device, _launch,
+                     _no_tf32, pack_surface)
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +143,116 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
             sc.data_ptr(), tc.data_ptr(), my_c.n_taps, float(thr),
             int(top_field_first), *(o.data_ptr() for o in outs))
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K8: H maps into the mid resolution + the DoVi convert + a shared H map out
+# ---------------------------------------------------------------------------
+
+K8_TILE_ROWS = 32     # output rows of a block (kTileRows, csrc/rows3_mid.cu)
+
+
+def rows3_mid_plain(y, u, v, my_in_y: BandedMatrix | None,
+                    my_in_c: BandedMatrix | None, h_mid: int,
+                    mid: MidStage, my_out: BandedMatrix | None, h_out: int,
+                    y_scale: float | None = None,
+                    c_scale: float | None = None) -> tuple:
+    """Plain K8: each plane's H map as a dense float32 product (or the
+    direct read times its scale), :meth:`MidStage.plain`, then the out map
+    as one dense product per channel."""
+    _no_tf32()
+    rgb = mid.plain(_h_plain(y, my_in_y, y_scale), _h_plain(u, my_in_c, c_scale),
+                    _h_plain(v, my_in_c, c_scale))
+    return tuple(_h_plain(c, my_out, None) for c in rgb)
+
+
+def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              my_in_y: BandedMatrix | None, my_in_c: BandedMatrix | None,
+              h_mid: int, mid: MidStage, my_out: BandedMatrix | None,
+              h_out: int, y_scale: float | None = None,
+              c_scale: float | None = None) -> tuple:
+    """H-map the (luma, chroma, chroma) planes into ``h_mid`` rows, run the
+    Dolby Vision convert ``mid`` there, and H-map the result to ``h_out``.
+
+    ``y`` (..., Hy, W), ``u``/``v`` (..., Hc, W): float32 or raw
+    uint8/uint16/int16.  ``my_in_y`` (Hy, h_mid) / ``my_in_c`` (Hc, h_mid):
+    the in maps with their scale folded in, or None for a plane read
+    directly (its height is then h_mid and ``y_scale``/``c_scale`` scale
+    it).  ``my_out`` (h_mid, h_out), or None with h_out == h_mid.  Returns
+    the (R, G, B) PQ planes, each (..., h_out, W) float32 and contiguous
+    (the three planes of one (3, ..., h_out, W) buffer), so that K9 reads
+    each plane without a copy.
+
+    The values in ``mid`` (the matrix and the scene's curves) ride the
+    launch by value: a new scene rebuilds nothing and synchronises nothing.
+
+    Kernel K8 (``csrc/rows3_mid.cu``), replacing ``deint_pallas.rows3_mid``
+    with the DoVi ``mid_fn``.  One block per (frame, 32-column strip, 32
+    output rows) computes the mid rows its outputs reach into shared memory,
+    then runs the out taps, so the full-resolution RGB never reaches device
+    memory."""
+    for name, p in (("y", y), ("u", u), ("v", v)):
+        _check_plane(name, p)
+    if u.shape != v.shape or u.dtype != v.dtype:
+        raise ValueError("u and v must share shape and dtype")
+    lead, (hy, w) = y.shape[:-2], y.shape[-2:]
+    hc = u.shape[-2]
+    if u.shape[:-2] != lead or u.shape[-1] != w:
+        raise ValueError(f"y {tuple(y.shape)} and u {tuple(u.shape)} differ "
+                         "in batch or width")
+    for name, mat, h_in, scale in (("y", my_in_y, hy, y_scale),
+                                   ("c", my_in_c, hc, c_scale)):
+        if mat is None and h_in != h_mid:
+            raise ValueError(f"{name}: no in map, so its height {h_in} must "
+                             f"be h_mid {h_mid}")
+        if mat is not None and (mat.in_size, mat.out_size) != (h_in, h_mid):
+            raise ValueError(f"{name}: in map {mat.in_size}->{mat.out_size} "
+                             f"for {h_in}->{h_mid}")
+        if mat is not None and scale is not None:
+            raise ValueError(f"{name}: a scale goes into the in map, not "
+                             "beside it")
+    if my_out is None and h_out != h_mid:
+        raise ValueError(f"no out map, so h_out {h_out} must be h_mid {h_mid}")
+    if my_out is not None and (my_out.in_size, my_out.out_size) != (h_mid,
+                                                                     h_out):
+        raise ValueError(f"out map {my_out.in_size}->{my_out.out_size} for "
+                         f"{h_mid}->{h_out}")
+    if not _kernel_device(y, u, v):
+        return rows3_mid_plain(y, u, v, my_in_y, my_in_c, h_mid, mid, my_out,
+                               h_out, y_scale, c_scale)
+    batch = y.numel() // (hy * w) if y.numel() else 0
+    n_tiles = -(-h_out // K8_TILE_ROWS)
+    if batch == 0 or batch > 65535 or n_tiles > 65535:
+        raise ValueError(f"K8 cannot take batch {batch} x {h_out} rows")
+    dev = y.device
+    if my_out is None:
+        tile_lo, win = None, K8_TILE_ROWS
+    else:
+        tile_lo, win = my_out.row_windows(K8_TILE_ROWS, dev)
+    if 3 * win * 32 * 4 > 200 * 1024:
+        raise ValueError(f"K8: a window of {win} mid rows does not fit the "
+                         "shared memory of a block")
+    out = torch.empty((3,) + lead + (h_out, w), dtype=torch.float32,
+                      device=dev)
+    vals = mid.host_values()
+    struct = mid.host_structure()
+
+    def taps(mat):   # (starts, taps, T) pointers; NULL and T = 0: no map
+        if mat is None:
+            return None, None, 0
+        s, t = mat.taps_on(dev)
+        return s.data_ptr(), t.data_ptr(), mat.n_taps
+
+    _launch("rows3_mid", "vrt_rows3_mid", dev,
+            y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
+            DTYPE_CODES[u.dtype], batch, hy, hc, w, h_mid, h_out,
+            *taps(my_in_y), *taps(my_in_c), *taps(my_out),
+            None if tile_lo is None else tile_lo.data_ptr(), win,
+            1.0 if y_scale is None else float(y_scale),
+            1.0 if c_scale is None else float(c_scale),
+            vals.ctypes.data, vals.size, struct.ctypes.data,
+            int(mid.lms is None), out.data_ptr())
+    return out[0], out[1], out[2]
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""The two kernels of the main path — K1, the banded W-axis resize, and K2,
-the H-axis resize with the whole per-pixel tail — with their plain PyTorch
-versions, the tap-table planning they share, and the surface packer.
+"""The kernels of the separable resize — K1, the banded W-axis resize, K3,
+the banded H-axis resize, and K2, the H-axis resize with the whole per-pixel
+tail — with their plain PyTorch versions, the tap-table planning they
+share, and the surface packer.
 
 Replaces ``videorenderer_tpu/kernels/resize_pallas.py``:
-``banded_resize_last_axis`` (K1, ``csrc/banded_resize.cu``) and
+``banded_resize_last_axis`` (K1, ``csrc/banded_resize.cu``),
+``banded_resize_rows`` (K3, ``csrc/banded_resize_rows.cu``) and
 ``rows3_tail`` (K2, ``csrc/rows3_tail.cu``).
 
 The Pallas kernels packed each banded (in, out) matrix into 128-aligned
@@ -42,10 +44,11 @@ CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR = 0, 1, 2
 PACK_CODES = {None: 0, "rgb10a2": 1, "rgba8": 2}
 
 # launches of every kernel of the package, by name (K5 and K6 are
-# kernels/jinc2.py's, K7 and K9 kernels/deint.py's)
+# kernels/jinc2.py's, K7, K8 and K9 kernels/deint.py's)
 launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
-            "jinc2_resize_fused": 0, "jinc2_convert_fused": 0,
-            "deint3_rows_dual": 0, "cols3_tail": 0}
+            "banded_resize_rows": 0, "jinc2_resize_fused": 0,
+            "jinc2_convert_fused": 0, "deint3_rows_dual": 0, "rows3_mid": 0,
+            "cols3_tail": 0}
 
 
 def reset_launches() -> None:
@@ -109,6 +112,7 @@ class BandedMatrix:
         self.in_size, self.out_size = m.shape
         self.starts, self.taps = plan_taps(m)
         self._on: dict = {}
+        self._windows: dict = {}
 
     @property
     def n_taps(self) -> int:
@@ -128,6 +132,22 @@ class BandedMatrix:
     def taps_on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         return (self._get("starts", self.starts, device),
                 self._get("taps", self.taps, device))
+
+    def row_windows(self, tile: int, device) -> tuple[torch.Tensor, int]:
+        """The input rows each tile of ``tile`` consecutive outputs reaches:
+        the first row of each tile's window (int32, on ``device``) and the
+        rows of the widest window."""
+        key = f"windows{tile}"
+        if key not in self._windows:
+            hi = np.minimum(self.starts + self.n_taps, self.in_size)
+            lo_t, hi_t = [], []
+            for j in range(0, self.out_size, tile):
+                lo_t.append(int(self.starts[j:j + tile].min()))
+                hi_t.append(int(hi[j:j + tile].max()))
+            self._windows[key] = (np.asarray(lo_t, np.int32),
+                                  max(h - l for l, h in zip(lo_t, hi_t)))
+        lo, win = self._windows[key]
+        return self._get(key, lo, device), win
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +247,48 @@ def banded_resize_last_axis(x: torch.Tensor, mat: BandedMatrix,
             x.data_ptr(), DTYPE_CODES[x.dtype], starts.data_ptr(),
             taps.data_ptr(), out.data_ptr(), int(mid16), rows,
             mat.in_size, mat.out_size, mat.n_taps)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: banded resize along the H axis
+# ---------------------------------------------------------------------------
+
+
+def banded_resize_rows_plain(x: torch.Tensor, mat: BandedMatrix
+                             ) -> torch.Tensor:
+    """Plain K3: one dense float32 product from the left."""
+    _no_tf32()
+    return _h_plain(x, mat, None)
+
+
+def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
+    """Resize ``x`` (..., H_in, W) — raw uint8/uint16 planes, int16 or
+    float32 — along its second-to-last axis by ``mat`` (whose normalisation
+    is folded in).  Returns float32 (..., H_out, W).
+
+    Kernel K3 (``csrc/banded_resize_rows.cu``), replacing
+    ``resize_pallas.banded_resize_rows`` and its packed form.  Bound by
+    device memory: one thread per output (row, column) runs T fp32 FMAs
+    down its column, the loads of a block coalesced along W."""
+    _check_plane("x", x)
+    if x.shape[-2] != mat.in_size:
+        raise ValueError(f"x has {x.shape[-2]} rows, the matrix takes "
+                         f"{mat.in_size}")
+    if not _kernel_device(x):
+        return banded_resize_rows_plain(x, mat)
+    h_in, w = x.shape[-2:]
+    batch = x.numel() // (h_in * w) if x.numel() else 0
+    if batch == 0 or batch * mat.out_size >= 2 ** 31 or w >= 128 * 65535:
+        raise ValueError(f"K3 cannot take batch {batch} x {mat.out_size} "
+                         f"rows x {w} columns")
+    out = torch.empty(x.shape[:-2] + (mat.out_size, w), dtype=torch.float32,
+                      device=x.device)
+    starts, taps = mat.taps_on(x.device)
+    _launch("banded_resize_rows", "vrt_banded_resize_rows", x.device,
+            x.data_ptr(), DTYPE_CODES[x.dtype], starts.data_ptr(),
+            taps.data_ptr(), out.data_ptr(), batch, h_in, mat.out_size, w,
+            mat.n_taps)
     return out
 
 

@@ -19,6 +19,14 @@ optional rotation and flip of the finished frame.
 :func:`oracle_deint` is one field of c5: a motion-adaptive deinterlace of
 every raw plane by row indices (independent of ``ops/deinterlace``), then
 the same convert and resize and the HLG -> SDR tail.
+
+:func:`oracle_dovi` is one frame of c8 (Dolby Vision): normalise, the same
+bilinear chroma upsample, the reshape evaluated piece by piece (the piece
+found with ``torch.searchsorted`` over the pivots), the RPU matrix, the LMS
+step with the PQ formulas, then the resize and the PQ -> SDR tail.
+
+:func:`oracle` with ``video_rect`` renders the video at the rect's size,
+dithers it from its own origin and places it into a black surface.
 """
 
 from __future__ import annotations
@@ -69,6 +77,41 @@ def _dither(x: torch.Tensor, dither_bits: int) -> torch.Tensor:
     return torch.floor(torch.clamp(x, 0.0, 1.0) * q + d) / q
 
 
+def _place(x: torch.Tensor, out_w: int, out_h: int,
+           video_rect) -> torch.Tensor:
+    """(3, h, w) into a zero (3, out_h, out_w) surface at ``video_rect``."""
+    if video_rect is None:
+        return x
+    l, t, r, b = video_rect
+    out = torch.zeros((3, out_h, out_w), dtype=x.dtype, device=x.device)
+    out[:, t:b, l:r] = x
+    return out
+
+
+_PQ_M1, _PQ_M2 = 2610 / 16384, 2523 / 4096 * 128
+_PQ_C1, _PQ_C2, _PQ_C3 = 3424 / 4096, 2413 / 4096 * 32, 2392 / 4096 * 32
+
+
+def _pq_eotf(x: torch.Tensor) -> torch.Tensor:
+    """ST 2084 EOTF, 10000 nits = 1 (the denominator held above 1e-6 as the
+    port's EOTF does; it binds only above x = 1)."""
+    p = torch.pow(torch.clamp(x, min=0.0), 1 / _PQ_M2)
+    return torch.pow(torch.clamp(p - _PQ_C1, min=0.0)
+                     / torch.clamp(_PQ_C2 - _PQ_C3 * p, min=1e-6), 1 / _PQ_M1)
+
+
+def _pq_oetf(y: torch.Tensor) -> torch.Tensor:
+    """ST 2084 inverse EOTF, 10000 nits = 1."""
+    q = torch.pow(torch.clamp(y, min=0.0), _PQ_M1)
+    return torch.pow((_PQ_C1 + _PQ_C2 * q) / (1.0 + _PQ_C3 * q), _PQ_M2)
+
+
+def _pq_to_sdr(rgb: torch.Tensor, sdr_nits: float) -> torch.Tensor:
+    """PQ EOTF at the SDR white of ``sdr_nits``, then the SDR display."""
+    x = _pq_eotf(torch.clamp(rgb, 0.0, 1.0)) * (10000.0 / sdr_nits)
+    return _to_sdr_display(x)
+
+
 def _resize(rgb: torch.Tensor, out_w: int, out_h: int,
             upscaling: Upscaling) -> torch.Tensor:
     """Per-axis upscale-filter resize of (3, H, W) float64, skipped where
@@ -103,21 +146,20 @@ def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            matrix: CSP = CSP.BT_2020_NC, levels: Levels = Levels.TV,
            pq_to_sdr: bool = True, sdr_nits: float = 125.0,
            dither_bits: int = 10,
-           upscaling: Upscaling = Upscaling.LANCZOS3) -> torch.Tensor:
+           upscaling: Upscaling = Upscaling.LANCZOS3,
+           video_rect: tuple[int, int, int, int] | None = None
+           ) -> torch.Tensor:
     """One frame: ``y`` (H, W), ``u``/``v`` (H/2, W/2) raw planes of
-    ``bits_in`` bits (16 for P010, 8 for NV12) on any device."""
-    rgb = _resize(_convert(y, u, v, bits_in, matrix, levels), out_w, out_h,
-                  upscaling)
-    x = rgb
+    ``bits_in`` bits (16 for P010, 8 for NV12) on any device.  With
+    ``video_rect`` (left, top, right, bottom) the video is rendered at the
+    rect's size and placed into the black out_w x out_h surface."""
+    vw, vh = ((out_w, out_h) if video_rect is None else
+              (video_rect[2] - video_rect[0], video_rect[3] - video_rect[1]))
+    x = _resize(_convert(y, u, v, bits_in, matrix, levels), vw, vh,
+                upscaling)
     if pq_to_sdr:
-        x = torch.clamp(rgb, 0.0, 1.0)
-        m1, m2 = 2610 / 16384, 2523 / 4096 * 128
-        c1, c2, c3 = 3424 / 4096, 2413 / 4096 * 32, 2392 / 4096 * 32
-        x = torch.pow(torch.clamp(x, min=0.0), 1 / m2)
-        x = torch.clamp(x - c1, min=0.0) / (c2 - c3 * x)
-        x = torch.pow(x, 1 / m1) * (10000.0 / sdr_nits)
-        x = _to_sdr_display(x)
-    return _dither(x, dither_bits)
+        x = _pq_to_sdr(x, sdr_nits)
+    return _place(_dither(x, dither_bits), out_w, out_h, video_rect)
 
 
 def _deint_f64(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
@@ -222,3 +264,79 @@ def oracle_jinc2(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     # torch.rot90 turns counter-clockwise for positive k
     out = torch.rot90(out, -(rotation // 90), dims=(-2, -1))
     return torch.flip(out, dims=(-1,)) if flip else out
+
+
+def _reshape_f64(ycc: torch.Tensor, curves: dict, structure) -> torch.Tensor:
+    """The Dolby Vision reshape of (3, H, W) float64 signals, piece by
+    piece: each channel's piece is the count of pivots at or below its
+    clipped signal (``torch.searchsorted``), then that piece's polynomial
+    c0 + c1 s + c2 s^2 or its MMR sum c + sum over orders j of the linear
+    (s0, s1, s2) and cross (s0 s1, s0 s2, s1 s2, s0 s1 s2) terms to the
+    power j + 1, clipped to [0, 1]."""
+    f64 = torch.float64
+    sig = torch.clamp(ycc, 0.0, 1.0)
+    s0, s1, s2 = sig
+    lin = torch.stack([s0, s1, s2])
+    cross = torch.stack([s0 * s1, s0 * s2, s1 * s2, s0 * s1 * s2])
+    out = []
+    for c, (pieces, kinds, orders) in enumerate(structure):
+        s = sig[c]
+        piv = torch.as_tensor(np.asarray(curves["pivots"][c][:pieces - 1],
+                                         np.float64), device=s.device)
+        idx = torch.searchsorted(piv, s.contiguous(), right=True)
+        vals = torch.zeros((pieces,) + s.shape, dtype=f64, device=s.device)
+        for p in range(pieces):
+            if kinds[p] == 0:
+                c0, c1, c2 = (float(v) for v in curves["poly"][c, p])
+                vals[p] = c0 + c1 * s + c2 * s * s
+            else:
+                acc = float(curves["mmr_const"][c, p]) + torch.zeros_like(s)
+                for j in range(int(orders[p])):
+                    w = np.asarray(curves["mmr_coef"][c, p, j], np.float64)
+                    acc = acc + torch.einsum(
+                        "k,khw->hw", torch.from_numpy(w[:3]).to(s.device),
+                        lin ** (j + 1))
+                    acc = acc + torch.einsum(
+                        "k,khw->hw", torch.from_numpy(w[3:]).to(s.device),
+                        cross ** (j + 1))
+                vals[p] = acc
+        out.append(torch.clamp(torch.gather(vals, 0, idx[None])[0], 0.0, 1.0))
+    return torch.stack(out)
+
+
+def _lms_f64(rgb: torch.Tensor, lms: np.ndarray) -> torch.Tensor:
+    """PQ EOTF (10000 nits = 1), the combined LMS matrix, PQ OETF, in
+    float64."""
+    mixed = torch.einsum("ij,jhw->ihw",
+                         torch.from_numpy(np.asarray(lms, np.float64))
+                         .to(rgb.device), _pq_eotf(rgb))
+    return _pq_oetf(mixed)
+
+
+def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                out_w: int, out_h: int, *, curves: dict, structure,
+                ycc_to_rgb: np.ndarray, ycc_offset: np.ndarray,
+                lms: np.ndarray, bits_in: int = 16, sdr_nits: float = 125.0,
+                dither_bits: int = 10,
+                upscaling: Upscaling = Upscaling.CATMULL_ROM) -> torch.Tensor:
+    """One frame of c8 (4K P010 Dolby Vision -> 1080p SDR RGB10): ``y``
+    (H, W), ``u``/``v`` (H/2, W/2) raw 4:2:0 planes; ``curves`` a scene's
+    packed reshape values (the ``pack_curves`` layout) and ``structure``
+    its (pieces, kinds, MMR orders) per channel; ``ycc_to_rgb`` and
+    ``ycc_offset`` the RPU matrix and offset (RGB = M (ycc - offset));
+    ``lms`` the combined LMS->RGB @ RGB->LMS matrix.  Normalise, upsample
+    the chroma bilinearly (MPEG-2 siting), reshape, RPU matrix, the LMS
+    step, resize (2:1 Catmull-Rom at c8), PQ -> SDR, ordered dither.
+    Returns (3, out_h, out_w) float64 codes / (2**dither_bits - 1)."""
+    f64 = torch.float64
+    scale = 1.0 / (2.0 ** bits_in - 1.0)
+    ycc = torch.stack([y.to(f64) * scale,
+                       _up420_bilinear_mpeg2(u.to(f64) * scale),
+                       _up420_bilinear_mpeg2(v.to(f64) * scale)])
+    ycc = _reshape_f64(ycc, curves, structure)
+    m = torch.from_numpy(np.asarray(ycc_to_rgb, np.float64)).to(y.device)
+    off = torch.from_numpy(np.asarray(ycc_offset, np.float64)).to(y.device)
+    rgb = torch.einsum("ij,jhw->ihw", m, ycc - off[:, None, None])
+    rgb = _lms_f64(rgb, lms)
+    x = _pq_to_sdr(_resize(rgb, out_w, out_h, upscaling), sdr_nits)
+    return _dither(x, dither_bits)

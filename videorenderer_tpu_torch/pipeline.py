@@ -34,6 +34,13 @@ runs :func:`make_frame_fn`; :func:`make_deint_fields_fn` renders both fields
 of a frame through K7 (the deinterlace inside the H resize) and K9 (the W
 resize and the tail), H first.
 
+Dolby Vision (``SourceDescriptor.dovi``) splits the fused path at the
+nonlinear reshape (:func:`_make_dovi_fused_fn`): K1 on the chroma, K8 (the
+H maps around the reshape, RPU matrix and LMS step), K9.
+:func:`make_serving_fn` takes a scene's curves and colour matrix per call.
+A letterboxed output (``OutputDescriptor.video_rect``) runs K1 and K3 per
+plane, then the tail and the placement in torch.
+
 What this port does not carry yet is refused with ``NotImplementedError``
 naming the ROADMAP item that brings it, never routed elsewhere.
 """
@@ -57,6 +64,7 @@ from .kernels import resize as rk
 from .ops import chroma as chroma_ops
 from .ops import deinterlace as deint_ops
 from .ops import dither as dither_ops
+from .ops import dovi as dovi_ops
 from .ops import geometry as geo_ops
 from .ops import scale as scale_ops
 from .ops import tonemap as tonemap_ops
@@ -79,8 +87,9 @@ class HDR10Metadata:
 class SourceDescriptor:
     """Media type + DXVA2 extended-format analogue (what InitMediaType
     parses from VIDEOINFOHEADER2, Source/DX11VideoProcessor.cpp:1757-1821).
-    The same fields as the JAX package's; ``dovi``, ``dovi_trims``,
-    ``dovi_ext`` and ``hdr10plus`` are refused by :func:`plan_pipeline`."""
+    The same fields as the JAX package's; ``dovi`` takes an
+    :class:`~.ops.dovi.DoviMetadata`, while ``dovi_trims``, ``dovi_ext``
+    and ``hdr10plus`` are refused by :func:`plan_pipeline`."""
 
     format: ColorFormat
     width: int
@@ -146,7 +155,8 @@ class OutputDescriptor:
     height: int
     bits: int = 8            # quantization depth: 8 / 10; 16 = float out
     hdr: bool = False        # True: PQ/BT.2020 output (HDR passthrough)
-    # placement of the video inside the surface: refused (ROADMAP item 3)
+    # placement of the video inside the surface (letterbox/pillarbox):
+    # (left, top, right, bottom), black around it; None = the whole surface
     video_rect: tuple[int, int, int, int] | None = None
 
     @property
@@ -175,6 +185,7 @@ class PipelinePlan:
     dither_bits: int           # +b ordered dither, -b round, 0 float out
     src_rect: tuple[int, int, int, int] | None = None
     tonemap_params: tonemap_ops.HDRParams | None = None
+    dovi: dovi_ops.DoviMetadata | None = None
 
 
 # ROADMAP.md "Modules to port": where each refused feature comes in
@@ -235,20 +246,22 @@ def _axis_choices(s: Settings, src: SourceDescriptor, src_rect,
 def _check_ported(plan: PipelinePlan) -> None:
     """Refuse every plan combination this port does not carry yet."""
     s, src, dst, info = plan.settings, plan.src, plan.dst, plan.info
-    if src.dovi is not None or src.dovi_trims is not None:
-        _refuse("Dolby Vision", "dovi")
+    if src.dovi_trims is not None:
+        _refuse("Dolby Vision L2 trims (dovi_trims)", "dovi")
     if src.dovi_ext is not None:
         _refuse("Dolby Vision extension metadata (dovi_ext)", "dovi")
     if src.hdr10plus is not None:
         _refuse("HDR10+ dynamic metadata", "serving")
-    if dst.hdr and s.hdr_local_tone_mapping and src.is_hdr:
+    if dst.hdr and s.hdr_local_tone_mapping and (src.is_hdr
+                                                 or src.dovi is not None):
         _refuse("local tone mapping", "serving")
     if info.cs_type == ColorSystem.GRAY:
         _refuse("GRAY sources", "staged")
     if not s.vp_scaling:
         _refuse("the shader-order pipeline (vp_scaling=False)", "staged")
-    if dst.video_rect is not None:
-        _refuse("video_rect placement", "staged")
+    if src.dovi is not None and dst.video_rect is not None:
+        _refuse("Dolby Vision with video_rect placement (K2 with a DoVi "
+                "epilogue)", "dovi")
 
 
 def plan_pipeline(settings: Settings, src: SourceDescriptor,
@@ -257,14 +270,23 @@ def plan_pipeline(settings: Settings, src: SourceDescriptor,
     as the JAX package's ``plan_pipeline`` for every plan it accepts."""
     src = src.specified()
     info = get_format_info(src.format)
-    m, c, apply_matrix = _build_cmat(src, info)
+    dovi = src.dovi
+    if dovi is not None:
+        # DoVi replaces the standard matrix with the RPU's ycc_to_rgb
+        # (Source/DX11VideoProcessor.cpp:817-836); the reference engages the
+        # RPU pipeline whenever the metadata is present
+        m, c = dovi_ops.build_ycc_to_rgb_cmat(dovi, brightness=src.brightness,
+                                              contrast=src.contrast)
+        apply_matrix = True
+    else:
+        m, c, apply_matrix = _build_cmat(src, info)
 
     is_pq = src.transfer == TRC.PQ
-    is_hlg = src.transfer == TRC.HLG
+    is_hlg = src.transfer == TRC.HLG and dovi is None
     bt2020 = src.primaries == Primaries.BT_2020
 
     convert_to_sdr = (not dst.hdr) and settings.convert_to_sdr and (
-        is_pq or is_hlg)
+        is_pq or is_hlg or dovi is not None)
     hlg_to_pq = dst.hdr and settings.hdr_passthrough and is_hlg
     # SDR source with BT.2020 primaries shown on a 709 display
     # (ps_fix_bt2020.hlsl; codegen branch Source/Shaders.cpp:892-915)
@@ -302,7 +324,7 @@ def plan_pipeline(settings: Settings, src: SourceDescriptor,
         convert_to_sdr=convert_to_sdr, hlg_to_pq=hlg_to_pq,
         fix_bt2020_sdr=fix_bt2020_sdr, sdr_gamma=sdr_gamma,
         dither_bits=dither_bits, src_rect=src.src_rect,
-        tonemap_params=tm_params)
+        tonemap_params=tm_params, dovi=dovi)
     _check_ported(plan)
     return plan
 
@@ -344,9 +366,23 @@ def _apply_cmat(m: np.ndarray, c: np.ndarray, y, u, v) -> torch.Tensor:
          + float(c[i]) for i in range(3)], dim=-3)
 
 
-def _convert_color(plan: PipelinePlan, planes) -> torch.Tensor:
+def _rt_cmat(plan: PipelinePlan, rt_cmat) -> tuple[np.ndarray, np.ndarray]:
+    """The colour matrix (float32 m (3,3), c (3,)): a serving call's runtime
+    ``{"m", "c"}`` (host arrays) or the plan's."""
+    if rt_cmat is None:
+        return (np.asarray(plan.cmat_m, np.float32),
+                np.asarray(plan.cmat_c, np.float32))
+    cm = dovi_ops.host_arrays(rt_cmat, "cmat")
+    return cm["m"].reshape(3, 3), cm["c"].reshape(3)
+
+
+def _convert_color(plan: PipelinePlan, planes, rt_curves=None,
+                   rt_cmat=None) -> torch.Tensor:
     """ConvertColorPass analogue: normalise, (blend deinterlace luma),
-    chroma upsample, 3x3+c matrix.  Returns (..., 3, H, W) float32."""
+    chroma upsample, (the DoVi reshape,) 3x3+c matrix (, the DoVi LMS
+    step).  ``rt_curves``/``rt_cmat``: a serving call's runtime reshape
+    curves (:func:`~.ops.dovi.pack_curves`) and colour matrix.  Returns
+    (..., 3, H, W) float32."""
     info, s = plan.info, plan.settings
     norm = _normalize_planes(plan, _crop_planes(plan, planes))
     if info.cs_type == ColorSystem.YUV:
@@ -359,10 +395,24 @@ def _convert_color(plan: PipelinePlan, planes) -> torch.Tensor:
         u, v = uv[..., 0, :, :], uv[..., 1, :, :]
     else:
         y, u, v = norm
-    if plan.apply_matrix:
-        return _apply_cmat(np.asarray(plan.cmat_m, np.float32),
-                           np.asarray(plan.cmat_c, np.float32), y, u, v)
-    return torch.stack([y, u, v], dim=-3)
+    if plan.dovi is not None:
+        # the reshape on the raw ycc signal before the matrix
+        # (ShaderGetPixels -> ShaderDoviReshape, Source/Shaders.cpp:809-817)
+        ycc = torch.stack([y, u, v], dim=-3)
+        if rt_curves is not None:
+            ycc = dovi_ops.reshape_dynamic(
+                ycc, rt_curves, axis=-3,
+                structure=dovi_ops.curve_structure(plan.dovi))
+        else:
+            ycc = dovi_ops.reshape(ycc, plan.dovi, axis=-3)
+        y, u, v = ycc.unbind(-3)
+    rgb = (_apply_cmat(*_rt_cmat(plan, rt_cmat), y, u, v)
+           if plan.apply_matrix else torch.stack([y, u, v], dim=-3))
+    if plan.dovi is not None:
+        # PQ EOTF -> (LMS2RGB @ rgb_to_lms) -> PQ OETF
+        # (Source/Shaders.cpp:824-859)
+        rgb = dovi_ops.apply_lms_matrix(rgb, plan.dovi, axis=-3)
+    return rgb
 
 
 def _gamut_2020_to_709(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -383,7 +433,8 @@ def _corrections(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
         # -> Hable -> 2020->709 -> sRGB-ish gamma
         luminance_scale = 10000.0 / s.sdr_display_nits
         x = torch.clamp(rgb, 0.0, 1.0)
-        if plan.src.transfer == TRC.HLG:
+        if plan.src.transfer == TRC.HLG and plan.dovi is None:
+            # (a DoVi source takes the PQ branch whatever its transfer)
             # the reference runs HLGtoLinear -> LinearToST2084(1000), clips,
             # then ST2084ToLinear(ls) in a second pass; the PQ round trip is
             # algebraically clip(x/1000, 0, 1) * ls
@@ -407,15 +458,29 @@ def _corrections(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
     return rgb
 
 
-def _final_pass(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
-    """ps_final_pass.hlsl: ordered dither (pattern origin at row and column
-    0) or rounding to the output depth."""
+def _quantize(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
+    """ps_final_pass.hlsl's quantization: ordered dither (pattern origin at
+    the video's row and column 0) or rounding to the output depth."""
     db = plan.dither_bits
     if db < 0:
         return dither_ops.quantize(torch.clamp(rgb, 0.0, 1.0), -db)
     if db > 0:
         return dither_ops.ordered_dither(torch.clamp(rgb, 0.0, 1.0), db)
     return rgb
+
+
+def _final_pass(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
+    """ps_final_pass.hlsl: the quantization, then the placement of the video
+    rect into a black surface of the output's size (FillBlack), the
+    letterbox or pillarbox of ``OutputDescriptor.video_rect``."""
+    rgb = _quantize(plan, rgb)
+    rect = plan.dst.video_rect
+    if rect is None:
+        return rgb
+    l, t, r, b = rect
+    surface = rgb.new_zeros(rgb.shape[:-2] + (plan.dst.height, plan.dst.width))
+    surface[..., t:b, l:r] = rgb
+    return surface
 
 
 def surface_pack_format(dst: OutputDescriptor) -> str:
@@ -459,8 +524,20 @@ def _separable_geometry(plan: PipelinePlan) -> bool:
 def _can_fuse(plan: PipelinePlan) -> bool:
     """The fused linear-resample path applies when everything between plane
     normalisation and the first nonlinearity is linear: the VP-order
-    pipeline with a separable scaler."""
-    return plan.settings.vp_scaling and _separable_geometry(plan)
+    pipeline with a separable scaler.  DoVi plans take the split-fused path
+    instead (:func:`_can_split_fuse`): the reshape is nonlinear in the ycc
+    signal, so the resample cannot cross it."""
+    return (plan.settings.vp_scaling and plan.dovi is None
+            and _separable_geometry(plan))
+
+
+def _can_split_fuse(plan: PipelinePlan) -> bool:
+    """The DoVi variant of the fused path (:func:`_make_dovi_fused_fn`): the
+    VP-order pipeline, separable scalers and a planar YUV source (DoVi RPUs
+    describe ycc signals)."""
+    return (plan.settings.vp_scaling and plan.dovi is not None
+            and plan.info.cs_type == ColorSystem.YUV
+            and _separable_geometry(plan))
 
 
 def _on_card(planes) -> bool:
@@ -470,31 +547,31 @@ def _on_card(planes) -> bool:
 
 
 def _tail_common(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
-    """Corrections, then the final pass: the torch version of K2's epilogue
-    after the colour matrix."""
+    """Corrections, then the final pass (quantization and placement)."""
     return _final_pass(plan, _corrections(plan, rgb))
 
 
-def _make_tail_epilogue(plan: PipelinePlan,
-                        with_cmat: bool = True) -> rk.Epilogue:
+def _make_tail_epilogue(plan: PipelinePlan, with_cmat: bool = True,
+                        cmat: tuple | None = None) -> rk.Epilogue:
     """K2's (and K9's) epilogue for this plan: colour matrix, corrections
     and dither, as kernel parameters and as the torch function of the plain
-    version.  ``with_cmat=False``: the three planes are R, G, B already."""
-    if plan.hlg_to_pq or plan.fix_bt2020_sdr:
+    version.  ``with_cmat=False``: the three planes are R, G, B already.
+    ``cmat``: a serving call's (m, c) in place of the plan's."""
+    if (plan.hlg_to_pq or plan.fix_bt2020_sdr) and not plan.convert_to_sdr:
         _refuse("HLG->PQ and the SDR BT.2020 fix inside kernel K2 (the "
                 "plain path, use_accel_backend=False, has them)", "staged")
     correction = rk.CORR_NONE
     if plan.convert_to_sdr:
-        correction = (rk.CORR_HLG_TO_SDR if plan.src.transfer == TRC.HLG
+        correction = (rk.CORR_HLG_TO_SDR
+                      if plan.src.transfer == TRC.HLG and plan.dovi is None
                       else rk.CORR_PQ_TO_SDR)
-    m = np.asarray(plan.cmat_m, np.float32)
-    c = np.asarray(plan.cmat_c, np.float32)
+    m, c = _rt_cmat(plan, None) if cmat is None else cmat
     apply_matrix = with_cmat and plan.apply_matrix
 
     def plain(y, u, v):
         rgb = (_apply_cmat(m, c, y, u, v) if apply_matrix
                else torch.stack([y, u, v], dim=-3))
-        return _tail_common(plan, rgb)
+        return _quantize(plan, _corrections(plan, rgb))
 
     return rk.Epilogue(
         cmat=np.concatenate([m, c[:, None]], axis=1) if apply_matrix else None,
@@ -523,10 +600,44 @@ def _compose(a: np.ndarray | None, b: np.ndarray | None):
     return a @ b
 
 
+def _dense_apply():
+    """The plain per-plane maps (the JAX package's ``_fused_apply2d`` XLA
+    branch): ``app(plane, W map, H map, norm)`` normalises (when ``norm``
+    is given), then applies each (in, out) map as a dense float32 product.
+    The float32 copies are made once per (matrix, device); the matrices
+    live as long as the returned closure's callers, so their ids stay
+    theirs."""
+    on_device: dict = {}
+
+    def dense(mat, device):
+        key = (id(mat), device)
+        if key not in on_device:
+            on_device[key] = torch.from_numpy(
+                np.asarray(mat, np.float32)).to(device)
+        return on_device[key]
+
+    def app(p, mx, my, norm=None):
+        x = p if norm is None else p.to(torch.float32) * float(np.float32(norm))
+        if mx is not None:
+            x = scale_ops.resize_axis(x, dense(mx, x.device), -1)
+        if my is not None:
+            x = scale_ops.resize_axis(x, dense(my, x.device), -2)
+        return x
+
+    return app
+
+
 def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     """The fused pipeline: chroma upsample + (blend deinterlace) + separable
     resize collapse into one banded matrix per plane per axis (linear maps
-    compose), so everything nonlinear runs at output resolution."""
+    compose), so everything nonlinear runs at output resolution.
+
+    Returns ``fn(planes, rt=None)``; ``rt["cmat"]`` (a serving call's
+    ``{"m", "c"}``) replaces the plan's colour matrix.  Three routes:
+    K1 ×3 + K2 (the matrix and the whole tail inside K2); with a
+    ``video_rect``, K1 ×3 + K3 ×3 and the tail and the placement in torch
+    (the JAX package's ``_fused_apply2d`` route); and, without
+    ``use_accel_backend``, the plain products and the torch tail."""
     s, src, dst, info = plan.settings, plan.src, plan.dst, plan.info
     use_kernels = s.use_accel_backend and _vp_format_allowed(s, info)
 
@@ -551,39 +662,49 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
 
     norm = 1.0 / (2.0 ** info.plane_bits - 1.0)
 
+    def torch_tail(comps, rt):
+        rgb = (_apply_cmat(*_rt_cmat(plan, rt.get("cmat")), *comps)
+               if plan.apply_matrix else torch.stack(comps, dim=-3))
+        rgb = _tail_common(plan, rgb)
+        return rgb if pack_format is None else rk.pack_surface(rgb, pack_format)
+
     if not use_kernels:
-        # (matrix id, device) -> float32 tensor, made once; the matrices
-        # live as long as this closure, so their ids stay theirs
-        on_device: dict = {}
+        app = _dense_apply()
 
-        def dense(mat, device):
-            key = (id(mat), device)
-            if key not in on_device:
-                on_device[key] = torch.from_numpy(
-                    np.asarray(mat, np.float32)).to(device)
-            return on_device[key]
-
-        def app(p, mx, my):
-            x = p.to(torch.float32) * float(np.float32(norm))
-            if mx is not None:
-                x = scale_ops.resize_axis(x, dense(mx, x.device), -1)
-            if my is not None:
-                x = scale_ops.resize_axis(x, dense(my, x.device), -2)
-            return x
-
-        m = np.asarray(plan.cmat_m, np.float32)
-        c = np.asarray(plan.cmat_c, np.float32)
-
-        def plain_fn(planes):
+        def plain_fn(planes, rt=None):
             planes = _crop_planes(plan, planes)
-            comps = (app(planes[0], wx, wy_luma), app(planes[1], cwx, cwy),
-                     app(planes[2], cwx, cwy))
-            rgb = _tail_common(plan, _apply_cmat(m, c, *comps)
-                               if plan.apply_matrix
-                               else torch.stack(comps, dim=-3))
-            return rgb if pack_format is None else rk.pack_surface(rgb, pack_format)
+            return torch_tail((app(planes[0], wx, wy_luma, norm),
+                               app(planes[1], cwx, cwy, norm),
+                               app(planes[2], cwx, cwy, norm)), rt or {})
 
         return plain_fn
+
+    if dst.video_rect is not None:
+        # K2 writes the whole surface, so a placed video takes the maps as
+        # K1 then K3 per plane (float32 between them; the normalisation in
+        # the first map's taps) and the tail in torch
+        def kmaps(mx, my):
+            kw = None if mx is None else rk.BandedMatrix(mx, pre_scale=norm)
+            kh = None if my is None else rk.BandedMatrix(
+                my, pre_scale=None if mx is not None else norm)
+            return kw, kh
+
+        maps = (kmaps(wx, wy_luma), kmaps(cwx, cwy), kmaps(cwx, cwy))
+
+        def kapply(p, kw, kh):
+            if kw is not None:
+                p = rk.banded_resize_last_axis(p, kw)
+            if kh is not None:
+                return rk.banded_resize_rows(p, kh)
+            return p if kw is not None else (p.to(torch.float32)
+                                             * float(np.float32(norm)))
+
+        def placed_fn(planes, rt=None):
+            planes = _crop_planes(plan, planes)
+            return torch_tail(tuple(kapply(p, *m) for p, m in
+                                    zip(planes, maps)), rt or {})
+
+        return placed_fn
 
     # Compact W-pass intermediates: int16 codes round(x * MID16_SCALE), the
     # analogue of the reference's TEXFMT_AUTOINT UNORM intermediate textures
@@ -612,8 +733,10 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     kw_y, kh_y, y_scale = plane_pass(wx, wy_luma, mid16_y)
     kw_c, kh_c, c_scale = plane_pass(cwx, cwy, mid16_c)
 
-    def kernel_fn(planes):
+    def kernel_fn(planes, rt=None):
         planes = _crop_planes(plan, planes)
+        epi = (epilogue if not rt or rt.get("cmat") is None else
+               _make_tail_epilogue(plan, cmat=_rt_cmat(plan, rt["cmat"])))
 
         def wpass(p, kw, q):
             return p if kw is None else rk.banded_resize_last_axis(p, kw, mid16=q)
@@ -621,18 +744,108 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
         yw = wpass(planes[0], kw_y, mid16_y)
         uw = wpass(planes[1], kw_c, mid16_c)
         vw = wpass(planes[2], kw_c, mid16_c)
-        return rk.rows3_tail(yw, uw, vw, kh_y, kh_c, vid_h, epilogue,
+        return rk.rows3_tail(yw, uw, vw, kh_y, kh_c, vid_h, epi,
                              y_scale=y_scale, c_scale=c_scale,
                              pack_format=pack_format)
 
     return kernel_fn
 
 
+def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
+    """The Dolby Vision split-fused pipeline (the JAX package's
+    ``_make_dovi_fused_fn``): the fusion splits at the nonlinear reshape.
+    Returns ``fn(planes, rt=None)``; ``rt["dovi_curves"]`` (a scene's
+    :func:`~.ops.dovi.pack_curves`, host arrays) and ``rt["cmat"]``
+    replace the plan's curves and matrix without rebuilding anything.
+
+    On a CUDA device (with ``use_accel_backend``) the chain is H first
+    around the convert: K1 upsamples the chroma along W (the normalisation
+    in its taps), K8 upsamples it along H into the source rows, runs the
+    reshape, the RPU matrix and the LMS step there and resizes H to the
+    output rows, and K9 resizes W and runs the PQ -> SDR tail, the dither
+    and the pack: K1 ×2 + K8 + K9, and the source-resolution RGB never
+    reaches device memory.  Otherwise (the CPU, or ``use_accel_backend``
+    off) the plain route: the chroma upsample as dense products, the
+    convert at source resolution, the resize of R, G and B, the torch
+    tail."""
+    s, src, dst, info = plan.settings, plan.src, plan.dst, plan.info
+    use_kernels = s.use_accel_backend and _vp_format_allowed(s, info)
+
+    src_w, src_h, cx, cy = _axis_choices(s, src, plan.src_rect, dst)
+    vid_w, vid_h = dst.video_size
+    wx = scale_ops.build_axis_matrix(cx, src_w, vid_w)
+    wy = scale_ops.build_axis_matrix(cy, src_h, vid_h)
+    dw, dh = info.chroma_div
+    ux, uy = chroma_ops.chroma_upsample_matrices(
+        src_w // dw, src_h // dh, info.subsampling, s.chroma_scaling,
+        src.chroma_location)
+    by = (chroma_ops.blend_deinterlace_matrix(src_h)
+          if s.deint_blend and src.interlaced and info.subsampling == 420
+          else None)
+    norm = 1.0 / (2.0 ** info.plane_bits - 1.0)
+    structure = dovi_ops.curve_structure(plan.dovi)
+    static_mid = dovi_ops.mid_stage(plan.dovi, plan.cmat_m, plan.cmat_c)
+
+    # the kernel route's maps: the normalisation goes into the first map a
+    # plane meets (K1's chroma W taps, the luma's blend map), or scales a
+    # plane K8 reads directly
+    kw_c = None if ux is None else rk.BandedMatrix(ux, pre_scale=norm)
+    kin_y = None if by is None else rk.BandedMatrix(by, pre_scale=norm)
+    kin_c = None if uy is None else rk.BandedMatrix(
+        uy, pre_scale=norm if ux is None else None)
+    y_scale = None if by is not None else norm
+    c_scale = None if uy is not None or ux is not None else norm
+    k_out = None if wy is None else rk.BandedMatrix(wy)
+    kx = None if wx is None else rk.BandedMatrix(wx)
+    epi_rgb = _make_tail_epilogue(plan, with_cmat=False)
+    app = _dense_apply()
+
+    def kernel_fn(planes, rt):
+        y, u, v = planes
+        if kw_c is not None:
+            u = rk.banded_resize_last_axis(u, kw_c)
+            v = rk.banded_resize_last_axis(v, kw_c)
+        mid = static_mid if not rt else dovi_ops.mid_stage(
+            plan.dovi, *_rt_cmat(plan, rt.get("cmat")), rt.get("dovi_curves"))
+        r, g, b = dk.rows3_mid(y, u, v, kin_y, kin_c, src_h, mid, k_out,
+                               vid_h, y_scale=y_scale, c_scale=c_scale)
+        return dk.cols3_tail(r, g, b, kx, kx, vid_w, epi_rgb,
+                             pack_format=pack_format)
+
+    def plain_fn(planes, rt):
+        ycc = torch.stack([app(planes[0], None, by, norm),
+                           app(planes[1], ux, uy, norm),
+                           app(planes[2], ux, uy, norm)], dim=-3)
+        curves = rt.get("dovi_curves")
+        ycc = (dovi_ops.reshape(ycc, plan.dovi, axis=-3) if curves is None
+               else dovi_ops.reshape_dynamic(ycc, curves, axis=-3,
+                                             structure=structure))
+        rgb = dovi_ops.apply_lms_matrix(
+            _apply_cmat(*_rt_cmat(plan, rt.get("cmat")), *ycc.unbind(-3)),
+            plan.dovi, axis=-3)
+        if wx is not None or wy is not None:
+            rgb = torch.stack([app(rgb[..., i, :, :], wx, wy)
+                               for i in range(3)], dim=-3)
+        rgb = _tail_common(plan, rgb)
+        return rgb if pack_format is None else rk.pack_surface(rgb, pack_format)
+
+    def fn(planes, rt=None):
+        rt = rt or {}
+        planes = _crop_planes(plan, planes)
+        if use_kernels and len(planes) == 3 and _on_card(planes):
+            return kernel_fn(planes, rt)
+        return plain_fn(planes, rt)
+
+    return fn
+
+
 def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
                     flip: bool):
     """The staged pipeline (the JAX package's non-fused ``make_frame_fn``
     branch): convert at source resolution, resize, corrections, final pass,
-    pack to ``fmt``, with the Jinc2 kernels where they apply."""
+    pack to ``fmt``, with the Jinc2 kernels where they apply.  Unrotated,
+    it also takes a serving call's ``rt`` (:func:`make_serving_fn`); given
+    runtime values, the convert runs in torch with them."""
     s, dst, info = plan.settings, plan.dst, plan.info
     want_rot = rotation != 0 or flip
     src_w, src_h, _, _ = _axis_choices(s, plan.src, plan.src_rect, dst)
@@ -654,7 +867,7 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
              and info.cs_type == ColorSystem.YUV)
     use_kconvert = (s.use_accel_backend and _vp_format_allowed(s, info)
                     and info.cs_type == ColorSystem.YUV
-                    and plan.apply_matrix and not blend)
+                    and plan.apply_matrix and plan.dovi is None and not blend)
     # the pure transpose (rotation 90 + flip) rides K6 as a transposed store
     k3_transpose = (want_rot and
                     geo_ops.rf_decompose(rotation, flip) == (True, False, False))
@@ -702,8 +915,13 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
     def maybe_pack(rgb):
         return rgb if fmt is None else rk.pack_surface(rgb, fmt)
 
-    def fn(planes):
-        if kernels_apply(planes):
+    def fn(planes, rt=None):
+        if rt:
+            # a serving call's runtime curves or matrix: the torch convert
+            rgb = _convert_color(plan, planes,
+                                 rt_curves=rt.get("dovi_curves"),
+                                 rt_cmat=rt.get("cmat"))
+        elif kernels_apply(planes):
             if use_k3:
                 return k3_call(planes)
             rgb = kconvert(_crop_planes(plan, planes))
@@ -718,7 +936,7 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
             rgb, vid_h, vid_w, upscaling=s.upscaling,
             downscaling=s.downscaling,
             interpolate_at_50pct=s.interpolate_at_50pct)
-        return maybe_pack(_final_pass(plan, _corrections(plan, rgb)))
+        return maybe_pack(_tail_common(plan, rgb))
 
     if not want_rot:
         return fn
@@ -743,8 +961,9 @@ def make_frame_fn(plan: PipelinePlan, pack_surface: bool = False,
     (decode with formats.unpack_rgb10 / unpack_rgba8).
 
     ``fused=None`` takes the fused linear-resample path where it applies
-    (:func:`_can_fuse`), else the staged path; ``False`` forces the staged
-    path.  ``rotation``/``flip`` give ``rotate_flip(out, rotation, flip)``;
+    (:func:`_can_fuse`, or for Dolby Vision :func:`_can_split_fuse`), else
+    the staged path; ``False`` forces the staged path.
+    ``rotation``/``flip`` give ``rotate_flip(out, rotation, flip)``;
     rotation 90 with flip (a pure transpose) on K6's route is the kernel's
     transposed store, bit-identical to transposing the unrotated surface."""
     if rotation not in (0, 90, 180, 270):
@@ -752,13 +971,81 @@ def make_frame_fn(plan: PipelinePlan, pack_surface: bool = False,
     _check_ported(plan)
     fmt = surface_pack_format(plan.dst) if pack_surface else None
     if fused is None:
-        fused = _can_fuse(plan)
+        fused = _can_fuse(plan) or _can_split_fuse(plan)
     if not fused:
         return _make_staged_fn(plan, fmt, rotation, flip)
-    base = _make_fused_fn(plan, pack_format=fmt)
+    inner = (_make_fused_fn if plan.dovi is None
+             else _make_dovi_fused_fn)(plan, pack_format=fmt)
     if rotation == 0 and not flip:
-        return base
-    return lambda planes: geo_ops.rotate_flip(base(planes), rotation, flip)
+        return lambda planes: inner(planes)
+    return lambda planes: geo_ops.rotate_flip(inner(planes), rotation, flip)
+
+
+def serving_rt_keys(plan: PipelinePlan) -> set:
+    """The runtime keys this plan's serving function accepts, one per stage
+    the plan has: "cmat" with a colour matrix, "dovi_curves" with Dolby
+    Vision.  (The JAX package's "hdr" and "l2_trims" belong to stages this
+    port still refuses when planning.)"""
+    out = set()
+    if plan.apply_matrix:
+        out.add("cmat")
+    if plan.dovi is not None:
+        out.add("dovi_curves")
+    return out
+
+
+def make_serving_fn(plan: PipelinePlan, pack_surface: bool = False):
+    """Serving mode: one function that takes a scene's values beside the
+    planes, ``fn(planes, rt)``, and rebuilds nothing when they change (the
+    reference re-uploads its constant buffers per sample instead of
+    regenerating shaders).  Optional ``rt`` keys:
+
+      "dovi_curves" — a scene's reshape curves, ``pack_curves`` host arrays
+                      (``fn.pack_curves(meta)`` packs and checks them);
+      "cmat"        — ``{"m": (3,3), "c": (3,)}`` colour matrix for runtime
+                      ProcAmp.
+
+    The plan decides which stages exist; ``rt`` only gives their values.
+    An unknown key, or one whose stage the plan lacks, raises with the
+    allowed set.  Routes: a fusable plan takes :func:`_make_fused_fn`
+    (K2 takes the matrix per launch), a Dolby Vision plan
+    :func:`_make_dovi_fused_fn` (K8 takes matrix and curves per launch),
+    anything else :func:`_make_staged_fn` (its torch convert takes the
+    runtime values).
+
+    Attributes: ``fn.allowed_rt_keys``; ``fn.dovi_structure``, the reshape
+    structure the function serves (None without DoVi); with DoVi
+    ``fn.pack_curves(meta)``, which packs a scene's curves and raises when
+    their structure is not the plan's."""
+    _check_ported(plan)
+    fmt = surface_pack_format(plan.dst) if pack_surface else None
+    allowed = serving_rt_keys(plan)
+    structure = (None if plan.dovi is None
+                 else dovi_ops.curve_structure(plan.dovi))
+
+    if _can_fuse(plan):
+        inner = _make_fused_fn(plan, pack_format=fmt)
+    elif _can_split_fuse(plan):
+        inner = _make_dovi_fused_fn(plan, pack_format=fmt)
+    else:
+        inner = _make_staged_fn(plan, fmt, 0, False)
+
+    def checked(planes, rt=None):
+        rt = rt or {}
+        bad = set(rt) - allowed
+        if bad:
+            raise ValueError(
+                f"unknown serving rt key(s) {sorted(bad)}; this plan accepts "
+                f"{sorted(allowed)} (stage presence is static: re-plan to add "
+                "stages)")
+        return inner(planes, rt)
+
+    checked.allowed_rt_keys = frozenset(allowed)
+    checked.dovi_structure = structure
+    if structure is not None:
+        checked.pack_curves = (
+            lambda meta: dovi_ops.pack_curves(meta, like=structure))
+    return checked
 
 
 def make_deint_frame_fn(plan: PipelinePlan, field: int,
@@ -873,6 +1160,18 @@ def make_deint_fields_fn(plan: PipelinePlan, top_field_first: bool = True,
     return fn
 
 
+def check_device(device: torch.device | str) -> torch.device:
+    """The device an entry point moves its planes to: a CUDA device (which
+    must exist: no CPU fallback) or the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 class VideoProcessor:
     """Per-configuration processor: plan + frame function on one device.
 
@@ -885,12 +1184,7 @@ class VideoProcessor:
     def __init__(self, settings: Settings, src: SourceDescriptor,
                  dst: OutputDescriptor, *, device: torch.device | str,
                  pack_surface: bool = False):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but CUDA is "
-                               "not available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = check_device(device)
         self.plan = plan_pipeline(settings, src, dst)
         self.pack_surface = pack_surface
         self._fn = make_frame_fn(self.plan, pack_surface=pack_surface)

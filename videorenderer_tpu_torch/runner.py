@@ -14,7 +14,8 @@ from typing import Callable
 
 import torch
 
-from .pipeline import make_deint_fields_fn, make_deint_frame_fn
+from .pipeline import (check_device, make_deint_fields_fn,
+                       make_deint_frame_fn)
 
 
 class DeinterlaceSession:
@@ -28,13 +29,17 @@ class DeinterlaceSession:
     leading-dim slices of it (no copies); with ``double_rate`` the step is
     K7 ×1 + K9 ×1 on a card.  Use one API or the other, not both.
 
-    Planes are tensors on one device (numpy arrays go to the CPU).
-    ``post``: an optional per-output function (geometry, user shaders)
-    applied to every output."""
+    Every pushed plane (tensor or numpy array) is moved to ``device``, the
+    card unless the caller asks for the CPU; a CUDA device with no CUDA
+    raises, as :class:`~.pipeline.VideoProcessor` does.  ``post``: an
+    optional per-output function (geometry, user shaders) applied to every
+    output."""
 
     def __init__(self, plan, double_rate: bool = True,
                  top_field_first: bool = True, pack_surface: bool = False,
-                 post: Callable | None = None):
+                 post: Callable | None = None, *,
+                 device: torch.device | str = "cuda"):
+        self.device = check_device(device)
         self.double_rate = double_rate
         if double_rate:
             inner = make_deint_fields_fn(plan, top_field_first=top_field_first,
@@ -57,9 +62,8 @@ class DeinterlaceSession:
         self._window = []
         self._tail = None
 
-    @staticmethod
-    def _put(planes) -> tuple:
-        return tuple(torch.as_tensor(p) for p in planes)
+    def _put(self, planes) -> tuple:
+        return tuple(torch.as_tensor(p, device=self.device) for p in planes)
 
     def _emit(self, prev, cur, nxt) -> list:
         outs = self._inner(prev, cur, nxt)
