@@ -77,6 +77,25 @@ Phases, one line each:
               else, every dword outside the rect the packed zero, >= 55 dB
               against the oracle with placement (the rect and the whole
               surface); ms/frame.
+ 19. K4       the whole fused pipeline in one kernel on the fused plans'
+              own maps and tails, the headline (PQ -> SDR) and c7 (BT.2390
+              with scene 2's values), on 2 frames: against mega3_tail_plain
+              and against the two-stage route with float32 intermediates
+              (TexFormat.FLOAT16: K1 then K2, unpacked), dithered float
+              within 1 code on < 2% of the channels; with the colour matrix
+              only, float32 within 1e-5; then at batch 16, one launch per
+              plan counted, timed beside the two-stage route (mid16,
+              unpacked and packed) on the same inputs;
+ 20. c7       make_serving_fn of 4K P010 HDR10 -> 4K RGB10 PQ for a
+              600-nit display (BT.2390 local tone map): four scenes of 16
+              frames, each its own HDR10 values, K1 x2 + K2 x1 per call and
+              nothing else, no build or library load between scenes; frame
+              0 of scene 0 and of scene 3 >= 55 dB against oracle_c7; the
+              static route (VideoProcessor, the plan's metadata) >= 55 dB;
+              the path's K1 and K2 calls on 2 frames against their plain
+              versions (K1 mid16 within 1 code, K2 within 1 code on < 2%);
+              ms/frame back to back and synced, batch 1 synced median and
+              p90 of 15 calls, the plain path's ms/frame (>= 55 dB too).
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -103,18 +122,20 @@ from videorenderer_tpu_torch import (ColorFormat,  # noqa: E402
                                      DeinterlaceSession, OutputDescriptor,
                                      Settings, SourceDescriptor,
                                      VideoProcessor)
-from videorenderer_tpu_torch.config import ChromaScaling, Upscaling  # noqa: E402
+from videorenderer_tpu_torch.config import (ChromaScaling,  # noqa: E402
+                                            TexFormat, ToneMapType, Upscaling)
 from videorenderer_tpu_torch.csputils import CSP, Levels, Primaries, TRC  # noqa: E402
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
 from videorenderer_tpu_torch.kernels import deint as dk  # noqa: E402
 from videorenderer_tpu_torch.kernels import jinc2 as jk  # noqa: E402
 from videorenderer_tpu_torch.kernels import resize as rk  # noqa: E402
-from videorenderer_tpu_torch.oracle import (oracle, oracle_deint,  # noqa: E402
-                                            oracle_dovi, oracle_jinc2)
+from videorenderer_tpu_torch.oracle import (oracle, oracle_c7,  # noqa: E402
+                                            oracle_deint, oracle_dovi,
+                                            oracle_jinc2)
 from videorenderer_tpu_torch.ops import chroma, dovi, scale  # noqa: E402
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
                                               _make_tail_epilogue,
-                                              cmat_epilogue,
+                                              cmat_epilogue, fused_maps,
                                               make_deint_frame_fn,
                                               make_frame_fn, make_serving_fn,
                                               plan_pipeline)
@@ -129,6 +150,7 @@ SEED = 0
 LB_H = 1608                               # a 2.39:1 scope film, 3840 wide
 LB_RECT = (0, 138, 1920, 942)             # ... letterboxed into 1920 x 1080
 C8_SCENES = 4
+C7_SCENES = 4
 # the card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -358,11 +380,52 @@ def c5_args(accel: bool = True):
             OutputDescriptor(width=OW, height=OH, bits=8))
 
 
-def headline_settings(accel: bool) -> Settings:
+def c7_args(accel: bool = True, tex_format: TexFormat = TexFormat.AUTOINT):
+    """c7 (bench_common.build_plan("c7")): 4K P010 HDR10 (mastering 4000
+    nits, MaxCLL 3000, MaxFALL 800) -> 4K R10G10B10A2 PQ for a 600-nit
+    display, the BT.2390 local tone map."""
+    return (Settings(convert_to_sdr=False, hdr_passthrough=True,
+                     hdr_local_tone_mapping=True,
+                     hdr_local_tone_mapping_type=ToneMapType.BT2390,
+                     hdr_display_max_nits=600, use_accel_backend=accel,
+                     tex_format=tex_format),
+            SourceDescriptor(format=ColorFormat.P010, width=W, height=H,
+                             matrix=CSP.BT_2020_NC, primaries=Primaries.BT_2020,
+                             transfer=TRC.PQ,
+                             hdr10=HDR10Metadata(mastering_max_nits=4000.0,
+                                                 max_cll=3000.0,
+                                                 max_fall=800.0)),
+            OutputDescriptor(width=W, height=H, bits=10, hdr=True))
+
+
+def c7_rt(i: int) -> dict:
+    """Scene i's HDR10 values (bench_common.c7_rt): MaxCLL 1200 + 100 i
+    nits for a 650-nit display."""
+    return {"hdr": {"mastering_min_nits": 0.005, "mastering_max_nits": 2000.0,
+                    "max_cll": 1200.0 + 100.0 * i, "max_fall": 450.0,
+                    "display_max_nits": 650.0}}
+
+
+def c7_oracle(planes, hdr: dict) -> torch.Tensor:
+    """oracle_c7 on frame 0 of a batch with a scene's HDR10 values."""
+    return oracle_c7(*(p[0] for p in planes), max_cll=hdr["max_cll"],
+                     display_max_nits=hdr["display_max_nits"],
+                     mastering_max_nits=hdr["mastering_max_nits"])
+
+
+def float_code_diff(a: torch.Tensor, b: torch.Tensor, levels: int) -> dict:
+    """Code differences of two dithered float outputs (codes / levels)."""
+    d = ((a - b).abs() * levels).round()
+    return {"max_code_diff": int(d.max().item()),
+            "frac_differing": float((d > 0).double().mean().item())}
+
+
+def headline_settings(accel: bool, tex_format: TexFormat = TexFormat.AUTOINT
+                      ) -> Settings:
     return Settings(upscaling=Upscaling.LANCZOS3,
                     chroma_scaling=ChromaScaling.BILINEAR,
                     convert_to_sdr=True, use_dither=True,
-                    use_accel_backend=accel)
+                    use_accel_backend=accel, tex_format=tex_format)
 
 
 def smi() -> str:
@@ -1162,6 +1225,219 @@ def main() -> None:
     del lb_batches, vp_b
     torch.cuda.empty_cache()
 
+    # 19. K4 on the fused plans' own maps and tails: the headline (2:1
+    #     Lanczos3, PQ -> SDR, 10-bit dither) and c7 (1:1, the chroma
+    #     upsample, BT.2390 with scene 2's values).  On PLAIN_FRAMES frames
+    #     against mega3_tail_plain, against the two-stage route with float32
+    #     intermediates (TexFormat.FLOAT16: K1 then K2, unpacked), and with
+    #     the colour matrix only against the plain version; then at batch
+    #     16, counted and timed beside the two-stage route (mid16, as the
+    #     main path runs it: unpacked like K4, and packed) on the same inputs
+    scene2 = c7_rt(2)
+    k4_cases, k4_runs = {}, []
+    for key, args, f16_args, rt, seed in (
+            ("headline", (headline_settings(True), *headline_args()),
+             (headline_settings(True, TexFormat.FLOAT16), *headline_args()),
+             None, SEED + 40),
+            ("c7", c7_args(), c7_args(tex_format=TexFormat.FLOAT16), scene2,
+             SEED + 41)):
+        p = plan_pipeline(*args)
+        mx_y, my_y, mx_c, my_c, nrm = fused_maps(p)
+        (ky, hy), (kc, hc) = (rk.mega_maps(mx_y, my_y, nrm),
+                              rk.mega_maps(mx_c, my_c, nrm))
+        oh, ow = p.dst.video_size[1], p.dst.video_size[0]
+        maps = (ky, kc, hy, hc, oh)
+        epi = _make_tail_epilogue(p, hdr=None if rt is None else rt["hdr"])
+        b16 = p010_batch(BATCH, seed, dev)
+        two = tuple(q[:PLAIN_FRAMES] for q in b16)
+        got = rk.mega3_tail(*two, *maps, epi, nrm)
+        torch.cuda.synchronize()
+        c = {"vs_plain": float_code_diff(
+            got, rk.mega3_tail_plain(*two, *maps, epi, nrm), 1023)}
+        f16 = make_serving_fn(plan_pipeline(*f16_args))
+        ts_out, ts_launches = count_launches(lambda: f16(two, rt))
+        if ts_launches != only(banded_resize_last_axis=3 if mx_y is not None
+                               else 2, rows3_tail=1):
+            raise AssertionError(f"K4 {key}: the two-stage route launched "
+                                 f"{ts_launches}")
+        c["vs_two_stage_float16"] = float_code_diff(got, ts_out, 1023)
+        del got, ts_out
+        cm = cmat_epilogue(np.concatenate(
+            [np.asarray(p.cmat_m, np.float32),
+             np.asarray(p.cmat_c, np.float32)[:, None]], 1))
+        got = rk.mega3_tail(*two, *maps, cm, nrm)
+        torch.cuda.synchronize()
+        c["max_abs_err_cmat"] = (got - rk.mega3_tail_plain(
+            *two, *maps, cm, nrm)).abs().max().item()
+        del got, two
+        worst = max(c["vs_plain"]["max_code_diff"],
+                    c["vs_two_stage_float16"]["max_code_diff"])
+        if worst > 1 or c["vs_plain"]["frac_differing"] >= 0.02 \
+                or c["vs_two_stage_float16"]["frac_differing"] >= 0.02 \
+                or c["max_abs_err_cmat"] > 1e-5:
+            raise AssertionError(f"K4 {key} disagrees: {c}")
+        c["max_abs_err"] = max(worst / 1023.0, c["max_abs_err_cmat"])
+        c["ms"] = cuda_ms(lambda: rk.mega3_tail(*b16, *maps, epi, nrm))
+        c["plain_ms"] = cuda_ms(
+            lambda: rk.mega3_tail_plain(*b16, *maps, epi, nrm), reps=1)
+        mid16_fn = make_serving_fn(p)
+        packed_fn = make_serving_fn(p, pack_surface=True)
+        c["two_stage_ms"] = cuda_ms(lambda: mid16_fn(b16, rt))
+        c["two_stage_packed_ms"] = cuda_ms(lambda: packed_fn(b16, rt))
+        # the raw planes read once, float32 RGB written once; operations:
+        # the W taps once per W output, the H taps once per output, the
+        # colour matrix (the tail's transcendentals are not counted)
+        hy_in, hc_in = b16[0].shape[-2], b16[1].shape[-2]
+        c.update(bound(tbytes(*b16) + BATCH * 3 * oh * ow * 4
+                       + mbytes(ky, kc, hy, hc),
+                       map_flops(ky, BATCH * hy_in)
+                       + 2 * map_flops(kc, BATCH * hc_in)
+                       + map_flops(hy, BATCH * ow) + 2 * map_flops(hc, BATCH * ow)
+                       + 18 * BATCH * oh * ow), library_ms=None)
+        k4_cases[key] = c
+        k4_runs.append((b16, maps, epi, nrm))
+        del mid16_fn, packed_fn, f16
+    k4_outs, k4_launches = count_launches(
+        lambda: [rk.mega3_tail(*b, *m, e, n) for b, m, e, n in k4_runs])
+    if k4_launches != only(mega3_tail=len(k4_runs)):
+        raise AssertionError(f"K4 launches {k4_launches}")
+    for o, (b, m, _, _) in zip(k4_outs, k4_runs):
+        if o.shape != (BATCH, 3, m[4], b[0].shape[-1] if m[0] is None
+                       else m[0].out_size) or not torch.isfinite(o).all():
+            raise AssertionError(f"K4 output {tuple(o.shape)}")
+    del k4_outs, k4_runs
+    k4 = dict(k4_cases["headline"])
+    line("K4", frames=PLAIN_FRAMES, timed_batch=BATCH, launches=k4_launches,
+         tolerance="dithered float <= 1 code on < 2% of channels vs plain and "
+                   "vs the FLOAT16 two-stage route; matrix only f32 <= 1e-5",
+         **k4_cases)
+    torch.cuda.empty_cache()
+
+    # 20. c7 served: one make_serving_fn, C7_SCENES scenes of batch 16 (each
+    #     its own frames and HDR10 values), K1 x2 + K2 x1 per call, no build
+    #     or library load between scenes; the static route; the plain path
+    plan7 = plan_pipeline(*c7_args())
+    serve7 = make_serving_fn(plan7, pack_surface=True)
+    c7_batches = [p010_batch(BATCH, SEED + 50 + i, dev)
+                  for i in range(C7_SCENES)]
+    rts7 = [c7_rt(i) for i in range(C7_SCENES)]
+    # the path's K1 and K2 calls on PLAIN_FRAMES frames with scene 2's
+    # values, each against its plain version on the same inputs
+    with recording(rk, "banded_resize_last_axis", "rows3_tail") as calls:
+        serve7(tuple(p[:PLAIN_FRAMES] for p in c7_batches[0]), rts7[2])
+    torch.cuda.synchronize()
+    k1_calls, k2_calls = calls["banded_resize_last_axis"], calls["rows3_tail"]
+    if len(k1_calls) != 2 or len(k2_calls) != 1:
+        raise AssertionError(f"c7 recorded {len(k1_calls)} K1 and "
+                             f"{len(k2_calls)} K2 calls")
+    c7k = {"k1_max_code_diff": max(
+        int((got.float() - rk.banded_resize_last_axis_plain(*a, **kw).float())
+            .abs().max().item()) for a, kw, got in k1_calls)}
+    (a, kw, got), = k2_calls
+    if a[6].tonemap != ToneMapType.BT2390 or kw.get("pack_format") != "rgb10a2" \
+            or a[3] is not None:
+        raise AssertionError("c7: K2 tone map "
+                             f"{a[6].tonemap}, pack {kw.get('pack_format')}, "
+                             f"luma map {a[3]}")
+    ref = rk.rows3_tail_plain(*a, **kw)
+    c7k.update({"k2_" + k: x for k, x in code_diff(got, ref, 10).items()})
+    c7k["k2_alpha_ok"] = bool(torch.equal(got >> 30, ref >> 30))
+    del calls, k1_calls, k2_calls, a, kw, got, ref
+    if c7k["k1_max_code_diff"] > 1 or c7k["k2_max_code_diff"] > 1 \
+            or c7k["k2_frac_differing"] >= 0.02 or not c7k["k2_alpha_ok"]:
+        raise AssertionError(f"c7's K1 or K2 disagrees with its plain "
+                             f"version: {c7k}")
+    # a call at batch 16, recorded for K2's time on c7's inputs (also the
+    # warm-up)
+    with recording(rk, "rows3_tail") as calls:
+        serve7(c7_batches[0], rts7[1])
+    torch.cuda.synchronize()
+    (a2_7, kw2_7, _), = calls["rows3_tail"]
+    del calls
+    lib_before, builds = build.load(), []
+    real_build = build.build
+    build.build = lambda: builds.append(1) or real_build()
+    c7_times = []
+
+    def c7_run():
+        outs = []
+        for b, rt in zip(c7_batches, rts7):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            outs.append(serve7(b, rt))
+            t1.record()
+            torch.cuda.synchronize()
+            c7_times.append(t0.elapsed_time(t1))
+        return outs
+
+    try:
+        c7_outs, c7_launches = count_launches(c7_run)
+    finally:
+        build.build = real_build
+    if c7_launches != only(banded_resize_last_axis=2 * C7_SCENES,
+                           rows3_tail=C7_SCENES):
+        raise AssertionError(f"c7 launches {c7_launches}")
+    if builds or build.load() is not lib_before:
+        raise AssertionError("a scene change built or loaded the kernels")
+    for o in c7_outs:
+        if o.shape != (BATCH, H, W) or o.dtype != torch.int32:
+            raise AssertionError(f"c7 output {tuple(o.shape)} {o.dtype}")
+    db7 = {f"scene{i}": psnr(codes(c7_outs[i][0], 10).double() / 1023.0,
+                             c7_oracle(c7_batches[i], rts7[i]["hdr"]))
+           for i in (0, C7_SCENES - 1)}
+    del c7_outs
+    # the static route: VideoProcessor, the plan's metadata (MaxCLL 3000,
+    # display 600), the scalars from the host in float64
+    vp7 = VideoProcessor(*c7_args(), device=dev, pack_surface=True)
+    static_out, static_launches = count_launches(
+        lambda: vp7.process(c7_batches[1]))
+    if static_launches != only(banded_resize_last_axis=2, rows3_tail=1):
+        raise AssertionError(f"c7 static launches {static_launches}")
+    db7["static"] = psnr(
+        codes(static_out[0], 10).double() / 1023.0,
+        c7_oracle(c7_batches[1], {"max_cll": 3000.0, "display_max_nits": 600.0,
+                                  "mastering_max_nits": 4000.0}))
+    del static_out, vp7
+    c7_ms = cuda_ms(lambda: [serve7(b, rt) for b, rt in zip(c7_batches, rts7)],
+                    reps=1, warmup=0) / (C7_SCENES * BATCH)
+    t7 = []
+    for i in range(15):
+        one = tuple(p[i:i + 1] for p in c7_batches[1])
+        t0 = time.perf_counter()
+        serve7(one, rts7[i % C7_SCENES])
+        torch.cuda.synchronize()
+        t7.append((time.perf_counter() - t0) * 1e3)
+    serve7p = make_serving_fn(plan_pipeline(*c7_args(accel=False)),
+                              pack_surface=True)
+    out_p = serve7p(c7_batches[0], rts7[0])
+    db7["plain"] = psnr(codes(out_p[0], 10).double() / 1023.0,
+                        c7_oracle(c7_batches[0], rts7[0]["hdr"]))
+    del out_p
+    c7_plain_ms = cuda_ms(lambda: serve7p(c7_batches[0], rts7[0]), reps=1,
+                          warmup=0) / BATCH
+    if min(db7.values()) < 55.0:
+        raise AssertionError(f"c7 PSNR below 55 dB: {db7}")
+    k2_c7 = {"k2_ms": cuda_ms(lambda: rk.rows3_tail(*a2_7, **kw2_7))}
+    # K2 at c7: raw luma, the mid16 chroma and the packed surface; the
+    # chroma H taps and the matrix (not the tone map's pows)
+    k2_c7.update({"k2_" + k: x for k, x in bound(
+        tbytes(*a2_7[:3]) + BATCH * H * W * 4 + mbytes(a2_7[4]),
+        2 * map_flops(a2_7[4], BATCH * W) + 18 * BATCH * H * W).items()})
+    del a2_7, kw2_7
+    line("c7", batch=BATCH, scenes=C7_SCENES, launches=c7_launches,
+         builds_between_scenes=len(builds), psnr_db=db7,
+         ms_per_frame=c7_ms,
+         ms_per_frame_synced=sum(c7_times) / (C7_SCENES * BATCH),
+         ms_batch1_median=float(np.median(t7)),
+         ms_batch1_p90=float(np.percentile(t7, 90)),
+         plain_ms_per_frame=c7_plain_ms, **k2_c7,
+         kernels_frames=PLAIN_FRAMES,
+         tolerance="K1 mid16 <= 1 code; K2 <= 1 code on < 2% of channels",
+         **c7k)
+    del c7_batches, serve7, serve7p
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, n, k, err):
         return {"name": name, "route": "cuda",
                 "source": f"videorenderer_tpu_torch/csrc/{source}",
@@ -1175,13 +1451,17 @@ def main() -> None:
               "resize_pallas.py:261",
               launches["banded_resize_last_axis"]
               + c8_launches["banded_resize_last_axis"]
-              + lb_launches["banded_resize_last_axis"], k1,
+              + lb_launches["banded_resize_last_axis"]
+              + c7_launches["banded_resize_last_axis"], k1,
               max(k1["max_abs_err"], conv["k1_max_abs_err"],
                   sr_k["k1_max_abs_err"])),
         entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
-              launches["rows3_tail"], k2,
+              launches["rows3_tail"] + c7_launches["rows3_tail"], k2,
               max(k2["max_abs_err"], conv["k2_max_abs_err"],
-                  sr_k["k2_max_abs_err"])),
+                  sr_k["k2_max_abs_err"], c7k["k2_max_code_diff"] / 1023.0)),
+        entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",
+              k4_launches["mega3_tail"], k4,
+              max(c["max_abs_err"] for c in k4_cases.values())),
         entry("banded_resize_rows", "banded_resize_rows.cu",
               "resize_pallas.py:340", lb_launches["banded_resize_rows"], k3,
               max(k3["max_abs_err"], k3["max_abs_err_u16"])),

@@ -2,7 +2,7 @@
 """Where the device time of the port's configurations goes, on one NVIDIA
 card.
 
-    python3 profile_torch.py [c8] [letterbox]
+    python3 profile_torch.py [c8] [letterbox] [c7] [c7plain]
 
 Each configuration is driven as ``chip_smoke.py`` drives it (batch 16, full
 width): a warm-up call, then ``CALLS`` calls back to back under
@@ -94,6 +94,13 @@ def main(names) -> None:
             batch = cs.p010_batch(cs.BATCH, cs.SEED + 20, dev)
             rt = {"dovi_curves": cs.dovi_rt(1)}
             out = profile_calls(lambda: serve(batch, rt))
+        elif name in ("c7", "c7plain"):
+            serve = make_serving_fn(
+                plan_pipeline(*cs.c7_args(accel=name == "c7")),
+                pack_surface=True)
+            batch = cs.p010_batch(cs.BATCH, cs.SEED + 50, dev)
+            rt = cs.c7_rt(1)
+            out = profile_calls(lambda: serve(batch, rt))
         elif name == "letterbox":
             vp = VideoProcessor(
                 cs.Settings(upscaling=cs.Upscaling.LANCZOS3,
@@ -116,4 +123,4 @@ def main(names) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["c8", "letterbox"])
+    main(sys.argv[1:] or ["c8", "letterbox", "c7", "c7plain"])

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2, K3, K5, K6, K7, K8 and K9 of
+"""The CUDA kernels K1, K2, K3, K4, K5, K6, K7, K8 and K9 of
 videorenderer_tpu_torch on the card, against their plain PyTorch versions
 on the same card and inputs.
 
@@ -23,7 +23,10 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
  * K3 float32 <= 2e-6, as K1;
  * K8 float32 <= 1e-5 with c8's metadata (the identity LMS fold: only the
    tap sums differ) and <= 1e-4 with the non-identity variant (the PQ
-   round trip of the LMS step amplifies the sums' rounding near black).
+   round trip of the LMS step amplifies the sums' rounding near black);
+ * K2 with the local tone map (selections 1-6) or HLG -> PQ as K2 above;
+ * K4 float32 <= 1e-5 with the colour matrix only; with a whole tail,
+   dithered float within 1 code on < 2% of the channels, as K2.
 """
 
 import numpy as np
@@ -689,3 +692,170 @@ def test_letterbox_on_card_matches_cpu(dev):
     assert d.max() <= 1 and (d > 0).mean() < 0.02
     bars = torch.cat([got[:, :14], got[:, 94:]], dim=1).cpu()
     assert torch.all(bars == -1073741824)
+
+
+# --- the local tone map in K2's tail, HLG -> PQ, K4, c7 -----------------------
+
+C7_META = dict(mastering_max_nits=4000.0, max_cll=3000.0, max_fall=800.0)
+
+
+def _c7_plan(w=64, h=36, sel="BT2390", display=600, transfer="PQ",
+             local=True, accel=True, **meta):
+    """A c7-shaped plan (P010 HDR10 1:1 -> RGB10 PQ, the local tone map of
+    selection ``sel`` for a ``display``-nit display) at a small size."""
+    return P.plan_pipeline(
+        C.Settings(convert_to_sdr=False, hdr_passthrough=True,
+                   hdr_local_tone_mapping=local,
+                   hdr_local_tone_mapping_type=C.ToneMapType[sel],
+                   hdr_display_max_nits=display, use_accel_backend=accel),
+        P.SourceDescriptor(format=ColorFormat.P010, width=w, height=h,
+                           matrix=S.CSP.BT_2020_NC,
+                           primaries=S.Primaries.BT_2020,
+                           transfer=S.TRC[transfer],
+                           hdr10=P.HDR10Metadata(**{**C7_META, **meta})),
+        P.OutputDescriptor(width=w, height=h, bits=10, hdr=True))
+
+
+def _c7_k2_inputs(rng, n=2, w=64, h=36):
+    """c7's K2 call: raw uint16 luma read directly, mid16 chroma with the
+    bilinear H upsample."""
+    _, uy = chroma.chroma_upsample_matrices(
+        w // 2, h // 2, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    y = torch.from_numpy(rng.integers(64, 941, (n, h, w), dtype=np.uint16) << 6)
+    u = torch.from_numpy(rng.integers(1000, 15600, (n, h // 2, w)).astype(np.int16))
+    v = torch.from_numpy(rng.integers(1000, 15600, (n, h // 2, w)).astype(np.int16))
+    return y, u, v, rk.BandedMatrix(uy, pre_scale=1.0 / rk.MID16_SCALE)
+
+
+SCENE = {"mastering_min_nits": 0.005, "mastering_max_nits": 2000.0,
+         "max_cll": 1400.0, "max_fall": 450.0, "display_max_nits": 650.0}
+
+
+@pytest.mark.parametrize("passthrough", [False, True])
+@pytest.mark.parametrize("route", ["static", "serving"])
+@pytest.mark.parametrize("sel", ["ACES", "REINHARD", "HABLE", "MOBIUS",
+                                 "BT2390", "ST2094_10"])
+def test_k2_local_tonemap_matches_plain(dev, sel, route, passthrough):
+    """K2 with each local tone map (selections 1-6), its scalars from the
+    plan (float64 on the host) or from a scene (float32), and with a
+    display at least as bright as the source (the PQ round trip alone for
+    5 and 6): within 1 code on < 2% of the channels."""
+    rng = np.random.default_rng(20)
+    plan = _c7_plan(sel=sel, display=1500 if passthrough else 600,
+                    **(dict(max_cll=800.0) if passthrough else {}))
+    hdr = None
+    if route == "serving":
+        hdr = dict(SCENE, display_max_nits=1500.0) if passthrough else SCENE
+    epi = P._make_tail_epilogue(plan, hdr=hdr)
+    assert epi.tonemap == C.ToneMapType[sel]
+    y, u, v, mc = _c7_k2_inputs(rng)
+    args = (y.to(dev), u.to(dev), v.to(dev), None, mc, 36, epi)
+    kw = dict(y_scale=1 / 65535.0, pack_format="rgb10a2")
+    got = rk.rows3_tail(*args, **kw)
+    torch.cuda.synchronize()
+    ref = rk.rows3_tail_plain(*args, **kw)
+    d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_k2_hlg_to_pq_matches_plain(dev, local):
+    """HLG passthrough: the OOTF and the PQ OETF at 1000 nits inside K2,
+    with and without the BT.2390 tone map after it."""
+    rng = np.random.default_rng(21)
+    plan = _c7_plan(transfer="HLG", local=local)
+    epi = P._make_tail_epilogue(plan)
+    assert epi.correction == rk.CORR_HLG_TO_PQ
+    y, u, v, mc = _c7_k2_inputs(rng)
+    args = (y.to(dev), u.to(dev), v.to(dev), None, mc, 36, epi)
+    kw = dict(y_scale=1 / 65535.0, pack_format="rgb10a2")
+    got = rk.rows3_tail(*args, **kw)
+    torch.cuda.synchronize()
+    d = np.abs(_codes(got, "rgb10a2")
+               - _codes(rk.rows3_tail_plain(*args, **kw), "rgb10a2"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def _k4_case(rng, kind):
+    """K4's two geometries at a small size: ``headline``, 4:2:0 P010 with a
+    2:1 Lanczos3 downscale (maps on both axes of every plane) and the
+    headline's PQ -> SDR tail; ``c7``, 1:1 (luma direct, chroma upsampled)
+    with c7's BT.2390 tail."""
+    if kind == "headline":
+        h, w, oh, ow = 256, 512, 128, 256
+        wx, wy = _lanczos(w, ow), _lanczos(h, oh)
+        ux, uy = chroma.chroma_upsample_matrices(
+            w // 2, h // 2, 420, C.ChromaScaling.BILINEAR,
+            S.ChromaLocation.MPEG2)
+        maps = (wx, ux @ wx, wy, uy @ wy)
+        plan = P.plan_pipeline(
+            C.Settings(upscaling=C.Upscaling.LANCZOS3, convert_to_sdr=True),
+            P.SourceDescriptor(format=ColorFormat.P010, width=w, height=h,
+                               matrix=S.CSP.BT_2020_NC,
+                               primaries=S.Primaries.BT_2020,
+                               transfer=S.TRC.PQ, hdr10=P.HDR10Metadata()),
+            P.OutputDescriptor(width=ow, height=oh, bits=10))
+    else:
+        h, w, oh = 72, 128, 72
+        ux, uy = chroma.chroma_upsample_matrices(
+            w // 2, h // 2, 420, C.ChromaScaling.BILINEAR,
+            S.ChromaLocation.MPEG2)
+        maps = (None, ux, None, uy)
+        plan = _c7_plan(w=w, h=h)
+    planes = _p010(rng, 2, w, h)
+    (ky, hy), (kc, hc) = (rk.mega_maps(maps[0], maps[2], 1 / 65535.0),
+                          rk.mega_maps(maps[1], maps[3], 1 / 65535.0))
+    return planes, (ky, kc, hy, hc, oh), plan
+
+
+@pytest.mark.parametrize("tail", ["cmat", "full"])
+@pytest.mark.parametrize("kind", ["headline", "c7"])
+def test_k4_kernel_matches_plain(dev, kind, tail):
+    """K4 at both geometries: with the colour matrix only (float32 within
+    1e-5) and with the plan's whole tail (dithered float, within 1 code on
+    < 2% of the channels)."""
+    rng = np.random.default_rng(22)
+    planes, maps, plan = _k4_case(rng, kind)
+    epi = (P.cmat_epilogue(np.concatenate(
+        [np.asarray(plan.cmat_m, np.float32),
+         np.asarray(plan.cmat_c, np.float32)[:, None]], 1))
+        if tail == "cmat" else P._make_tail_epilogue(plan))
+    args = (*(p.to(dev) for p in planes), *maps, epi, 1 / 65535.0)
+    before = rk.launches["mega3_tail"]
+    got = rk.mega3_tail(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["mega3_tail"] == before + 1
+    ref = rk.mega3_tail_plain(*args)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    if tail == "cmat":
+        assert (got - ref).abs().max().item() <= 1e-5
+    else:
+        d = ((got - ref).abs() * 1023).round().cpu().numpy()
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def test_c7_serving_on_card_matches_cpu(dev):
+    """c7's serving function at a small size over two scenes: K1 ×2 + K2
+    per call on the card, no build between scenes, within 1 code of the
+    CPU's plain route."""
+    from videorenderer_tpu_torch.kernels import build
+    rng = np.random.default_rng(23)
+    plan = _c7_plan(w=128, h=72)
+    fn = P.make_serving_fn(plan, pack_surface=True)
+    assert fn.allowed_rt_keys == {"cmat", "hdr"}
+    planes = _p010(rng, 2, 128, 72)
+    lib = build.load()
+    outs = []
+    for i in (0, 3):
+        rt = {"hdr": dict(SCENE, max_cll=1200.0 + 100.0 * i)}
+        rk.reset_launches()
+        got = fn(tuple(p.to(dev) for p in planes), rt)
+        torch.cuda.synchronize()
+        assert rk.launches == only(banded_resize_last_axis=2, rows3_tail=1)
+        ref = fn(planes, rt)
+        assert got.shape == ref.shape == (2, 72, 128)
+        d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+        outs.append(got.cpu())
+    assert build.load() is lib
+    assert not torch.equal(outs[0], outs[1])

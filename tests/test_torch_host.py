@@ -256,7 +256,9 @@ def _identity_dovi():
     dict(settings=tcfg.Settings(upscaling=tcfg.Upscaling.JINC2,
                                 vp_scaling=False),
          dst=tpipe.OutputDescriptor(width=256, height=128, bits=10)),
-    dict(settings=tcfg.Settings(hdr_local_tone_mapping=True),
+    # the local tone map is ported, but not for Dolby Vision (HDR output)
+    dict(dovi=_identity_dovi(),
+         settings=tcfg.Settings(hdr_local_tone_mapping=True),
          dst=tpipe.OutputDescriptor(width=64, height=32, bits=10, hdr=True)),
     # placement is ported, but not together with Dolby Vision
     dict(dovi=_identity_dovi(),
@@ -279,14 +281,14 @@ def test_rotation_refused():
 
 
 @pytest.mark.parametrize("dst", [
-    tpipe.OutputDescriptor(width=64, height=32, bits=16, hdr=True),   # HLG->PQ
+    tpipe.OutputDescriptor(width=64, height=32, bits=10),             # 2020 fix
     tpipe.OutputDescriptor(width=64, height=32, bits=16)])            # 2020 fix
 def test_kernel_tail_refuses_unported_corrections(dst):
-    """HLG->PQ and the SDR BT.2020 fix run on the plain path only; on the
-    kernel path K2's epilogue refuses them instead of falling back."""
-    transfer = tcsp.TRC.HLG if dst.hdr else tcsp.TRC.BT_1886
+    """The SDR BT.2020 fix runs on the plain path only; on the kernel path
+    K2's epilogue refuses it instead of falling back (HLG->PQ is K2's
+    since the c7 slice: tests/test_torch_tonemap.py)."""
     src = tpipe.SourceDescriptor(format=tfmt.ColorFormat.P010, width=128,
-                                 height=64, transfer=transfer,
+                                 height=64, transfer=tcsp.TRC.BT_1886,
                                  primaries=tcsp.Primaries.BT_2020)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.VideoProcessor(tcfg.Settings(), src, dst, device="cpu")

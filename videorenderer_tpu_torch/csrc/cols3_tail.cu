@@ -78,18 +78,19 @@ __global__ void cols3_tail_kernel(
 // Dtype codes: 0 uint8, 1 uint16, 2 int16, 3 float32.  n_taps_* == 0: that
 // plane has no W matrix and is read directly (its width is w_out) times its
 // scale.  ``host_mats`` is HOST memory: 12 floats of the colour matrix,
-// row-major 3 x (m0 m1 m2 c), then 9 of the gamut matrix.
+// row-major 3 x (m0 m1 m2 c), 9 of the gamut matrix, then the 5 scalars of
+// the local tone map of selection ``tonemap`` (0: none).
 extern "C" int vrt_cols3_tail(
     const void* y, int y_dtype, const void* u, const void* v, int c_dtype,
     int batch, int h, int wy, int wc, int w_out, const void* starts_y,
     const void* taps_y, int n_taps_y, const void* starts_c,
     const void* taps_c, int n_taps_c, float y_scale, float c_scale,
-    const void* host_mats, int apply_matrix, int correction,
+    const void* host_mats, int apply_matrix, int correction, int tonemap,
     float luminance_scale, int dither_bits, int pack, void* out,
     void* stream) {
   const vrt::TailParams P = vrt::make_tail_params(
-      host_mats, apply_matrix, correction, luminance_scale, y_scale, c_scale,
-      dither_bits, pack);
+      host_mats, apply_matrix, correction, tonemap, luminance_scale, y_scale,
+      c_scale, dither_bits, pack);
   const dim3 grid(batch * h, (w_out + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return vrt::dispatch_planes(y_dtype, c_dtype, [&](auto y_tag, auto c_tag) {

@@ -31,20 +31,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The two kernels that end in the tail (tail.cuh) share one signature:
+# K2 and K9, which end in the tail (tail.cuh), share one signature:
 # y, y_dtype, u, v, c_dtype, batch, then four sizes (K2: hy, hc, w, h_out;
 # K9: h, wy, wc, w_out), starts_y, taps_y, n_taps_y, starts_c, taps_c,
-# n_taps_c, y_scale, c_scale, cmat (host, 12 floats), apply_matrix,
-# correction, luminance_scale, dither_bits, pack, out, stream
+# n_taps_c, y_scale, c_scale, mats (host: cmat 12, gamut 9, tone map 5
+# floats), apply_matrix, correction, tonemap, luminance_scale, dither_bits,
+# pack, out, stream
 _TAIL_KERNEL = (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                 _P, _P, _I, _P, _P, _I,
-                _F, _F, _P, _I, _I, _F, _I, _I, _P, _P)
+                _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P)
 # argtypes of every C entry point, in the order of its parameters
 SIGNATURES = {
     # x, x_dtype, starts, taps, out, mid16, rows, w_in, w_out, n_taps, stream
     "vrt_banded_resize": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vrt_rows3_tail": _TAIL_KERNEL,
     "vrt_cols3_tail": _TAIL_KERNEL,
+    # y, y_dtype, u, v, c_dtype, batch, hy, wy, hc, wc, h_out, w_out, the
+    # (starts, taps, n_taps) of the W maps of y and c, the (starts, taps,
+    # n_taps, tile_lo, win) of their H maps, y_scale, c_scale, mats (host,
+    # 26 floats), apply_matrix, correction, tonemap, luminance_scale,
+    # dither_bits, out, stream
+    "vrt_mega3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _I, _P, _P, _I,
+                       _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
+                       _F, _F, _P, _I, _I, _I, _F, _I, _P, _P),
     # x, x_dtype, starts, taps, out, batch, h_in, h_out, w, n_taps, stream
     "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_mid, h_out, then

@@ -28,7 +28,7 @@ import torch
 from ..ops.dovi import MidStage
 from .resize import (DTYPE_CODES, PACK_CODES, BandedMatrix, Epilogue,
                      _check_plane, _h_plain, _kernel_device, _launch,
-                     _no_tf32, pack_surface)
+                     _no_tf32, _taps_args, pack_surface)
 
 
 # ---------------------------------------------------------------------------
@@ -236,17 +236,11 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                       device=dev)
     vals = mid.host_values()
     struct = mid.host_structure()
-
-    def taps(mat):   # (starts, taps, T) pointers; NULL and T = 0: no map
-        if mat is None:
-            return None, None, 0
-        s, t = mat.taps_on(dev)
-        return s.data_ptr(), t.data_ptr(), mat.n_taps
-
     _launch("rows3_mid", "vrt_rows3_mid", dev,
             y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
             DTYPE_CODES[u.dtype], batch, hy, hc, w, h_mid, h_out,
-            *taps(my_in_y), *taps(my_in_c), *taps(my_out),
+            *_taps_args(my_in_y, dev), *_taps_args(my_in_c, dev),
+            *_taps_args(my_out, dev),
             None if tile_lo is None else tile_lo.data_ptr(), win,
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
@@ -337,24 +331,13 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     else:
         out = torch.empty(lead + (h, w_out), dtype=torch.int32,
                           device=y.device)
-    cm = (np.zeros((3, 4), np.float32) if epilogue.cmat is None
-          else np.asarray(epilogue.cmat, np.float32))
-    host_mats = np.ascontiguousarray(np.concatenate(
-        [cm.reshape(-1), np.asarray(epilogue.gamut, np.float32).reshape(-1)]))
-
-    def taps(mat):   # (starts, taps, T) pointers; NULL and T = 0: no matrix
-        if mat is None:
-            return None, None, 0
-        s, t = mat.taps_on(y.device)
-        return s.data_ptr(), t.data_ptr(), mat.n_taps
-
+    mats = epilogue.host_mats()
     _launch("cols3_tail", "vrt_cols3_tail", y.device,
             y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
             DTYPE_CODES[u.dtype], batch, h, wy, wc, w_out,
-            *taps(mx_y), *taps(mx_c),
+            *_taps_args(mx_y, y.device), *_taps_args(mx_c, y.device),
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
-            host_mats.ctypes.data, int(epilogue.cmat is not None),
-            epilogue.correction, float(epilogue.luminance_scale),
-            epilogue.dither_bits, PACK_CODES[pack_format], out.data_ptr())
+            *epilogue.launch_args(mats), epilogue.dither_bits,
+            PACK_CODES[pack_format], out.data_ptr())
     return out

@@ -1,12 +1,14 @@
 """The kernels of the separable resize — K1, the banded W-axis resize, K3,
-the banded H-axis resize, and K2, the H-axis resize with the whole per-pixel
-tail — with their plain PyTorch versions, the tap-table planning they
-share, and the surface packer.
+the banded H-axis resize, K2, the H-axis resize with the whole per-pixel
+tail, and K4, both resizes and the tail in one kernel — with their plain
+PyTorch versions, the tap-table planning they share, and the surface
+packer.
 
 Replaces ``videorenderer_tpu/kernels/resize_pallas.py``:
 ``banded_resize_last_axis`` (K1, ``csrc/banded_resize.cu``),
-``banded_resize_rows`` (K3, ``csrc/banded_resize_rows.cu``) and
-``rows3_tail`` (K2, ``csrc/rows3_tail.cu``).
+``banded_resize_rows`` (K3, ``csrc/banded_resize_rows.cu``),
+``rows3_tail`` (K2, ``csrc/rows3_tail.cu``) and ``mega3_tail`` (K4,
+``csrc/mega3_tail.cu``).
 
 The Pallas kernels packed each banded (in, out) matrix into 128-aligned
 windows and split the products into bf16 halves, for the TPU's lane tiling
@@ -21,7 +23,7 @@ launches the kernel or raises.  Each launch adds one to ``launches[name]``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -40,7 +42,7 @@ TILE_N = 128   # the JAX packing's output tile, for :func:`taps_from_band_pack`
 DTYPE_CODES = {torch.uint8: 0, torch.uint16: 1, torch.int16: 2,
                torch.float32: 3}
 
-CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR = 0, 1, 2
+CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR, CORR_HLG_TO_PQ = 0, 1, 2, 3
 PACK_CODES = {None: 0, "rgb10a2": 1, "rgba8": 2}
 
 # launches of every kernel of the package, by name (K5 and K6 are
@@ -48,7 +50,7 @@ PACK_CODES = {None: 0, "rgb10a2": 1, "rgba8": 2}
 launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
             "banded_resize_rows": 0, "jinc2_resize_fused": 0,
             "jinc2_convert_fused": 0, "deint3_rows_dual": 0, "rows3_mid": 0,
-            "cols3_tail": 0}
+            "cols3_tail": 0, "mega3_tail": 0}
 
 
 def reset_launches() -> None:
@@ -299,16 +301,19 @@ def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Epilogue:
-    """What K2 runs on each output pixel after the H pass: the parameters of
-    the kernel's specialisation, and ``plain``, the same computation in
-    torch for the plain version ((..., H, W) x 3 -> (..., 3, H, W)).
+    """What K2 (and K9, K4) runs on each output pixel after the resize: the
+    parameters of the kernel's specialisation, and ``plain``, the same
+    computation in torch for the plain version ((..., H, W) x 3 ->
+    (..., 3, H, W)).
 
     ``cmat``: (3, 4) float32 rows (m0 m1 m2 c), or None when the planes are
-    R, G, B already.  ``correction``: CORR_NONE, CORR_PQ_TO_SDR or
-    CORR_HLG_TO_SDR, the SDR conversions using ``luminance_scale`` and the
-    (3, 3) BT.2020 -> BT.709 ``gamut`` matrix.  ``dither_bits``: +b ordered
-    dither to b bits, -b round to b bits, 0 none (float output); b is 8 or
-    10."""
+    R, G, B already.  ``correction``: CORR_NONE, CORR_PQ_TO_SDR,
+    CORR_HLG_TO_SDR or CORR_HLG_TO_PQ, the SDR conversions using
+    ``luminance_scale`` and the (3, 3) BT.2020 -> BT.709 ``gamut`` matrix.
+    ``tonemap``: the local tone map's selection (1-6, ``ops/tonemap``; 0
+    none) and ``tonemap_scalars`` its five float32 scalars, which ride the
+    launch by value.  ``dither_bits``: +b ordered dither to b bits, -b round
+    to b bits, 0 none (float output); b is 8 or 10."""
 
     cmat: np.ndarray | None
     correction: int
@@ -316,16 +321,45 @@ class Epilogue:
     dither_bits: int
     gamut: np.ndarray
     plain: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    tonemap: int = 0
+    tonemap_scalars: np.ndarray = field(
+        default_factory=lambda: np.zeros(5, np.float32))
 
     def validate(self) -> None:
-        if self.correction not in (CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR):
+        if self.correction not in (CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR,
+                                   CORR_HLG_TO_PQ):
             raise NotImplementedError(
                 f"K2 epilogue: correction {self.correction} is not ported")
+        if self.tonemap not in range(7):
+            raise NotImplementedError(
+                f"K2 epilogue: tone map selection {self.tonemap} is not "
+                "ported (ROADMAP item 4: the HDR10+ guided curve)")
+        if np.shape(self.tonemap_scalars) != (5,):
+            raise ValueError("tonemap_scalars must hold 5 values, got "
+                             f"{np.shape(self.tonemap_scalars)}")
         if self.dither_bits not in (0, 8, 10, -8, -10):
             raise NotImplementedError(
                 f"K2 epilogue: dither_bits {self.dither_bits} is not ported")
         if self.cmat is not None and np.shape(self.cmat) != (3, 4):
             raise ValueError(f"cmat must be (3, 4), got {np.shape(self.cmat)}")
+
+    def host_mats(self) -> np.ndarray:
+        """The 26 floats the tail kernels take in host memory: the colour
+        matrix (zeros without one), the gamut matrix, the tone-map
+        scalars."""
+        cm = (np.zeros((3, 4), np.float32) if self.cmat is None
+              else np.asarray(self.cmat, np.float32))
+        return np.ascontiguousarray(np.concatenate(
+            [cm.reshape(-1), np.asarray(self.gamut, np.float32).reshape(-1),
+             np.asarray(self.tonemap_scalars, np.float32).reshape(-1)]))
+
+    def launch_args(self, mats: np.ndarray) -> tuple:
+        """(mats pointer, apply_matrix, correction, tonemap,
+        luminance_scale), the tail's arguments of every kernel entry point
+        that ends in it; ``mats`` is :meth:`host_mats`, kept alive by the
+        caller for the call."""
+        return (mats.ctypes.data, int(self.cmat is not None), self.correction,
+                self.tonemap, float(self.luminance_scale))
 
 
 def pack_surface(rgb: torch.Tensor, fmt: str) -> torch.Tensor:
@@ -346,6 +380,15 @@ def pack_surface(rgb: torch.Tensor, fmt: str) -> torch.Tensor:
         return (torch.clamp(x, 0.0, 1.0) * scale + 0.5).to(torch.int32)
 
     return q(r) | (q(g) << shift) | (q(b) << (2 * shift)) | alpha
+
+
+def _taps_args(mat: BandedMatrix | None, device) -> tuple:
+    """(starts, taps, T) of a map for a kernel call; NULL and T = 0: no
+    map."""
+    if mat is None:
+        return None, None, 0
+    s, t = mat.taps_on(device)
+    return s.data_ptr(), t.data_ptr(), mat.n_taps
 
 
 def _h_plain(p: torch.Tensor, mat: BandedMatrix | None,
@@ -425,24 +468,135 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     else:
         out = torch.empty(lead + (h_out, w), dtype=torch.int32,
                           device=y.device)
-    cm = (np.zeros((3, 4), np.float32) if epilogue.cmat is None
-          else np.asarray(epilogue.cmat, np.float32))
-    host_mats = np.ascontiguousarray(np.concatenate(
-        [cm.reshape(-1), np.asarray(epilogue.gamut, np.float32).reshape(-1)]))
-
-    def taps(mat):   # (starts, taps, T) pointers; NULL and T = 0: no matrix
-        if mat is None:
-            return None, None, 0
-        s, t = mat.taps_on(y.device)
-        return s.data_ptr(), t.data_ptr(), mat.n_taps
-
+    mats = epilogue.host_mats()
     _launch("rows3_tail", "vrt_rows3_tail", y.device,
             y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
             DTYPE_CODES[u.dtype], batch, hy, hc, w, h_out,
-            *taps(my), *taps(mc),
+            *_taps_args(my, y.device), *_taps_args(mc, y.device),
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
-            host_mats.ctypes.data, int(epilogue.cmat is not None),
-            epilogue.correction, float(epilogue.luminance_scale),
-            epilogue.dither_bits, PACK_CODES[pack_format], out.data_ptr())
+            *epilogue.launch_args(mats), epilogue.dither_bits,
+            PACK_CODES[pack_format], out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: W map + H map of three planes + the tail, in one kernel
+# ---------------------------------------------------------------------------
+
+K4_TILE_ROWS = 32     # output rows of a block (kTileRows, csrc/mega3_tail.cu)
+
+
+def mega_maps(mx: np.ndarray | None, my: np.ndarray | None,
+              norm: float | None) -> tuple:
+    """One plane's (W map, H map) as :class:`BandedMatrix` objects, the
+    normalisation placed as the JAX ``_MegaPlane`` places it: in the W map,
+    else in the H map.  :func:`mega3_tail` takes them, and so do K1 then K3
+    on the placed route.  A plane with neither map is scaled by ``norm``
+    where it is read."""
+    kw = None if mx is None else BandedMatrix(mx, pre_scale=norm)
+    kh = None if my is None else BandedMatrix(
+        my, pre_scale=norm if mx is None else None)
+    return kw, kh
+
+
+def _mega_plane_plain(p: torch.Tensor, mx: BandedMatrix | None,
+                      my: BandedMatrix | None,
+                      norm: float | None) -> torch.Tensor:
+    x = p.to(torch.float32)
+    if mx is None and my is None:
+        return x if norm is None else x * float(np.float32(norm))
+    if mx is not None:
+        x = x @ mx.dense_on(p.device)
+    return x if my is None else my.dense_on(p.device).T @ x
+
+
+def mega3_tail_plain(y, u, v, mx_y: BandedMatrix | None,
+                     mx_c: BandedMatrix | None, my_y: BandedMatrix | None,
+                     my_c: BandedMatrix | None, h_out: int,
+                     epilogue: Epilogue,
+                     norm: float | None = None) -> torch.Tensor:
+    """Plain K4: per plane the W map, then the H map, each a dense float32
+    product (a plane with neither map times ``norm``), then the torch
+    epilogue."""
+    _no_tf32()
+    return epilogue.plain(_mega_plane_plain(y, mx_y, my_y, norm),
+                          _mega_plane_plain(u, mx_c, my_c, norm),
+                          _mega_plane_plain(v, mx_c, my_c, norm))
+
+
+def mega3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+               mx_y: BandedMatrix | None, mx_c: BandedMatrix | None,
+               my_y: BandedMatrix | None, my_c: BandedMatrix | None,
+               h_out: int, epilogue: Epilogue,
+               norm: float | None = None) -> torch.Tensor:
+    """The whole fused pipeline in one kernel: raw (luma, chroma, chroma)
+    planes -> W map -> H map -> epilogue (colour matrix, correction, local
+    tone map, quantization) -> (..., 3, h_out, w_out) float32.
+
+    ``y`` (..., Hy, Wy), ``u``/``v`` (..., Hc, Wc): uint8, uint16, int16 or
+    float32.  ``mx_*`` (W_in, w_out) and ``my_*`` (H_in, h_out): the maps,
+    or None where a plane keeps that axis; the normalisation goes into the
+    first map that touches a plane (:func:`mega_maps`), and ``norm`` scales
+    a plane with neither.  ``epilogue`` is K2's, so a serving call's colour
+    matrix and tone-map scalars come with it.  No pack.
+
+    Kernel K4 (``csrc/mega3_tail.cu``), replacing
+    ``resize_pallas.mega3_tail``.  One block per (frame, 32 columns, 32
+    output rows) runs the W pass of the input rows its outputs reach into
+    shared memory, then the H taps and the tail, so no intermediate plane
+    reaches device memory."""
+    epilogue.validate()
+    for name, p in (("y", y), ("u", u), ("v", v)):
+        _check_plane(name, p)
+    if u.shape != v.shape or u.dtype != v.dtype:
+        raise ValueError("u and v must share shape and dtype")
+    lead, (hy, wy), (hc, wc) = y.shape[:-2], y.shape[-2:], u.shape[-2:]
+    if u.shape[:-2] != lead:
+        raise ValueError(f"y {tuple(y.shape)} and u {tuple(u.shape)} differ "
+                         "in batch")
+    w_out = wy if mx_y is None else mx_y.out_size
+    for name, mx, my, h_in, w_in in (("y", mx_y, my_y, hy, wy),
+                                     ("c", mx_c, my_c, hc, wc)):
+        if (w_in if mx is None else mx.out_size) != w_out or (
+                mx is not None and mx.in_size != w_in):
+            raise ValueError(f"{name}: W map for {w_in} -> {w_out} columns "
+                             "does not fit")
+        if (h_in if my is None else my.out_size) != h_out or (
+                my is not None and my.in_size != h_in):
+            raise ValueError(f"{name}: H map for {h_in} -> {h_out} rows "
+                             "does not fit")
+    if not _kernel_device(y, u, v):
+        return mega3_tail_plain(y, u, v, mx_y, mx_c, my_y, my_c, h_out,
+                                epilogue, norm)
+    batch = y.numel() // (hy * wy) if y.numel() else 0
+    if batch == 0 or batch > 65535 or -(-h_out // K4_TILE_ROWS) > 65535:
+        raise ValueError(f"K4 cannot take batch {batch} x {h_out} rows")
+    dev = y.device
+
+    def h_args(my):   # (starts, taps, T, tile_lo, win); a plane's own rows
+        if my is None:
+            return None, None, 0, None, K4_TILE_ROWS
+        lo, win = my.row_windows(K4_TILE_ROWS, dev)
+        return (*_taps_args(my, dev), lo.data_ptr(), win)
+
+    hy_args, hc_args = h_args(my_y), h_args(my_c)
+    if 4 * 32 * (hy_args[4] + 2 * hc_args[4]) > 200 * 1024:
+        raise ValueError(f"K4: windows of {hy_args[4]} luma and "
+                         f"{hc_args[4]} chroma rows do not fit the shared "
+                         "memory of a block")
+
+    def direct_scale(mx, my):   # the scale of a plane read without maps
+        return float(norm) if mx is None and my is None and norm else 1.0
+
+    out = torch.empty(lead + (3, h_out, w_out), dtype=torch.float32,
+                      device=dev)
+    mats = epilogue.host_mats()
+    _launch("mega3_tail", "vrt_mega3_tail", dev,
+            y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
+            DTYPE_CODES[u.dtype], batch, hy, wy, hc, wc, h_out, w_out,
+            *_taps_args(mx_y, dev), *_taps_args(mx_c, dev), *hy_args,
+            *hc_args, direct_scale(mx_y, my_y), direct_scale(mx_c, my_c),
+            *epilogue.launch_args(mats), epilogue.dither_bits,
+            out.data_ptr())
     return out

@@ -53,6 +53,27 @@ def linear_to_st2084(x: torch.Tensor, divider: float) -> torch.Tensor:
     return pow_pos(x, ST2084_M2)
 
 
+def st2084_to_p(x: torch.Tensor) -> torch.Tensor:
+    """PQ code -> ``p = (linear/10000) ** M1``, the EOTF stopped one pow
+    short (the "m1-power domain"): ``st2084_to_linear(x, f) ==
+    pow_pos(st2084_to_p(x), 1/M1) * f``.  A hue-preserving scale s of linear
+    RGB is ``p * s**M1`` here (the BT.2390 fast path of ops/tonemap).  Same
+    denominator guard as :func:`st2084_to_linear`."""
+    x = pow_pos(torch.clamp(x, min=0.0), 1.0 / ST2084_M2)
+    return torch.clamp(x - ST2084_C1, min=0.0) / torch.clamp(
+        ST2084_C2 - ST2084_C3 * x, min=1e-6)
+
+
+def p_to_st2084(p: torch.Tensor) -> torch.Tensor:
+    """``(linear/10000) ** M1`` -> PQ code, the OETF without its first pow:
+    ``linear_to_st2084(x, 10000) == p_to_st2084(pow_pos(x/10000, M1))``.
+    The 6.1e4 clip is the image of :func:`linear_to_st2084`'s 1e30 cap
+    (1e30 ** M1 ~ 6e4), keeping the rational term finite."""
+    p = torch.clamp(p, 0.0, 6.1e4)
+    p = (ST2084_C1 + ST2084_C2 * p) / (1.0 + ST2084_C3 * p)
+    return pow_pos(p, ST2084_M2)
+
+
 # HLG constants (Shaders/convert/hlg.hlsl:1-8)
 _B67_A = 0.17883277
 _B67_B = 0.28466892

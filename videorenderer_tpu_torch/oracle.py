@@ -27,6 +27,12 @@ step with the PQ formulas, then the resize and the PQ -> SDR tail.
 
 :func:`oracle` with ``video_rect`` renders the video at the rect's size,
 dithers it from its own origin and places it into a black surface.
+
+:func:`oracle_c7` is one frame of c7 (4K HDR10 passthrough to a dimmer
+display): the same convert at 1:1, the PQ EOTF to nits, the BT.2390 EETF in
+its linear formulation (a hue-preserving scale of RGB by the mapped over
+the original BT.2020 luminance, independent of the port's m1-power
+rewrite), the PQ OETF and the ordered dither.
 """
 
 from __future__ import annotations
@@ -340,3 +346,45 @@ def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     rgb = _lms_f64(rgb, lms)
     x = _pq_to_sdr(_resize(rgb, out_w, out_h, upscaling), sdr_nits)
     return _dither(x, dither_bits)
+
+
+def _bt2390_f64(rgb: torch.Tensor, max_cll: float, display_max_nits: float,
+                mastering_max_nits: float) -> torch.Tensor:
+    """BT2390Tonemap (ps_hdr10_tonemap.hlsl:66-117) on (3, H, W) float64
+    nits: the Hermite roll-off of the PQ-coded BT.2020 luminance above the
+    knee ks = 1.5 PQ(display) - 0.5 PQ(peak), applied as a scale of RGB."""
+    peak = max_cll if max_cll > 10.0 else (
+        mastering_max_nits if mastering_max_nits > 10.0 else 1000.0)
+    if display_max_nits >= peak:
+        return rgb
+    f64 = torch.float64
+    max_pq = _pq_oetf(torch.tensor(peak / 10000.0, dtype=f64)).item()
+    target_pq = _pq_oetf(torch.tensor(display_max_nits / 10000.0,
+                                      dtype=f64)).item()
+    ks = max(0.0, 1.5 * target_pq - 0.5 * max_pq)
+    avg = 0.2627 * rgb[0] + 0.6780 * rgb[1] + 0.0593 * rgb[2]
+    e1 = _pq_oetf(avg / 10000.0)
+    t = (e1 - ks) / max(1e-6, max_pq - ks)
+    hermite = ((2 * t ** 3 - 3 * t ** 2 + 1) * ks
+               + (t ** 3 - 2 * t ** 2 + t) * (max_pq - ks)
+               + (-2 * t ** 3 + 3 * t ** 2) * target_pq)
+    mapped = _pq_eotf(torch.where(e1 > ks, hermite, e1)) * 10000.0
+    scale = torch.where(avg <= 1e-6, 1.0,
+                        mapped / torch.clamp(avg, min=1e-6))
+    return rgb * scale
+
+
+def oracle_c7(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+              max_cll: float, display_max_nits: float,
+              mastering_max_nits: float = 1000.0, bits_in: int = 16,
+              matrix: CSP = CSP.BT_2020_NC, levels: Levels = Levels.TV,
+              dither_bits: int = 10) -> torch.Tensor:
+    """One frame of c7 (4K P010 HDR10 -> the same size in PQ for a display
+    of ``display_max_nits``, BT.2390 local tone map of a scene with
+    ``max_cll``): ``y`` (H, W), ``u``/``v`` (H/2, W/2) raw 4:2:0 planes.
+    Normalise, upsample the chroma bilinearly (MPEG-2 siting), BT.2020 NCL
+    matrix, PQ EOTF to nits, the EETF, PQ OETF, ordered dither.  Returns
+    (3, H, W) float64 codes / (2**dither_bits - 1)."""
+    nits = _pq_eotf(_convert(y, u, v, bits_in, matrix, levels)) * 10000.0
+    mapped = _bt2390_f64(nits, max_cll, display_max_nits, mastering_max_nits)
+    return _dither(_pq_oetf(mapped / 10000.0), dither_bits)

@@ -37,7 +37,10 @@ resize and the tail), H first.
 Dolby Vision (``SourceDescriptor.dovi``) splits the fused path at the
 nonlinear reshape (:func:`_make_dovi_fused_fn`): K1 on the chroma, K8 (the
 H maps around the reshape, RPU matrix and LMS step), K9.
-:func:`make_serving_fn` takes a scene's curves and colour matrix per call.
+An HDR passthrough with ``Settings.hdr_local_tone_mapping`` (c7: 4K HDR10
+to a 600-nit display, BT.2390) runs the local tone map inside K2's tail,
+its five scalars per launch.  :func:`make_serving_fn` takes a scene's
+curves, colour matrix and HDR10 values per call.
 A letterboxed output (``OutputDescriptor.video_rect``) runs K1 and K3 per
 plane, then the tail and the placement in torch.
 
@@ -186,6 +189,10 @@ class PipelinePlan:
     src_rect: tuple[int, int, int, int] | None = None
     tonemap_params: tonemap_ops.HDRParams | None = None
     dovi: dovi_ops.DoviMetadata | None = None
+    # the local tone map of the HDR passthrough (ps_hdr10_tonemap.hlsl) and
+    # its operator (ToneMapType)
+    local_tonemap: bool = False
+    tonemap_type: int = 0
 
 
 # ROADMAP.md "Modules to port": where each refused feature comes in
@@ -252,9 +259,10 @@ def _check_ported(plan: PipelinePlan) -> None:
         _refuse("Dolby Vision extension metadata (dovi_ext)", "dovi")
     if src.hdr10plus is not None:
         _refuse("HDR10+ dynamic metadata", "serving")
-    if dst.hdr and s.hdr_local_tone_mapping and (src.is_hdr
-                                                 or src.dovi is not None):
-        _refuse("local tone mapping", "serving")
+    if plan.local_tonemap and src.dovi is not None:
+        _refuse("local tone mapping of Dolby Vision (HDR output)", "dovi")
+    if plan.local_tonemap and plan.tonemap_type == 7:
+        _refuse("the HDR10+ guided tone map (selection 7)", "serving")
     if info.cs_type == ColorSystem.GRAY:
         _refuse("GRAY sources", "staged")
     if not s.vp_scaling:
@@ -295,6 +303,8 @@ def plan_pipeline(settings: Settings, src: SourceDescriptor,
         TRC.LINEAR: 1.0, TRC.GAMMA18: 1.8, TRC.GAMMA20: 2.0,
         TRC.GAMMA26: 2.6, TRC.GAMMA28: 2.8,
     }.get(src.transfer, 2.2)
+    local_tonemap = (dst.hdr and settings.hdr_local_tone_mapping
+                     and (is_pq or is_hlg or dovi is not None))
 
     h = src.hdr10 or HDR10Metadata()
     tm_params = tonemap_ops.HDRParams(
@@ -324,7 +334,8 @@ def plan_pipeline(settings: Settings, src: SourceDescriptor,
         convert_to_sdr=convert_to_sdr, hlg_to_pq=hlg_to_pq,
         fix_bt2020_sdr=fix_bt2020_sdr, sdr_gamma=sdr_gamma,
         dither_bits=dither_bits, src_rect=src.src_rect,
-        tonemap_params=tm_params, dovi=dovi)
+        tonemap_params=tm_params, dovi=dovi, local_tonemap=local_tonemap,
+        tonemap_type=int(settings.hdr_local_tone_mapping_type))
     _check_ported(plan)
     return plan
 
@@ -546,32 +557,69 @@ def _on_card(planes) -> bool:
     return all(p.device.type == "cuda" for p in planes)
 
 
-def _tail_common(plan: PipelinePlan, rgb: torch.Tensor) -> torch.Tensor:
-    """Corrections, then the final pass (quantization and placement)."""
-    return _final_pass(plan, _corrections(plan, rgb))
+def _tonemap_scalars(plan: PipelinePlan, hdr=None) -> np.ndarray | None:
+    """The local tone map's five float32 scalars, None without one.  The
+    JAX package's two routes: with ``hdr`` None the plan's static metadata
+    in float64 on the host (its ``_local_tonemap``), else float32 from the
+    plan's metadata merged with a serving call's ``hdr`` values (its
+    ``_pack_rt_all``)."""
+    if not plan.local_tonemap:
+        return None
+    if hdr is None:
+        return tonemap_ops.local_tonemap_static_scalars(plan.tonemap_type,
+                                                        plan.tonemap_params)
+    merged = {k: getattr(plan.tonemap_params, k) for k in tonemap_ops.HDR_KEYS}
+    merged.update(tonemap_ops.hdr_values(hdr))
+    return tonemap_ops.local_tonemap_rt_scalars(plan.tonemap_type, merged)
+
+
+def _local_tonemap(plan: PipelinePlan, rgb: torch.Tensor,
+                   scalars: np.ndarray | None) -> torch.Tensor:
+    """The local tone map of the HDR passthrough on (..., 3, H, W) PQ RGB
+    (ps_hdr10_tonemap.hlsl), or ``rgb`` itself without one."""
+    if scalars is None:
+        return rgb
+    return tonemap_ops.local_tonemap_pq_from_scalars(
+        rgb, plan.tonemap_type, scalars, axis=-3)
+
+
+def _tail_common(plan: PipelinePlan, rgb: torch.Tensor,
+                 tm_scalars: np.ndarray | None = None) -> torch.Tensor:
+    """Corrections, the local tone map (``tm_scalars``, see
+    :func:`_tonemap_scalars`), then the final pass (quantization and
+    placement)."""
+    rgb = _local_tonemap(plan, _corrections(plan, rgb), tm_scalars)
+    return _final_pass(plan, rgb)
 
 
 def _make_tail_epilogue(plan: PipelinePlan, with_cmat: bool = True,
-                        cmat: tuple | None = None) -> rk.Epilogue:
-    """K2's (and K9's) epilogue for this plan: colour matrix, corrections
-    and dither, as kernel parameters and as the torch function of the plain
-    version.  ``with_cmat=False``: the three planes are R, G, B already.
-    ``cmat``: a serving call's (m, c) in place of the plan's."""
-    if (plan.hlg_to_pq or plan.fix_bt2020_sdr) and not plan.convert_to_sdr:
-        _refuse("HLG->PQ and the SDR BT.2020 fix inside kernel K2 (the "
-                "plain path, use_accel_backend=False, has them)", "staged")
+                        cmat: tuple | None = None,
+                        hdr: dict | None = None) -> rk.Epilogue:
+    """K2's (and K9's, K4's) epilogue for this plan: colour matrix,
+    corrections, the local tone map and dither, as kernel parameters and as
+    the torch function of the plain version.  ``with_cmat=False``: the three
+    planes are R, G, B already.  ``cmat``: a serving call's (m, c) in place
+    of the plan's.  ``hdr``: None for the tone map's static scalars, or a
+    serving call's HDR10 values (possibly empty) for the float32 ones."""
+    if plan.fix_bt2020_sdr and not plan.convert_to_sdr:
+        _refuse("the SDR BT.2020 fix inside kernel K2 (the plain path, "
+                "use_accel_backend=False, has it)", "staged")
     correction = rk.CORR_NONE
     if plan.convert_to_sdr:
         correction = (rk.CORR_HLG_TO_SDR
                       if plan.src.transfer == TRC.HLG and plan.dovi is None
                       else rk.CORR_PQ_TO_SDR)
+    elif plan.hlg_to_pq:
+        correction = rk.CORR_HLG_TO_PQ
     m, c = _rt_cmat(plan, None) if cmat is None else cmat
     apply_matrix = with_cmat and plan.apply_matrix
+    tm = _tonemap_scalars(plan, hdr)
 
     def plain(y, u, v):
         rgb = (_apply_cmat(m, c, y, u, v) if apply_matrix
                else torch.stack([y, u, v], dim=-3))
-        return _quantize(plan, _corrections(plan, rgb))
+        return _quantize(plan, _local_tonemap(plan, _corrections(plan, rgb),
+                                              tm))
 
     return rk.Epilogue(
         cmat=np.concatenate([m, c[:, None]], axis=1) if apply_matrix else None,
@@ -579,7 +627,10 @@ def _make_tail_epilogue(plan: PipelinePlan, with_cmat: bool = True,
         luminance_scale=10000.0 / plan.settings.sdr_display_nits,
         dither_bits=plan.dither_bits,
         gamut=np.asarray(csputils.bt2020_to_bt709_matrix(), np.float32),
-        plain=plain)
+        plain=plain,
+        tonemap=plan.tonemap_type if tm is not None else 0,
+        tonemap_scalars=(tm if tm is not None
+                         else np.zeros(5, np.float32)))
 
 
 def cmat_epilogue(cmat: np.ndarray) -> rk.Epilogue:
@@ -627,20 +678,13 @@ def _dense_apply():
     return app
 
 
-def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
-    """The fused pipeline: chroma upsample + (blend deinterlace) + separable
-    resize collapse into one banded matrix per plane per axis (linear maps
-    compose), so everything nonlinear runs at output resolution.
-
-    Returns ``fn(planes, rt=None)``; ``rt["cmat"]`` (a serving call's
-    ``{"m", "c"}``) replaces the plan's colour matrix.  Three routes:
-    K1 ×3 + K2 (the matrix and the whole tail inside K2); with a
-    ``video_rect``, K1 ×3 + K3 ×3 and the tail and the placement in torch
-    (the JAX package's ``_fused_apply2d`` route); and, without
-    ``use_accel_backend``, the plain products and the torch tail."""
+def fused_maps(plan: PipelinePlan) -> tuple:
+    """The fused path's maps of a plan: (luma W map, luma H map, chroma W
+    map, chroma H map, normalisation of the raw planes), each map a dense
+    (in, out) array or None where the axis keeps its size.  Chroma maps
+    compose the chroma upsample with the resize; an interlaced 4:2:0 source
+    with ``deint_blend`` folds the blend into the luma H map."""
     s, src, dst, info = plan.settings, plan.src, plan.dst, plan.info
-    use_kernels = s.use_accel_backend and _vp_format_allowed(s, info)
-
     src_w, src_h, cx, cy = _axis_choices(s, src, plan.src_rect, dst)
     vid_w, vid_h = dst.video_size
     wx = scale_ops.build_axis_matrix(cx, src_w, vid_w)
@@ -659,13 +703,36 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
         cwx, cwy = _compose(ux, wx), _compose(uy, wy)
     else:
         cwx, cwy = wx, wy
+    return wx, wy_luma, cwx, cwy, 1.0 / (2.0 ** info.plane_bits - 1.0)
 
-    norm = 1.0 / (2.0 ** info.plane_bits - 1.0)
+
+def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
+    """The fused pipeline: chroma upsample + (blend deinterlace) + separable
+    resize collapse into one banded matrix per plane per axis (linear maps
+    compose), so everything nonlinear runs at output resolution.
+
+    Returns ``fn(planes, rt=None)``; ``rt["cmat"]`` (a serving call's
+    ``{"m", "c"}``) replaces the plan's colour matrix and ``rt["hdr"]`` (its
+    HDR10 values) the local tone map's metadata.  Three routes: K1 ×3 + K2
+    (the matrix and the whole tail inside K2; c7 reads its luma directly,
+    K1 ×2 + K2); with a ``video_rect``, K1 ×3 + K3 ×3 and the tail and the
+    placement in torch (the JAX package's ``_fused_apply2d`` route); and,
+    without ``use_accel_backend``, the plain products and the torch tail.
+    As in the JAX package, the kernel route takes the tone map's float32
+    serving scalars for any non-empty ``rt``, the torch routes only when it
+    holds "hdr"."""
+    s, dst, info = plan.settings, plan.dst, plan.info
+    use_kernels = s.use_accel_backend and _vp_format_allowed(s, info)
+    vid_h = dst.video_size[1]
+    wx, wy_luma, cwx, cwy, norm = fused_maps(plan)
+    static_tm = _tonemap_scalars(plan)
 
     def torch_tail(comps, rt):
         rgb = (_apply_cmat(*_rt_cmat(plan, rt.get("cmat")), *comps)
                if plan.apply_matrix else torch.stack(comps, dim=-3))
-        rgb = _tail_common(plan, rgb)
+        hdr = rt.get("hdr")
+        rgb = _tail_common(plan, rgb, static_tm if hdr is None
+                           else _tonemap_scalars(plan, hdr))
         return rgb if pack_format is None else rk.pack_surface(rgb, pack_format)
 
     if not use_kernels:
@@ -683,13 +750,8 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
         # K2 writes the whole surface, so a placed video takes the maps as
         # K1 then K3 per plane (float32 between them; the normalisation in
         # the first map's taps) and the tail in torch
-        def kmaps(mx, my):
-            kw = None if mx is None else rk.BandedMatrix(mx, pre_scale=norm)
-            kh = None if my is None else rk.BandedMatrix(
-                my, pre_scale=None if mx is not None else norm)
-            return kw, kh
-
-        maps = (kmaps(wx, wy_luma), kmaps(cwx, cwy), kmaps(cwx, cwy))
+        maps = (rk.mega_maps(wx, wy_luma, norm), rk.mega_maps(cwx, cwy, norm),
+                rk.mega_maps(cwx, cwy, norm))
 
         def kapply(p, kw, kh):
             if kw is not None:
@@ -735,8 +797,9 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
 
     def kernel_fn(planes, rt=None):
         planes = _crop_planes(plan, planes)
-        epi = (epilogue if not rt or rt.get("cmat") is None else
-               _make_tail_epilogue(plan, cmat=_rt_cmat(plan, rt["cmat"])))
+        epi = epilogue if not rt else _make_tail_epilogue(
+            plan, cmat=_rt_cmat(plan, rt.get("cmat")),
+            hdr=rt.get("hdr") or {})
 
         def wpass(p, kw, q):
             return p if kw is None else rk.banded_resize_last_axis(p, kw, mid16=q)
@@ -842,10 +905,11 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
 def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
                     flip: bool):
     """The staged pipeline (the JAX package's non-fused ``make_frame_fn``
-    branch): convert at source resolution, resize, corrections, final pass,
-    pack to ``fmt``, with the Jinc2 kernels where they apply.  Unrotated,
-    it also takes a serving call's ``rt`` (:func:`make_serving_fn`); given
-    runtime values, the convert runs in torch with them."""
+    branch): convert at source resolution, resize, corrections, the local
+    tone map, final pass, pack to ``fmt``, with the Jinc2 kernels where they
+    apply.  Unrotated, it also takes a serving call's ``rt``
+    (:func:`make_serving_fn`); given runtime values, the convert runs in
+    torch with them, and ``rt["hdr"]`` gives the tone map's metadata."""
     s, dst, info = plan.settings, plan.dst, plan.info
     want_rot = rotation != 0 or flip
     src_w, src_h, _, _ = _axis_choices(s, plan.src, plan.src_rect, dst)
@@ -855,8 +919,9 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
     # kernel's epilogue, from the global row and column
     j2_tail = (s.upscaling == Upscaling.JINC2 and s.vp_scaling
                and not (plan.convert_to_sdr or plan.hlg_to_pq
-                        or plan.fix_bt2020_sdr)
+                        or plan.fix_bt2020_sdr or plan.local_tonemap)
                and dst.video_rect is None and plan.dither_bits != 0)
+    static_tm = _tonemap_scalars(plan)
     j2_epi = jk.dither_epilogue(plan.dither_bits) if j2_tail else None
 
     # the convert through the kernels (on a CUDA device): chroma W upsample
@@ -936,7 +1001,9 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
             rgb, vid_h, vid_w, upscaling=s.upscaling,
             downscaling=s.downscaling,
             interpolate_at_50pct=s.interpolate_at_50pct)
-        return maybe_pack(_tail_common(plan, rgb))
+        hdr = rt.get("hdr") if rt else None
+        return maybe_pack(_tail_common(plan, rgb, static_tm if hdr is None
+                                       else _tonemap_scalars(plan, hdr)))
 
     if not want_rot:
         return fn
@@ -983,12 +1050,14 @@ def make_frame_fn(plan: PipelinePlan, pack_surface: bool = False,
 
 def serving_rt_keys(plan: PipelinePlan) -> set:
     """The runtime keys this plan's serving function accepts, one per stage
-    the plan has: "cmat" with a colour matrix, "dovi_curves" with Dolby
-    Vision.  (The JAX package's "hdr" and "l2_trims" belong to stages this
-    port still refuses when planning.)"""
+    the plan has: "cmat" with a colour matrix, "hdr" with a local tone map,
+    "dovi_curves" with Dolby Vision.  (The JAX package's "l2_trims" belongs
+    to a stage this port still refuses when planning.)"""
     out = set()
     if plan.apply_matrix:
         out.add("cmat")
+    if plan.local_tonemap:
+        out.add("hdr")
     if plan.dovi is not None:
         out.add("dovi_curves")
     return out
@@ -1003,12 +1072,16 @@ def make_serving_fn(plan: PipelinePlan, pack_surface: bool = False):
       "dovi_curves" — a scene's reshape curves, ``pack_curves`` host arrays
                       (``fn.pack_curves(meta)`` packs and checks them);
       "cmat"        — ``{"m": (3,3), "c": (3,)}`` colour matrix for runtime
-                      ProcAmp.
+                      ProcAmp;
+      "hdr"         — a scene's HDR10 values for the local tone map (any of
+                      ``ops.tonemap.HDR_KEYS``, host numbers; the plan's
+                      metadata fills the others), e.g. MaxCLL per scene.
 
     The plan decides which stages exist; ``rt`` only gives their values.
     An unknown key, or one whose stage the plan lacks, raises with the
     allowed set.  Routes: a fusable plan takes :func:`_make_fused_fn`
-    (K2 takes the matrix per launch), a Dolby Vision plan
+    (K2 takes the matrix and the tone map's scalars per launch), a Dolby
+    Vision plan
     :func:`_make_dovi_fused_fn` (K8 takes matrix and curves per launch),
     anything else :func:`_make_staged_fn` (its torch convert takes the
     runtime values).
