@@ -96,10 +96,19 @@ Phases, one line each:
               versions (K1 mid16 within 1 code, K2 within 1 code on < 2%);
               ms/frame back to back and synced, batch 1 synced median and
               p90 of 15 calls, the plain path's ms/frame (>= 55 dB too).
+ 21. probe    K10, the W-pass probe, against its plain versions on 2
+              headline frames (wpass_floor bit-equal, wpass_bf16 within
+              1e-5); then at batch 16 torch_headline_micro.py's W-pass
+              probe (yW, yW1, yWsplit, memcpy) and its stage split of the
+              headline and of c7 (yW, cW, tail, tailID, tailNoPack, full,
+              the tower and pack attribution), each run counted: K1 + K10
+              x2 per probe round, K1 and K2 per stage; tail on the yW/cW
+              outputs bit-equal to the FLOAT16 make_frame_fn of the plan.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
-PyTorch call computes the same function), nvidia-smi's line, and last the
+PyTorch call computes the same function; K10's top-level numbers are its
+wpass_bf16 form's, and "forms" holds both), nvidia-smi's line, and last the
 result line.
 Any failure raises and the exit code is not 0.  Imports nothing of JAX.
 """
@@ -128,6 +137,7 @@ from videorenderer_tpu_torch.csputils import CSP, Levels, Primaries, TRC  # noqa
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
 from videorenderer_tpu_torch.kernels import deint as dk  # noqa: E402
 from videorenderer_tpu_torch.kernels import jinc2 as jk  # noqa: E402
+from videorenderer_tpu_torch.kernels import probe as pk  # noqa: E402
 from videorenderer_tpu_torch.kernels import resize as rk  # noqa: E402
 from videorenderer_tpu_torch.oracle import (oracle, oracle_c7,  # noqa: E402
                                             oracle_deint, oracle_dovi,
@@ -155,6 +165,7 @@ C7_SCENES = 4
 # float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12      # dense bf16 in the tensor cores (K10's products)
 
 
 def line(phase: str, **kw) -> None:
@@ -202,10 +213,11 @@ def map_flops(mat, lines: int) -> int:
     return 0 if mat is None else 2 * lines * int(np.count_nonzero(mat.dense))
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_FP32_S) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the FLOPs over the float32 rate."""
-    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+    the memory rate and the FLOPs over the rate of their type (float32
+    unless ``peak_flops`` says otherwise)."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / peak_flops
     return {"bound_ms": 1e3 * max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
 
@@ -1438,6 +1450,83 @@ def main() -> None:
     del c7_batches, serve7, serve7p
     torch.cuda.empty_cache()
 
+    # 21. the probe: K10 against its plain versions on PLAIN_FRAMES headline
+    #     frames (the luma W map of the fused plan, its normalisation
+    #     folded in); then at batch 16 torch_headline_micro.py's W-pass
+    #     probe and its stage split of the headline and of c7, each counted.
+    #     (Imported here: it imports this file's helpers as chip_smoke.)
+    import torch_headline_micro as thm
+    wx10, _, _, _, norm10 = fused_maps(thm.plan_for("headline"))
+    kw10 = rk.BandedMatrix(wx10, pre_scale=norm10)
+    y16 = p010_batch(BATCH, SEED + 60, dev)[0]
+    y2 = y16[:PLAIN_FRAMES]
+    got = pk.wpass_floor(y2, OW)
+    torch.cuda.synchronize()
+    k10f = {"bit_equal": bool(torch.equal(got, pk.wpass_floor_plain(y2, OW))),
+            "max_abs_err": 0.0}
+    got = pk.wpass_bf16(y2, kw10)
+    torch.cuda.synchronize()
+    k10 = {"max_abs_err": (got - pk.wpass_bf16_plain(y2, kw10)).abs().max()
+           .item()}
+    del got, y2
+    if not k10f["bit_equal"] or k10["max_abs_err"] > 1e-5:
+        raise AssertionError(f"K10 disagrees with its plain versions: "
+                             f"floor bit-equal {k10f['bit_equal']}, bf16 "
+                             f"{k10['max_abs_err']}")
+    runs = thm.REPS + 1                      # cuda_ms: a warm-up, then REPS
+    probe_ms, probe_launches = count_launches(
+        lambda: thm.time_stages(thm.wpass_probe(y16, kw10)))
+    if probe_launches != only(banded_resize_last_axis=runs, wpass_bf16=runs,
+                              wpass_floor=runs):
+        raise AssertionError(f"the W-pass probe launched {probe_launches}")
+    k10["ms"], k10f["ms"] = probe_ms["yW1"], probe_ms["yWsplit"]
+    k10["plain_ms"] = cuda_ms(lambda: pk.wpass_bf16_plain(y16, kw10))
+    k10f["plain_ms"] = cuda_ms(lambda: pk.wpass_floor_plain(y16, OW))
+    # the luma read once, float32 out written once (bf16 taps); operations:
+    # the band's bf16 products, at the tensor cores' bf16 rate
+    rows10 = y16.numel() // W
+    io10 = tbytes(y16) + rows10 * OW * 4
+    k10.update(bound(io10 + kw10.starts.nbytes + kw10.taps.nbytes // 2,
+                     map_flops(kw10, rows10), PEAK_BF16_S))
+    k10f.update(bound(io10, 0), library_ms=None)
+    # the library call: one float32 product of the pre-rounded operands
+    xb = y16.float().to(torch.bfloat16).float()
+    mb = kw10.dense_on(dev).to(torch.bfloat16).float()
+    k10["library_ms"] = cuda_ms(lambda: torch.matmul(xb, mb))
+    del xb, mb, y16
+    torch.cuda.empty_cache()
+    split, split_launches = {}, {}
+    for key, seed in (("headline", SEED + 61), ("c7", SEED + 62)):
+        planes = p010_batch(BATCH, seed, dev)
+        fns = thm.stages(thm.plan_for(key), planes)
+        f16 = make_frame_fn(thm.plan_for(key, TexFormat.FLOAT16),
+                            pack_surface=True)
+        if not torch.equal(fns["tail"](), f16(planes)):
+            raise AssertionError(f"probe {key}: tail on the W stages is not "
+                                 "the FLOAT16 frame function")
+        ms, n = count_launches(lambda: thm.time_stages(fns))
+        n_w = 3 if "yW" in fns else 2        # W passes of one full call
+        if n != only(banded_resize_last_axis=2 * n_w * runs,
+                     rows3_tail=4 * runs):
+            raise AssertionError(f"probe {key}: the stages launched {n}")
+        split[key] = {"ms_per_frame": {k: v / BATCH for k, v in ms.items()},
+                      **{k: v for k, v in thm.attribution(ms, BATCH).items()
+                         if k != "summary"},
+                      "tail_bit_equal_float16": True}
+        split_launches[key] = n
+        del planes, fns, f16
+        torch.cuda.empty_cache()
+    line("probe", batch=BATCH, frames=PLAIN_FRAMES,
+         tolerance="wpass_floor bit-equal, wpass_bf16 <= 1e-5; tail == the "
+                   "FLOAT16 make_frame_fn",
+         wpass_floor_bit_equal=k10f["bit_equal"],
+         wpass_bf16_max_abs_err=k10["max_abs_err"],
+         wpass_ms_per_frame={k: v / BATCH for k, v in probe_ms.items()},
+         wpass_launches={k: v for k, v in probe_launches.items() if v},
+         memcpy_note=thm.MEMCPY_NOTE, stages=split,
+         stage_launches={p: {k: v for k, v in n.items() if v}
+                         for p, n in split_launches.items()})
+
     def entry(name, source, replaces, n, k, err):
         return {"name": name, "route": "cuda",
                 "source": f"videorenderer_tpu_torch/csrc/{source}",
@@ -1446,17 +1535,26 @@ def main() -> None:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 
+    def k10_entry(name, form, k):   # K10 replaces the bench script's kernel
+        return {**entry(name, "probe_wpass.cu", "", probe_launches[form], k,
+                        k["max_abs_err"]),
+                "replaces": "bench_headline_micro.py:113"}
+
     kernels = [
         entry("banded_resize_last_axis", "banded_resize.cu",
               "resize_pallas.py:261",
               launches["banded_resize_last_axis"]
               + c8_launches["banded_resize_last_axis"]
               + lb_launches["banded_resize_last_axis"]
-              + c7_launches["banded_resize_last_axis"], k1,
+              + c7_launches["banded_resize_last_axis"]
+              + probe_launches["banded_resize_last_axis"]
+              + sum(n["banded_resize_last_axis"]
+                    for n in split_launches.values()), k1,
               max(k1["max_abs_err"], conv["k1_max_abs_err"],
                   sr_k["k1_max_abs_err"])),
         entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
-              launches["rows3_tail"] + c7_launches["rows3_tail"], k2,
+              launches["rows3_tail"] + c7_launches["rows3_tail"]
+              + sum(n["rows3_tail"] for n in split_launches.values()), k2,
               max(k2["max_abs_err"], conv["k2_max_abs_err"],
                   sr_k["k2_max_abs_err"], c7k["k2_max_code_diff"] / 1023.0)),
         entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",
@@ -1478,6 +1576,9 @@ def main() -> None:
         entry("cols3_tail", "cols3_tail.cu", "deint_pallas.py:434",
               c5_launches["cols3_tail"] + c8_launches["cols3_tail"], k9,
               max(k9["max_abs_err"], k8_k9["max_code_diff"] / 1023.0)),
+        {**k10_entry("probe_wpass", "wpass_bf16", k10),
+         "forms": {f: k10_entry(f, f, k) for f, k in (("wpass_bf16", k10),
+                                                      ("wpass_floor", k10f))}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -1,6 +1,5 @@
-"""The CUDA kernels K1, K2, K3, K4, K5, K6, K7, K8 and K9 of
-videorenderer_tpu_torch on the card, against their plain PyTorch versions
-on the same card and inputs.
+"""The CUDA kernels K1-K10 of videorenderer_tpu_torch on the card, against
+their plain PyTorch versions on the same card and inputs.
 
 Every test here needs an NVIDIA card with nvcc (marker ``cuda``) and skips
 elsewhere.  The file imports no JAX, so it runs on a machine without it:
@@ -26,7 +25,10 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
    round trip of the LMS step amplifies the sums' rounding near black);
  * K2 with the local tone map (selections 1-6) or HLG -> PQ as K2 above;
  * K4 float32 <= 1e-5 with the colour matrix only; with a whole tail,
-   dithered float within 1 code on < 2% of the channels, as K2.
+   dithered float within 1 code on < 2% of the channels, as K2;
+ * K10 ``wpass_floor`` bit-equal (the same bf16 rounding of exact codes),
+   ``wpass_bf16`` <= 1e-5 (exact bf16 products, the sums in another
+   order).
 """
 
 import numpy as np
@@ -859,3 +861,53 @@ def test_c7_serving_on_card_matches_cpu(dev):
         outs.append(got.cpu())
     assert build.load() is lib
     assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("sizes", [(3840, 1920), (600, 250), (1000, 333)])
+def test_k10_kernels_match_plain(dev, sizes):
+    """K10's two forms on raw uint16 codes: wpass_floor bit-equal to its
+    plain version, wpass_bf16 within 1e-5 (outputs ~[-0.3, 1.3]; the
+    products are exact, only the order of the sum differs)."""
+    from videorenderer_tpu_torch.kernels import probe as pk
+    rng = np.random.default_rng(24)
+    mat = rk.BandedMatrix(_lanczos(*sizes), pre_scale=1 / 65535.0)
+    x = _planes(rng, torch.uint16, (2, 37, sizes[0])).to(dev)
+    before = dict(rk.launches)
+    got = pk.wpass_bf16(x, mat)
+    floor = pk.wpass_floor(x, sizes[1])
+    torch.cuda.synchronize()
+    assert rk.launches["wpass_bf16"] == before["wpass_bf16"] + 1
+    assert rk.launches["wpass_floor"] == before["wpass_floor"] + 1
+    ref = pk.wpass_bf16_plain(x, mat)
+    assert got.shape == ref.shape == (2, 37, sizes[1])
+    assert (got - ref).abs().max().item() <= 1e-5
+    assert torch.equal(floor, pk.wpass_floor_plain(x, sizes[1]))
+
+
+def test_k10_floor_refuses_rows_wider_than_its_tile(dev):
+    from videorenderer_tpu_torch.kernels import probe as pk
+    x = torch.zeros((2, pk.FLOOR_MAX_WIDTH + 8), dtype=torch.uint16,
+                    device=dev)
+    with pytest.raises(ValueError, match="cannot stage"):
+        pk.wpass_floor(x, 8)
+
+
+def test_stage_split_on_card_matches_cpu(dev, monkeypatch):
+    """torch_headline_micro's stages at a small size on the card: ``tail``
+    bit-equal to the FLOAT16 frame function there, and within 1 code of
+    the CPU's plain route."""
+    import chip_smoke as cs
+    import torch_headline_micro as thm
+    for name, val in (("W", 256), ("H", 128), ("OW", 128), ("OH", 64)):
+        monkeypatch.setattr(cs, name, val)
+    for plan_name in thm.PLANS:
+        planes = cs.p010_batch(2, 5, "cpu")
+        on_card = tuple(p.to(dev) for p in planes)
+        plan = thm.plan_for(plan_name)
+        tail = thm.stages(plan, on_card)["tail"]()
+        f16 = P.make_frame_fn(thm.plan_for(plan_name, C.TexFormat.FLOAT16),
+                              pack_surface=True)
+        assert torch.equal(tail, f16(on_card))
+        ref = thm.stages(plan, planes)["tail"]()
+        d = np.abs(_codes(tail, "rgb10a2") - _codes(ref, "rgb10a2"))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02

@@ -78,6 +78,10 @@ SIGNATURES = {
     "vrt_jinc2_convert": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F,
                           _P, _I, _I, _I, _I, _I, _P, _P),
+    # x, starts, taps (bf16), out, rows, w_in, w_out, n_taps, stream
+    "vrt_wpass_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, rows, w_in, w_out, stream
+    "vrt_wpass_floor": (_P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -706,6 +706,18 @@ def fused_maps(plan: PipelinePlan) -> tuple:
     return wx, wy_luma, cwx, cwy, 1.0 / (2.0 ** info.plane_bits - 1.0)
 
 
+def fused_plane_pass(mx, my, norm: float, mid16: bool) -> tuple:
+    """(W matrix, H matrix, direct-read scale) of one plane class of the
+    fused kernel route, from its :func:`fused_maps` maps: the UNORM
+    normalisation folds into the W matrix; what the H pass must undo
+    (``mid16`` codes, or the raw normalisation when there is no W pass)
+    folds into the H matrix, or scales a directly read plane."""
+    kw = None if mx is None else rk.BandedMatrix(mx, pre_scale=norm)
+    h_scale = norm if mx is None else (1.0 / rk.MID16_SCALE if mid16 else None)
+    kh = None if my is None else rk.BandedMatrix(my, pre_scale=h_scale)
+    return kw, kh, (h_scale if my is None else None)
+
+
 def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     """The fused pipeline: chroma upsample + (blend deinterlace) + separable
     resize collapse into one banded matrix per plane per axis (linear maps
@@ -780,20 +792,9 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
 
     mid16 = s.tex_format != TexFormat.FLOAT16
     epilogue = _make_tail_epilogue(plan)
-
-    def plane_pass(mx, my, q):
-        """(W matrix, H matrix, direct-read scale) of one plane class: the
-        UNORM normalisation folds into the W matrix; what the H pass must
-        undo (mid16 codes, or the raw normalisation when there is no W
-        pass) folds into the H matrix, or scales a directly read plane."""
-        kw = None if mx is None else rk.BandedMatrix(mx, pre_scale=norm)
-        h_scale = norm if mx is None else (1.0 / rk.MID16_SCALE if q else None)
-        kh = None if my is None else rk.BandedMatrix(my, pre_scale=h_scale)
-        return kw, kh, (h_scale if my is None else None)
-
     mid16_y, mid16_c = mid16 and fits(wx), mid16 and fits(cwx)
-    kw_y, kh_y, y_scale = plane_pass(wx, wy_luma, mid16_y)
-    kw_c, kh_c, c_scale = plane_pass(cwx, cwy, mid16_c)
+    kw_y, kh_y, y_scale = fused_plane_pass(wx, wy_luma, norm, mid16_y)
+    kw_c, kh_c, c_scale = fused_plane_pass(cwx, cwy, norm, mid16_c)
 
     def kernel_fn(planes, rt=None):
         planes = _crop_planes(plan, planes)
