@@ -100,8 +100,8 @@ Phases, one line each:
               headline frames (wpass_floor bit-equal, wpass_bf16 within
               1e-5); then at batch 16 torch_headline_micro.py's W-pass
               probe (yW, yW1, yWsplit, memcpy) and its stage split of the
-              headline and of c7 (yW, cW, tail, tailID, tailNoPack, full,
-              the tower and pack attribution), each run counted: K1 + K10
+              headline and of c7 (yW, cW, tail, tailID, tailH, tailNoPack,
+              full, the tower, matrix and pack attribution), each run counted: K1 + K10
               x2 per probe round, K1 and K2 per stage; tail on the yW/cW
               outputs bit-equal to the FLOAT16 make_frame_fn of the plan.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
@@ -116,6 +116,7 @@ Any failure raises and the exit code is not 0.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -196,6 +197,15 @@ def p010_batch(batch: int, seed: int, dev, h: int | None = None):
     u = rng.integers(64, 961, (batch, h // 2, W // 2), dtype=np.uint16) << 6
     v = rng.integers(64, 961, (batch, h // 2, W // 2), dtype=np.uint16) << 6
     return tuple(torch.from_numpy(p).to(dev) for p in (y, u, v))
+
+
+def digest(*ts) -> str:
+    """SHA-256 of the tensors' bytes, in order: two runs on the same seeded
+    inputs print the same digest exactly when the outputs are bit-equal."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def tbytes(*ts) -> int:
@@ -476,7 +486,7 @@ def main() -> None:
     kw_y = rk.BandedMatrix(wx, pre_scale=norm)
     kw_c = rk.BandedMatrix(ux @ wx, pre_scale=norm)
     k1 = {"max_code_diff": 0, "max_abs_err": 0.0}
-    mids = []
+    mids, f32_digest = [], hashlib.sha256()
     for plane, mat in ((y, kw_y), (u, kw_c), (v, kw_c)):
         for mid16 in (True, False):
             got = rk.banded_resize_last_axis(plane, mat, mid16=mid16)
@@ -488,6 +498,7 @@ def main() -> None:
                 mids.append(got)
             else:
                 k1["max_abs_err"] = max(k1["max_abs_err"], err)
+                f32_digest.update(digest(got).encode())
             del got, ref
     if k1["max_code_diff"] > 1 or k1["max_abs_err"] > 2e-5:
         raise AssertionError(f"K1 disagrees with its plain version: {k1}")
@@ -495,6 +506,7 @@ def main() -> None:
     def k1_all(f):
         return lambda: [f(p, m, True) for p, m in ((y, kw_y), (u, kw_c),
                                                    (v, kw_c))]
+    k1_digest = {"mid16": digest(*mids), "float32": f32_digest.hexdigest()}
     k1["ms"] = cuda_ms(k1_all(rk.banded_resize_last_axis))
     k1["plain_ms"] = cuda_ms(k1_all(rk.banded_resize_last_axis_plain))
     k1.update(bound(tbytes(y, u, v, *mids) + mbytes(kw_y, kw_c),
@@ -505,7 +517,8 @@ def main() -> None:
                                                     (v, kw_c))]
     k1["library_ms"] = cuda_ms(lambda: [torch.matmul(a, d) for a, d in xf])
     del xf
-    line("K1", batch=BATCH, tolerance="mid16 <= 1 code, f32 <= 2e-5", **k1)
+    line("K1", batch=BATCH, tolerance="mid16 <= 1 code, f32 <= 2e-5",
+         k1_digest=k1_digest, **k1)
 
     # 4. K2 at the headline shapes on the K1 mid16 planes, headline epilogue
     unscale = 1.0 / rk.MID16_SCALE
@@ -520,6 +533,7 @@ def main() -> None:
     k2 = {"max_code_diff": int(d.max().item()),
           "frac_differing": float((d > 0).double().mean().item()),
           "alpha_ok": bool(torch.equal(got >> 30, ref >> 30))}
+    k2_digest = digest(got)
     del got, ref, d
     if k2["max_code_diff"] > 1 or k2["frac_differing"] >= 0.02 \
             or not k2["alpha_ok"]:
@@ -533,7 +547,8 @@ def main() -> None:
     k2.update(bound(tbytes(*mids) + BATCH * OH * OW * 4 + mbytes(kh_y, kh_c),
                     map_flops(kh_y, BATCH * OW) + 2 * map_flops(kh_c, BATCH * OW)
                     + 18 * BATCH * OH * OW), library_ms=None)
-    line("K2", batch=BATCH, tolerance="<= 1 code on < 2% of channels", **k2)
+    line("K2", batch=BATCH, tolerance="<= 1 code on < 2% of channels",
+         k2_digest=k2_digest, **k2)
     del mids, args, y, u, v
     torch.cuda.empty_cache()
 
@@ -609,7 +624,7 @@ def main() -> None:
         raise AssertionError(f"c1 PSNR {db_c1} below 55 dB")
     c1_ms = cuda_ms(lambda: c1.process(n12)) / BATCH
     line("c1", batch=BATCH, psnr_db=db_c1, launches=c1_launches,
-         ms_per_frame=c1_ms)
+         ms_per_frame=c1_ms, k2_digest=digest(out))
 
     del n12, c1, out
     torch.cuda.empty_cache()
@@ -631,6 +646,7 @@ def main() -> None:
     # stored transposed
     k6_rot_args = (*k6_args[:6], C3_OW, C3_OH, *k6_args[8:])
     k6 = {"max_code_diff": 0, "frac_differing": 0.0}
+    k6_digests = []
     for a, transpose in ((k6_args, False), (k6_args, True),
                          (k6_rot_args, True)):
         kw = dict(epilogue=j2_epi, pack_format="rgba8", out_transpose=transpose)
@@ -639,6 +655,7 @@ def main() -> None:
         ref = jk.jinc2_convert_fused_plain(*a, **kw)
         dd = code_diff(got, ref, 8)
         k6 = {k: max(k6[k], dd[k]) for k in k6}
+        k6_digests.append(digest(got))
         del got, ref
     if k6["max_code_diff"] > 1 or k6["frac_differing"] >= 0.01:
         raise AssertionError(f"K6 disagrees with its plain version: {k6}")
@@ -654,7 +671,7 @@ def main() -> None:
                     PLAIN_FRAMES * C3_OH * C3_OW * 3 * 16 * 2),
               library_ms=None)
     line("K6", frames=PLAIN_FRAMES, cases="c3, c3 transposed, c3rot",
-         tolerance="<= 1 code on < 1% of channels", **k6)
+         tolerance="<= 1 code on < 1% of channels", digests=k6_digests, **k6)
     del small, k6_args, k6_rot_args
 
     # 8. K5 at (6, 1080, 1920) -> (2160, 3840) float32
@@ -665,9 +682,11 @@ def main() -> None:
     torch.cuda.synchronize()
     k5 = {"max_abs_err": (got - jk.jinc2_resize_fused_plain(
         x5, C3_OH, C3_OW)).abs().max().item()}
+    k5_float = digest(got)
     got = jk.jinc2_resize_fused(x5, C3_OH, C3_OW, j2_epi)
     torch.cuda.synchronize()
     ref = jk.jinc2_resize_fused_plain(x5, C3_OH, C3_OW, j2_epi)
+    k5_digests = [k5_float, digest(got)]
     d = ((got - ref) * 255.0).abs().round()
     k5["max_code_diff"] = int(d.max().item())
     k5["frac_differing"] = float((d > 0).double().mean().item())
@@ -681,7 +700,8 @@ def main() -> None:
     k5.update(bound(tbytes(x5) + x5.shape[0] * C3_OH * C3_OW * 4,
                     x5.shape[0] * C3_OH * C3_OW * 16 * 2), library_ms=None)
     line("K5", planes=3 * PLAIN_FRAMES,
-         tolerance="float <= 1e-5; dithered <= 1 code on < 1%", **k5)
+         tolerance="float <= 1e-5; dithered <= 1 code on < 1%",
+         digests=k5_digests, **k5)
     del x5
     torch.cuda.empty_cache()
 
@@ -753,13 +773,14 @@ def main() -> None:
     #     only, float out (K5 at these shapes is phase 8)
     yc, uc, vc = (p[:PLAIN_FRAMES] for p in b0)
     kw_c3 = rk.BandedMatrix(ux3, pre_scale=1 / 255.0)
-    conv = {"k1_max_abs_err": 0.0}
+    conv, conv_k1 = {"k1_max_abs_err": 0.0}, []
     for plane in (uc, vc):
         got = rk.banded_resize_last_axis(plane, kw_c3)
         torch.cuda.synchronize()
         ref = rk.banded_resize_last_axis_plain(plane, kw_c3)
         conv["k1_max_abs_err"] = max(conv["k1_max_abs_err"],
                                      (got - ref).abs().max().item())
+        conv_k1.append(digest(got))
         del got, ref
     uw = rk.banded_resize_last_axis_plain(uc, kw_c3)
     vw = rk.banded_resize_last_axis_plain(vc, kw_c3)
@@ -769,6 +790,7 @@ def main() -> None:
     torch.cuda.synchronize()
     ref = rk.rows3_tail_plain(*k2_args, y_scale=1 / 255.0)
     conv["k2_max_abs_err"] = (got - ref).abs().max().item()
+    conv["k1_digest"], conv["k2_digest"] = conv_k1, digest(got)
     del got, ref, uw, vw, k2_args, yc, uc, vc
     if conv["k1_max_abs_err"] > 2e-5 or conv["k2_max_abs_err"] > 1e-5:
         raise AssertionError(
@@ -815,7 +837,7 @@ def main() -> None:
     my_y = rk.BandedMatrix(wy5, pre_scale=norm)
     my_c = rk.BandedMatrix(uy5 @ wy5, pre_scale=norm)
     thr = 8.0 / 255.0 * 65535.0
-    k7 = {"max_abs_err": 0.0}
+    k7, k7_digests = {"max_abs_err": 0.0}, []
     for tff in (True, False):
         args = (*win2, my_y, my_c, OH, thr, tff)
         got = dk.deint3_rows_dual(*args)
@@ -823,6 +845,7 @@ def main() -> None:
         ref = dk.deint3_rows_dual_plain(*args)
         k7["max_abs_err"] = max(k7["max_abs_err"], *(
             (g - r).abs().max().item() for g, r in zip(got, ref)))
+        k7_digests.append(digest(*got))
         if tff:
             k7_fields = got
         del got, ref
@@ -845,7 +868,8 @@ def main() -> None:
                          + 2 * map_flops(my_c, BATCH * W // 2))),
               library_ms=None)
     line("K7", frames=n, field_orders=["top first", "bottom first"],
-         timed_frames=BATCH, tolerance="f32 <= 2e-5", **k7)
+         timed_frames=BATCH, tolerance="f32 <= 2e-5", digests=k7_digests,
+         **k7)
 
     # 13. K9 at c5's shapes: K7's 2-frame output read as 4 fields, c5's
     #     epilogue, RGBA8; then timed on the 32 fields of a c5 step
@@ -861,6 +885,7 @@ def main() -> None:
     ref = dk.cols3_tail_plain(*k9_args, pack_format="rgba8")
     k9 = code_diff(got, ref, 8)
     k9["alpha_ok"] = bool(torch.equal(got >> 24, ref >> 24))
+    k9_digest = digest(got)
     del got, ref, k7_fields, k9_args
     if k9["max_code_diff"] > 1 or k9["frac_differing"] >= 0.02 \
             or not k9["alpha_ok"]:
@@ -876,7 +901,7 @@ def main() -> None:
                     map_flops(mx_y, rows9) + 2 * map_flops(mx_c, rows9)
                     + 18 * rows9 * OW), library_ms=None)
     line("K9", fields=2 * n, timed_fields=2 * BATCH,
-         tolerance="<= 1 code on < 2% of channels", **k9)
+         tolerance="<= 1 code on < 2% of channels", digest=k9_digest, **k9)
     del k9_32, k7_16, win16, arr, win2, prev2
     torch.cuda.empty_cache()
 
@@ -892,6 +917,7 @@ def main() -> None:
         return outs + sess.flush_batch()
 
     c5_outs, c5_launches = count_launches(c5_run)
+    c5_digest = digest(*c5_outs)
     steps = len(c5_batches) + 1
     if c5_launches != only(deint3_rows_dual=steps, cols3_tail=steps):
         raise AssertionError(f"c5 launches {c5_launches}")
@@ -941,6 +967,7 @@ def main() -> None:
         raise AssertionError(f"c5 single-rate launches {sr_launches}")
     if sr_out.shape != (BATCH, OH, OW):
         raise AssertionError(f"c5 single-rate output {tuple(sr_out.shape)}")
+    sr_digest = digest(sr_out)
     db_sr = psnr(codes(sr_out[0], 8).double() / 255.0,
                  oracle_deint(f0, f0, f1, OW, OH, field=0))
     del sr_out
@@ -962,7 +989,9 @@ def main() -> None:
                              f"{len(k1_calls)} K1 and {len(k2_calls)} K2 calls")
     sr_k = {"k1_inputs": sorted({str(a[0].dtype) for a, _, _ in k1_calls}),
             "k1_outputs": sorted({str(o.dtype) for _, _, o in k1_calls}),
-            "k1_max_code_diff": 0, "k1_max_abs_err": 0.0}
+            "k1_max_code_diff": 0, "k1_max_abs_err": 0.0,
+            "k1_digest": digest(*(o for _, _, o in k1_calls)),
+            "k2_digest": digest(k2_calls[0][2])}
     if sr_k["k1_inputs"] != ["torch.float32"]:
         raise AssertionError(f"c5 single rate fed K1 {sr_k['k1_inputs']}")
     for a, kw, got in k1_calls:
@@ -989,11 +1018,12 @@ def main() -> None:
     sr_k["k2_max_abs_err"] = sr_k["k2_max_code_diff"] / 255.0
     line("c5", batch=BATCH, steps=steps, launches=c5_launches,
          psnr_db_field0=db5[0], psnr_db_field1=db5[1],
-         psnr_db_plain=db5_plain, ms_per_field=ms_field,
+         psnr_db_plain=db5_plain, ms_per_field=ms_field, digest=c5_digest,
          plain_ms_per_field=plain_ms_field,
          ms_per_frame_batch1_median=float(np.median(t1)),
          ms_per_frame_batch1_p90=float(np.percentile(t1, 90)),
          single_rate={"launches": sr_launches, "psnr_db": db_sr,
+                      "output_digest": sr_digest,
                       "ms_per_frame": sr_ms, "kernels_frames": n,
                       "tolerance": "K1 mid16 <= 1 code, f32 <= 2e-5; K2 <= 1 "
                                    "code on < 2% of channels", **sr_k})
@@ -1008,6 +1038,7 @@ def main() -> None:
                   for i in range(C8_SCENES)]
     k8 = {"max_abs_err": 0.0, "max_abs_err_variant": 0.0}
     k8_k9 = {"max_code_diff": 0, "frac_differing": 0.0}
+    k8_digests = []
     two = tuple(p[:PLAIN_FRAMES] for p in c8_batches[0])
     for meta, key, tol in ((dovi_meta(), "max_abs_err", 1e-5),
                            (dovi_variant(), "max_abs_err_variant", 1e-4)):
@@ -1022,18 +1053,21 @@ def main() -> None:
             raise AssertionError("K8 was not given the scene's curves")
         ref8 = dk.rows3_mid_plain(*a8, **kw8)
         k8[key] = max((g - r).abs().max().item() for g, r in zip(got8, ref8))
+        k8_digests.append(digest(*got8))
         if k8[key] > tol:
             raise AssertionError(f"K8 disagrees with its plain version: {k8}")
         (a9, kw9, got9), = calls["cols3_tail"]
         dd = code_diff(got9, dk.cols3_tail_plain(*a9, **kw9), 10)
         k8_k9 = {k: max(k8_k9[k], dd[k]) for k in k8_k9}
+        k8_digests.append(digest(got9))
         del calls, a8, kw8, got8, ref8, a9, kw9, got9, fn
     if k8_k9["max_code_diff"] > 1 or k8_k9["frac_differing"] >= 0.02:
         raise AssertionError(f"c8's K9 disagrees with its plain version: "
                              f"{k8_k9}")
     line("K8", frames=PLAIN_FRAMES, route="runtime curves (scene 2)",
          tolerance="c8 f32 <= 1e-5, variant f32 <= 1e-4; K9 <= 1 code on "
-                   "< 2%", k9_on_c8=k8_k9, **k8)
+                   "< 2%", k9_on_c8=k8_k9,
+         digests_k8_k9=k8_digests, **k8)
     del two
 
     # 16. K3 at the letterboxed path's shapes: each K3 call of the path on
@@ -1060,6 +1094,7 @@ def main() -> None:
     for a, kw, got in k3_calls:
         k3["max_abs_err"] = max(k3["max_abs_err"], (
             got - rk.banded_resize_rows_plain(*a, **kw)).abs().max().item())
+    k3_digest = digest(*(o for _, _, o in k3_calls))
     del calls, k3_calls
     ky_raw = rk.BandedMatrix(scale.upscale_matrix(Upscaling.LANCZOS3, LB_H,
                                                   LB_RECT[3] - LB_RECT[1]),
@@ -1072,7 +1107,8 @@ def main() -> None:
     del got, raw
     if max(k3.values()) > 2e-6:
         raise AssertionError(f"K3 disagrees with its plain version: {k3}")
-    line("K3", frames=PLAIN_FRAMES, tolerance="f32 <= 2e-6", **k3)
+    line("K3", frames=PLAIN_FRAMES, tolerance="f32 <= 2e-6",
+         digest=k3_digest, **k3)
 
     # 17. c8 served: one make_serving_fn, C8_SCENES scenes of batch 16 (each
     #     its own frames and curves), K1 x2 + K8 x1 + K9 x1 per call, no
@@ -1120,6 +1156,7 @@ def main() -> None:
                              c8_oracle(c8_batches[i], dovi_meta(),
                                        rts[i]["dovi_curves"]))
            for i in (0, C8_SCENES - 1)}
+    c8_digest = digest(*c8_outs)
     del c8_outs
     variant = dovi_variant()
     serve_v = make_serving_fn(plan_pipeline(*c8_args(variant)),
@@ -1167,7 +1204,7 @@ def main() -> None:
          ms_batch1_median=float(np.median(t8)),
          ms_batch1_p90=float(np.percentile(t8, 90)),
          plain_ms_per_frame=c8_plain_ms, k8_ms=k8["ms"],
-         k9_ms=k9_c8_ms)
+         k9_ms=k9_c8_ms, digest=c8_digest)
     del c8_batches, serve, serve_p
     torch.cuda.empty_cache()
 
@@ -1190,6 +1227,7 @@ def main() -> None:
         return outs
 
     lb_outs, lb_launches = count_launches(lb_run)
+    lb_digest = digest(*lb_outs)
     if lb_launches != only(banded_resize_last_axis=3 * len(lb_batches),
                            banded_resize_rows=3 * len(lb_batches)):
         raise AssertionError(f"letterbox launches {lb_launches}")
@@ -1233,7 +1271,7 @@ def main() -> None:
     line("letterbox", batch=BATCH, calls=len(lb_batches),
          launches=lb_launches, bars_black=bars_black, psnr_db=db_lb,
          ms_per_frame=sum(lb_times) / (len(lb_batches) * BATCH),
-         ms_per_frame_back_to_back=lb_ms)
+         ms_per_frame_back_to_back=lb_ms, digest=lb_digest)
     del lb_batches, vp_b
     torch.cuda.empty_cache()
 
@@ -1265,7 +1303,8 @@ def main() -> None:
         got = rk.mega3_tail(*two, *maps, epi, nrm)
         torch.cuda.synchronize()
         c = {"vs_plain": float_code_diff(
-            got, rk.mega3_tail_plain(*two, *maps, epi, nrm), 1023)}
+            got, rk.mega3_tail_plain(*two, *maps, epi, nrm), 1023),
+             "digest": digest(got)}
         f16 = make_serving_fn(plan_pipeline(*f16_args))
         ts_out, ts_launches = count_launches(lambda: f16(two, rt))
         if ts_launches != only(banded_resize_last_axis=3 if mx_y is not None
@@ -1273,6 +1312,7 @@ def main() -> None:
             raise AssertionError(f"K4 {key}: the two-stage route launched "
                                  f"{ts_launches}")
         c["vs_two_stage_float16"] = float_code_diff(got, ts_out, 1023)
+        c["two_stage_float16_digest"] = digest(ts_out)
         del got, ts_out
         cm = cmat_epilogue(np.concatenate(
             [np.asarray(p.cmat_m, np.float32),
@@ -1281,6 +1321,7 @@ def main() -> None:
         torch.cuda.synchronize()
         c["max_abs_err_cmat"] = (got - rk.mega3_tail_plain(
             *two, *maps, cm, nrm)).abs().max().item()
+        c["cmat_digest"] = digest(got)
         del got, two
         worst = max(c["vs_plain"]["max_code_diff"],
                     c["vs_two_stage_float16"]["max_code_diff"])
@@ -1344,8 +1385,10 @@ def main() -> None:
                              f"{len(k2_calls)} K2 calls")
     c7k = {"k1_max_code_diff": max(
         int((got.float() - rk.banded_resize_last_axis_plain(*a, **kw).float())
-            .abs().max().item()) for a, kw, got in k1_calls)}
+            .abs().max().item()) for a, kw, got in k1_calls),
+        "k1_digest": digest(*(o for _, _, o in k1_calls))}
     (a, kw, got), = k2_calls
+    c7k["k2_digest"] = digest(got)
     if a[6].tonemap != ToneMapType.BT2390 or kw.get("pack_format") != "rgb10a2" \
             or a[3] is not None:
         raise AssertionError("c7: K2 tone map "
@@ -1398,6 +1441,7 @@ def main() -> None:
     db7 = {f"scene{i}": psnr(codes(c7_outs[i][0], 10).double() / 1023.0,
                              c7_oracle(c7_batches[i], rts7[i]["hdr"]))
            for i in (0, C7_SCENES - 1)}
+    c7_digests = {"scenes": digest(*c7_outs)}
     del c7_outs
     # the static route: VideoProcessor, the plan's metadata (MaxCLL 3000,
     # display 600), the scalars from the host in float64
@@ -1406,6 +1450,7 @@ def main() -> None:
         lambda: vp7.process(c7_batches[1]))
     if static_launches != only(banded_resize_last_axis=2, rows3_tail=1):
         raise AssertionError(f"c7 static launches {static_launches}")
+    c7_digests["static"] = digest(static_out)
     db7["static"] = psnr(
         codes(static_out[0], 10).double() / 1023.0,
         c7_oracle(c7_batches[1], {"max_cll": 3000.0, "display_max_nits": 600.0,
@@ -1443,7 +1488,7 @@ def main() -> None:
          ms_per_frame_synced=sum(c7_times) / (C7_SCENES * BATCH),
          ms_batch1_median=float(np.median(t7)),
          ms_batch1_p90=float(np.percentile(t7, 90)),
-         plain_ms_per_frame=c7_plain_ms, **k2_c7,
+         plain_ms_per_frame=c7_plain_ms, **k2_c7, digests=c7_digests,
          kernels_frames=PLAIN_FRAMES,
          tolerance="K1 mid16 <= 1 code; K2 <= 1 code on < 2% of channels",
          **c7k)
@@ -1504,17 +1549,20 @@ def main() -> None:
         if not torch.equal(fns["tail"](), f16(planes)):
             raise AssertionError(f"probe {key}: tail on the W stages is not "
                                  "the FLOAT16 frame function")
+        digests = {k: digest(*(o if isinstance(o, tuple) else (o,)))
+                   for k, o in ((k, f()) for k, f in fns.items())}
+        torch.cuda.synchronize()
         ms, n = count_launches(lambda: thm.time_stages(fns))
         n_w = 3 if "yW" in fns else 2        # W passes of one full call
         if n != only(banded_resize_last_axis=2 * n_w * runs,
-                     rows3_tail=4 * runs):
+                     rows3_tail=5 * runs):
             raise AssertionError(f"probe {key}: the stages launched {n}")
         split[key] = {"ms_per_frame": {k: v / BATCH for k, v in ms.items()},
                       **{k: v for k, v in thm.attribution(ms, BATCH).items()
                          if k != "summary"},
-                      "tail_bit_equal_float16": True}
+                      "tail_bit_equal_float16": True, "digests": digests}
         split_launches[key] = n
-        del planes, fns, f16
+        del planes, fns, f16, digests
         torch.cuda.empty_cache()
     line("probe", batch=BATCH, frames=PLAIN_FRAMES,
          tolerance="wpass_floor bit-equal, wpass_bf16 <= 1e-5; tail == the "

@@ -1,0 +1,299 @@
+#!/usr/bin/env python3
+"""Registers, spills, occupancy and the tail's SASS counts of kernels K1
+(``banded_resize.cu``) and K2 (``rows3_tail.cu``), on a machine with the
+CUDA toolkit.
+
+    python3 kernel_report.py [--csrc DIR] [--launch NAME=THREADS,SMEM ...]
+                             [--pixels NAME=N ...]
+
+For each source, ``nvcc`` with the package's own flags
+(``kernels/build.NVCC_FLAGS``) plus ``-cubin -lineinfo -Xptxas -v`` gives
+every kernel instantiation's registers a thread, stack and spill bytes;
+``nvdisasm --print-line-info-inline`` then attributes each SASS instruction
+to the source lines it came from.  ``-lineinfo`` adds line tables only; the
+report also counts each function's instructions in the package's own built
+library (``cuobjdump -sass``) and says whether the counts match.
+
+Per function it prints one JSON line:
+  * ``registers``, ``stack_bytes``, ``spill_store_bytes``,
+    ``spill_load_bytes`` (ptxas);
+  * ``blocks_per_sm``: resident blocks an SM holds at ``--launch``'s block
+    size and dynamic shared memory (the occupancy calculator's rules:
+    registers allocated per warp in units of 256, 64 warps, 32 blocks and
+    228 KB of shared memory an SM, 1 KB reserved a block), and
+    ``warps_per_sm``;
+  * ``instructions``: the function's SASS instructions, ``branches`` its
+    BRA and ``fchk`` its FCHK instructions (each __fdiv_rn's range check,
+    with its branch to the slow path); ``tail``: those
+    whose source location, or any function they were inlined from, lies in
+    ``tail.cuh`` or ``epilogue.cuh`` (the colour matrix, correction, tone
+    map, quantization and pack); ``tail_second_pass``: those among them
+    inlined through K2's ``tail_exact`` (the one-pixel pass a compiled
+    route runs only when CheckedDiv refuses a group); ``tail_mufu``: the
+    MUFU instructions among them; ``h_pass_ffma``: the FFMAs attributed to
+    the kernel's own source;
+  * for K2 (``rows3_tail``), the issue bound of its tail at the headline
+    (16 x 1080 x 1920 pixels) and at c7 (16 x 2160 x 3840): tail
+    instructions a pixel x pixels / (132 SMs x 4 schedulers x 32 lanes x
+    the SM clock), and the MUFU part at 16 a clock an SM.  Instructions a
+    pixel are the static ``tail`` count without the second pass over
+    ``--pixels`` (the pixels a thread makes in one unrolled pass; 1 unless
+    given), or the whole ``tail`` where a function has only the one-pixel
+    pass.  That is the dynamic count where the tail is one straight route
+    (no runtime flags); a runtime-flag instantiation holds every route, so
+    its static count is not one route's.  The MUFU count still holds the
+    second pass's.
+Then one line with the card's name, power limit and SM clocks
+(``nvidia-smi``).  The clock used is ``clocks.max.sm``, so the bound is the
+least time.  Needs ``nvcc``, ``nvdisasm`` and ``cuobjdump``; runs without a
+card (then no clock line and no bound).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from videorenderer_tpu_torch.kernels import build  # noqa: E402
+
+SOURCE_GLOBS = ("banded_resize.cu", "rows3_tail*.cu")
+TAIL_FILES = ("tail.cuh", "epilogue.cuh")
+SMS, SCHEDULERS, LANES, MUFU_PER_CLK = 132, 4, 32, 16
+PIXELS = {"headline": 16 * 1080 * 1920, "c7": 16 * 2160 * 3840}
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);")
+_FILE = re.compile(r'"([^"]+)"')
+
+
+def _tool(name: str) -> str:
+    for c in (shutil.which(name),
+              os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", name)):
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(f"{name} not found")
+
+
+def ptxas_info(log: str) -> dict:
+    """Registers, stack and spill bytes of each entry function."""
+    info, cur = {}, None
+    for ln in log.splitlines():
+        m = _ENTRY.search(ln)
+        if m:
+            cur = m.group(1)
+            info[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = _PROPS.search(ln)
+        if m:
+            info[cur].update(stack_bytes=int(m.group(1)),
+                             spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+        m = _REGS.search(ln)
+        if m:
+            info[cur]["registers"] = int(m.group(1))
+    return info
+
+
+def second_pass_lines(csrc: Path) -> tuple:
+    """(file, first line, last line) of K2's tail_exact, the one-pixel
+    tail that a compiled route runs only for a group CheckedDiv refused
+    (and the runtime route runs for every pixel); (None, 0, -1) where the
+    sources have none."""
+    src = csrc / "rows3_tail.cuh"
+    if not src.exists():
+        return None, 0, -1
+    lines = src.read_text().splitlines()
+    first = next((i for i, ln in enumerate(lines, 1)
+                  if "void tail_exact(" in ln), None)
+    if first is None:
+        return None, 0, -1
+    last = next(i for i, ln in enumerate(lines, 1) if i > first and ln == "}")
+    return src.name, first, last
+
+
+_AT = re.compile(r'"([^"]+)", line (\d+)')
+
+
+def sass_counts(text: str, second: tuple = (None, 0, -1)) -> dict:
+    """Per function: instructions, tail instructions (and those inlined
+    through ``second``, the second pass), tail MUFU, and the FFMAs outside
+    the tail files, from nvdisasm output with inline line info."""
+    out, fn, locs, chain = {}, None, set(), False
+    for ln in text.splitlines():
+        s = ln.strip()
+        m = re.match(r"^\.text\.(\S+):$", s)
+        if m:
+            fn, locs, chain = m.group(1), set(), False
+            out[fn] = {"instructions": 0, "branches": 0, "fchk": 0,
+                       "tail": 0, "tail_mufu": 0, "tail_second_pass": 0,
+                       "h_pass_ffma": 0}
+            continue
+        if s.startswith("//##"):
+            # one comment line per inlining level, innermost first
+            if not chain:
+                locs = set()
+            locs |= {(os.path.basename(f), int(n)) for f, n in _AT.findall(s)}
+            chain = True
+            continue
+        m = _INSN.search(ln)
+        if fn is None or not m:
+            continue
+        chain = False
+        op = m.group(1).split()
+        op = op[1] if op[0].startswith("@") and len(op) > 1 else op[0]
+        c = out[fn]
+        c["instructions"] += 1
+        c["branches"] += op == "BRA"
+        c["fchk"] += op == "FCHK"
+        if any(f in TAIL_FILES for f, _ in locs):
+            c["tail"] += 1
+            c["tail_mufu"] += op.startswith("MUFU")
+            c["tail_second_pass"] += any(
+                f == second[0] and second[1] <= n <= second[2]
+                for f, n in locs)
+        elif op.startswith("FFMA"):
+            c["h_pass_ffma"] += 1
+    return out
+
+
+def library_counts(lib: Path) -> dict:
+    """Instructions of each function in the built library."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+        elif fn and _INSN.search(ln):
+            out[fn] += 1
+    return out
+
+
+def demangle(names: list[str]) -> dict:
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None:
+        return {n: n for n in names}
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return dict(zip(names, res)) if len(res) == len(names) else \
+        {n: n for n in names}
+
+
+def blocks_per_sm(regs: int, threads: int, smem: int) -> int:
+    warps = -(-threads // 32)
+    regs_warp = -(-regs * 32 // 256) * 256
+    by_regs = (65536 // regs_warp) // warps if regs_warp else 32
+    by_smem = (228 * 1024) // (smem + 1024)
+    return max(0, min(32, 64 // warps, by_regs, by_smem))
+
+
+def smi() -> dict:
+    try:
+        q = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm,"
+             "clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    name, limit, cmax, csm = [x.strip() for x in
+                              q.stdout.splitlines()[0].split(",")]
+    return {"name": name, "power_limit_w": float(limit),
+            "clock_max_mhz": float(cmax), "clock_sm_mhz": float(csm)}
+
+
+def _pairs(items: list[str], conv) -> dict:
+    out = {}
+    for it in items or []:
+        k, v = it.split("=", 1)
+        out[k] = conv(v)
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--csrc", type=Path, default=build.CSRC)
+    ap.add_argument("--launch", action="append", metavar="NAME=THREADS,SMEM",
+                    help="block size and dynamic shared memory of the "
+                         "kernels whose name contains NAME")
+    ap.add_argument("--pixels", action="append", metavar="NAME=N",
+                    help="pixels a thread makes in one pass of the kernels "
+                         "whose name contains NAME")
+    args = ap.parse_args(argv)
+    launch = _pairs(args.launch, lambda v: tuple(int(x) for x in v.split(",")))
+    pixels = _pairs(args.pixels, int)
+    dev = smi()
+    lib_counts = {}
+    if args.csrc.resolve() == build.CSRC.resolve():
+        lib_counts = library_counts(build.build())
+    nvcc, nvdisasm = _tool("nvcc"), _tool("nvdisasm")
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted({p.name for g in SOURCE_GLOBS
+                           for p in args.csrc.glob(g)}):
+            cubin = os.path.join(tmp, src + ".cubin")
+            res = subprocess.run(
+                [nvcc, *[f for f in build.NVCC_FLAGS if f not in
+                         ("-Xcompiler", "-fPIC")],
+                 "-cubin", "-lineinfo", "-Xptxas", "-v",
+                 str(args.csrc / src), "-o", cubin],
+                capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc {src}:\n{res.stderr}")
+            regs = ptxas_info(res.stderr + res.stdout)
+            text = subprocess.run([nvdisasm, "--print-line-info-inline",
+                                   cubin], capture_output=True, text=True,
+                                  check=True).stdout
+            counts = sass_counts(text, second_pass_lines(args.csrc))
+            names = demangle(sorted(regs))
+            for fn in sorted(regs):
+                nice = names[fn]
+                threads, smem = next((v for k, v in launch.items()
+                                      if k in nice), (128, 0))
+                ppt = next((v for k, v in pixels.items() if k in nice), 1)
+                r = {"source": src, "function": nice, **regs[fn],
+                     **counts.get(fn, {}), "threads": threads,
+                     "dynamic_smem": smem, "pixels_per_thread": ppt}
+                r["blocks_per_sm"] = blocks_per_sm(r.get("registers", 0),
+                                                   threads, smem)
+                r["warps_per_sm"] = r["blocks_per_sm"] * (-(-threads // 32))
+                if fn in lib_counts:
+                    r["library_instructions"] = lib_counts[fn]
+                    r["same_as_library"] = lib_counts[fn] == r.get(
+                        "instructions")
+                if src.startswith("rows3_tail") and dev and r.get("tail"):
+                    clk = dev["clock_max_mhz"] * 1e6
+                    first = r["tail"] - r["tail_second_pass"]
+                    # a compiled route's tail for ppt pixels, without its
+                    # rare second pass; else one pixel at a time
+                    per = first / ppt if first else r["tail"]
+                    mufu = r["tail_mufu"] / (ppt if first else 1)
+                    r["tail_per_pixel"] = per
+                    r["tail_mufu_per_pixel"] = mufu
+                    for cell, n in PIXELS.items():
+                        r[f"issue_bound_ms_{cell}"] = 1e3 * per * n / (
+                            SMS * SCHEDULERS * LANES * clk)
+                        r[f"mufu_bound_ms_{cell}"] = 1e3 * mufu * n / (
+                            SMS * MUFU_PER_CLK * clk)
+                print(json.dumps(r), flush=True)
+    print(json.dumps({"device": dev}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -80,13 +80,32 @@ NORM = {torch.uint8: 1 / 255.0, torch.uint16: 1 / 65535.0,
         torch.int16: 1 / 16384.0, torch.float32: None}
 
 
+def _unaligned(x):
+    """A contiguous copy of ``x`` on the card whose storage starts one
+    element into its buffer, so its data pointer is not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
 @pytest.mark.parametrize("dtype", list(NORM))
 @pytest.mark.parametrize("mid16", [False, True])
-@pytest.mark.parametrize("sizes", [(3840, 1920), (1000, 333), (960, 1920)])
-def test_k1_kernel_matches_plain(dev, dtype, mid16, sizes):
+@pytest.mark.parametrize("sizes", [
+    (3840, 1920), (1000, 333), (960, 1920), (1366, 683), (1001, 1920),
+    (1920, 1366)])
+@pytest.mark.parametrize("batch,unaligned", [(2, False), (1, False),
+                                             (17, False), (2, True)])
+def test_k1_kernel_matches_plain(dev, dtype, mid16, sizes, batch, unaligned):
+    """Widths that are not a multiple of the vector or the span, rows that
+    are not a multiple of the block's (37 a frame), batch 1 and 17, and an
+    input whose pointer is not 16-byte aligned."""
     rng = np.random.default_rng(1)
     mat = rk.BandedMatrix(_lanczos(*sizes), pre_scale=NORM[dtype])
-    x = _planes(rng, dtype, (2, 37, sizes[0])).to(dev)
+    x = _planes(rng, dtype, (batch, 37, sizes[0])).to(dev)
+    if unaligned:
+        x = _unaligned(x)
     before = rk.launches["banded_resize_last_axis"]
     got = rk.banded_resize_last_axis(x, mat, mid16=mid16)
     torch.cuda.synchronize()
@@ -180,6 +199,213 @@ def test_k2_kernel_direct_read(dev, ytype):
                               pack_format="rgba8")
     d = np.abs(_codes(got, "rgba8") - _codes(ref, "rgba8"))
     assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def _headline_k2(rng, batch, hy, w, h_out, dtype=torch.int16):
+    """K2's headline-shaped call: both planes with H maps (Lanczos3 hy ->
+    h_out, the chroma's composed with the bilinear upsample), mid16 codes
+    (or ``dtype`` planes with their normalisation in the maps)."""
+    hc = hy // 2
+    _, uy = chroma.chroma_upsample_matrices(
+        w // 2, hc, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    scale_ = 1.0 / rk.MID16_SCALE if dtype == torch.int16 else NORM[dtype]
+    my = rk.BandedMatrix(_lanczos(hy, h_out), pre_scale=scale_)
+    mc = rk.BandedMatrix(uy @ _lanczos(hy, h_out), pre_scale=scale_)
+    if dtype == torch.int16:
+        y = torch.from_numpy(rng.integers(700, 15400, (batch, hy, w))
+                             .astype(np.int16))
+        u, v = (torch.from_numpy(rng.integers(700, 15600, (batch, hc, w))
+                                 .astype(np.int16)) for _ in range(2))
+    else:
+        y, u, v = (_planes(rng, dtype, (batch, h, w)) for h in (hy, hc, hc))
+    return y.to(dev_of()), u.to(dev_of()), v.to(dev_of()), my, mc
+
+
+def dev_of():
+    return torch.device("cuda")
+
+
+def _k2_close(got, ref, pack, dither_bits, correction):
+    """K2 against its plain version at the bands of the module docstring."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if pack is not None:
+        d = np.abs(_codes(got, pack) - _codes(ref, pack))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+        top = 30 if pack == "rgb10a2" else 24
+        assert torch.equal(got.cpu() >> top, ref.cpu() >> top)
+    elif dither_bits:
+        q = 2 ** abs(dither_bits) - 1
+        d = ((got - ref).abs() * q).round().cpu().numpy()
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+    else:
+        tol = 1e-5 if correction == rk.CORR_NONE else 2e-4
+        assert (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("w,hy,h_out,batch,unaligned", [
+    (1366, 216, 108, 2, False),   # width not a multiple of the tile
+    (1001, 216, 108, 2, False),   # nor of the vector
+    (1920, 1080, 541, 1, False),  # h_out not a multiple of the tile rows
+    (200, 64, 33, 17, False),     # batch 17
+    (1920, 216, 108, 1, False),
+    (1000, 216, 108, 2, True),    # planes not 16-byte aligned
+    (1001, 216, 108, 2, True)])
+def test_k2_tiled_edges(dev, w, hy, h_out, batch, unaligned):
+    """The tiled K2 at shapes a tiled, vectorised kernel can get wrong, with
+    the headline's epilogue packed: within 1 code of its plain version."""
+    rng = np.random.default_rng(30)
+    y, u, v, my, mc = _headline_k2(rng, batch, hy, w, h_out)
+    if unaligned:
+        y, u, v = _unaligned(y), _unaligned(u), _unaligned(v)
+    epi = _epi(rk.CORR_PQ_TO_SDR, 10)
+    got = rk.rows3_tail(y, u, v, my, mc, h_out, epi, pack_format="rgb10a2")
+    torch.cuda.synchronize()
+    ref = rk.rows3_tail_plain(y, u, v, my, mc, h_out, epi,
+                              pack_format="rgb10a2")
+    _k2_close(got, ref, "rgb10a2", 10, rk.CORR_PQ_TO_SDR)
+
+
+def test_k2_taps_past_the_input_edge(dev):
+    """A map whose last rows' taps run past the input: the guard skips
+    them in the staged window as it did in device memory."""
+    rng = np.random.default_rng(31)
+    m = np.zeros((14, 7), np.float32)
+    for j in range(6):
+        m[2 * j:2 * j + 4, j] = [0.1, 0.4, 0.4, 0.1]
+    m[12:14, 6] = [0.5, 0.5]
+    mat = rk.BandedMatrix(m)
+    assert mat.starts[-1] + mat.n_taps > mat.in_size
+    planes = [_planes(rng, torch.float32, (3, 14, 260)).to(dev)
+              for _ in range(3)]
+    epi = P.cmat_epilogue(np.array([[1, 0, 0.5, 0], [0, 1, 0, 0.1],
+                                    [0.2, 0, 1, 0]], np.float32))
+    got = rk.rows3_tail(*planes, mat, mat, 7, epi)
+    torch.cuda.synchronize()
+    ref = rk.rows3_tail_plain(*planes, mat, mat, 7, epi)
+    _k2_close(got, ref, None, 0, rk.CORR_NONE)
+
+
+@pytest.mark.parametrize("ytype", list(NORM))
+@pytest.mark.parametrize("ctype", list(NORM))
+def test_k2_plane_dtypes(dev, ytype, ctype):
+    """Every plane dtype pair through the staged windows (both planes with H
+    maps), the headline's tail packed."""
+    rng = np.random.default_rng(32)
+    y = _headline_k2(rng, 2, 216, 200, 108, ytype)
+    c = _headline_k2(rng, 2, 216, 200, 108, ctype)
+    epi = _epi(rk.CORR_PQ_TO_SDR, 10)
+    args = (y[0], c[1], c[2], y[3], c[4], 108, epi)
+    got = rk.rows3_tail(*args, pack_format="rgb10a2")
+    torch.cuda.synchronize()
+    _k2_close(got, rk.rows3_tail_plain(*args, pack_format="rgb10a2"),
+              "rgb10a2", 10, rk.CORR_PQ_TO_SDR)
+
+
+def _planes_epilogue():
+    """torch_headline_micro's tailH epilogue: the planes as R, G, B."""
+    return rk.Epilogue(cmat=None, correction=rk.CORR_NONE,
+                       luminance_scale=1.0, dither_bits=0,
+                       gamut=np.eye(3, dtype=np.float32),
+                       plain=lambda y, u, v: torch.stack([y, u, v], dim=-3))
+
+
+def _cmat_epi():
+    return P.cmat_epilogue(np.array([[1.0, 0.0, 1.4746, -0.7373],
+                                     [1.0, -0.1646, -0.5714, 0.3680],
+                                     [1.0, 1.8814, 0.0, -0.9407]], np.float32))
+
+
+K2_ROUTES = [
+    # (route name, luma dtype (None: mid16 with an H map), chroma dtype,
+    #  epilogue, pack)
+    ("headline int16", torch.int16, torch.int16,
+     lambda: _epi(rk.CORR_PQ_TO_SDR, 10), "rgb10a2"),
+    ("headline float32", torch.float32, torch.float32,
+     lambda: _epi(rk.CORR_PQ_TO_SDR, 10), "rgb10a2"),
+    ("headline planar float32", torch.float32, torch.float32,
+     lambda: _epi(rk.CORR_PQ_TO_SDR, 10), None),
+    ("c1 uint8/int16", torch.uint8, torch.int16,
+     lambda: _epi(rk.CORR_NONE, 8), "rgba8"),
+    ("c5 int16", torch.int16, torch.int16,
+     lambda: _epi(rk.CORR_HLG_TO_SDR, 8), "rgba8"),
+    ("c7 uint16/int16", torch.uint16, torch.int16,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108)), "rgb10a2"),
+    ("c7 uint16/float32", torch.uint16, torch.float32,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108), hdr=SCENE),
+     "rgb10a2"),
+    ("c7 planar uint16/float32", torch.uint16, torch.float32,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108)), None),
+    ("hlg-to-pq uint16/int16", torch.uint16, torch.int16,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, transfer="HLG",
+                                            local=False)), "rgb10a2"),
+    ("matrix uint8/float32", torch.uint8, torch.float32, _cmat_epi, None),
+    ("matrix rgb10 float32", torch.float32, torch.float32, _cmat_epi,
+     "rgb10a2"),
+    ("matrix rgb10 uint16/float32", torch.uint16, torch.float32, _cmat_epi,
+     "rgb10a2"),
+    ("planes rgb10 float32", torch.float32, torch.float32, _planes_epilogue,
+     "rgb10a2"),
+    ("planes rgb10 uint16/float32", torch.uint16, torch.float32,
+     _planes_epilogue, "rgb10a2"),
+    # a combination no path runs: rounding to 10 bits takes the runtime form
+    ("runtime", torch.int16, torch.int16,
+     lambda: _epi(rk.CORR_PQ_TO_SDR, -10), "rgb10a2"),
+    ("runtime", torch.uint16, torch.int16,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, sel="HABLE")),
+     "rgb10a2"),
+]
+
+
+@pytest.mark.parametrize("name,ytype,ctype,make_epi,pack", K2_ROUTES,
+                         ids=[f"{r[0]}-{i}" for i, r in enumerate(K2_ROUTES)])
+def test_k2_routes_match_plain(dev, name, ytype, ctype, make_epi, pack):
+    """Each specialised route, and two combinations that take the runtime
+    instantiation: the name rows3_tail_route reports, and the kernel within
+    its band of the plain version.  A luma of uint8/uint16 is read
+    directly (the c1, c7, staged-convert and stage-split forms)."""
+    rng = np.random.default_rng(33)
+    epi = make_epi()
+    assert rk.rows3_tail_route(ytype, ctype, epi, pack) == name
+    w, h_out = 200, 108
+    if ytype in (torch.uint8, torch.uint16):
+        y = _planes(rng, ytype, (2, h_out, w)).to(dev)
+        my, y_scale = None, NORM[ytype]
+    else:
+        y, _, _, my, _ = _headline_k2(rng, 2, 216, w, h_out, ytype)
+        y_scale = None
+    _, u, v, _, mc = _headline_k2(rng, 2, 216, w, h_out, ctype)
+    args = (y, u, v, my, mc, h_out, epi)
+    kw = dict(y_scale=y_scale, pack_format=pack)
+    got = rk.rows3_tail(*args, **kw)
+    torch.cuda.synchronize()
+    _k2_close(got, rk.rows3_tail_plain(*args, **kw), pack, epi.dither_bits,
+              epi.correction)
+
+
+def test_k2_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits."""
+    rng = np.random.default_rng(34)
+    y, u, v, my, mc = _headline_k2(rng, 3, 1080, 1920, 541)
+    epi = _epi(rk.CORR_PQ_TO_SDR, 10)
+    a = rk.rows3_tail(y, u, v, my, mc, 541, epi, pack_format="rgb10a2")
+    b = rk.rows3_tail(y, u, v, my, mc, 541, epi, pack_format="rgb10a2")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_k1_k2_refuse_windows_over_the_budget(dev):
+    """A box average of 8192 inputs into 4 outputs at float32: the staged
+    window does not fit a block's shared memory, and the wrappers raise
+    before any launch."""
+    box = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
+    before = dict(rk.launches)
+    x = torch.zeros((1, 8192), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.banded_resize_last_axis(x, box)
+    p = torch.zeros((1, 8192, 8), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.rows3_tail(p, p, p, box, box, 4, _cmat_epi())
+    assert rk.launches == before
 
 
 @pytest.mark.parametrize("src_rect", [None, (32, 16, 480, 240)])

@@ -329,6 +329,7 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.kernels.jinc2, "
             "videorenderer_tpu_torch.kernels.deint, "
             "videorenderer_tpu_torch.kernels.probe, torch_headline_micro, "
+            "kernel_report, smoke_diff, "
             "videorenderer_tpu_torch.ops.deinterlace, "
             "videorenderer_tpu_torch.ops.dovi, "
             "videorenderer_tpu_torch.runner, "

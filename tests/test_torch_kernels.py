@@ -139,6 +139,161 @@ def test_tap_replay_matches_plain(which):
     assert torch.allclose(replay, plain_h, atol=2e-6, rtol=0)
 
 
+def _replay_tiled(x: torch.Tensor, mat: trk.BandedMatrix,
+                  tile: int) -> torch.Tensor:
+    """What the tiled kernels compute for each output, in torch, from the
+    block's window: outputs in tiles of ``tile`` (K2's output rows, K1's
+    spans of output columns), each tile's window of inputs starting at its
+    first input (``row_windows``), each output's taps read at the
+    window-relative index start - first, taps past the input edge
+    skipped.  The arithmetic is _replay_taps's, so the two are bit-equal
+    exactly when the indexing is."""
+    lo_t, win = mat.row_windows(tile)
+    assert isinstance(lo_t, np.ndarray)
+    n_in = mat.in_size
+    starts = torch.from_numpy(mat.starts).long()
+    taps = torch.from_numpy(mat.taps)
+    xf = x.to(torch.float32)
+    acc = torch.zeros(x.shape[:-1] + (mat.out_size,), dtype=torch.float32)
+    for k, lo in enumerate(lo_t.tolist()):
+        j = torch.arange(k * tile, min((k + 1) * tile, mat.out_size))
+        window = xf[..., lo:min(lo + win, n_in)]
+        local = starts[j] - lo
+        assert (local >= 0).all()
+        part = torch.zeros(x.shape[:-1] + (len(j),), dtype=torch.float32)
+        for t in range(mat.n_taps):
+            ok = starts[j] + t < n_in
+            idx = local + t
+            assert (idx[ok] < window.shape[-1]).all()
+            part += torch.where(
+                ok, window[..., idx.clamp(max=window.shape[-1] - 1)]
+                * taps[t, j], 0.0)
+        acc[..., j] = part
+    return acc
+
+
+def _path_maps():
+    """The H maps (and the headline's W maps) the port's paths give K1 and
+    K2, from pipeline.fused_maps of the headline, c7 and c5 plans, with the
+    mid16 unscale (or the normalisation) folded in as the route folds it."""
+    def plan(settings, src, dst):
+        return tpipe.plan_pipeline(settings, src, dst)
+
+    def p010(w, h, transfer, **kw):
+        return tpipe.SourceDescriptor(
+            format=TFmt.P010, width=w, height=h, matrix=tcsp.CSP.BT_2020_NC,
+            levels=tcsp.Levels.TV, primaries=tcsp.Primaries.BT_2020,
+            transfer=transfer, **kw)
+
+    head = plan(tcfg.Settings(upscaling=tcfg.Upscaling.LANCZOS3,
+                              chroma_scaling=tcfg.ChromaScaling.BILINEAR,
+                              convert_to_sdr=True, use_dither=True),
+                p010(3840, 2160, tcsp.TRC.PQ, hdr10=tpipe.HDR10Metadata()),
+                tpipe.OutputDescriptor(width=1920, height=1080, bits=10))
+    c7 = plan(tcfg.Settings(convert_to_sdr=False, hdr_passthrough=True,
+                            hdr_local_tone_mapping=True,
+                            hdr_display_max_nits=600),
+              p010(3840, 2160, tcsp.TRC.PQ, hdr10=tpipe.HDR10Metadata(
+                  mastering_max_nits=4000.0, max_cll=3000.0)),
+              tpipe.OutputDescriptor(width=3840, height=2160, bits=10,
+                                     hdr=True))
+    c5 = plan(tcfg.Settings(convert_to_sdr=True,
+                            upscaling=tcfg.Upscaling.LANCZOS3),
+              p010(3840, 2160, tcsp.TRC.HLG, interlaced=True),
+              tpipe.OutputDescriptor(width=1920, height=1080, bits=8))
+    unscale = 1.0 / trk.MID16_SCALE
+    maps = {}
+    for name, p in (("headline", head), ("c7", c7), ("c5", c5)):
+        wx, wy, cwx, cwy, norm = tpipe.fused_maps(p)
+        if wx is not None:
+            maps[f"{name}_luma_w"] = trk.BandedMatrix(wx, pre_scale=norm)
+        if cwx is not None:
+            maps[f"{name}_chroma_w"] = trk.BandedMatrix(cwx, pre_scale=norm)
+        if wy is not None:
+            maps[f"{name}_luma_h"] = trk.BandedMatrix(wy, pre_scale=unscale)
+        if cwy is not None:
+            maps[f"{name}_chroma_h"] = trk.BandedMatrix(cwy,
+                                                        pre_scale=unscale)
+    return maps
+
+
+def _edge_map():
+    """A banded (14, 7) map whose last column's band holds the last two
+    inputs while the widest band is 4: its taps 2 and 3 lie past the input
+    edge."""
+    m = np.zeros((14, 7), np.float32)
+    for j in range(6):
+        m[2 * j:2 * j + 4, j] = [0.1, 0.4, 0.4, 0.1]
+    m[12:14, 6] = [0.5, 0.5]
+    return trk.BandedMatrix(m)
+
+
+PATH_MAPS = _path_maps()
+TILES = [trk.K2_TILE_ROWS, trk.K1_SPAN, trk.K4_TILE_ROWS, 1, 5]
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("which", sorted(PATH_MAPS) + ["edge"])
+def test_tiled_replay_matches_tap_replay(which, tile):
+    """The window-relative indexing of the tiled K1 and K2 (tile first
+    input from row_windows, local index = start - first input) gives the
+    same bits as the plain tap replay on the paths' maps, on a map with
+    taps past the input edge, and for every tile the kernels use (and two
+    that do not divide the outputs)."""
+    mat = _edge_map() if which == "edge" else PATH_MAPS[which]
+    if which == "edge":
+        assert mat.starts[-1] + mat.n_taps > mat.in_size
+    x = torch.from_numpy(_u16((2, 3, mat.in_size), seed=5))
+    assert torch.equal(_replay_tiled(x, mat, tile), _replay_taps(x, mat))
+
+
+def test_path_windows_fit_the_shared_memory_budget():
+    """Every map the paths give K1 and K2 fits SMEM_BUDGET at the plane
+    dtypes they take (K1: raw uint16 or float32 planes; K2: mid16 or
+    float32), and the formulas count what the kernels lay out."""
+    for name, mat in PATH_MAPS.items():
+        win = mat.row_windows(trk.K1_SPAN)[1]
+        if name.endswith("_w"):
+            for item in (2, 4):
+                assert trk.k1_smem_bytes(item, win) <= trk.SMEM_BUDGET
+    head_y, head_c = PATH_MAPS["headline_luma_h"], PATH_MAPS["headline_chroma_h"]
+    for item in (2, 4):
+        assert trk.k2_smem_bytes(item, item, head_y, head_c) <= trk.SMEM_BUDGET
+    assert trk.k2_smem_bytes(2, 4, None, PATH_MAPS["c7_chroma_h"]) \
+        <= trk.SMEM_BUDGET
+    # the layouts: K1 rounds each row's span to 16-byte pieces from a start
+    # rounded down; K2 stages win rows x 128 columns a plane, then each
+    # map's taps and starts for its tile rows
+    assert trk.k1_smem_bytes(2, 516) == trk.K1_ROWS * 528 * 2
+    assert trk.k1_smem_bytes(4, 5, rows=3) == 3 * 8 * 4
+    wy = head_y.row_windows(trk.K2_TILE_ROWS)[1]
+    wc = head_c.row_windows(trk.K2_TILE_ROWS)[1]
+    assert trk.k2_smem_bytes(2, 2, head_y, head_c) == (
+        (wy + 2 * wc) * trk.K2_TILE_COLS * 2
+        + 4 * trk.K2_TILE_ROWS * (head_y.n_taps + 1 + head_c.n_taps + 1))
+    assert trk.k2_smem_bytes(1, 1, None, None) == 0
+
+
+def test_oversized_windows_exceed_the_budget():
+    """A box average of 8192 inputs into 4 outputs (every output reads
+    every input) needs more shared memory than a block has at float32 (at
+    uint8, K1's rows of it still fit): the wrappers refuse such a map on
+    the card before the launch."""
+    mat = trk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
+    assert mat.n_taps == 8192 and mat.row_windows(trk.K1_SPAN)[1] == 8192
+    assert trk.k1_smem_bytes(4, 8192) > trk.SMEM_BUDGET
+    assert trk.k1_smem_bytes(1, 8192) <= trk.SMEM_BUDGET
+    assert trk.k2_smem_bytes(4, 4, mat, mat) > trk.SMEM_BUDGET
+
+
+def test_row_windows_on_host_and_device():
+    mat = _edge_map()
+    lo, win = mat.row_windows(3)
+    assert lo.tolist() == [0, 6, 12] and win == 8
+    lo_t, win_t = mat.row_windows(3, "cpu")
+    assert torch.equal(lo_t, torch.from_numpy(lo)) and win_t == win
+
+
 def _identity_epilogue():
     return trk.Epilogue(cmat=None, correction=trk.CORR_NONE,
                         luminance_scale=1.0, dither_bits=0,

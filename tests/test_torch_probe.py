@@ -338,10 +338,10 @@ def test_tail_on_w_stages_equals_float16_frame_fn(small, name):
 def test_stage_names_follow_the_plan(small):
     planes = cs.p010_batch(1, 4, "cpu")
     assert list(thm.stages(thm.plan_for("headline"), planes)) == [
-        "yW", "cW", "tail", "tailID", "tailNoPack", "full"]
+        "yW", "cW", "tail", "tailID", "tailH", "tailNoPack", "full"]
     # c7's luma has no W map: K2 reads the raw plane directly
     assert list(thm.stages(thm.plan_for("c7"), planes)) == [
-        "cW", "tail", "tailID", "tailNoPack", "full"]
+        "cW", "tail", "tailID", "tailH", "tailNoPack", "full"]
 
 
 def test_stages_refuse_other_routes(small):

@@ -1,0 +1,141 @@
+"""The measurement scripts beside the port: ``kernel_report.py`` (ptxas's
+registers and spills, the occupancy rules, the SASS attribution of K2's
+tail) and ``smoke_diff.py`` (the comparison of chip_smoke runs), on
+synthetic inputs.  Both run their tools only on the card's machine; what
+they parse is checked here."""
+
+import json
+
+import pytest
+
+import kernel_report as kr
+import smoke_diff as sd
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1kPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1kPf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1gPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1gPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_info_reads_registers_and_spills():
+    info = kr.ptxas_info(PTXAS_LOG)
+    assert info == {
+        "_Z1kPf": {"stack_bytes": 8, "spill_store_bytes": 4,
+                   "spill_load_bytes": 4, "registers": 64},
+        "_Z1gPf": {"stack_bytes": 0, "spill_store_bytes": 0,
+                   "spill_load_bytes": 0, "registers": 32}}
+
+
+@pytest.mark.parametrize("regs,threads,smem,blocks", [
+    (38, 128, 0, 12),        # registers: 48 warps of 40-register threads
+    (32, 128, 0, 16),        # the 64-warp limit
+    (64, 256, 0, 4),
+    (89, 256, 36864, 2),     # 96 registers allocated a thread
+    (16, 128, 100 * 1024, 2),   # shared memory
+    (16, 32, 0, 32)])        # the 32-block limit
+def test_blocks_per_sm_follows_the_occupancy_rules(regs, threads, smem,
+                                                   blocks):
+    assert kr.blocks_per_sm(regs, threads, smem) == blocks
+
+
+SASS = """\
+\t.section\t.text._Z1kPf,"ax",@progbits
+.text._Z1kPf:
+        /*0000*/                   LDS R2, [R3] ;
+\t//## File "/r/csrc/rows3_tail.cuh", line 150
+        /*0010*/                   FFMA R4, R2, R5, R4 ;
+\t//## File "/r/csrc/tail.cuh", line 93 inlined at "/r/csrc/tail.cuh", line 98
+\t//## File "/r/csrc/tail.cuh", line 98 inlined at "/r/csrc/rows3_tail.cuh", line 300
+\t//## File "/r/csrc/rows3_tail.cuh", line 300
+        /*0020*/                   MUFU.EX2 R6, R4 ;
+        /*0030*/              @!P0 FMUL R6, R6, R6 ;
+\t//## File "/r/csrc/tail.cuh", line 93 inlined at "/r/csrc/rows3_tail.cuh", line 200
+\t//## File "/r/csrc/rows3_tail.cuh", line 200 inlined at "/r/csrc/rows3_tail.cuh", line 310
+        /*0040*/                   MUFU.LG2 R7, R4 ;
+\t//## File "/r/csrc/epilogue.cuh", line 60 inlined at "/r/csrc/rows3_tail.cuh", line 320
+        /*0050*/                   FFMA R8, R7, R7, R7 ;
+\t//## File "/r/csrc/rows3_tail.cuh", line 330
+        /*0060*/                   STG.E.128 [R10], R8 ;
+        /*0070*/                   FCHK P0, R1, R2 ;
+        /*0080*/              @!P0 BRA `(.L_x_1) ;
+\t.section\t.text._Z1gPf,"ax",@progbits
+.text._Z1gPf:
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_counts_attribute_the_tail_and_its_second_pass():
+    counts = kr.sass_counts(SASS, ("rows3_tail.cuh", 190, 210))
+    assert counts["_Z1kPf"] == {"instructions": 9, "branches": 1,
+                                "fchk": 1, "tail": 4, "tail_mufu": 2,
+                                "tail_second_pass": 1, "h_pass_ffma": 1}
+    assert counts["_Z1gPf"]["instructions"] == 1
+    assert kr.sass_counts(SASS)["_Z1kPf"]["tail_second_pass"] == 0
+
+
+def test_second_pass_lines_find_tail_exact():
+    name, first, last = kr.second_pass_lines(kr.build.CSRC)
+    lines = (kr.build.CSRC / name).read_text().splitlines()
+    assert "void tail_exact(" in lines[first - 1]
+    assert lines[last - 1] == "}" and last > first
+    assert kr.second_pass_lines(kr.ROOT) == (None, 0, -1)
+
+
+def _log(tmp_path, name, k2_digest="ab", psnr=76.0, ms=1.0):
+    lines = [json.dumps({"phase": "device", "name": "card"}),
+             json.dumps({"phase": "K2", "k2_digest": k2_digest,
+                         "max_code_diff": 1, "ms": ms, "plain_ms": 9.0}),
+             json.dumps({"phase": "c7", "psnr_db": {"scene0": psnr},
+                         "digests": {"static": "cd"},
+                         "ms_per_frame": 0.3}),
+             json.dumps({"kernels": [{"name": "rows3_tail", "ms": ms,
+                                      "max_abs_err": 0.001}]}),
+             "NVIDIA H100 80GB HBM3, 700.00 W",
+             json.dumps({"ok": True})]
+    p = tmp_path / name
+    p.write_text("\n".join(lines) + "\n")
+    return str(p)
+
+
+def test_smoke_diff_equal_runs(tmp_path, capsys):
+    base = [_log(tmp_path, "p1", ms=2.0), _log(tmp_path, "p2", ms=2.2)]
+    new = [_log(tmp_path, "c1", ms=1.0), _log(tmp_path, "c2", ms=1.1)]
+    assert sd.main(["--base", *base, "--new", *new]) == 0
+    out = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert out[0] == {"digests": {"equal": 2, "differing": []}}
+    assert out[1]["accuracy"]["equal"] == 3
+    k2 = out[2]["kernels"]["kernels/kernels/rows3_tail/ms"]
+    assert k2["base"] == [2.0, 2.2] and k2["new"] == [1.0, 1.1]
+    assert k2["new_over_base"] == pytest.approx(0.5)
+    assert out[3]["times"]["K2/ms"]["new_mean"] == pytest.approx(1.05)
+
+
+def test_smoke_diff_reports_a_changed_output(tmp_path, capsys):
+    base = [_log(tmp_path, "p1")]
+    new = [_log(tmp_path, "c1", k2_digest="ff", psnr=75.0)]
+    assert sd.main(["--base", *base, "--new", *new]) == 1
+    out = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert out[0]["digests"]["differing"] == [
+        {"key": "K2/k2_digest", "base": "ab", "other": "ff"}]
+    assert out[1]["accuracy"]["differing"][0]["key"] == "c7/psnr_db/scene0"
+
+
+@pytest.mark.parametrize("path,kind", [
+    (("K1", "k1_digest", "mid16"), "digest"),
+    (("probe", "stages", "c7", "digests", "tail"), "digest"),
+    (("c5", "psnr_db_field0"), "accuracy"),
+    (("kernels", "kernels", "rows3_tail", "max_abs_err"), "accuracy"),
+    (("K2", "alpha_ok"), "accuracy"),
+    (("K2", "plain_ms"), "time"),
+    (("c5", "ms_per_field"), "time"),
+    (("c7", "ms_batch1_median"), "time"),
+    (("K2", "tolerance"), None)])
+def test_smoke_diff_kinds(path, kind):
+    assert sd.kind(path) == kind

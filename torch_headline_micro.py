@@ -15,12 +15,15 @@ timed alone on the same inputs:
   tail        K2 alone on the yW/cW planes: H taps, colour matrix, the
               transfer tower (corrections, tone map), dither and pack
   tailID      K2 with the colour matrix only, the same pack
+  tailH       K2 with no colour matrix, correction, tone map or dither, the
+              same pack: the H taps and the store alone
   tailNoPack  K2 with the whole tail, float32 RGB out
   full        the production chain (mid16 intermediates, packed)
 
 One JSON line per stage, then the attribution: ``stages_sum_ms`` (yW + cW +
-tail), ``full_ms``, ``tower_ms`` (tail - tailID) and ``pack_ms`` (tail -
-tailNoPack), all per frame.
+tail), ``full_ms``, ``tower_ms`` (tail - tailID), ``pack_ms`` (tail -
+tailNoPack), and, with tailH, ``h_store_ms`` (tailH) and ``matrix_ms``
+(tailID - tailH), all per frame.
 
 ``--probe-wpass`` takes the luma W pass apart instead:
 
@@ -121,10 +124,20 @@ def stages(plan, planes) -> dict:
 
     out["tail"] = tail(epi, fmt)
     out["tailID"] = tail(epi_id, fmt)
+    out["tailH"] = tail(h_only_epilogue(), fmt)
     out["tailNoPack"] = tail(epi, None)
     full = _make_fused_fn(plan, pack_format=fmt)
     out["full"] = lambda: full(planes)
     return out
+
+
+def h_only_epilogue() -> rk.Epilogue:
+    """The tailH stage's epilogue: the H-resized planes go out as R, G, B
+    unchanged (no matrix, correction, tone map or dither)."""
+    return rk.Epilogue(cmat=None, correction=rk.CORR_NONE,
+                       luminance_scale=1.0, dither_bits=0,
+                       gamut=np.eye(3, dtype=np.float32),
+                       plain=lambda y, u, v: torch.stack([y, u, v], dim=-3))
 
 
 def time_stages(fns: dict, reps: int = REPS) -> dict:
@@ -143,14 +156,20 @@ def stage_lines(ms: dict, batch: int, **info) -> list:
 
 def attribution(ms: dict, batch: int) -> dict:
     """Per frame: the stages' sum (yW + cW + tail), the full chain, the
-    transfer tower (tail - tailID) and the pack (tail - tailNoPack)."""
+    transfer tower (tail - tailID) and the pack (tail - tailNoPack); with
+    tailH, the H taps and store (tailH) and the colour matrix (tailID -
+    tailH)."""
     per = {k: v / batch for k, v in ms.items()}
-    return {"summary": "attribution",
-            "stages_sum_ms": per.get("yW", 0.0) + per.get("cW", 0.0)
-            + per["tail"],
-            "full_ms": per["full"],
-            "tower_ms": per["tail"] - per["tailID"],
-            "pack_ms": per["tail"] - per["tailNoPack"]}
+    out = {"summary": "attribution",
+           "stages_sum_ms": per.get("yW", 0.0) + per.get("cW", 0.0)
+           + per["tail"],
+           "full_ms": per["full"],
+           "tower_ms": per["tail"] - per["tailID"],
+           "pack_ms": per["tail"] - per["tailNoPack"]}
+    if "tailH" in per:
+        out.update(h_store_ms=per["tailH"],
+                   matrix_ms=per["tailID"] - per["tailH"])
+    return out
 
 
 def main(argv=None) -> None:

@@ -4,6 +4,10 @@
 //
 // Every operation rounds on its own (no FMA contraction), in the order the
 // torch plain versions evaluate it (ops/dither.py, kernels/resize.pack_surface).
+//
+// The quantization mode and the pack are template parameters: a value fixed
+// at compile time keeps only its own path; kRuntime (the default) reads the
+// launch's flags.  Both forms compute the same bits.
 
 #pragma once
 
@@ -13,6 +17,10 @@
 namespace vrt {
 
 enum { kPackNone = 0, kPackRgb10a2 = 1, kPackRgba8 = 2 };
+// quantization modes: none, ordered dither, round half to even
+enum { kQuantNone = 0, kQuantDither = 1, kQuantRound = 2 };
+// a template parameter that reads its value from the launch's flags
+constexpr int kRuntime = -1;
 
 __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.f), 1.f);
@@ -39,6 +47,12 @@ struct Quant {
   float q, inv_q;
 };
 
+// The quantization mode of ``dither_bits``.
+__host__ __device__ inline int quant_mode(int dither_bits) {
+  return dither_bits > 0 ? kQuantDither
+                         : dither_bits < 0 ? kQuantRound : kQuantNone;
+}
+
 inline Quant make_quant(int dither_bits) {
   const int b = dither_bits < 0 ? -dither_bits : dither_bits;
   const int levels = (1 << b) - 1;
@@ -46,19 +60,23 @@ inline Quant make_quant(int dither_bits) {
                levels > 0 ? static_cast<float>(1.0 / levels) : 0.f};
 }
 
+template <int kQuant = kRuntime>
 __device__ __forceinline__ float quantize(float c, const Quant& Q, int row,
                                           int col) {
-  if (Q.dither_bits == 0) return c;
+  const int mode = kQuant != kRuntime ? kQuant : quant_mode(Q.dither_bits);
+  if (mode == kQuantNone) return c;
   const float xq = __fmul_rn(clip01(c), Q.q);
-  const float codes = Q.dither_bits > 0 ? floorf(__fadd_rn(xq, bayer(row, col)))
-                                        : rintf(xq);
+  const float codes = mode == kQuantDither
+                          ? floorf(__fadd_rn(xq, bayer(row, col)))
+                          : rintf(xq);
   return fminf(__fmul_rn(codes, Q.inv_q), 1.f);
 }
 
 // One R10G10B10A2 or RGBA8 dword: (clip(c) * scale + 0.5) truncated per
 // channel, alpha opaque (resize_pallas.py:450).
+template <int kPack = kRuntime>
 __device__ __forceinline__ uint32_t pack_word(const float c[3], int pack) {
-  const bool ten = pack == kPackRgb10a2;
+  const bool ten = (kPack != kRuntime ? kPack : pack) == kPackRgb10a2;
   const float scale = ten ? 1023.f : 255.f;
   const int shift = ten ? 10 : 8;
   uint32_t word = ten ? 0xC0000000u : 0xFF000000u;

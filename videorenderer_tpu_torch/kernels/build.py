@@ -31,21 +31,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# K2 and K9, which end in the tail (tail.cuh), share one signature:
-# y, y_dtype, u, v, c_dtype, batch, then four sizes (K2: hy, hc, w, h_out;
-# K9: h, wy, wc, w_out), starts_y, taps_y, n_taps_y, starts_c, taps_c,
-# n_taps_c, y_scale, c_scale, mats (host: cmat 12, gamut 9, tone map 5
-# floats), apply_matrix, correction, tonemap, luminance_scale, dither_bits,
-# pack, out, stream
-_TAIL_KERNEL = (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                _P, _P, _I, _P, _P, _I,
-                _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P)
+_L = ctypes.c_longlong
 # argtypes of every C entry point, in the order of its parameters
 SIGNATURES = {
-    # x, x_dtype, starts, taps, out, mid16, rows, w_in, w_out, n_taps, stream
-    "vrt_banded_resize": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "vrt_rows3_tail": _TAIL_KERNEL,
-    "vrt_cols3_tail": _TAIL_KERNEL,
+    # x, x_dtype, starts, taps, span_lo, win, out, mid16, rows (64-bit),
+    # w_in, w_out, n_taps, rows_per_block, stream
+    "vrt_banded_resize": (_P, _I, _P, _P, _P, _I, _P, _I, _L, _I, _I, _I,
+                          _I, _P),
+    # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_out, tile_rows, the
+    # (starts, taps, n_taps, tile_lo, win) of the y and c H maps, y_scale,
+    # c_scale, mats (host: cmat 12, gamut 9, tone map 5 floats),
+    # apply_matrix, correction, tonemap, luminance_scale, dither_bits, pack,
+    # out, stream
+    "vrt_rows3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
+                       _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
+    # y, y_dtype, u, v, c_dtype, batch, h, wy, wc, w_out, starts_y, taps_y,
+    # n_taps_y, starts_c, taps_c, n_taps_c, y_scale, c_scale, mats (host),
+    # apply_matrix, correction, tonemap, luminance_scale, dither_bits, pack,
+    # out, stream
+    "vrt_cols3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _I, _P, _P, _I,
+                       _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, wy, hc, wc, h_out, w_out, the
     # (starts, taps, n_taps) of the W maps of y and c, the (starts, taps,
     # n_taps, tile_lo, win) of their H maps, y_scale, c_scale, mats (host,
@@ -82,6 +89,12 @@ SIGNATURES = {
     "vrt_wpass_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, rows, w_in, w_out, stream
     "vrt_wpass_floor": (_P, _P, _I, _I, _I, _P),
+}
+# entry points that return a string, not an error code
+STRING_SIGNATURES = {
+    "vrt_error_string": (_I,),
+    # y_dtype, c_dtype, apply_matrix, correction, tonemap, dither_bits, pack
+    "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I),
 }
 
 _lock = threading.Lock()
@@ -164,7 +177,9 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
-            lib.vrt_error_string.argtypes = [ctypes.c_int]
-            lib.vrt_error_string.restype = ctypes.c_char_p
+            for name, args in STRING_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_char_p
             _lib = lib
         return _lib

@@ -17,6 +17,14 @@ its own contiguous tap range instead: a start index and T float32 weights,
 zero-padded to the matrix's widest band (:func:`plan_taps`).  The kernels
 run T fp32 FMAs per output, so there is no bf16 split error at all.
 
+K1 and K2 are tiled for the H100: a block stages the window of inputs its
+outputs' taps reach (:meth:`BandedMatrix.row_windows`) in shared memory
+with 16-byte copies, and each thread makes several outputs with vector
+stores.  :func:`k1_smem_bytes` and :func:`k2_smem_bytes` give a block's
+shared memory; a map whose window does not fit SMEM_BUDGET is refused
+before the launch.  What bounds each is in their docstrings and in
+``PERF.md`` section 6.
+
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each launch adds one to ``launches[name]``.
 """
@@ -38,6 +46,15 @@ textures, and half the bytes of float32.  Callers guard the range: the
 column L1 norm of the matrix times 16384 must stay within int16."""
 
 TILE_N = 128   # the JAX packing's output tile, for :func:`taps_from_band_pack`
+
+SMEM_BUDGET = 232448
+"""Shared memory a block of K1 or K2 may use: the H100's 227 KB a block
+(kSmemBudget in csrc/banded_resize.cu and csrc/rows3_tail.cu).  A map whose
+staged window needs more is refused before the launch."""
+K1_SPAN = 256      # output columns a K1 block makes (kSpan)
+K1_ROWS = 16       # rows a K1 block makes (rows_per_block)
+K2_TILE_COLS = 128  # output columns a K2 block makes (kTileCols)
+K2_TILE_ROWS = 32   # output rows a K2 block makes (tile_rows)
 
 DTYPE_CODES = {torch.uint8: 0, torch.uint16: 1, torch.int16: 2,
                torch.float32: 3}
@@ -137,10 +154,13 @@ class BandedMatrix:
         return (self._get("starts", self.starts, device),
                 self._get("taps", self.taps, device))
 
-    def row_windows(self, tile: int, device) -> tuple[torch.Tensor, int]:
-        """The input rows each tile of ``tile`` consecutive outputs reaches:
-        the first row of each tile's window (int32, on ``device``) and the
-        rows of the widest window."""
+    def row_windows(self, tile: int, device=None
+                    ) -> tuple[torch.Tensor | np.ndarray, int]:
+        """The inputs (rows of the matrix: input rows of K2's and K4's H
+        maps, input columns of K1's W maps) each tile of ``tile``
+        consecutive outputs reaches: the first input of each tile's window
+        (int32, on ``device``, or a numpy array without one) and the inputs
+        of the widest window."""
         key = f"windows{tile}"
         if key not in self._windows:
             hi = np.minimum(self.starts + self.n_taps, self.in_size)
@@ -151,7 +171,30 @@ class BandedMatrix:
             self._windows[key] = (np.asarray(lo_t, np.int32),
                                   max(h - l for l, h in zip(lo_t, hi_t)))
         lo, win = self._windows[key]
-        return self._get(key, lo, device), win
+        return (lo if device is None else self._get(key, lo, device)), win
+
+
+def k1_smem_bytes(itemsize: int, win: int, rows: int = K1_ROWS) -> int:
+    """Shared memory of a K1 block: ``rows`` rows of the widest span of
+    ``win`` input columns, from a start rounded down to 16 bytes
+    (pitch_of, csrc/banded_resize.cu)."""
+    chunk = 16 // itemsize
+    return rows * ((win + 2 * chunk - 2) // chunk * chunk) * itemsize
+
+
+def k2_smem_bytes(y_itemsize: int, c_itemsize: int, my: BandedMatrix | None,
+                  mc: BandedMatrix | None,
+                  tile_rows: int = K2_TILE_ROWS) -> int:
+    """Shared memory of a K2 block (Layout, csrc/rows3_tail.cu): the windows
+    of y, u and v over K2_TILE_COLS columns (a plane read directly has
+    none), then each map's taps and starts for ``tile_rows`` rows."""
+    total = 0
+    for mat, itemsize, planes in ((my, y_itemsize, 1), (mc, c_itemsize, 2)):
+        if mat is not None:
+            win = mat.row_windows(tile_rows)[1]
+            total += planes * win * K2_TILE_COLS * itemsize
+            total += 4 * tile_rows * (mat.n_taps + 1)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -229,9 +272,13 @@ def banded_resize_last_axis(x: torch.Tensor, mat: BandedMatrix,
 
     Kernel K1 (``csrc/banded_resize.cu``), replacing
     ``resize_pallas.banded_resize_last_axis``.  Bound by device memory (6
-    FMAs per ~4 bytes at the headline shapes): one thread per output pixel
-    runs T fp32 FMAs over its contiguous taps, each input byte read from
-    device memory once (measured on an H100: 28% of peak bandwidth)."""
+    FMAs per ~4 bytes at the headline shapes).  A block stages K1_ROWS rows
+    of the input span its K1_SPAN output columns reach in shared memory
+    (16-byte copies); each thread keeps its 2 columns' starts and taps in
+    registers for all those rows and stores its 2 outputs at once.  A map
+    whose span does not fit SMEM_BUDGET raises ValueError.  Measured on one
+    NVIDIA H100 80GB HBM3 at 700 W: 50% of the byte bound on the headline's
+    three planes (``PERF.md`` section 6)."""
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x: dtype {x.dtype} not one of {list(DTYPE_CODES)}")
     if x.shape[-1] != mat.in_size:
@@ -240,17 +287,23 @@ def banded_resize_last_axis(x: torch.Tensor, mat: BandedMatrix,
     if not _kernel_device(x):
         return banded_resize_last_axis_plain(x, mat, mid16)
     rows = x.numel() // mat.in_size
-    if rows == 0 or rows >= 2 ** 31 or mat.out_size >= 128 * 65535:
+    if rows == 0 or -(-rows // K1_ROWS) >= 2 ** 31 \
+            or mat.out_size > K1_SPAN * 65535:
         raise ValueError(f"K1 cannot take {rows} rows x {mat.out_size} "
                          "output columns")
+    lo, win = mat.row_windows(K1_SPAN, x.device)
+    smem = k1_smem_bytes(x.element_size(), win)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"K1: spans of {win} input columns need {smem} "
+                         f"bytes of shared memory, over {SMEM_BUDGET}")
     out = torch.empty(x.shape[:-1] + (mat.out_size,),
                       dtype=torch.int16 if mid16 else torch.float32,
                       device=x.device)
     starts, taps = mat.taps_on(x.device)
     _launch("banded_resize_last_axis", "vrt_banded_resize", x.device,
             x.data_ptr(), DTYPE_CODES[x.dtype], starts.data_ptr(),
-            taps.data_ptr(), out.data_ptr(), int(mid16), rows,
-            mat.in_size, mat.out_size, mat.n_taps)
+            taps.data_ptr(), lo.data_ptr(), win, out.data_ptr(), int(mid16),
+            rows, mat.in_size, mat.out_size, mat.n_taps, K1_ROWS)
     return out
 
 
@@ -428,13 +481,18 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     (..., h_out, W) int32 dwords.
 
     Kernel K2 (``csrc/rows3_tail.cu``), replacing
-    ``resize_pallas.rows3_tail``.  One thread per output pixel runs the H
-    taps of all three planes (coalesced over W), the colour matrix, the
-    corrections, the dither from the global row and column, and the store,
-    so no intermediate RGB reaches device memory.  That makes its bytes
-    small; measured on an H100 it is bound by the ~20 accurate
-    transcendental calls per pixel of the PQ/Hable/gamma tail (8% of peak
-    bandwidth)."""
+    ``resize_pallas.rows3_tail``.  A block makes K2_TILE_ROWS output rows x
+    K2_TILE_COLS columns: it stages the window of input rows its tile's
+    taps reach in shared memory (16-byte copies), then each thread runs the
+    H taps of 4 consecutive columns, the colour matrix, the corrections,
+    the local tone map, the dither from the global row and column and one
+    vector store, so no intermediate RGB reaches device memory.  The tail's
+    route is compiled in for the paths' epilogues (:func:`rows3_tail_route`
+    names it).  A map whose window does not fit SMEM_BUDGET raises
+    ValueError.  Measured on one NVIDIA H100 80GB HBM3 at 700 W, the H taps
+    and the store reach 61% (headline) and 79% (c7) of their byte bound;
+    the tail, 65% and 86% of K2's time, is bound by its instruction issue
+    (96% of that bound at the headline; ``PERF.md`` section 6)."""
     epilogue.validate()
     if pack_format not in PACK_CODES:
         raise NotImplementedError(f"K2: pack format {pack_format!r}")
@@ -462,8 +520,12 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         return rows3_tail_plain(y, u, v, my, mc, h_out, epilogue, y_scale,
                                 c_scale, pack_format)
     batch = y.numel() // (hy * w) if y.numel() else 0
-    if batch == 0 or batch > 65535 or h_out > 65535:
+    if batch == 0 or batch > 65535 or -(-h_out // K2_TILE_ROWS) > 65535:
         raise ValueError(f"K2 cannot take batch {batch} x {h_out} rows")
+    smem = k2_smem_bytes(y.element_size(), u.element_size(), my, mc)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"K2: the H maps' windows need {smem} bytes of "
+                         f"shared memory, over {SMEM_BUDGET}")
     if pack_format is None:
         out = torch.empty(lead + (3, h_out, w), dtype=torch.float32,
                           device=y.device)
@@ -471,15 +533,35 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         out = torch.empty(lead + (h_out, w), dtype=torch.int32,
                           device=y.device)
     mats = epilogue.host_mats()
+
+    def h_args(mat):    # (starts, taps, T, tile_lo, win); none: read directly
+        if mat is None:
+            return None, None, 0, None, 0
+        lo, win = mat.row_windows(K2_TILE_ROWS, y.device)
+        return (*_taps_args(mat, y.device), lo.data_ptr(), win)
+
     _launch("rows3_tail", "vrt_rows3_tail", y.device,
             y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
-            DTYPE_CODES[u.dtype], batch, hy, hc, w, h_out,
-            *_taps_args(my, y.device), *_taps_args(mc, y.device),
+            DTYPE_CODES[u.dtype], batch, hy, hc, w, h_out, K2_TILE_ROWS,
+            *h_args(my), *h_args(mc),
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
             *epilogue.launch_args(mats), epilogue.dither_bits,
             PACK_CODES[pack_format], out.data_ptr())
     return out
+
+
+def rows3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
+                     epilogue: Epilogue, pack_format: str | None) -> str:
+    """The K2 instantiation a launch with these plane dtypes, epilogue and
+    pack takes: the name of its compiled route, or "runtime" for the one
+    that reads the tail's flags (vrt_rows3_tail_route; loads the kernel
+    library, so it needs the CUDA toolkit)."""
+    return build.load().vrt_rows3_tail_route(
+        DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype],
+        int(epilogue.cmat is not None), epilogue.correction,
+        epilogue.tonemap, epilogue.dither_bits,
+        PACK_CODES[pack_format]).decode()
 
 
 # ---------------------------------------------------------------------------
