@@ -41,7 +41,9 @@ Phases, one line each:
               within 2e-5); timed on a 16-frame window;
  13. K9       W resize + c5's HLG -> SDR tail + RGBA8 vs its plain version
               on K7's 2-frame output read as 4 fields (within 1 code on
-              < 2% of the channels); timed on 32 fields;
+              < 2% of the channels); timed on 32 fields, and its tail and
+              store alone (the same epilogue on 1920-wide planes read
+              directly, no W map);
  14. c5       DeinterlaceSession(plan, double_rate=True, pack_surface=True)
               on 4K P010 HLG interlaced -> 1080p RGBA8: two distinct
               batches of 16 through push_batch, then flush_batch, K7 x1 +
@@ -70,7 +72,10 @@ Phases, one line each:
               between scenes; frame 0 of scene 0 and of scene 3, and the
               variant, >= 55 dB against oracle_dovi; ms/frame back to back
               and synced, batch 1 synced median of 15 calls, the plain
-              path's ms/frame (>= 55 dB too);
+              path's ms/frame (>= 55 dB too); K8's and K9's times at c8's
+              batch, K9's tail and store alone (planes read directly), and
+              K9's bound there (the three float32 mid planes and the RGB10
+              output over the memory rate, against its W taps' FMAs);
  18. letterbox  VideoProcessor 3840 x 1608 (a 2.39:1 film) -> the
               (0, 138, 1920, 942) rect of a 1920 x 1080 RGB10 surface, two
               distinct batches of 16: K1 x3 + K3 x3 per call and nothing
@@ -900,6 +905,13 @@ def main() -> None:
     k9.update(bound(tbytes(*k9_32[:3]) + rows9 * OW * 4 + mbytes(mx_y, mx_c),
                     map_flops(mx_y, rows9) + 2 * map_flops(mx_c, rows9)
                     + 18 * rows9 * OW), library_ms=None)
+    # the tail and the store alone: the same epilogue on OW-wide planes read
+    # directly (the luma's first OW columns), no W map
+    direct9 = (k9_32[0][..., :OW].contiguous(), k9_32[1], k9_32[2], None,
+               None, OW, epi5)
+    k9["tail_ms"] = cuda_ms(lambda: dk.cols3_tail(
+        *direct9, y_scale=1.0, c_scale=1.0, pack_format="rgba8"))
+    del direct9
     line("K9", fields=2 * n, timed_fields=2 * BATCH,
          tolerance="<= 1 code on < 2% of channels", digest=k9_digest, **k9)
     del k9_32, k7_16, win16, arr, win2, prev2
@@ -1196,6 +1208,20 @@ def main() -> None:
                     2 * map_flops(a8[4], BATCH * W) + 30 * BATCH * H * W
                     + 3 * map_flops(a8[7], BATCH * W)), library_ms=None)
     k9_c8_ms = cuda_ms(lambda: dk.cols3_tail(*a9, **kw9))
+    # the tail and the store alone, on OW-wide planes read directly
+    direct9 = (*(p[..., :OW].contiguous() for p in a9[:3]), None, None, OW,
+               a9[6])
+    k9_c8_tail_ms = cuda_ms(lambda: dk.cols3_tail(
+        *direct9, y_scale=1.0, c_scale=1.0, **kw9))
+    del direct9
+    # K9's bound at c8: the three float32 mid planes in, the RGB10 dwords
+    # out, the shared W map's tap table once; operations: the W taps of the
+    # three planes (no colour matrix: the planes are R, G, B)
+    rows_c8 = a9[0].numel() // a9[0].shape[-1]
+    k9_c8_bound = bound(
+        tbytes(*a9[:3]) + rows_c8 * OW * 4 + mbytes(a9[3])
+        + (0 if a9[4] is a9[3] else mbytes(a9[4])),
+        map_flops(a9[3], rows_c8) + 2 * map_flops(a9[4], rows_c8))
     del a8, kw8, a9, kw9
     line("c8", batch=BATCH, scenes=C8_SCENES, launches=c8_launches,
          builds_between_scenes=len(builds), psnr_db=db8,
@@ -1204,7 +1230,9 @@ def main() -> None:
          ms_batch1_median=float(np.median(t8)),
          ms_batch1_p90=float(np.percentile(t8, 90)),
          plain_ms_per_frame=c8_plain_ms, k8_ms=k8["ms"],
-         k9_ms=k9_c8_ms, digest=c8_digest)
+         k9_ms=k9_c8_ms, k9_tail_ms=k9_c8_tail_ms,
+         k9_bound_ms=k9_c8_bound["bound_ms"],
+         k9_bound_by=k9_c8_bound["bound_by"], digest=c8_digest)
     del c8_batches, serve, serve_p
     torch.cuda.empty_cache()
 

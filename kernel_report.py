@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Registers, spills, occupancy and the tail's SASS counts of kernels K1
-(``banded_resize.cu``) and K2 (``rows3_tail.cu``), on a machine with the
-CUDA toolkit.
+(``banded_resize.cu``), K2 (``rows3_tail*.cu``), K7
+(``deint3_rows_dual.cu``) and K9 (``cols3_tail*.cu``), on a machine with
+the CUDA toolkit.
 
     python3 kernel_report.py [--csrc DIR] [--launch NAME=THREADS,SMEM ...]
                              [--pixels NAME=N ...]
@@ -18,7 +19,9 @@ Per function it prints one JSON line:
   * ``registers``, ``stack_bytes``, ``spill_store_bytes``,
     ``spill_load_bytes`` (ptxas);
   * ``blocks_per_sm``: resident blocks an SM holds at ``--launch``'s block
-    size and dynamic shared memory (the occupancy calculator's rules:
+    size and dynamic shared memory (by default K7's and K9's at c5, K9's
+    c8 route's at c8, from ``kernels/deint``'s formulas on those maps;
+    128 threads and none for the others) (the occupancy calculator's rules:
     registers allocated per warp in units of 256, 64 warps, 32 blocks and
     228 KB of shared memory an SM, 1 KB reserved a block), and
     ``warps_per_sm``;
@@ -28,16 +31,19 @@ Per function it prints one JSON line:
     whose source location, or any function they were inlined from, lies in
     ``tail.cuh`` or ``epilogue.cuh`` (the colour matrix, correction, tone
     map, quantization and pack); ``tail_second_pass``: those among them
-    inlined through K2's ``tail_exact`` (the one-pixel pass a compiled
+    inlined through ``tail_exact`` (``route.cuh``, shared by K2 and K9;
+    the one-pixel pass a compiled
     route runs only when CheckedDiv refuses a group); ``tail_mufu``: the
     MUFU instructions among them; ``h_pass_ffma``: the FFMAs attributed to
     the kernel's own source;
-  * for K2 (``rows3_tail``), the issue bound of its tail at the headline
-    (16 x 1080 x 1920 pixels) and at c7 (16 x 2160 x 3840): tail
-    instructions a pixel x pixels / (132 SMs x 4 schedulers x 32 lanes x
-    the SM clock), and the MUFU part at 16 a clock an SM.  Instructions a
-    pixel are the static ``tail`` count without the second pass over
-    ``--pixels`` (the pixels a thread makes in one unrolled pass; 1 unless
+  * for K2 (``rows3_tail``) and K9 (``cols3_tail``), the issue bound of
+    the tail at their cells (PIXELS: K2 at the headline, 16 x 1080 x 1920
+    pixels, and c7, 16 x 2160 x 3840; K9 at c5, both fields of 16 frames,
+    32 x 1080 x 1920, and c8, 16 x 1080 x 1920): tail instructions a pixel
+    x pixels / (132 SMs x 4 schedulers x 32 lanes x the SM clock), and the
+    MUFU part at 16 a clock an SM.  Instructions a pixel are the static
+    ``tail`` count without the second pass over ``--pixels`` (the pixels a
+    thread makes in one unrolled pass: 4 for K2's and K9's kernels unless
     given), or the whole ``tail`` where a function has only the one-pixel
     pass.  That is the dynamic count where the tail is one straight route
     (no runtime flags); a runtime-flag instantiation holds every route, so
@@ -66,10 +72,43 @@ sys.path.insert(0, str(ROOT))
 
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
 
-SOURCE_GLOBS = ("banded_resize.cu", "rows3_tail*.cu")
+SOURCE_GLOBS = ("banded_resize.cu", "rows3_tail*.cu", "deint3_rows_dual.cu",
+                "cols3_tail*.cu")
 TAIL_FILES = ("tail.cuh", "epilogue.cuh")
 SMS, SCHEDULERS, LANES, MUFU_PER_CLK = 132, 4, 32, 16
-PIXELS = {"headline": 16 * 1080 * 1920, "c7": 16 * 2160 * 3840}
+# the cells each tail kernel's issue bound is given at, by source prefix
+PIXELS = {"rows3_tail": {"headline": 16 * 1080 * 1920,
+                         "c7": 16 * 2160 * 3840},
+          "cols3_tail": {"c5": 32 * 1080 * 1920, "c8": 16 * 1080 * 1920}}
+# the pixels a thread makes in one pass of the compiled routes
+GROUP = {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4}
+# c8's K9 route as the demangled name spells it (route.cuh: C8)
+C8_ROUTE = "Route<0, 1, 0, 1, 1>"
+
+
+def default_launches() -> list[tuple[str, tuple[int, int]]]:
+    """(name substring, (threads, dynamic shared memory)) of K7 and K9 at
+    the cells their paths run, from kernels/deint's formulas on c5's and
+    c8's maps; the first substring a function's name contains applies."""
+    from videorenderer_tpu_torch import config as C, csputils as S
+    from videorenderer_tpu_torch.kernels import deint as dk
+    from videorenderer_tpu_torch.kernels import resize as rk
+    from videorenderer_tpu_torch.ops import chroma, scale
+    wy = scale.upscale_matrix(C.Upscaling.LANCZOS3, 2160, 1080)
+    wx = scale.upscale_matrix(C.Upscaling.LANCZOS3, 3840, 1920)
+    ux, uy = chroma.chroma_upsample_matrices(
+        1920, 1080, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    k8x = rk.BandedMatrix(scale.upscale_matrix(C.Upscaling.CATMULL_ROM, 3840,
+                                               1920))
+    n16 = 1 / 65535.0
+    return [
+        ("deint3_kernel", (256, dk.k7_smem_bytes(
+            2, rk.BandedMatrix(wy, pre_scale=n16),
+            rk.BandedMatrix(uy @ wy, pre_scale=n16)))),
+        (C8_ROUTE, (256, dk.k9_smem_bytes(4, 4, k8x, k8x))),
+        ("cols3_tail_kernel", (256, dk.k9_smem_bytes(
+            4, 4, rk.BandedMatrix(wx), rk.BandedMatrix(ux @ wx)))),
+    ]
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -111,20 +150,24 @@ def ptxas_info(log: str) -> dict:
 
 
 def second_pass_lines(csrc: Path) -> tuple:
-    """(file, first line, last line) of K2's tail_exact, the one-pixel
-    tail that a compiled route runs only for a group CheckedDiv refused
-    (and the runtime route runs for every pixel); (None, 0, -1) where the
-    sources have none."""
-    src = csrc / "rows3_tail.cuh"
-    if not src.exists():
-        return None, 0, -1
-    lines = src.read_text().splitlines()
-    first = next((i for i, ln in enumerate(lines, 1)
-                  if "void tail_exact(" in ln), None)
-    if first is None:
-        return None, 0, -1
-    last = next(i for i, ln in enumerate(lines, 1) if i > first and ln == "}")
-    return src.name, first, last
+    """(file, first line, last line) of tail_exact, the one-pixel tail that
+    a compiled route runs only for a group CheckedDiv refused (and the
+    runtime route runs for every pixel): in route.cuh, which K2 and K9
+    share, or in rows3_tail.cuh in sources that keep it there; (None, 0,
+    -1) where the sources have none."""
+    for name in ("route.cuh", "rows3_tail.cuh"):
+        src = csrc / name
+        if not src.exists():
+            continue
+        lines = src.read_text().splitlines()
+        first = next((i for i, ln in enumerate(lines, 1)
+                      if "void tail_exact(" in ln), None)
+        if first is None:
+            continue
+        last = next(i for i, ln in enumerate(lines, 1)
+                    if i > first and ln == "}")
+        return src.name, first, last
+    return None, 0, -1
 
 
 _AT = re.compile(r'"([^"]+)", line (\d+)')
@@ -237,8 +280,10 @@ def main(argv=None) -> None:
                     help="pixels a thread makes in one pass of the kernels "
                          "whose name contains NAME")
     args = ap.parse_args(argv)
-    launch = _pairs(args.launch, lambda v: tuple(int(x) for x in v.split(",")))
-    pixels = _pairs(args.pixels, int)
+    launch = list(_pairs(args.launch,
+                         lambda v: tuple(int(x) for x in v.split(","))
+                         ).items()) + default_launches()
+    pixels = {**GROUP, **_pairs(args.pixels, int)}
     dev = smi()
     lib_counts = {}
     if args.csrc.resolve() == build.CSRC.resolve():
@@ -264,8 +309,10 @@ def main(argv=None) -> None:
             names = demangle(sorted(regs))
             for fn in sorted(regs):
                 nice = names[fn]
-                threads, smem = next((v for k, v in launch.items()
-                                      if k in nice), (128, 0))
+                # cu++filt spells template ints "(int)0", c++filt "0"
+                bare = nice.replace("(int)", "")
+                threads, smem = next((v for k, v in launch if k in bare),
+                                     (128, 0))
                 ppt = next((v for k, v in pixels.items() if k in nice), 1)
                 r = {"source": src, "function": nice, **regs[fn],
                      **counts.get(fn, {}), "threads": threads,
@@ -277,7 +324,9 @@ def main(argv=None) -> None:
                     r["library_instructions"] = lib_counts[fn]
                     r["same_as_library"] = lib_counts[fn] == r.get(
                         "instructions")
-                if src.startswith("rows3_tail") and dev and r.get("tail"):
+                cells = next((c for k, c in PIXELS.items()
+                              if src.startswith(k)), None)
+                if cells and dev and r.get("tail"):
                     clk = dev["clock_max_mhz"] * 1e6
                     first = r["tail"] - r["tail_second_pass"]
                     # a compiled route's tail for ppt pixels, without its
@@ -286,7 +335,7 @@ def main(argv=None) -> None:
                     mufu = r["tail_mufu"] / (ppt if first else 1)
                     r["tail_per_pixel"] = per
                     r["tail_mufu_per_pixel"] = mufu
-                    for cell, n in PIXELS.items():
+                    for cell, n in cells.items():
                         r[f"issue_bound_ms_{cell}"] = 1e3 * per * n / (
                             SMS * SCHEDULERS * LANES * clk)
                         r[f"mufu_bound_ms_{cell}"] = 1e3 * mufu * n / (

@@ -18,7 +18,8 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
    differ); quantized <= 1 code on < 1% of the channels; K6's transposed
    store bit-equal to the transpose of its plain store;
  * K7 float32 <= 2e-5 (the deinterlaced values are bit-equal, the tap sums
-   run in another order); K9 as K2;
+   run in another order); K9 as K2 (float output without a correction
+   <= 1e-5);
  * K3 float32 <= 2e-6, as K1;
  * K8 float32 <= 1e-5 with c8's metadata (the identity LMS fold: only the
    tap sums differ) and <= 1e-4 with the non-identity variant (the PQ
@@ -749,6 +750,217 @@ def test_deint_path_on_card_matches_cpu(dev):
     # against the plain versions on the CPU
     d = np.abs(_codes(one, "rgba8") - _codes(single(*stream), "rgba8"))
     assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+THR = {torch.uint8: 8.0, torch.uint16: 8 / 255 * 65535.0,
+       torch.int16: 8 / 255 * 16384.0, torch.float32: 8 / 255}
+
+
+def _k7_case(rng, dtype, batch, w, h, h_out):
+    """A K7 window of ``batch`` frames: (prev, cur, next) luma (h, w) and
+    chroma (ceil(h / 2), ceil(w / 2)) planes of ``dtype``, next equal to
+    prev on the left half; the luma's Lanczos3 H map and the chroma's (the
+    4:2:0 upsample composed with it), the normalisation in the taps."""
+    hc, wc = -(-h // 2), -(-w // 2)
+    frames = []
+    for _ in range(3):
+        frames.append([_planes(rng, dtype, (batch, hh, ww))
+                       for hh, ww in ((h, w), (hc, wc), (hc, wc))])
+    frames[2] = [torch.cat([a[..., :a.shape[-1] // 2],
+                            b[..., a.shape[-1] // 2:]], dim=-1)
+                 for a, b in zip(frames[0], frames[2])]
+    _, uy = chroma.chroma_upsample_matrices(
+        wc, hc, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    return ([tuple(p.to("cuda") for p in f) for f in frames],
+            rk.BandedMatrix(_lanczos(h, h_out), pre_scale=NORM[dtype]),
+            rk.BandedMatrix(uy @ _lanczos(2 * hc, h_out),
+                            pre_scale=NORM[dtype]))
+
+
+@pytest.mark.parametrize("tff", [True, False])
+@pytest.mark.parametrize("w,h,h_out,batch,dtype,unaligned", [
+    (3840, 216, 108, 2, torch.uint16, False),
+    (1366, 215, 108, 1, torch.uint16, False),   # odd height, ragged tiles
+    (1001, 216, 101, 17, torch.uint16, False),  # odd width, batch 17
+    (1366, 216, 541, 1, torch.uint16, False),   # h_out not a multiple of 32
+    (1366, 216, 108, 2, torch.uint8, False),
+    (1366, 216, 108, 2, torch.int16, False),
+    (1001, 215, 108, 2, torch.float32, False),
+    (3840, 216, 108, 2, torch.uint16, True),    # planes not 16-byte aligned
+    (1001, 216, 108, 1, torch.float32, True)])
+def test_k7_tiled_shapes(dev, w, h, h_out, batch, dtype, unaligned, tff):
+    """The tiled K7 at shapes a tiled, vectorised kernel can get wrong
+    (widths that are not a multiple of its 64-column tile or of the vector,
+    both height parities, h_out not a multiple of its 32-row tile, batch 1
+    and 17, every plane dtype, planes whose pointers are not 16-byte
+    aligned, both field orders): within 2e-5 of its plain version, one
+    launch."""
+    rng = np.random.default_rng(15)
+    win, my, mc = _k7_case(rng, dtype, batch, w, h, h_out)
+    if unaligned:
+        win = [tuple(_unaligned(p) for p in f) for f in win]
+    args = (*win, my, mc, h_out, THR[dtype], tff)
+    before = rk.launches["deint3_rows_dual"]
+    got = dk.deint3_rows_dual(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["deint3_rows_dual"] == before + 1
+    for g, r in zip(got, dk.deint3_rows_dual_plain(*args)):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert (g - r).abs().max().item() <= 2e-5
+
+
+def test_k7_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits."""
+    rng = np.random.default_rng(16)
+    win, my, mc = _k7_case(rng, torch.uint16, 3, 1366, 216, 108)
+    args = (*win, my, mc, 108, THR[torch.uint16], True)
+    a = dk.deint3_rows_dual(*args)
+    b = dk.deint3_rows_dual(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _epi_rgb(correction, dither_bits):
+    """K9's epilogue for planes that are R, G, B already (c8's form:
+    ``with_cmat=False``) of a P010 BT.2020 plan."""
+    plan = P.plan_pipeline(
+        C.Settings(use_dither=dither_bits > 0, convert_to_sdr=True),
+        P.SourceDescriptor(format=ColorFormat.P010, width=64, height=32,
+                           matrix=S.CSP.BT_2020_NC, transfer=S.TRC.PQ,
+                           primaries=S.Primaries.BT_2020),
+        P.OutputDescriptor(width=64, height=32, bits=abs(dither_bits)))
+    epi = P._make_tail_epilogue(plan, with_cmat=False)
+    assert epi.cmat is None and epi.correction == correction
+    return epi
+
+
+K9_ROUTES = [
+    # (route name, plane dtype (None: read directly), epilogue, pack)
+    ("c5 float32", torch.float32, lambda: P._make_tail_epilogue(_c5_plan()),
+     "rgba8"),
+    ("c8 float32", torch.float32,
+     lambda: _epi_rgb(rk.CORR_PQ_TO_SDR, 10), "rgb10a2"),
+    # combinations no path runs take the runtime form: c5's tail planar,
+    # c8's packed RGBA8, integer planes, planes read directly
+    ("runtime", torch.float32, lambda: P._make_tail_epilogue(_c5_plan()),
+     None),
+    ("runtime", torch.float32, lambda: _epi_rgb(rk.CORR_PQ_TO_SDR, 8),
+     "rgba8"),
+    ("runtime", torch.uint16, lambda: P._make_tail_epilogue(_c5_plan()),
+     "rgba8"),
+    ("runtime", None, lambda: _cmat_epi(), None),
+]
+
+
+@pytest.mark.parametrize("w_out", [1920, 1001, 683])
+@pytest.mark.parametrize("name,dtype,make_epi,pack", K9_ROUTES,
+                         ids=[f"{r[0]}-{i}" for i, r in enumerate(K9_ROUTES)])
+def test_k9_routes_match_plain(dev, name, dtype, make_epi, pack, w_out):
+    """Each compiled route of K9 and combinations that take the runtime
+    instantiation, at widths that are a multiple of its 128-column tile,
+    of neither the tile nor the vector (1001 from 2002), and of neither
+    from a 2:1 map (683 from 1366): the name cols3_tail_route reports, and
+    the kernel within its band of the plain version (<= 1 code on < 2%;
+    float <= 1e-5)."""
+    rng = np.random.default_rng(17)
+    epi = make_epi()
+    rows = 40
+    if dtype is None:     # raw uint16 planes read directly
+        y, u, v = (_planes(rng, torch.uint16, (2, rows, w_out)).to(dev)
+                   for _ in range(3))
+        mx_y = mx_c = None
+        kw = dict(y_scale=1 / 65535.0, c_scale=1 / 65535.0)
+        assert dk.cols3_tail_route(torch.uint16, torch.uint16, epi,
+                                   pack) == name
+    else:
+        assert dk.cols3_tail_route(dtype, dtype, epi, pack) == name
+        wy, wc = 2 * w_out, w_out
+        ux, _ = chroma.chroma_upsample_matrices(
+            wc, 16, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+        wx = _lanczos(wy, w_out)
+        mx_y = rk.BandedMatrix(wx, pre_scale=NORM[dtype])
+        mx_c = rk.BandedMatrix(ux @ wx, pre_scale=NORM[dtype])
+        if dtype == torch.float32:
+            y = torch.from_numpy(rng.uniform(0.06, 0.92, (2, rows, wy))
+                                 .astype(np.float32)).to(dev)
+            u, v = (torch.from_numpy(rng.uniform(0.06, 0.94, (2, rows, wc))
+                                     .astype(np.float32)).to(dev)
+                    for _ in range(2))
+        else:
+            y = _planes(rng, dtype, (2, rows, wy)).to(dev)
+            u, v = (_planes(rng, dtype, (2, rows, wc)).to(dev)
+                    for _ in range(2))
+        kw = {}
+    args = (y, u, v, mx_y, mx_c, w_out, epi)
+    before = rk.launches["cols3_tail"]
+    got = dk.cols3_tail(*args, pack_format=pack, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches["cols3_tail"] == before + 1
+    ref = dk.cols3_tail_plain(*args, pack_format=pack, **kw)
+    if pack is None and not epi.dither_bits:
+        assert (got - ref).abs().max().item() <= 1e-5
+    else:
+        _k2_close(got, ref, pack, epi.dither_bits, epi.correction)
+
+
+@pytest.mark.parametrize("batch,rows,unaligned", [
+    (2, 40, True),     # planes not 16-byte aligned: element staging
+    (17, 5, False),    # batch 17, rows not a multiple of the 16-row tile
+    (1, 1080, False)])
+def test_k9_tiled_edges(dev, batch, rows, unaligned):
+    """c5's maps and route at batches and heights its tiles can get wrong,
+    and on planes whose pointers are not 16-byte aligned."""
+    rng = np.random.default_rng(18)
+    ux, _ = chroma.chroma_upsample_matrices(
+        1920, 1080, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    wx = _lanczos(3840, 1920)
+    mx_y, mx_c = rk.BandedMatrix(wx), rk.BandedMatrix(ux @ wx)
+    y = torch.from_numpy(rng.uniform(0.06, 0.92, (batch, rows, 3840))
+                         .astype(np.float32)).to(dev)
+    u, v = (torch.from_numpy(rng.uniform(0.06, 0.94, (batch, rows, 1920))
+                             .astype(np.float32)).to(dev) for _ in range(2))
+    if unaligned:
+        y, u, v = _unaligned(y), _unaligned(u), _unaligned(v)
+    epi = P._make_tail_epilogue(_c5_plan())
+    args = (y, u, v, mx_y, mx_c, 1920, epi)
+    got = dk.cols3_tail(*args, pack_format="rgba8")
+    torch.cuda.synchronize()
+    _k2_close(got, dk.cols3_tail_plain(*args, pack_format="rgba8"), "rgba8",
+              8, epi.correction)
+
+
+def test_k9_is_deterministic(dev):
+    rng = np.random.default_rng(19)
+    wx = _lanczos(3840, 1920)
+    mx = rk.BandedMatrix(wx)
+    y, u, v = (torch.from_numpy(rng.uniform(0.0, 0.9, (2, 64, 3840))
+                                .astype(np.float32)).to(dev)
+               for _ in range(3))
+    epi = _epi_rgb(rk.CORR_PQ_TO_SDR, 10)
+    a = dk.cols3_tail(y, u, v, mx, mx, 1920, epi, pack_format="rgb10a2")
+    b = dk.cols3_tail(y, u, v, mx, mx, 1920, epi, pack_format="rgb10a2")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_k7_k9_refuse_windows_and_grids_over_their_limits(dev):
+    """A box average of 8192 inputs into 4 outputs: the staged window does
+    not fit a block's shared memory; 65536 frames: past K9's grid z limit
+    (K7 folds the frames into x).  The wrappers raise, naming the limit,
+    before any launch."""
+    box = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
+    before = dict(rk.launches)
+    p = torch.zeros((1, 8192, 8), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.deint3_rows_dual((p,) * 3, (p,) * 3, (p,) * 3, box, box, 4, 1.0)
+    q = torch.zeros((1, 8, 8192), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.cols3_tail(q, q, q, box, box, 4, _cmat_epi())
+    eye = rk.BandedMatrix(np.eye(4, dtype=np.float32))
+    many = torch.zeros((65536, 4, 4), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="65535"):
+        dk.cols3_tail(many, many, many, eye, eye, 4, _cmat_epi())
+    assert rk.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.uint16, torch.float32, torch.uint8])

@@ -1,6 +1,6 @@
 """The measurement scripts beside the port: ``kernel_report.py`` (ptxas's
-registers and spills, the occupancy rules, the SASS attribution of K2's
-tail) and ``smoke_diff.py`` (the comparison of chip_smoke runs), on
+registers and spills, the occupancy rules, the SASS attribution of K2's and
+K9's tails, K7's and K9's default launches) and ``smoke_diff.py`` (the comparison of chip_smoke runs), on
 synthetic inputs.  Both run their tools only on the card's machine; what
 they parse is checked here."""
 
@@ -86,6 +86,54 @@ def test_second_pass_lines_find_tail_exact():
     assert "void tail_exact(" in lines[first - 1]
     assert lines[last - 1] == "}" and last > first
     assert kr.second_pass_lines(kr.ROOT) == (None, 0, -1)
+
+
+SASS_K9 = SASS.replace("rows3_tail.cuh", "route.cuh").replace(
+    "_Z1kPf", "_Z9cols3Pf")
+
+
+def test_sass_counts_attribute_k9s_tail_through_route_cuh():
+    """K9's kernel inlines the group tail and tail_exact from route.cuh:
+    the same attribution, the second pass found there."""
+    counts = kr.sass_counts(SASS_K9, ("route.cuh", 190, 210))
+    assert counts["_Z9cols3Pf"] == {"instructions": 9, "branches": 1,
+                                    "fchk": 1, "tail": 4, "tail_mufu": 2,
+                                    "tail_second_pass": 1, "h_pass_ffma": 1}
+
+
+def test_second_pass_lines_in_sources_without_route_cuh(tmp_path):
+    """An older tree keeps tail_exact in rows3_tail.cuh: the report finds
+    it there (kernel_report.py --csrc on the parent's sources)."""
+    (tmp_path / "rows3_tail.cuh").write_text(
+        "// k2\ntemplate <typename R>\nvoid tail_exact(int k) {\n  k;\n}\n")
+    assert kr.second_pass_lines(tmp_path) == ("rows3_tail.cuh", 3, 5)
+
+
+def test_default_launches_are_k7s_and_k9s_at_their_cells():
+    """K7's block at c5 (uint16), K9's c8 route at c8 and its other
+    instantiations at c5 (float32): 256 threads and the shared memory
+    kernels/deint's formulas give, the c8 route matched first."""
+    from videorenderer_tpu_torch.kernels import deint as dk
+    got = dict(kr.default_launches())
+    assert [k for k, _ in kr.default_launches()] == [
+        "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel"]
+    assert all(t == 256 for t, _ in got.values())
+    assert got["deint3_kernel"][1] == 62080
+    assert 0 < got["cols3_tail_kernel"][1] < got[kr.C8_ROUTE][1] \
+        <= dk.SMEM_BUDGET
+    name = ("void vrt::k9::cols3_tail_kernel<vrt::Route<(int)0, (int)1, "
+            "(int)0, (int)1, (int)1>, float, float>(const T2 *)")
+    bare = name.replace("(int)", "")
+    assert next(v for k, v in kr.default_launches() if k in bare) \
+        == got[kr.C8_ROUTE]
+
+
+def test_issue_bound_cells_of_k2_and_k9():
+    assert kr.PIXELS["cols3_tail"] == {"c5": 32 * 1080 * 1920,
+                                       "c8": 16 * 1080 * 1920}
+    assert kr.PIXELS["rows3_tail"] == {"headline": 16 * 1080 * 1920,
+                                       "c7": 16 * 2160 * 3840}
+    assert kr.GROUP == {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4}
 
 
 def _log(tmp_path, name, k2_digest="ab", psnr=76.0, ms=1.0):

@@ -1,106 +1,148 @@
 // K9: W-axis banded resize of (Y, U, V) plus the whole per-pixel tail, for
 // Hopper (sm_90a) — K2 (rows3_tail.cu) with the resize axis swapped, for
-// pipelines that resize H first (motion-adaptive deinterlacing).
+// pipelines that resize H first (motion-adaptive deinterlacing, Dolby
+// Vision).
 //
-// Replaces videorenderer_tpu/kernels/deint_pallas.py: cols3_tail.  One
-// thread per output pixel (b, row, col):
+// Replaces videorenderer_tpu/kernels/deint_pallas.py: cols3_tail.  Each
+// output pixel (b, row, col):
 //   1. each plane's W pass: sum_t p[b, row, starts[col] + t] * taps[t, col]
-//      in fp32 FMAs over a per-output-column tap table (kernels/resize.py:
-//      plan_taps), or, for a plane with no W matrix, a direct read times its
+//      in fp32 FMAs, t = 0 .. T-1 in order from 0, columns past the row's
+//      end skipped, over a per-output-column tap table (kernels/resize.py:
+//      plan_taps); or, for a plane with no W matrix, a direct read times its
 //      scale;
-//   2. the colour matrix (or none) and the correction (tail.cuh, shared with
-//      K2);
+//   2. the colour matrix (or none), the correction and the local tone map
+//      (tail.cuh, shared with K2 and K4);
 //   3. quantization from the GLOBAL row and column, and the store: planar
-//      float RGB or one R10G10B10A2 / RGBA8 dword (tail.cuh, epilogue.cuh).
-// The plane dtypes (uint8, uint16, int16, float32) are template parameters.
+//      float RGB or one R10G10B10A2 / RGBA8 dword (epilogue.cuh).
 //
-// Bound.  At c5 (both fields of 16 frames, the float32 output of K7) each
-// output pixel reads 6 luma taps and 2 x ~8 chroma taps of float32 (device
-// memory delivers the three planes about once: 1.06 GB per batch) and
-// writes one dword (265 MB).  Consecutive threads take consecutive output
-// columns; their taps overlap, so a warp's loads hit a few contiguous
-// sectors that L1 serves again to the next taps, and the tap weights are
-// read coalesced.  The tail is K2's: the accurate transcendentals of the
-// HLG -> SDR chain, each operation rounded on its own.  The TPU kernel's
-// split-bf16 products and 128-lane tiles do not carry over.
+// Design (cols3_tail.cuh).  A block makes tile_rows rows
+// (kernels/deint.K9_TILE_ROWS) x 128 output columns of one frame, 32 x 8
+// threads, at most 64 registers a thread so that 4 blocks share an SM:
+//   * the W pass.  Each warp makes the tile's rows warp, warp + 8, ... on
+//     its own: it copies a row's span of input columns its 128 outputs'
+//     taps reach (kernels/resize.BandedMatrix.row_windows along the
+//     columns, from a start rounded down to 16 bytes, as K1 does) of each
+//     plane into shared memory with 16-byte cp.async copies (element
+//     copies where the rows are not 16-byte aligned), the next row's while
+//     it runs the current one, and waits for its own copies only.  Each
+//     input byte comes from device memory once; only the halo columns at
+//     span borders are read again.  The block stages the tile's starts and
+//     tap weights once.  Each thread makes 4 consecutive output columns,
+//     each summing its taps from shared memory in the same order with the
+//     same guard; a thread starts its 4 columns at a lane-dependent one, so
+//     a warp's reads of a tap at 2:1 spread over 16 banks, and the starts
+//     and weights are staged in that order, so a thread reads its 4 weights
+//     of a tap as one 16-byte vector.  Up to 8 taps are unrolled, and a
+//     thread whose taps all lie inside the row runs them without the
+//     end-of-row guard.  A plane with no W matrix is read with 4-wide vector
+//     loads straight from device memory.
+//   * the tail.  The route is a template parameter (route.cuh): c5's (HLG
+//     -> SDR, RGBA8) and c8's (R, G, B planes, PQ -> SDR, R10G10B10A2) are
+//     compiled each with its own path only, in cols3_tail_c5.cu and
+//     cols3_tail_c8.cu, which build in parallel with this file; any other
+//     combination takes the runtime instantiation, which reads the flags
+//     and runs a thread's pixels one at a time.  A compiled route runs the
+//     thread's 4 pixels' tails side by side with one CheckedDiv check for
+//     all their divisions, as K2 does.
+//   * the store: 4 packed dwords as one 16-byte store, or three 16-byte
+//     stores of planar float, where the row is 16-byte aligned; a scalar
+//     edge path takes widths that are not a multiple of 4 and unaligned
+//     pointers.
+// Every output is bit-equal to the one-pixel-a-thread kernel this replaces:
+// the same operations in the same order.  Shared memory: the spans, taps and
+// starts must fit kSmemBudget; the wrapper (kernels/deint.cols3_tail)
+// refuses a map that does not before the launch.
+//
+// Bound.  At c5 (both fields of 16 frames, K7's float32 output) each output
+// pixel reads 6 luma taps and 2 x 4 chroma taps of float32 planes that
+// device memory delivers about once (1.06 GB a batch) and writes one dword
+// (265 MB): 0.396 ms on one H100.  The tail is K2's, the accurate
+// transcendentals of the HLG -> SDR chain, each operation rounded on its
+// own: 448 SASS instructions a pixel on the C5 route (kernel_report.py), an
+// issue bound of 0.89 ms for those pixels, so the tail's issue, not the
+// bytes, sets the kernel's floor (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "epilogue.cuh"
-#include "tail.cuh"
+#include <type_traits>
+
+#include "cols3_tail.cuh"
+
+// the routes compiled in cols3_tail_c5.cu and cols3_tail_c8.cu
+extern template VRT_K9_LAUNCH(C5, float, float);
+extern template VRT_K9_LAUNCH(C8, float, float);
+
+using namespace vrt;
+using namespace vrt::k9;
 
 namespace {
 
-constexpr int kThreads = 128;
-
-template <typename T>
-__device__ __forceinline__ float w_pass(const T* __restrict__ row, int w_in,
-                                        int col,
-                                        const int* __restrict__ starts,
-                                        const float* __restrict__ taps,
-                                        int n_taps, int w_out, float scale) {
-  if (n_taps == 0) return vrt::mul(static_cast<float>(row[col]), scale);
-  const int s = starts[col];
-  float acc = 0.f;
-  for (int t = 0; t < n_taps; ++t) {
-    const int i = s + t;
-    if (i < w_in) {
-      acc = fmaf(static_cast<float>(row[i]), taps[t * w_out + col], acc);
-    }
-  }
-  return acc;
-}
-
-// grid: x = batch * h rows, y = column blocks of kThreads output columns
-template <typename TY, typename TC>
-__global__ void cols3_tail_kernel(
-    const TY* __restrict__ y, const TC* __restrict__ u,
-    const TC* __restrict__ v, int h, int wy, int wc, int w_out,
-    const int* __restrict__ sy, const float* __restrict__ ty, int nty,
-    const int* __restrict__ sc, const float* __restrict__ tc, int ntc,
-    vrt::TailParams P, void* __restrict__ out) {
-  const int col = blockIdx.y * kThreads + threadIdx.x;
-  if (col >= w_out) return;
-  const long long r = blockIdx.x;           // b * h + row
-  const long long b = r / h;
-  const int row = static_cast<int>(r - b * h);
-  const float yv = w_pass(y + r * wy, wy, col, sy, ty, nty, w_out, P.y_scale);
-  const float uv = w_pass(u + r * wc, wc, col, sc, tc, ntc, w_out, P.c_scale);
-  const float vv = w_pass(v + r * wc, wc, col, sc, tc, ntc, w_out, P.c_scale);
-  float c[3];
-  vrt::color_tail(P.tail, yv, uv, vv, c);
-  vrt::store_pixel(c, P.quant, P.pack, out, b, h, w_out, row, col);
-}
+const auto kSpecs = std::make_tuple(Spec<C5, float, float>{"c5 float32"},
+                                    Spec<C8, float, float>{"c8 float32"});
 
 }  // namespace
 
-// Dtype codes: 0 uint8, 1 uint16, 2 int16, 3 float32.  n_taps_* == 0: that
-// plane has no W matrix and is read directly (its width is w_out) times its
-// scale.  ``host_mats`` is HOST memory: 12 floats of the colour matrix,
-// row-major 3 x (m0 m1 m2 c), 9 of the gamut matrix, then the 5 scalars of
-// the local tone map of selection ``tonemap`` (0: none).
+// Dtype codes: 0 uint8, 1 uint16, 2 int16, 3 float32.  Per plane class (y,
+// c): the W map's starts, taps and n_taps, and each tile's first input
+// column (``lo_*``, device, one int per tile of 128 output columns) and the
+// widest span ``win_*`` (kernels/resize.BandedMatrix.row_windows); NULL and
+// n_taps 0 for a plane with no W matrix, read directly (its width is w_out)
+// times its scale.  ``host_mats`` is HOST memory: 12 floats of the colour
+// matrix, row-major 3 x (m0 m1 m2 c), 9 of the gamut matrix, then the 5
+// scalars of the local tone map of selection ``tonemap`` (0: none).
+// Returns cudaErrorInvalidValue for a layout over kSmemBudget.
 extern "C" int vrt_cols3_tail(
     const void* y, int y_dtype, const void* u, const void* v, int c_dtype,
-    int batch, int h, int wy, int wc, int w_out, const void* starts_y,
-    const void* taps_y, int n_taps_y, const void* starts_c,
-    const void* taps_c, int n_taps_c, float y_scale, float c_scale,
-    const void* host_mats, int apply_matrix, int correction, int tonemap,
-    float luminance_scale, int dither_bits, int pack, void* out,
-    void* stream) {
+    int batch, int h, int wy, int wc, int w_out, int tile_rows,
+    const void* starts_y,
+    const void* taps_y, int n_taps_y, const void* lo_y, int win_y,
+    const void* starts_c, const void* taps_c, int n_taps_c, const void* lo_c,
+    int win_c, float y_scale, float c_scale, const void* host_mats,
+    int apply_matrix, int correction, int tonemap, float luminance_scale,
+    int dither_bits, int pack, void* out, void* stream) {
   const vrt::TailParams P = vrt::make_tail_params(
       host_mats, apply_matrix, correction, tonemap, luminance_scale, y_scale,
       c_scale, dither_bits, pack);
-  const dim3 grid(batch * h, (w_out + kThreads - 1) / kThreads);
+  const Geometry G{
+      h, w_out, tile_rows,
+      WMap{wy, static_cast<const int*>(starts_y),
+           static_cast<const float*>(taps_y), n_taps_y,
+           static_cast<const int*>(lo_y), win_y},
+      WMap{wc, static_cast<const int*>(starts_c),
+           static_cast<const float*>(taps_c), n_taps_c,
+           static_cast<const int*>(lo_c), win_c}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return vrt::dispatch_planes(y_dtype, c_dtype, [&](auto y_tag, auto c_tag) {
+  const Flags f = flags_of(y_dtype, c_dtype, apply_matrix, correction,
+                           tonemap, dither_bits, pack);
+  int err = 0;
+  if (with_spec(kSpecs, f, [&](const auto& s) {
+        using S = std::decay_t<decltype(s)>;
+        err = launch<typename S::R, typename S::TY, typename S::TC>(
+            y, u, v, G, P, batch, out, st);
+      })) {
+    return err;
+  }
+  bool known = false;
+  vrt::dispatch_planes(y_dtype, c_dtype, [&](auto y_tag, auto c_tag) {
     using TY = decltype(y_tag);
     using TC = decltype(c_tag);
-    cols3_tail_kernel<TY, TC><<<grid, kThreads, 0, st>>>(
-        static_cast<const TY*>(y), static_cast<const TC*>(u),
-        static_cast<const TC*>(v), h, wy, wc, w_out,
-        static_cast<const int*>(starts_y), static_cast<const float*>(taps_y),
-        n_taps_y, static_cast<const int*>(starts_c),
-        static_cast<const float*>(taps_c), n_taps_c, P, out);
+    known = true;
+    err = launch<RuntimeRoute, TY, TC>(y, u, v, G, P, batch, out, st);
   });
+  return known ? err : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The name of the compiled route K9 takes for these flags, or "runtime" for
+// the instantiation that reads them.
+extern "C" const char* vrt_cols3_tail_route(int y_dtype, int c_dtype,
+                                            int apply_matrix, int correction,
+                                            int tonemap, int dither_bits,
+                                            int pack) {
+  const char* name = "runtime";
+  with_spec(kSpecs,
+            flags_of(y_dtype, c_dtype, apply_matrix, correction, tonemap,
+                     dither_bits, pack),
+            [&](const auto& s) { name = s.name; });
+  return name;
 }

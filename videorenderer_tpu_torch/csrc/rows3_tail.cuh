@@ -1,8 +1,8 @@
-// K2's kernel (csrc/rows3_tail.cu has its design), its launch, and the
-// routes the port's paths run, compiled each in its own translation unit:
-// rows3_tail.cu (the entry points, the runtime route, the light routes),
-// rows3_tail_headline.cu, rows3_tail_c7.cu and rows3_tail_hlg.cu build in
-// parallel.
+// K2's kernel (csrc/rows3_tail.cu has its design) and its launch.  The
+// routes the port's paths run (route.cuh) are compiled each in its own
+// translation unit: rows3_tail.cu (the entry points, the runtime route, the
+// light routes), rows3_tail_headline.cu, rows3_tail_c7.cu and
+// rows3_tail_hlg.cu build in parallel.
 
 #pragma once
 
@@ -10,23 +10,21 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "route.cuh"
 #include "stage.cuh"
 #include "tail.cuh"
 
 namespace vrt {
 namespace k2 {
 
-constexpr int kVec = 4;                          // columns a thread makes
+constexpr int kVec = vrt::kGroup;                // columns a thread makes
 constexpr int kColThreads = 32;                  // threadIdx.x
 constexpr int kRowThreads = 8;                   // threadIdx.y
 constexpr int kThreads = kColThreads * kRowThreads;
 constexpr int kTileCols = kVec * kColThreads;    // 128 columns a block
 constexpr size_t kSmemBudget = 232448;           // 227 KB
 
-template <typename T>
-struct alignas(sizeof(T) * kVec) Vec {
-  T v[kVec];
-};
+using vrt::Vec;
 
 // One plane class's H map (the luma, or both chroma planes).
 struct HMap {
@@ -163,52 +161,6 @@ __device__ __forceinline__ void h_values(const T* __restrict__ plane,
   }
 }
 
-// A tail route fixed at compile time: colour matrix (0/1), correction,
-// tone-map selection, quantization mode and pack; vrt::kRuntime in a field
-// reads that flag from the launch's parameters.
-constexpr int kRt = vrt::kRuntime;
-
-template <int M, int C, int TM, int Q, int PK>
-struct Route {
-  static constexpr int kMat = M, kCorr = C, kTm = TM, kQuant = Q, kPack = PK;
-  static constexpr bool kReadsFlags = M == kRt;
-};
-
-using RuntimeRoute = Route<kRt, kRt, kRt, kRt, kRt>;
-
-// a[k] through selects, so an array indexed by a loop that is not unrolled
-// stays in registers
-__device__ __forceinline__ float pick(const float a[kVec], int k) {
-  float v = a[0];
-#pragma unroll
-  for (int j = 1; j < kVec; ++j) v = k == j ? a[j] : v;
-  return v;
-}
-
-// The tail of the thread's pixels one at a time, dividing with __fdiv_rn:
-// the runtime route, and a compiled route's rare second pass.
-template <typename R>
-__device__ __forceinline__ void tail_exact(const vrt::TailParams& P,
-                                           const float yv[kVec],
-                                           const float uv[kVec],
-                                           const float vv[kVec],
-                                           float c[kVec][3]) {
-#pragma unroll 1
-  for (int k = 0; k < kVec; ++k) {
-    float ck[3];
-    vrt::color_tail<R::kMat, R::kCorr, R::kTm>(P.tail, pick(yv, k),
-                                               pick(uv, k), pick(vv, k), ck);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      if (j == k) {
-        c[j][0] = ck[0];
-        c[j][1] = ck[1];
-        c[j][2] = ck[2];
-      }
-    }
-  }
-}
-
 template <typename R, typename TY, typename TC>
 __global__ void __launch_bounds__(kThreads) rows3_tail_kernel(
     const TY* __restrict__ y, const TC* __restrict__ u,
@@ -259,7 +211,6 @@ __global__ void __launch_bounds__(kThreads) rows3_tail_kernel(
                      (reinterpret_cast<uintptr_t>(v) % sizeof(Vec<TC>)) == 0;
   const bool out_vec = w_vec && (reinterpret_cast<uintptr_t>(out) %
                                  sizeof(Vec<float>)) == 0;
-  const int pack = R::kPack != kRt ? R::kPack : P.pack;
 
   for (int m = threadIdx.y; m < rows; m += kRowThreads) {
     const int r = r0 + m;
@@ -271,59 +222,8 @@ __global__ void __launch_bounds__(kThreads) rows3_tail_kernel(
     h_values(vb, wv, G.c, tc, sc, lo_c, G.w, G.tile_rows, m, r, col, c_vec,
              P.c_scale, vv);
     float c[kVec][3];
-    if constexpr (R::kReadsFlags) {
-      tail_exact<R>(P, yv, uv, vv, c);
-    } else {
-      // the 4 pixels' tails side by side, with one check for all their
-      // divisions; a group with an operand out of CheckedDiv's range runs
-      // its tail again, exactly
-      vrt::CheckedDiv div;
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        vrt::color_tail<R::kMat, R::kCorr, R::kTm>(P.tail, yv[k], uv[k],
-                                                   vv[k], c[k], div);
-      }
-      if (!div.ok) tail_exact<R>(P, yv, uv, vv, c);
-    }
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      vrt::quantize3<R::kQuant>(c[k], P.quant, r, col + k);
-    }
-    const long long px = (b * G.h_out + r) * G.w + col;
-    if (pack != vrt::kPackNone) {
-      uint32_t wd[kVec];
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) wd[k] = vrt::pack_word<R::kPack>(c[k], pack);
-      uint32_t* o = static_cast<uint32_t*>(out) + px;
-      if (out_vec && col + kVec <= G.w) {
-        Vec<uint32_t> ov;
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) ov.v[k] = wd[k];
-        *reinterpret_cast<Vec<uint32_t>*>(o) = ov;
-      } else {
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-          if (col + k < G.w) o[k] = wd[k];
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        float* o = static_cast<float*>(out) +
-                   ((b * 3 + i) * G.h_out + r) * G.w + col;
-        if (out_vec && col + kVec <= G.w) {
-          Vec<float> ov;
-#pragma unroll
-          for (int k = 0; k < kVec; ++k) ov.v[k] = c[k][i];
-          *reinterpret_cast<Vec<float>*>(o) = ov;
-        } else {
-#pragma unroll
-          for (int k = 0; k < kVec; ++k) {
-            if (col + k < G.w) o[k] = c[k][i];
-          }
-        }
-      }
-    }
+    vrt::tail_group<R>(P, yv, uv, vv, c);
+    vrt::store_group<R>(c, P, out, b, G.h_out, G.w, r, col, out_vec);
   }
 }
 
@@ -348,28 +248,6 @@ int launch(const void* y, const void* u, const void* v, const Geometry& G,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The routes the port's paths give K2 (pipeline._make_tail_epilogue,
-// cmat_epilogue, torch_headline_micro's stages).
-// the headline: PQ -> SDR, 10-bit ordered dither, R10G10B10A2
-using Headline = Route<1, kCorrPqToSdr, kTmNone, kQuantDither, kPackRgb10a2>;
-// the same, planar float (the stage split's tailNoPack)
-using HeadlineFloat = Route<1, kCorrPqToSdr, kTmNone, kQuantDither, kPackNone>;
-// c1: no correction, 8-bit ordered dither, RGBA8
-using C1 = Route<1, kCorrNone, kTmNone, kQuantDither, kPackRgba8>;
-// c5 single rate: HLG -> SDR, 8-bit ordered dither, RGBA8
-using C5 = Route<1, kCorrHlgToSdr, kTmNone, kQuantDither, kPackRgba8>;
-// c7: the BT.2390 local tone map, 10-bit dither, R10G10B10A2; and planar
-using C7 = Route<1, kCorrNone, kTmBt2390, kQuantDither, kPackRgb10a2>;
-using C7Float = Route<1, kCorrNone, kTmBt2390, kQuantDither, kPackNone>;
-// HLG passthrough: HLG -> PQ, 10-bit dither, R10G10B10A2
-using HlgToPq = Route<1, kCorrHlgToPq, kTmNone, kQuantDither, kPackRgb10a2>;
-// the colour matrix only: planar float (the staged convert, c3 rotation
-// 270) and R10G10B10A2 (the stage split's tailID)
-using MatrixFloat = Route<1, kCorrNone, kTmNone, kQuantNone, kPackNone>;
-using MatrixRgb10 = Route<1, kCorrNone, kTmNone, kQuantNone, kPackRgb10a2>;
-// no matrix: the H taps and the store (the stage split's tailH)
-using PlanesRgb10 = Route<0, kCorrNone, kTmNone, kQuantNone, kPackRgb10a2>;
-
 }  // namespace k2
 }  // namespace vrt
 
@@ -377,6 +255,6 @@ using PlanesRgb10 = Route<0, kCorrNone, kTmNone, kQuantNone, kPackRgb10a2>;
 // the translation unit that compiles it and its extern declaration in the
 // others.
 #define VRT_K2_LAUNCH(R, TY, TC)                                          \
-  int vrt::k2::launch<vrt::k2::R, TY, TC>(                                 \
+  int vrt::k2::launch<vrt::R, TY, TC>(                                 \
       const void*, const void*, const void*, const vrt::k2::Geometry&,     \
       const vrt::TailParams&, int, void*, cudaStream_t)

@@ -1,6 +1,8 @@
 // Staging helpers shared by the tiled kernels (K1 banded_resize.cu, K2
-// rows3_tail.cu): 16-byte asynchronous copies from device memory into
-// shared memory, and exact conversions of the plane codes to float.
+// rows3_tail.cu, K7 deint3_rows_dual.cu, K9 cols3_tail.cuh): 16-byte
+// asynchronous copies from device memory into shared memory, in groups a
+// thread can wait for one at a time, and exact conversions of the plane
+// codes to float.
 //
 // to_float gives the same value as static_cast<float> for every uint8,
 // uint16 and int16 code, with one integer and one float operation at the
@@ -21,6 +23,19 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
+}
+
+// closes the group of the cp.async copies this thread issued since the last
+// commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most ``kPending`` of this thread's committed groups are
+// still in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // waits for every cp.async this thread has issued

@@ -46,12 +46,12 @@ SIGNATURES = {
     "vrt_rows3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
-    # y, y_dtype, u, v, c_dtype, batch, h, wy, wc, w_out, starts_y, taps_y,
-    # n_taps_y, starts_c, taps_c, n_taps_c, y_scale, c_scale, mats (host),
-    # apply_matrix, correction, tonemap, luminance_scale, dither_bits, pack,
-    # out, stream
-    "vrt_cols3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _I, _P, _P, _I,
+    # y, y_dtype, u, v, c_dtype, batch, h, wy, wc, w_out, tile_rows, the
+    # (starts, taps, n_taps, tile_lo, win) of the y and c W maps, y_scale,
+    # c_scale, mats (host), apply_matrix, correction, tonemap,
+    # luminance_scale, dither_bits, pack, out, stream
+    "vrt_cols3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, wy, hc, wc, h_out, w_out, the
     # (starts, taps, n_taps) of the W maps of y and c, the (starts, taps,
@@ -72,10 +72,11 @@ SIGNATURES = {
                       _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _F, _F,
                       _P, _I, _P, _I, _P, _P),
     # planes (host array of 9 pointers), dtype, batch, hy, wy, hc, wc,
-    # h_out, starts_y, taps_y, n_taps_y, starts_c, taps_c, n_taps_c, thr,
-    # top_field_first, out_y, out_u, out_v, stream
-    "vrt_deint3_rows_dual": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-                             _P, _P, _I, _F, _I, _P, _P, _P, _P),
+    # h_out, tile_rows, the (starts, taps, n_taps, tile_lo, win) of the y
+    # and c H maps, thr, top_field_first, out_y, out_u, out_v, stream
+    "vrt_deint3_rows_dual": (_P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
+                             _F, _I, _P, _P, _P, _P),
     # x, planes, h, w, oh, ow, by, d2y, bx, d2x, dither_bits, out, stream
     "vrt_jinc2_resize": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P),
     # y, u, v, dtype, batch, h, w, ch, cw, oh, ow, by, d2y, bx, d2x,
@@ -95,6 +96,8 @@ STRING_SIGNATURES = {
     "vrt_error_string": (_I,),
     # y_dtype, c_dtype, apply_matrix, correction, tonemap, dither_bits, pack
     "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I),
+    # the same flags, for K9
+    "vrt_cols3_tail_route": (_I, _I, _I, _I, _I, _I, _I),
 }
 
 _lock = threading.Lock()

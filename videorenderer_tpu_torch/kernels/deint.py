@@ -16,6 +16,13 @@ tap tables with the normalisation folded in, the sums are fp32 FMAs (no
 split-bf16 products), a wrapper given CPU tensors runs the plain version and
 given CUDA tensors launches the kernel or raises, and each launch adds one
 to ``resize.launches[name]``.
+
+K7 and K9 are tiled for the H100 as K1 and K2 are: a block stages the
+window of inputs its outputs' taps reach in shared memory with 16-byte
+copies and each thread makes 4 columns with vector stores.
+:func:`k7_smem_bytes` and :func:`k9_smem_bytes` give a block's shared
+memory; a map whose window does not fit SMEM_BUDGET, or a grid past its limits, is refused before the
+launch.  Their times against their bounds are in ``PERF.md`` section 6.
 """
 
 from __future__ import annotations
@@ -26,9 +33,58 @@ import numpy as np
 import torch
 
 from ..ops.dovi import MidStage
-from .resize import (DTYPE_CODES, PACK_CODES, BandedMatrix, Epilogue,
-                     _check_plane, _h_plain, _kernel_device, _launch,
-                     _no_tf32, _taps_args, pack_surface)
+from . import build
+from .resize import (DTYPE_CODES, PACK_CODES, SMEM_BUDGET, BandedMatrix,
+                     Epilogue, _check_plane, _h_plain, _kernel_device,
+                     _launch, _no_tf32, _taps_args, pack_surface)
+
+K7_TILE_ROWS = 32     # output rows a K7 block makes (its tile_rows)
+K7_TILE_COLS = 64     # columns a K7 block makes (kTileCols)
+K9_TILE_ROWS = 32     # rows a K9 block makes (tile_rows, csrc/cols3_tail.cuh)
+K9_TILE_COLS = 128    # output columns a K9 block makes (kTileCols)
+K9_WARPS = 8          # warps of a K9 block, each with two staged rows
+GRID_YZ_MAX = 65535   # the grid's y and z dimensions
+
+
+def k7_smem_bytes(itemsize: int, my_y: BandedMatrix, my_c: BandedMatrix,
+                  tile_rows: int = K7_TILE_ROWS) -> int:
+    """Shared memory of a K7 block (Layout, csrc/deint3_rows_dual.cu), the
+    larger of the two plane classes': both fields' float32 values of the
+    window (win rows x K7_TILE_COLS), the taps and starts of ``tile_rows``
+    rows (rounded up to 16 bytes), then the raw windows of cur (win + 2
+    rows), prev and next (win rows) at the planes' itemsize."""
+    def one(mat: BandedMatrix) -> int:
+        win = mat.row_windows(tile_rows)[1]
+        return (2 * win * K7_TILE_COLS * 4
+                + -(-4 * tile_rows * (mat.n_taps + 1) // 16) * 16
+                + (3 * win + 2) * K7_TILE_COLS * itemsize)
+    return max(one(my_y), one(my_c))
+
+
+def k9_pitch(win: int, itemsize: int) -> int:
+    """Input elements a K9 block stages a row for a span of ``win``
+    columns: from a start rounded down to 16 bytes (pitch_of,
+    csrc/cols3_tail.cuh; K1's rule)."""
+    chunk = 16 // itemsize
+    return (win + 2 * chunk - 2) // chunk * chunk
+
+
+def k9_smem_bytes(y_itemsize: int, c_itemsize: int,
+                  mx_y: BandedMatrix | None,
+                  mx_c: BandedMatrix | None) -> int:
+    """Shared memory of a K9 block (Layout, csrc/cols3_tail.cuh): the spans
+    of y, u and v, two rows of :func:`k9_pitch` elements for each of its
+    K9_WARPS warps (a plane read directly has none), then each map's taps
+    and starts for K9_TILE_COLS output columns."""
+    total = 0
+    for mat, itemsize, planes in ((mx_y, y_itemsize, 1),
+                                  (mx_c, c_itemsize, 2)):
+        if mat is not None:
+            win = mat.row_windows(K9_TILE_COLS)[1]
+            total += (planes * 2 * K9_WARPS * k9_pitch(win, itemsize)
+                      * itemsize)
+            total += 4 * K9_TILE_COLS * (mat.n_taps + 1)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -93,11 +149,18 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
     (y, u, v) float32 (..., 2, h_out, W*): field f is ``[..., f, :, :]``.
 
     Kernel K7 (``csrc/deint3_rows_dual.cu``), replacing
-    ``deint_pallas.deint3_rows_dual``.  One thread per output column and
-    row of a plane walks the row's taps, computes the motion ramp once per
-    tap row and accumulates both fields, so the deinterlaced planes never
-    reach device memory; bound by device memory (the raw window read about
-    once, both fields written once)."""
+    ``deint_pallas.deint3_rows_dual``.  A block makes K7_TILE_ROWS output
+    rows x K7_TILE_COLS columns of one plane: it stages the window of input
+    rows its taps reach (cur widened by the clamped neighbour row above and
+    below) in shared memory with 16-byte copies, computes
+    the motion ramp and both fields' values once per window pixel, then
+    runs the taps of 4 columns a thread and stores them as vectors, so the
+    deinterlaced planes never reach device memory; neighbouring blocks take
+    one tile of consecutive frames, so each raw frame comes from device
+    memory about once.  Bound by device memory (the raw frames read once,
+    both fields written once: 0.451 ms at c5 on one H100).  A map
+    whose window does not fit SMEM_BUDGET, or a grid past its limits,
+    raises ValueError before the launch."""
     for name, frames in (("prev", prev), ("cur", cur), ("nxt", nxt)):
         if len(frames) != 3:
             raise ValueError(f"{name}: need the (y, u, v) planes, got "
@@ -127,20 +190,31 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
         return deint3_rows_dual_plain(prev, cur, nxt, my_y, my_c, h_out, thr,
                                       top_field_first)
     batch = y.numel() // (hy * wy) if y.numel() else 0
-    col_blocks = -(-wy // 128) + 2 * -(-wc // 128)
-    if batch == 0 or batch * h_out >= 2 ** 31 or col_blocks > 65535:
+    col_blocks = -(-wy // K7_TILE_COLS) + 2 * -(-wc // K7_TILE_COLS)
+    tiles = -(-h_out // K7_TILE_ROWS)
+    if batch == 0 or tiles > GRID_YZ_MAX or col_blocks * batch >= 2 ** 31:
         raise ValueError(f"K7 cannot take batch {batch} x {h_out} rows x "
-                         f"{wy} columns")
+                         f"{wy} columns: the grid is (column tiles x frames, "
+                         f"tiles of {K7_TILE_ROWS} rows), at most 2^31 - 1 "
+                         "and 65535")
+    smem = k7_smem_bytes(y.element_size(), my_y, my_c, K7_TILE_ROWS)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"K7: the H maps' windows need {smem} bytes of "
+                         f"shared memory, over {SMEM_BUDGET}")
     dev = y.device
     outs = tuple(torch.empty(lead + (2, h_out, w), dtype=torch.float32,
                              device=dev) for w in (wy, wc, wc))
     ptrs = (ctypes.c_void_p * 9)(*(p.data_ptr() for p in planes))
     sy, ty = my_y.taps_on(dev)
     sc, tc = my_c.taps_on(dev)
+    lo_y, win_y = my_y.row_windows(K7_TILE_ROWS, dev)
+    lo_c, win_c = my_c.row_windows(K7_TILE_ROWS, dev)
     _launch("deint3_rows_dual", "vrt_deint3_rows_dual", dev,
             ctypes.addressof(ptrs), DTYPE_CODES[y.dtype], batch, hy, wy, hc,
-            wc, h_out, sy.data_ptr(), ty.data_ptr(), my_y.n_taps,
-            sc.data_ptr(), tc.data_ptr(), my_c.n_taps, float(thr),
+            wc, h_out, K7_TILE_ROWS, sy.data_ptr(), ty.data_ptr(),
+            my_y.n_taps,
+            lo_y.data_ptr(), win_y, sc.data_ptr(), tc.data_ptr(),
+            my_c.n_taps, lo_c.data_ptr(), win_c, float(thr),
             int(top_field_first), *(o.data_ptr() for o in outs))
     return outs
 
@@ -291,10 +365,17 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     ("rgb10a2"/"rgba8") (..., H, w_out) int32 dwords.
 
     Kernel K9 (``csrc/cols3_tail.cu``), replacing
-    ``deint_pallas.cols3_tail``: K2 with the axis swapped.  One thread per
-    output pixel runs the W taps of the three planes, the shared tail
-    (``csrc/tail.cuh``), the dither from the global row and column and the
-    store, so no intermediate RGB reaches device memory."""
+    ``deint_pallas.cols3_tail``: K2's design on the W axis.  A block makes
+    K9_TILE_ROWS rows x K9_TILE_COLS output columns; each of its K9_WARPS
+    warps stages, row by row and one row ahead, each plane's span of input
+    columns its outputs' taps reach in shared memory (16-byte copies), and
+    each thread runs the W taps of 4 consecutive columns, the
+    shared tail (``csrc/tail.cuh``), the dither from the global row and
+    column and one vector store, so no intermediate RGB reaches device
+    memory.  The tail's route is compiled in for c5's and c8's epilogues
+    (:func:`cols3_tail_route` names it).  A map whose span does not fit
+    SMEM_BUDGET, or a grid past its limits, raises ValueError before the
+    launch."""
     epilogue.validate()
     if pack_format not in PACK_CODES:
         raise NotImplementedError(f"K9: pack format {pack_format!r}")
@@ -322,9 +403,17 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         return cols3_tail_plain(y, u, v, mx_y, mx_c, w_out, epilogue, y_scale,
                                 c_scale, pack_format)
     batch = y.numel() // (h * wy) if y.numel() else 0
-    if batch == 0 or batch * h >= 2 ** 31 or w_out >= 128 * 65535:
+    tiles = -(-h // K9_TILE_ROWS)
+    if batch == 0 or batch > GRID_YZ_MAX or tiles > GRID_YZ_MAX \
+            or -(-w_out // K9_TILE_COLS) >= 2 ** 31:
         raise ValueError(f"K9 cannot take batch {batch} x {h} rows x "
-                         f"{w_out} columns")
+                         f"{w_out} columns: the grid is (column tiles, tiles "
+                         f"of {K9_TILE_ROWS} rows, frames), at most 65535 "
+                         "tiles and frames")
+    smem = k9_smem_bytes(y.element_size(), u.element_size(), mx_y, mx_c)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"K9: the W maps' spans need {smem} bytes of "
+                         f"shared memory, over {SMEM_BUDGET}")
     if pack_format is None:
         out = torch.empty(lead + (3, h, w_out), dtype=torch.float32,
                           device=y.device)
@@ -332,12 +421,33 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         out = torch.empty(lead + (h, w_out), dtype=torch.int32,
                           device=y.device)
     mats = epilogue.host_mats()
+
+    def w_args(mat):    # (starts, taps, T, tile_lo, win); none: read directly
+        if mat is None:
+            return None, None, 0, None, 0
+        lo, win = mat.row_windows(K9_TILE_COLS, y.device)
+        return (*_taps_args(mat, y.device), lo.data_ptr(), win)
+
     _launch("cols3_tail", "vrt_cols3_tail", y.device,
             y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
-            DTYPE_CODES[u.dtype], batch, h, wy, wc, w_out,
-            *_taps_args(mx_y, y.device), *_taps_args(mx_c, y.device),
+            DTYPE_CODES[u.dtype], batch, h, wy, wc, w_out, K9_TILE_ROWS,
+            *w_args(mx_y), *w_args(mx_c),
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
             *epilogue.launch_args(mats), epilogue.dither_bits,
             PACK_CODES[pack_format], out.data_ptr())
     return out
+
+
+def cols3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
+                     epilogue: Epilogue, pack_format: str | None) -> str:
+    """The K9 instantiation a launch with these plane dtypes, epilogue and
+    pack takes: the name of its compiled route ("c5 float32", "c8
+    float32"), or "runtime" for the one that reads the tail's flags
+    (vrt_cols3_tail_route; loads the kernel library, so it needs the CUDA
+    toolkit)."""
+    return build.load().vrt_cols3_tail_route(
+        DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype],
+        int(epilogue.cmat is not None), epilogue.correction,
+        epilogue.tonemap, epilogue.dither_bits,
+        PACK_CODES[pack_format]).decode()
