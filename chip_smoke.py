@@ -20,16 +20,21 @@ Phases, one line each:
               frames at the c3 shapes (1080p -> 4K), with and without the
               transposed store, and at c3rot's (2160 x 3840, 9/8 across,
               32/9 down, transposed) (within 1 code on < 1% of the
-              channels);
+              channels); the per-output route (the table cap at 0) on c3's
+              call, bit-equal to the table route, and timed beside it;
   8. K5       float Jinc2 vs its plain version at (6, 1080, 1920) ->
               (2160, 3840), float (within 1e-5) and dithered (1 code, < 1%);
   9. c3       VideoProcessor 1080p NV12 -> 4K RGBA8 Jinc2, dithered, two
-              distinct batches of 16: one K6 launch per call and nothing
-              else, >= 55 dB against the float64 Jinc2 oracle, ms/frame;
+              distinct batches of 16: the first call builds the geometry's
+              weight table (one table launch beside K6's), every later call
+              is one K6 launch and nothing else, >= 55 dB against the
+              float64 Jinc2 oracle, ms/frame; K6's time at batch 16;
  10. c3rot    make_frame_fn(plan, rotation=90, flip=True) of the 2160 x
-              3840 plan: one K6 launch (the transposed store), bit-equal to
-              the transposed unrotated surface, >= 55 dB against the
-              rotated oracle;
+              3840 plan: its first call builds its table, then one K6
+              launch a call (the transposed store), bit-equal to the
+              transposed unrotated surface, >= 55 dB against the rotated
+              oracle; the table kernel at c3rot's 32 x 9 classes against
+              its plain version, timed;
  11. c3r270   the c3 plan with rotation 270: first its convert on 2 frames
               against the plain versions (K1 on the uint8 chroma, float
               within 2e-5; K2 with the colour matrix only, float within
@@ -73,7 +78,8 @@ Phases, one line each:
               variant, >= 55 dB against oracle_dovi; ms/frame back to back
               and synced, batch 1 synced median of 15 calls, the plain
               path's ms/frame (>= 55 dB too); K8's and K9's times at c8's
-              batch, K9's tail and store alone (planes read directly), and
+              batch, K8's on the variant's call (its LMS route), K9's tail
+              and store alone (planes read directly), and
               K9's bound there (the three float32 mid planes and the RGB10
               output over the memory rate, against its W taps' FMAs);
  18. letterbox  VideoProcessor 3840 x 1608 (a 2.39:1 film) -> the
@@ -113,9 +119,13 @@ Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
 PyTorch call computes the same function; K10's top-level numbers are its
-wpass_bf16 form's, and "forms" holds both), nvidia-smi's line, and last the
-result line.
+wpass_bf16 form's, and "forms" holds both; K6's "table" holds its weight
+table kernel, whose launches are the paths' first calls), nvidia-smi's
+line, and last the result line.
 Any failure raises and the exit code is not 0.  Imports nothing of JAX.
+A tree from before K6's weight tables runs this script too, so that
+smoke_diff.py compares the two: there K6 computes every output's weights,
+and the table checks are left out (TABLES).
 """
 
 from __future__ import annotations
@@ -172,6 +182,9 @@ C7_SCENES = 4
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12      # dense bf16 in the tensor cores (K10's products)
+# K6 reads its weights from per-geometry tables (a tree without them
+# computes every output's weights and has no table kernel)
+TABLES = hasattr(jk, "jinc2_weight_table")
 
 
 def line(phase: str, **kw) -> None:
@@ -455,6 +468,27 @@ def headline_settings(accel: bool, tex_format: TexFormat = TexFormat.AUTOINT
                     use_accel_backend=accel, tex_format=tex_format)
 
 
+def fresh_tables() -> None:
+    """Drop K6's cached weight tables, so that a path's next call builds
+    its own."""
+    if TABLES:
+        jk.clear_weight_tables()
+
+
+@contextlib.contextmanager
+def per_output_weights():
+    """K6 with its table cap at 0: every geometry takes the per-output
+    route."""
+    if not TABLES:
+        yield
+        return
+    cap, jk.K6_TABLE_CAP = jk.K6_TABLE_CAP, 0
+    try:
+        yield
+    finally:
+        jk.K6_TABLE_CAP = cap
+
+
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -666,6 +700,19 @@ def main() -> None:
         raise AssertionError(f"K6 disagrees with its plain version: {k6}")
     k6["max_abs_err"] = k6["max_code_diff"] / 255.0
     kw = dict(epilogue=j2_epi, pack_format="rgba8")
+    # the per-output route on c3's call: the table's weights are the ones
+    # K6 computes for each output, so the bits are the table route's
+    with per_output_weights():
+        got = jk.jinc2_convert_fused(*k6_args, **kw)
+        torch.cuda.synchronize()
+        k6["per_output_digest"] = digest(got)
+        del got
+        k6["per_output_ms"] = cuda_ms(
+            lambda: jk.jinc2_convert_fused(*k6_args, **kw))
+    k6["per_output_bit_equal"] = k6["per_output_digest"] == k6_digests[0]
+    if not k6["per_output_bit_equal"]:
+        raise AssertionError("K6's per-output route differs from its table "
+                             "route")
     k6["ms"] = cuda_ms(lambda: jk.jinc2_convert_fused(*k6_args, **kw))
     k6["plain_ms"] = cuda_ms(
         lambda: jk.jinc2_convert_fused_plain(*k6_args, **kw), reps=2)
@@ -713,7 +760,15 @@ def main() -> None:
     # 9. c3 through VideoProcessor: two distinct batches of 16
     c3_batches = [nv12_batch(BATCH, SEED + 8 + i, dev) for i in range(2)]
     c3 = VideoProcessor(*c3_args(), device=dev, pack_surface=True)
-    c3.process(c3_batches[0])                   # warm-up, before the count
+    # the path's first call (the warm-up, before the count) builds its
+    # geometry's weight table; its K6 call is kept for K6's time at batch 16
+    fresh_tables()
+    with recording(jk, "jinc2_convert_fused") as calls:
+        _, c3_first = count_launches(lambda: c3.process(c3_batches[0]))
+    if c3_first != only(jinc2_convert_fused=1, jinc2_weight_table=1):
+        raise AssertionError(f"c3's first call launched {c3_first}")
+    (a6, kw6, _), = calls["jinc2_convert_fused"]
+    del calls
     c3_times = []
 
     def c3_run():
@@ -740,17 +795,28 @@ def main() -> None:
     if db_c3 < 55.0:
         raise AssertionError(f"c3 PSNR {db_c3} below 55 dB")
     c3_ms = sum(c3_times) / (len(c3_times) * BATCH)
+    k6["ms_batch16"] = cuda_ms(lambda: jk.jinc2_convert_fused(*a6, **kw6))
+    k6["bound_ms_batch16"] = bound(
+        tbytes(*a6[:3]) + BATCH * C3_OH * C3_OW * 4 + mbytes(a6[3], a6[4]),
+        BATCH * C3_OH * C3_OW * 3 * 16 * 2)["bound_ms"]
+    del a6, kw6
     line("c3", batch=BATCH, calls=len(c3_batches), launches=c3_launches,
+         first_call_launches={k: v for k, v in c3_first.items() if v},
          psnr_db=db_c3, ms_per_frame=c3_ms,
          ms_per_frame_back_to_back=cuda_ms(
              lambda: [c3.process(b) for b in c3_batches], reps=1,
-             warmup=0) / (len(c3_batches) * BATCH))
+             warmup=0) / (len(c3_batches) * BATCH),
+         k6_ms=k6["ms_batch16"], k6_bound_ms=k6["bound_ms_batch16"])
     del c3_outs
 
     # 10. c3rot: the 2160 x 3840 plan, rotation 90 + flip (a pure transpose)
     plan_rot = plan_pipeline(*c3_args(rotated=True))
     rot_fn = make_frame_fn(plan_rot, pack_surface=True, rotation=90, flip=True)
-    rot_fn(b0)                                  # warm-up, before the count
+    fresh_tables()
+    # the warm-up, before the count: the path's first call builds its table
+    _, rot_first = count_launches(lambda: rot_fn(b0))
+    if rot_first != only(jinc2_convert_fused=1, jinc2_weight_table=1):
+        raise AssertionError(f"c3rot's first call launched {rot_first}")
     rot_out, rot_launches = count_launches(lambda: rot_fn(b0))
     if rot_launches != only(jinc2_convert_fused=1):
         raise AssertionError(f"c3rot launches {rot_launches}")
@@ -767,9 +833,36 @@ def main() -> None:
     if db_rot < 55.0:
         raise AssertionError(f"c3rot PSNR {db_rot} below 55 dB")
     rot_ms = cuda_ms(lambda: rot_fn(b0), reps=3) / BATCH
-    line("c3rot", batch=BATCH, launches=rot_launches, psnr_db=db_rot,
-         bit_equal_to_transpose=rot_bit_equal, ms_per_frame=rot_ms)
+    line("c3rot", batch=BATCH, launches=rot_launches,
+         first_call_launches={k: v for k, v in rot_first.items() if v},
+         psnr_db=db_rot, bit_equal_to_transpose=rot_bit_equal,
+         ms_per_frame=rot_ms)
     del rot_out
+    # K6's weight table kernel at c3rot's 32 x 9 classes, against its plain
+    # version (torch's sin beside the kernel's sinf: float32 rounding)
+    k6t = None
+    if TABLES:
+        dyc = torch.tensor(jk.axis_classes(C1_H, C3_OW)[1], device=dev)
+        dxc = torch.tensor(jk.axis_classes(C1_W, C3_OH)[1], device=dev)
+        got = jk.jinc2_weight_table(dyc, dxc)
+        torch.cuda.synchronize()
+        ref = jk.jinc2_weight_table_plain(dyc, dxc)
+        k6t = {"max_abs_err": (got - ref).abs().max().item(),
+               "digest": digest(got)}
+        if k6t["max_abs_err"] > 1e-6 * ref.abs().max().item():
+            raise AssertionError(f"K6's table disagrees with its plain "
+                                 f"version: {k6t}")
+        k6t["ms"] = cuda_ms(lambda: jk.jinc2_weight_table(dyc, dxc))
+        k6t["plain_ms"] = cuda_ms(
+            lambda: jk.jinc2_weight_table_plain(dyc, dxc))
+        # operations: per weight the sum of the two d2, the two sin
+        # arguments, their product and the division (the sqrt and sin not
+        # counted), and the 15 sums
+        k6t.update(bound(tbytes(dyc, dxc, got), got.shape[0] * got.shape[1]
+                         * (16 * 5 + 15)), library_ms=None)
+        line("K6_table", geometry="c3rot", entries=got.shape[0] * got.shape[1],
+             tolerance="f32 <= 1e-6 of the largest weight", **k6t)
+        del got, ref, dyc, dxc
 
     # 11. c3 with rotation 270: the staged route K1 x2, K2, K5, then rotate.
     #     First its convert against the plain versions on PLAIN_FRAMES
@@ -1174,7 +1267,10 @@ def main() -> None:
     serve_v = make_serving_fn(plan_pipeline(*c8_args(variant)),
                               pack_surface=True)
     rt_v = dovi_rt(1, variant)
-    out_v = serve_v(c8_batches[1], {"dovi_curves": rt_v})
+    with recording(dk, "rows3_mid") as calls:
+        out_v = serve_v(c8_batches[1], {"dovi_curves": rt_v})
+    (a8v, kw8v, _), = calls["rows3_mid"]
+    del calls
     db8["variant"] = psnr(codes(out_v[0], 10).double() / 1023.0,
                           c8_oracle(c8_batches[1], variant, rt_v))
     del out_v, serve_v
@@ -1200,6 +1296,8 @@ def main() -> None:
         raise AssertionError(f"c8 PSNR below 55 dB: {db8}")
     # K8 and K9 at c8's batch, on the recorded call's inputs
     k8["ms"] = cuda_ms(lambda: dk.rows3_mid(*a8, **kw8))
+    k8["variant_ms"] = cuda_ms(lambda: dk.rows3_mid(*a8v, **kw8v))
+    del a8v, kw8v
     k8["plain_ms"] = cuda_ms(lambda: dk.rows3_mid_plain(*a8, **kw8), reps=1)
     # operations: the in and out taps, the identity reshape (4 a channel)
     # and the matrix (18) per mid pixel
@@ -1230,6 +1328,7 @@ def main() -> None:
          ms_batch1_median=float(np.median(t8)),
          ms_batch1_p90=float(np.percentile(t8, 90)),
          plain_ms_per_frame=c8_plain_ms, k8_ms=k8["ms"],
+         k8_variant_ms=k8["variant_ms"], k8_bound_ms=k8["bound_ms"],
          k9_ms=k9_c8_ms, k9_tail_ms=k9_c8_tail_ms,
          k9_bound_ms=k9_c8_bound["bound_ms"],
          k9_bound_by=k9_c8_bound["bound_by"], digest=c8_digest)
@@ -1641,9 +1740,15 @@ def main() -> None:
               max(k3["max_abs_err"], k3["max_abs_err_u16"])),
         entry("jinc2_resize_fused", "jinc2_resize.cu", "jinc2_pallas.py:242",
               r270_launches["jinc2_resize_fused"], k5, k5["max_abs_err"]),
-        entry("jinc2_convert_fused", "jinc2_convert.cu", "jinc2_pallas.py:705",
-              c3_launches["jinc2_convert_fused"]
-              + rot_launches["jinc2_convert_fused"], k6, k6["max_abs_err"]),
+        {**entry("jinc2_convert_fused", "jinc2_convert.cu",
+                 "jinc2_pallas.py:705",
+                 c3_launches["jinc2_convert_fused"]
+                 + rot_launches["jinc2_convert_fused"], k6,
+                 k6["max_abs_err"]),
+         "table": k6t and entry(
+             "jinc2_weight_table", "jinc2_convert.cu", "jinc2_pallas.py:705",
+             c3_first["jinc2_weight_table"]
+             + rot_first["jinc2_weight_table"], k6t, k6t["max_abs_err"])},
         entry("deint3_rows_dual", "deint3_rows_dual.cu", "deint_pallas.py:86",
               c5_launches["deint3_rows_dual"], k7, k7["max_abs_err"]),
         entry("rows3_mid", "rows3_mid.cu", "deint_pallas.py:216",

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Registers, spills, occupancy and the tail's SASS counts of kernels K1
-(``banded_resize.cu``), K2 (``rows3_tail*.cu``), K7
-(``deint3_rows_dual.cu``) and K9 (``cols3_tail*.cu``), on a machine with
-the CUDA toolkit.
+"""Registers, spills, occupancy and the per-pixel SASS counts of kernels K1
+(``banded_resize.cu``), K2 (``rows3_tail*.cu``), K6 (``jinc2_convert.cu``),
+K7 (``deint3_rows_dual.cu``), K8 (``rows3_mid*.cu``) and K9
+(``cols3_tail*.cu``), on a machine with the CUDA toolkit.
 
     python3 kernel_report.py [--csrc DIR] [--launch NAME=THREADS,SMEM ...]
                              [--pixels NAME=N ...]
@@ -20,8 +20,10 @@ Per function it prints one JSON line:
     ``spill_load_bytes`` (ptxas);
   * ``blocks_per_sm``: resident blocks an SM holds at ``--launch``'s block
     size and dynamic shared memory (by default K7's and K9's at c5, K9's
-    c8 route's at c8, from ``kernels/deint``'s formulas on those maps;
-    128 threads and none for the others) (the occupancy calculator's rules:
+    c8 route's and K8's at c8 (its heavy routes' at 16-row tiles), K6's
+    at c3, from ``kernels/deint``'s and
+    ``kernels/jinc2``'s formulas on those maps; 128 threads and none for
+    the others) (the occupancy calculator's rules:
     registers allocated per warp in units of 256, 64 warps, 32 blocks and
     228 KB of shared memory an SM, 1 KB reserved a block), and
     ``warps_per_sm``;
@@ -41,7 +43,18 @@ Per function it prints one JSON line:
     pixels, and c7, 16 x 2160 x 3840; K9 at c5, both fields of 16 frames,
     32 x 1080 x 1920, and c8, 16 x 1080 x 1920): tail instructions a pixel
     x pixels / (132 SMs x 4 schedulers x 32 lanes x the SM clock), and the
-    MUFU part at 16 a clock an SM.  Instructions a pixel are the static
+    MUFU part at 16 a clock an SM;
+  * for K8 and K6, ``parts``: the static instructions and MUFU of each
+    per-pixel part, those whose source location, or any function they were
+    inlined from, lies in the part's functions (PARTS: K8's ``mid``, the
+    DoVi convert of ``rows3_mid.cuh``; K6's ``weights``, ``jinc2.cuh``'s
+    per-output weights, which the table route does not compute, and
+    ``resolve``, its taps' weighted sums and anti-ringing), each also a
+    pixel (over the pixels a thread makes in one unrolled pass, PART_GROUP:
+    4 for K8's c8 route and K6, 1 for K8's routes that convert one pixel at
+    a time) and as an issue bound at the part's cell (PART_PIXELS: K8's mid
+    pixels at c8, 16 x 2160 x 3840; K6's outputs at c3, 16 x 2160 x 3840).
+  Instructions a pixel are the static
     ``tail`` count without the second pass over ``--pixels`` (the pixels a
     thread makes in one unrolled pass: 4 for K2's and K9's kernels unless
     given), or the whole ``tail`` where a function has only the one-pixel
@@ -73,7 +86,7 @@ sys.path.insert(0, str(ROOT))
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
 
 SOURCE_GLOBS = ("banded_resize.cu", "rows3_tail*.cu", "deint3_rows_dual.cu",
-                "cols3_tail*.cu")
+                "cols3_tail*.cu", "rows3_mid*.cu", "jinc2_convert.cu")
 TAIL_FILES = ("tail.cuh", "epilogue.cuh")
 SMS, SCHEDULERS, LANES, MUFU_PER_CLK = 132, 4, 32, 16
 # the cells each tail kernel's issue bound is given at, by source prefix
@@ -84,6 +97,22 @@ PIXELS = {"rows3_tail": {"headline": 16 * 1080 * 1920,
 GROUP = {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4}
 # c8's K9 route as the demangled name spells it (route.cuh: C8)
 C8_ROUTE = "Route<0, 1, 0, 1, 1>"
+# the per-pixel parts of K8 and K6, by source prefix: part -> (the files
+# that may define its functions, the first one that does counting; the
+# functions whose inlined instructions it counts)
+PARTS = {"rows3_mid": {"mid": (("rows3_mid.cuh", "rows3_mid.cu"),
+                               ("dovi_mid", "reshape", "mmr"))},
+         "jinc2_convert": {"weights": (("jinc2.cuh",),
+                                       ("jinc2_weight", "jinc2_weights")),
+                           "resolve": (("jinc2.cuh",), ("jinc2_resolve",))}}
+# the pixels of each part's cell, and the pixels a thread converts in one
+# unrolled pass (by name substring; K8's c8 route as the demangled name
+# spells it, rows3_mid.cuh: C8Mid; 1 where none matches)
+PART_PIXELS = {"rows3_mid": {"c8": 16 * 2160 * 3840},
+               "jinc2_convert": {"c3": 16 * 2160 * 3840}}
+PART_GROUP = {"MidRoute<0, 1>": 4, "jinc2_convert_kernel": 4}
+# K8's heavy routes as the demangled names spell them (LmsMid, RuntimeMid)
+K8_HEAVY_ROUTES = ("MidRoute<1, -1>", "MidRoute<-1, -1>")
 
 
 def default_launches() -> list[tuple[str, tuple[int, int]]]:
@@ -98,8 +127,11 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
     wx = scale.upscale_matrix(C.Upscaling.LANCZOS3, 3840, 1920)
     ux, uy = chroma.chroma_upsample_matrices(
         1920, 1080, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    from videorenderer_tpu_torch.kernels import jinc2 as jk
     k8x = rk.BandedMatrix(scale.upscale_matrix(C.Upscaling.CATMULL_ROM, 3840,
                                                1920))
+    k8h = rk.BandedMatrix(scale.upscale_matrix(C.Upscaling.CATMULL_ROM, 2160,
+                                               1080))
     n16 = 1 / 65535.0
     return [
         ("deint3_kernel", (256, dk.k7_smem_bytes(
@@ -108,6 +140,16 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
         (C8_ROUTE, (256, dk.k9_smem_bytes(4, 4, k8x, k8x))),
         ("cols3_tail_kernel", (256, dk.k9_smem_bytes(
             4, 4, rk.BandedMatrix(wx), rk.BandedMatrix(ux @ wx)))),
+        # K8 at c8: uint16 luma read directly, the chroma upsample's H map
+        # on float32 chroma; the heavy routes (the variant's 69 curve
+        # scalars, 16-row tiles) before c8's light one (30, 32-row tiles)
+        *((r, (256, dk.k8_smem_bytes(2, 4, None, rk.BandedMatrix(uy), k8h,
+                                     2160, 69, dk.K8_HEAVY_TILE_ROWS)))
+          for r in K8_HEAVY_ROUTES),
+        ("rows3_mid_kernel", (256, dk.k8_smem_bytes(
+            2, 4, None, rk.BandedMatrix(uy), k8h, 2160, 30))),
+        ("jinc2_convert_kernel", (256, jk.k6_smem_bytes(1080, 1920, 2160,
+                                                        3840, False))),
     ]
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -170,13 +212,48 @@ def second_pass_lines(csrc: Path) -> tuple:
     return None, 0, -1
 
 
+def function_lines(csrc: Path, names: tuple, funcs: tuple) -> list:
+    """(file, first line, last line) of each function of ``funcs`` defined
+    in the first file of ``names`` under ``csrc`` that defines any: from
+    the line that starts with its signature (the name then "(", not
+    indented) to the first line that is "}" alone."""
+    for name in names:
+        found = _function_lines(csrc, name, funcs)
+        if found:
+            return found
+    return []
+
+
+def _function_lines(csrc: Path, name: str, funcs: tuple) -> list:
+    src = csrc / name
+    if not src.exists():
+        return []
+    lines = src.read_text().splitlines()
+    out = []
+    for fn in funcs:
+        pat = re.compile(r"\b" + re.escape(fn) + r"\(")
+        for i, ln in enumerate(lines, 1):
+            if not pat.search(ln) or ln.strip().startswith(("//", "return")) \
+                    or ln.startswith(" "):
+                continue
+            last = next(j for j, x in enumerate(lines, 1) if j > i
+                        and x == "}")
+            out.append((name, i, last))
+            break
+    return out
+
+
 _AT = re.compile(r'"([^"]+)", line (\d+)')
 
 
-def sass_counts(text: str, second: tuple = (None, 0, -1)) -> dict:
+def sass_counts(text: str, second: tuple = (None, 0, -1),
+                parts: dict | None = None) -> dict:
     """Per function: instructions, tail instructions (and those inlined
     through ``second``, the second pass), tail MUFU, and the FFMAs outside
-    the tail files, from nvdisasm output with inline line info."""
+    the tail files, from nvdisasm output with inline line info; and for
+    each part of ``parts`` (name -> line ranges of function_lines) the
+    instructions and MUFU inlined from those ranges."""
+    parts = parts or {}
     out, fn, locs, chain = {}, None, set(), False
     for ln in text.splitlines():
         s = ln.strip()
@@ -186,6 +263,9 @@ def sass_counts(text: str, second: tuple = (None, 0, -1)) -> dict:
             out[fn] = {"instructions": 0, "branches": 0, "fchk": 0,
                        "tail": 0, "tail_mufu": 0, "tail_second_pass": 0,
                        "h_pass_ffma": 0}
+            if parts:
+                out[fn]["parts"] = {p: {"instructions": 0, "mufu": 0}
+                                    for p in parts}
             continue
         if s.startswith("//##"):
             # one comment line per inlining level, innermost first
@@ -212,6 +292,11 @@ def sass_counts(text: str, second: tuple = (None, 0, -1)) -> dict:
                 for f, n in locs)
         elif op.startswith("FFMA"):
             c["h_pass_ffma"] += 1
+        for p, ranges in parts.items():
+            if any(f == rf and a <= n <= b for f, n in locs
+                   for rf, a, b in ranges):
+                c["parts"][p]["instructions"] += 1
+                c["parts"][p]["mufu"] += op.startswith("MUFU")
     return out
 
 
@@ -305,7 +390,10 @@ def main(argv=None) -> None:
             text = subprocess.run([nvdisasm, "--print-line-info-inline",
                                    cubin], capture_output=True, text=True,
                                   check=True).stdout
-            counts = sass_counts(text, second_pass_lines(args.csrc))
+            prefix = next((k for k in PARTS if src.startswith(k)), None)
+            parts = {p: function_lines(args.csrc, files, fns)
+                     for p, (files, fns) in PARTS.get(prefix, {}).items()}
+            counts = sass_counts(text, second_pass_lines(args.csrc), parts)
             names = demangle(sorted(regs))
             for fn in sorted(regs):
                 nice = names[fn]
@@ -340,6 +428,19 @@ def main(argv=None) -> None:
                             SMS * SCHEDULERS * LANES * clk)
                         r[f"mufu_bound_ms_{cell}"] = 1e3 * mufu * n / (
                             SMS * MUFU_PER_CLK * clk)
+                if "parts" in r:
+                    grp = next((v for k, v in PART_GROUP.items()
+                                if k in bare), 1)
+                    r["part_pixels_per_pass"] = grp
+                    for p, c in r["parts"].items():
+                        c["per_pixel"] = c["instructions"] / grp
+                        c["mufu_per_pixel"] = c["mufu"] / grp
+                        for cell, n in (PART_PIXELS.get(prefix, {}).items()
+                                        if dev else ()):
+                            clk = dev["clock_max_mhz"] * 1e6
+                            c[f"issue_bound_ms_{cell}"] = 1e3 * c[
+                                "per_pixel"] * n / (SMS * SCHEDULERS * LANES
+                                                    * clk)
                 print(json.dumps(r), flush=True)
     print(json.dumps({"device": dev}), flush=True)
 

@@ -568,6 +568,97 @@ def test_k6_kernel_matches_plain(dev, dtype, sub, pack, dither_bits,
         assert torch.equal(got, flat.transpose(-2, -1))
 
 
+def _k6_geom_case(rng, h, w, oh, ow):
+    """NV12-like uint8 planes of (h, w) luma, 4:2:0 chroma where both are
+    even (4:4:4 otherwise), the bilinear upsample, BT.709's matrix."""
+    sub = 420 if h % 2 == 0 and w % 2 == 0 else 444
+    planes, comp_y, comp_x, cmat, norm = _k6_case(rng, torch.uint8, sub, h=h,
+                                                  w=w)
+    return tuple(p.to("cuda") for p in planes), (comp_y, comp_x, cmat, oh,
+                                                 ow, norm, norm)
+
+
+K6_GEOMS = [(48, 64, 96, 128),     # c3's 2x: 2 x 2 classes
+            (36, 64, 128, 72),     # c3rot's ratios (32/9 down, 9/8 across)
+            (64, 96, 48, 72),      # 3/4 on both axes
+            (47, 61, 96, 128)]     # long periods, still under the cap
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("pack,dither_bits", [("rgba8", 8), (None, 0),
+                                              ("rgb10a2", -10)])
+@pytest.mark.parametrize("geom", K6_GEOMS)
+def test_k6_table_route_bit_equal_to_per_output_route(dev, geom, pack,
+                                                      dither_bits, transpose,
+                                                      monkeypatch):
+    """The table route and the per-output route (the cap set to 0) give the
+    same bits at c3's, c3rot's and other ratios, packed, float and
+    rounded, stored transposed or not; so the table's weights are, bit for
+    bit, those K6 computes per output."""
+    rng = np.random.default_rng(70)
+    planes, rest = _k6_geom_case(rng, *geom)
+    epi = jk.dither_epilogue(dither_bits) if dither_bits else None
+    kw = dict(epilogue=epi, pack_format=pack, out_transpose=transpose)
+    assert jk.k6_weight_route(*geom) == "table"
+    table = jk.jinc2_convert_fused(*planes, *rest, **kw)
+    monkeypatch.setattr(jk, "K6_TABLE_CAP", 0)
+    assert jk.k6_weight_route(*geom) == "per-output"
+    before = dict(rk.launches)
+    per_output = jk.jinc2_convert_fused(*planes, *rest, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches["jinc2_weight_table"] == before["jinc2_weight_table"]
+    assert torch.equal(table, per_output)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_k6_per_output_route_matches_plain(dev, transpose):
+    """1079 -> 2160 rows by 67 -> 133 columns has no short period on either
+    axis: the table would pass the cap, so K6 computes each output's
+    weights; it builds no table and agrees with its plain version."""
+    rng = np.random.default_rng(71)
+    geom = (1079, 67, 2160, 133)
+    assert jk.k6_weight_route(*geom) == "per-output"
+    planes, rest = _k6_geom_case(rng, *geom)
+    kw = dict(epilogue=jk.dither_epilogue(8), pack_format="rgba8",
+              out_transpose=transpose)
+    rk.reset_launches()
+    got = jk.jinc2_convert_fused(*planes, *rest, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches == only(jinc2_convert_fused=1)
+    ref = jk.jinc2_convert_fused_plain(*planes, *rest, **kw)
+    d = np.abs(_codes(got, "rgba8") - _codes(ref, "rgba8"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def test_k6_weight_table_built_once_per_geometry(dev):
+    """A geometry's table is built by one launch at its first K6 call and
+    reused: a second call, transposed or not, builds nothing; another
+    geometry builds its own.  The table holds (n_row_cls, n_col_cls, 20)
+    floats within float32 rounding of the plain table, the pad zero."""
+    rng = np.random.default_rng(72)
+    jk.clear_weight_tables()
+    planes, rest = _k6_geom_case(rng, 48, 64, 96, 128)
+    rk.reset_launches()
+    jk.jinc2_convert_fused(*planes, *rest)
+    jk.jinc2_convert_fused(*planes, *rest, out_transpose=True)
+    torch.cuda.synchronize()
+    assert rk.launches == only(jinc2_convert_fused=2, jinc2_weight_table=1)
+    planes2, rest2 = _k6_geom_case(rng, 36, 64, 128, 72)
+    jk.jinc2_convert_fused(*planes2, *rest2)
+    torch.cuda.synchronize()
+    assert rk.launches == only(jinc2_convert_fused=3, jinc2_weight_table=2)
+    on = planes[0].device          # the key K6's calls use: cuda:0
+    for h, w, oh, ow in ((48, 64, 96, 128), (36, 64, 128, 72)):
+        table = jk._weight_table(h, oh, w, ow, on)[2]
+        ref = jk.jinc2_weight_table_plain(
+            torch.tensor(jk.axis_classes(h, oh)[1], device=dev),
+            torch.tensor(jk.axis_classes(w, ow)[1], device=dev))
+        assert table.shape == ref.shape
+        assert torch.equal(table[..., 17:], torch.zeros_like(table[..., 17:]))
+        assert (table - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+    assert rk.launches["jinc2_weight_table"] == 2
+
+
 def test_kernels_raise_instead_of_plain(dev):
     """A CUDA tensor that the kernel cannot take raises; it never gets the
     plain result."""
@@ -603,11 +694,13 @@ def test_jinc2_path_on_card_matches_cpu(dev):
     plan = P.plan_pipeline(*_c3_like(w, h))
     ref = P.VideoProcessor(*_c3_like(w, h), device="cpu",
                            pack_surface=True).process(planes)
+    jk.clear_weight_tables()
     rk.reset_launches()
     got = P.VideoProcessor(*_c3_like(w, h), device=dev,
                            pack_surface=True).process(planes)
     torch.cuda.synchronize()
-    assert rk.launches == only(jinc2_convert_fused=1)
+    # the path's first call builds its geometry's weight table
+    assert rk.launches == only(jinc2_convert_fused=1, jinc2_weight_table=1)
     d = np.abs(_codes(got, "rgba8") - _codes(ref, "rgba8"))
     assert d.max() <= 1 and (d > 0).mean() < 0.01
     rot = P.make_frame_fn(plan, pack_surface=True, rotation=90, flip=True)
@@ -1066,6 +1159,119 @@ def test_k8_kernel_matches_plain(dev, kind, maps):
     for g, r in zip(got, ref):
         assert g.shape == r.shape == (2, h_out, w) and g.is_contiguous()
         assert (g - r).abs().max().item() <= tol
+
+
+def _k8_args(rng, kind, h=1080, w=960, batch=2, out_map="c8"):
+    """c8's call on an h-row strip: uint16 luma read directly, float32
+    chroma with the bilinear H upsample, the Catmull-Rom 2:1 out map (or
+    ``out_map`` "edge": a map whose last taps run past h_mid, or "box16": a
+    16:1 box average, whose windows need tiles shorter than 32 rows);
+    scene 2's curves."""
+    meta = _dovi_meta(kind)
+    m, c = dovi.build_ycc_to_rgb_cmat(meta)
+    scene = {k: v * np.float32(0.98) for k, v in dovi.pack_curves(meta).items()}
+    mid = dovi.mid_stage(meta, m, c, scene)
+    y = torch.from_numpy(rng.integers(64, 941, (batch, h, w), dtype=np.uint16)
+                         << 6).to(dev_of())
+    u, v = (torch.from_numpy(rng.uniform(0.06, 0.94, (batch, h // 2, w))
+                             .astype(np.float32)).to(dev_of())
+            for _ in range(2))
+    _, uy = chroma.chroma_upsample_matrices(
+        w // 2, h // 2, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    if out_map == "c8":
+        out = scale.upscale_matrix(C.Upscaling.CATMULL_ROM, h, h // 2)
+    elif out_map == "edge":
+        out = np.zeros((h, h // 2), np.float32)
+        for j in range(h // 2 - 1):
+            out[2 * j:2 * j + 4, j] = [0.1, 0.4, 0.4, 0.1]
+        out[h - 2:, h // 2 - 1] = [0.5, 0.5]
+    else:
+        out = np.zeros((h, h // 16), np.float32)
+        for j in range(h // 16):
+            out[16 * j:16 * j + 16, j] = 1 / 16
+    kout = rk.BandedMatrix(out)
+    return (y, u, v, None, rk.BandedMatrix(uy), h, mid, kout,
+            kout.out_size), dict(y_scale=1 / 65535.0)
+
+
+@pytest.mark.parametrize("kind,route", [("c8", "c8 uint16/float32"),
+                                        ("variant", "lms uint16/float32")])
+def test_k8_routes_match_plain(dev, kind, route):
+    """c8's metadata takes the compiled c8 route (identity curves, the LMS
+    step folded), the variant the compiled LMS route; raw chroma read
+    directly takes the runtime route.  Each agrees with the plain version
+    within K8's band, one launch each."""
+    rng = np.random.default_rng(16)
+    args, kw = _k8_args(rng, kind)
+    y, u, mid = args[0], args[1], args[6]
+    assert dk.rows3_mid_route(y.dtype, u.dtype, mid) == route
+    assert dk.rows3_mid_route(y.dtype, torch.uint16, mid) == "runtime"
+    # the wrapper's tile rows follow the same choice of route
+    assert dk.k8_light_route(y.dtype, u.dtype, mid) == (kind == "c8")
+    assert not dk.k8_light_route(y.dtype, torch.uint16, mid)
+    rk.reset_launches()
+    got = dk.rows3_mid(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches == only(rows3_mid=1)
+    ref = dk.rows3_mid_plain(*args, **kw)
+    tol = 1e-5 if kind == "c8" else 1e-4
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", ["c8", "variant"])
+@pytest.mark.parametrize("h,w,batch,out_map,unaligned", [
+    (1080, 960, 1, "c8", False),     # 34 tiles: a last group of 2
+    (200, 200, 3, "c8", False),      # a ragged column tile
+    (96, 1001, 2, "c8", False),      # width not a multiple of 4
+    (96, 130, 2, "edge", True),      # taps past h_mid; unaligned planes
+    (2048, 128, 1, "box16", False),  # windows that need 16-row tiles
+])
+def test_k8_tiled_edges(dev, kind, h, w, batch, out_map, unaligned):
+    """The tiled K8 at shapes the path's tiles do not divide, unaligned
+    pointers (element copies and scalar loads), an out map whose last taps
+    run past h_mid, and a steep downscale whose window shrinks the tile;
+    within K8's band of the plain version."""
+    rng = np.random.default_rng(17)
+    args, kw = _k8_args(rng, kind, h=h, w=w, batch=batch, out_map=out_map)
+    if unaligned:
+        args = (*(_unaligned(p) for p in args[:3]), *args[3:])
+    if out_map == "box16":
+        n_vals = args[6].host_values().size
+        assert dk.k8_tile_rows(2, 4, None, args[4], args[7], h, n_vals) < 32
+    got = dk.rows3_mid(*args, **kw)
+    torch.cuda.synchronize()
+    ref = dk.rows3_mid_plain(*args, **kw)
+    tol = 1e-5 if kind == "c8" else 1e-4
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.is_contiguous()
+        assert (g - r).abs().max().item() <= tol
+
+
+def test_k8_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits."""
+    rng = np.random.default_rng(18)
+    args, kw = _k8_args(rng, "variant", h=256, w=512)
+    a = torch.stack(dk.rows3_mid(*args, **kw))
+    b = torch.stack(dk.rows3_mid(*args, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_k8_refuses_windows_over_its_budget(dev):
+    """An out map where every output reads every one of 8192 mid rows:
+    its window fits a block at no tile size, so K8 raises before any
+    launch."""
+    rng = np.random.default_rng(19)
+    args, kw = _k8_args(rng, "c8", h=96, w=64)
+    full = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
+    y = torch.zeros((1, 8192, 64), dtype=torch.uint16, device=dev)
+    c = torch.zeros((1, 8192, 64), dtype=torch.float32, device=dev)
+    before = dict(rk.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.rows3_mid(y, c, c, None, None, 8192, args[6], full, 4,
+                     y_scale=1 / 65535.0, c_scale=1.0)
+    assert rk.launches == before
 
 
 def _dovi_plan(w, h, ow, oh, kind="variant", accel=True):

@@ -256,6 +256,6 @@ def test_launch_counts_untouched_on_cpu(frames):
     assert trk.launches == {"banded_resize_last_axis": 0, "rows3_tail": 0,
                             "banded_resize_rows": 0,
                             "jinc2_resize_fused": 0, "jinc2_convert_fused": 0,
-                            "deint3_rows_dual": 0, "rows3_mid": 0,
-                            "cols3_tail": 0, "mega3_tail": 0,
+                            "jinc2_weight_table": 0, "deint3_rows_dual": 0,
+                            "rows3_mid": 0, "cols3_tail": 0, "mega3_tail": 0,
                             "wpass_bf16": 0, "wpass_floor": 0}

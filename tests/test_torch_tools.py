@@ -1,7 +1,8 @@
 """The measurement scripts beside the port: ``kernel_report.py`` (ptxas's
 registers and spills, the occupancy rules, the SASS attribution of K2's and
-K9's tails, K7's and K9's default launches) and ``smoke_diff.py`` (the comparison of chip_smoke runs), on
-synthetic inputs.  Both run their tools only on the card's machine; what
+K9's tails and of K8's and K6's per-pixel parts, the default launches of
+K7, K9, K8 and K6) and ``smoke_diff.py`` (the comparison of chip_smoke
+runs), on synthetic inputs.  Both run their tools only on the card's machine; what
 they parse is checked here."""
 
 import json
@@ -101,6 +102,74 @@ def test_sass_counts_attribute_k9s_tail_through_route_cuh():
                                     "tail_second_pass": 1, "h_pass_ffma": 1}
 
 
+SASS_K8 = """\
+.text._Z3midPf:
+\t//## File "/r/csrc/tail.cuh", line 99 inlined at "/r/csrc/rows3_mid.cuh", line 210
+\t//## File "/r/csrc/rows3_mid.cuh", line 210 inlined at "/r/csrc/rows3_mid.cuh", line 400
+\t//## File "/r/csrc/rows3_mid.cuh", line 400
+        /*0000*/                   FMUL R1, R2, R3 ;
+\t//## File "/r/csrc/tail.cuh", line 140 inlined at "/r/csrc/rows3_mid.cuh", line 220
+\t//## File "/r/csrc/rows3_mid.cuh", line 220
+        /*0010*/                   MUFU.LG2 R4, R1 ;
+\t//## File "/r/csrc/rows3_mid.cuh", line 410
+        /*0020*/                   FFMA R5, R4, R4, R5 ;
+        /*0030*/                   STS.128 [R6], R4 ;
+"""
+
+
+def test_sass_counts_attribute_the_parts():
+    """An instruction counts in a part when its location or any function it
+    was inlined from lies in the part's line ranges: tail.cuh's helpers
+    inlined into K8's convert count as ``mid``, the window's FFMA and
+    store after it do not."""
+    parts = {"mid": [("rows3_mid.cuh", 195, 225)],
+             "none": [("jinc2.cuh", 1, 500)]}
+    c = kr.sass_counts(SASS_K8, parts=parts)["_Z3midPf"]
+    assert c["instructions"] == 4
+    assert c["parts"] == {"mid": {"instructions": 2, "mufu": 1},
+                          "none": {"instructions": 0, "mufu": 0}}
+    assert "parts" not in kr.sass_counts(SASS_K8)["_Z3midPf"]
+
+
+def test_function_lines_find_k8s_and_k6s_parts(tmp_path):
+    """The parts' functions in this tree's sources (K8's convert in
+    rows3_mid.cuh, K6's weights and resolve in jinc2.cuh) and in a tree
+    that keeps K8's convert in rows3_mid.cu: each range starts at the
+    function's signature and ends at its closing brace."""
+    for part in (kr.PARTS["rows3_mid"]["mid"],
+                 kr.PARTS["jinc2_convert"]["weights"],
+                 kr.PARTS["jinc2_convert"]["resolve"]):
+        files, funcs = part
+        got = kr.function_lines(kr.build.CSRC, files, funcs)
+        assert len(got) == len(funcs)
+        for (name, first, last), fn in zip(got, funcs):
+            lines = (kr.build.CSRC / name).read_text().splitlines()
+            assert f"{fn}(" in lines[first - 1]
+            assert lines[last - 1] == "}" and last > first
+    (tmp_path / "rows3_mid.cu").write_text(
+        "// k8\n__device__ float mmr(const float* w) {\n  return w[0];\n}\n"
+        "__device__ void dovi_mid(float* c) {\n  mmr(c);\n}\n")
+    assert kr.function_lines(tmp_path, ("rows3_mid.cuh", "rows3_mid.cu"),
+                             ("dovi_mid", "mmr")) == [
+        ("rows3_mid.cu", 5, 7), ("rows3_mid.cu", 2, 4)]
+    assert kr.function_lines(tmp_path, ("jinc2.cuh",), ("jinc2_weight",)) \
+        == []
+
+
+def test_part_groups_and_cells():
+    """K8's c8 route converts 4 pixels a pass (its demangled route), its
+    other routes one; K6 resolves 4 outputs a pass; the cells are c8's mid
+    pixels and c3's outputs at batch 16."""
+    c8 = ("void vrt::k8::rows3_mid_kernel<vrt::k8::MidRoute<(int)0, "
+          "(int)1>, unsigned short, float>()").replace("(int)", "")
+    lms = c8.replace("MidRoute<0, 1>", "MidRoute<1, -1>")
+    grp = [next((v for k, v in kr.PART_GROUP.items() if k in n), 1)
+           for n in (c8, lms, "void jinc2_convert_kernel<unsigned char, 1>")]
+    assert grp == [4, 1, 4]
+    assert kr.PART_PIXELS == {"rows3_mid": {"c8": 16 * 2160 * 3840},
+                              "jinc2_convert": {"c3": 16 * 2160 * 3840}}
+
+
 def test_second_pass_lines_in_sources_without_route_cuh(tmp_path):
     """An older tree keeps tail_exact in rows3_tail.cuh: the report finds
     it there (kernel_report.py --csrc on the parent's sources)."""
@@ -111,14 +180,22 @@ def test_second_pass_lines_in_sources_without_route_cuh(tmp_path):
 
 def test_default_launches_are_k7s_and_k9s_at_their_cells():
     """K7's block at c5 (uint16), K9's c8 route at c8 and its other
-    instantiations at c5 (float32): 256 threads and the shared memory
-    kernels/deint's formulas give, the c8 route matched first."""
+    instantiations at c5 (float32), K8's at c8 and K6's at c3: 256 threads
+    and the shared memory kernels/deint's and kernels/jinc2's formulas
+    give, the c8 route matched first."""
     from videorenderer_tpu_torch.kernels import deint as dk
     got = dict(kr.default_launches())
     assert [k for k, _ in kr.default_launches()] == [
-        "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel"]
+        "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel",
+        *kr.K8_HEAVY_ROUTES, "rows3_mid_kernel", "jinc2_convert_kernel"]
     assert all(t == 256 for t, _ in got.values())
     assert got["deint3_kernel"][1] == 62080
+    assert got["rows3_mid_kernel"][1] == 69984
+    assert all(got[r][1] == 36672 for r in kr.K8_HEAVY_ROUTES)
+    assert got["jinc2_convert_kernel"][1] == 4800
+    lms = ("void vrt::k8::rows3_mid_kernel<vrt::k8::MidRoute<(int)1, "
+           "(int)-1>, unsigned short, float>()").replace("(int)", "")
+    assert next(v for k, v in kr.default_launches() if k in lms)[1] == 36672
     assert 0 < got["cols3_tail_kernel"][1] < got[kr.C8_ROUTE][1] \
         <= dk.SMEM_BUDGET
     name = ("void vrt::k9::cols3_tail_kernel<vrt::Route<(int)0, (int)1, "

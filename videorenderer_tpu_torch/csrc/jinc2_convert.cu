@@ -4,7 +4,8 @@
 // Replaces videorenderer_tpu/kernels/jinc2_pallas.py: jinc2_convert_fused
 // (body _make_kernel3, packing _pack_plane).  The Pallas kernel folded the
 // chroma upsample into low-rank SVD weight matrices for the TPU's matrix
-// unit; here one thread block covers one (frame, 32x32 output tile):
+// unit; here one block of 256 threads covers one (frame, 32x32 output
+// tile):
 //   1. it loads the tile's source window (the taps of its outputs, luma
 //      coordinates clamped to the plane) from the raw planes: Y directly,
 //      U and V upsampled to the luma grid through the per-position tap
@@ -13,22 +14,41 @@
 //      clamping in chroma space);
 //   2. it normalises, applies the 3x4 colour matrix and keeps the window's
 //      RGB in shared memory as float32;
-//   3. each thread resolves 4 outputs with the direct 4x4-tap Jinc2 of
-//      jinc2.cuh: one set of 16 weights for the three channels,
-//      anti-ringing on the RGB taps (as _make_kernel3:636-644);
+//   3. each thread resolves 4 adjacent outputs of one row with the direct
+//      4x4-tap Jinc2 of jinc2.cuh: one set of 16 weights for the three
+//      channels, anti-ringing on the RGB taps (as _make_kernel3:636-644);
 //   4. dither from the GLOBAL pre-rotation row and column, or rounding;
-//   5. store: planar float RGB or one RGBA8 / R10G10B10A2 dword, at
-//      (row, col), or with out_transpose at (col, row), through a
-//      shared-memory tile so the transposed store stays coalesced.
+//   5. store: planar float RGB or one RGBA8 / R10G10B10A2 dword, 4 outputs
+//      as one 16-byte store, at (row, col), or with out_transpose at
+//      (col, row), through a shared-memory tile so that the transposed
+//      store stays coalesced and vectorised too.
 // The compute never depends on out_transpose, so the transposed surface is
 // bit-identical to the transpose of the plain one.
 //
-// Bound: arithmetic, as K5: 16 accurate sqrtf, 32 sinf and 16 divisions
-// per output pixel; device memory sees the raw planes about once and the
-// surface once (~530 MB per 16 frames of 1080p -> 4K RGBA8).  When an axis's
-// Jinc2 role is "up" its input is at most twice its output, so a tile's
-// source window is at most 2 * 32 + 3 per axis: the window fits shared
-// memory and the wrapper sizes it from the tap tables.
+// Weights.  An output's 16 weights depend only on its row's d2 4-vector and
+// its column's (ops/scale.jinc2_axis_tables), and those repeat with the
+// axes' phase periods: 2 x 2 distinct pairs at c3 (1080p -> 4K), 32 x 9 at
+// c3rot.  The wrapper (kernels/jinc2.py) numbers each row's and column's
+// distinct vector (its class) and builds, once per geometry and device, a
+// table of 16 weights and their sum for every (row class, column class)
+// pair with jinc2_weight_table_kernel, which calls the same jinc2_weights
+// as the per-output route on the same bits, so the table route gives the
+// per-output route's outputs bit for bit.  The table route (kWeights ==
+// kTable) reads an output's entry as five 16-byte loads through the
+// read-only path; a geometry whose table would pass the wrapper's cap (no
+// short period on either axis) takes the per-output route of the same
+// kernel (kPerOutput), which computes 16 accurate sqrtf, 32 sinf and 16
+// divisions an output.
+//
+// Bound.  Device memory sees the raw planes about once and the surface
+// once (~530 MB per 16 frames of 1080p -> 4K RGBA8: 0.17 ms on one H100).
+// Without the weights an output still costs its 48 tap reads from shared
+// memory and three resolves (16 products, 15 sums, a division and the
+// anti-ringing each), so the issue of those instructions, not the bytes,
+// bounds the table route.  When an axis's Jinc2 role is "up" its input is
+// at most twice its output, so a tile's source window is at most
+// 2 * 32 + 3 per axis: the window fits shared memory and the wrapper sizes
+// it from the tap tables.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,9 +58,14 @@
 
 namespace {
 
-constexpr int kTile = 32;        // output tile edge
-constexpr int kRowsPerPass = 8;  // block is kTile x kRowsPerPass threads
-constexpr int kPitch = kTile + 1;  // staging pitch (no bank conflicts)
+constexpr int kTile = 32;                     // output tile edge
+constexpr int kVec = 4;                       // adjacent outputs a thread
+constexpr int kColThreads = kTile / kVec;     // threads across a tile row
+constexpr int kThreads = kColThreads * kTile; // 256: one row of 4 a thread
+constexpr int kPitch = kTile + 1;             // staging pitch (no conflicts)
+constexpr int kEntry = 20;   // floats a table entry: 16 weights, sum, 3 zeros
+
+enum { kPerOutput = 0, kTable = 1 };
 
 struct Geometry {
   int h, w, ch, cw, oh, ow;
@@ -49,6 +74,10 @@ struct Geometry {
   const int* ux_s; const float* ux_t; int n_ux;  // chroma W taps over w
   const int* uy_s; const float* uy_t; int n_uy;  // chroma H taps over h
   int win_h, win_w;                  // shared-memory window capacity
+  const int* row_cls;                // (oh,) each row's class; table route
+  const int* col_cls;                // (ow,) each column's class
+  const float* table;                // (n_row_cls, n_col_cls, kEntry)
+  int n_col_cls;
 };
 
 struct Params {
@@ -56,6 +85,11 @@ struct Params {
   float y_scale, c_scale;
   vrt::Quant quant;
   int pack, transpose;
+};
+
+template <typename T>
+struct alignas(sizeof(T) * kVec) Vec {
+  T v[kVec];
 };
 
 // One chroma plane at luma (pr, pc): sum over the H taps of the sums over
@@ -97,14 +131,39 @@ __device__ __forceinline__ float cmat_row(float m0, float m1, float m2,
       c);
 }
 
-template <typename T>
-__global__ void jinc2_convert_kernel(const T* __restrict__ y,
-                                     const T* __restrict__ u,
-                                     const T* __restrict__ v, Geometry G,
-                                     Params P, void* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTile + tx;
+// The 16 weights of output (row, col) and their sum: the table entry of
+// its (row class, column class), or computed from its d2 vectors.
+template <int kWeights>
+__device__ __forceinline__ float weights_of(const Geometry& G, int rc,
+                                            const float dy[4], int col,
+                                            float wt[16]) {
+  if constexpr (kWeights == kTable) {
+    const float4* e = reinterpret_cast<const float4*>(G.table) +
+                      (static_cast<long long>(rc) * G.n_col_cls +
+                       __ldg(G.col_cls + col)) * (kEntry / 4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 x = __ldg(e + q);
+      wt[4 * q] = x.x;
+      wt[4 * q + 1] = x.y;
+      wt[4 * q + 2] = x.z;
+      wt[4 * q + 3] = x.w;
+    }
+    return __ldg(e + 4).x;
+  } else {
+    float dx[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) dx[o] = __ldg(G.d2x + o * G.ow + col);
+    return vrt::jinc2_weights(dy, dx, wt);
+  }
+}
+
+template <typename T, int kWeights>
+__global__ void __launch_bounds__(kThreads) jinc2_convert_kernel(
+    const T* __restrict__ y, const T* __restrict__ u, const T* __restrict__ v,
+    const Geometry G, const Params P, void* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
   const int r1 = min(r0 + kTile, G.oh), c1 = min(c0 + kTile, G.ow);
   const long long b = blockIdx.z;
@@ -116,7 +175,7 @@ __global__ void jinc2_convert_kernel(const T* __restrict__ y,
   const T* yb = y + b * G.h * G.w;
   const T* ub = u + b * G.ch * G.cw;
   const T* vb = v + b * G.ch * G.cw;
-  for (int e = tid; e < nwh * nww; e += kTile * kRowsPerPass) {
+  for (int e = tid; e < nwh * nww; e += kThreads) {
     const int wr = e / nww, wc = e - (e / nww) * nww;
     const int pr = min(max(wy0 + wr, 0), G.h - 1);
     const int pc = min(max(wx0 + wc, 0), G.w - 1);
@@ -133,93 +192,129 @@ __global__ void jinc2_convert_kernel(const T* __restrict__ y,
   }
   __syncthreads();
 
-  // 3-4. four outputs per thread: rows r0 + ty + 8k, column c0 + tx
-  const int col = c0 + tx;
-  float res[4][3];
+  // 3-4. four adjacent outputs of one row a thread: row r0 + lr, columns
+  // c0 + 4 * tx .. + 3
+  const int tx = tid % kColThreads, lr = tid / kColThreads;
+  const int row = r0 + lr, col0 = c0 + kVec * tx;
+  const bool live = row < G.oh;
+  float res[kVec][3];
+  if (live) {
+    int rc = 0;
+    float dy[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (kWeights == kTable) {
+      rc = __ldg(G.row_cls + row);
+    } else {
 #pragma unroll
-  for (int k = 0; k < kTile / kRowsPerPass; ++k) {
-    const int row = r0 + ty + kRowsPerPass * k;
-    if (row >= G.oh || col >= G.ow) continue;
-    float dy[4], dx[4];
-#pragma unroll
-    for (int o = 0; o < 4; ++o) {
-      dy[o] = G.d2y[o * G.oh + row];
-      dx[o] = G.d2x[o * G.ow + col];
+      for (int o = 0; o < 4; ++o) dy[o] = __ldg(G.d2y + o * G.oh + row);
     }
-    float wt[16];
-    const float wsum = vrt::jinc2_weights(dy, dx, wt);
-    const int wr = G.by[row] - 1 - wy0, wc = G.bx[col] - 1 - wx0;
+    const int wr = G.by[row] - 1 - wy0;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float* win = smem + i * plane + wr * G.win_w + wc;
-      float t[16];
+    for (int k = 0; k < kVec; ++k) {
+      const int col = col0 + k;
+      if (col >= G.ow) continue;
+      float wt[16];
+      const float wsum = weights_of<kWeights>(G, rc, dy, col, wt);
+      const int wc = G.bx[col] - 1 - wx0;
 #pragma unroll
-      for (int jo = 0; jo < 4; ++jo) {
+      for (int i = 0; i < 3; ++i) {
+        const float* win = smem + i * plane + wr * G.win_w + wc;
+        float t[16];
 #pragma unroll
-        for (int io = 0; io < 4; ++io) t[jo * 4 + io] = win[jo * G.win_w + io];
+        for (int jo = 0; jo < 4; ++jo) {
+#pragma unroll
+          for (int io = 0; io < 4; ++io) t[jo * 4 + io] = win[jo * G.win_w + io];
+        }
+        res[k][i] = vrt::quantize(vrt::jinc2_resolve(t, wt, wsum), P.quant,
+                                  row, col);
       }
-      res[k][i] = vrt::quantize(vrt::jinc2_resolve(t, wt, wsum), P.quant, row,
-                                col);
     }
   }
 
   // 5. store
+  const bool packed = P.pack != vrt::kPackNone;
   if (!P.transpose) {
+    if (!live) return;
+    const bool vec = (G.ow % kVec) == 0 && col0 + kVec <= G.ow &&
+                     (reinterpret_cast<uintptr_t>(out) % 16) == 0;
+    if (packed) {
+      uint32_t* o = static_cast<uint32_t*>(out) + (b * G.oh + row) * G.ow + col0;
+      Vec<uint32_t> wv;
 #pragma unroll
-    for (int k = 0; k < kTile / kRowsPerPass; ++k) {
-      const int row = r0 + ty + kRowsPerPass * k;
-      if (row >= G.oh || col >= G.ow) continue;
-      if (P.pack != vrt::kPackNone) {
-        static_cast<uint32_t*>(out)[(b * G.oh + row) * G.ow + col] =
-            vrt::pack_word(res[k], P.pack);
+      for (int k = 0; k < kVec; ++k) {
+        wv.v[k] = col0 + k < G.ow ? vrt::pack_word(res[k], P.pack) : 0u;
+      }
+      if (vec) {
+        *reinterpret_cast<Vec<uint32_t>*>(o) = wv;
       } else {
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          static_cast<float*>(out)[((b * 3 + i) * G.oh + row) * G.ow + col] =
-              res[k][i];
+        for (int k = 0; k < kVec; ++k) {
+          if (col0 + k < G.ow) o[k] = wv.v[k];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        float* o = static_cast<float*>(out) + ((b * 3 + i) * G.oh + row) * G.ow +
+                   col0;
+        if (vec) {
+          Vec<float> fv;
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) fv.v[k] = res[k][i];
+          *reinterpret_cast<Vec<float>*>(o) = fv;
+        } else {
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            if (col0 + k < G.ow) o[k] = res[k][i];
+          }
         }
       }
     }
     return;
   }
-  // transposed: stage the tile, then write row c of the output (a column of
-  // the tile) with consecutive threads on consecutive pre-rotation rows
+  // transposed: stage the tile, then write row c0 + lc of the output (a
+  // column of the tile), each thread 4 consecutive pre-rotation rows
   float* stage = smem + 3 * plane;
-  const int n_ch = P.pack != vrt::kPackNone ? 1 : 3;
+  const int n_ch = packed ? 1 : 3;
+  if (live) {
 #pragma unroll
-  for (int k = 0; k < kTile / kRowsPerPass; ++k) {
-    const int lr = ty + kRowsPerPass * k;
-    if (r0 + lr >= G.oh || col >= G.ow) continue;
-    if (n_ch == 1) {
-      reinterpret_cast<uint32_t*>(stage)[lr * kPitch + tx] =
-          vrt::pack_word(res[k], P.pack);
-    } else {
+    for (int k = 0; k < kVec; ++k) {
+      if (col0 + k >= G.ow) continue;
+      const int lc = kVec * tx + k;
+      if (packed) {
+        reinterpret_cast<uint32_t*>(stage)[lr * kPitch + lc] =
+            vrt::pack_word(res[k], P.pack);
+      } else {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        stage[(i * kTile + lr) * kPitch + tx] = res[k][i];
+        for (int i = 0; i < 3; ++i) stage[(i * kTile + lr) * kPitch + lc] = res[k][i];
       }
     }
   }
   __syncthreads();
-  const int orow = r0 + tx;  // pre-rotation row = output column
+  const int lc = tid / kColThreads, orow0 = r0 + kVec * (tid % kColThreads);
+  if (c0 + lc >= G.ow || orow0 >= G.oh) return;
+  const bool vec = (G.oh % kVec) == 0 && orow0 + kVec <= G.oh &&
+                   (reinterpret_cast<uintptr_t>(out) % 16) == 0;
+  for (int i = 0; i < n_ch; ++i) {
+    const float* s = stage + (i * kTile + orow0 - r0) * kPitch + lc;
+    const long long at = ((b * n_ch + i) * G.ow + c0 + lc) * G.oh + orow0;
+    Vec<uint32_t> wv;
 #pragma unroll
-  for (int k = 0; k < kTile / kRowsPerPass; ++k) {
-    const int lc = ty + kRowsPerPass * k;
-    if (orow >= G.oh || c0 + lc >= G.ow) continue;
-    if (n_ch == 1) {
-      static_cast<uint32_t*>(out)[(b * G.ow + c0 + lc) * G.oh + orow] =
-          reinterpret_cast<const uint32_t*>(stage)[tx * kPitch + lc];
+    for (int k = 0; k < kVec; ++k) {
+      wv.v[k] = __float_as_uint(s[k * kPitch]);
+    }
+    uint32_t* o = static_cast<uint32_t*>(out) + at;
+    if (vec) {
+      *reinterpret_cast<Vec<uint32_t>*>(o) = wv;
     } else {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        static_cast<float*>(out)[((b * 3 + i) * G.ow + c0 + lc) * G.oh + orow] =
-            stage[(i * kTile + tx) * kPitch + lc];
+      for (int k = 0; k < kVec; ++k) {
+        if (orow0 + k < G.oh) o[k] = wv.v[k];
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, int kWeights>
 int launch(const void* y, const void* u, const void* v, int batch,
            const Geometry& G, const Params& P, void* out,
            cudaStream_t stream) {
@@ -228,16 +323,49 @@ int launch(const void* y, const void* u, const void* v, int batch,
       (3 * static_cast<size_t>(G.win_h) * G.win_w + stage) * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        jinc2_convert_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        jinc2_convert_kernel<T, kWeights>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 block(kTile, kRowsPerPass);
   const dim3 grid((G.ow + kTile - 1) / kTile, (G.oh + kTile - 1) / kTile, batch);
-  jinc2_convert_kernel<T><<<grid, block, bytes, stream>>>(
+  jinc2_convert_kernel<T, kWeights><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(u),
       static_cast<const T*>(v), G, P, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_route(const void* y, const void* u, const void* v, int batch,
+                 const Geometry& G, const Params& P, void* out,
+                 cudaStream_t stream) {
+  return G.table != nullptr
+             ? launch<T, kTable>(y, u, v, batch, G, P, out, stream)
+             : launch<T, kPerOutput>(y, u, v, batch, G, P, out, stream);
+}
+
+// One thread per (row class, column class) entry: jinc2_weights of the
+// classes' d2 vectors, the function the per-output route calls.
+__global__ void jinc2_weight_table_kernel(const float* __restrict__ d2y,
+                                          int n_row_cls,
+                                          const float* __restrict__ d2x,
+                                          int n_col_cls,
+                                          float* __restrict__ table) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_row_cls * n_col_cls) return;
+  const int r = e / n_col_cls, c = e - r * n_col_cls;
+  float dy[4], dx[4];
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    dy[o] = d2y[o * n_row_cls + r];
+    dx[o] = d2x[o * n_col_cls + c];
+  }
+  float wt[16];
+  const float wsum = vrt::jinc2_weights(dy, dx, wt);
+  float* t = table + static_cast<long long>(e) * kEntry;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) t[k] = wt[k];
+  t[16] = wsum;
+  t[17] = t[18] = t[19] = 0.f;
 }
 
 }  // namespace
@@ -250,6 +378,9 @@ int launch(const void* y, const void* u, const void* v, int batch,
 // row-major 3 x (m0 m1 m2 c).  pack: 0 planar float (batch, 3, oh, ow),
 // 1 R10G10B10A2, 2 RGBA8 (batch, oh, ow) int32; transpose stores
 // (batch, [3,] ow, oh).  win_h x win_w bounds every tile's source window.
+// row_cls (oh,), col_cls (ow,) and table (n_row_cls x n_col_cls entries of
+// 20 floats, from vrt_jinc2_weight_table): the table route; table NULL:
+// the per-output route, which computes each output's weights.
 extern "C" int vrt_jinc2_convert(
     const void* y, const void* u, const void* v, int dtype, int batch, int h,
     int w, int ch, int cw, int oh, int ow, const void* by, const void* d2y,
@@ -257,14 +388,23 @@ extern "C" int vrt_jinc2_convert(
     const void* ux_taps, int n_ux, const void* uy_starts, const void* uy_taps,
     int n_uy, float y_scale, float c_scale, const void* host_cmat,
     int dither_bits, int pack, int transpose, int win_h, int win_w,
-    void* out, void* stream) {
+    const void* row_cls, const void* col_cls, const void* table,
+    int n_col_cls, void* out, void* stream) {
   Geometry G{h, w, ch, cw, oh, ow,
              static_cast<const int*>(by), static_cast<const float*>(d2y),
              static_cast<const int*>(bx), static_cast<const float*>(d2x),
              static_cast<const int*>(ux_starts),
              static_cast<const float*>(ux_taps), n_ux,
              static_cast<const int*>(uy_starts),
-             static_cast<const float*>(uy_taps), n_uy, win_h, win_w};
+             static_cast<const float*>(uy_taps), n_uy, win_h, win_w,
+             static_cast<const int*>(row_cls),
+             static_cast<const int*>(col_cls),
+             static_cast<const float*>(table), n_col_cls};
+  if (table != nullptr && (row_cls == nullptr || col_cls == nullptr ||
+                           n_col_cls < 1 ||
+                           (reinterpret_cast<uintptr_t>(table) % 16) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params P;
   const float* hm = static_cast<const float*>(host_cmat);
   for (int i = 0; i < 12; ++i) P.m[i] = hm[i];
@@ -275,9 +415,29 @@ extern "C" int vrt_jinc2_convert(
   P.transpose = transpose;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<uint8_t>(y, u, v, batch, G, P, out, st);
-    case 1: return launch<uint16_t>(y, u, v, batch, G, P, out, st);
-    case 3: return launch<float>(y, u, v, batch, G, P, out, st);
+    case 0: return launch_route<uint8_t>(y, u, v, batch, G, P, out, st);
+    case 1: return launch_route<uint16_t>(y, u, v, batch, G, P, out, st);
+    case 3: return launch_route<float>(y, u, v, batch, G, P, out, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The weight table of one geometry: d2y (4, n_row_cls) and d2x
+// (4, n_col_cls) float32 hold each class's d2 vector (kernels/jinc2.
+// axis_classes); table (n_row_cls * n_col_cls * 20 floats, 16-byte
+// aligned) receives, for entry (r, c) at (r * n_col_cls + c) * 20, the 16
+// weights row-major (jo * 4 + io), their sum, then 3 zeros.
+extern "C" int vrt_jinc2_weight_table(const void* d2y, int n_row_cls,
+                                      const void* d2x, int n_col_cls,
+                                      void* table, void* stream) {
+  const long long n = static_cast<long long>(n_row_cls) * n_col_cls;
+  if (n_row_cls < 1 || n_col_cls < 1 || n >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kBlock = 128;
+  jinc2_weight_table_kernel<<<static_cast<int>((n + kBlock - 1) / kBlock),
+                              kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(d2y), n_row_cls,
+      static_cast<const float*>(d2x), n_col_cls, static_cast<float*>(table));
+  return static_cast<int>(cudaGetLastError());
 }

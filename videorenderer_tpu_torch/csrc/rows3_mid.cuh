@@ -1,0 +1,621 @@
+// K8's kernel (csrc/rows3_mid.cu has its design) and its launch.  The
+// routes the port's paths run (C8Mid, LmsMid) are compiled each in its own
+// translation unit, rows3_mid_c8.cu and rows3_mid_lms.cu, in parallel with
+// rows3_mid.cu (the entry points and the runtime route).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "epilogue.cuh"
+#include "route.cuh"
+#include "stage.cuh"
+#include "tail.cuh"
+
+namespace vrt {
+namespace k8 {
+
+constexpr int kVec = vrt::kGroup;               // columns a thread makes
+constexpr int kColThreads = 16;                 // threads across a tile row
+constexpr int kRowThreads = 16;
+constexpr int kThreads = kColThreads * kRowThreads;
+constexpr int kTileCols = kVec * kColThreads;   // 64 columns a block
+constexpr int kTilesPerBlock = 4;   // consecutive row tiles a block walks
+constexpr int kRegTaps = 8;         // in taps unrolled
+constexpr int kMaxPieces = 8;
+constexpr int kHead = 12 + 9;       // the colour matrix, then the LMS matrix
+constexpr int kMaxVals = kHead + 3 * (7 + kMaxPieces * 22);
+constexpr size_t kSmemBudget = 232448;   // 227 KB
+
+using vrt::Vec;
+
+struct Curve {
+  int pieces;
+  int piv;                 // offset of the pieces - 1 pivots in vals
+  int kind[kMaxPieces];    // 0 polynomial, 1 MMR
+  int order[kMaxPieces];   // MMR order
+  int off[kMaxPieces];     // offset of the piece's coefficients in vals
+};
+
+struct MidParams {
+  float vals[kMaxVals];    // [cmat 3 x (m0 m1 m2 c)][lms 3 x 3][curves]
+  Curve curve[3];
+  int lms_identity, n_vals;
+  float y_scale, c_scale;
+};
+
+// A mid route fixed at compile time: the LMS step (kLmsIdentity: max(x, 0);
+// kLmsFull: the PQ round trip through the LMS matrix; kRt: the launch's
+// flag) and the curves (kPoly1: one polynomial piece a channel, read from
+// the launch's parameter at fixed offsets; kRt: the launch's structure,
+// copied with the scalars into shared memory once a block).  c8's light
+// route converts a thread's 4 adjacent columns of a mid row side by side;
+// the others, whose convert is long dependent chains of accurate pows and
+// divisions, deal the window's pixels out one at a time, so that every
+// thread converts within one pixel of the same count (17 of a 66-row
+// window's 4224, where rows of 4 would give some threads 20).
+enum { kLmsIdentity = 0, kLmsFull = 1 };
+enum { kPoly1 = 1 };
+
+template <int L, int C>
+struct MidRoute {
+  static constexpr int kLms = L, kCurves = C;
+  static constexpr bool kRuntimeCurves = C == kRt;
+  // a light route runs a thread's 4 pixels side by side; the others deal
+  // out the window's pixels one at a time
+  static constexpr bool kSideBySide = L == kLmsIdentity && C == kPoly1;
+  // resident blocks an SM: 3 for the light route (c8's 32-row tiles, 70
+  // KB), more for the others, whose long dependent chains need warps
+  // (kernels/deint.K8_HEAVY_TILE_ROWS halves their tiles to fit)
+  static constexpr int kMinBlocks = kSideBySide ? 3 : 6;
+};
+
+// c8: identity curves and an LMS product that folds away
+using C8Mid = MidRoute<kLmsIdentity, kPoly1>;
+// a stream whose LMS matrices are not mutual inverses (c8's variant)
+using LmsMid = MidRoute<kLmsFull, kRt>;
+using RuntimeMid = MidRoute<kRt, kRt>;
+
+// One plane class's in map (the luma, or both chroma planes).
+struct InMap {
+  int h_in;                // rows of the plane
+  const int* starts;       // (h_mid,); NULL: read directly
+  const float* taps;       // (n_taps, h_mid)
+  int n_taps;              // 0: no in map
+  const int* lo;           // first input row each tile stages
+  int win;                 // input rows a tile stages, at most
+};
+
+struct Geometry {
+  int w, h_mid, h_out, tile_rows, n_tiles;
+  InMap y, c;
+  const int* so; const float* to; int nto;   // the out map; nto 0: none
+  const int* tile_lo;      // first mid row of each tile's window
+  int win;                 // mid rows of the widest window
+};
+
+__host__ __device__ inline size_t up16(size_t x) { return (x + 15) / 16 * 16; }
+
+// Byte offsets of a block's shared memory, each 16-byte aligned: the mid
+// window (3 channels x win rows x kTileCols float32), the staged input rows
+// of y, u and v (a plane read directly has none), the in taps and starts
+// of each in map over the window's mid rows, the out taps and starts of
+// the tile's rows, then the curve scalars and structure (filled by the
+// routes that read them at run time).  kernels/deint.k8_smem_bytes
+// mirrors ``bytes``.
+struct Layout {
+  size_t window, y, u, v, ty, sy, tc, sc, to, so, vals, curves, bytes;
+};
+
+template <typename TY, typename TC>
+__host__ __device__ inline Layout layout(const Geometry& G, int n_vals) {
+  Layout L;
+  size_t o = 0;
+  const size_t win = G.win, cols = kTileCols;
+  L.window = o;
+  o += up16(3 * win * cols * sizeof(float));
+  L.y = o;
+  if (G.y.n_taps) o += up16(G.y.win * cols * sizeof(TY));
+  L.u = o;
+  if (G.c.n_taps) o += up16(G.c.win * cols * sizeof(TC));
+  L.v = o;
+  if (G.c.n_taps) o += up16(G.c.win * cols * sizeof(TC));
+  L.ty = o;
+  o += up16(G.y.n_taps * win * sizeof(float));
+  L.sy = o;
+  if (G.y.n_taps) o += up16(win * sizeof(int));
+  L.tc = o;
+  o += up16(G.c.n_taps * win * sizeof(float));
+  L.sc = o;
+  if (G.c.n_taps) o += up16(win * sizeof(int));
+  L.to = o;
+  o += up16(static_cast<size_t>(G.nto) * G.tile_rows * sizeof(float));
+  L.so = o;
+  if (G.nto) o += up16(G.tile_rows * sizeof(int));
+  L.vals = o;
+  o += up16(n_vals * sizeof(float));
+  L.curves = o;
+  o += up16(3 * sizeof(Curve));
+  L.bytes = o;
+  return L;
+}
+
+using vrt::add;
+using vrt::mul;
+
+// reshape_mmr (Source/Shaders.cpp:733-763): c + sum over orders j of the
+// 3 linear and 4 cross terms, each raised to the power j + 1.
+__device__ __forceinline__ float mmr(const float* w, int order,
+                                     const float sig[3]) {
+  const float lin[3] = {sig[0], sig[1], sig[2]};
+  const float s01 = mul(sig[0], sig[1]);
+  const float cross[4] = {s01, mul(sig[0], sig[2]), mul(sig[1], sig[2]),
+                          mul(s01, sig[2])};
+  float lj[3] = {lin[0], lin[1], lin[2]};
+  float cj[4] = {cross[0], cross[1], cross[2], cross[3]};
+  float acc = w[0];
+  const float* wp = w + 1;
+  for (int j = 0; j < order; ++j, wp += 7) {
+    if (j > 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) lj[k] = mul(lj[k], lin[k]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cj[k] = mul(cj[k], cross[k]);
+    }
+    float tl = mul(wp[0], lj[0]);
+    tl = add(tl, mul(wp[1], lj[1]));
+    tl = add(tl, mul(wp[2], lj[2]));
+    float tc = mul(wp[3], cj[0]);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) tc = add(tc, mul(wp[3 + k], cj[k]));
+    acc = add(add(acc, tl), tc);
+  }
+  return acc;
+}
+
+// ShaderDoviReshape (Source/Shaders.cpp:554-589) of channel ``ch``: the
+// piece is the count of pivots at or below the signal.  ``vals`` and
+// ``curves`` are the shared-memory copies (runtime curves).
+template <typename R>
+__device__ __forceinline__ float reshape(const MidParams& P, const float* vals,
+                                         const Curve* curves, int ch, float s,
+                                         const float sig[3]) {
+  if constexpr (R::kCurves == kPoly1) {
+    // one piece a channel: no pivots, coefficients at kHead + 3 * ch
+    const float* w = P.vals + kHead + 3 * ch;
+    return vrt::clip01(add(mul(add(mul(w[2], s), w[1]), s), w[0]));
+  } else {
+    const Curve& C = curves[ch];
+    int idx = 0;
+    for (int k = 0; k < C.pieces - 1; ++k) idx += s >= vals[C.piv + k];
+    const float* w = vals + C.off[idx];
+    const float val = C.kind[idx] == 0
+                          ? add(mul(add(mul(w[2], s), w[1]), s), w[0])
+                          : mmr(w, C.order[idx], sig);
+    return vrt::clip01(val);
+  }
+}
+
+// The DoVi convert of one pixel: reshape, RPU matrix, LMS step.  The
+// matrices are read from the launch's parameter at fixed offsets.
+template <typename R>
+__device__ __forceinline__ void dovi_mid(const MidParams& P, const float* vals,
+                                         const Curve* curves, float yv,
+                                         float uv, float vv, float c[3]) {
+  const float sig[3] = {vrt::clip01(yv), vrt::clip01(uv), vrt::clip01(vv)};
+  float ycc[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    ycc[ch] = reshape<R>(P, vals, curves, ch, sig[ch], sig);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float* m = P.vals + 4 * i;
+    c[i] = add(vrt::dot3(m[0], m[1], m[2], ycc[0], ycc[1], ycc[2]), m[3]);
+  }
+  const bool identity =
+      R::kLms == kRt ? P.lms_identity != 0 : R::kLms == kLmsIdentity;
+  if (identity) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) c[i] = fmaxf(c[i], 0.f);
+    return;
+  }
+  float x[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) x[i] = vrt::pq_to_linear(fmaxf(c[i], 0.f), 1.f);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float* m = P.vals + 12 + 3 * i;
+    c[i] = vrt::linear_to_pq(
+        fmaxf(vrt::dot3(m[0], m[1], m[2], x[0], x[1], x[2]), 0.f));
+  }
+}
+
+// Rows [lo, lo + rows) of a plane (clipped to its h_in rows), columns
+// [col0, col0 + kTileCols) (clipped to w), into ``dst`` at a pitch of
+// kTileCols: 16-byte cp.async copies where the rows are 16-byte aligned
+// and the tile lies inside them, element copies where not.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ plane,
+                                           int w, int h_in, int lo, int rows,
+                                           int col0, bool aligned) {
+  constexpr int kChunk = 16 / sizeof(T);
+  constexpr int kPerRow = kTileCols / kChunk;
+  const int n_rows = min(rows, h_in - lo);
+  const int n_cols = min(kTileCols, w - col0);
+  const T* src = plane + static_cast<long long>(lo) * w + col0;
+  if (aligned && n_cols == kTileCols) {
+    for (int i = threadIdx.x; i < n_rows * kPerRow; i += kThreads) {
+      const int r = i / kPerRow, k = i - r * kPerRow;
+      vrt::cp_async16(dst + r * kTileCols + k * kChunk,
+                      src + static_cast<long long>(r) * w + k * kChunk);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_rows * kTileCols; i += kThreads) {
+      const int r = i / kTileCols, c = i - r * kTileCols;
+      if (c < n_cols) dst[i] = src[static_cast<long long>(r) * w + c];
+    }
+  }
+}
+
+// A thread's 4 raw values of row ``row`` of a plane read directly; zeros
+// past the row's end.  ``vec``: one vector load (the 4 columns lie inside
+// the row and the rows are aligned to the vector).
+template <typename T>
+__device__ __forceinline__ Vec<T> load4(const T* __restrict__ plane, int w,
+                                        int row, int col, bool vec) {
+  const T* p = plane + static_cast<long long>(row) * w + col;
+  Vec<T> x;
+  if (vec) {
+    x = *reinterpret_cast<const Vec<T>*>(p);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) x.v[k] = col + k < w ? p[k] : T(0);
+  }
+  return x;
+}
+
+// One plane's values at mid row m of the window, columns cl .. cl + 3 of
+// the tile: its in taps over the staged rows (``rows``; starts relative to
+// them in ``starts``, taps t at taps[t * win + m]), t = 0 .. T-1 in order
+// from 0 with taps at or past the plane's last row (relative ``lim``)
+// skipped; FMAs from 0 as the one-column-a-thread kernel did.
+template <typename T>
+__device__ __forceinline__ void in_values(const T* rows, const int* starts,
+                                          const float* taps, int win, int m,
+                                          int n_taps, int lim, int cl,
+                                          float acc[kVec]) {
+  const int s = starts[m];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) acc[k] = 0.f;
+  auto step = [&](int t) {
+    if (s + t < lim) {
+      const Vec<T> x =
+          *reinterpret_cast<const Vec<T>*>(rows + (s + t) * kTileCols + cl);
+      const float wt = taps[t * win + m];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        acc[k] = fmaf(vrt::to_float(x.v[k]), wt, acc[k]);
+      }
+    }
+  };
+  if (n_taps <= kRegTaps) {
+#pragma unroll
+    for (int t = 0; t < kRegTaps; ++t) {
+      if (t < n_taps) step(t);
+    }
+  } else {
+    for (int t = 0; t < n_taps; ++t) step(t);
+  }
+}
+
+// One column's value of the same (the routes that convert one pixel at a
+// time): column c of the tile.
+template <typename T>
+__device__ __forceinline__ float in_value(const T* rows, const int* starts,
+                                          const float* taps, int win, int m,
+                                          int n_taps, int lim, int c) {
+  const int s = starts[m];
+  float acc = 0.f;
+  for (int t = 0; t < n_taps; ++t) {
+    if (s + t < lim) {
+      acc = fmaf(vrt::to_float(rows[(s + t) * kTileCols + c]),
+                 taps[t * win + m], acc);
+    }
+  }
+  return acc;
+}
+
+// The tile's parameters: its first output row, its window of mid rows, and
+// the first staged row of each in map.
+struct Tile {
+  int r0, rows, lo, n_win, y_lo, c_lo;
+};
+
+__device__ __forceinline__ Tile tile_of(const Geometry& G, int tile) {
+  Tile t;
+  t.r0 = tile * G.tile_rows;
+  t.rows = min(G.tile_rows, G.h_out - t.r0);
+  t.lo = G.nto ? G.tile_lo[tile] : t.r0;
+  t.n_win = min(G.win, G.h_mid - t.lo);
+  t.y_lo = G.y.n_taps ? G.y.lo[tile] : 0;
+  t.c_lo = G.c.n_taps ? G.c.lo[tile] : 0;
+  return t;
+}
+
+// An in map's starts (relative to the tile's staged rows) and taps over
+// the tile's window, into shared memory.
+__device__ __forceinline__ void stage_in_taps(const InMap& M, const Geometry& G,
+                                              const Tile& T, int in_lo,
+                                              float* taps, int* starts) {
+  for (int m = threadIdx.x; m < T.n_win; m += kThreads) {
+    starts[m] = M.starts[T.lo + m] - in_lo;
+  }
+  for (int i = threadIdx.x; i < M.n_taps * T.n_win; i += kThreads) {
+    const int t = i / T.n_win, m = i - t * T.n_win;
+    taps[t * G.win + m] = M.taps[static_cast<long long>(t) * G.h_mid + T.lo + m];
+  }
+}
+
+// At most 80 registers a thread on the light route (3 blocks of 256 an
+// SM), 40 on the others (6).
+template <typename R, typename TY, typename TC>
+__global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
+    const TY* __restrict__ y, const TC* __restrict__ u,
+    const TC* __restrict__ v, const Geometry G,
+    const __grid_constant__ MidParams P, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout<TY, TC>(G, P.n_vals);
+  float* window = reinterpret_cast<float*>(smem + L.window);
+  TY* ys = reinterpret_cast<TY*>(smem + L.y);
+  TC* us = reinterpret_cast<TC*>(smem + L.u);
+  TC* vs = reinterpret_cast<TC*>(smem + L.v);
+  float* ty_s = reinterpret_cast<float*>(smem + L.ty);
+  int* sy_s = reinterpret_cast<int*>(smem + L.sy);
+  float* tc_s = reinterpret_cast<float*>(smem + L.tc);
+  int* sc_s = reinterpret_cast<int*>(smem + L.sc);
+  float* to_s = reinterpret_cast<float*>(smem + L.to);
+  int* so_s = reinterpret_cast<int*>(smem + L.so);
+  float* vals = reinterpret_cast<float*>(smem + L.vals);
+  Curve* curves = reinterpret_cast<Curve*>(smem + L.curves);
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kColThreads, tyd = tid / kColThreads;
+  const int col0 = blockIdx.x * kTileCols;
+  const int cl = tx * kVec, col = col0 + cl;
+  const long long b = blockIdx.z, batch = gridDim.z;
+  const int tile0 = blockIdx.y * kTilesPerBlock;
+  const int n_tiles = min(kTilesPerBlock, G.n_tiles - tile0);
+  const TY* yb = y + b * G.y.h_in * static_cast<long long>(G.w);
+  const TC* ub = u + b * G.c.h_in * static_cast<long long>(G.w);
+  const TC* vb = v + b * G.c.h_in * static_cast<long long>(G.w);
+  const bool y_al = vrt::rows_aligned16(y, G.w);
+  const bool c_al = vrt::rows_aligned16(u, G.w) && vrt::rows_aligned16(v, G.w);
+  const bool in_row = col + kVec <= G.w;
+  const bool y_vec = in_row && G.w % kVec == 0 &&
+                     reinterpret_cast<uintptr_t>(y) % sizeof(Vec<TY>) == 0;
+  const bool c_vec = in_row && G.w % kVec == 0 &&
+                     reinterpret_cast<uintptr_t>(u) % sizeof(Vec<TC>) == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % sizeof(Vec<TC>) == 0;
+  const bool out_vec = in_row && G.w % kVec == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+
+  if constexpr (R::kRuntimeCurves) {
+    for (int i = tid; i < P.n_vals; i += kThreads) vals[i] = P.vals[i];
+    const int* src = reinterpret_cast<const int*>(P.curve);
+    int* dst = reinterpret_cast<int*>(curves);
+    for (int i = tid; i < static_cast<int>(3 * sizeof(Curve) / 4);
+         i += kThreads) {
+      dst[i] = src[i];
+    }
+  }
+
+  // The tile's staged input rows (16-byte cp.async copies, one group) and
+  // its in taps.
+  auto stage = [&](const Tile& T) {
+    if (G.y.n_taps) {
+      stage_rows(ys, yb, G.w, G.y.h_in, T.y_lo, G.y.win, col0, y_al);
+      stage_in_taps(G.y, G, T, T.y_lo, ty_s, sy_s);
+    }
+    if (G.c.n_taps) {
+      stage_rows(us, ub, G.w, G.c.h_in, T.c_lo, G.c.win, col0, c_al);
+      stage_rows(vs, vb, G.w, G.c.h_in, T.c_lo, G.c.win, col0, c_al);
+      stage_in_taps(G.c, G, T, T.c_lo, tc_s, sc_s);
+    }
+    vrt::cp_async_commit();
+  };
+
+  Tile T = tile_of(G, tile0);
+  stage(T);
+  for (int k = 0; k < n_tiles; ++k) {
+    // a luma plane read directly: the thread's first row's values, loaded
+    // before the wait (the side-by-side route)
+    const int m0 = tyd;
+    Vec<TY> y_next{};
+    if (R::kSideBySide && !G.y.n_taps && m0 < T.n_win) {
+      y_next = load4(yb, G.w, T.lo + m0, col, y_vec);
+    }
+    vrt::cp_async_wait<0>();
+    __syncthreads();   // (A) this tile's inputs are staged; the last out pass is done
+
+    if (G.nto) {
+      for (int i = tid; i < T.rows; i += kThreads) so_s[i] = G.so[T.r0 + i] - T.lo;
+      for (int i = tid; i < G.nto * T.rows; i += kThreads) {
+        const int t = i / T.rows, r = i - t * T.rows;
+        to_s[t * G.tile_rows + r] =
+            G.to[static_cast<long long>(t) * G.h_out + T.r0 + r];
+      }
+    }
+
+    // the mid pass: each mid pixel of the window once
+    const int plane = G.win * kTileCols;
+    if constexpr (R::kSideBySide) {
+      // 4 adjacent columns a thread, a mid row each 16 rows
+      for (int m = m0; m < T.n_win; m += kRowThreads) {
+        const int row = T.lo + m;
+        float yv[kVec], uv[kVec], vv[kVec];
+        if (G.y.n_taps) {
+          in_values(ys, sy_s, ty_s, G.win, m, G.y.n_taps, G.y.h_in - T.y_lo,
+                    cl, yv);
+        } else {
+          const Vec<TY> x = y_next;
+          if (m + kRowThreads < T.n_win) {
+            y_next = load4(yb, G.w, row + kRowThreads, col, y_vec);
+          }
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            yv[j] = mul(vrt::to_float(x.v[j]), P.y_scale);
+          }
+        }
+        if (G.c.n_taps) {
+          const int lim = G.c.h_in - T.c_lo;
+          in_values(us, sc_s, tc_s, G.win, m, G.c.n_taps, lim, cl, uv);
+          in_values(vs, sc_s, tc_s, G.win, m, G.c.n_taps, lim, cl, vv);
+        } else {
+          const Vec<TC> xu = load4(ub, G.w, row, col, c_vec);
+          const Vec<TC> xv = load4(vb, G.w, row, col, c_vec);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            uv[j] = mul(vrt::to_float(xu.v[j]), P.c_scale);
+            vv[j] = mul(vrt::to_float(xv.v[j]), P.c_scale);
+          }
+        }
+        float c[kVec][3];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          dovi_mid<R>(P, vals, curves, yv[j], uv[j], vv[j], c[j]);
+        }
+        float* wrow = window + m * kTileCols + cl;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          Vec<float> o;
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) o.v[j] = c[j][ch];
+          *reinterpret_cast<Vec<float>*>(wrow + ch * plane) = o;
+        }
+      }
+    } else {
+      // the window's pixels dealt out one at a time, a warp on 32 adjacent
+      // columns of a row
+      const int y_lim = G.y.h_in - T.y_lo, c_lim = G.c.h_in - T.c_lo;
+      for (int p = tid; p < T.n_win * kTileCols; p += kThreads) {
+        const int m = p / kTileCols, cp = p - m * kTileCols, cc = col0 + cp;
+        const long long at = static_cast<long long>(T.lo + m) * G.w + cc;
+        const bool in = cc < G.w;
+        const float yv =
+            G.y.n_taps ? in_value(ys, sy_s, ty_s, G.win, m, G.y.n_taps, y_lim, cp)
+            : in       ? mul(vrt::to_float(yb[at]), P.y_scale)
+                       : 0.f;
+        float uv, vv;
+        if (G.c.n_taps) {
+          uv = in_value(us, sc_s, tc_s, G.win, m, G.c.n_taps, c_lim, cp);
+          vv = in_value(vs, sc_s, tc_s, G.win, m, G.c.n_taps, c_lim, cp);
+        } else {
+          uv = in ? mul(vrt::to_float(ub[at]), P.c_scale) : 0.f;
+          vv = in ? mul(vrt::to_float(vb[at]), P.c_scale) : 0.f;
+        }
+        float c[3];
+        dovi_mid<R>(P, vals, curves, yv, uv, vv, c);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          window[ch * plane + m * kTileCols + cp] = c[ch];
+        }
+      }
+    }
+    __syncthreads();   // (B) the window is complete; the staged inputs are free
+
+    // copy the next tile's inputs while this one's out taps run
+    const Tile cur = T;
+    if (k + 1 < n_tiles) {
+      T = tile_of(G, tile0 + k + 1);
+      stage(T);
+    }
+
+    // the out pass: each output row's taps over the window, t = 0 .. T-1
+    // in order from 0, mid rows past h_mid skipped; three 16-byte stores
+    for (int i = tyd; i < cur.rows; i += kRowThreads) {
+      const int r = cur.r0 + i;
+      float acc[3][kVec];
+      if (G.nto == 0) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const Vec<float> x = *reinterpret_cast<const Vec<float>*>(
+              window + ch * plane + i * kTileCols + cl);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) acc[ch][j] = x.v[j];
+        }
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) acc[ch][j] = 0.f;
+        }
+        const int s = so_s[i], lim = G.h_mid - cur.lo;
+        for (int t = 0; t < G.nto; ++t) {
+          if (s + t < lim) {
+            const float wt = to_s[t * G.tile_rows + i];
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) {
+              const Vec<float> x = *reinterpret_cast<const Vec<float>*>(
+                  window + ch * plane + (s + t) * kTileCols + cl);
+#pragma unroll
+              for (int j = 0; j < kVec; ++j) {
+                acc[ch][j] = fmaf(x.v[j], wt, acc[ch][j]);
+              }
+            }
+          }
+        }
+      }
+      if (col >= G.w) continue;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        float* o = out + ((ch * batch + b) * G.h_out + r) *
+                             static_cast<long long>(G.w) + col;
+        if (out_vec) {
+          Vec<float> ov;
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) ov.v[j] = acc[ch][j];
+          *reinterpret_cast<Vec<float>*>(o) = ov;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            if (col + j < G.w) o[j] = acc[ch][j];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename R, typename TY, typename TC>
+int launch(const void* y, const void* u, const void* v, const Geometry& G,
+           const MidParams& P, int batch, void* out, cudaStream_t st) {
+  const size_t smem = layout<TY, TC>(G, P.n_vals).bytes;
+  if (smem > kSmemBudget || G.tile_rows < 1 || G.n_tiles < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rows3_mid_kernel<R, TY, TC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((G.w + kTileCols - 1) / kTileCols,
+                  (G.n_tiles + kTilesPerBlock - 1) / kTilesPerBlock, batch);
+  rows3_mid_kernel<R, TY, TC><<<grid, kThreads, smem, st>>>(
+      static_cast<const TY*>(y), static_cast<const TC*>(u),
+      static_cast<const TC*>(v), G, P, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k8
+}  // namespace vrt
+
+// The signature of one route's launch, for its explicit instantiation in
+// the translation unit that compiles it and its extern declaration in the
+// others.
+#define VRT_K8_LAUNCH(R, TY, TC)                                          \
+  int vrt::k8::launch<vrt::k8::R, TY, TC>(                                 \
+      const void*, const void*, const void*, const vrt::k8::Geometry&,     \
+      const vrt::k8::MidParams&, int, void*, cudaStream_t)

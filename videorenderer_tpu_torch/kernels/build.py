@@ -64,13 +64,14 @@ SIGNATURES = {
                        _F, _F, _P, _I, _I, _I, _F, _I, _P, _P),
     # x, x_dtype, starts, taps, out, batch, h_in, h_out, w, n_taps, stream
     "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_mid, h_out, then
-    # (starts, taps, n_taps) of the y, c and out maps, tile_lo, win,
-    # y_scale, c_scale, vals (host), n_vals, structure (host),
-    # lms_identity, out, stream
-    "vrt_rows3_mid": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _F, _F,
-                      _P, _I, _P, _I, _P, _P),
+    # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_mid, h_out,
+    # tile_rows, the (starts, taps, n_taps, lo, win) of the y and c in maps,
+    # (starts, taps, n_taps) of the out map, tile_lo, win, y_scale,
+    # c_scale, vals (host), n_vals, structure (host), lms_identity, out,
+    # stream
+    "vrt_rows3_mid": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I,
+                      _P, _I, _F, _F, _P, _I, _P, _I, _P, _P),
     # planes (host array of 9 pointers), dtype, batch, hy, wy, hc, wc,
     # h_out, tile_rows, the (starts, taps, n_taps, tile_lo, win) of the y
     # and c H maps, thr, top_field_first, out_y, out_u, out_v, stream
@@ -82,10 +83,14 @@ SIGNATURES = {
     # y, u, v, dtype, batch, h, w, ch, cw, oh, ow, by, d2y, bx, d2x,
     # ux_starts, ux_taps, n_ux, uy_starts, uy_taps, n_uy, y_scale, c_scale,
     # cmat (host, 12 floats), dither_bits, pack, transpose, win_h, win_w,
-    # out, stream
+    # row_cls, col_cls, table (NULL: per-output weights), n_col_cls, out,
+    # stream
     "vrt_jinc2_convert": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F,
-                          _P, _I, _I, _I, _I, _I, _P, _P),
+                          _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P),
+    # d2y (4, n_row_cls), n_row_cls, d2x (4, n_col_cls), n_col_cls, table,
+    # stream
+    "vrt_jinc2_weight_table": (_P, _I, _P, _I, _P, _P),
     # x, starts, taps (bf16), out, rows, w_in, w_out, n_taps, stream
     "vrt_wpass_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, rows, w_in, w_out, stream
@@ -98,6 +103,8 @@ STRING_SIGNATURES = {
     "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I),
     # the same flags, for K9
     "vrt_cols3_tail_route": (_I, _I, _I, _I, _I, _I, _I),
+    # y_dtype, c_dtype, vals (host), n_vals, structure (host), lms_identity
+    "vrt_rows3_mid_route": (_I, _I, _P, _I, _P, _I),
 }
 
 _lock = threading.Lock()

@@ -17,17 +17,19 @@ split-bf16 products), a wrapper given CPU tensors runs the plain version and
 given CUDA tensors launches the kernel or raises, and each launch adds one
 to ``resize.launches[name]``.
 
-K7 and K9 are tiled for the H100 as K1 and K2 are: a block stages the
-window of inputs its outputs' taps reach in shared memory with 16-byte
+K7, K8 and K9 are tiled for the H100 as K1 and K2 are: a block stages
+the window of inputs its outputs' taps reach in shared memory with 16-byte
 copies and each thread makes 4 columns with vector stores.
-:func:`k7_smem_bytes` and :func:`k9_smem_bytes` give a block's shared
-memory; a map whose window does not fit SMEM_BUDGET, or a grid past its limits, is refused before the
-launch.  Their times against their bounds are in ``PERF.md`` section 6.
+:func:`k7_smem_bytes`, :func:`k8_smem_bytes` and :func:`k9_smem_bytes`
+give a block's shared memory; a map whose window does not fit SMEM_BUDGET,
+or a grid past its limits, is refused before the launch.  Their times
+against their bounds are in ``PERF.md`` section 6.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -223,7 +225,93 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
 # K8: H maps into the mid resolution + the DoVi convert + a shared H map out
 # ---------------------------------------------------------------------------
 
-K8_TILE_ROWS = 32     # output rows of a block (kTileRows, csrc/rows3_mid.cu)
+K8_TILE_ROWS = 32     # output rows of a tile (tile_rows, csrc/rows3_mid.cuh)
+K8_HEAVY_TILE_ROWS = 16  # ... on the routes other than c8's light one
+K8_TILE_COLS = 64     # columns a K8 block makes (kTileCols)
+K8_TILES_PER_BLOCK = 4  # consecutive tiles a K8 block walks (kTilesPerBlock)
+K8_CURVES_BYTES = 320   # the curve structure K8 copies (3 Curve structs)
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def k8_in_windows(mat: BandedMatrix, tile_lo: np.ndarray, win: int,
+                  h_mid: int) -> tuple[np.ndarray, int]:
+    """The input rows of an in map that each K8 tile stages: for the tile
+    whose window holds mid rows ``tile_lo[k]`` .. + ``win`` (clipped to
+    ``h_mid``), the first input row its in taps reach (int32, one a tile)
+    and the rows of the widest such span (taps past the plane do not
+    count)."""
+    hi = np.minimum(mat.starts + mat.n_taps, mat.in_size)
+    lo_t, hi_t = [], []
+    for lo in np.asarray(tile_lo, np.int64):
+        n = min(win, h_mid - int(lo))
+        lo_t.append(int(mat.starts[lo:lo + n].min()))
+        hi_t.append(int(hi[lo:lo + n].max()))
+    return (np.asarray(lo_t, np.int32),
+            max(h - l for l, h in zip(lo_t, hi_t)))
+
+
+def k8_smem_bytes(y_itemsize: int, c_itemsize: int,
+                  my_in_y: BandedMatrix | None, my_in_c: BandedMatrix | None,
+                  my_out: BandedMatrix | None, h_mid: int, n_vals: int,
+                  tile_rows: int = K8_TILE_ROWS) -> int:
+    """Shared memory of a K8 block (Layout, csrc/rows3_mid.cuh), each part
+    rounded up to 16 bytes: the mid window (three float32 channels of the
+    widest window's rows x K8_TILE_COLS), the staged rows of each plane
+    with an in map (:func:`k8_in_windows`), each in map's taps and starts
+    over the window, the out map's taps and starts of ``tile_rows`` rows,
+    then the ``n_vals`` curve scalars and the curve structure."""
+    tile_lo, win = _k8_windows(my_out, h_mid, tile_rows)
+    total = _up16(3 * win * K8_TILE_COLS * 4)
+    for mat, itemsize, planes in ((my_in_y, y_itemsize, 1),
+                                  (my_in_c, c_itemsize, 2)):
+        if mat is not None:
+            in_win = k8_in_windows(mat, tile_lo, win, h_mid)[1]
+            total += planes * _up16(in_win * K8_TILE_COLS * itemsize)
+            total += _up16(4 * mat.n_taps * win) + _up16(4 * win)
+    if my_out is not None:
+        total += _up16(4 * my_out.n_taps * tile_rows) + _up16(4 * tile_rows)
+    return total + _up16(4 * n_vals) + K8_CURVES_BYTES
+
+
+def _k8_windows(my_out: BandedMatrix | None, h_mid: int, tile_rows: int
+                ) -> tuple[np.ndarray, int]:
+    """Each tile's first mid row and the widest window: the out map's
+    row_windows, or the tile's own rows without an out map."""
+    if my_out is None:
+        return np.arange(0, h_mid, tile_rows, dtype=np.int32), tile_rows
+    return my_out.row_windows(tile_rows)
+
+
+def k8_light_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
+                   mid: MidStage) -> bool:
+    """Whether K8 takes its light route (rows3_mid.cuh: C8Mid; route_of in
+    csrc/rows3_mid.cu): uint16 luma, float32 chroma, the LMS step folded
+    away and one polynomial piece a channel (c8's metadata)."""
+    return (y_dtype == torch.uint16 and c_dtype == torch.float32
+            and mid.lms is None
+            and all(pieces == 1 and kinds[0] == 0
+                    for pieces, kinds, _ in mid.structure))
+
+
+@functools.lru_cache(maxsize=64)
+def k8_tile_rows(y_itemsize: int, c_itemsize: int,
+                 my_in_y: BandedMatrix | None, my_in_c: BandedMatrix | None,
+                 my_out: BandedMatrix | None, h_mid: int, n_vals: int,
+                 light: bool = True) -> int:
+    """The output rows of a K8 tile: K8_TILE_ROWS on the light route,
+    K8_HEAVY_TILE_ROWS on the others (more blocks an SM), halved until the
+    block's shared memory fits SMEM_BUDGET (a steep downscale's long
+    windows); 0 when not even one row fits."""
+    tile_rows = K8_TILE_ROWS if light else K8_HEAVY_TILE_ROWS
+    while tile_rows >= 1:
+        if k8_smem_bytes(y_itemsize, c_itemsize, my_in_y, my_in_c, my_out,
+                         h_mid, n_vals, tile_rows) <= SMEM_BUDGET:
+            return tile_rows
+        tile_rows //= 2
+    return 0
 
 
 def rows3_mid_plain(y, u, v, my_in_y: BandedMatrix | None,
@@ -261,10 +349,20 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     launch by value: a new scene rebuilds nothing and synchronises nothing.
 
     Kernel K8 (``csrc/rows3_mid.cu``), replacing ``deint_pallas.rows3_mid``
-    with the DoVi ``mid_fn``.  One block per (frame, 32-column strip, 32
-    output rows) computes the mid rows its outputs reach into shared memory,
-    then runs the out taps, so the full-resolution RGB never reaches device
-    memory."""
+    with the DoVi ``mid_fn``.  A block makes 64 columns of
+    K8_TILES_PER_BLOCK consecutive tiles of :func:`k8_tile_rows` output
+    rows of one frame: it stages the input rows its mid window's in taps
+    reach in shared memory with 16-byte copies (the next tile's while the
+    current tile's out taps run), computes each mid pixel of the window
+    once into shared memory, then runs the out taps, 4 columns a thread,
+    and stores 16-byte vectors, so the full-resolution RGB never reaches
+    device memory.  The convert's route is compiled in for c8's metadata
+    (:func:`k8_light_route`: 32-row tiles, 4 pixels a thread side by
+    side) and for a non-identity LMS step (16-row tiles, twice the blocks
+    an SM, pixels dealt out one a thread); :func:`rows3_mid_route` names
+    the route a launch takes.  A map whose window does not fit
+    SMEM_BUDGET at one row a tile, or a grid past its limits, raises
+    ValueError before the launch."""
     for name, p in (("y", y), ("u", u), ("v", v)):
         _check_plane(name, p)
     if u.shape != v.shape or u.dtype != v.dtype:
@@ -294,33 +392,67 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if not _kernel_device(y, u, v):
         return rows3_mid_plain(y, u, v, my_in_y, my_in_c, h_mid, mid, my_out,
                                h_out, y_scale, c_scale)
-    batch = y.numel() // (hy * w) if y.numel() else 0
-    n_tiles = -(-h_out // K8_TILE_ROWS)
-    if batch == 0 or batch > 65535 or n_tiles > 65535:
-        raise ValueError(f"K8 cannot take batch {batch} x {h_out} rows")
-    dev = y.device
-    if my_out is None:
-        tile_lo, win = None, K8_TILE_ROWS
-    else:
-        tile_lo, win = my_out.row_windows(K8_TILE_ROWS, dev)
-    if 3 * win * 32 * 4 > 200 * 1024:
-        raise ValueError(f"K8: a window of {win} mid rows does not fit the "
-                         "shared memory of a block")
-    out = torch.empty((3,) + lead + (h_out, w), dtype=torch.float32,
-                      device=dev)
     vals = mid.host_values()
     struct = mid.host_structure()
+    tile_rows = k8_tile_rows(y.element_size(), u.element_size(), my_in_y,
+                             my_in_c, my_out, h_mid, vals.size,
+                             k8_light_route(y.dtype, u.dtype, mid))
+    if tile_rows == 0:
+        raise ValueError("K8: the maps' windows do not fit the shared memory "
+                         "of a block even at one row a tile")
+    batch = y.numel() // (hy * w) if y.numel() else 0
+    n_tiles = -(-h_out // tile_rows)
+    if batch == 0 or batch > GRID_YZ_MAX \
+            or -(-n_tiles // K8_TILES_PER_BLOCK) > GRID_YZ_MAX:
+        raise ValueError(f"K8 cannot take batch {batch} x {h_out} rows: the "
+                         "grid is (column tiles, groups of tiles, frames), "
+                         "at most 65535 groups and frames")
+    dev = y.device
+    tile_lo, win = _k8_windows(my_out, h_mid, tile_rows)
+
+    def in_args(mat):   # (starts, taps, T, lo, win); none: read directly
+        if mat is None:
+            return None, None, 0, None, 0
+        lo, in_win = _k8_in_windows_on(mat, my_out, h_mid, tile_rows, dev)
+        return (*_taps_args(mat, dev), lo.data_ptr(), in_win)
+
+    out = torch.empty((3,) + lead + (h_out, w), dtype=torch.float32,
+                      device=dev)
     _launch("rows3_mid", "vrt_rows3_mid", dev,
             y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
-            DTYPE_CODES[u.dtype], batch, hy, hc, w, h_mid, h_out,
-            *_taps_args(my_in_y, dev), *_taps_args(my_in_c, dev),
-            *_taps_args(my_out, dev),
-            None if tile_lo is None else tile_lo.data_ptr(), win,
+            DTYPE_CODES[u.dtype], batch, hy, hc, w, h_mid, h_out, tile_rows,
+            *in_args(my_in_y), *in_args(my_in_c), *_taps_args(my_out, dev),
+            None if my_out is None
+            else my_out.row_windows(tile_rows, dev)[0].data_ptr(), win,
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
             vals.ctypes.data, vals.size, struct.ctypes.data,
             int(mid.lms is None), out.data_ptr())
     return out[0], out[1], out[2]
+
+
+@functools.lru_cache(maxsize=32)
+def _k8_in_windows_on(mat: BandedMatrix, my_out: BandedMatrix | None,
+                      h_mid: int, tile_rows: int, device: torch.device
+                      ) -> tuple[torch.Tensor, int]:
+    """:func:`k8_in_windows` of an in map for the out map's tiles, its
+    first rows on ``device``, uploaded once."""
+    tile_lo, win = _k8_windows(my_out, h_mid, tile_rows)
+    lo, in_win = k8_in_windows(mat, tile_lo, win, h_mid)
+    return torch.from_numpy(lo).to(device), in_win
+
+
+def rows3_mid_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
+                    mid: MidStage) -> str:
+    """The K8 route a launch with these plane dtypes and this mid stage
+    takes: "c8 uint16/float32" (identity curves and LMS fold), "lms
+    uint16/float32" (a non-identity LMS step), or "runtime"
+    (vrt_rows3_mid_route; loads the kernel library, so it needs the CUDA
+    toolkit)."""
+    vals, struct = mid.host_values(), mid.host_structure()
+    return build.load().vrt_rows3_mid_route(
+        DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype], vals.ctypes.data,
+        vals.size, struct.ctypes.data, int(mid.lms is None)).decode()
 
 
 # ---------------------------------------------------------------------------

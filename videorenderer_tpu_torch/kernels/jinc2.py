@@ -38,6 +38,13 @@ from . import resize as rk
 TILE = 32                       # K6's output tile edge (csrc/jinc2_convert.cu)
 _SMEM_LIMIT = 227 * 1024        # shared memory one block may use on Hopper
 _K6_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 3}
+K6_ENTRY = 20
+"""Floats of one entry of K6's weight table (kEntry): the 16 weights
+row-major (jo * 4 + io), their sum, 3 zeros, read as five 16-byte loads."""
+K6_TABLE_CAP = 4 << 20
+"""Bytes of a weight table above which K6 computes each output's weights
+(its per-output route): a geometry with no short phase period on both axes,
+where a table would hold about one entry per output."""
 
 
 @dataclass(frozen=True)
@@ -83,6 +90,118 @@ def _axis_on(in_size: int, out_size: int, device: torch.device
     return torch.tensor(base, device=device), torch.tensor(d2, device=device)
 
 
+@functools.lru_cache(maxsize=32)
+def axis_classes(in_size: int, out_size: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct d2 4-vectors of one axis's Jinc2 table
+    (``ops/scale.jinc2_axis_tables``), compared bit for bit: ``classes``
+    (out,) int32, the index of each output's vector, and ``d2`` (4, n)
+    float32, the vectors themselves, so that ``d2[:, classes]`` is the
+    axis's d2 table exactly.  The count is the axis's phase period at the
+    usual scalings (2 at 2x, 9 at 1920 -> 2160, 32 at 1080 -> 3840), but
+    nothing here assumes it.  Read-only arrays, cached."""
+    _, d2 = scale_ops.jinc2_axis_tables(in_size, out_size)
+    keys = np.ascontiguousarray(d2.T).view(np.uint32)
+    _, first, inv = np.unique(keys, axis=0, return_index=True,
+                              return_inverse=True)
+    classes = inv.reshape(-1).astype(np.int32)
+    reps = np.ascontiguousarray(d2[:, first])
+    classes.flags.writeable = False
+    reps.flags.writeable = False
+    return classes, reps
+
+
+def weight_table_bytes(h: int, w: int, out_h: int, out_w: int) -> int:
+    """Bytes of K6's weight table for (h, w) -> (out_h, out_w): an entry of
+    K6_ENTRY floats for every pair of a row class and a column class."""
+    return (axis_classes(h, out_h)[1].shape[1]
+            * axis_classes(w, out_w)[1].shape[1] * K6_ENTRY * 4)
+
+
+def k6_weight_route(h: int, w: int, out_h: int, out_w: int) -> str:
+    """The route K6 takes at this geometry: "table" (each output's weights
+    read from the geometry's table) unless the table would pass
+    K6_TABLE_CAP, then "per-output" (each output computes its own)."""
+    return ("table" if weight_table_bytes(h, w, out_h, out_w) <= K6_TABLE_CAP
+            else "per-output")
+
+
+def _weight(d2: torch.Tensor) -> torch.Tensor:
+    """The Jinc2 weight g(d2) in float32 torch, as the plain versions
+    compute it: sin(d*wa)*sin(d*wb)/d2, wa*wb at 0."""
+    wa = scale_ops._JINC2_WINDOW_SINC * np.pi
+    wb = scale_ops._JINC2_SINC * np.pi
+    d = torch.sqrt(d2)
+    zero = d2 == 0.0
+    return torch.where(zero, wa * wb, torch.sin(d * wa) * torch.sin(d * wb)
+                       / torch.where(zero, 1.0, d2))
+
+
+def jinc2_weight_table_plain(dy: torch.Tensor, dx: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain version of K6's weight table: for row-class d2 vectors ``dy``
+    (4, n_row_cls) and column-class vectors ``dx`` (4, n_col_cls), float32
+    (n_row_cls, n_col_cls, K6_ENTRY): each pair's 16 weights by the plain
+    versions' torch math (:func:`_weight`), their sum in tap order, 3
+    zeros."""
+    cols, wsum = [], None
+    for jo in range(4):
+        for io in range(4):
+            wgt = _weight(dy[jo][:, None] + dx[io][None, :])
+            cols.append(wgt)
+            wsum = wgt if wsum is None else wsum + wgt
+    zero = torch.zeros_like(wsum)
+    return torch.stack(cols + [wsum, zero, zero, zero], dim=-1)
+
+
+def jinc2_weight_table(dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """K6's weight table of the class vectors ``dy`` (4, n_row_cls) and
+    ``dx`` (4, n_col_cls), float32: (n_row_cls, n_col_cls, K6_ENTRY).
+
+    Kernel ``vrt_jinc2_weight_table`` (``csrc/jinc2_convert.cu``), one
+    thread an entry calling ``jinc2.cuh``'s ``jinc2_weights``, the
+    function K6's per-output route calls, so the entries are the weights
+    K6 would compute for those outputs, bit for bit.  A CPU tensor takes
+    the plain version; each launch adds one to
+    ``launches["jinc2_weight_table"]``."""
+    for name, t in (("dy", dy), ("dx", dx)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 4 \
+                or t.shape[1] == 0 or not t.is_contiguous():
+            raise ValueError(f"K6 table: {name} must be contiguous float32 "
+                             f"(4, n), got {t.dtype} {tuple(t.shape)}")
+    if not rk._kernel_device(dy, dx):
+        return jinc2_weight_table_plain(dy, dx)
+    n_r, n_c = dy.shape[1], dx.shape[1]
+    if n_r * n_c >= 2 ** 31:
+        raise ValueError(f"K6 table: {n_r} x {n_c} entries")
+    table = torch.empty((n_r, n_c, K6_ENTRY), dtype=torch.float32,
+                        device=dy.device)
+    rk._launch("jinc2_weight_table", "vrt_jinc2_weight_table", dy.device,
+               dy.data_ptr(), n_r, dx.data_ptr(), n_c, table.data_ptr())
+    return table
+
+
+@functools.lru_cache(maxsize=32)
+def _weight_table(h: int, out_h: int, w: int, out_w: int,
+                  device: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(row classes, column classes, table) of one geometry on ``device``:
+    the table is built there by :func:`jinc2_weight_table` at the
+    geometry's first K6 call and kept."""
+    rcls, rrep = axis_classes(h, out_h)
+    ccls, crep = axis_classes(w, out_w)
+    table = jinc2_weight_table(torch.tensor(rrep, device=device),
+                               torch.tensor(crep, device=device))
+    return (torch.tensor(rcls, device=device),
+            torch.tensor(ccls, device=device), table)
+
+
+def clear_weight_tables() -> None:
+    """Drop every cached weight table: the next K6 call of each geometry
+    builds its table again."""
+    _weight_table.cache_clear()
+
+
 def _jinc2_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Direct 4x4-tap Jinc2 with anti-ringing of float32 (..., H, W), a port
     of the JAX package's ``ops/scale._jinc2_gather``: one gathered
@@ -90,8 +209,6 @@ def _jinc2_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = x.shape[-2], x.shape[-1]
     by, dy = _axis_on(h, out_h, x.device)
     bx, dx = _axis_on(w, out_w, x.device)
-    wa = scale_ops._JINC2_WINDOW_SINC * np.pi
-    wb = scale_ops._JINC2_SINC * np.pi
     rows = [torch.clamp(by + o, 0, h - 1) for o in range(-1, 3)]
     cols = [torch.clamp(bx + o, 0, w - 1) for o in range(-1, 3)]
 
@@ -103,11 +220,7 @@ def _jinc2_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
             tap = torch.index_select(xr, -1, c)
             if jo in (1, 2) and io in (1, 2):
                 center.append(tap)
-            d2 = dy[jo][:, None] + dx[io][None, :]
-            d = torch.sqrt(d2)
-            zero = d2 == 0.0
-            wgt = torch.where(zero, wa * wb, torch.sin(d * wa) * torch.sin(d * wb)
-                              / torch.where(zero, 1.0, d2))
+            wgt = _weight(dy[jo][:, None] + dx[io][None, :])
             term = tap * wgt
             out = term if out is None else out + term
             wsum = wgt if wsum is None else wsum + wgt
@@ -183,6 +296,15 @@ def _window(in_size: int, out_size: int) -> int:
     return int((base[last] - base[first]).max()) + 4
 
 
+def k6_smem_bytes(h: int, w: int, out_h: int, out_w: int,
+                  out_transpose: bool) -> int:
+    """Shared memory of a K6 block: the float32 RGB source window of the
+    widest tile along each axis (:func:`_window`), and with the transposed
+    store its 3 x TILE x (TILE + 1) staging tile."""
+    return 4 * (3 * _window(h, out_h) * _window(w, out_w)
+                + (3 * TILE * (TILE + 1) if out_transpose else 0))
+
+
 def jinc2_convert_fused_plain(y, u, v, comp_y: rk.BandedMatrix | None,
                               comp_x: rk.BandedMatrix | None,
                               cmat: np.ndarray, out_h: int, out_w: int,
@@ -235,9 +357,14 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     Kernel K6 (``csrc/jinc2_convert.cu``), replacing
     ``jinc2_pallas.jinc2_convert_fused``.  One block per (frame, 32x32
     output tile) builds the tile's RGB source window in shared memory, then
-    resolves each output with one set of 16 weights for three channels; no
-    intermediate reaches device memory.  Bound by the weights' accurate
-    sqrtf/sinf/division."""
+    each thread resolves 4 adjacent outputs of one row, each with one set
+    of 16 weights for three channels, and stores them as one 16-byte
+    vector (through a shared-memory tile when transposed); no intermediate
+    reaches device memory.  The weights come from the geometry's table
+    (:func:`jinc2_weight_table` of its :func:`axis_classes`, built on the
+    card at the geometry's first call and cached), or, where
+    :func:`k6_weight_route` says "per-output", are computed for each output
+    with accurate sqrtf/sinf/division; both routes give the same bits."""
     if epilogue is not None:
         epilogue.validate()
     if pack_format not in rk.PACK_CODES:
@@ -265,8 +392,7 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                                          epilogue, pack_format, out_transpose)
     batch = y.numel() // (h * w)
     win_h, win_w = _window(h, out_h), _window(w, out_w)
-    smem = 4 * (3 * win_h * win_w + (3 * TILE * (TILE + 1) if out_transpose
-                                      else 0))
+    smem = k6_smem_bytes(h, w, out_h, out_w, out_transpose)
     if batch == 0 or batch > 65535 or smem > _SMEM_LIMIT:
         raise ValueError(f"K6 cannot take batch {batch} with a {win_h}x"
                          f"{win_w} source window ({smem} bytes of shared "
@@ -281,6 +407,12 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                           device=y.device)
     by, dy = _axis_on(h, out_h, y.device)
     bx, dx = _axis_on(w, out_w, y.device)
+    if k6_weight_route(h, w, out_h, out_w) == "table":
+        rcls, ccls, table = _weight_table(h, out_h, w, out_w, y.device)
+        weights = (rcls.data_ptr(), ccls.data_ptr(), table.data_ptr(),
+                   table.shape[1])
+    else:
+        weights = (None, None, None, 0)
 
     def taps(mat):   # (starts, taps, T) pointers; NULL and T = 0: no matrix
         if mat is None:
@@ -297,5 +429,5 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                host_cmat.ctypes.data,
                0 if epilogue is None else epilogue.dither_bits,
                rk.PACK_CODES[pack_format], int(out_transpose), win_h, win_w,
-               out.data_ptr())
+               *weights, out.data_ptr())
     return out

@@ -63,13 +63,13 @@ CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR, CORR_HLG_TO_PQ = 0, 1, 2, 3
 PACK_CODES = {None: 0, "rgb10a2": 1, "rgba8": 2}
 
 # launches of every kernel of the package, by name (K5 and K6 are
-# kernels/jinc2.py's, K7, K8 and K9 kernels/deint.py's, K10's two forms
-# kernels/probe.py's)
+# kernels/jinc2.py's, with K6's weight tables, K7, K8 and K9
+# kernels/deint.py's, K10's two forms kernels/probe.py's)
 launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
             "banded_resize_rows": 0, "jinc2_resize_fused": 0,
-            "jinc2_convert_fused": 0, "deint3_rows_dual": 0, "rows3_mid": 0,
-            "cols3_tail": 0, "mega3_tail": 0, "wpass_bf16": 0,
-            "wpass_floor": 0}
+            "jinc2_convert_fused": 0, "jinc2_weight_table": 0,
+            "deint3_rows_dual": 0, "rows3_mid": 0, "cols3_tail": 0,
+            "mega3_tail": 0, "wpass_bf16": 0, "wpass_floor": 0}
 
 
 def reset_launches() -> None:
