@@ -23,7 +23,10 @@ Phases, one line each:
               channels); the per-output route (the table cap at 0) on c3's
               call, bit-equal to the table route, and timed beside it;
   8. K5       float Jinc2 vs its plain version at (6, 1080, 1920) ->
-              (2160, 3840), float (within 1e-5) and dithered (1 code, < 1%);
+              (2160, 3840), float (within 1e-5), dithered and rounded (1
+              code, < 1%); the dithered call on the per-output route (the
+              table cap at 0), bit-equal to the table route, both timed;
+              K5 timed at c3r270's batch (48 planes);
   9. c3       VideoProcessor 1080p NV12 -> 4K RGBA8 Jinc2, dithered, two
               distinct batches of 16: the first call builds the geometry's
               weight table (one table launch beside K6's), every later call
@@ -39,7 +42,10 @@ Phases, one line each:
               against the plain versions (K1 on the uint8 chroma, float
               within 2e-5; K2 with the colour matrix only, float within
               1e-5), then the route, K1 x2 + K2 x1 + K5 x1 per call and the
-              rotation of the surface; >= 55 dB.
+              rotation of the surface; >= 55 dB; the surface's digest.  K5
+              and K6 share c3's weight table: with the tables dropped, the
+              route's first call builds it and c3's next call builds none,
+              and the other way round;
  12. K7       deinterlace of both fields + H resize vs its plain version
               on 2 frames at c5's shapes (4K P010 -> 1080 rows), top and
               bottom field first, prev == next on the left half (float32
@@ -70,7 +76,8 @@ Phases, one line each:
               cols3_tail_plain (within 1 code on < 2%);
  16. K3       the letterboxed path's three K3 calls on 2 frames (K1's
               float32 output) and raw uint16 luma with the normalisation in
-              the taps, against banded_resize_rows_plain (within 2e-6);
+              the taps, against banded_resize_rows_plain (within 2e-6),
+              with the digests of both;
  17. c8       make_serving_fn of 4K P010 Dolby Vision -> 1080p RGB10: four
               scenes of 16 frames, each its own curves, K1 x2 + K8 x1 + K9
               x1 per call and nothing else, no build or library load
@@ -119,13 +126,16 @@ Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
 PyTorch call computes the same function; K10's top-level numbers are its
-wpass_bf16 form's, and "forms" holds both; K6's "table" holds its weight
-table kernel, whose launches are the paths' first calls), nvidia-smi's
-line, and last the result line.
+wpass_bf16 form's, and "forms" holds both; K5's "k5_route" and
+"table_launches" its route at c3r270 and the table launches of that path's
+first call; K6's "table" holds the weight table kernel, whose launches are
+the first calls of c3, c3rot and c3r270), nvidia-smi's line, and last the
+result line.
 Any failure raises and the exit code is not 0.  Imports nothing of JAX.
-A tree from before K6's weight tables runs this script too, so that
-smoke_diff.py compares the two: there K6 computes every output's weights,
-and the table checks are left out (TABLES).
+Trees from before the weight tables run this script too, so that
+smoke_diff.py compares the two: without K6's tables (TABLES) every output
+computes its weights and the table checks are left out; without K5's
+(K5_ROUTES) K5 builds no table.
 """
 
 from __future__ import annotations
@@ -183,8 +193,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12      # dense bf16 in the tensor cores (K10's products)
 # K6 reads its weights from per-geometry tables (a tree without them
-# computes every output's weights and has no table kernel)
+# computes every output's weights and has no table kernel); K5 shares them
+# and has routes (a tree without K5_ROUTES: K5 computes every output's
+# weights)
 TABLES = hasattr(jk, "jinc2_weight_table")
+K5_ROUTES = hasattr(jk, "k5_route")
+C3R270_PLANES = 3 * BATCH                 # K5's planes at c3r270's batch
 
 
 def line(phase: str, **kw) -> None:
@@ -469,7 +483,7 @@ def headline_settings(accel: bool, tex_format: TexFormat = TexFormat.AUTOINT
 
 
 def fresh_tables() -> None:
-    """Drop K6's cached weight tables, so that a path's next call builds
+    """Drop the cached weight tables, so that a path's next call builds
     its own."""
     if TABLES:
         jk.clear_weight_tables()
@@ -477,16 +491,27 @@ def fresh_tables() -> None:
 
 @contextlib.contextmanager
 def per_output_weights():
-    """K6 with its table cap at 0: every geometry takes the per-output
-    route."""
+    """K5 and K6 with the table cap at 0: every geometry takes the
+    per-output route (the cap is K6_TABLE_CAP on trees from before K5's
+    tables)."""
     if not TABLES:
         yield
         return
-    cap, jk.K6_TABLE_CAP = jk.K6_TABLE_CAP, 0
+    cap_name = "TABLE_CAP" if hasattr(jk, "TABLE_CAP") else "K6_TABLE_CAP"
+    cap = getattr(jk, cap_name)
+    setattr(jk, cap_name, 0)
     try:
         yield
     finally:
-        jk.K6_TABLE_CAP = cap
+        setattr(jk, cap_name, cap)
+
+
+def k5_route(h: int, w: int, out_h: int, out_w: int) -> str:
+    """K5's route at a geometry ("weights/taps"), or "per-output" on a tree
+    whose K5 has one route."""
+    if not K5_ROUTES:
+        return "per-output"
+    return "/".join(jk.k5_route(h, w, out_h, out_w))
 
 
 def smi() -> str:
@@ -726,14 +751,19 @@ def main() -> None:
          tolerance="<= 1 code on < 1% of channels", digests=k6_digests, **k6)
     del small, k6_args, k6_rot_args
 
-    # 8. K5 at (6, 1080, 1920) -> (2160, 3840) float32
+    # 8. K5 at (6, 1080, 1920) -> (2160, 3840) float32: float, dithered and
+    #    rounded against the plain version; the dithered call on the
+    #    per-output route too (the table cap at 0), bit-equal to the table
+    #    route, and both timed; then K5 timed at c3r270's 48 planes
     rng = np.random.default_rng(SEED + 7)
     x5 = torch.from_numpy(rng.random((3 * PLAIN_FRAMES, C1_H, C1_W),
                                      dtype=np.float32)).to(dev)
+    k5_geom = (C1_H, C1_W, C3_OH, C3_OW)
     got = jk.jinc2_resize_fused(x5, C3_OH, C3_OW)
     torch.cuda.synchronize()
-    k5 = {"max_abs_err": (got - jk.jinc2_resize_fused_plain(
-        x5, C3_OH, C3_OW)).abs().max().item()}
+    k5 = {"route": k5_route(*k5_geom),
+          "max_abs_err": (got - jk.jinc2_resize_fused_plain(
+              x5, C3_OH, C3_OW)).abs().max().item()}
     k5_float = digest(got)
     got = jk.jinc2_resize_fused(x5, C3_OH, C3_OW, j2_epi)
     torch.cuda.synchronize()
@@ -743,18 +773,50 @@ def main() -> None:
     k5["max_code_diff"] = int(d.max().item())
     k5["frac_differing"] = float((d > 0).double().mean().item())
     del got, ref, d
-    if k5["max_abs_err"] > 1e-5 or k5["max_code_diff"] > 1 \
-            or k5["frac_differing"] >= 0.01:
+    j2_round = jk.dither_epilogue(-8)
+    got = jk.jinc2_resize_fused(x5, C3_OH, C3_OW, j2_round)
+    torch.cuda.synchronize()
+    ref = jk.jinc2_resize_fused_plain(x5, C3_OH, C3_OW, j2_round)
+    k5["rounded_digest"] = digest(got)
+    d = ((got - ref) * 255.0).abs().round()
+    k5["rounded_max_code_diff"] = int(d.max().item())
+    k5["rounded_frac_differing"] = float((d > 0).double().mean().item())
+    del got, ref, d
+    if k5["max_abs_err"] > 1e-5 or max(k5["max_code_diff"],
+                                       k5["rounded_max_code_diff"]) > 1 \
+            or max(k5["frac_differing"], k5["rounded_frac_differing"]) >= 0.01:
         raise AssertionError(f"K5 disagrees with its plain version: {k5}")
+    with per_output_weights():
+        k5["per_output_route"] = k5_route(*k5_geom)
+        got = jk.jinc2_resize_fused(x5, C3_OH, C3_OW, j2_epi)
+        torch.cuda.synchronize()
+        k5["per_output_digest"] = digest(got)
+        del got
+        k5["per_output_ms"] = cuda_ms(
+            lambda: jk.jinc2_resize_fused(x5, C3_OH, C3_OW, j2_epi))
+    k5["per_output_bit_equal"] = k5["per_output_digest"] == k5_digests[1]
+    if not k5["per_output_bit_equal"]:
+        raise AssertionError("K5's per-output route differs from its table "
+                             "route")
     k5["ms"] = cuda_ms(lambda: jk.jinc2_resize_fused(x5, C3_OH, C3_OW, j2_epi))
     k5["plain_ms"] = cuda_ms(
         lambda: jk.jinc2_resize_fused_plain(x5, C3_OH, C3_OW, j2_epi), reps=2)
     k5.update(bound(tbytes(x5) + x5.shape[0] * C3_OH * C3_OW * 4,
                     x5.shape[0] * C3_OH * C3_OW * 16 * 2), library_ms=None)
-    line("K5", planes=3 * PLAIN_FRAMES,
-         tolerance="float <= 1e-5; dithered <= 1 code on < 1%",
-         digests=k5_digests, **k5)
     del x5
+    torch.cuda.empty_cache()
+    # at c3r270's batch: 16 frames' R, G and B planes
+    x48 = torch.from_numpy(rng.random((C3R270_PLANES, C1_H, C1_W),
+                                      dtype=np.float32)).to(dev)
+    k5["ms_c3r270_planes"] = cuda_ms(
+        lambda: jk.jinc2_resize_fused(x48, C3_OH, C3_OW, j2_epi), reps=3)
+    k5["bound_ms_c3r270_planes"] = bound(
+        tbytes(x48) + C3R270_PLANES * C3_OH * C3_OW * 4,
+        C3R270_PLANES * C3_OH * C3_OW * 16 * 2)["bound_ms"]
+    del x48
+    line("K5", planes=3 * PLAIN_FRAMES,
+         tolerance="float <= 1e-5; dithered, rounded <= 1 code on < 1%",
+         digests=k5_digests, **k5)
     torch.cuda.empty_cache()
 
     # 9. c3 through VideoProcessor: two distinct batches of 16
@@ -897,10 +959,29 @@ def main() -> None:
          tolerance="K1 f32 <= 2e-5, K2 f32 <= 1e-5", **conv)
 
     r270_fn = make_frame_fn(plan3, pack_surface=True, rotation=270)
-    r270_fn(b0)                                 # warm-up, before the count
+    path = only(banded_resize_last_axis=2, rows3_tail=1, jinc2_resize_fused=1)
+    # K5 and K6 share c3's weight table: whichever path calls first builds
+    # it, and the other builds none (K5's table route only)
+    shared = K5_ROUTES and k5_route(C1_H, C1_W, C3_OH, C3_OW).startswith(
+        "table")
+    table_first = {"jinc2_weight_table": int(shared)}
+    fresh_tables()
+    _, r270_first = count_launches(lambda: r270_fn(b0))   # the warm-up
+    _, c3_after = count_launches(lambda: c3.process(b0))
+    fresh_tables()
+    _, c3_before = count_launches(lambda: c3.process(b0))
+    _, r270_after = count_launches(lambda: r270_fn(b0))
+    if (r270_first, c3_after, c3_before, r270_after) != (
+            {**path, **table_first},
+            only(jinc2_convert_fused=1,
+                 jinc2_weight_table=int(TABLES and not shared)),
+            only(jinc2_convert_fused=1, jinc2_weight_table=int(TABLES)),
+            path):
+        raise AssertionError(
+            f"c3 rotation 270 and c3 share no table: first calls "
+            f"{r270_first}, {c3_after}; {c3_before}, {r270_after}")
     r270_out, r270_launches = count_launches(lambda: r270_fn(b0))
-    if r270_launches != only(banded_resize_last_axis=2, rows3_tail=1,
-                             jinc2_resize_fused=1):
+    if r270_launches != path:
         raise AssertionError(f"c3 rotation 270 launches {r270_launches}")
     db_270 = psnr(codes(r270_out[0], 8).double() / 255.0,
                   oracle_jinc2(b0[0][0], b0[1][0], b0[2][0], C3_OW, C3_OH,
@@ -909,7 +990,9 @@ def main() -> None:
         raise AssertionError(f"c3 rotation 270 PSNR {db_270} below 55 dB")
     r270_ms = cuda_ms(lambda: r270_fn(b0), reps=3) / BATCH
     line("c3r270", batch=BATCH, launches=r270_launches, psnr_db=db_270,
-         ms_per_frame=r270_ms)
+         first_call_launches={k: v for k, v in r270_first.items() if v},
+         k5_route=k5_route(C1_H, C1_W, C3_OH, C3_OW),
+         ms_per_frame=r270_ms, surface_digest=digest(r270_out))
     del r270_out, c3_batches, b0
     torch.cuda.empty_cache()
 
@@ -1209,11 +1292,12 @@ def main() -> None:
     torch.cuda.synchronize()
     k3["max_abs_err_u16"] = (got - rk.banded_resize_rows_plain(
         raw, ky_raw)).abs().max().item()
+    k3_u16_digest = digest(got)
     del got, raw
     if max(k3.values()) > 2e-6:
         raise AssertionError(f"K3 disagrees with its plain version: {k3}")
     line("K3", frames=PLAIN_FRAMES, tolerance="f32 <= 2e-6",
-         digest=k3_digest, **k3)
+         digest=k3_digest, u16_digest=k3_u16_digest, **k3)
 
     # 17. c8 served: one make_serving_fn, C8_SCENES scenes of batch 16 (each
     #     its own frames and curves), K1 x2 + K8 x1 + K9 x1 per call, no
@@ -1738,17 +1822,23 @@ def main() -> None:
         entry("banded_resize_rows", "banded_resize_rows.cu",
               "resize_pallas.py:340", lb_launches["banded_resize_rows"], k3,
               max(k3["max_abs_err"], k3["max_abs_err_u16"])),
-        entry("jinc2_resize_fused", "jinc2_resize.cu", "jinc2_pallas.py:242",
-              r270_launches["jinc2_resize_fused"], k5, k5["max_abs_err"]),
+        {**entry("jinc2_resize_fused", "jinc2_resize.cu",
+                 "jinc2_pallas.py:242", r270_launches["jinc2_resize_fused"],
+                 k5, k5["max_abs_err"]),
+         "k5_route": k5["route"],
+         "table_launches": r270_first["jinc2_weight_table"]},
         {**entry("jinc2_convert_fused", "jinc2_convert.cu",
                  "jinc2_pallas.py:705",
                  c3_launches["jinc2_convert_fused"]
                  + rot_launches["jinc2_convert_fused"], k6,
                  k6["max_abs_err"]),
+         # the table kernel's launches: the first calls of c3, c3rot and
+         # c3 rotation 270 (K5's, where its table route builds one)
          "table": k6t and entry(
              "jinc2_weight_table", "jinc2_convert.cu", "jinc2_pallas.py:705",
              c3_first["jinc2_weight_table"]
-             + rot_first["jinc2_weight_table"], k6t, k6t["max_abs_err"])},
+             + rot_first["jinc2_weight_table"]
+             + r270_first["jinc2_weight_table"], k6t, k6t["max_abs_err"])},
         entry("deint3_rows_dual", "deint3_rows_dual.cu", "deint_pallas.py:86",
               c5_launches["deint3_rows_dual"], k7, k7["max_abs_err"]),
         entry("rows3_mid", "rows3_mid.cu", "deint_pallas.py:216",

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Registers, spills, occupancy and the per-pixel SASS counts of kernels K1
-(``banded_resize.cu``), K2 (``rows3_tail*.cu``), K6 (``jinc2_convert.cu``),
-K7 (``deint3_rows_dual.cu``), K8 (``rows3_mid*.cu``) and K9
-(``cols3_tail*.cu``), on a machine with the CUDA toolkit.
+(``banded_resize.cu``), K2 (``rows3_tail*.cu``), K3
+(``banded_resize_rows.cu``), K5 (``jinc2_resize.cu``), K6
+(``jinc2_convert.cu``), K7 (``deint3_rows_dual.cu``), K8 (``rows3_mid*.cu``)
+and K9 (``cols3_tail*.cu``), on a machine with the CUDA toolkit.
 
     python3 kernel_report.py [--csrc DIR] [--launch NAME=THREADS,SMEM ...]
                              [--pixels NAME=N ...]
@@ -21,8 +22,9 @@ Per function it prints one JSON line:
   * ``blocks_per_sm``: resident blocks an SM holds at ``--launch``'s block
     size and dynamic shared memory (by default K7's and K9's at c5, K9's
     c8 route's and K8's at c8 (its heavy routes' at 16-row tiles), K6's
-    at c3, from ``kernels/deint``'s and
-    ``kernels/jinc2``'s formulas on those maps; 128 threads and none for
+    at c3, K5's at c3r270 (c3's geometry), K3's on the letterbox's luma
+    map, from ``kernels/deint``'s, ``kernels/jinc2``'s and
+    ``kernels/resize``'s formulas on those maps; 128 threads and none for
     the others) (the occupancy calculator's rules:
     registers allocated per warp in units of 256, 64 warps, 32 blocks and
     228 KB of shared memory an SM, 1 KB reserved a block), and
@@ -44,16 +46,23 @@ Per function it prints one JSON line:
     32 x 1080 x 1920, and c8, 16 x 1080 x 1920): tail instructions a pixel
     x pixels / (132 SMs x 4 schedulers x 32 lanes x the SM clock), and the
     MUFU part at 16 a clock an SM;
-  * for K8 and K6, ``parts``: the static instructions and MUFU of each
+  * for K8, K6 and K5, ``parts``: the static instructions and MUFU of each
     per-pixel part, those whose source location, or any function they were
     inlined from, lies in the part's functions (PARTS: K8's ``mid``, the
-    DoVi convert of ``rows3_mid.cuh``; K6's ``weights``, ``jinc2.cuh``'s
-    per-output weights, which the table route does not compute, and
-    ``resolve``, its taps' weighted sums and anti-ringing), each also a
-    pixel (over the pixels a thread makes in one unrolled pass, PART_GROUP:
-    4 for K8's c8 route and K6, 1 for K8's routes that convert one pixel at
-    a time) and as an issue bound at the part's cell (PART_PIXELS: K8's mid
-    pixels at c8, 16 x 2160 x 3840; K6's outputs at c3, 16 x 2160 x 3840).
+    DoVi convert of ``rows3_mid.cuh``; K6's and K5's ``weights``,
+    ``jinc2.cuh``'s per-output weights, which the table route does not
+    compute, and ``resolve``, the taps' weighted sums and anti-ringing;
+    K5's ``quantize``, the dither or rounding of ``epilogue.cuh``), each
+    also a pixel (over the pixels a thread makes in one pass, PART_GROUP:
+    4 for K8's c8 route, K6 and K5's table routes, 1 for K8's routes that
+    convert one pixel at a time, K5's per-output routes and the
+    one-output-a-thread K5 that the tiled one replaced)
+    and as an issue bound at the part's cell (PART_PIXELS: K8's mid pixels
+    at c8, 16 x 2160 x 3840; K6's outputs at c3, 16 x 2160 x 3840; K5's at
+    c3r270, 48 planes of 2160 x 3840); and ``per_pixel``, all of the
+    function's static instructions over the same pass, with its issue
+    bound (an upper estimate: it holds the set-up and staging a block runs
+    once beside the passes it repeats).
   Instructions a pixel are the static
     ``tail`` count without the second pass over ``--pixels`` (the pixels a
     thread makes in one unrolled pass: 4 for K2's and K9's kernels unless
@@ -86,7 +95,8 @@ sys.path.insert(0, str(ROOT))
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
 
 SOURCE_GLOBS = ("banded_resize.cu", "rows3_tail*.cu", "deint3_rows_dual.cu",
-                "cols3_tail*.cu", "rows3_mid*.cu", "jinc2_convert.cu")
+                "cols3_tail*.cu", "rows3_mid*.cu", "jinc2_convert.cu",
+                "jinc2_resize.cu", "banded_resize_rows.cu")
 TAIL_FILES = ("tail.cuh", "epilogue.cuh")
 SMS, SCHEDULERS, LANES, MUFU_PER_CLK = 132, 4, 32, 16
 # the cells each tail kernel's issue bound is given at, by source prefix
@@ -97,20 +107,27 @@ PIXELS = {"rows3_tail": {"headline": 16 * 1080 * 1920,
 GROUP = {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4}
 # c8's K9 route as the demangled name spells it (route.cuh: C8)
 C8_ROUTE = "Route<0, 1, 0, 1, 1>"
-# the per-pixel parts of K8 and K6, by source prefix: part -> (the files
-# that may define its functions, the first one that does counting; the
-# functions whose inlined instructions it counts)
+# the per-pixel parts of K8, K6 and K5, by source prefix: part -> (the
+# files that may define its functions, the first one that does counting;
+# the functions whose inlined instructions it counts)
+_JINC2_PARTS = {"weights": (("jinc2.cuh",), ("jinc2_weight", "jinc2_weights")),
+                "resolve": (("jinc2.cuh",), ("jinc2_resolve",))}
 PARTS = {"rows3_mid": {"mid": (("rows3_mid.cuh", "rows3_mid.cu"),
                                ("dovi_mid", "reshape", "mmr"))},
-         "jinc2_convert": {"weights": (("jinc2.cuh",),
-                                       ("jinc2_weight", "jinc2_weights")),
-                           "resolve": (("jinc2.cuh",), ("jinc2_resolve",))}}
+         "jinc2_convert": _JINC2_PARTS,
+         "jinc2_resize": {**_JINC2_PARTS,
+                          "quantize": (("epilogue.cuh",),
+                                       ("quantize", "bayer", "clip01"))}}
 # the pixels of each part's cell, and the pixels a thread converts in one
-# unrolled pass (by name substring; K8's c8 route as the demangled name
-# spells it, rows3_mid.cuh: C8Mid; 1 where none matches)
+# pass (by name substring; K8's c8 route as the demangled name spells it,
+# rows3_mid.cuh: C8Mid; K5's table routes, kWeights 1, unroll their 4
+# outputs, its per-output routes and the one-output-a-thread kernel it
+# replaced make one at a time; 1 where none matches)
 PART_PIXELS = {"rows3_mid": {"c8": 16 * 2160 * 3840},
-               "jinc2_convert": {"c3": 16 * 2160 * 3840}}
-PART_GROUP = {"MidRoute<0, 1>": 4, "jinc2_convert_kernel": 4}
+               "jinc2_convert": {"c3": 16 * 2160 * 3840},
+               "jinc2_resize": {"c3r270": 48 * 2160 * 3840}}
+PART_GROUP = {"MidRoute<0, 1>": 4, "jinc2_convert_kernel": 4,
+              "jinc2_resize_kernel<1,": 4}
 # K8's heavy routes as the demangled names spell them (LmsMid, RuntimeMid)
 K8_HEAVY_ROUTES = ("MidRoute<1, -1>", "MidRoute<-1, -1>")
 
@@ -150,6 +167,11 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
             2, 4, None, rk.BandedMatrix(uy), k8h, 2160, 30))),
         ("jinc2_convert_kernel", (256, jk.k6_smem_bytes(1080, 1920, 2160,
                                                         3840, False))),
+        ("jinc2_resize_kernel", (256, jk.k5_window(1080, 1920, 2160,
+                                                   3840)[2])),
+        ("banded_resize_rows_kernel", (256, rk.k3_smem_bytes(
+            4, rk.BandedMatrix(scale.upscale_matrix(C.Upscaling.LANCZOS3,
+                                                    1608, 804))))),
     ]
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -432,6 +454,12 @@ def main(argv=None) -> None:
                     grp = next((v for k, v in PART_GROUP.items()
                                 if k in bare), 1)
                     r["part_pixels_per_pass"] = grp
+                    r["per_pixel"] = r["instructions"] / grp
+                    for cell, n in (PART_PIXELS.get(prefix, {}).items()
+                                    if dev else ()):
+                        r[f"issue_bound_ms_{cell}"] = 1e3 * r[
+                            "per_pixel"] * n / (SMS * SCHEDULERS * LANES
+                                                * dev["clock_max_mhz"] * 1e6)
                     for p, c in r["parts"].items():
                         c["per_pixel"] = c["instructions"] / grp
                         c["mufu_per_pixel"] = c["mufu"] / grp

@@ -16,7 +16,8 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
  * K5 and K6 float output <= 1e-5 (outputs ~[0,1]: the kernels and the
    plain versions round every operation alike, only sinf's last bits
    differ); quantized <= 1 code on < 1% of the channels; K6's transposed
-   store bit-equal to the transpose of its plain store;
+   store bit-equal to the transpose of its plain store; the table and
+   per-output routes of each bit-equal to each other;
  * K7 float32 <= 2e-5 (the deinterlaced values are bit-equal, the tap sums
    run in another order); K9 as K2 (float output without a correction
    <= 1e-5);
@@ -506,6 +507,98 @@ def test_k5_kernel_matches_plain(dev, sizes, dither_bits):
         assert d.max().item() <= 1 and (d > 0).double().mean().item() < 0.01
 
 
+K5_GEOMS = [(27, 48, 54, 96),     # 2x both axes (c3's ratio)
+            (30, 40, 61, 90),     # odd outputs, unaligned widths
+            (27, 48, 96, 54),     # 3.5x up rows, 9/8 columns (c3rot-like)
+            (32, 48, 64, 48),     # 2x rows, columns unchanged
+            (40, 300, 80, 1000),  # several column tiles, 10/3 across
+            (1079, 67, 2160, 133)]  # no short period: no table
+
+
+@pytest.mark.parametrize("planes", [1, 7])
+@pytest.mark.parametrize("dither_bits", [0, 8, -8, 10])
+@pytest.mark.parametrize("geom", K5_GEOMS)
+def test_k5_table_route_bit_equal_to_per_output_route(dev, geom, dither_bits,
+                                                      planes, monkeypatch):
+    """K5's table route and its per-output route (the cap at 0) give the
+    same bits, float, dithered and rounded, on one plane and on many, at
+    widths that are no multiple of 4; the per-output route builds no
+    table."""
+    h, w, oh, ow = geom
+    rng = np.random.default_rng(61)
+    x = torch.from_numpy(rng.random((planes, h, w), dtype=np.float32)).to(dev)
+    epi = jk.dither_epilogue(dither_bits) if dither_bits else None
+    route = jk.k5_route(*geom)
+    assert route[1] == "staged"
+    first = jk.jinc2_resize_fused(x, oh, ow, epi)
+    monkeypatch.setattr(jk, "TABLE_CAP", 0)
+    assert jk.k5_route(*geom) == ("per-output", "staged")
+    before = dict(rk.launches)
+    per_output = jk.jinc2_resize_fused(x, oh, ow, epi)
+    torch.cuda.synchronize()
+    assert rk.launches["jinc2_weight_table"] == before["jinc2_weight_table"]
+    assert rk.launches["jinc2_resize_fused"] == \
+        before["jinc2_resize_fused"] + 1
+    assert torch.equal(first, per_output)
+
+
+def test_k5_unaligned_planes_and_output_rows(dev):
+    """A plane whose data pointer is not 16-byte aligned (element copies
+    into the window) and an output row whose stores cannot be vectors
+    give the aligned call's bits."""
+    rng = np.random.default_rng(62)
+    x = torch.from_numpy(rng.random((3, 36, 64), dtype=np.float32)).to(dev)
+    epi = jk.dither_epilogue(8)
+    want = jk.jinc2_resize_fused(x, 72, 128, epi)
+    got = jk.jinc2_resize_fused(_unaligned(x), 72, 128, epi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ref = jk.jinc2_resize_fused_plain(x, 72, 126, epi)
+    got = jk.jinc2_resize_fused(x, 72, 126, epi)
+    d = (_q_codes(got, 8) - _q_codes(ref, 8)).abs()
+    assert d.max().item() <= 1 and (d > 0).double().mean().item() < 0.01
+
+
+def test_k5_window_over_the_budget_reads_taps_through_l1(dev,
+                                                          monkeypatch):
+    """A 10x downscale on both axes: a tile's source window (314 rows x
+    1274 columns) does not fit a block's shared memory, so K5 takes its
+    direct route, which reads the taps through L1, runs once and agrees
+    with its plain version; with the table cap at 0 too, bit-equal."""
+    geom = (640, 1280, 64, 128)
+    assert jk.k5_window(*geom)[2] > rk.SMEM_BUDGET
+    assert jk.k5_route(*geom) == ("table", "direct")
+    rng = np.random.default_rng(63)
+    x = torch.from_numpy(rng.random((2, 640, 1280), dtype=np.float32)).to(dev)
+    before = rk.launches["jinc2_resize_fused"]
+    got = jk.jinc2_resize_fused(x, 64, 128)
+    torch.cuda.synchronize()
+    assert rk.launches["jinc2_resize_fused"] == before + 1
+    ref = jk.jinc2_resize_fused_plain(x, 64, 128)
+    assert (got - ref).abs().max().item() <= 1e-5
+    monkeypatch.setattr(jk, "TABLE_CAP", 0)
+    assert torch.equal(jk.jinc2_resize_fused(x, 64, 128), got)
+
+
+def test_k5_and_k6_share_the_weight_table(dev):
+    """K5 and K6 read one table a geometry: after K5's first call builds
+    it, K6 at that geometry builds none, and the other way round."""
+    rng = np.random.default_rng(64)
+    planes, rest = _k6_geom_case(rng, 48, 64, 96, 128)
+    x = torch.from_numpy(rng.random((3, 48, 64), dtype=np.float32)).to(dev)
+    for order in ("k5 first", "k6 first"):
+        jk.clear_weight_tables()
+        rk.reset_launches()
+        calls = [lambda: jk.jinc2_resize_fused(x, 96, 128),
+                 lambda: jk.jinc2_convert_fused(*planes, *rest)]
+        for call in calls if order == "k5 first" else calls[::-1]:
+            call()
+        torch.cuda.synchronize()
+        assert rk.launches == only(jinc2_resize_fused=1,
+                                   jinc2_convert_fused=1,
+                                   jinc2_weight_table=1), order
+
+
 def _k6_case(rng, dtype, sub, h=48, w=64):
     hc = h // 2 if sub == 420 else h
     cw = w if sub == 444 else w // 2
@@ -599,10 +692,10 @@ def test_k6_table_route_bit_equal_to_per_output_route(dev, geom, pack,
     planes, rest = _k6_geom_case(rng, *geom)
     epi = jk.dither_epilogue(dither_bits) if dither_bits else None
     kw = dict(epilogue=epi, pack_format=pack, out_transpose=transpose)
-    assert jk.k6_weight_route(*geom) == "table"
+    assert jk.weight_route(*geom) == "table"
     table = jk.jinc2_convert_fused(*planes, *rest, **kw)
-    monkeypatch.setattr(jk, "K6_TABLE_CAP", 0)
-    assert jk.k6_weight_route(*geom) == "per-output"
+    monkeypatch.setattr(jk, "TABLE_CAP", 0)
+    assert jk.weight_route(*geom) == "per-output"
     before = dict(rk.launches)
     per_output = jk.jinc2_convert_fused(*planes, *rest, **kw)
     torch.cuda.synchronize()
@@ -617,7 +710,7 @@ def test_k6_per_output_route_matches_plain(dev, transpose):
     weights; it builds no table and agrees with its plain version."""
     rng = np.random.default_rng(71)
     geom = (1079, 67, 2160, 133)
-    assert jk.k6_weight_route(*geom) == "per-output"
+    assert jk.weight_route(*geom) == "per-output"
     planes, rest = _k6_geom_case(rng, *geom)
     kw = dict(epilogue=jk.dither_epilogue(8), pack_format="rgba8",
               out_transpose=transpose)
@@ -1078,6 +1171,63 @@ def test_k3_kernel_matches_plain(dev, dtype, sizes):
     ref = rk.banded_resize_rows_plain(x, mat)
     assert got.shape == ref.shape == (2, sizes[1], 300)
     assert (got - ref).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", list(NORM))
+@pytest.mark.parametrize("h_in,h_out,w,batch,unaligned", [
+    (1608, 804, 1920, 16, False),   # the letterbox's luma
+    (203, 101, 300, 1, False),      # 101 rows: no multiple of 32
+    (75, 150, 130, 2, True),        # 2x up, unaligned plane and width
+    (37, 20, 131, 3, False),        # an odd map and width
+    (64, 64, 8, 1, False)])         # narrower than a tile
+def test_k3_tiled_edges(dev, dtype, h_in, h_out, w, batch, unaligned):
+    """K3's tiles at their edges: heights that are no multiple of the tile,
+    widths that are no multiple of 4 or of the tile, a plane whose data
+    pointer is not 16-byte aligned (element copies), batch 1 to 16, all
+    four input dtypes, against the plain version."""
+    rng = np.random.default_rng(14)
+    mat = rk.BandedMatrix(_lanczos(h_in, h_out), pre_scale=NORM[dtype])
+    x = _planes(rng, dtype, (batch, h_in, w)).to(dev)
+    if unaligned:
+        x = _unaligned(x)
+    got = rk.banded_resize_rows(x, mat)
+    torch.cuda.synchronize()
+    ref = rk.banded_resize_rows_plain(x, mat)
+    assert got.shape == ref.shape == (batch, h_out, w)
+    assert (got - ref).abs().max().item() <= 2e-6
+
+
+def test_k3_shrinks_its_tile_then_refuses_windows_over_the_budget(dev):
+    """Box averages of 256 rows into each of 4 need a 256-row window a
+    row: K3 makes tiles of one row and still agrees with its plain version;
+    8192 rows into 4 does not fit even at one row a tile, so the wrapper
+    raises, naming shared memory, before any launch."""
+    band = np.zeros((1024, 4), np.float32)
+    for j in range(4):
+        band[256 * j:256 * (j + 1), j] = 1 / 256
+    box = rk.BandedMatrix(band)
+    assert rk.k3_tile_rows(4, box) == 1
+    x = torch.from_numpy(np.random.default_rng(15).random(
+        (2, 1024, 200), dtype=np.float32)).to(dev)
+    got = rk.banded_resize_rows(x, box)
+    torch.cuda.synchronize()
+    assert (got - rk.banded_resize_rows_plain(x, box)).abs().max().item() \
+        <= 2e-6
+    big = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
+    before = dict(rk.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.banded_resize_rows(torch.zeros((1, 8192, 8), device=dev), big)
+    assert rk.launches == before
+
+
+def test_k3_is_deterministic(dev):
+    rng = np.random.default_rng(16)
+    mat = rk.BandedMatrix(_lanczos(1608, 804))
+    x = _planes(rng, torch.float32, (2, 1608, 384)).to(dev)
+    a = rk.banded_resize_rows(x, mat)
+    b = rk.banded_resize_rows(x, mat)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def _dovi_meta(kind):

@@ -86,7 +86,8 @@ def test_table_gather_equals_per_output_weights(geom):
     rc = jk.axis_classes(h, out_h)[0][rows]
     cc = jk.axis_classes(w, out_w)[0][cols]
     assert table.shape == (jk.axis_classes(h, out_h)[1].shape[1],
-                           jk.axis_classes(w, out_w)[1].shape[1], jk.K6_ENTRY)
+                           jk.axis_classes(w, out_w)[1].shape[1],
+                           jk.TABLE_ENTRY)
     got = table[torch.tensor(rc)][:, torch.tensor(cc)]
     want = _per_output_weights(h, w, out_h, out_w, rows, cols)
     assert torch.equal(got[..., :17], want)
@@ -98,20 +99,20 @@ def test_table_sizes_and_the_cap():
     take the table route.  1079 -> 2160 rows by 1917 -> 3840 columns, or
     by 67 -> 133, have no short period: their tables would pass the 4 MB
     cap, so they take the per-output route.  The cap is inclusive."""
-    entry = jk.K6_ENTRY * 4
+    entry = jk.TABLE_ENTRY * 4
     assert jk.weight_table_bytes(*C3) == 4 * entry == 320
     assert jk.weight_table_bytes(*C3ROT) == 288 * entry == 23040
-    assert jk.k6_weight_route(*C3) == jk.k6_weight_route(*C3ROT) == "table"
+    assert jk.weight_route(*C3) == jk.weight_route(*C3ROT) == "table"
     for geom in ((1079, 1917, 2160, 3840), (1079, 67, 2160, 133)):
-        assert jk.weight_table_bytes(*geom) > jk.K6_TABLE_CAP
-        assert jk.k6_weight_route(*geom) == "per-output"
+        assert jk.weight_table_bytes(*geom) > jk.TABLE_CAP
+        assert jk.weight_route(*geom) == "per-output"
     # 1079 -> 2160 by 1920 -> 3840: 2160 x 2 entries, well under the cap
     assert jk.weight_table_bytes(1079, 1920, 2160, 3840) == 4320 * entry
-    assert jk.k6_weight_route(1079, 1920, 2160, 3840) == "table"
+    assert jk.weight_route(1079, 1920, 2160, 3840) == "table"
     # at the boundary: 2160 x 24 entries of 80 bytes is 4147200 bytes
-    assert jk.K6_TABLE_CAP == 4 << 20
-    n = jk.K6_TABLE_CAP // (2160 * entry)
-    assert 2160 * n * entry <= jk.K6_TABLE_CAP < 2160 * (n + 1) * entry
+    assert jk.TABLE_CAP == 4 << 20
+    n = jk.TABLE_CAP // (2160 * entry)
+    assert 2160 * n * entry <= jk.TABLE_CAP < 2160 * (n + 1) * entry
 
 
 def test_k6_smem_at_c3_and_c3rot():
@@ -179,11 +180,11 @@ def test_table_entry_reads_align_to_16_bytes():
     """An entry is 20 floats: its 16 weights and its sum are five aligned
     16-byte reads, entry (r, c) starts at float (r * n_col_cls + c) * 20,
     and its sum at float 16 adds the weights in tap order."""
-    assert jk.K6_ENTRY % 4 == 0 and jk.K6_ENTRY >= 17
+    assert jk.TABLE_ENTRY % 4 == 0 and jk.TABLE_ENTRY >= 17
     t = _table(*C3ROT)
     flat = t.reshape(-1)
     e = 5 * 9 + 3                       # row class 5, column class 3
-    assert torch.equal(flat[e * jk.K6_ENTRY:e * jk.K6_ENTRY + 17],
+    assert torch.equal(flat[e * jk.TABLE_ENTRY:e * jk.TABLE_ENTRY + 17],
                        t[5, 3, :17])
     acc = t[..., 0]
     for k in range(1, 16):

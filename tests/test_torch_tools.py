@@ -133,12 +133,14 @@ def test_sass_counts_attribute_the_parts():
 
 def test_function_lines_find_k8s_and_k6s_parts(tmp_path):
     """The parts' functions in this tree's sources (K8's convert in
-    rows3_mid.cuh, K6's weights and resolve in jinc2.cuh) and in a tree
-    that keeps K8's convert in rows3_mid.cu: each range starts at the
-    function's signature and ends at its closing brace."""
+    rows3_mid.cuh, K6's and K5's weights and resolve in jinc2.cuh, K5's
+    quantization in epilogue.cuh) and in a tree that keeps K8's convert in
+    rows3_mid.cu: each range starts at the function's signature and ends at
+    its closing brace."""
     for part in (kr.PARTS["rows3_mid"]["mid"],
                  kr.PARTS["jinc2_convert"]["weights"],
-                 kr.PARTS["jinc2_convert"]["resolve"]):
+                 kr.PARTS["jinc2_convert"]["resolve"],
+                 kr.PARTS["jinc2_resize"]["quantize"]):
         files, funcs = part
         got = kr.function_lines(kr.build.CSRC, files, funcs)
         assert len(got) == len(funcs)
@@ -158,16 +160,27 @@ def test_function_lines_find_k8s_and_k6s_parts(tmp_path):
 
 def test_part_groups_and_cells():
     """K8's c8 route converts 4 pixels a pass (its demangled route), its
-    other routes one; K6 resolves 4 outputs a pass; the cells are c8's mid
-    pixels and c3's outputs at batch 16."""
+    other routes one; K6 and K5's table routes resolve 4 outputs a pass,
+    K5's per-output routes and the one-output-a-thread K5 it replaced one;
+    the cells are c8's mid pixels, c3's outputs at batch 16 and c3r270's
+    48 planes."""
     c8 = ("void vrt::k8::rows3_mid_kernel<vrt::k8::MidRoute<(int)0, "
           "(int)1>, unsigned short, float>()").replace("(int)", "")
     lms = c8.replace("MidRoute<0, 1>", "MidRoute<1, -1>")
     grp = [next((v for k, v in kr.PART_GROUP.items() if k in n), 1)
-           for n in (c8, lms, "void jinc2_convert_kernel<unsigned char, 1>")]
-    assert grp == [4, 1, 4]
+           for n in (c8, lms, "void jinc2_convert_kernel<unsigned char, 1>",
+                     "void (anonymous namespace)::jinc2_resize_kernel<1, 1>"
+                     "(const float *)",
+                     "void (anonymous namespace)::jinc2_resize_kernel<0, 1>"
+                     "(const float *)",
+                     "(anonymous namespace)::jinc2_resize_kernel("
+                     "const float *, int)")]
+    assert grp == [4, 1, 4, 4, 1, 1]
     assert kr.PART_PIXELS == {"rows3_mid": {"c8": 16 * 2160 * 3840},
-                              "jinc2_convert": {"c3": 16 * 2160 * 3840}}
+                              "jinc2_convert": {"c3": 16 * 2160 * 3840},
+                              "jinc2_resize": {"c3r270": 48 * 2160 * 3840}}
+    assert set(kr.PARTS["jinc2_resize"]) == {"weights", "resolve",
+                                             "quantize"}
 
 
 def test_second_pass_lines_in_sources_without_route_cuh(tmp_path):
@@ -180,19 +193,23 @@ def test_second_pass_lines_in_sources_without_route_cuh(tmp_path):
 
 def test_default_launches_are_k7s_and_k9s_at_their_cells():
     """K7's block at c5 (uint16), K9's c8 route at c8 and its other
-    instantiations at c5 (float32), K8's at c8 and K6's at c3: 256 threads
-    and the shared memory kernels/deint's and kernels/jinc2's formulas
-    give, the c8 route matched first."""
+    instantiations at c5 (float32), K8's at c8, K6's at c3, K5's at c3r270
+    and K3's on the letterbox's luma map: 256 threads and the shared memory
+    kernels/deint's, kernels/jinc2's and kernels/resize's formulas give,
+    the c8 route matched first."""
     from videorenderer_tpu_torch.kernels import deint as dk
     got = dict(kr.default_launches())
     assert [k for k, _ in kr.default_launches()] == [
         "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel",
-        *kr.K8_HEAVY_ROUTES, "rows3_mid_kernel", "jinc2_convert_kernel"]
+        *kr.K8_HEAVY_ROUTES, "rows3_mid_kernel", "jinc2_convert_kernel",
+        "jinc2_resize_kernel", "banded_resize_rows_kernel"]
     assert all(t == 256 for t, _ in got.values())
     assert got["deint3_kernel"][1] == 62080
     assert got["rows3_mid_kernel"][1] == 69984
     assert all(got[r][1] == 36672 for r in kr.K8_HEAVY_ROUTES)
     assert got["jinc2_convert_kernel"][1] == 4800
+    assert got["jinc2_resize_kernel"][1] == 5760
+    assert got["banded_resize_rows_kernel"][1] == 35712
     lms = ("void vrt::k8::rows3_mid_kernel<vrt::k8::MidRoute<(int)1, "
            "(int)-1>, unsigned short, float>()").replace("(int)", "")
     assert next(v for k, v in kr.default_launches() if k in lms)[1] == 36672

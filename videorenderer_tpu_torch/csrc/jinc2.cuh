@@ -11,6 +11,13 @@
 // the accurate ones (no fast-math), and every sum rounds on its own in the
 // order of the plain version (kernels/jinc2._jinc2_plain): the two then
 // differ only by the last bits of sinf.
+//
+// The weights repeat with the axes' phase periods, so both kernels can read
+// them from a geometry's table instead (kernels/jinc2._weight_table): an
+// entry of kJ2Entry floats for each (row class, column class) pair, built
+// by jinc2_convert.cu's table kernel with jinc2_weights on the classes' d2
+// bits, so an entry holds exactly the weights jinc2_weights computes for
+// the outputs of that pair.
 
 #pragma once
 
@@ -26,6 +33,8 @@ constexpr float kJ2Wa = static_cast<float>(kJ2WaD);
 constexpr float kJ2Wb = static_cast<float>(kJ2WbD);
 constexpr float kJ2Wab = static_cast<float>(kJ2WaD * kJ2WbD);
 constexpr float kJ2Ar = 0.8f;  // _JINC2_AR_STRENGTH
+// floats of a weight-table entry: the 16 weights, their sum, 3 zeros
+constexpr int kJ2Entry = 20;
 
 __device__ __forceinline__ float jinc2_weight(float d2) {
   if (d2 == 0.f) return kJ2Wab;
@@ -49,6 +58,25 @@ __device__ __forceinline__ float jinc2_weights(const float dy[4],
     }
   }
   return wsum;
+}
+
+// The 16 weights and the sum of entry (rc, cc) of a table of n_col_cls
+// columns: five 16-byte loads through the read-only path.
+__device__ __forceinline__ float jinc2_table_weights(
+    const float* __restrict__ table, int n_col_cls, int rc, int cc,
+    float w[16]) {
+  const float4* e = reinterpret_cast<const float4*>(table) +
+                    (static_cast<long long>(rc) * n_col_cls + cc) *
+                        (kJ2Entry / 4);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 x = __ldg(e + q);
+    w[4 * q] = x.x;
+    w[4 * q + 1] = x.y;
+    w[4 * q + 2] = x.z;
+    w[4 * q + 3] = x.w;
+  }
+  return __ldg(e + 4).x;
 }
 
 // Weighted sum of 16 taps t[jo * 4 + io], divided by wsum, then the

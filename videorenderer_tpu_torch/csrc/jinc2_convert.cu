@@ -63,7 +63,6 @@ constexpr int kVec = 4;                       // adjacent outputs a thread
 constexpr int kColThreads = kTile / kVec;     // threads across a tile row
 constexpr int kThreads = kColThreads * kTile; // 256: one row of 4 a thread
 constexpr int kPitch = kTile + 1;             // staging pitch (no conflicts)
-constexpr int kEntry = 20;   // floats a table entry: 16 weights, sum, 3 zeros
 
 enum { kPerOutput = 0, kTable = 1 };
 
@@ -76,7 +75,7 @@ struct Geometry {
   int win_h, win_w;                  // shared-memory window capacity
   const int* row_cls;                // (oh,) each row's class; table route
   const int* col_cls;                // (ow,) each column's class
-  const float* table;                // (n_row_cls, n_col_cls, kEntry)
+  const float* table;                // (n_row_cls, n_col_cls, kJ2Entry)
   int n_col_cls;
 };
 
@@ -138,18 +137,8 @@ __device__ __forceinline__ float weights_of(const Geometry& G, int rc,
                                             const float dy[4], int col,
                                             float wt[16]) {
   if constexpr (kWeights == kTable) {
-    const float4* e = reinterpret_cast<const float4*>(G.table) +
-                      (static_cast<long long>(rc) * G.n_col_cls +
-                       __ldg(G.col_cls + col)) * (kEntry / 4);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 x = __ldg(e + q);
-      wt[4 * q] = x.x;
-      wt[4 * q + 1] = x.y;
-      wt[4 * q + 2] = x.z;
-      wt[4 * q + 3] = x.w;
-    }
-    return __ldg(e + 4).x;
+    return vrt::jinc2_table_weights(G.table, G.n_col_cls, rc,
+                                    __ldg(G.col_cls + col), wt);
   } else {
     float dx[4];
 #pragma unroll
@@ -344,7 +333,8 @@ int launch_route(const void* y, const void* u, const void* v, int batch,
 }
 
 // One thread per (row class, column class) entry: jinc2_weights of the
-// classes' d2 vectors, the function the per-output route calls.
+// classes' d2 vectors, the function the per-output routes of K6 and K5
+// (jinc2_resize.cu, which reads the same tables) call.
 __global__ void jinc2_weight_table_kernel(const float* __restrict__ d2y,
                                           int n_row_cls,
                                           const float* __restrict__ d2x,
@@ -361,7 +351,7 @@ __global__ void jinc2_weight_table_kernel(const float* __restrict__ d2y,
   }
   float wt[16];
   const float wsum = vrt::jinc2_weights(dy, dx, wt);
-  float* t = table + static_cast<long long>(e) * kEntry;
+  float* t = table + static_cast<long long>(e) * vrt::kJ2Entry;
 #pragma unroll
   for (int k = 0; k < 16; ++k) t[k] = wt[k];
   t[16] = wsum;

@@ -62,8 +62,10 @@ SIGNATURES = {
                        _P, _P, _I, _P, _P, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _F, _F, _P, _I, _I, _I, _F, _I, _P, _P),
-    # x, x_dtype, starts, taps, out, batch, h_in, h_out, w, n_taps, stream
-    "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, x_dtype, starts, taps, tile_lo, win, out, batch, h_in, h_out, w,
+    # n_taps, tile_rows, stream
+    "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                               _I, _I, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_mid, h_out,
     # tile_rows, the (starts, taps, n_taps, lo, win) of the y and c in maps,
     # (starts, taps, n_taps) of the out map, tile_lo, win, y_scale,
@@ -78,8 +80,11 @@ SIGNATURES = {
     "vrt_deint3_rows_dual": (_P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                              _F, _I, _P, _P, _P, _P),
-    # x, planes, h, w, oh, ow, by, d2y, bx, d2x, dither_bits, out, stream
-    "vrt_jinc2_resize": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    # x, planes, h, w, oh, ow, by, d2y, bx, d2x, row_cls, col_cls, table
+    # (NULL: per-output weights), n_col_cls, win_h (0: taps through L1),
+    # pitch, dither_bits, out, stream
+    "vrt_jinc2_resize": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _P, _P),
     # y, u, v, dtype, batch, h, w, ch, cw, oh, ow, by, d2y, bx, d2x,
     # ux_starts, ux_taps, n_ux, uy_starts, uy_taps, n_uy, y_scale, c_scale,
     # cmat (host, 12 floats), dither_bits, pack, transpose, win_h, win_w,

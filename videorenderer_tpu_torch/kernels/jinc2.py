@@ -17,6 +17,15 @@ anti-ringing lerp toward the centre 2x2 min/max.  So the port agrees with
 the JAX gather to float32 rounding, and with the JAX kernels within their
 cutoff band (about 1e-3 at the rotation geometry, exact rank at 2x).
 
+An output's 16 weights depend only on its row's and its column's d2
+vectors, which repeat with the axes' phase periods.  Both kernels read them
+from a table of the geometry's distinct (row class, column class) pairs
+(:func:`axis_classes`, :func:`_weight_table`), built on the card by one
+launch at the geometry's first K5 or K6 call and shared by the two; a
+geometry whose table would pass TABLE_CAP computes each output's weights
+(:func:`weight_route`).  The table holds the weights the per-output route
+computes, bit for bit.
+
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each launch adds one to the launch counter
 that every kernel of the package shares, ``kernels.resize.launches``.
@@ -36,15 +45,18 @@ from ..ops import scale as scale_ops
 from . import resize as rk
 
 TILE = 32                       # K6's output tile edge (csrc/jinc2_convert.cu)
+K5_TILE_ROWS = 32               # K5's output tile (csrc/jinc2_resize.cu)
+K5_TILE_COLS = 128
 _SMEM_LIMIT = 227 * 1024        # shared memory one block may use on Hopper
 _K6_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.float32: 3}
-K6_ENTRY = 20
-"""Floats of one entry of K6's weight table (kEntry): the 16 weights
-row-major (jo * 4 + io), their sum, 3 zeros, read as five 16-byte loads."""
-K6_TABLE_CAP = 4 << 20
-"""Bytes of a weight table above which K6 computes each output's weights
-(its per-output route): a geometry with no short phase period on both axes,
-where a table would hold about one entry per output."""
+TABLE_ENTRY = 20
+"""Floats of one entry of a weight table (kJ2Entry, csrc/jinc2.cuh): the 16
+weights row-major (jo * 4 + io), their sum, 3 zeros, read as five 16-byte
+loads."""
+TABLE_CAP = 4 << 20
+"""Bytes of a weight table above which K5 and K6 compute each output's
+weights (their per-output route): a geometry with no short phase period on
+both axes, where a table would hold about one entry per output."""
 
 
 @dataclass(frozen=True)
@@ -112,17 +124,17 @@ def axis_classes(in_size: int, out_size: int
 
 
 def weight_table_bytes(h: int, w: int, out_h: int, out_w: int) -> int:
-    """Bytes of K6's weight table for (h, w) -> (out_h, out_w): an entry of
-    K6_ENTRY floats for every pair of a row class and a column class."""
+    """Bytes of the weight table of (h, w) -> (out_h, out_w): an entry of
+    TABLE_ENTRY floats for every pair of a row class and a column class."""
     return (axis_classes(h, out_h)[1].shape[1]
-            * axis_classes(w, out_w)[1].shape[1] * K6_ENTRY * 4)
+            * axis_classes(w, out_w)[1].shape[1] * TABLE_ENTRY * 4)
 
 
-def k6_weight_route(h: int, w: int, out_h: int, out_w: int) -> str:
-    """The route K6 takes at this geometry: "table" (each output's weights
-    read from the geometry's table) unless the table would pass
-    K6_TABLE_CAP, then "per-output" (each output computes its own)."""
-    return ("table" if weight_table_bytes(h, w, out_h, out_w) <= K6_TABLE_CAP
+def weight_route(h: int, w: int, out_h: int, out_w: int) -> str:
+    """Where K5 and K6 take an output's weights at this geometry: "table"
+    (read from the geometry's table) unless the table would pass
+    TABLE_CAP, then "per-output" (each output computes its own)."""
+    return ("table" if weight_table_bytes(h, w, out_h, out_w) <= TABLE_CAP
             else "per-output")
 
 
@@ -139,9 +151,9 @@ def _weight(d2: torch.Tensor) -> torch.Tensor:
 
 def jinc2_weight_table_plain(dy: torch.Tensor, dx: torch.Tensor
                              ) -> torch.Tensor:
-    """Plain version of K6's weight table: for row-class d2 vectors ``dy``
+    """Plain version of the weight table: for row-class d2 vectors ``dy``
     (4, n_row_cls) and column-class vectors ``dx`` (4, n_col_cls), float32
-    (n_row_cls, n_col_cls, K6_ENTRY): each pair's 16 weights by the plain
+    (n_row_cls, n_col_cls, TABLE_ENTRY): each pair's 16 weights by the plain
     versions' torch math (:func:`_weight`), their sum in tap order, 3
     zeros."""
     cols, wsum = [], None
@@ -155,26 +167,27 @@ def jinc2_weight_table_plain(dy: torch.Tensor, dx: torch.Tensor
 
 
 def jinc2_weight_table(dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
-    """K6's weight table of the class vectors ``dy`` (4, n_row_cls) and
-    ``dx`` (4, n_col_cls), float32: (n_row_cls, n_col_cls, K6_ENTRY).
+    """The weight table of the class vectors ``dy`` (4, n_row_cls) and
+    ``dx`` (4, n_col_cls), float32: (n_row_cls, n_col_cls, TABLE_ENTRY).
 
     Kernel ``vrt_jinc2_weight_table`` (``csrc/jinc2_convert.cu``), one
     thread an entry calling ``jinc2.cuh``'s ``jinc2_weights``, the
-    function K6's per-output route calls, so the entries are the weights
-    K6 would compute for those outputs, bit for bit.  A CPU tensor takes
-    the plain version; each launch adds one to
+    function the per-output routes of K5 and K6 call, so the entries are
+    the weights they would compute for those outputs, bit for bit.  A CPU
+    tensor takes the plain version; each launch adds one to
     ``launches["jinc2_weight_table"]``."""
     for name, t in (("dy", dy), ("dx", dx)):
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 4 \
                 or t.shape[1] == 0 or not t.is_contiguous():
-            raise ValueError(f"K6 table: {name} must be contiguous float32 "
-                             f"(4, n), got {t.dtype} {tuple(t.shape)}")
+            raise ValueError(f"weight table: {name} must be contiguous "
+                             f"float32 (4, n), got {t.dtype} "
+                             f"{tuple(t.shape)}")
     if not rk._kernel_device(dy, dx):
         return jinc2_weight_table_plain(dy, dx)
     n_r, n_c = dy.shape[1], dx.shape[1]
     if n_r * n_c >= 2 ** 31:
-        raise ValueError(f"K6 table: {n_r} x {n_c} entries")
-    table = torch.empty((n_r, n_c, K6_ENTRY), dtype=torch.float32,
+        raise ValueError(f"weight table: {n_r} x {n_c} entries")
+    table = torch.empty((n_r, n_c, TABLE_ENTRY), dtype=torch.float32,
                         device=dy.device)
     rk._launch("jinc2_weight_table", "vrt_jinc2_weight_table", dy.device,
                dy.data_ptr(), n_r, dx.data_ptr(), n_c, table.data_ptr())
@@ -187,7 +200,7 @@ def _weight_table(h: int, out_h: int, w: int, out_w: int,
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(row classes, column classes, table) of one geometry on ``device``:
     the table is built there by :func:`jinc2_weight_table` at the
-    geometry's first K6 call and kept."""
+    geometry's first K5 or K6 call and kept, so the two kernels share it."""
     rcls, rrep = axis_classes(h, out_h)
     ccls, crep = axis_classes(w, out_w)
     table = jinc2_weight_table(torch.tensor(rrep, device=device),
@@ -197,8 +210,8 @@ def _weight_table(h: int, out_h: int, w: int, out_w: int,
 
 
 def clear_weight_tables() -> None:
-    """Drop every cached weight table: the next K6 call of each geometry
-    builds its table again."""
+    """Drop every cached weight table: the next K5 or K6 call of each
+    geometry builds its table again."""
     _weight_table.cache_clear()
 
 
@@ -246,6 +259,37 @@ def jinc2_resize_fused_plain(x: torch.Tensor, out_h: int, out_w: int,
     return out if epilogue is None else epilogue.plain(out)
 
 
+@functools.lru_cache(maxsize=32)
+def _window(in_size: int, out_size: int, tile: int = TILE) -> int:
+    """The largest source window (taps of ``tile`` consecutive outputs)
+    along an axis."""
+    base, _ = scale_ops.jinc2_axis_tables(in_size, out_size)
+    first = np.arange(0, out_size, tile)
+    last = np.minimum(first + tile, out_size) - 1
+    return int((base[last] - base[first]).max()) + 4
+
+
+def k5_window(h: int, w: int, out_h: int, out_w: int
+              ) -> tuple[int, int, int]:
+    """(rows, pitch, shared-memory bytes) of a K5 block's staged source
+    window: the rows and columns the taps of a K5_TILE_ROWS x K5_TILE_COLS
+    output tile reach at most (:func:`_window`), each row staged from a
+    column rounded down to 4 floats, so ``pitch`` is the columns plus 3,
+    rounded up to 4."""
+    win_h = _window(h, out_h, K5_TILE_ROWS)
+    pitch = -(-(_window(w, out_w, K5_TILE_COLS) + 3) // 4) * 4
+    return win_h, pitch, 4 * win_h * pitch
+
+
+def k5_route(h: int, w: int, out_h: int, out_w: int) -> tuple[str, str]:
+    """The route K5 takes at this geometry: (the weights,
+    :func:`weight_route`; the taps, "staged" in shared memory where the
+    tile's window fits the budget, else "direct", read through L1)."""
+    taps = ("staged" if k5_window(h, w, out_h, out_w)[2] <= _SMEM_LIMIT
+            else "direct")
+    return weight_route(h, w, out_h, out_w), taps
+
+
 def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
                        epilogue: Jinc2Epilogue | None = None) -> torch.Tensor:
     """float32 (..., H, W) -> (..., out_h, out_w): the 2D Jinc2 with
@@ -253,10 +297,13 @@ def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
     planes.
 
     Kernel K5 (``csrc/jinc2_resize.cu``), replacing
-    ``jinc2_pallas.jinc2_resize_fused``.  One thread per output pixel
-    gathers its 16 taps (L1-cached, shared with its neighbours) and computes
-    their 16 weights with accurate sqrtf, sinf and division: bound by that
-    arithmetic, not by its ~4 bytes per output of device memory."""
+    ``jinc2_pallas.jinc2_resize_fused``.  A block makes a K5_TILE_ROWS x
+    K5_TILE_COLS output tile of one plane, 4 adjacent outputs of a row a
+    thread.  Its routes (:func:`k5_route`): the weights from the geometry's
+    table, the one K6 builds and caches (:func:`_weight_table`), or for a
+    geometry with no short period computed for each output; the taps from
+    the tile's source window staged in shared memory, or, where that window
+    passes the budget, read through L1.  Every route gives the same bits."""
     if x.dtype != torch.float32:
         raise TypeError(f"K5 takes float32 planes, got {x.dtype}")
     if x.dim() < 2 or min(x.shape[-2:]) == 0 or min(out_h, out_w) <= 0:
@@ -268,15 +315,24 @@ def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
         return jinc2_resize_fused_plain(x, out_h, out_w, epilogue)
     h, w = x.shape[-2], x.shape[-1]
     planes = x.numel() // (h * w)
-    if planes == 0 or planes > 65535 or out_h >= 8 * 65535:
+    if planes == 0 or planes > 65535 or out_h > K5_TILE_ROWS * 65535:
         raise ValueError(f"K5 cannot take {planes} planes of {out_h} rows")
     out = torch.empty(x.shape[:-2] + (out_h, out_w), dtype=torch.float32,
                       device=x.device)
     by, dy = _axis_on(h, out_h, x.device)
     bx, dx = _axis_on(w, out_w, x.device)
+    weights, taps = k5_route(h, w, out_h, out_w)
+    if weights == "table":
+        rcls, ccls, table = _weight_table(h, out_h, w, out_w, x.device)
+        wargs = (rcls.data_ptr(), ccls.data_ptr(), table.data_ptr(),
+                 table.shape[1])
+    else:
+        wargs = (None, None, None, 0)
+    win_h, pitch, _ = k5_window(h, w, out_h, out_w)
     rk._launch("jinc2_resize_fused", "vrt_jinc2_resize", x.device,
                x.data_ptr(), planes, h, w, out_h, out_w, by.data_ptr(),
-               dy.data_ptr(), bx.data_ptr(), dx.data_ptr(),
+               dy.data_ptr(), bx.data_ptr(), dx.data_ptr(), *wargs,
+               win_h if taps == "staged" else 0, pitch,
                0 if epilogue is None else epilogue.dither_bits,
                out.data_ptr())
     return out
@@ -285,15 +341,6 @@ def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
 # ---------------------------------------------------------------------------
 # K6: raw Y/U/V -> chroma upsample + colour matrix + Jinc2 + epilogue + pack
 # ---------------------------------------------------------------------------
-
-
-def _window(in_size: int, out_size: int) -> int:
-    """The largest source window (taps of one TILE of outputs) along an
-    axis."""
-    base, _ = scale_ops.jinc2_axis_tables(in_size, out_size)
-    first = np.arange(0, out_size, TILE)
-    last = np.minimum(first + TILE, out_size) - 1
-    return int((base[last] - base[first]).max()) + 4
 
 
 def k6_smem_bytes(h: int, w: int, out_h: int, out_w: int,
@@ -363,7 +410,7 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     reaches device memory.  The weights come from the geometry's table
     (:func:`jinc2_weight_table` of its :func:`axis_classes`, built on the
     card at the geometry's first call and cached), or, where
-    :func:`k6_weight_route` says "per-output", are computed for each output
+    :func:`weight_route` says "per-output", are computed for each output
     with accurate sqrtf/sinf/division; both routes give the same bits."""
     if epilogue is not None:
         epilogue.validate()
@@ -407,7 +454,7 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                           device=y.device)
     by, dy = _axis_on(h, out_h, y.device)
     bx, dx = _axis_on(w, out_w, y.device)
-    if k6_weight_route(h, w, out_h, out_w) == "table":
+    if weight_route(h, w, out_h, out_w) == "table":
         rcls, ccls, table = _weight_table(h, out_h, w, out_w, y.device)
         weights = (rcls.data_ptr(), ccls.data_ptr(), table.data_ptr(),
                    table.shape[1])

@@ -17,13 +17,13 @@ its own contiguous tap range instead: a start index and T float32 weights,
 zero-padded to the matrix's widest band (:func:`plan_taps`).  The kernels
 run T fp32 FMAs per output, so there is no bf16 split error at all.
 
-K1 and K2 are tiled for the H100: a block stages the window of inputs its
-outputs' taps reach (:meth:`BandedMatrix.row_windows`) in shared memory
+K1, K2 and K3 are tiled for the H100: a block stages the window of inputs
+its outputs' taps reach (:meth:`BandedMatrix.row_windows`) in shared memory
 with 16-byte copies, and each thread makes several outputs with vector
-stores.  :func:`k1_smem_bytes` and :func:`k2_smem_bytes` give a block's
-shared memory; a map whose window does not fit SMEM_BUDGET is refused
-before the launch.  What bounds each is in their docstrings and in
-``PERF.md`` section 6.
+stores.  :func:`k1_smem_bytes`, :func:`k2_smem_bytes` and
+:func:`k3_smem_bytes` give a block's shared memory; a map whose window does
+not fit SMEM_BUDGET is refused before the launch.  What bounds each is in
+their docstrings and in ``PERF.md`` section 6.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each launch adds one to ``launches[name]``.
@@ -48,13 +48,16 @@ column L1 norm of the matrix times 16384 must stay within int16."""
 TILE_N = 128   # the JAX packing's output tile, for :func:`taps_from_band_pack`
 
 SMEM_BUDGET = 232448
-"""Shared memory a block of K1 or K2 may use: the H100's 227 KB a block
-(kSmemBudget in csrc/banded_resize.cu and csrc/rows3_tail.cu).  A map whose
-staged window needs more is refused before the launch."""
+"""Shared memory a block of K1, K2 or K3 may use: the H100's 227 KB a block
+(kSmemBudget in csrc/banded_resize.cu, csrc/rows3_tail.cu and
+csrc/banded_resize_rows.cu).  A map whose staged window needs more is
+refused before the launch."""
 K1_SPAN = 256      # output columns a K1 block makes (kSpan)
 K1_ROWS = 16       # rows a K1 block makes (rows_per_block)
 K2_TILE_COLS = 128  # output columns a K2 block makes (kTileCols)
 K2_TILE_ROWS = 32   # output rows a K2 block makes (tile_rows)
+K3_TILE_COLS = 128  # output columns a K3 block makes (kTileCols)
+K3_TILE_ROWS = 32   # output rows a K3 block makes where its window fits
 
 DTYPE_CODES = {torch.uint8: 0, torch.uint16: 1, torch.int16: 2,
                torch.float32: 3}
@@ -197,6 +200,26 @@ def k2_smem_bytes(y_itemsize: int, c_itemsize: int, my: BandedMatrix | None,
     return total
 
 
+def k3_smem_bytes(itemsize: int, mat: BandedMatrix,
+                  tile_rows: int = K3_TILE_ROWS) -> int:
+    """Shared memory of a K3 block (smem_bytes, csrc/banded_resize_rows.cu):
+    the window of input rows a tile of ``tile_rows`` output rows reaches
+    over K3_TILE_COLS columns, then the tile's taps and starts."""
+    win = mat.row_windows(tile_rows)[1]
+    return win * K3_TILE_COLS * itemsize + 4 * tile_rows * (mat.n_taps + 1)
+
+
+def k3_tile_rows(itemsize: int, mat: BandedMatrix) -> int | None:
+    """The output rows of a K3 tile: K3_TILE_ROWS, halved until the block's
+    shared memory fits SMEM_BUDGET; None where not even one row fits."""
+    rows = K3_TILE_ROWS
+    while rows >= 1:
+        if k3_smem_bytes(itemsize, mat, rows) <= SMEM_BUDGET:
+            return rows
+        rows //= 2
+    return None
+
+
 # ---------------------------------------------------------------------------
 # shared checks
 # ---------------------------------------------------------------------------
@@ -326,8 +349,13 @@ def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
 
     Kernel K3 (``csrc/banded_resize_rows.cu``), replacing
     ``resize_pallas.banded_resize_rows`` and its packed form.  Bound by
-    device memory: one thread per output (row, column) runs T fp32 FMAs
-    down its column, the loads of a block coalesced along W."""
+    device memory.  K2's H pass for one plane: a block makes
+    :func:`k3_tile_rows` output rows x K3_TILE_COLS columns, stages the
+    window of input rows its taps reach and the tile's starts and taps in
+    shared memory (16-byte copies), and each thread sums the taps of 4
+    consecutive columns and stores them with one vector store.  A map whose
+    window does not fit SMEM_BUDGET even at one row a tile raises
+    ValueError."""
     _check_plane("x", x)
     if x.shape[-2] != mat.in_size:
         raise ValueError(f"x has {x.shape[-2]} rows, the matrix takes "
@@ -336,16 +364,24 @@ def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
         return banded_resize_rows_plain(x, mat)
     h_in, w = x.shape[-2:]
     batch = x.numel() // (h_in * w) if x.numel() else 0
-    if batch == 0 or batch * mat.out_size >= 2 ** 31 or w >= 128 * 65535:
+    if batch == 0 or batch * mat.out_size >= 2 ** 31 \
+            or w >= K3_TILE_COLS * 65535:
         raise ValueError(f"K3 cannot take batch {batch} x {mat.out_size} "
                          f"rows x {w} columns")
+    tile_rows = k3_tile_rows(x.element_size(), mat)
+    if tile_rows is None:
+        raise ValueError(
+            f"K3: a window of {mat.row_windows(1)[1]} input rows needs "
+            f"{k3_smem_bytes(x.element_size(), mat, 1)} bytes of shared "
+            f"memory, over {SMEM_BUDGET}")
+    lo, win = mat.row_windows(tile_rows, x.device)
     out = torch.empty(x.shape[:-2] + (mat.out_size, w), dtype=torch.float32,
                       device=x.device)
     starts, taps = mat.taps_on(x.device)
     _launch("banded_resize_rows", "vrt_banded_resize_rows", x.device,
             x.data_ptr(), DTYPE_CODES[x.dtype], starts.data_ptr(),
-            taps.data_ptr(), out.data_ptr(), batch, h_in, mat.out_size, w,
-            mat.n_taps)
+            taps.data_ptr(), lo.data_ptr(), win, out.data_ptr(), batch, h_in,
+            mat.out_size, w, mat.n_taps, tile_rows)
     return out
 
 
