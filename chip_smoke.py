@@ -74,10 +74,12 @@ Phases, one line each:
               same inputs (float32 within 1e-5, the variant 1e-4; the
               curves it was given are the scene's) and its K9 call against
               cols3_tail_plain (within 1 code on < 2%);
- 16. K3       the letterboxed path's three K3 calls on 2 frames (K1's
-              float32 output) and raw uint16 luma with the normalisation in
-              the taps, against banded_resize_rows_plain (within 2e-6),
-              with the digests of both;
+ 16. K3       the calls the letterboxed plan's K1 + K3 route made before
+              the offset tail, on 2 frames (each plane's K1 float32 output
+              of the plan's maps), and raw uint16 luma with the
+              normalisation in the taps, against banded_resize_rows_plain
+              (within 2e-6), with the digests of both (K3's path is the
+              GRAY source's now: phase 27);
  17. c8       make_serving_fn of 4K P010 Dolby Vision -> 1080p RGB10: four
               scenes of 16 frames, each its own curves, K1 x2 + K8 x1 + K9
               x1 per call and nothing else, no build or library load
@@ -91,10 +93,15 @@ Phases, one line each:
               output over the memory rate, against its W taps' FMAs);
  18. letterbox  VideoProcessor 3840 x 1608 (a 2.39:1 film) -> the
               (0, 138, 1920, 942) rect of a 1920 x 1080 RGB10 surface, two
-              distinct batches of 16: K1 x3 + K3 x3 per call and nothing
-              else, every dword outside the rect the packed zero, >= 55 dB
-              against the oracle with placement (the rect and the whole
-              surface); ms/frame.
+              distinct batches of 16: K1 x3 + K2 x1 per call (K2 stores at
+              the rect's origin) and nothing else, the rect bit-equal to
+              the unplaced 1920 x 804 plan's surface, every dword outside
+              the rect the packed zero, >= 55 dB against the oracle with
+              placement (the rect and the whole surface); ms/frame; the
+              same checks on 2 frames of a 4:3 film (2880 x 2160)
+              pillarboxed into (240, 0, 1680, 1080) and of the headline
+              source in (2, 1, 1918, 1079), a column offset that is not a
+              multiple of 4.
  19. K4       the whole fused pipeline in one kernel on the fused plans'
               own maps and tails, the headline (PQ -> SDR) and c7 (BT.2390
               with scene 2's values), on 2 frames: against mega3_tail_plain
@@ -122,6 +129,42 @@ Phases, one line each:
               full, the tower, matrix and pack attribution), each run counted: K1 + K10
               x2 per probe round, K1 and K2 per stage; tail on the yW/cW
               outputs bit-equal to the FLOAT16 make_frame_fn of the plan.
+ 22. thumb    VideoProcessor of the headline source -> 160 x 90 RGB10 (a
+              4K thumbnail, Hamming at 24:1), two distinct batches of 16:
+              K1 x3 + K2 x1 a call, K2 on its long-window route, K2's call
+              against its plain version (within 1 code on < 2%), >= 55 dB;
+              ms/frame; K2's long-window route forced on the headline's
+              own shapes (2 frames) bit-equal to the staged route, both
+              timed.
+ 23. c5_small DeinterlaceSession(double_rate=True) of c5's source -> 320 x
+              180 RGBA8: two batches of 16 and the flush, K7 x1 + K9 x1 a
+              step, K7 on its long-window route (K9's spans, 219 KB, still
+              fit: its route is printed, and its long-window route forced
+              on the same call is bit-equal), each against its plain
+              version (K7 f32 within 2e-5; K9 within 1 code on < 2%), both
+              fields >= 55 dB; ms/field; each route forced on c5's own
+              1080p shapes (2 frames) bit-equal to the staged one.
+ 24. c8_small c8's serving function -> 320 x 180 RGB10, two scenes: K1 x2
+              + K8 + K9 a call (K9 on its long-window route), K8 and K9
+              against their plain versions, >= 55 dB; ms/frame.
+ 25. c8_rect  c8's four scenes into the (320, 180, 1600, 900) rect of a
+              1920 x 1080 RGB10 surface: K1 x2 + K8 + K9 with the offset a
+              call, the rect bit-equal to the unplaced 1280 x 720 plan's
+              surface, the bars the packed zero, scenes 0 and 3 >= 55 dB;
+              ms/frame.
+ 26. sdr2020  4K P010 SDR with BT.2020 primaries (BT.1886) -> 1080p RGB10
+              dithered: K1 x3 + K2 a call with CORR_FIX_BT2020, K2's call
+              against its plain version (within 1 code on < 2%), >= 55 dB;
+              ms/frame.
+ 27. gray     4K Y16 -> 1080p RGB10 dithered: K1 + K3 a call, K3's call
+              against its plain version (within 2e-6) and timed with the
+              library call (K3's numbers in the kernels line), >= 55 dB;
+              ms/frame.
+ 28. shader   the headline plan with vp_scaling=False: K1 x2 + K2 (the
+              convert at source resolution with PQ -> SDR, float32 out) a
+              call, then the torch resize and final pass; the convert's
+              K1 and K2 calls against their plain versions on 2 frames (K1
+              f32 within 2e-5, K2 within 2e-4), >= 55 dB; ms/frame.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -167,7 +210,7 @@ from videorenderer_tpu_torch.kernels import probe as pk  # noqa: E402
 from videorenderer_tpu_torch.kernels import resize as rk  # noqa: E402
 from videorenderer_tpu_torch.oracle import (oracle, oracle_c7,  # noqa: E402
                                             oracle_deint, oracle_dovi,
-                                            oracle_jinc2)
+                                            oracle_gray, oracle_jinc2)
 from videorenderer_tpu_torch.ops import chroma, dovi, scale  # noqa: E402
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
                                               _make_tail_epilogue,
@@ -185,6 +228,12 @@ BATCH = 16
 SEED = 0
 LB_H = 1608                               # a 2.39:1 scope film, 3840 wide
 LB_RECT = (0, 138, 1920, 942)             # ... letterboxed into 1920 x 1080
+PILLAR_W = 2880                           # a 4:3 film, 2160 high ...
+PILLAR_RECT = (240, 0, 1680, 1080)        # ... pillarboxed into 1920 x 1080
+ODD_RECT = (2, 1, 1918, 1079)             # a column offset not a multiple of 4
+THUMB_W, THUMB_H = 160, 90                # a 4K thumbnail
+SMALL_W, SMALL_H = 320, 180               # a 4K preview
+C8_RECT = (320, 180, 1600, 900)           # c8 into a rect of the 1080p surface
 C8_SCENES = 4
 C7_SCENES = 4
 # the card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
@@ -221,14 +270,19 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 
 def p010_batch(batch: int, seed: int, dev, h: int | None = None):
-    """TV-range 10-bit codes, MSB-aligned in uint16 (bench.py's frames), of
-    H rows unless ``h`` says otherwise."""
-    h = H if h is None else h
+    """TV-range 10-bit codes, MSB-aligned in uint16 (bench.py's frames), W
+    wide and H rows unless ``h`` says otherwise."""
+    return p010_frames(batch, seed, dev, W, H if h is None else h)
+
+
+def p010_frames(batch: int, seed: int, dev, w: int, h: int):
+    """p010_batch's frames at any width and height: the y, u and v codes
+    drawn in that order from one seeded generator."""
     rng = np.random.default_rng(seed)
-    y = rng.integers(64, 941, (batch, h, W), dtype=np.uint16) << 6
-    u = rng.integers(64, 961, (batch, h // 2, W // 2), dtype=np.uint16) << 6
-    v = rng.integers(64, 961, (batch, h // 2, W // 2), dtype=np.uint16) << 6
-    return tuple(torch.from_numpy(p).to(dev) for p in (y, u, v))
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(64, 941, (batch, h, w), dtype=np.uint16) << 6,
+        *(rng.integers(64, 961, (batch, h // 2, w // 2), dtype=np.uint16)
+          << 6 for _ in range(2))))
 
 
 def digest(*ts) -> str:
@@ -411,6 +465,25 @@ def code_diff(a: torch.Tensor, b: torch.Tensor, bits: int) -> dict:
             "frac_differing": float((d > 0).double().mean().item())}
 
 
+def placed_check(outs, batches, rect, unplaced) -> dict:
+    """A placed path's outputs (..., OH, OW dwords) against the same inputs
+    through the unplaced plan of the rect's size (``unplaced(batch)``): the
+    rect bit-equal to its surface (the same maps, the dither from the
+    video's origin), every dword outside the rect the packed zero."""
+    l, tp, r, bt = rect
+    mask = torch.ones((OH, OW), dtype=torch.bool, device=outs[0].device)
+    mask[tp:bt, l:r] = False
+    out = {"rect": list(rect), "bars_black": True, "rect_bit_equal": True}
+    for o, b in zip(outs, batches):
+        if o.shape[-2:] != (OH, OW) or o.dtype != torch.int32:
+            raise AssertionError(f"placed output {tuple(o.shape)} {o.dtype}")
+        out["bars_black"] &= bool(torch.all(
+            o[..., mask] == rk.PACKED_ZERO["rgb10a2"]).item())
+        out["rect_bit_equal"] &= bool(torch.equal(o[..., tp:bt, l:r],
+                                                  unplaced(b)))
+    return out
+
+
 def headline_args():
     src = SourceDescriptor(format=ColorFormat.P010, width=W, height=H,
                            matrix=CSP.BT_2020_NC, levels=Levels.TV,
@@ -519,6 +592,413 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def forced_long(module, flag: str, fn):
+    """``fn()`` with the long-window route flag ``module.<flag>`` on."""
+    setattr(module, flag, True)
+    try:
+        return fn()
+    finally:
+        setattr(module, flag, False)
+
+
+def one_call(module, name: str, fn):
+    """Run ``fn`` recording the wrapper ``module.<name>``: its one call's
+    (args, kwargs, output)."""
+    with recording(module, name) as calls:
+        fn()
+    torch.cuda.synchronize()
+    if len(calls[name]) != 1:
+        raise AssertionError(f"{name} was called {len(calls[name])} times")
+    return calls[name][0]
+
+
+def timed_calls(fn, batches) -> float:
+    """ms a frame of ``fn`` over the batches, back to back (CUDA events)."""
+    return cuda_ms(lambda: [fn(b) for b in batches], reps=1, warmup=0) / (
+        len(batches) * BATCH)
+
+
+def offset_tail_phases(dev) -> dict:
+    """Phases 22-28: the strong downscales (the long-window routes of K2,
+    K7, K8's staged tiles and K9), Dolby Vision in a rect (K9's offset
+    store), the SDR BT.2020 fix in K2, a GRAY source (K1 + K3) and the
+    shader order (K2's convert with the correction).  Returns each phase's
+    launches, the kernels' errors against their plain versions and K3's
+    numbers for the kernels line."""
+    src, _ = headline_args()
+    res = {"launches": {}, "err": {k: 0.0 for k in ("k1", "k2", "k7", "k8",
+                                                    "k9")}}
+
+    def err(k, x):
+        res["err"][k] = max(res["err"][k], float(x))
+
+    # 22. thumb: the headline source -> 160 x 90 RGB10 (Hamming, 24:1), two
+    #     distinct batches, K1 x3 + K2 x1 a call, K2 on its long-window
+    #     route; K2's long-window route forced on the headline's own
+    #     shapes (2 frames) bit-equal to the staged route
+    dst_t = OutputDescriptor(width=THUMB_W, height=THUMB_H, bits=10)
+    vp_t = VideoProcessor(headline_settings(True), src, dst_t, device=dev,
+                          pack_surface=True)
+    tb = [p010_batch(BATCH, SEED + 70 + i, dev) for i in range(2)]
+    a2, kw2, got2 = one_call(rk, "rows3_tail", lambda: vp_t.process(tb[0]))
+    route = rk.k2_route(a2[0].element_size(), a2[1].element_size(), a2[3],
+                        a2[4])
+    d = code_diff(got2, rk.rows3_tail_plain(*a2, **kw2), 10)
+    err("k2", d["max_code_diff"] / 1023.0)
+    k2_thumb_ms = cuda_ms(lambda: rk.rows3_tail(*a2, **kw2))
+    del a2, kw2, got2
+    outs, n_t = count_launches(lambda: [vp_t.process(b) for b in tb])
+    res["launches"]["thumb"] = n_t
+    if n_t != only(banded_resize_last_axis=6, rows3_tail=2) \
+            or route != "long-window" or d["max_code_diff"] > 1 \
+            or d["frac_differing"] >= 0.02:
+        raise AssertionError(f"thumb: launches {n_t}, K2 route {route}, "
+                             f"K2 against its plain version {d}")
+    db_t = psnr(codes(outs[0][0], 10).double() / 1023.0,
+                oracle(*(p[0] for p in tb[0]), THUMB_W, THUMB_H))
+    thumb_digest = digest(*outs)
+    del outs
+    ms_t = timed_calls(vp_t.process, tb)
+    two = tuple(p[:PLAIN_FRAMES] for p in tb[0])
+    vp_h = VideoProcessor(headline_settings(True), src, OutputDescriptor(
+        width=OW, height=OH, bits=10), device=dev, pack_surface=True)
+    a2, kw2, staged = one_call(rk, "rows3_tail", lambda: vp_h.process(two))
+    long2 = forced_long(rk, "K2_LONG_WINDOW", lambda: rk.rows3_tail(*a2,
+                                                                    **kw2))
+    torch.cuda.synchronize()
+    k2_bit_equal = bool(torch.equal(long2, staged))
+    k2_headline = {"staged_ms": cuda_ms(lambda: rk.rows3_tail(*a2, **kw2)),
+                   "long_window_ms": forced_long(
+                       rk, "K2_LONG_WINDOW",
+                       lambda: cuda_ms(lambda: rk.rows3_tail(*a2, **kw2)))}
+    del a2, kw2, staged, long2, tb, two, vp_h
+    if db_t < 55.0 or not k2_bit_equal:
+        raise AssertionError(f"thumb: PSNR {db_t}, K2 long-window route "
+                             f"bit-equal {k2_bit_equal}")
+    line("thumb", batch=BATCH, size=[THUMB_W, THUMB_H], launches=n_t,
+         k2_route=route, psnr_db=db_t, ms_per_frame=ms_t,
+         k2_ms=k2_thumb_ms, k2_vs_plain=d, digest=thumb_digest,
+         k2_long_window_bit_equal_headline=k2_bit_equal,
+         k2_headline_frames=PLAIN_FRAMES, k2_headline=k2_headline)
+
+    # 23. c5 small: DeinterlaceSession(double_rate=True) on c5's source ->
+    #     320 x 180 RGBA8, K7 + K9 a step, K7 on its long-window route (K9
+    #     on the route its spans pick, its long-window route forced on the
+    #     same call); each route forced on c5's own shapes (2 frames) and
+    #     bit-equal to the staged route
+    c5s, c5src, _ = c5_args()
+    plan5s = plan_pipeline(c5s, c5src, OutputDescriptor(
+        width=SMALL_W, height=SMALL_H, bits=8))
+    c5b = [p010_batch(BATCH, SEED + 75 + i, dev) for i in range(2)]
+    probe_sess = DeinterlaceSession(plan5s, pack_surface=True, device=dev)
+    with recording(dk, "deint3_rows_dual", "cols3_tail") as calls:
+        probe_sess.push_batch(c5b[0])
+    torch.cuda.synchronize()
+    (a7, kw7, got7), = calls["deint3_rows_dual"]
+    (a9, kw9, got9), = calls["cols3_tail"]
+    del calls
+    routes5 = {"k7": dk.k7_route(a7[0][0].element_size(), a7[3], a7[4]),
+               "k9": dk.k9_route(a9[0].element_size(), a9[1].element_size(),
+                                 a9[3], a9[4])}
+    err("k7", max((g - r).abs().max().item() for g, r in zip(
+        got7, dk.deint3_rows_dual_plain(*a7, **kw7))))
+    d9 = code_diff(got9, dk.cols3_tail_plain(*a9, **kw9), 8)
+    err("k9", d9["max_code_diff"] / 255.0)
+    k7_small_ms = cuda_ms(lambda: dk.deint3_rows_dual(*a7, **kw7))
+    k9_small_ms = cuda_ms(lambda: dk.cols3_tail(*a9, **kw9))
+    # K9's long-window route forced on c5 small's own call: bit-equal
+    long9s = forced_long(dk, "K9_LONG_WINDOW",
+                         lambda: dk.cols3_tail(*a9, **kw9))
+    torch.cuda.synchronize()
+    k9_small_long = {"bit_equal": bool(torch.equal(long9s, got9)),
+                     "ms": forced_long(dk, "K9_LONG_WINDOW", lambda: cuda_ms(
+                         lambda: dk.cols3_tail(*a9, **kw9)))}
+    del a7, kw7, got7, a9, kw9, got9, probe_sess, long9s
+    sess = DeinterlaceSession(plan5s, double_rate=True, pack_surface=True,
+                              device=dev)
+
+    def c5s_run():
+        outs = []
+        for b in c5b:
+            outs += sess.push_batch(b)
+        return outs + sess.flush_batch()
+
+    outs, n_5 = count_launches(c5s_run)
+    res["launches"]["c5_small"] = n_5
+    f0, f1 = (tuple(p[i] for p in c5b[0]) for i in (0, 1))
+    db_5 = [psnr(codes(outs[f][0], 8).double() / 255.0,
+                 oracle_deint(f0, f0, f1, SMALL_W, SMALL_H, field=f))
+            for f in (0, 1)]
+    c5s_digest = digest(*outs)
+    del outs
+    sess_b = DeinterlaceSession(plan5s, pack_surface=True, device=dev)
+    sess_b.push_batch(c5b[0])
+    ms_5 = cuda_ms(lambda: sess_b.push_batch(c5b[1]), reps=2) / (2 * BATCH)
+    # the forced routes on c5's own (1080p) shapes, 2 frames
+    plan5 = plan_pipeline(*c5_args())
+    wx5 = scale.upscale_matrix(Upscaling.LANCZOS3, W, OW)
+    wy5 = scale.upscale_matrix(Upscaling.LANCZOS3, H, OH)
+    ux5, uy5 = chroma.chroma_upsample_matrices(
+        W // 2, H // 2, 420, ChromaScaling.BILINEAR, plan5.src.chroma_location)
+    norm = 1.0 / 65535.0
+    k7args = (*[tuple(p[i:i + PLAIN_FRAMES] for p in c5b[0])
+                for i in range(3)],
+              rk.BandedMatrix(wy5, pre_scale=norm),
+              rk.BandedMatrix(uy5 @ wy5, pre_scale=norm), OH,
+              8.0 / 255.0 * 65535.0, True)
+    staged7 = dk.deint3_rows_dual(*k7args)
+    long7 = forced_long(dk, "K7_LONG_WINDOW",
+                        lambda: dk.deint3_rows_dual(*k7args))
+    k9args = (*(o.reshape((-1,) + o.shape[-2:]) for o in staged7),
+              rk.BandedMatrix(wx5), rk.BandedMatrix(ux5 @ wx5), OW,
+              _make_tail_epilogue(plan5))
+    staged9 = dk.cols3_tail(*k9args, pack_format="rgba8")
+    long9 = forced_long(dk, "K9_LONG_WINDOW", lambda: dk.cols3_tail(
+        *k9args, pack_format="rgba8"))
+    torch.cuda.synchronize()
+    forced5 = {"k7_bit_equal": all(torch.equal(a, b)
+                                   for a, b in zip(staged7, long7)),
+               "k9_bit_equal": bool(torch.equal(staged9, long9)),
+               "frames": PLAIN_FRAMES,
+               "k7_long_window_ms": forced_long(
+                   dk, "K7_LONG_WINDOW",
+                   lambda: cuda_ms(lambda: dk.deint3_rows_dual(*k7args))),
+               "k9_long_window_ms": forced_long(
+                   dk, "K9_LONG_WINDOW", lambda: cuda_ms(
+                       lambda: dk.cols3_tail(*k9args, pack_format="rgba8")))}
+    del staged7, long7, staged9, long9, k7args, k9args, c5b, sess, sess_b
+    if n_5 != only(deint3_rows_dual=3, cols3_tail=3) \
+            or routes5["k7"] != "long-window" \
+            or not k9_small_long["bit_equal"] \
+            or min(db_5) < 55.0 or res["err"]["k7"] > 2e-5 \
+            or d9["max_code_diff"] > 1 or d9["frac_differing"] >= 0.02 \
+            or not (forced5["k7_bit_equal"] and forced5["k9_bit_equal"]):
+        raise AssertionError(f"c5 small: launches {n_5}, routes {routes5}, "
+                             f"PSNR {db_5}, K9 {d9}, forced {forced5}")
+    line("c5_small", batch=BATCH, size=[SMALL_W, SMALL_H], launches=n_5,
+         routes=routes5, psnr_db_field0=db_5[0], psnr_db_field1=db_5[1],
+         ms_per_field=ms_5, k7_ms=k7_small_ms, k9_ms=k9_small_ms,
+         k9_vs_plain=d9, k9_long_window=k9_small_long, digest=c5s_digest,
+         forced_on_c5=forced5)
+    torch.cuda.empty_cache()
+
+    # 24. c8 small: c8's serving function -> 320 x 180 RGB10, two scenes,
+    #     K1 x2 + K8 + K9 a call (K9 on its long-window route)
+    meta = dovi_meta()
+    st8, src8, _ = c8_args(meta)
+    serve_s = make_serving_fn(plan_pipeline(st8, src8, OutputDescriptor(
+        width=SMALL_W, height=SMALL_H, bits=10)), pack_surface=True)
+    c8b = [p010_batch(BATCH, SEED + 80 + i, dev) for i in range(C8_SCENES)]
+    rts = [{"dovi_curves": dovi_rt(i)} for i in range(C8_SCENES)]
+    with recording(dk, "rows3_mid", "cols3_tail") as calls:
+        serve_s(c8b[0], rts[0])
+    torch.cuda.synchronize()
+    (a8, kw8, got8), = calls["rows3_mid"]
+    (a9, kw9, got9), = calls["cols3_tail"]
+    del calls
+    vals = a8[6].host_values().size
+    routes8 = {"k8": "/".join(map(str, dk.k8_route(
+                   a8[0].element_size(), a8[1].element_size(), a8[3], a8[4],
+                   a8[7], a8[5], vals,
+                   dk.k8_light_route(a8[0].dtype, a8[1].dtype, a8[6])))),
+               "k9": dk.k9_route(4, 4, a9[3], a9[4])}
+    err("k8", max((g - r).abs().max().item() for g, r in zip(
+        got8, dk.rows3_mid_plain(*a8, **kw8))))
+    d9s = code_diff(got9, dk.cols3_tail_plain(*a9, **kw9), 10)
+    err("k9", d9s["max_code_diff"] / 1023.0)
+    k8_small_ms = cuda_ms(lambda: dk.rows3_mid(*a8, **kw8))
+    k9_c8small_ms = cuda_ms(lambda: dk.cols3_tail(*a9, **kw9))
+    del a8, kw8, got8, a9, kw9, got9
+
+    def c8s_run():
+        return [serve_s(b, rt) for b, rt in zip(c8b[:2], rts[:2])]
+
+    outs, n_8 = count_launches(c8s_run)
+    res["launches"]["c8_small"] = n_8
+
+    def c8_want(b, rt, w, h, rect=None):
+        return oracle_dovi(*(p[0] for p in b), w, h,
+                           curves=rt["dovi_curves"],
+                           structure=dovi.curve_structure(meta),
+                           ycc_to_rgb=meta.ycc_to_rgb_matrix,
+                           ycc_offset=meta.ycc_to_rgb_offset,
+                           lms=dovi.lms_pipeline_matrix(meta),
+                           video_rect=rect)
+
+    db_8 = psnr(codes(outs[0][0], 10).double() / 1023.0,
+                c8_want(c8b[0], rts[0], SMALL_W, SMALL_H))
+    c8s_digest = digest(*outs)
+    del outs
+    ms_8 = timed_calls(lambda b: serve_s(b, rts[1]), c8b[:2])
+    if n_8 != only(banded_resize_last_axis=4, rows3_mid=2, cols3_tail=2) \
+            or routes8["k9"] != "long-window" or db_8 < 55.0 \
+            or res["err"]["k8"] > 1e-5 or d9s["max_code_diff"] > 1 \
+            or d9s["frac_differing"] >= 0.02:
+        raise AssertionError(f"c8 small: launches {n_8}, routes {routes8}, "
+                             f"PSNR {db_8}, K8 {res['err']['k8']}, K9 {d9s}")
+    line("c8_small", batch=BATCH, size=[SMALL_W, SMALL_H], launches=n_8,
+         routes=routes8, psnr_db=db_8, ms_per_frame=ms_8,
+         k8_ms=k8_small_ms, k9_ms=k9_c8small_ms, k9_vs_plain=d9s,
+         digest=c8s_digest)
+
+    # 25. c8 rect: c8's four scenes into the C8_RECT rect of a 1080p RGB10
+    #     surface, K1 x2 + K8 + K9 with the offset a call; the rect
+    #     bit-equal to the unplaced plan's surface, the bars the packed zero
+    l, tp, r, bt = C8_RECT
+    serve_r = make_serving_fn(plan_pipeline(st8, src8, OutputDescriptor(
+        width=OW, height=OH, bits=10, video_rect=C8_RECT)),
+        pack_surface=True)
+    serve_u = make_serving_fn(plan_pipeline(st8, src8, OutputDescriptor(
+        width=r - l, height=bt - tp, bits=10)), pack_surface=True)
+    serve_r(c8b[0], rts[0])                     # warm-up, before the count
+
+    def c8r_run():
+        return [serve_r(b, rt) for b, rt in zip(c8b, rts)]
+
+    outs, n_r = count_launches(c8r_run)
+    res["launches"]["c8_rect"] = n_r
+    rect8 = placed_check(outs, list(zip(c8b, rts)), C8_RECT,
+                         lambda pair: serve_u(*pair))
+    db_r = {f"scene{i}": psnr(
+        codes(outs[i][0], 10).double() / 1023.0,
+        c8_want(c8b[i], rts[i], OW, OH, C8_RECT)) for i in (0, C8_SCENES - 1)}
+    c8r_digest = digest(*outs)
+    del outs
+    ms_r = cuda_ms(c8r_run, reps=1, warmup=0) / (C8_SCENES * BATCH)
+    del c8b, serve_s, serve_r, serve_u
+    if n_r != only(banded_resize_last_axis=2 * C8_SCENES,
+                   rows3_mid=C8_SCENES, cols3_tail=C8_SCENES) \
+            or not (rect8["bars_black"] and rect8["rect_bit_equal"]) \
+            or min(db_r.values()) < 55.0:
+        raise AssertionError(f"c8 rect: launches {n_r}, {rect8}, PSNR {db_r}")
+    line("c8_rect", batch=BATCH, scenes=C8_SCENES, launches=n_r,
+         psnr_db=db_r, ms_per_frame=ms_r, digest=c8r_digest, **rect8)
+    torch.cuda.empty_cache()
+
+    # 26. sdr2020: 4K P010 SDR with BT.2020 primaries (a UHD SDR broadcast
+    #     signal, BT.1886: the fix's source gamma 2.2) -> 1080p RGB10
+    #     dithered, K1 x3 + K2 (CORR_FIX_BT2020) a call
+    set_s = Settings(upscaling=Upscaling.LANCZOS3, use_dither=True,
+                     chroma_scaling=ChromaScaling.BILINEAR)
+    src_s = SourceDescriptor(format=ColorFormat.P010, width=W, height=H,
+                             matrix=CSP.BT_2020_NC, levels=Levels.TV,
+                             primaries=Primaries.BT_2020, transfer=TRC.BT_1886)
+    vp_s = VideoProcessor(set_s, src_s, OutputDescriptor(width=OW, height=OH,
+                                                         bits=10),
+                          device=dev, pack_surface=True)
+    sb = [p010_batch(BATCH, SEED + 85 + i, dev) for i in range(2)]
+    a2, kw2, got2 = one_call(rk, "rows3_tail", lambda: vp_s.process(sb[0]))
+    fix = {"correction": a2[6].correction, "sdr_gamma": a2[6].sdr_gamma,
+           "route": rk.rows3_tail_route(a2[0].dtype, a2[1].dtype, a2[6],
+                                        kw2.get("pack_format")),
+           **code_diff(got2, rk.rows3_tail_plain(*a2, **kw2), 10)}
+    err("k2", fix["max_code_diff"] / 1023.0)
+    fix["k2_ms"] = cuda_ms(lambda: rk.rows3_tail(*a2, **kw2))
+    fix["k2_digest"] = digest(got2)
+    del a2, kw2, got2
+    outs, n_s = count_launches(lambda: [vp_s.process(b) for b in sb])
+    res["launches"]["sdr2020"] = n_s
+    db_s = psnr(codes(outs[0][0], 10).double() / 1023.0,
+                oracle(*(p[0] for p in sb[0]), OW, OH, pq_to_sdr=False,
+                       fix_bt2020_gamma=2.2))
+    sdr_digest = digest(*outs)
+    del outs
+    ms_s = timed_calls(vp_s.process, sb)
+    del sb, vp_s
+    if n_s != only(banded_resize_last_axis=6, rows3_tail=2) \
+            or fix["correction"] != rk.CORR_FIX_BT2020 \
+            or fix["max_code_diff"] > 1 or fix["frac_differing"] >= 0.02 \
+            or db_s < 55.0:
+        raise AssertionError(f"sdr2020: launches {n_s}, K2 {fix}, PSNR "
+                             f"{db_s}")
+    line("sdr2020", batch=BATCH, launches=n_s, psnr_db=db_s,
+         ms_per_frame=ms_s, k2=fix, digest=sdr_digest,
+         tolerance="K2 <= 1 code on < 2% of channels")
+
+    # 27. gray: 4K Y16 -> 1080p RGB10 dithered, K1 + K3 a call (K3's path)
+    src_g = SourceDescriptor(format=ColorFormat.Y16, width=W, height=H,
+                             matrix=CSP.BT_709, levels=Levels.TV)
+    vp_g = VideoProcessor(set_s, src_g, OutputDescriptor(width=OW, height=OH,
+                                                         bits=10),
+                          device=dev, pack_surface=True)
+    rng = np.random.default_rng(SEED + 90)
+    gb = [(torch.from_numpy(rng.integers(64 << 8, 235 << 8, (BATCH, H, W),
+                                         dtype=np.uint16)).to(dev),)
+          for _ in range(2)]
+    a3, kw3, got3 = one_call(rk, "banded_resize_rows",
+                             lambda: vp_g.process(gb[0]))
+    k3 = {"max_abs_err": (got3 - rk.banded_resize_rows_plain(*a3, **kw3))
+          .abs().max().item(),
+          "route": "/".join(map(str, rk.k3_route(a3[0].element_size(),
+                                                 a3[1])))}
+    k3["ms"] = cuda_ms(lambda: rk.banded_resize_rows(*a3, **kw3))
+    k3["plain_ms"] = cuda_ms(lambda: rk.banded_resize_rows_plain(*a3, **kw3))
+    dense3 = a3[1].dense_on(dev).T
+    k3["library_ms"] = cuda_ms(lambda: torch.matmul(dense3, a3[0]))
+    k3.update(bound(tbytes(a3[0]) + got3.numel() * 4 + mbytes(a3[1]),
+                    map_flops(a3[1], a3[0].numel() // a3[1].in_size)))
+    del a3, kw3, got3, dense3
+    outs, n_g = count_launches(lambda: [vp_g.process(b) for b in gb])
+    res["launches"]["gray"] = n_g
+    db_g = psnr(codes(outs[0][0], 10).double() / 1023.0,
+                oracle_gray(gb[0][0][0], OW, OH, matrix=CSP.BT_709,
+                            levels=Levels.TV))
+    gray_digest = digest(*outs)
+    del outs
+    ms_g = timed_calls(vp_g.process, gb)
+    del gb, vp_g
+    if n_g != only(banded_resize_last_axis=2, banded_resize_rows=2) \
+            or k3["max_abs_err"] > 2e-6 or db_g < 55.0:
+        raise AssertionError(f"gray: launches {n_g}, K3 {k3}, PSNR {db_g}")
+    line("gray", batch=BATCH, launches=n_g, psnr_db=db_g, ms_per_frame=ms_g,
+         k3=k3, digest=gray_digest, tolerance="K3 f32 <= 2e-6")
+    res["k3"] = k3
+
+    # 28. shader: the headline plan with vp_scaling=False: the convert at
+    #     source resolution (K1 x2 on the chroma + K2 with the colour
+    #     matrix and PQ -> SDR, float32 out), the torch resize and final
+    #     pass; the convert's K1 and K2 calls against their plain versions
+    #     on 2 frames
+    set_h = Settings(upscaling=Upscaling.LANCZOS3,
+                     chroma_scaling=ChromaScaling.BILINEAR,
+                     convert_to_sdr=True, use_dither=True, vp_scaling=False)
+    vp_sh = VideoProcessor(set_h, src, OutputDescriptor(width=OW, height=OH,
+                                                        bits=10),
+                           device=dev, pack_surface=True)
+    hb = [p010_batch(BATCH, SEED + 95 + i, dev) for i in range(2)]
+    with recording(rk, "banded_resize_last_axis", "rows3_tail") as calls:
+        vp_sh.process(tuple(p[:PLAIN_FRAMES] for p in hb[0]))
+    torch.cuda.synchronize()
+    sh = {"k1_max_abs_err": max(
+        (o - rk.banded_resize_last_axis_plain(*a, **kw)).abs().max().item()
+        for a, kw, o in calls["banded_resize_last_axis"])}
+    (a2, kw2, got2), = calls["rows3_tail"]
+    sh["k2_max_abs_err"] = (got2 - rk.rows3_tail_plain(*a2, **kw2)).abs() \
+        .max().item()
+    sh["k2_correction"] = a2[6].correction
+    sh["k2_digest"] = digest(got2)
+    err("k1", sh["k1_max_abs_err"])
+    err("k2", sh["k2_max_abs_err"])
+    del calls, a2, kw2, got2
+    outs, n_h = count_launches(lambda: [vp_sh.process(b) for b in hb])
+    res["launches"]["shader"] = n_h
+    db_h = psnr(codes(outs[0][0], 10).double() / 1023.0,
+                oracle(*(p[0] for p in hb[0]), OW, OH, shader_order=True))
+    shader_digest = digest(*outs)
+    del outs
+    ms_h = timed_calls(vp_sh.process, hb)
+    del hb, vp_sh
+    if n_h != only(banded_resize_last_axis=4, rows3_tail=2) \
+            or sh["k1_max_abs_err"] > 2e-5 or sh["k2_max_abs_err"] > 2e-4 \
+            or sh["k2_correction"] != rk.CORR_PQ_TO_SDR or db_h < 55.0:
+        raise AssertionError(f"shader: launches {n_h}, {sh}, PSNR {db_h}")
+    line("shader", batch=BATCH, launches=n_h, psnr_db=db_h,
+         ms_per_frame=ms_h, digest=shader_digest, **sh,
+         tolerance="K1 f32 <= 2e-5; K2 float out with a correction <= 2e-4")
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> None:
@@ -1258,10 +1738,13 @@ def main() -> None:
          digests_k8_k9=k8_digests, **k8)
     del two
 
-    # 16. K3 at the letterboxed path's shapes: each K3 call of the path on
-    #     PLAIN_FRAMES frames (K1's float32 output, luma 1608 -> 804 rows,
-    #     chroma 804 -> 804 through the composed upsample), and raw uint16
-    #     luma with the normalisation in the taps
+    # 16. K3 at the letterboxed plan's shapes (the calls its K1 + K3
+    #     route made before the offset tail; the placed route is K2's now
+    #     and K3's path is the GRAY source's, phase 27): on PLAIN_FRAMES
+    #     frames, each plane's K1 float32 output of the plan's maps (luma
+    #     1608 -> 804 rows, chroma 804 -> 804 through the composed
+    #     upsample), and raw uint16 luma with the normalisation in the
+    #     taps
     src_b = SourceDescriptor(format=ColorFormat.P010, width=W, height=LB_H,
                              matrix=CSP.BT_2020_NC, levels=Levels.TV,
                              primaries=Primaries.BT_2020, transfer=TRC.PQ,
@@ -1270,20 +1753,23 @@ def main() -> None:
     set_b = Settings(upscaling=Upscaling.LANCZOS3, convert_to_sdr=True)
     lb_batches = [p010_batch(BATCH, SEED + 30 + i, dev, h=LB_H)
                   for i in range(2)]
-    vp_b = VideoProcessor(set_b, src_b, dst_b, device=dev, pack_surface=True)
-    with recording(rk, "banded_resize_rows") as calls:
-        vp_b.process(tuple(p[:PLAIN_FRAMES] for p in lb_batches[0]))
-    torch.cuda.synchronize()
+    wx_b, wy_b, cwx_b, cwy_b, norm_b = fused_maps(
+        plan_pipeline(set_b, src_b, dst_b))
     k3 = {"max_abs_err": 0.0}
-    k3_calls = calls["banded_resize_rows"]
-    if len(k3_calls) != 3 or {str(a[0].dtype) for a, _, _ in k3_calls} \
-            != {"torch.float32"}:
-        raise AssertionError(f"the path made {len(k3_calls)} K3 calls")
-    for a, kw, got in k3_calls:
+    k3_outs = []
+    for p, (kw3, kh3) in zip(lb_batches[0], (
+            rk.mega_maps(wx_b, wy_b, norm_b),
+            rk.mega_maps(cwx_b, cwy_b, norm_b),
+            rk.mega_maps(cwx_b, cwy_b, norm_b))):
+        x3 = rk.banded_resize_last_axis(p[:PLAIN_FRAMES], kw3)
+        got = rk.banded_resize_rows(x3, kh3)
+        torch.cuda.synchronize()
         k3["max_abs_err"] = max(k3["max_abs_err"], (
-            got - rk.banded_resize_rows_plain(*a, **kw)).abs().max().item())
-    k3_digest = digest(*(o for _, _, o in k3_calls))
-    del calls, k3_calls
+            got - rk.banded_resize_rows_plain(x3, kh3)).abs().max().item())
+        k3_outs.append(got)
+        del x3
+    k3_digest = digest(*k3_outs)
+    del k3_outs
     ky_raw = rk.BandedMatrix(scale.upscale_matrix(Upscaling.LANCZOS3, LB_H,
                                                   LB_RECT[3] - LB_RECT[1]),
                              pre_scale=norm)
@@ -1421,7 +1907,11 @@ def main() -> None:
 
     # 18. the letterboxed path: VideoProcessor 3840 x 1608 -> the 1920 x 804
     #     rect of a 1920 x 1080 RGB10 surface, two distinct batches of 16,
-    #     K1 x3 + K3 x3 per call; the bars exactly the packed zero
+    #     K1 x3 + K2 x1 per call (K2 stores at the rect's origin); the rect
+    #     bit-equal to the unplaced 1920 x 804 plan's surface, the bars
+    #     exactly the packed zero; then a 4:3 film pillarboxed and a rect
+    #     whose column offset is not a multiple of 4, on 2 frames
+    vp_b = VideoProcessor(set_b, src_b, dst_b, device=dev, pack_surface=True)
     vp_b.process(lb_batches[0])                 # warm-up, before the count
     lb_times = []
 
@@ -1440,47 +1930,56 @@ def main() -> None:
     lb_outs, lb_launches = count_launches(lb_run)
     lb_digest = digest(*lb_outs)
     if lb_launches != only(banded_resize_last_axis=3 * len(lb_batches),
-                           banded_resize_rows=3 * len(lb_batches)):
+                           rows3_tail=len(lb_batches)):
         raise AssertionError(f"letterbox launches {lb_launches}")
+    placed = {"letterbox": placed_check(
+        lb_outs, lb_batches, LB_RECT,
+        lambda b: VideoProcessor(set_b, src_b, OutputDescriptor(
+            width=LB_RECT[2] - LB_RECT[0], height=LB_RECT[3] - LB_RECT[1],
+            bits=10), device=dev, pack_surface=True).process(b))}
     l, tp, r, bt = LB_RECT
-    bars_black = True
-    for o in lb_outs:
-        if o.shape != (BATCH, OH, OW) or o.dtype != torch.int32:
-            raise AssertionError(f"letterbox output {tuple(o.shape)}")
-        bars = torch.cat([o[:, :tp].reshape(-1), o[:, bt:].reshape(-1),
-                          o[:, tp:bt, :l].reshape(-1),
-                          o[:, tp:bt, r:].reshape(-1)])
-        bars_black &= bool(torch.all(bars == -1073741824).item())
     want = oracle(*(p[0] for p in lb_batches[0]), OW, OH, video_rect=LB_RECT)
     got0 = codes(lb_outs[0][0], 10).double() / 1023.0
     db_lb = {"rect": psnr(got0[:, tp:bt, l:r], want[:, tp:bt, l:r]),
              "surface": psnr(got0, want)}
     del lb_outs, got0, want
-    if not bars_black or min(db_lb.values()) < 55.0:
-        raise AssertionError(f"letterbox: bars black {bars_black}, PSNR "
-                             f"{db_lb}")
     lb_ms = cuda_ms(lambda: [vp_b.process(b) for b in lb_batches], reps=1,
                     warmup=0) / (len(lb_batches) * BATCH)
-    # K3 at the path's batch: its three calls, recorded
-    with recording(rk, "banded_resize_rows") as calls:
-        vp_b.process(lb_batches[1])
-    torch.cuda.synchronize()
-    k3_args = [(a, kw) for a, kw, _ in calls["banded_resize_rows"]]
-    del calls
-    k3["ms"] = cuda_ms(lambda: [rk.banded_resize_rows(*a, **kw)
-                                for a, kw in k3_args])
-    k3["plain_ms"] = cuda_ms(lambda: [rk.banded_resize_rows_plain(*a, **kw)
-                                      for a, kw in k3_args])
-    k3["library_ms"] = cuda_ms(lambda: [
-        torch.matmul(a[1].dense_on(dev).T, a[0]) for a, _ in k3_args])
-    k3.update(bound(sum(tbytes(a[0]) + a[0].numel() // a[1].in_size
-                        * a[1].out_size * 4 + mbytes(a[1])
-                        for a, _ in k3_args),
-                    sum(map_flops(a[1], a[0].numel() // a[1].in_size)
-                        for a, _ in k3_args)))
-    del k3_args
+    # a 4:3 film (PILLAR_W x H) pillarboxed, and the headline source into
+    # ODD_RECT, each on PLAIN_FRAMES frames, with the same checks
+    for key, w_src, rect in (("pillarbox", PILLAR_W, PILLAR_RECT),
+                             ("odd_rect", W, ODD_RECT)):
+        src_p = SourceDescriptor(format=ColorFormat.P010, width=w_src,
+                                 height=H, matrix=CSP.BT_2020_NC,
+                                 levels=Levels.TV, primaries=Primaries.BT_2020,
+                                 transfer=TRC.PQ, hdr10=HDR10Metadata())
+        two = p010_frames(PLAIN_FRAMES, SEED + 33, dev, w_src, H)
+        out_p, n_p = count_launches(lambda: VideoProcessor(
+            set_b, src_p, OutputDescriptor(width=OW, height=OH, bits=10,
+                                           video_rect=rect),
+            device=dev, pack_surface=True).process(two))
+        if n_p != only(banded_resize_last_axis=3, rows3_tail=1):
+            raise AssertionError(f"{key} launches {n_p}")
+        placed[key] = placed_check(
+            [out_p], [two], rect,
+            lambda b: VideoProcessor(set_b, src_p, OutputDescriptor(
+                width=rect[2] - rect[0], height=rect[3] - rect[1], bits=10),
+                device=dev, pack_surface=True).process(b))
+        want = oracle(*(p[0] for p in two), OW, OH, video_rect=rect)
+        l, tp, r, bt = rect
+        placed[key]["psnr_db_rect"] = psnr(
+            (codes(out_p[0], 10).double() / 1023.0)[:, tp:bt, l:r],
+            want[:, tp:bt, l:r])
+        del two, out_p, want
+    bars_black = all(c["bars_black"] for c in placed.values())
+    rect_bit_equal = all(c["rect_bit_equal"] for c in placed.values())
+    if not (bars_black and rect_bit_equal) or min(
+            [*db_lb.values()] + [c["psnr_db_rect"] for k, c in
+                                 placed.items() if k != "letterbox"]) < 55.0:
+        raise AssertionError(f"letterbox: {placed}, PSNR {db_lb}")
     line("letterbox", batch=BATCH, calls=len(lb_batches),
-         launches=lb_launches, bars_black=bars_black, psnr_db=db_lb,
+         launches=lb_launches, bars_black=bars_black,
+         rect_bit_equal=rect_bit_equal, psnr_db=db_lb, placed=placed,
          ms_per_frame=sum(lb_times) / (len(lb_batches) * BATCH),
          ms_per_frame_back_to_back=lb_ms, digest=lb_digest)
     del lb_batches, vp_b
@@ -1786,6 +2285,13 @@ def main() -> None:
          stage_launches={p: {k: v for k, v in n.items() if v}
                          for p, n in split_launches.items()})
 
+    # 22-28: the strong downscales, Dolby Vision in a rect, the SDR
+    # BT.2020 fix, GRAY and the shader order
+    new = offset_tail_phases(dev)
+
+    def new_launches(name):
+        return sum(n[name] for n in new["launches"].values())
+
     def entry(name, source, replaces, n, k, err):
         return {"name": name, "route": "cuda",
                 "source": f"videorenderer_tpu_torch/csrc/{source}",
@@ -1808,20 +2314,25 @@ def main() -> None:
               + c7_launches["banded_resize_last_axis"]
               + probe_launches["banded_resize_last_axis"]
               + sum(n["banded_resize_last_axis"]
-                    for n in split_launches.values()), k1,
+                    for n in split_launches.values())
+              + new_launches("banded_resize_last_axis"), k1,
               max(k1["max_abs_err"], conv["k1_max_abs_err"],
-                  sr_k["k1_max_abs_err"])),
+                  sr_k["k1_max_abs_err"], new["err"]["k1"])),
         entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
               launches["rows3_tail"] + c7_launches["rows3_tail"]
-              + sum(n["rows3_tail"] for n in split_launches.values()), k2,
+              + sum(n["rows3_tail"] for n in split_launches.values())
+              + lb_launches["rows3_tail"] + new_launches("rows3_tail"), k2,
               max(k2["max_abs_err"], conv["k2_max_abs_err"],
-                  sr_k["k2_max_abs_err"], c7k["k2_max_code_diff"] / 1023.0)),
+                  sr_k["k2_max_abs_err"], c7k["k2_max_code_diff"] / 1023.0,
+                  new["err"]["k2"])),
         entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",
               k4_launches["mega3_tail"], k4,
               max(c["max_abs_err"] for c in k4_cases.values())),
-        entry("banded_resize_rows", "banded_resize_rows.cu",
-              "resize_pallas.py:340", lb_launches["banded_resize_rows"], k3,
-              max(k3["max_abs_err"], k3["max_abs_err_u16"])),
+        {**entry("banded_resize_rows", "banded_resize_rows.cu",
+                 "resize_pallas.py:340", new_launches("banded_resize_rows"),
+                 new["k3"], max(k3["max_abs_err"], k3["max_abs_err_u16"],
+                                new["k3"]["max_abs_err"])),
+         "k3_route": new["k3"]["route"]},
         {**entry("jinc2_resize_fused", "jinc2_resize.cu",
                  "jinc2_pallas.py:242", r270_launches["jinc2_resize_fused"],
                  k5, k5["max_abs_err"]),
@@ -1840,13 +2351,18 @@ def main() -> None:
              + rot_first["jinc2_weight_table"]
              + r270_first["jinc2_weight_table"], k6t, k6t["max_abs_err"])},
         entry("deint3_rows_dual", "deint3_rows_dual.cu", "deint_pallas.py:86",
-              c5_launches["deint3_rows_dual"], k7, k7["max_abs_err"]),
+              c5_launches["deint3_rows_dual"]
+              + new_launches("deint3_rows_dual"), k7,
+              max(k7["max_abs_err"], new["err"]["k7"])),
         entry("rows3_mid", "rows3_mid.cu", "deint_pallas.py:216",
-              c8_launches["rows3_mid"], k8,
-              max(k8["max_abs_err"], k8["max_abs_err_variant"])),
+              c8_launches["rows3_mid"] + new_launches("rows3_mid"), k8,
+              max(k8["max_abs_err"], k8["max_abs_err_variant"],
+                  new["err"]["k8"])),
         entry("cols3_tail", "cols3_tail.cu", "deint_pallas.py:434",
-              c5_launches["cols3_tail"] + c8_launches["cols3_tail"], k9,
-              max(k9["max_abs_err"], k8_k9["max_code_diff"] / 1023.0)),
+              c5_launches["cols3_tail"] + c8_launches["cols3_tail"]
+              + new_launches("cols3_tail"), k9,
+              max(k9["max_abs_err"], k8_k9["max_code_diff"] / 1023.0,
+                  new["err"]["k9"])),
         {**k10_entry("probe_wpass", "wpass_bf16", k10),
          "forms": {f: k10_entry(f, f, k) for f, k in (("wpass_bf16", k10),
                                                       ("wpass_floor", k10f))}},

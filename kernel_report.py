@@ -20,10 +20,11 @@ Per function it prints one JSON line:
   * ``registers``, ``stack_bytes``, ``spill_store_bytes``,
     ``spill_load_bytes`` (ptxas);
   * ``blocks_per_sm``: resident blocks an SM holds at ``--launch``'s block
-    size and dynamic shared memory (by default K7's and K9's at c5, K9's
-    c8 route's and K8's at c8 (its heavy routes' at 16-row tiles), K6's
-    at c3, K5's at c3r270 (c3's geometry), K3's on the letterbox's luma
-    map, from ``kernels/deint``'s, ``kernels/jinc2``'s and
+    size and dynamic shared memory (by default the long-window kernels of
+    K2, K3, K7, K8 and K9 at 256 threads and none, K7's and K9's at c5,
+    K9's c8 route's and K8's at c8 (its heavy routes' at 16-row tiles),
+    K6's at c3, K5's at c3r270 (c3's geometry), K3's on the letterbox's
+    luma map, from ``kernels/deint``'s, ``kernels/jinc2``'s and
     ``kernels/resize``'s formulas on those maps; 128 threads and none for
     the others) (the occupancy calculator's rules:
     registers allocated per warp in units of 256, 64 warps, 32 blocks and
@@ -130,12 +131,17 @@ PART_GROUP = {"MidRoute<0, 1>": 4, "jinc2_convert_kernel": 4,
               "jinc2_resize_kernel<1,": 4}
 # K8's heavy routes as the demangled names spell them (LmsMid, RuntimeMid)
 K8_HEAVY_ROUTES = ("MidRoute<1, -1>", "MidRoute<-1, -1>")
+# the long-window kernels' names: rows3_tail_long_kernel,
+# cols3_tail_long_kernel, deint3_long_kernel, banded_resize_rows_long_kernel,
+# rows3_mid_long_kernel
+LONG_WINDOW = "_long_kernel"
 
 
 def default_launches() -> list[tuple[str, tuple[int, int]]]:
-    """(name substring, (threads, dynamic shared memory)) of K7 and K9 at
-    the cells their paths run, from kernels/deint's formulas on c5's and
-    c8's maps; the first substring a function's name contains applies."""
+    """(name substring, (threads, dynamic shared memory)) of the
+    long-window kernels (no shared memory), and of K7 and K9 at the cells
+    their paths run, from kernels/deint's formulas on c5's and c8's maps;
+    the first substring a function's name contains applies."""
     from videorenderer_tpu_torch import config as C, csputils as S
     from videorenderer_tpu_torch.kernels import deint as dk
     from videorenderer_tpu_torch.kernels import resize as rk
@@ -151,6 +157,9 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
                                                1080))
     n16 = 1 / 65535.0
     return [
+        # the long-window routes of K2, K3, K7, K8 and K9: 256 threads, no
+        # shared memory (matched before the staged kernels' routes)
+        (LONG_WINDOW, (256, 0)),
         ("deint3_kernel", (256, dk.k7_smem_bytes(
             2, rk.BandedMatrix(wy, pre_scale=n16),
             rk.BandedMatrix(uy @ wy, pre_scale=n16)))),

@@ -30,7 +30,13 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
    dithered float within 1 code on < 2% of the channels, as K2;
  * K10 ``wpass_floor`` bit-equal (the same bf16 rounding of exact codes),
    ``wpass_bf16`` <= 1e-5 (exact bf16 products, the sums in another
-   order).
+   order);
+ * the long-window routes of K2, K3, K7, K8 and K9 bit-equal to the staged
+   routes on maps both take (forced by the modules' ``*_LONG_WINDOW``
+   flags), and within their kernel's band of the plain version on maps
+   only they take; a placed K2 or K9 output bit-equal inside its rect to
+   the unplaced output, every bar the packed zero (or float zeros);
+ * K2, K9 and K4 with the SDR BT.2020 fix as K2 with a correction above.
 """
 
 import numpy as np
@@ -396,17 +402,32 @@ def test_k2_is_deterministic(dev):
 
 
 def test_k1_k2_refuse_windows_over_the_budget(dev):
-    """A box average of 8192 inputs into 4 outputs at float32: the staged
-    window does not fit a block's shared memory, and the wrappers raise
-    before any launch."""
+    """A box average of 8192 inputs into 4 outputs at float32: K1 stages
+    fewer rows a block and K2 takes its long-window route, each within its
+    band of the plain version; only a K1 span whose one row does not fit
+    (60000 float32 columns) raises, before any launch.  The inputs are
+    whole numbers, so the box sums are exact in any order."""
+    rng = np.random.default_rng(35)
     box = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
+    assert rk.k1_rows(4, box.row_windows(rk.K1_SPAN)[1]) == 4
+    x = torch.from_numpy(rng.integers(0, 256, (3, 8192)).astype(
+        np.float32)).to(dev)
+    got = rk.banded_resize_last_axis(x, box)
+    torch.cuda.synchronize()
+    assert (got - rk.banded_resize_last_axis_plain(x, box)).abs().max() \
+        <= 2e-6
+    assert rk.k2_route(4, 4, box, box) == "long-window"
+    p = torch.from_numpy(rng.integers(0, 256, (1, 8192, 8)).astype(
+        np.float32) / 256).to(dev)
+    got = rk.rows3_tail(p, p, p, box, box, 4, _cmat_epi())
+    torch.cuda.synchronize()
+    assert (got - rk.rows3_tail_plain(p, p, p, box, box, 4, _cmat_epi())
+            ).abs().max() <= 1e-5
+    wide = rk.BandedMatrix(np.full((60000, 1), 1 / 60000, np.float32))
     before = dict(rk.launches)
-    x = torch.zeros((1, 8192), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        rk.banded_resize_last_axis(x, box)
-    p = torch.zeros((1, 8192, 8), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        rk.rows3_tail(p, p, p, box, box, 4, _cmat_epi())
+        rk.banded_resize_last_axis(
+            torch.zeros((1, 60000), dtype=torch.float32, device=dev), wide)
     assert rk.launches == before
 
 
@@ -1131,17 +1152,28 @@ def test_k9_is_deterministic(dev):
 
 def test_k7_k9_refuse_windows_and_grids_over_their_limits(dev):
     """A box average of 8192 inputs into 4 outputs: the staged window does
-    not fit a block's shared memory; 65536 frames: past K9's grid z limit
-    (K7 folds the frames into x).  The wrappers raise, naming the limit,
-    before any launch."""
+    not fit a block's shared memory, so K7 and K9 take their long-window
+    routes, within their bands of the plain versions; 65536 frames: past
+    K9's grid z limit (K7 folds the frames into x), which raises, naming
+    the limit, before any launch.  The inputs are whole numbers (and prev
+    is next: no motion), so the box sums are exact in any order."""
+    rng = np.random.default_rng(36)
     box = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
+    assert dk.k7_route(4, box, box) == dk.k9_route(4, 4, box, box) \
+        == "long-window"
+    p = torch.from_numpy(rng.integers(0, 256, (1, 8192, 8)).astype(
+        np.float32) / 256).to(dev)
+    win = ((p,) * 3, (p,) * 3, (p,) * 3)
+    got = dk.deint3_rows_dual(*win, box, box, 4, 1.0)
+    torch.cuda.synchronize()
+    for g, r in zip(got, dk.deint3_rows_dual_plain(*win, box, box, 4, 1.0)):
+        assert (g - r).abs().max().item() <= 2e-5
+    q = p.reshape(1, 8, 8192).contiguous()
+    got = dk.cols3_tail(q, q, q, box, box, 4, _cmat_epi())
+    torch.cuda.synchronize()
+    assert (got - dk.cols3_tail_plain(q, q, q, box, box, 4, _cmat_epi())
+            ).abs().max().item() <= 1e-5
     before = dict(rk.launches)
-    p = torch.zeros((1, 8192, 8), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        dk.deint3_rows_dual((p,) * 3, (p,) * 3, (p,) * 3, box, box, 4, 1.0)
-    q = torch.zeros((1, 8, 8192), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        dk.cols3_tail(q, q, q, box, box, 4, _cmat_epi())
     eye = rk.BandedMatrix(np.eye(4, dtype=np.float32))
     many = torch.zeros((65536, 4, 4), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="65535"):
@@ -1200,8 +1232,8 @@ def test_k3_tiled_edges(dev, dtype, h_in, h_out, w, batch, unaligned):
 def test_k3_shrinks_its_tile_then_refuses_windows_over_the_budget(dev):
     """Box averages of 256 rows into each of 4 need a 256-row window a
     row: K3 makes tiles of one row and still agrees with its plain version;
-    8192 rows into 4 does not fit even at one row a tile, so the wrapper
-    raises, naming shared memory, before any launch."""
+    8192 rows into 4 does not fit even at one row a tile, so K3 takes its
+    long-window route (no window is refused any more), within its band."""
     band = np.zeros((1024, 4), np.float32)
     for j in range(4):
         band[256 * j:256 * (j + 1), j] = 1 / 256
@@ -1214,10 +1246,13 @@ def test_k3_shrinks_its_tile_then_refuses_windows_over_the_budget(dev):
     assert (got - rk.banded_resize_rows_plain(x, box)).abs().max().item() \
         <= 2e-6
     big = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
-    before = dict(rk.launches)
-    with pytest.raises(ValueError, match="shared memory"):
-        rk.banded_resize_rows(torch.zeros((1, 8192, 8), device=dev), big)
-    assert rk.launches == before
+    assert rk.k3_route(4, big) == ("long-window", rk.K3_TILE_ROWS)
+    x = torch.from_numpy(np.random.default_rng(15).integers(
+        0, 256, (1, 8192, 8)).astype(np.float32)).to(dev)   # exact sums
+    got = rk.banded_resize_rows(x, big)
+    torch.cuda.synchronize()
+    assert (got - rk.banded_resize_rows_plain(x, big)).abs().max().item() \
+        <= 2e-6
 
 
 def test_k3_is_deterministic(dev):
@@ -1409,19 +1444,25 @@ def test_k8_is_deterministic(dev):
 
 
 def test_k8_refuses_windows_over_its_budget(dev):
-    """An out map where every output reads every one of 8192 mid rows:
-    its window fits a block at no tile size, so K8 raises before any
-    launch."""
+    """An out map where every output reads 512 of 1024 mid rows: its
+    window fits a block at no tile size, so K8 takes its long-window route
+    (no window is refused any more), within its band of the plain
+    version."""
     rng = np.random.default_rng(19)
     args, kw = _k8_args(rng, "c8", h=96, w=64)
-    full = rk.BandedMatrix(np.full((8192, 4), 1 / 8192, np.float32))
-    y = torch.zeros((1, 8192, 64), dtype=torch.uint16, device=dev)
-    c = torch.zeros((1, 8192, 64), dtype=torch.float32, device=dev)
-    before = dict(rk.launches)
-    with pytest.raises(ValueError, match="shared memory"):
-        dk.rows3_mid(y, c, c, None, None, 8192, args[6], full, 4,
-                     y_scale=1 / 65535.0, c_scale=1.0)
-    assert rk.launches == before
+    full = rk.BandedMatrix(np.kron(np.eye(2), np.full((512, 1), 1 / 512))
+                           .astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 65535, (1, 1024, 64),
+                                      dtype=np.uint16)).to(dev)
+    c = torch.from_numpy(rng.random((1, 1024, 64), dtype=np.float32)).to(dev)
+    call = (y, c, c, None, None, 1024, args[6], full, 2)
+    kw = dict(y_scale=1 / 65535.0, c_scale=1.0)
+    assert dk.k8_route(2, 4, None, None, full, 1024,
+                       args[6].host_values().size)[0] == "long-window"
+    got = dk.rows3_mid(*call, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, dk.rows3_mid_plain(*call, **kw)):
+        assert (g - r).abs().max().item() <= 1e-5
 
 
 def _dovi_plan(w, h, ow, oh, kind="variant", accel=True):
@@ -1464,9 +1505,9 @@ def test_dovi_serving_on_card_matches_cpu(dev):
 
 
 def test_letterbox_on_card_matches_cpu(dev):
-    """A 2.39:1 film letterboxed into 16:9 at a small size: K1 ×3 + K3 ×3
-    per call on the card, within 1 code of the CPU, the bars the packed
-    zero."""
+    """A 2.39:1 film letterboxed into 16:9 at a small size: K1 ×3 + K2
+    with the rect's offset per call on the card, within 1 code of the CPU,
+    the bars the packed zero."""
     rng = np.random.default_rng(16)
     plan = P.plan_pipeline(
         C.Settings(upscaling=C.Upscaling.LANCZOS3, convert_to_sdr=True),
@@ -1481,8 +1522,7 @@ def test_letterbox_on_card_matches_cpu(dev):
     rk.reset_launches()
     got = fn(tuple(p.to(dev) for p in planes))
     torch.cuda.synchronize()
-    assert rk.launches == only(banded_resize_last_axis=3,
-                               banded_resize_rows=3)
+    assert rk.launches == only(banded_resize_last_axis=3, rows3_tail=1)
     ref = fn(planes)
     d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
     assert d.max() <= 1 and (d > 0).mean() < 0.02
@@ -1705,3 +1745,332 @@ def test_stage_split_on_card_matches_cpu(dev, monkeypatch):
         ref = thm.stages(plan, planes)["tail"]()
         d = np.abs(_codes(tail, "rgb10a2") - _codes(ref, "rgb10a2"))
         assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+# --- the long-window routes, the offset store, the SDR BT.2020 fix ------------
+
+@pytest.fixture
+def long_window(monkeypatch):
+    """Force every long-window route (the flags K2_LONG_WINDOW ... of
+    kernels/resize and kernels/deint) inside a test."""
+    def force(on=True):
+        for mod, name in ((rk, "K2_LONG_WINDOW"), (rk, "K3_LONG_WINDOW"),
+                          (dk, "K7_LONG_WINDOW"), (dk, "K8_LONG_WINDOW"),
+                          (dk, "K9_LONG_WINDOW")):
+            monkeypatch.setattr(mod, name, on)
+    return force
+
+
+def _fix_epi(dither_bits=10, gamma_trc=S.TRC.GAMMA28, with_cmat=True):
+    """The SDR BT.2020 fix's epilogue (a P010 SDR BT.2020 plan with the
+    source's power gamma)."""
+    plan = P.plan_pipeline(
+        C.Settings(use_dither=dither_bits > 0),
+        P.SourceDescriptor(format=ColorFormat.P010, width=64, height=32,
+                           matrix=S.CSP.BT_2020_NC, transfer=gamma_trc,
+                           primaries=S.Primaries.BT_2020),
+        P.OutputDescriptor(width=64, height=32,
+                           bits=abs(dither_bits) if dither_bits else 16))
+    epi = P._make_tail_epilogue(plan, with_cmat=with_cmat)
+    assert epi.correction == rk.CORR_FIX_BT2020
+    return epi
+
+
+LONG_K2 = [("headline", lambda: _epi(rk.CORR_PQ_TO_SDR, 10), torch.int16,
+            "rgb10a2"),
+           ("c5", lambda: _epi(rk.CORR_HLG_TO_SDR, 8), torch.int16, "rgba8"),
+           ("fix", lambda: _fix_epi(10), torch.int16, "rgb10a2"),
+           ("float", lambda: _epi(rk.CORR_PQ_TO_SDR, 0), torch.float32, None)]
+
+
+@pytest.mark.parametrize("name,make_epi,dtype,pack", LONG_K2,
+                         ids=[c[0] for c in LONG_K2])
+def test_k2_long_window_bit_equal_to_staged(dev, long_window, name, make_epi,
+                                            dtype, pack):
+    """On maps both routes take (the headline's 2:1), K2's long-window
+    route gives the staged route's bits, placed or not."""
+    rng = np.random.default_rng(40)
+    y, u, v, my, mc = _headline_k2(rng, 2, 216, 200, 108, dtype)
+    epi = make_epi()
+    for place in (None, (120, 212, 6, 5)):
+        kw = dict(pack_format=pack, place=place)
+        staged = rk.rows3_tail(y, u, v, my, mc, 108, epi, **kw)
+        long_window()
+        assert rk.k2_route(y.element_size(), u.element_size(), my,
+                           mc) == "long-window"
+        got = rk.rows3_tail(y, u, v, my, mc, 108, epi, **kw)
+        long_window(False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, staged)
+
+
+def test_k3_k7_k8_k9_long_window_bit_equal_to_staged(dev, long_window):
+    """K3, K7, K8 (c8's and the variant's metadata) and K9 (c5's and c8's
+    tails, placed too) on maps both routes take: the long-window routes
+    give the staged routes' bits."""
+    rng = np.random.default_rng(41)
+    h, w, oh, ow = 216, 384, 108, 192
+
+    def both(fn):
+        a = fn()
+        long_window()
+        b = fn()
+        long_window(False)
+        torch.cuda.synchronize()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        assert all(torch.equal(x, z) for x, z in zip(a, b))
+
+    mat = rk.BandedMatrix(_lanczos(h, oh))
+    x = _planes(rng, torch.float32, (2, h, w)).to(dev)
+    both(lambda: rk.banded_resize_rows(x, mat))
+    prev, cur, nxt = (tuple(_planes(rng, torch.uint16, s).to(dev)
+                            for s in ((2, h, w), (2, h // 2, w // 2),
+                                      (2, h // 2, w // 2)))
+                      for _ in range(3))
+    my_c = rk.BandedMatrix(_lanczos(h // 2, oh))
+    for tff in (True, False):
+        both(lambda: dk.deint3_rows_dual(prev, cur, nxt, mat, my_c, oh,
+                                         64.0 * 64, tff))
+    for kind in ("c8", "variant"):
+        args, kw = _k8_args(rng, kind, h=h, w=w)
+        both(lambda: dk.rows3_mid(*args, **kw))
+    mx = rk.BandedMatrix(_lanczos(w, ow))
+    fy, fu, fv = (_planes(rng, torch.float32, (2, oh, w)).to(dev)
+                  for _ in range(3))
+    for epi, pack in ((P._make_tail_epilogue(_c5_plan()), "rgba8"),
+                      (_epi_rgb(rk.CORR_PQ_TO_SDR, 10), "rgb10a2"),
+                      (_fix_epi(10, with_cmat=False), "rgb10a2")):
+        for place in (None, (oh + 3, ow + 9, 2, 7)):
+            both(lambda: dk.cols3_tail(fy, fu, fv, mx, mx, ow, epi,
+                                       pack_format=pack, place=place))
+
+
+def _thumb_maps(h, w, oh, ow, down=C.Downscaling.HAMMING):
+    """A strong downscale's maps, as fused_maps builds them: luma and
+    chroma (4:2:0, composed with the bilinear upsample), W and H."""
+    wx = scale.downscale_matrix(down, w, ow)
+    wy = scale.downscale_matrix(down, h, oh)
+    ux, uy = chroma.chroma_upsample_matrices(
+        w // 2, h // 2, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    return wx, wy, ux @ wx, uy @ wy
+
+
+@pytest.mark.parametrize("down", [C.Downscaling.HAMMING,
+                                  C.Downscaling.LANCZOS])
+def test_strong_downscales_take_the_long_window_routes(dev, down):
+    """The ratios of a 4K thumbnail (2160 -> 90 rows, 3840 -> 320
+    columns) at a narrower width: K2, K7, K8 and K9 pick their
+    long-window routes on their own and agree with their plain versions
+    within their bands; K1 and K3 too."""
+    rng = np.random.default_rng(42)
+    h, w, oh, ow = 2160, 960, 90, 80
+    wx, wy, cwx, cwy = _thumb_maps(h, w, oh, ow, down)
+    unscale = 1.0 / rk.MID16_SCALE
+    my = rk.BandedMatrix(wy, pre_scale=unscale)
+    mc = rk.BandedMatrix(cwy, pre_scale=unscale)
+    assert rk.k2_route(2, 2, my, mc) == "long-window"
+    y = _planes(rng, torch.int16, (2, h, w)).to(dev)
+    u, v = (_planes(rng, torch.int16, (2, h // 2, w)).to(dev)
+            for _ in range(2))
+    epi = _epi(rk.CORR_PQ_TO_SDR, 10)
+    args = (y, u, v, my, mc, oh, epi)
+    got = rk.rows3_tail(*args, pack_format="rgb10a2")
+    torch.cuda.synchronize()
+    _k2_close(got, rk.rows3_tail_plain(*args, pack_format="rgb10a2"),
+              "rgb10a2", 10, rk.CORR_PQ_TO_SDR)
+    # K7 on the raw planes (4K's 2160 rows to 90)
+    kmy = rk.BandedMatrix(wy, pre_scale=1 / 65535.0)
+    kmc = rk.BandedMatrix(cwy, pre_scale=1 / 65535.0)
+    assert dk.k7_route(2, kmy, kmc) == "long-window"
+    win = [tuple(_planes(rng, torch.uint16, s).to(dev)
+                 for s in ((1, h, w), (1, h // 2, w // 2),
+                           (1, h // 2, w // 2))) for _ in range(3)]
+    got = dk.deint3_rows_dual(*win, kmy, kmc, oh, 512.0)
+    torch.cuda.synchronize()
+    for g, r in zip(got, dk.deint3_rows_dual_plain(*win, kmy, kmc, oh,
+                                                   512.0)):
+        assert (g - r).abs().max().item() <= 2e-5
+    # K9 on float32 planes of the output rows (3840 -> 320 columns' ratio)
+    mx = rk.BandedMatrix(scale.downscale_matrix(down, 3840, 320))
+    fp = [_planes(rng, torch.float32, (2, 24, 3840)).to(dev)
+          for _ in range(3)]
+    assert dk.k9_route(4, 4, mx, mx) == "long-window"
+    epi9 = _epi_rgb(rk.CORR_PQ_TO_SDR, 10)
+    got = dk.cols3_tail(*fp, mx, mx, 320, epi9, pack_format="rgb10a2")
+    torch.cuda.synchronize()
+    ref = dk.cols3_tail_plain(*fp, mx, mx, 320, epi9, pack_format="rgb10a2")
+    d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02
+    # K8: c8's maps at 2160 mid rows to 16 output rows
+    args, kw = _k8_args(rng, "c8", h=h, w=256, batch=1)
+    out16 = rk.BandedMatrix(scale.downscale_matrix(down, h, 16))
+    args = args[:7] + (out16, 16)
+    assert dk.k8_route(2, 4, None, args[4], out16, h,
+                       args[6].host_values().size)[0] == "long-window"
+    got = dk.rows3_mid(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, dk.rows3_mid_plain(*args, **kw)):
+        assert (g - r).abs().max().item() <= 1e-5
+    # K1 on a float32 4K plane to 160 columns: fewer rows a block
+    k1 = rk.BandedMatrix(scale.downscale_matrix(down, 3840, 160))
+    assert rk.k1_rows(4, k1.row_windows(rk.K1_SPAN)[1]) < rk.K1_ROWS
+    xf = _planes(rng, torch.float32, (40, 3840)).to(dev)
+    got = rk.banded_resize_last_axis(xf, k1)
+    torch.cuda.synchronize()
+    assert (got - rk.banded_resize_last_axis_plain(xf, k1)).abs().max() \
+        <= 2e-6
+
+
+@pytest.mark.parametrize("place", [(12, 205, 2, 4), (12, 207, 1, 3),
+                                   (10, 200, 0, 0)])
+@pytest.mark.parametrize("pack", ["rgb10a2", "rgba8", None])
+def test_k2_k9_offset_store(dev, place, pack):
+    """K2 and K9 with ``place``: the rect bit-equal to the unplaced kernel
+    output (aligned and unaligned column offsets), the bars the packed
+    zero (or float zeros), the whole equal to the plain version's
+    placement within the band."""
+    rng = np.random.default_rng(43)
+    y, u, v, my, mc = _headline_k2(rng, 2, 20, 200, 10)
+    epi = _epi(rk.CORR_PQ_TO_SDR, 10 if pack else 0)
+    sh, sw, oy, ox = place
+    bare = rk.rows3_tail(y, u, v, my, mc, 10, epi, pack_format=pack)
+    got = rk.rows3_tail(y, u, v, my, mc, 10, epi, pack_format=pack,
+                        place=place)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., oy:oy + 10, ox:ox + 200], bare)
+    fill = 0 if pack is None else rk.PACKED_ZERO[pack]
+    mask = torch.ones((sh, sw), dtype=torch.bool, device=dev)
+    mask[oy:oy + 10, ox:ox + 200] = False
+    assert torch.all(got[..., mask] == fill)
+    mx = rk.BandedMatrix(_lanczos(400, 200))
+    fp = [_planes(rng, torch.float32, (2, 10, 400)).to(dev) for _ in range(3)]
+    bare = dk.cols3_tail(*fp, mx, mx, 200, epi, pack_format=pack)
+    got = dk.cols3_tail(*fp, mx, mx, 200, epi, pack_format=pack, place=place)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., oy:oy + 10, ox:ox + 200], bare)
+    assert torch.all(got[..., mask] == fill)
+
+
+@pytest.mark.parametrize("trc", [S.TRC.GAMMA28, S.TRC.BT_1886,
+                                 S.TRC.LINEAR])
+@pytest.mark.parametrize("dither_bits,pack", [(10, "rgb10a2"), (0, None)])
+def test_fix_bt2020_kernels_match_plain(dev, trc, dither_bits, pack):
+    """CORR_FIX_BT2020 (the source's gamma by value with the launch) on
+    K2's runtime route, K9 and K4 against their plain versions: within 1
+    code on < 2% of the channels, float output within 2e-4 (the band of a
+    correction: the 1/2.2 power near black multiplies a float32 rounding
+    step)."""
+    rng = np.random.default_rng(44)
+    epi = _fix_epi(dither_bits, trc)
+    assert rk.rows3_tail_route(torch.int16, torch.int16, epi,
+                               pack) == "runtime"
+    y, u, v, my, mc = _headline_k2(rng, 2, 216, 200, 108)
+    args = (y, u, v, my, mc, 108, epi)
+    got = rk.rows3_tail(*args, pack_format=pack)
+    torch.cuda.synchronize()
+    _k2_close(got, rk.rows3_tail_plain(*args, pack_format=pack), pack,
+              dither_bits, rk.CORR_FIX_BT2020)
+    mx = rk.BandedMatrix(_lanczos(400, 200))
+    fp = [_planes(rng, torch.float32, (2, 10, 400)).to(dev) for _ in range(3)]
+    got = dk.cols3_tail(*fp, mx, mx, 200, epi, pack_format=pack)
+    torch.cuda.synchronize()
+    _k2_close(got, dk.cols3_tail_plain(*fp, mx, mx, 200, epi,
+                                       pack_format=pack),
+              pack, dither_bits, rk.CORR_FIX_BT2020)
+    if pack is None:
+        k4 = (*[_planes(rng, torch.uint16, (2, 24, 32)).to(dev)
+                for _ in range(3)],
+              rk.BandedMatrix(_lanczos(32, 16), pre_scale=1 / 65535.0),
+              rk.BandedMatrix(_lanczos(32, 16), pre_scale=1 / 65535.0),
+              rk.BandedMatrix(_lanczos(24, 12)),
+              rk.BandedMatrix(_lanczos(24, 12)), 12, epi)
+        got = rk.mega3_tail(*k4)
+        torch.cuda.synchronize()
+        assert (got - rk.mega3_tail_plain(*k4)).abs().max().item() <= 2e-4
+
+
+def _small_plan(fmt=ColorFormat.P010, w=384, h=216, ow=192, oh=108, bits=10,
+                rect=None, transfer=S.TRC.PQ, primaries=S.Primaries.BT_2020,
+                **settings):
+    settings.setdefault("upscaling", C.Upscaling.LANCZOS3)
+    return P.plan_pipeline(
+        C.Settings(**settings),
+        P.SourceDescriptor(format=fmt, width=w, height=h,
+                           matrix=S.CSP.BT_2020_NC, levels=S.Levels.TV,
+                           primaries=primaries, transfer=transfer,
+                           hdr10=P.HDR10Metadata()),
+        P.OutputDescriptor(width=ow, height=oh, bits=bits, video_rect=rect))
+
+
+@pytest.mark.parametrize("case", ["gray", "shader", "sdr2020", "dovi_rect",
+                                  "thumb"])
+def test_new_paths_on_card_match_cpu(dev, case, monkeypatch):
+    """GRAY (K1 + K3), the shader order (K1 + K2's convert with the
+    correction), SDR BT.2020 (K2 with the fix), Dolby Vision in a rect (K1
+    ×2 + K8 + K9 with the offset) and a thumbnail's ratio (the long-window
+    routes) at small sizes: the card's launches, and within 1 code of the
+    CPU on < 2% of the channels (the same route's plain versions: the
+    routes chosen from the planes' device run the kernel route there
+    too)."""
+    rng = np.random.default_rng(45)
+    if case == "gray":
+        plan = _small_plan(ColorFormat.Y16, convert_to_sdr=True)
+        planes = (torch.from_numpy(rng.integers(
+            0, 65535, (2, 216, 384), dtype=np.uint16)),)
+        want = only(banded_resize_last_axis=1, banded_resize_rows=1)
+    elif case == "shader":
+        plan = _small_plan(convert_to_sdr=True, vp_scaling=False)
+        planes = _p010(rng, 2, 384, 216)
+        want = only(banded_resize_last_axis=2, rows3_tail=1)
+    elif case == "sdr2020":
+        plan = _small_plan(transfer=S.TRC.BT_1886)
+        planes = _p010(rng, 2, 384, 216)
+        want = only(banded_resize_last_axis=3, rows3_tail=1)
+    elif case == "dovi_rect":
+        base = _dovi_plan(384, 216, 192, 108, kind="c8")
+        plan = P.plan_pipeline(base.settings, base.src, P.OutputDescriptor(
+            width=256, height=144, bits=10, video_rect=(32, 18, 224, 126)))
+        planes = _p010(rng, 2, 384, 216)
+        want = only(banded_resize_last_axis=2, rows3_mid=1, cols3_tail=1)
+    else:
+        plan = _small_plan(w=960, h=2160, ow=40, oh=90)
+        planes = _p010(rng, 1, 960, 2160)
+        want = only(banded_resize_last_axis=3, rows3_tail=1)
+    fn = P.make_frame_fn(plan, pack_surface=True)
+    rk.reset_launches()
+    got = fn(tuple(p.to(dev) for p in planes))
+    torch.cuda.synchronize()
+    assert rk.launches == want
+    if case == "dovi_rect":
+        # the chain's float32 K8 differences (<= 1e-5) can grow past a code
+        # in the PQ tail, so each kernel is held to its plain version:
+        # K9's call with the offset, then the rect against the unplaced
+        # plan on the card, bit for bit
+        l, tp, r, bt = plan.dst.video_rect
+        with monkeypatch.context() as mp:
+            seen = []
+            orig = dk.cols3_tail
+
+            def k9(*a, **k):
+                seen.append((a, k, orig(*a, **k)))
+                return seen[-1][2]
+            mp.setattr(dk, "cols3_tail", k9)
+            fn(tuple(p.to(dev) for p in planes))
+        (a, k, out), = seen
+        assert k["place"] == (144, 256, tp, l)
+        d = np.abs(_codes(out, "rgb10a2")
+                   - _codes(dk.cols3_tail_plain(*a, **k), "rgb10a2"))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+        bare = P.make_frame_fn(base, pack_surface=True)(
+            tuple(p.to(dev) for p in planes))
+        assert torch.equal(got[:, tp:bt, l:r], bare)
+        mask = torch.ones((144, 256), dtype=torch.bool, device=dev)
+        mask[tp:bt, l:r] = False
+        assert torch.all(got[:, mask] == rk.PACKED_ZERO["rgb10a2"])
+        return
+    monkeypatch.setattr(P, "_on_card", lambda planes: True)
+    ref = fn(planes)
+    assert got.shape == ref.shape
+    d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02

@@ -250,25 +250,42 @@ def _identity_dovi():
     # Dolby Vision is ported (ROADMAP item 6) without its L2 trims
     dict(dovi_trims=object()), dict(dovi_ext=object()),
     dict(hdr10plus=object()),
-    dict(format=tfmt.ColorFormat.Y16),
-    dict(settings=tcfg.Settings(vp_scaling=False)),
-    # Jinc2 itself is ported; in the shader order it stays refused
-    dict(settings=tcfg.Settings(upscaling=tcfg.Upscaling.JINC2,
-                                vp_scaling=False),
-         dst=tpipe.OutputDescriptor(width=256, height=128, bits=10)),
     # the local tone map is ported, but not for Dolby Vision (HDR output)
     dict(dovi=_identity_dovi(),
          settings=tcfg.Settings(hdr_local_tone_mapping=True),
          dst=tpipe.OutputDescriptor(width=64, height=32, bits=10, hdr=True)),
-    # placement is ported, but not together with Dolby Vision
-    dict(dovi=_identity_dovi(),
-         dst=tpipe.OutputDescriptor(width=64, height=32, bits=10,
-                                    video_rect=(0, 0, 32, 32))),
-], ids=["dovi", "dovi_ext", "hdr10plus", "gray", "shader_order", "jinc2",
-        "local_tonemap", "video_rect"])
+], ids=["dovi", "dovi_ext", "hdr10plus", "local_tonemap"])
 def test_unported_plans_refused(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.plan_pipeline(*_hl(**case))
+
+
+@pytest.mark.parametrize("case", [
+    dict(format=tfmt.ColorFormat.Y16),
+    dict(settings=tcfg.Settings(vp_scaling=False)),
+    # Jinc2 in the shader order: the staged path, no K6 route
+    dict(settings=tcfg.Settings(upscaling=tcfg.Upscaling.JINC2,
+                                vp_scaling=False),
+         dst=tpipe.OutputDescriptor(width=256, height=128, bits=10)),
+    # Dolby Vision with placement: K9 with the rect's offset
+    dict(dovi=_identity_dovi(),
+         dst=tpipe.OutputDescriptor(width=64, height=32, bits=10,
+                                    video_rect=(0, 0, 32, 32))),
+], ids=["gray", "shader_order", "jinc2", "video_rect"])
+def test_formerly_refused_plans_run(case):
+    """GRAY sources, the shader order and Dolby Vision in a rect plan and
+    render on the CPU: a frame of the output's size, every code finite."""
+    settings, src, dst = _hl(**case)
+    plan = tpipe.plan_pipeline(settings, src, dst)
+    rng = np.random.default_rng(3)
+    n = 1 if plan.info.cs_type == tfmt.ColorSystem.GRAY else 3
+    planes = tuple(torch.from_numpy(
+        rng.integers(0, 65535, (1, src.height // (1 + (i > 0)),
+                                src.width // (1 + (i > 0))), np.uint16))
+        for i in range(n))
+    out = tpipe.make_frame_fn(plan)(planes)
+    assert out.shape == (1, 3, dst.height, dst.width)
+    assert torch.isfinite(out).all()
 
 
 def test_rotation_refused():
@@ -284,16 +301,37 @@ def test_rotation_refused():
     tpipe.OutputDescriptor(width=64, height=32, bits=10),             # 2020 fix
     tpipe.OutputDescriptor(width=64, height=32, bits=16)])            # 2020 fix
 def test_kernel_tail_refuses_unported_corrections(dst):
-    """The SDR BT.2020 fix runs on the plain path only; on the kernel path
-    K2's epilogue refuses it instead of falling back (HLG->PQ is K2's
-    since the c7 slice: tests/test_torch_tonemap.py)."""
+    """The SDR BT.2020 fix is K2's (CORR_FIX_BT2020, its gamma by value
+    with the launch): the kernel path plans it and matches the plain path;
+    a correction the tail kernels do not carry is refused by the epilogue,
+    not run elsewhere."""
     src = tpipe.SourceDescriptor(format=tfmt.ColorFormat.P010, width=128,
-                                 height=64, transfer=tcsp.TRC.BT_1886,
+                                 height=64, transfer=tcsp.TRC.GAMMA28,
                                  primaries=tcsp.Primaries.BT_2020)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.VideoProcessor(tcfg.Settings(), src, dst, device="cpu")
-    tpipe.VideoProcessor(tcfg.Settings(use_accel_backend=False), src, dst,
-                         device="cpu")
+    # float output with float32 intermediates (FLOAT16), as the plain path
+    float_out = dst.bits == 16
+    tex = tcfg.TexFormat.FLOAT16 if float_out else tcfg.TexFormat.AUTOINT
+    vp = tpipe.VideoProcessor(tcfg.Settings(tex_format=tex), src, dst,
+                              device="cpu")
+    epi = tpipe._make_tail_epilogue(vp.plan)
+    assert epi.correction == trk.CORR_FIX_BT2020 and epi.sdr_gamma == 2.8
+    assert epi.host_mats()[-1] == np.float32(2.8)
+    rng = np.random.default_rng(4)
+    planes = (rng.integers(0, 65535, (1, 64, 128), np.uint16),
+              rng.integers(0, 65535, (1, 32, 64), np.uint16),
+              rng.integers(0, 65535, (1, 32, 64), np.uint16))
+    got = vp.process(planes)
+    ref = tpipe.VideoProcessor(tcfg.Settings(use_accel_backend=False), src,
+                               dst, device="cpu").process(planes)
+    if float_out:
+        assert (got - ref).abs().max() <= 1e-5
+    else:       # tests/test_torch_slice.py's band for the kernel path
+        d = ((got - ref).abs() * 1023).round()
+        assert (d <= 1).float().mean() >= 0.999 and d.max() <= 3
+    bad = dataclasses.replace(epi, correction=trk.CORR_FIX_BT2020 + 1)
+    p = torch.zeros((1, 8, 8))
+    with pytest.raises(NotImplementedError, match="correction"):
+        trk.rows3_tail(p, p, p, None, None, 8, bad)
 
 
 def test_cuda_device_without_card_raises():

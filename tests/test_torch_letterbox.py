@@ -5,11 +5,17 @@ the same frames (numpy, from a seed) through the JAX function and its port.
  * K3's plain version (``banded_resize_rows_plain``) against the JAX
    ``banded_resize_rows`` in interpret mode: float32 within 2e-5 on
    outputs in [0, 1] (the JAX kernel's split-bf16 products).
- * The placed ``make_frame_fn`` on the kernel route (K1 ×3 + K3 ×3 and the
-   torch tail; their plain versions on the CPU) against the JAX kernel
-   route (Pallas in interpret mode): within 1 code, and every pixel outside
-   the video rect equal (black, or the packed zero); the plain route and
-   the staged path against the JAX XLA paths: within 1 code.
+ * The placed ``make_frame_fn`` on the kernel route (K1 ×3 + K2 with the
+   rect's origin as an offset into its store; their plain versions on the
+   CPU) against the JAX kernel route (Pallas in interpret mode, K1, K3 and
+   the XLA tail): within 1 code (the port quantizes K1's output to mid16,
+   as the unplaced route does), and every pixel outside the video rect
+   equal (black, or the packed zero); the plain route and the staged path
+   against the JAX XLA paths: within 1 code.
+ * The placed output inside its rect bit-equal to the unplaced plan of the
+   rect's size (the same maps, the dither from the video's origin), the
+   bars the packed zero, for an aligned and an unaligned column offset;
+   K2's and K9's plain versions with ``place``.
  * ``make_serving_fn`` with a runtime colour matrix on the K2 route and on
    the placed route against the JAX serving function.
  * ``oracle`` with placement against the JAX float64 staged path: >= 55 dB.
@@ -215,8 +221,8 @@ def test_placed_kernel_route_matches_jax_kernel(case, pack, monkeypatch):
 
 
 def test_placed_kernel_route_calls(monkeypatch):
-    """K1 ×3 + K3 ×3 and no K2 (counted by wrapping the kernel wrappers:
-    the CPU launches nothing)."""
+    """K1 ×3 + K2 ×1 with the offset, as the unplaced plan, and no K3
+    (counted by wrapping the kernel wrappers: the CPU launches nothing)."""
     _, tplan = _plans("scope_p010")
     calls = []
     for mod, name in ((trk, "banded_resize_last_axis"),
@@ -231,7 +237,7 @@ def test_placed_kernel_route_calls(monkeypatch):
     out = tpipe.make_frame_fn(tplan, pack_surface=True)(
         tuple(t(p) for p in _frame("scope_p010", 4)))
     assert out.shape == (2, 28, 48) and out.dtype == torch.int32
-    assert calls == ["banded_resize_last_axis", "banded_resize_rows"] * 3
+    assert calls == ["banded_resize_last_axis"] * 3 + ["rows3_tail"]
 
 
 @pytest.mark.parametrize("staged", [False, True])
@@ -306,3 +312,85 @@ def test_placed_oracle_matches_jax_float64():
     assert want.shape == ref.shape == (3, 28, 48)
     assert not _outside(want, (0, 4, 48, 24)).any()
     assert psnr(want[:, 4:24], ref[:, 4:24]) >= 55.0
+
+
+# --- the offset store: the rect bit-equal to the unplaced plan -------------------
+
+# (source size, surface size, rect): the letterbox's aligned rect, a
+# pillarbox, and a rect whose column offset is not a multiple of 4
+RECTS = {
+    "letterbox": (96, 40, 48, 28, (0, 4, 48, 24)),
+    "pillarbox": (64, 48, 64, 36, (8, 0, 56, 36)),
+    "unaligned": (96, 40, 48, 28, (2, 1, 47, 27)),
+}
+
+
+def _rect_plans(case, pack_bits=10, **settings):
+    w, h, ow, oh, rect = RECTS[case]
+    st = tcfg.Settings(upscaling=tcfg.Upscaling.LANCZOS3,
+                       convert_to_sdr=True, **settings)
+    src = tpipe.SourceDescriptor(
+        format=TFmt.P010, width=w, height=h, matrix=tcsp.CSP.BT_2020_NC,
+        levels=tcsp.Levels.TV, primaries=tcsp.Primaries.BT_2020,
+        transfer=tcsp.TRC.PQ, hdr10=tpipe.HDR10Metadata())
+    l, tp, r, b = rect
+    placed = tpipe.OutputDescriptor(width=ow, height=oh, bits=pack_bits,
+                                    video_rect=rect)
+    bare = tpipe.OutputDescriptor(width=r - l, height=b - tp, bits=pack_bits)
+    return tpipe.plan_pipeline(st, src, placed), tpipe.plan_pipeline(
+        st, src, bare)
+
+
+def _p010(w, h, seed, n=2):
+    rng = np.random.default_rng(seed)
+    return tuple(t(p) for p in (
+        rng.integers(64, 941, (n, h, w), np.uint16) << 6,
+        rng.integers(64, 961, (n, h // 2, w // 2), np.uint16) << 6,
+        rng.integers(64, 961, (n, h // 2, w // 2), np.uint16) << 6))
+
+
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("case", list(RECTS))
+def test_placed_rect_bit_equal_to_unplaced_plan(case, pack):
+    """Inside the rect the placed surface is the unplaced plan's surface of
+    the rect's size bit for bit (the same maps, the dither from the
+    video's origin, mid16 on both); every pixel outside is the packed zero
+    (or float zeros)."""
+    placed, bare = _rect_plans(case)
+    w, h, ow, oh, (l, tp, r, b) = RECTS[case]
+    planes = _p010(w, h, 11)
+    got = tpipe.make_frame_fn(placed, pack_surface=pack)(planes)
+    want = tpipe.make_frame_fn(bare, pack_surface=pack)(planes)
+    assert torch.equal(got[..., tp:b, l:r], want)
+    bars = _outside(got.numpy(), (l, tp, r, b))
+    if pack:
+        assert got.shape == (2, oh, ow)
+        assert np.all(bars == trk.PACKED_ZERO["rgb10a2"])
+    else:
+        assert got.shape == (2, 3, oh, ow) and not bars.any()
+
+
+@pytest.mark.parametrize("pack", ["rgb10a2", "rgba8", None])
+def test_k2_plain_place_matches_placed_unplaced_output(pack):
+    """rows3_tail_plain with ``place`` is its unplaced output put into the
+    surface, the bars the packed zero of the format (zeros for float), at
+    an unaligned offset; a rect past the surface raises."""
+    rng = np.random.default_rng(12)
+    y, u, v = (t(rng.random((2, 9, 7), dtype=np.float32)) for _ in range(3))
+    epi = tpipe.cmat_epilogue(np.eye(3, 4, dtype=np.float32))
+    epi = trk.Epilogue(cmat=epi.cmat, correction=trk.CORR_NONE,
+                       luminance_scale=1.0, dither_bits=8 if pack else 0,
+                       gamut=np.eye(3, dtype=np.float32),
+                       plain=lambda a, b_, c: torch.stack([a, b_, c], -3))
+    bare = trk.rows3_tail(y, u, v, None, None, 9, epi, pack_format=pack)
+    got = trk.rows3_tail(y, u, v, None, None, 9, epi, pack_format=pack,
+                         place=(12, 13, 2, 5))
+    assert torch.equal(got[..., 2:11, 5:12], bare)
+    bars = _outside(got.numpy(), (5, 2, 12, 11))
+    assert np.all(bars == (0 if pack is None else trk.PACKED_ZERO[pack]))
+    k9 = tdk.cols3_tail(y, u, v, None, None, 7, epi, pack_format=pack,
+                        place=(12, 13, 2, 5))
+    assert torch.equal(k9, got)
+    with pytest.raises(ValueError, match="does not fit"):
+        trk.rows3_tail(y, u, v, None, None, 9, epi, pack_format=pack,
+                       place=(10, 13, 2, 5))

@@ -192,15 +192,24 @@ def test_second_pass_lines_in_sources_without_route_cuh(tmp_path):
 
 
 def test_default_launches_are_k7s_and_k9s_at_their_cells():
-    """K7's block at c5 (uint16), K9's c8 route at c8 and its other
-    instantiations at c5 (float32), K8's at c8, K6's at c3, K5's at c3r270
-    and K3's on the letterbox's luma map: 256 threads and the shared memory
+    """The long-window kernels first (no shared memory), then K7's block at
+    c5 (uint16), K9's c8 route at c8 and its other instantiations at c5
+    (float32), K8's at c8, K6's at c3, K5's at c3r270 and K3's on the
+    letterbox's luma map: 256 threads and the shared memory
     kernels/deint's, kernels/jinc2's and kernels/resize's formulas give,
     the c8 route matched first."""
     from videorenderer_tpu_torch.kernels import deint as dk
     got = dict(kr.default_launches())
+    assert got[kr.LONG_WINDOW] == (256, 0)
+    for name in ("void vrt::k2::rows3_tail_long_kernel<vrt::Route<-1, -1, "
+                 "-1, -1, -1>, short, short>()",
+                 "void vrt::k8::rows3_mid_long_kernel<vrt::k8::MidRoute<-1, "
+                 "-1>, unsigned short, float>()",
+                 "void deint3_long_kernel<unsigned short>()"):
+        assert next(v for k, v in kr.default_launches() if k in name) \
+            == (256, 0)
     assert [k for k, _ in kr.default_launches()] == [
-        "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel",
+        kr.LONG_WINDOW, "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel",
         *kr.K8_HEAVY_ROUTES, "rows3_mid_kernel", "jinc2_convert_kernel",
         "jinc2_resize_kernel", "banded_resize_rows_kernel"]
     assert all(t == 256 for t, _ in got.values())

@@ -30,7 +30,9 @@
 // and writes one, with 6 FMAs: far below the compute roof.  The wrapper
 // picks tile_rows (kernels/resize.k3_tile_rows): 32 where the window fits
 // the shared-memory budget, fewer for a map with many taps; a map whose
-// window does not fit at one row is refused before the launch.
+// window does not fit at one row (2160 rows to 16 with Lanczos: 408 KB)
+// takes the long-window kernel, which stages nothing and reads every tap
+// through the read-only cache, bit-equal to the staged one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,9 +166,80 @@ __global__ void __launch_bounds__(kThreads) banded_resize_rows_kernel(
   }
 }
 
+// The long-window route: the kernel above without the window, for maps
+// whose window does not fit shared memory even at one output row a tile (a
+// strong downscale).  Each thread makes 4 columns of its output rows,
+// reading each tap's row straight from device memory through the read-only
+// cache (one vector load where aligned), its start and weights likewise
+// (one address a warp), the FMAs in the same order with the same guard, so
+// its outputs are the staged route's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) banded_resize_rows_long_kernel(
+    const T* __restrict__ x, const Map M, float* __restrict__ out) {
+  const int n_tiles = (M.h_out + M.tile_rows - 1) / M.tile_rows;
+  const long long b = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - static_cast<int>(b) * n_tiles;
+  const int r0 = tile * M.tile_rows;
+  const int rows = min(M.tile_rows, M.h_out - r0);
+  const int col = blockIdx.y * kTileCols + threadIdx.x * kVec;
+  if (col >= M.w) return;
+  const T* plane = x + b * M.h_in * static_cast<long long>(M.w);
+  const bool in_vec = M.w % kVec == 0 && col + kVec <= M.w &&
+                      (reinterpret_cast<uintptr_t>(x) % sizeof(Vec<T>)) == 0;
+  const bool vec = M.w % kVec == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) % sizeof(Vec<float>)) == 0;
+  for (int m = threadIdx.y; m < rows; m += kRowThreads) {
+    const int r = r0 + m;
+    const int s = __ldg(M.starts + r);
+    float acc[kVec] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < M.n_taps; ++t) {
+      const int i = s + t;
+      if (i < M.h_in) {
+        const float wt =
+            __ldg(M.taps + static_cast<long long>(t) * M.h_out + r);
+        const T* p = plane + static_cast<long long>(i) * M.w + col;
+        Vec<T> v;
+        if (in_vec) {
+          v = vrt::ldg_as<Vec<T>>(p);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            v.v[k] = col + k < M.w ? __ldg(p + k) : T(0);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          acc[k] = fmaf(vrt::to_float(v.v[k]), wt, acc[k]);
+        }
+      }
+    }
+    float* o = out + (b * M.h_out + r) * static_cast<long long>(M.w) + col;
+    if (vec) {
+      Vec<float> f;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) f.v[k] = acc[k];
+      *reinterpret_cast<Vec<float>*>(o) = f;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        if (col + k < M.w) o[k] = acc[k];
+      }
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* x, const Map& M, int batch, float* out,
-           cudaStream_t stream) {
+           bool long_window, cudaStream_t stream) {
+  const long long n_tiles = (M.h_out + M.tile_rows - 1) / M.tile_rows;
+  const dim3 grid(static_cast<unsigned>(n_tiles * batch),
+                  (M.w + kTileCols - 1) / kTileCols);
+  if (long_window) {
+    banded_resize_rows_long_kernel<T>
+        <<<grid, dim3(kColThreads, kRowThreads), 0, stream>>>(
+            static_cast<const T*>(x), M, out);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = smem_bytes<T>(M);
   if (smem > kSmemBudget) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = banded_resize_rows_kernel<T>;
@@ -176,9 +249,6 @@ int launch(const void* x, const Map& M, int batch, float* out,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long n_tiles = (M.h_out + M.tile_rows - 1) / M.tile_rows;
-  const dim3 grid(static_cast<unsigned>(n_tiles * batch),
-                  (M.w + kTileCols - 1) / kTileCols);
   kernel<<<grid, dim3(kColThreads, kRowThreads), smem, stream>>>(
       static_cast<const T*>(x), M, out);
   return static_cast<int>(cudaGetLastError());
@@ -190,25 +260,29 @@ int launch(const void* x, const Map& M, int batch, float* out,
 // DTYPE_CODES).  x is (batch, h_in, w), out (batch, h_out, w), both
 // contiguous.  tile_lo (device, one int per tile of tile_rows output rows)
 // and win are the tiles' first input row and the widest window
-// (kernels/resize.BandedMatrix.row_windows(tile_rows)).  Returns
-// cudaErrorInvalidValue for a block over kSmemBudget.
+// (kernels/resize.BandedMatrix.row_windows(tile_rows)).  ``long_window``:
+// the long-window kernel (no shared memory), else the staged one, which
+// returns cudaErrorInvalidValue for a block over kSmemBudget.
 extern "C" int vrt_banded_resize_rows(const void* x, int x_dtype,
                                       const void* starts, const void* taps,
                                       const void* tile_lo, int win,
                                       void* out, int batch, int h_in,
                                       int h_out, int w, int n_taps,
-                                      int tile_rows, void* stream) {
-  if (tile_rows < 1 || win < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                      int tile_rows, int long_window,
+                                      void* stream) {
+  if (tile_rows < 1 || (win < 1 && !long_window)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Map M{h_in, h_out, w, n_taps, tile_rows,
               static_cast<const int*>(starts), static_cast<const float*>(taps),
               static_cast<const int*>(tile_lo), win};
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
-    case 0: return launch<uint8_t>(x, M, batch, o, st);
-    case 1: return launch<uint16_t>(x, M, batch, o, st);
-    case 2: return launch<int16_t>(x, M, batch, o, st);
-    case 3: return launch<float>(x, M, batch, o, st);
+    case 0: return launch<uint8_t>(x, M, batch, o, long_window != 0, st);
+    case 1: return launch<uint16_t>(x, M, batch, o, long_window != 0, st);
+    case 2: return launch<int16_t>(x, M, batch, o, long_window != 0, st);
+    case 3: return launch<float>(x, M, batch, o, long_window != 0, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

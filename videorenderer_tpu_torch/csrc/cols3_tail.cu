@@ -47,11 +47,17 @@
 //   * the store: 4 packed dwords as one 16-byte store, or three 16-byte
 //     stores of planar float, where the row is 16-byte aligned; a scalar
 //     edge path takes widths that are not a multiple of 4 and unaligned
-//     pointers.
+//     pointers.  A placed output (Dolby Vision in a rect) goes into its
+//     surface at the rect's origin, as K2's does.
+//   * the long-window route (cols3_tail_long.cu): a map whose spans do not
+//     fit shared memory (4K to 320 columns needs 324 KB) takes a kernel
+//     that stages nothing and reads every tap through the read-only cache,
+//     in the staged route's order with its guard, then the runtime route's
+//     tail, bit-equal to the staged route.
 // Every output is bit-equal to the one-pixel-a-thread kernel this replaces:
 // the same operations in the same order.  Shared memory: the spans, taps and
-// starts must fit kSmemBudget; the wrapper (kernels/deint.cols3_tail)
-// refuses a map that does not before the launch.
+// starts must fit kSmemBudget; the wrapper (kernels/deint.cols3_tail) takes
+// the long-window route for a map whose spans do not.
 //
 // Bound.  At c5 (both fields of 16 frames, K7's float32 output) each output
 // pixel reads 6 luma taps and 2 x 4 chroma taps of float32 planes that
@@ -89,9 +95,13 @@ const auto kSpecs = std::make_tuple(Spec<C5, float, float>{"c5 float32"},
 // widest span ``win_*`` (kernels/resize.BandedMatrix.row_windows); NULL and
 // n_taps 0 for a plane with no W matrix, read directly (its width is w_out)
 // times its scale.  ``host_mats`` is HOST memory: 12 floats of the colour
-// matrix, row-major 3 x (m0 m1 m2 c), 9 of the gamut matrix, then the 5
-// scalars of the local tone map of selection ``tonemap`` (0: none).
-// Returns cudaErrorInvalidValue for a layout over kSmemBudget.
+// matrix, row-major 3 x (m0 m1 m2 c), 9 of the gamut matrix, the 5 scalars
+// of the local tone map of selection ``tonemap`` (0: none), then the SDR
+// BT.2020 fix's source gamma.  The output frames go into surfaces of
+// surface_h x surface_w at (off_y, off_x) (the whole surface: h x w_out at
+// (0, 0)); the bars are the caller's.  ``long_window``: the long-window
+// kernel (no shared memory, the runtime route), else the staged one, which
+// returns cudaErrorInvalidValue for a layout over kSmemBudget.
 extern "C" int vrt_cols3_tail(
     const void* y, int y_dtype, const void* u, const void* v, int c_dtype,
     int batch, int h, int wy, int wc, int w_out, int tile_rows,
@@ -100,7 +110,8 @@ extern "C" int vrt_cols3_tail(
     const void* starts_c, const void* taps_c, int n_taps_c, const void* lo_c,
     int win_c, float y_scale, float c_scale, const void* host_mats,
     int apply_matrix, int correction, int tonemap, float luminance_scale,
-    int dither_bits, int pack, void* out, void* stream) {
+    int dither_bits, int pack, int surface_h, int surface_w, int off_y,
+    int off_x, int long_window, void* out, void* stream) {
   const vrt::TailParams P = vrt::make_tail_params(
       host_mats, apply_matrix, correction, tonemap, luminance_scale, y_scale,
       c_scale, dither_bits, pack);
@@ -111,8 +122,12 @@ extern "C" int vrt_cols3_tail(
            static_cast<const int*>(lo_y), win_y},
       WMap{wc, static_cast<const int*>(starts_c),
            static_cast<const float*>(taps_c), n_taps_c,
-           static_cast<const int*>(lo_c), win_c}};
+           static_cast<const int*>(lo_c), win_c},
+      vrt::Place{surface_h, surface_w, off_y, off_x}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (long_window) {
+    return launch_long(y_dtype, c_dtype, y, u, v, G, P, batch, out, st);
+  }
   const Flags f = flags_of(y_dtype, c_dtype, apply_matrix, correction,
                            tonemap, dither_bits, pack);
   int err = 0;
@@ -133,12 +148,14 @@ extern "C" int vrt_cols3_tail(
   return known ? err : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The name of the compiled route K9 takes for these flags, or "runtime" for
-// the instantiation that reads them.
+// The name of the route K9 takes for these flags: its compiled route,
+// "runtime" for the staged instantiation that reads them, or "long-window
+// runtime" for the long-window kernel.
 extern "C" const char* vrt_cols3_tail_route(int y_dtype, int c_dtype,
                                             int apply_matrix, int correction,
                                             int tonemap, int dither_bits,
-                                            int pack) {
+                                            int pack, int long_window) {
+  if (long_window) return "long-window runtime";
   const char* name = "runtime";
   with_spec(kSpecs,
             flags_of(y_dtype, c_dtype, apply_matrix, correction, tonemap,

@@ -1,7 +1,8 @@
-// K9's kernel (csrc/cols3_tail.cu has its design) and its launch.  The
-// routes the port's paths run (route.cuh: C5, C8) are compiled each in its
-// own translation unit, cols3_tail_c5.cu and cols3_tail_c8.cu, in parallel
-// with cols3_tail.cu (the entry points and the runtime route).
+// K9's kernels (csrc/cols3_tail.cu has their design) and their launches.
+// The routes the port's paths run (route.cuh: C5, C8) are compiled each in
+// its own translation unit, cols3_tail_c5.cu and cols3_tail_c8.cu, in
+// parallel with cols3_tail.cu (the entry points and the runtime route) and
+// cols3_tail_long.cu (the long-window kernel).
 
 #pragma once
 
@@ -41,6 +42,7 @@ struct WMap {
 struct Geometry {
   int h, w_out, tile_rows;
   WMap y, c;
+  vrt::Place S;                          // the output surface
 };
 
 // Input elements staged a row: the span of ``win`` columns from a start
@@ -291,8 +293,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cols3_tail_kernel(
   const bool c_vec = w_vec && (reinterpret_cast<uintptr_t>(u) %
                                sizeof(Vec<TC>)) == 0 &&
                      (reinterpret_cast<uintptr_t>(v) % sizeof(Vec<TC>)) == 0;
-  const bool out_vec = w_vec && (reinterpret_cast<uintptr_t>(out) %
-                                 sizeof(Vec<float>)) == 0;
+  const bool out_vec = vrt::place_vec(out, G.S, G.w_out);
 
   // Each warp makes rows warp, warp + 8, ... of the tile on its own: it
   // copies its next row's spans in while it runs the current one, and
@@ -325,9 +326,81 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cols3_tail_kernel(
                G.w_out, col, cl, c_vec, P.c_scale, vv);
       float c[kVec][3];
       vrt::tail_group<R>(P, yv, uv, vv, c);
-      vrt::store_group<R>(c, P, out, b, G.h, G.w_out, row, col, out_vec);
+      vrt::store_group<R>(c, P, out, b, G.S, G.w_out, row, col, out_vec);
     }
     __syncwarp();   // the buffer of row i is free for row i + 2
+  }
+}
+
+// The long-window route's values of one plane at row ``row``, output
+// columns col .. col + 3: each column's taps t = 0 .. T-1 in order from 0
+// with taps past the row's end skipped, as w_values sums them, the inputs,
+// starts and weights read straight from device memory through the
+// read-only cache.
+template <typename T>
+__device__ __forceinline__ void w_values_long(const T* __restrict__ plane,
+                                              const WMap& M, int row,
+                                              int w_out, int col,
+                                              bool direct_vec, float scale,
+                                              float out[kVec]) {
+  if (M.n_taps == 0) {
+    w_values(plane, static_cast<const T*>(nullptr), M, nullptr, nullptr, 0,
+             0, 0, row, w_out, col, 0, direct_vec, scale, out);
+    return;
+  }
+  const T* rs = plane + static_cast<long long>(row) * M.w_in;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const int j = col + k;
+    float acc = 0.f;
+    if (j < w_out) {
+      const int s = __ldg(M.starts + j);
+      for (int t = 0; t < M.n_taps; ++t) {
+        if (s + t < M.w_in) {
+          acc = fmaf(vrt::to_float(__ldg(rs + s + t)),
+                     __ldg(M.taps + static_cast<long long>(t) * w_out + j),
+                     acc);
+        }
+      }
+    }
+    out[k] = acc;
+  }
+}
+
+// K9's long-window route: the kernel without the staged spans, for maps
+// whose spans do not fit shared memory (a strong downscale).  Each warp
+// makes rows warp, warp + 8, ... of the tile, each thread 4 output columns,
+// every tap read through the read-only cache; the same tail and store as
+// the staged kernel, so the outputs are its bit for bit.
+template <typename R, typename TY, typename TC>
+__global__ void __launch_bounds__(kThreads) cols3_tail_long_kernel(
+    const TY* __restrict__ y, const TC* __restrict__ u,
+    const TC* __restrict__ v, const Geometry G, const vrt::TailParams P,
+    void* __restrict__ out) {
+  const int col = blockIdx.x * kTileCols + threadIdx.x * kVec;
+  if (col >= G.w_out) return;
+  const int r0 = blockIdx.y * G.tile_rows;
+  const int rows = min(G.tile_rows, G.h - r0);
+  const long long b = blockIdx.z;
+  const TY* yb = y + b * G.h * G.y.w_in;
+  const TC* ub = u + b * G.h * G.c.w_in;
+  const TC* vb = v + b * G.h * G.c.w_in;
+  const bool w_vec = G.w_out % kVec == 0;
+  const bool y_vec = w_vec && (reinterpret_cast<uintptr_t>(y) %
+                               sizeof(Vec<TY>)) == 0;
+  const bool c_vec = w_vec && (reinterpret_cast<uintptr_t>(u) %
+                               sizeof(Vec<TC>)) == 0 &&
+                     (reinterpret_cast<uintptr_t>(v) % sizeof(Vec<TC>)) == 0;
+  const bool out_vec = vrt::place_vec(out, G.S, G.w_out);
+  for (int m = threadIdx.y; m < rows; m += kRowThreads) {
+    const int row = r0 + m;
+    float yv[kVec], uv[kVec], vv[kVec];
+    w_values_long(yb, G.y, row, G.w_out, col, y_vec, P.y_scale, yv);
+    w_values_long(ub, G.c, row, G.w_out, col, c_vec, P.c_scale, uv);
+    w_values_long(vb, G.c, row, G.w_out, col, c_vec, P.c_scale, vv);
+    float c[kVec][3];
+    vrt::tail_group<R>(P, yv, uv, vv, c);
+    vrt::store_group<R>(c, P, out, b, G.S, G.w_out, row, col, out_vec);
   }
 }
 
@@ -354,6 +427,12 @@ int launch(const void* y, const void* u, const void* v, const Geometry& G,
       static_cast<const TC*>(v), G, P, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The long-window kernel's launch (no shared memory): compiled for the
+// runtime route at every pair of plane dtypes, in cols3_tail_long.cu.
+int launch_long(int y_dtype, int c_dtype, const void* y, const void* u,
+                const void* v, const Geometry& G, const vrt::TailParams& P,
+                int batch, void* out, cudaStream_t st);
 
 }  // namespace k9
 }  // namespace vrt

@@ -40,12 +40,17 @@
 //     for both fields: one 16-byte shared-memory read of each field a tap,
 //     and one 16-byte store of each field's 4 outputs where the row is
 //     16-byte aligned (a scalar edge path takes other widths and pointers).
+//   * the long-window route.  A map whose window does not fit shared memory
+//     (4K to 270 rows needs 239 KB) takes deint3_long_kernel, which stages
+//     nothing: each thread computes the ramp and both fields of each tap
+//     row from prev, cur and next read through the read-only cache, in the
+//     staged kernel's order.
 // Every output is bit-equal to the one-pixel-a-thread kernel this replaces:
 // the same operations in the same order, and no FMA for a row past the
 // plane (a zero-weight tap on a zero row could turn -0 into +0).
 // Shared memory: the fields, the raw window, taps and starts must fit
-// kSmemBudget; the wrapper (kernels/deint.deint3_rows_dual) refuses a map
-// that does not before the launch.
+// kSmemBudget; the wrapper (kernels/deint.deint3_rows_dual) takes the
+// long-window route for a map whose window does not.
 //
 // Shared memory at c5's uint16 luma: 62 KB a block, 3 blocks an SM.
 //
@@ -301,13 +306,111 @@ __global__ void __launch_bounds__(kThreads) deint3_kernel(
   }
 }
 
+// The long-window route: deint3_kernel without the window, for maps whose
+// window does not fit shared memory (a strong downscale).  Each thread
+// makes 4 columns of its output rows for both fields, computing each tap
+// row's motion ramp and field values from prev, cur (and cur's clamped
+// neighbour rows) and next read straight from device memory through the
+// read-only cache, with the same operations in the same order as the
+// staged kernel's window pass and taps, so its outputs are the staged
+// route's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) deint3_long_kernel(
+    Plane<T> py, Plane<T> pu, Plane<T> pv, int batch, int h_out,
+    int tile_rows, int y_blocks, int c_blocks, float thr,
+    int top_field_first) {
+  const int bx = blockIdx.x / batch;
+  const long long b = blockIdx.x - static_cast<long long>(bx) * batch;
+  const int k = bx < y_blocks ? 0 : (bx < y_blocks + c_blocks ? 1 : 2);
+  const Plane<T> P = k == 0 ? py : (k == 1 ? pu : pv);
+  const int col0 = (k == 0 ? bx : bx - y_blocks - (k - 1) * c_blocks)
+                   * kTileCols;
+  const int r0 = blockIdx.y * tile_rows;
+  const int rows = min(tile_rows, h_out - r0);
+  const int h = P.h, w = P.w;
+  const int col = col0 + threadIdx.x * kVec;
+  if (col >= w) return;
+  const long long base = b * h * static_cast<long long>(w);
+  const T* pp = P.p + base;
+  const T* pc = P.c + base;
+  const T* pn = P.n + base;
+  const bool vec = w % kVec == 0 && col + kVec <= w &&
+                   (reinterpret_cast<uintptr_t>(P.p) % sizeof(Vec<T>)) == 0 &&
+                   (reinterpret_cast<uintptr_t>(P.c) % sizeof(Vec<T>)) == 0 &&
+                   (reinterpret_cast<uintptr_t>(P.n) % sizeof(Vec<T>)) == 0;
+  const bool out_vec = w % kVec == 0 &&
+                       (reinterpret_cast<uintptr_t>(P.out) %
+                        sizeof(Vec<float>)) == 0;
+  auto load = [&](const T* plane, int row) {
+    const T* q = plane + static_cast<long long>(row) * w + col;
+    if (vec) return vrt::ldg_as<Vec<T>>(q);
+    Vec<T> x;
+#pragma unroll
+    for (int kk = 0; kk < kVec; ++kk) {
+      x.v[kk] = col + kk < w ? __ldg(q + kk) : T(0);
+    }
+    return x;
+  };
+  const bool top0 = top_field_first != 0;   // field 0 keeps the top field
+  for (int m = threadIdx.y; m < rows; m += kRowThreads) {
+    const int ro = r0 + m;
+    const int s = __ldg(P.starts + ro);
+    float a0[kVec], a1[kVec];
+#pragma unroll
+    for (int kk = 0; kk < kVec; ++kk) a0[kk] = a1[kk] = 0.f;
+    for (int t = 0; t < P.n_taps; ++t) {
+      const int r = s + t;
+      if (r >= h) break;
+      const float wt =
+          __ldg(P.taps + static_cast<long long>(t) * h_out + ro);
+      const Vec<T> up = load(pc, max(r - 1, 0));
+      const Vec<T> cu = load(pc, r);
+      const Vec<T> dn = load(pc, min(r + 1, h - 1));
+      const Vec<T> pr = load(pp, r);
+      const Vec<T> nx = load(pn, r);
+#pragma unroll
+      for (int kk = 0; kk < kVec; ++kk) {
+        const float ramp = vrt::clip01(vrt::dvd(
+            vrt::sub(fabsf(vrt::sub(vrt::to_float(nx.v[kk]),
+                                    vrt::to_float(pr.v[kk]))), thr), thr));
+        const float u_ = vrt::to_float(up.v[kk]);
+        const float c_ = vrt::to_float(cu.v[kk]);
+        const float d_ = vrt::to_float(dn.v[kk]);
+        a0[kk] = fmaf(field_value(r, h, u_, c_, d_, ramp, top0), wt, a0[kk]);
+        a1[kk] = fmaf(field_value(r, h, u_, c_, d_, ramp, !top0), wt,
+                      a1[kk]);
+      }
+    }
+    float* o0 = P.out + ((b * 2) * h_out + ro) * w + col;
+    float* o1 = o0 + static_cast<long long>(h_out) * w;
+    if (out_vec && col + kVec <= w) {
+      Vec<float> v0, v1;
+#pragma unroll
+      for (int kk = 0; kk < kVec; ++kk) {
+        v0.v[kk] = a0[kk];
+        v1.v[kk] = a1[kk];
+      }
+      *reinterpret_cast<Vec<float>*>(o0) = v0;
+      *reinterpret_cast<Vec<float>*>(o1) = v1;
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kVec; ++kk) {
+        if (col + kk < w) {
+          o0[kk] = a0[kk];
+          o1[kk] = a1[kk];
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* const* planes, int batch, int hy, int wy, int hc,
            int wc, int h_out, int tile_rows, const int* sy, const float* ty, int nty,
            const int* lo_y, int win_y, const int* sc, const float* tc,
            int ntc, const int* lo_c, int win_c, float thr,
-           int top_field_first, float* oy, float* ou, float* ov,
-           cudaStream_t stream) {
+           int top_field_first, bool long_window, float* oy, float* ou,
+           float* ov, cudaStream_t stream) {
   auto mk = [&](int i, float* out, const int* s, const float* t, int n,
                 const int* lo, int win, int h, int w) {
     return Plane<T>{static_cast<const T*>(planes[3 * i]),
@@ -315,22 +418,32 @@ int launch(const void* const* planes, int batch, int hy, int wy, int hc,
                     static_cast<const T*>(planes[3 * i + 2]), out, s, t, n,
                     lo, win, h, w};
   };
+  const int y_blocks = (wy + kTileCols - 1) / kTileCols;
+  const int c_blocks = (wc + kTileCols - 1) / kTileCols;
+  const dim3 grid((y_blocks + 2 * c_blocks) * batch,
+                  (h_out + tile_rows - 1) / tile_rows);
+  if (tile_rows < 1 || tile_rows > kMaxTileRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (long_window) {
+    deint3_long_kernel<T><<<grid, dim3(kColThreads, kRowThreads), 0,
+                            stream>>>(
+        mk(0, oy, sy, ty, nty, lo_y, win_y, hy, wy),
+        mk(1, ou, sc, tc, ntc, lo_c, win_c, hc, wc),
+        mk(2, ov, sc, tc, ntc, lo_c, win_c, hc, wc), batch, h_out, tile_rows,
+        y_blocks, c_blocks, thr, top_field_first);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem_y = layout<T>(win_y, nty, tile_rows).bytes;
   const size_t smem_c = layout<T>(win_c, ntc, tile_rows).bytes;
   const size_t smem = smem_y > smem_c ? smem_y : smem_c;
-  if (smem > kSmemBudget || tile_rows < 1 || tile_rows > kMaxTileRows) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (smem > kSmemBudget) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         deint3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int y_blocks = (wy + kTileCols - 1) / kTileCols;
-  const int c_blocks = (wc + kTileCols - 1) / kTileCols;
-  const dim3 grid((y_blocks + 2 * c_blocks) * batch,
-                  (h_out + tile_rows - 1) / tile_rows);
   deint3_kernel<T><<<grid, dim3(kColThreads, kRowThreads), smem, stream>>>(
       mk(0, oy, sy, ty, nty, lo_y, win_y, hy, wy),
       mk(1, ou, sc, tc, ntc, lo_c, win_c, hc, wc),
@@ -347,15 +460,16 @@ int launch(const void* const* planes, int batch, int hy, int wy, int hc,
 // tile's first window row (``lo_*``, device, one int per tile of
 // ``tile_rows`` output rows) and the widest window ``win_*``
 // (kernels/resize.BandedMatrix.row_windows).  Outputs float32 (batch, 2,
-// h_out, w) per plane.  Returns cudaErrorInvalidValue for a layout over
-// kSmemBudget.
+// h_out, w) per plane.  ``long_window``: the long-window kernel (no shared
+// memory), else the staged one, which returns cudaErrorInvalidValue for a
+// layout over kSmemBudget.
 extern "C" int vrt_deint3_rows_dual(
     const void* planes, int dtype, int batch, int hy, int wy, int hc, int wc,
     int h_out, int tile_rows, const void* starts_y, const void* taps_y, int n_taps_y,
     const void* lo_y, int win_y, const void* starts_c, const void* taps_c,
     int n_taps_c, const void* lo_c, int win_c, float thr,
-    int top_field_first, void* out_y, void* out_u, void* out_v,
-    void* stream) {
+    int top_field_first, int long_window, void* out_y, void* out_u,
+    void* out_v, void* stream) {
   const void* const* ps = static_cast<const void* const*>(planes);
   const int* sy = static_cast<const int*>(starts_y);
   const float* ty = static_cast<const float*>(taps_y);
@@ -371,7 +485,7 @@ extern "C" int vrt_deint3_rows_dual(
     using T = decltype(tag);
     return launch<T>(ps, batch, hy, wy, hc, wc, h_out, tile_rows, sy, ty, n_taps_y, ly,
                      win_y, sc, tc, n_taps_c, lc, win_c, thr,
-                     top_field_first, oy, ou, ov, st);
+                     top_field_first, long_window != 0, oy, ou, ov, st);
   };
   switch (dtype) {
     case 0: return run(uint8_t{});

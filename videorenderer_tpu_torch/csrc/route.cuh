@@ -127,24 +127,34 @@ __device__ __forceinline__ void tail_group(const TailParams& P,
   }
 }
 
-// The quantization of 4 pixels at output row ``row`` of frame ``b`` (h rows
-// x w columns), columns col .. col + 3, from the global row and column, and
-// their store: one R10G10B10A2 / RGBA8 dword each, as one 16-byte store
-// where ``vec`` and the 4 columns lie inside the row, or planar float RGB at
-// ((b * 3 + i) * h + row) * w + col, likewise.  Columns past w are not
-// stored.
+// Where a kernel's output frames go: surfaces of h x w pixels with the
+// video's row 0 and column 0 at (oy, ox), the bars around it written by the
+// caller (kernels/resize.rows3_tail's ``place``); an unplaced output is its
+// own surface, at (0, 0).
+struct Place {
+  int h, w, oy, ox;
+};
+
+// The quantization of 4 pixels at the video's row ``row`` of frame ``b``
+// (w columns), columns col .. col + 3, from the video's row and column, and
+// their store into surface ``S``: one R10G10B10A2 / RGBA8 dword each at
+// (b * S.h + S.oy + row) * S.w + S.ox + col, as one 16-byte store where
+// ``vec`` (the caller's: that address 16-byte aligned) and the 4 columns lie
+// inside the row, or planar float RGB at ((b * 3 + i) * S.h + S.oy + row) *
+// S.w + S.ox + col, likewise.  Columns past w are not stored.
 template <typename R>
 __device__ __forceinline__ void store_group(float c[kGroup][3],
                                             const TailParams& P,
                                             void* __restrict__ out,
-                                            long long b, int h, int w,
-                                            int row, int col, bool vec) {
+                                            long long b, const Place& S,
+                                            int w, int row, int col,
+                                            bool vec) {
   const int pack = R::kPack != kRt ? R::kPack : P.pack;
 #pragma unroll
   for (int k = 0; k < kGroup; ++k) {
     quantize3<R::kQuant>(c[k], P.quant, row, col + k);
   }
-  const long long px = (b * h + row) * w + col;
+  const long long px = (b * S.h + S.oy + row) * S.w + S.ox + col;
   if (pack != kPackNone) {
     uint32_t wd[kGroup];
 #pragma unroll
@@ -162,9 +172,10 @@ __device__ __forceinline__ void store_group(float c[kGroup][3],
       }
     }
   } else {
+    const long long plane = static_cast<long long>(S.h) * S.w;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      float* o = static_cast<float*>(out) + ((b * 3 + i) * h + row) * w + col;
+      float* o = static_cast<float*>(out) + px + (b * 2 + i) * plane;
       if (vec && col + kGroup <= w) {
         Vec<float> ov;
 #pragma unroll
@@ -178,6 +189,16 @@ __device__ __forceinline__ void store_group(float c[kGroup][3],
       }
     }
   }
+}
+
+// Whether a thread's 16-byte stores into surface ``S`` of ``out`` are
+// aligned: the video's width, the surface's and the column offset are
+// multiples of 4 and ``out`` is 16-byte aligned (an unaligned offset takes
+// the scalar stores of the same route).
+__device__ __forceinline__ bool place_vec(const void* out, const Place& S,
+                                          int w) {
+  return w % kGroup == 0 && S.w % kGroup == 0 && S.ox % kGroup == 0 &&
+         (reinterpret_cast<uintptr_t>(out) % sizeof(Vec<float>)) == 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -52,6 +52,12 @@
 //     structure) copy the curve scalars and structure into shared memory
 //     once a block.  c8's and the LMS route are compiled in rows3_mid_c8.cu
 //     and rows3_mid_lms.cu, in parallel with this file.
+//   * the long-window route (rows3_mid_long.cu).  A map whose window does
+//     not fit shared memory even at one output row a tile (2160 mid rows to
+//     16 output rows: 275-824 KB) takes a kernel that keeps no window: each
+//     thread computes, for each out tap, that mid row's pixel from inputs
+//     read through the read-only cache, in the staged route's order, on
+//     the runtime route, bit-equal to the staged route.
 // c8's route holds 80 registers a thread and its 70 KB of shared memory 3
 // blocks an SM; the others, whose convert is long dependent chains of
 // accurate pows and divisions, 40 registers and their 16-row tiles'
@@ -155,8 +161,10 @@ bool params_of(const void* host_vals, int n_vals, const void* host_structure,
 // 3 x (m0 m1 m2 c), the combined LMS matrix row-major 3 x 3, then the curve
 // scalars; ``host_structure`` (HOST) holds per channel its piece count,
 // then 8 kinds and 8 MMR orders.  ``out`` is (3, batch, h_out, w).
-// Returns cudaErrorInvalidValue for a structure or a layout it does not
-// take.
+// ``long_window``: the long-window kernel (no shared memory, the runtime
+// route; one tile of ``tile_rows`` output rows a block, ``tile_lo`` and the
+// in maps' windows unused).  Returns cudaErrorInvalidValue for a structure
+// or a layout it does not take.
 extern "C" int vrt_rows3_mid(
     const void* y, int y_dtype, const void* u, const void* v, int c_dtype,
     int batch, int hy, int hc, int w, int h_mid, int h_out, int tile_rows,
@@ -165,7 +173,7 @@ extern "C" int vrt_rows3_mid(
     const void* lo_c, int win_c, const void* starts_o, const void* taps_o,
     int n_taps_o, const void* tile_lo, int win, float y_scale, float c_scale,
     const void* host_vals, int n_vals, const void* host_structure,
-    int lms_identity, void* out, void* stream) {
+    int lms_identity, int long_window, void* out, void* stream) {
   MidParams P;
   if (!params_of(host_vals, n_vals, host_structure, lms_identity, y_scale,
                  c_scale, &P) ||
@@ -184,6 +192,9 @@ extern "C" int vrt_rows3_mid(
                    static_cast<const float*>(taps_o), n_taps_o,
                    static_cast<const int*>(tile_lo), win};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (long_window) {
+    return launch_long(y_dtype, c_dtype, y, u, v, G, P, batch, out, st);
+  }
   switch (route_of(y_dtype, c_dtype, P)) {
     case 1: return launch<C8Mid, uint16_t, float>(y, u, v, G, P, batch, out, st);
     case 2: return launch<LmsMid, uint16_t, float>(y, u, v, G, P, batch, out, st);

@@ -1,7 +1,8 @@
-// K8's kernel (csrc/rows3_mid.cu has its design) and its launch.  The
-// routes the port's paths run (C8Mid, LmsMid) are compiled each in its own
-// translation unit, rows3_mid_c8.cu and rows3_mid_lms.cu, in parallel with
-// rows3_mid.cu (the entry points and the runtime route).
+// K8's kernels (csrc/rows3_mid.cu has their design) and their launches.
+// The routes the port's paths run (C8Mid, LmsMid) are compiled each in its
+// own translation unit, rows3_mid_c8.cu and rows3_mid_lms.cu, in parallel
+// with rows3_mid.cu (the entry points and the runtime route) and
+// rows3_mid_long.cu (the long-window kernel).
 
 #pragma once
 
@@ -587,6 +588,122 @@ __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
     }
   }
 }
+
+// The long-window route's value of one plane at mid row m, column cc: its
+// in taps t = 0 .. T-1 in order from 0, taps at or past the plane's last
+// row skipped, each input read straight from device memory through the
+// read-only cache (in_value's sum); or the direct read times ``scale``.
+template <typename T>
+__device__ __forceinline__ float in_value_long(const T* __restrict__ plane,
+                                               const InMap& M, int h_mid,
+                                               int w, int m, int cc,
+                                               float scale) {
+  if (M.n_taps == 0) {
+    return mul(vrt::to_float(__ldg(plane + static_cast<long long>(m) * w +
+                                   cc)),
+               scale);
+  }
+  const int s = __ldg(M.starts + m);
+  float acc = 0.f;
+  for (int t = 0; t < M.n_taps; ++t) {
+    if (s + t < M.h_in) {
+      acc = fmaf(
+          vrt::to_float(__ldg(plane + static_cast<long long>(s + t) * w + cc)),
+          __ldg(M.taps + static_cast<long long>(t) * h_mid + m), acc);
+    }
+  }
+  return acc;
+}
+
+// K8's long-window route: no mid window in shared memory, for maps whose
+// window does not fit even at one row a tile (a strong downscale: 2160 mid
+// rows to 16 output rows reach 540 mid rows an output row).  Each thread
+// makes 4 columns of its output rows: for each out tap it computes that mid
+// row's pixel (the in taps read through the read-only cache, then
+// dovi_mid), and sums the taps in the staged route's order with its guard,
+// so the outputs are the staged route's bit for bit.  A mid pixel is
+// computed once for each output row whose taps reach it, about 2 x the
+// filter's radius times, which at such a ratio is less work than the mid
+// rows between them that the staged route would compute and not use.
+template <typename R, typename TY, typename TC>
+__global__ void __launch_bounds__(kThreads) rows3_mid_long_kernel(
+    const TY* __restrict__ y, const TC* __restrict__ u,
+    const TC* __restrict__ v, const Geometry G,
+    const __grid_constant__ MidParams P, float* __restrict__ out) {
+  const int tx = threadIdx.x % kColThreads, tyd = threadIdx.x / kColThreads;
+  const int col = blockIdx.x * kTileCols + tx * kVec;
+  if (col >= G.w) return;
+  const long long b = blockIdx.z, batch = gridDim.z;
+  const int r0 = blockIdx.y * G.tile_rows;
+  const int rows = min(G.tile_rows, G.h_out - r0);
+  const TY* yb = y + b * G.y.h_in * static_cast<long long>(G.w);
+  const TC* ub = u + b * G.c.h_in * static_cast<long long>(G.w);
+  const TC* vb = v + b * G.c.h_in * static_cast<long long>(G.w);
+  const bool out_vec = col + kVec <= G.w && G.w % kVec == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto mid = [&](int m, int cc, float c[3]) {
+    const float yv = in_value_long(yb, G.y, G.h_mid, G.w, m, cc, P.y_scale);
+    const float uv = in_value_long(ub, G.c, G.h_mid, G.w, m, cc, P.c_scale);
+    const float vv = in_value_long(vb, G.c, G.h_mid, G.w, m, cc, P.c_scale);
+    dovi_mid<R>(P, P.vals, P.curve, yv, uv, vv, c);
+  };
+  for (int i = tyd; i < rows; i += kRowThreads) {
+    const int r = r0 + i;
+    float acc[3][kVec];
+#pragma unroll 1
+    for (int j = 0; j < kVec; ++j) {
+      const int cc = col + j;
+      float a[3] = {0.f, 0.f, 0.f};
+      if (cc < G.w) {
+        if (G.nto == 0) {
+          mid(r, cc, a);
+        } else {
+          const int s = __ldg(G.so + r);
+          for (int t = 0; t < G.nto; ++t) {
+            if (s + t < G.h_mid) {
+              const float wt =
+                  __ldg(G.to + static_cast<long long>(t) * G.h_out + r);
+              float c[3];
+              mid(s + t, cc, c);
+#pragma unroll
+              for (int ch = 0; ch < 3; ++ch) a[ch] = fmaf(c[ch], wt, a[ch]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kVec; ++jj) {
+        if (jj == j) {
+          acc[0][jj] = a[0];
+          acc[1][jj] = a[1];
+          acc[2][jj] = a[2];
+        }
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float* o = out + ((ch * batch + b) * G.h_out + r) *
+                           static_cast<long long>(G.w) + col;
+      if (out_vec) {
+        Vec<float> ov;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) ov.v[j] = acc[ch][j];
+        *reinterpret_cast<Vec<float>*>(o) = ov;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          if (col + j < G.w) o[j] = acc[ch][j];
+        }
+      }
+    }
+  }
+}
+
+// The long-window kernel's launch (no shared memory): compiled for the
+// runtime route at every pair of plane dtypes, in rows3_mid_long.cu.
+int launch_long(int y_dtype, int c_dtype, const void* y, const void* u,
+                const void* v, const Geometry& G, const MidParams& P,
+                int batch, void* out, cudaStream_t st);
 
 template <typename R, typename TY, typename TC>
 int launch(const void* y, const void* u, const void* v, const Geometry& G,

@@ -1,8 +1,9 @@
-// K2's kernel (csrc/rows3_tail.cu has its design) and its launch.  The
-// routes the port's paths run (route.cuh) are compiled each in its own
+// K2's kernels (csrc/rows3_tail.cu has their design) and their launches.
+// The routes the port's paths run (route.cuh) are compiled each in its own
 // translation unit: rows3_tail.cu (the entry points, the runtime route, the
-// light routes), rows3_tail_headline.cu, rows3_tail_c7.cu and
-// rows3_tail_hlg.cu build in parallel.
+// light routes), rows3_tail_headline.cu, rows3_tail_c7.cu,
+// rows3_tail_hlg.cu and rows3_tail_long.cu (the long-window kernel) build
+// in parallel.
 
 #pragma once
 
@@ -39,6 +40,7 @@ struct HMap {
 struct Geometry {
   int w, h_out, tile_rows;
   HMap y, c;
+  vrt::Place S;                          // the output surface
 };
 
 // Byte offsets of a block's shared memory: the windows of y, u and v
@@ -209,8 +211,7 @@ __global__ void __launch_bounds__(kThreads) rows3_tail_kernel(
   const bool c_vec = w_vec && (reinterpret_cast<uintptr_t>(u) %
                                sizeof(Vec<TC>)) == 0 &&
                      (reinterpret_cast<uintptr_t>(v) % sizeof(Vec<TC>)) == 0;
-  const bool out_vec = w_vec && (reinterpret_cast<uintptr_t>(out) %
-                                 sizeof(Vec<float>)) == 0;
+  const bool out_vec = vrt::place_vec(out, G.S, G.w);
 
   for (int m = threadIdx.y; m < rows; m += kRowThreads) {
     const int r = r0 + m;
@@ -223,7 +224,85 @@ __global__ void __launch_bounds__(kThreads) rows3_tail_kernel(
              P.c_scale, vv);
     float c[kVec][3];
     vrt::tail_group<R>(P, yv, uv, vv, c);
-    vrt::store_group<R>(c, P, out, b, G.h_out, G.w, r, col, out_vec);
+    vrt::store_group<R>(c, P, out, b, G.S, G.w, r, col, out_vec);
+  }
+}
+
+// The long-window route's values of one plane at output row r, columns
+// col .. col + 3: h_values's taps in the same order with the same r < h_in
+// guard, each tap's row read straight from device memory through the
+// read-only cache (4-wide vector loads where ``vec``), the starts and
+// weights too (one address a warp: a broadcast).
+template <typename T>
+__device__ __forceinline__ void h_values_long(const T* __restrict__ plane,
+                                              const HMap& M, int w, int h_out,
+                                              int r, int col, bool vec,
+                                              float scale, float out[kVec]) {
+  if (M.n_taps == 0) {
+    h_values(plane, static_cast<const T*>(nullptr), M, nullptr, nullptr, 0, w,
+             0, 0, r, col, vec, scale, out);
+    return;
+  }
+  const int s = __ldg(M.starts + r);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) out[k] = 0.f;
+  for (int t = 0; t < M.n_taps; ++t) {
+    const int i = s + t;
+    if (i < M.h_in) {
+      const float wt = __ldg(M.taps + static_cast<long long>(t) * h_out + r);
+      const T* p = plane + static_cast<long long>(i) * w + col;
+      Vec<T> x;
+      if (vec && col + kVec <= w) {
+        x = vrt::ldg_as<Vec<T>>(p);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          x.v[k] = col + k < w ? __ldg(p + k) : T(0);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        out[k] = fmaf(vrt::to_float(x.v[k]), wt, out[k]);
+      }
+    }
+  }
+}
+
+// K2's long-window route: the staged kernel without the staging, for maps
+// whose windows do not fit shared memory (a strong downscale, whose
+// consecutive output rows' windows barely overlap, so staging would buy
+// little).  Each thread makes 4 columns of the tile's rows as the staged
+// kernel does, reading every tap through the read-only cache, then the same
+// tail and store: the outputs are the staged route's bit for bit.
+template <typename R, typename TY, typename TC>
+__global__ void __launch_bounds__(kThreads) rows3_tail_long_kernel(
+    const TY* __restrict__ y, const TC* __restrict__ u,
+    const TC* __restrict__ v, const Geometry G, const vrt::TailParams P,
+    void* __restrict__ out) {
+  const int col = blockIdx.x * kTileCols + threadIdx.x * kVec;
+  if (col >= G.w) return;
+  const int r0 = blockIdx.y * G.tile_rows;
+  const int rows = min(G.tile_rows, G.h_out - r0);
+  const long long b = blockIdx.z;
+  const TY* yb = y + b * G.y.h_in * G.w;
+  const TC* ub = u + b * G.c.h_in * G.w;
+  const TC* vb = v + b * G.c.h_in * G.w;
+  const bool w_vec = G.w % kVec == 0;
+  const bool y_vec = w_vec && (reinterpret_cast<uintptr_t>(y) %
+                               sizeof(Vec<TY>)) == 0;
+  const bool c_vec = w_vec && (reinterpret_cast<uintptr_t>(u) %
+                               sizeof(Vec<TC>)) == 0 &&
+                     (reinterpret_cast<uintptr_t>(v) % sizeof(Vec<TC>)) == 0;
+  const bool out_vec = vrt::place_vec(out, G.S, G.w);
+  for (int m = threadIdx.y; m < rows; m += kRowThreads) {
+    const int r = r0 + m;
+    float yv[kVec], uv[kVec], vv[kVec];
+    h_values_long(yb, G.y, G.w, G.h_out, r, col, y_vec, P.y_scale, yv);
+    h_values_long(ub, G.c, G.w, G.h_out, r, col, c_vec, P.c_scale, uv);
+    h_values_long(vb, G.c, G.w, G.h_out, r, col, c_vec, P.c_scale, vv);
+    float c[kVec][3];
+    vrt::tail_group<R>(P, yv, uv, vv, c);
+    vrt::store_group<R>(c, P, out, b, G.S, G.w, r, col, out_vec);
   }
 }
 
@@ -247,6 +326,12 @@ int launch(const void* y, const void* u, const void* v, const Geometry& G,
       static_cast<const TC*>(v), G, P, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The long-window kernel's launch (no shared memory): compiled for the
+// runtime route at every pair of plane dtypes, in rows3_tail_long.cu.
+int launch_long(int y_dtype, int c_dtype, const void* y, const void* u,
+                const void* v, const Geometry& G, const vrt::TailParams& P,
+                int batch, void* out, cudaStream_t st);
 
 }  // namespace k2
 }  // namespace vrt

@@ -1,8 +1,9 @@
 // Staging helpers shared by the tiled kernels (K1 banded_resize.cu, K2
 // rows3_tail.cu, K7 deint3_rows_dual.cu, K9 cols3_tail.cuh): 16-byte
 // asynchronous copies from device memory into shared memory, in groups a
-// thread can wait for one at a time, and exact conversions of the plane
-// codes to float.
+// thread can wait for one at a time, loads through the read-only cache for
+// the long-window routes that stage nothing, and exact conversions of the
+// plane codes to float.
 //
 // to_float gives the same value as static_cast<float> for every uint8,
 // uint16 and int16 code, with one integer and one float operation at the
@@ -14,6 +15,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace vrt {
 
@@ -42,6 +44,26 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
+}
+
+// sizeof(V) bytes (4, 8 or 16, aligned to that) at ``p`` through the
+// read-only cache, as a V
+template <typename V>
+__device__ __forceinline__ V ldg_as(const void* p) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8 || sizeof(V) == 16,
+                "ldg_as loads 4, 8 or 16 bytes");
+  V v;
+  if constexpr (sizeof(V) == 4) {
+    const unsigned a = __ldg(static_cast<const unsigned*>(p));
+    memcpy(&v, &a, sizeof(V));
+  } else if constexpr (sizeof(V) == 8) {
+    const uint2 a = __ldg(static_cast<const uint2*>(p));
+    memcpy(&v, &a, sizeof(V));
+  } else {
+    const uint4 a = __ldg(static_cast<const uint4*>(p));
+    memcpy(&v, &a, sizeof(V));
+  }
+  return v;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }

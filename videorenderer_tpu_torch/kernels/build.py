@@ -40,46 +40,51 @@ SIGNATURES = {
                           _I, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_out, tile_rows, the
     # (starts, taps, n_taps, tile_lo, win) of the y and c H maps, y_scale,
-    # c_scale, mats (host: cmat 12, gamut 9, tone map 5 floats),
-    # apply_matrix, correction, tonemap, luminance_scale, dither_bits, pack,
-    # out, stream
+    # c_scale, mats (host: cmat 12, gamut 9, tone map 5 floats, the SDR
+    # BT.2020 fix's gamma), apply_matrix, correction, tonemap,
+    # luminance_scale, dither_bits, pack, surface_h, surface_w, off_y,
+    # off_x, long_window, out, stream
     "vrt_rows3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
-                       _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
+                       _F, _F, _P, _I, _I, _I, _F, _I, _I,
+                       _I, _I, _I, _I, _I, _P, _P),
     # y, y_dtype, u, v, c_dtype, batch, h, wy, wc, w_out, tile_rows, the
     # (starts, taps, n_taps, tile_lo, win) of the y and c W maps, y_scale,
     # c_scale, mats (host), apply_matrix, correction, tonemap,
-    # luminance_scale, dither_bits, pack, out, stream
+    # luminance_scale, dither_bits, pack, surface_h, surface_w, off_y,
+    # off_x, long_window, out, stream
     "vrt_cols3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
-                       _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
+                       _F, _F, _P, _I, _I, _I, _F, _I, _I,
+                       _I, _I, _I, _I, _I, _P, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, wy, hc, wc, h_out, w_out, the
     # (starts, taps, n_taps) of the W maps of y and c, the (starts, taps,
     # n_taps, tile_lo, win) of their H maps, y_scale, c_scale, mats (host,
-    # 26 floats), apply_matrix, correction, tonemap, luminance_scale,
+    # 27 floats), apply_matrix, correction, tonemap, luminance_scale,
     # dither_bits, out, stream
     "vrt_mega3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P, _P, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _F, _F, _P, _I, _I, _I, _F, _I, _P, _P),
     # x, x_dtype, starts, taps, tile_lo, win, out, batch, h_in, h_out, w,
-    # n_taps, tile_rows, stream
+    # n_taps, tile_rows, long_window, stream
     "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                               _I, _I, _P),
+                               _I, _I, _I, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_mid, h_out,
     # tile_rows, the (starts, taps, n_taps, lo, win) of the y and c in maps,
     # (starts, taps, n_taps) of the out map, tile_lo, win, y_scale,
-    # c_scale, vals (host), n_vals, structure (host), lms_identity, out,
-    # stream
+    # c_scale, vals (host), n_vals, structure (host), lms_identity,
+    # long_window, out, stream
     "vrt_rows3_mid": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I,
-                      _P, _I, _F, _F, _P, _I, _P, _I, _P, _P),
+                      _P, _I, _F, _F, _P, _I, _P, _I, _I, _P, _P),
     # planes (host array of 9 pointers), dtype, batch, hy, wy, hc, wc,
     # h_out, tile_rows, the (starts, taps, n_taps, tile_lo, win) of the y
-    # and c H maps, thr, top_field_first, out_y, out_u, out_v, stream
+    # and c H maps, thr, top_field_first, long_window, out_y, out_u, out_v,
+    # stream
     "vrt_deint3_rows_dual": (_P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
-                             _F, _I, _P, _P, _P, _P),
+                             _F, _I, _I, _P, _P, _P, _P),
     # x, planes, h, w, oh, ow, by, d2y, bx, d2x, row_cls, col_cls, table
     # (NULL: per-output weights), n_col_cls, win_h (0: taps through L1),
     # pitch, dither_bits, out, stream
@@ -104,10 +109,11 @@ SIGNATURES = {
 # entry points that return a string, not an error code
 STRING_SIGNATURES = {
     "vrt_error_string": (_I,),
-    # y_dtype, c_dtype, apply_matrix, correction, tonemap, dither_bits, pack
-    "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I),
+    # y_dtype, c_dtype, apply_matrix, correction, tonemap, dither_bits,
+    # pack, long_window
+    "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I),
     # the same flags, for K9
-    "vrt_cols3_tail_route": (_I, _I, _I, _I, _I, _I, _I),
+    "vrt_cols3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I),
     # y_dtype, c_dtype, vals (host), n_vals, structure (host), lms_identity
     "vrt_rows3_mid_route": (_I, _I, _P, _I, _P, _I),
 }

@@ -21,9 +21,12 @@ K7, K8 and K9 are tiled for the H100 as K1 and K2 are: a block stages
 the window of inputs its outputs' taps reach in shared memory with 16-byte
 copies and each thread makes 4 columns with vector stores.
 :func:`k7_smem_bytes`, :func:`k8_smem_bytes` and :func:`k9_smem_bytes`
-give a block's shared memory; a map whose window does not fit SMEM_BUDGET,
-or a grid past its limits, is refused before the launch.  Their times
-against their bounds are in ``PERF.md`` section 6.
+give a block's shared memory.  A map whose window does not fit SMEM_BUDGET
+(a strong downscale) takes each kernel's long-window route, which stages
+nothing and reads its taps through the read-only cache, bit-equal to the
+staged route (:func:`k7_route`, :func:`k8_route`, :func:`k9_route`); only a
+grid past its limits is refused before the launch.  Their times against
+their bounds are in ``PERF.md`` section 6.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from ..ops.dovi import MidStage
 from . import build
 from .resize import (DTYPE_CODES, PACK_CODES, SMEM_BUDGET, BandedMatrix,
                      Epilogue, _check_plane, _h_plain, _kernel_device,
-                     _launch, _no_tf32, _taps_args, pack_surface)
+                     _launch, _no_tf32, _taps_args, check_place, fill_bars,
+                     pack_surface, place_output)
 
 K7_TILE_ROWS = 32     # output rows a K7 block makes (its tile_rows)
 K7_TILE_COLS = 64     # columns a K7 block makes (kTileCols)
@@ -46,6 +50,13 @@ K9_TILE_ROWS = 32     # rows a K9 block makes (tile_rows, csrc/cols3_tail.cuh)
 K9_TILE_COLS = 128    # output columns a K9 block makes (kTileCols)
 K9_WARPS = 8          # warps of a K9 block, each with two staged rows
 GRID_YZ_MAX = 65535   # the grid's y and z dimensions
+K7_LONG_WINDOW = False
+"""True forces K7's long-window route on every map (its outputs are the
+staged route's bit for bit; ``chip_smoke.py`` compares the two)."""
+K8_LONG_WINDOW = False
+"""The same for K8."""
+K9_LONG_WINDOW = False
+"""The same for K9."""
 
 
 def k7_smem_bytes(itemsize: int, my_y: BandedMatrix, my_c: BandedMatrix,
@@ -61,6 +72,16 @@ def k7_smem_bytes(itemsize: int, my_y: BandedMatrix, my_c: BandedMatrix,
                 + -(-4 * tile_rows * (mat.n_taps + 1) // 16) * 16
                 + (3 * win + 2) * K7_TILE_COLS * itemsize)
     return max(one(my_y), one(my_c))
+
+
+def k7_route(itemsize: int, my_y: BandedMatrix, my_c: BandedMatrix) -> str:
+    """K7's route: "staged" where the windows of a K7_TILE_ROWS tile fit
+    SMEM_BUDGET (:func:`k7_smem_bytes`), else "long-window", the kernel
+    that reads prev, cur and next through the read-only cache (also with
+    K7_LONG_WINDOW).  Both give the same bits."""
+    if K7_LONG_WINDOW or k7_smem_bytes(itemsize, my_y, my_c) > SMEM_BUDGET:
+        return "long-window"
+    return "staged"
 
 
 def k9_pitch(win: int, itemsize: int) -> int:
@@ -87,6 +108,18 @@ def k9_smem_bytes(y_itemsize: int, c_itemsize: int,
                       * itemsize)
             total += 4 * K9_TILE_COLS * (mat.n_taps + 1)
     return total
+
+
+def k9_route(y_itemsize: int, c_itemsize: int, mx_y: BandedMatrix | None,
+             mx_c: BandedMatrix | None) -> str:
+    """K9's route: "staged" where the spans fit SMEM_BUDGET
+    (:func:`k9_smem_bytes`), else "long-window", the kernel that reads its
+    taps through the read-only cache (also with K9_LONG_WINDOW).  Both give
+    the same bits."""
+    if K9_LONG_WINDOW or k9_smem_bytes(y_itemsize, c_itemsize, mx_y,
+                                       mx_c) > SMEM_BUDGET:
+        return "long-window"
+    return "staged"
 
 
 # ---------------------------------------------------------------------------
@@ -160,9 +193,11 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
     deinterlaced planes never reach device memory; neighbouring blocks take
     one tile of consecutive frames, so each raw frame comes from device
     memory about once.  Bound by device memory (the raw frames read once,
-    both fields written once: 0.451 ms at c5 on one H100).  A map
-    whose window does not fit SMEM_BUDGET, or a grid past its limits,
-    raises ValueError before the launch."""
+    both fields written once: 0.451 ms at c5 on one H100).  A map whose
+    window does not fit SMEM_BUDGET takes the long-window route
+    (:func:`k7_route`: each tap row's ramp and fields from prev, cur and
+    next read through the read-only cache, bit-equal); a grid past its
+    limits raises ValueError before the launch."""
     for name, frames in (("prev", prev), ("cur", cur), ("nxt", nxt)):
         if len(frames) != 3:
             raise ValueError(f"{name}: need the (y, u, v) planes, got "
@@ -199,10 +234,7 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
                          f"{wy} columns: the grid is (column tiles x frames, "
                          f"tiles of {K7_TILE_ROWS} rows), at most 2^31 - 1 "
                          "and 65535")
-    smem = k7_smem_bytes(y.element_size(), my_y, my_c, K7_TILE_ROWS)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"K7: the H maps' windows need {smem} bytes of "
-                         f"shared memory, over {SMEM_BUDGET}")
+    long_window = k7_route(y.element_size(), my_y, my_c) == "long-window"
     dev = y.device
     outs = tuple(torch.empty(lead + (2, h_out, w), dtype=torch.float32,
                              device=dev) for w in (wy, wc, wc))
@@ -217,7 +249,8 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
             my_y.n_taps,
             lo_y.data_ptr(), win_y, sc.data_ptr(), tc.data_ptr(),
             my_c.n_taps, lo_c.data_ptr(), win_c, float(thr),
-            int(top_field_first), *(o.data_ptr() for o in outs))
+            int(top_field_first), int(long_window),
+            *(o.data_ptr() for o in outs))
     return outs
 
 
@@ -314,6 +347,21 @@ def k8_tile_rows(y_itemsize: int, c_itemsize: int,
     return 0
 
 
+def k8_route(y_itemsize: int, c_itemsize: int,
+             my_in_y: BandedMatrix | None, my_in_c: BandedMatrix | None,
+             my_out: BandedMatrix | None, h_mid: int, n_vals: int,
+             light: bool = True) -> tuple[str, int]:
+    """K8's route and tile rows: ("staged", :func:`k8_tile_rows`) where the
+    window fits at some tile, else ("long-window", K8_HEAVY_TILE_ROWS), the
+    kernel that keeps no mid window (also with K8_LONG_WINDOW).  Both give
+    the same bits."""
+    rows = 0 if K8_LONG_WINDOW else k8_tile_rows(
+        y_itemsize, c_itemsize, my_in_y, my_in_c, my_out, h_mid, n_vals,
+        light)
+    return ("long-window", K8_HEAVY_TILE_ROWS) if rows == 0 else ("staged",
+                                                                  rows)
+
+
 def rows3_mid_plain(y, u, v, my_in_y: BandedMatrix | None,
                     my_in_c: BandedMatrix | None, h_mid: int,
                     mid: MidStage, my_out: BandedMatrix | None, h_out: int,
@@ -361,8 +409,10 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     side) and for a non-identity LMS step (16-row tiles, twice the blocks
     an SM, pixels dealt out one a thread); :func:`rows3_mid_route` names
     the route a launch takes.  A map whose window does not fit
-    SMEM_BUDGET at one row a tile, or a grid past its limits, raises
-    ValueError before the launch."""
+    SMEM_BUDGET at one row a tile takes the long-window route
+    (:func:`k8_route`: each out tap's mid pixel from inputs read through
+    the read-only cache, bit-equal, on the runtime route); a grid past its
+    limits raises ValueError before the launch."""
     for name, p in (("y", y), ("u", u), ("v", v)):
         _check_plane(name, p)
     if u.shape != v.shape or u.dtype != v.dtype:
@@ -394,16 +444,15 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                                h_out, y_scale, c_scale)
     vals = mid.host_values()
     struct = mid.host_structure()
-    tile_rows = k8_tile_rows(y.element_size(), u.element_size(), my_in_y,
-                             my_in_c, my_out, h_mid, vals.size,
-                             k8_light_route(y.dtype, u.dtype, mid))
-    if tile_rows == 0:
-        raise ValueError("K8: the maps' windows do not fit the shared memory "
-                         "of a block even at one row a tile")
+    route, tile_rows = k8_route(y.element_size(), u.element_size(),
+                                my_in_y, my_in_c, my_out, h_mid, vals.size,
+                                k8_light_route(y.dtype, u.dtype, mid))
+    long_window = route == "long-window"
     batch = y.numel() // (hy * w) if y.numel() else 0
     n_tiles = -(-h_out // tile_rows)
     if batch == 0 or batch > GRID_YZ_MAX \
-            or -(-n_tiles // K8_TILES_PER_BLOCK) > GRID_YZ_MAX:
+            or -(-n_tiles // (1 if long_window else K8_TILES_PER_BLOCK)) \
+            > GRID_YZ_MAX:
         raise ValueError(f"K8 cannot take batch {batch} x {h_out} rows: the "
                          "grid is (column tiles, groups of tiles, frames), "
                          "at most 65535 groups and frames")
@@ -413,6 +462,8 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     def in_args(mat):   # (starts, taps, T, lo, win); none: read directly
         if mat is None:
             return None, None, 0, None, 0
+        if long_window:     # no staged rows
+            return (*_taps_args(mat, dev), None, 0)
         lo, in_win = _k8_in_windows_on(mat, my_out, h_mid, tile_rows, dev)
         return (*_taps_args(mat, dev), lo.data_ptr(), in_win)
 
@@ -427,7 +478,7 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
             vals.ctypes.data, vals.size, struct.ctypes.data,
-            int(mid.lms is None), out.data_ptr())
+            int(mid.lms is None), int(long_window), out.data_ptr())
     return out[0], out[1], out[2]
 
 
@@ -472,20 +523,24 @@ def cols3_tail_plain(y, u, v, mx_y: BandedMatrix | None,
                      mx_c: BandedMatrix | None, w_out: int,
                      epilogue: Epilogue, y_scale: float | None = None,
                      c_scale: float | None = None,
-                     pack_format: str | None = None) -> torch.Tensor:
+                     pack_format: str | None = None,
+                     place: tuple | None = None) -> torch.Tensor:
     """Plain K9: each plane's W contraction as a dense float32 product (or
-    the direct read times its scale), the torch epilogue, the pack."""
+    the direct read times its scale), the torch epilogue, the pack, then
+    the placement (``resize.place_output``)."""
     _no_tf32()
     rgb = epilogue.plain(_w_plain(y, mx_y, y_scale), _w_plain(u, mx_c, c_scale),
                          _w_plain(v, mx_c, c_scale))
-    return rgb if pack_format is None else pack_surface(rgb, pack_format)
+    out = rgb if pack_format is None else pack_surface(rgb, pack_format)
+    return place_output(out, place, pack_format)
 
 
 def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                mx_y: BandedMatrix | None, mx_c: BandedMatrix | None,
                w_out: int, epilogue: Epilogue, y_scale: float | None = None,
                c_scale: float | None = None,
-               pack_format: str | None = None) -> torch.Tensor:
+               pack_format: str | None = None,
+               place: tuple | None = None) -> torch.Tensor:
     """W-resize the (luma, chroma, chroma) planes, then run the epilogue.
 
     ``y`` (..., H, Wy), ``u``/``v`` (..., H, Wc): float32 or raw
@@ -494,7 +549,9 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     — its width is then w_out and ``y_scale``/``c_scale`` scale it.  The
     epilogue is K2's (``cmat=None`` for planes that are R, G, B already).
     Returns (..., 3, H, w_out) float32, or with ``pack_format``
-    ("rgb10a2"/"rgba8") (..., H, w_out) int32 dwords.
+    ("rgb10a2"/"rgba8") (..., H, w_out) int32 dwords; ``place`` puts them
+    into a surface as ``resize.rows3_tail``'s does (Dolby Vision in a
+    rect).
 
     Kernel K9 (``csrc/cols3_tail.cu``), replacing
     ``deint_pallas.cols3_tail``: K2's design on the W axis.  A block makes
@@ -506,8 +563,9 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     column and one vector store, so no intermediate RGB reaches device
     memory.  The tail's route is compiled in for c5's and c8's epilogues
     (:func:`cols3_tail_route` names it).  A map whose span does not fit
-    SMEM_BUDGET, or a grid past its limits, raises ValueError before the
-    launch."""
+    SMEM_BUDGET takes the long-window route (:func:`k9_route`: every tap
+    read through the read-only cache, the runtime tail, bit-equal); a grid
+    past its limits raises ValueError before the launch."""
     epilogue.validate()
     if pack_format not in PACK_CODES:
         raise NotImplementedError(f"K9: pack format {pack_format!r}")
@@ -531,9 +589,10 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         if mat is not None and scale is not None:
             raise ValueError(f"{name}: a scale goes into the W matrix, not "
                              "beside it")
+    surface = check_place(place, h, w_out)
     if not _kernel_device(y, u, v):
         return cols3_tail_plain(y, u, v, mx_y, mx_c, w_out, epilogue, y_scale,
-                                c_scale, pack_format)
+                                c_scale, pack_format, place)
     batch = y.numel() // (h * wy) if y.numel() else 0
     tiles = -(-h // K9_TILE_ROWS)
     if batch == 0 or batch > GRID_YZ_MAX or tiles > GRID_YZ_MAX \
@@ -542,16 +601,17 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                          f"{w_out} columns: the grid is (column tiles, tiles "
                          f"of {K9_TILE_ROWS} rows, frames), at most 65535 "
                          "tiles and frames")
-    smem = k9_smem_bytes(y.element_size(), u.element_size(), mx_y, mx_c)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"K9: the W maps' spans need {smem} bytes of "
-                         f"shared memory, over {SMEM_BUDGET}")
+    long_window = k9_route(y.element_size(), u.element_size(), mx_y,
+                           mx_c) == "long-window"
+    sh, sw = surface[:2]
     if pack_format is None:
-        out = torch.empty(lead + (3, h, w_out), dtype=torch.float32,
+        out = torch.empty(lead + (3, sh, sw), dtype=torch.float32,
                           device=y.device)
     else:
-        out = torch.empty(lead + (h, w_out), dtype=torch.int32,
+        out = torch.empty(lead + (sh, sw), dtype=torch.int32,
                           device=y.device)
+    if place is not None:
+        fill_bars(out, surface, h, w_out, pack_format)
     mats = epilogue.host_mats()
 
     def w_args(mat):    # (starts, taps, T, tile_lo, win); none: read directly
@@ -567,19 +627,21 @@ def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
             *epilogue.launch_args(mats), epilogue.dither_bits,
-            PACK_CODES[pack_format], out.data_ptr())
+            PACK_CODES[pack_format], *surface, int(long_window),
+            out.data_ptr())
     return out
 
 
 def cols3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
-                     epilogue: Epilogue, pack_format: str | None) -> str:
+                     epilogue: Epilogue, pack_format: str | None,
+                     long_window: bool = False) -> str:
     """The K9 instantiation a launch with these plane dtypes, epilogue and
     pack takes: the name of its compiled route ("c5 float32", "c8
-    float32"), or "runtime" for the one that reads the tail's flags
-    (vrt_cols3_tail_route; loads the kernel library, so it needs the CUDA
-    toolkit)."""
+    float32"), "runtime" for the staged one that reads the tail's flags,
+    or with ``long_window`` "long-window runtime" (vrt_cols3_tail_route;
+    loads the kernel library, so it needs the CUDA toolkit)."""
     return build.load().vrt_cols3_tail_route(
         DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype],
         int(epilogue.cmat is not None), epilogue.correction,
         epilogue.tonemap, epilogue.dither_bits,
-        PACK_CODES[pack_format]).decode()
+        PACK_CODES[pack_format], int(long_window)).decode()

@@ -21,9 +21,13 @@ K1, K2 and K3 are tiled for the H100: a block stages the window of inputs
 its outputs' taps reach (:meth:`BandedMatrix.row_windows`) in shared memory
 with 16-byte copies, and each thread makes several outputs with vector
 stores.  :func:`k1_smem_bytes`, :func:`k2_smem_bytes` and
-:func:`k3_smem_bytes` give a block's shared memory; a map whose window does
-not fit SMEM_BUDGET is refused before the launch.  What bounds each is in
-their docstrings and in ``PERF.md`` section 6.
+:func:`k3_smem_bytes` give a block's shared memory.  A map whose window does
+not fit SMEM_BUDGET (a strong downscale: a thumbnail of a 4K frame) takes
+fewer rows a block (K1, K3) or a long-window route (K2, K3: the same
+kernel reading its taps through the read-only cache, bit-equal to the
+staged route; :func:`k2_route`, :func:`k3_route`), so no map is refused for
+its shared memory.  What bounds each is in their docstrings and in
+``PERF.md`` section 6.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each launch adds one to ``launches[name]``.
@@ -58,12 +62,21 @@ K2_TILE_COLS = 128  # output columns a K2 block makes (kTileCols)
 K2_TILE_ROWS = 32   # output rows a K2 block makes (tile_rows)
 K3_TILE_COLS = 128  # output columns a K3 block makes (kTileCols)
 K3_TILE_ROWS = 32   # output rows a K3 block makes where its window fits
+K2_LONG_WINDOW = False
+"""True forces K2's long-window route on every map (its outputs are the
+staged route's bit for bit; ``chip_smoke.py`` compares the two)."""
+K3_LONG_WINDOW = False
+"""The same for K3."""
 
 DTYPE_CODES = {torch.uint8: 0, torch.uint16: 1, torch.int16: 2,
                torch.float32: 3}
 
 CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR, CORR_HLG_TO_PQ = 0, 1, 2, 3
+CORR_FIX_BT2020 = 4
 PACK_CODES = {None: 0, "rgb10a2": 1, "rgba8": 2}
+# the dword of a black pixel (0, 0, 0) with opaque alpha: a placed surface's
+# bars (int32, as pack_surface returns them)
+PACKED_ZERO = {"rgb10a2": -1073741824, "rgba8": -16777216}
 
 # launches of every kernel of the package, by name (K5 and K6 are
 # kernels/jinc2.py's, with K6's weight tables, K7, K8 and K9
@@ -185,6 +198,18 @@ def k1_smem_bytes(itemsize: int, win: int, rows: int = K1_ROWS) -> int:
     return rows * ((win + 2 * chunk - 2) // chunk * chunk) * itemsize
 
 
+def k1_rows(itemsize: int, win: int) -> int | None:
+    """The rows of a K1 block: K1_ROWS, halved until the block's spans fit
+    SMEM_BUDGET (a float32 4K plane to a thumbnail's width: 16 rows of a
+    3840-column span need 240 KB); None where not even one row fits."""
+    rows = K1_ROWS
+    while rows >= 1:
+        if k1_smem_bytes(itemsize, win, rows) <= SMEM_BUDGET:
+            return rows
+        rows //= 2
+    return None
+
+
 def k2_smem_bytes(y_itemsize: int, c_itemsize: int, my: BandedMatrix | None,
                   mc: BandedMatrix | None,
                   tile_rows: int = K2_TILE_ROWS) -> int:
@@ -218,6 +243,27 @@ def k3_tile_rows(itemsize: int, mat: BandedMatrix) -> int | None:
             return rows
         rows //= 2
     return None
+
+
+def k3_route(itemsize: int, mat: BandedMatrix) -> tuple[str, int]:
+    """K3's route and tile rows for a map: ("staged", :func:`k3_tile_rows`)
+    where the window fits at some tile, else ("long-window",
+    K3_TILE_ROWS), the kernel that stages nothing (also with
+    K3_LONG_WINDOW)."""
+    rows = None if K3_LONG_WINDOW else k3_tile_rows(itemsize, mat)
+    return ("long-window", K3_TILE_ROWS) if rows is None else ("staged", rows)
+
+
+def k2_route(y_itemsize: int, c_itemsize: int, my: BandedMatrix | None,
+             mc: BandedMatrix | None) -> str:
+    """K2's route for these maps: "staged" where the windows of a
+    K2_TILE_ROWS tile fit SMEM_BUDGET (:func:`k2_smem_bytes`), else
+    "long-window", the kernel that reads its taps through the read-only
+    cache (also with K2_LONG_WINDOW).  Both give the same bits."""
+    if K2_LONG_WINDOW or k2_smem_bytes(y_itemsize, c_itemsize, my,
+                                       mc) > SMEM_BUDGET:
+        return "long-window"
+    return "staged"
 
 
 # ---------------------------------------------------------------------------
@@ -298,8 +344,10 @@ def banded_resize_last_axis(x: torch.Tensor, mat: BandedMatrix,
     FMAs per ~4 bytes at the headline shapes).  A block stages K1_ROWS rows
     of the input span its K1_SPAN output columns reach in shared memory
     (16-byte copies); each thread keeps its 2 columns' starts and taps in
-    registers for all those rows and stores its 2 outputs at once.  A map
-    whose span does not fit SMEM_BUDGET raises ValueError.  Measured on one
+    registers for all those rows and stores its 2 outputs at once; a span
+    too wide for K1_ROWS rows takes fewer (:func:`k1_rows`), so only a span
+    of one row over SMEM_BUDGET (~58000 float32 columns) raises ValueError.
+    Measured on one
     NVIDIA H100 80GB HBM3 at 700 W: 50% of the byte bound on the headline's
     three planes (``PERF.md`` section 6)."""
     if x.dtype not in DTYPE_CODES:
@@ -315,10 +363,11 @@ def banded_resize_last_axis(x: torch.Tensor, mat: BandedMatrix,
         raise ValueError(f"K1 cannot take {rows} rows x {mat.out_size} "
                          "output columns")
     lo, win = mat.row_windows(K1_SPAN, x.device)
-    smem = k1_smem_bytes(x.element_size(), win)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"K1: spans of {win} input columns need {smem} "
-                         f"bytes of shared memory, over {SMEM_BUDGET}")
+    block_rows = k1_rows(x.element_size(), win)
+    if block_rows is None:
+        raise ValueError(f"K1: a span of {win} input columns needs "
+                         f"{k1_smem_bytes(x.element_size(), win, 1)} bytes "
+                         f"of shared memory, over {SMEM_BUDGET}")
     out = torch.empty(x.shape[:-1] + (mat.out_size,),
                       dtype=torch.int16 if mid16 else torch.float32,
                       device=x.device)
@@ -326,7 +375,7 @@ def banded_resize_last_axis(x: torch.Tensor, mat: BandedMatrix,
     _launch("banded_resize_last_axis", "vrt_banded_resize", x.device,
             x.data_ptr(), DTYPE_CODES[x.dtype], starts.data_ptr(),
             taps.data_ptr(), lo.data_ptr(), win, out.data_ptr(), int(mid16),
-            rows, mat.in_size, mat.out_size, mat.n_taps, K1_ROWS)
+            rows, mat.in_size, mat.out_size, mat.n_taps, block_rows)
     return out
 
 
@@ -354,8 +403,10 @@ def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
     window of input rows its taps reach and the tile's starts and taps in
     shared memory (16-byte copies), and each thread sums the taps of 4
     consecutive columns and stores them with one vector store.  A map whose
-    window does not fit SMEM_BUDGET even at one row a tile raises
-    ValueError."""
+    window does not fit SMEM_BUDGET even at one row a tile (over ~450
+    float32 taps an output) takes the long-window route
+    (:func:`k3_route`): the same sums with every tap read through the
+    read-only cache, bit-equal."""
     _check_plane("x", x)
     if x.shape[-2] != mat.in_size:
         raise ValueError(f"x has {x.shape[-2]} rows, the matrix takes "
@@ -368,12 +419,8 @@ def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
             or w >= K3_TILE_COLS * 65535:
         raise ValueError(f"K3 cannot take batch {batch} x {mat.out_size} "
                          f"rows x {w} columns")
-    tile_rows = k3_tile_rows(x.element_size(), mat)
-    if tile_rows is None:
-        raise ValueError(
-            f"K3: a window of {mat.row_windows(1)[1]} input rows needs "
-            f"{k3_smem_bytes(x.element_size(), mat, 1)} bytes of shared "
-            f"memory, over {SMEM_BUDGET}")
+    route, tile_rows = k3_route(x.element_size(), mat)
+    long_window = route == "long-window"
     lo, win = mat.row_windows(tile_rows, x.device)
     out = torch.empty(x.shape[:-2] + (mat.out_size, w), dtype=torch.float32,
                       device=x.device)
@@ -381,7 +428,7 @@ def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
     _launch("banded_resize_rows", "vrt_banded_resize_rows", x.device,
             x.data_ptr(), DTYPE_CODES[x.dtype], starts.data_ptr(),
             taps.data_ptr(), lo.data_ptr(), win, out.data_ptr(), batch, h_in,
-            mat.out_size, w, mat.n_taps, tile_rows)
+            mat.out_size, w, mat.n_taps, tile_rows, int(long_window))
     return out
 
 
@@ -399,12 +446,13 @@ class Epilogue:
 
     ``cmat``: (3, 4) float32 rows (m0 m1 m2 c), or None when the planes are
     R, G, B already.  ``correction``: CORR_NONE, CORR_PQ_TO_SDR,
-    CORR_HLG_TO_SDR or CORR_HLG_TO_PQ, the SDR conversions using
-    ``luminance_scale`` and the (3, 3) BT.2020 -> BT.709 ``gamut`` matrix.
-    ``tonemap``: the local tone map's selection (1-6, ``ops/tonemap``; 0
-    none) and ``tonemap_scalars`` its five float32 scalars, which ride the
-    launch by value.  ``dither_bits``: +b ordered dither to b bits, -b round
-    to b bits, 0 none (float output); b is 8 or 10."""
+    CORR_HLG_TO_SDR, CORR_HLG_TO_PQ or CORR_FIX_BT2020, the SDR conversions
+    using ``luminance_scale`` and the (3, 3) BT.2020 -> BT.709 ``gamut``
+    matrix, the SDR BT.2020 fix ``sdr_gamma``, the source's power gamma,
+    which rides the launch by value.  ``tonemap``: the local tone map's
+    selection (1-6, ``ops/tonemap``; 0 none) and ``tonemap_scalars`` its
+    five float32 scalars, likewise.  ``dither_bits``: +b ordered dither to b
+    bits, -b round to b bits, 0 none (float output); b is 8 or 10."""
 
     cmat: np.ndarray | None
     correction: int
@@ -415,10 +463,11 @@ class Epilogue:
     tonemap: int = 0
     tonemap_scalars: np.ndarray = field(
         default_factory=lambda: np.zeros(5, np.float32))
+    sdr_gamma: float = 2.2
 
     def validate(self) -> None:
         if self.correction not in (CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR,
-                                   CORR_HLG_TO_PQ):
+                                   CORR_HLG_TO_PQ, CORR_FIX_BT2020):
             raise NotImplementedError(
                 f"K2 epilogue: correction {self.correction} is not ported")
         if self.tonemap not in range(7):
@@ -435,14 +484,15 @@ class Epilogue:
             raise ValueError(f"cmat must be (3, 4), got {np.shape(self.cmat)}")
 
     def host_mats(self) -> np.ndarray:
-        """The 26 floats the tail kernels take in host memory: the colour
+        """The 27 floats the tail kernels take in host memory: the colour
         matrix (zeros without one), the gamut matrix, the tone-map
-        scalars."""
+        scalars, the SDR BT.2020 fix's gamma."""
         cm = (np.zeros((3, 4), np.float32) if self.cmat is None
               else np.asarray(self.cmat, np.float32))
         return np.ascontiguousarray(np.concatenate(
             [cm.reshape(-1), np.asarray(self.gamut, np.float32).reshape(-1),
-             np.asarray(self.tonemap_scalars, np.float32).reshape(-1)]))
+             np.asarray(self.tonemap_scalars, np.float32).reshape(-1),
+             np.asarray([self.sdr_gamma], np.float32)]))
 
     def launch_args(self, mats: np.ndarray) -> tuple:
         """(mats pointer, apply_matrix, correction, tonemap,
@@ -473,6 +523,49 @@ def pack_surface(rgb: torch.Tensor, fmt: str) -> torch.Tensor:
     return q(r) | (q(g) << shift) | (q(b) << (2 * shift)) | alpha
 
 
+def check_place(place: tuple | None, h: int, w: int) -> tuple:
+    """(surface_h, surface_w, off_y, off_x) of an output of h x w pixels:
+    ``place`` checked to hold it, or the output's own surface."""
+    if place is None:
+        return h, w, 0, 0
+    sh, sw, oy, ox = (int(x) for x in place)
+    if oy < 0 or ox < 0 or oy + h > sh or ox + w > sw:
+        raise ValueError(f"a {h} x {w} video at ({oy}, {ox}) does not fit "
+                         f"a {sh} x {sw} surface")
+    return sh, sw, oy, ox
+
+
+def fill_bars(out: torch.Tensor, place: tuple, h: int, w: int,
+              pack_format: str | None) -> torch.Tensor:
+    """Write the bars of ``out`` (..., surface_h, surface_w) dwords, or
+    (..., 3, surface_h, surface_w) float, around the h x w video at
+    ``place``: the packed zero (black, opaque), or zeros for float; the
+    rect is left as it is."""
+    sh, sw, oy, ox = place
+    fill = 0.0 if pack_format is None else PACKED_ZERO[pack_format]
+    out[..., :oy, :] = fill
+    out[..., oy + h:, :] = fill
+    out[..., oy:oy + h, :ox] = fill
+    out[..., oy:oy + h, ox + w:] = fill
+    return out
+
+
+def place_output(video: torch.Tensor, place: tuple | None,
+                 pack_format: str | None) -> torch.Tensor:
+    """An unplaced output (..., h, w) dwords or (..., 3, h, w) float put
+    into its surface at ``place`` with the bars of :func:`fill_bars`: the
+    plain versions' placement (the JAX package's ``_final_pass`` places
+    before the pack, and a packed black pixel is the packed zero)."""
+    h, w = video.shape[-2:]
+    sh, sw, oy, ox = check_place(place, h, w)
+    if place is None:
+        return video
+    out = video.new_empty(video.shape[:-2] + (sh, sw))
+    fill_bars(out, (sh, sw, oy, ox), h, w, pack_format)
+    out[..., oy:oy + h, ox:ox + w] = video
+    return out
+
+
 def _taps_args(mat: BandedMatrix | None, device) -> tuple:
     """(starts, taps, T) of a map for a kernel call; NULL and T = 0: no
     map."""
@@ -493,20 +586,24 @@ def _h_plain(p: torch.Tensor, mat: BandedMatrix | None,
 def rows3_tail_plain(y, u, v, my: BandedMatrix | None,
                      mc: BandedMatrix | None, h_out: int, epilogue: Epilogue,
                      y_scale: float | None = None, c_scale: float | None = None,
-                     pack_format: str | None = None) -> torch.Tensor:
+                     pack_format: str | None = None,
+                     place: tuple | None = None) -> torch.Tensor:
     """Plain K2: each plane's H contraction as a dense float32 product (or
-    the direct read times its scale), the torch epilogue, the pack."""
+    the direct read times its scale), the torch epilogue, the pack, then
+    the placement (:func:`place_output`)."""
     _no_tf32()
     rgb = epilogue.plain(_h_plain(y, my, y_scale), _h_plain(u, mc, c_scale),
                          _h_plain(v, mc, c_scale))
-    return rgb if pack_format is None else pack_surface(rgb, pack_format)
+    out = rgb if pack_format is None else pack_surface(rgb, pack_format)
+    return place_output(out, place, pack_format)
 
 
 def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                my: BandedMatrix | None, mc: BandedMatrix | None, h_out: int,
                epilogue: Epilogue, y_scale: float | None = None,
                c_scale: float | None = None,
-               pack_format: str | None = None) -> torch.Tensor:
+               pack_format: str | None = None,
+               place: tuple | None = None) -> torch.Tensor:
     """H-resize the (luma, chroma, chroma) planes, then run the epilogue.
 
     ``y`` (..., Hy, W), ``u``/``v`` (..., Hc, W): mid16 int16, float32 or raw
@@ -514,7 +611,11 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     with their scale folded in, or None for a plane read directly — its
     height is then h_out and ``y_scale``/``c_scale`` scale it.  Returns
     (..., 3, h_out, W) float32, or with ``pack_format`` ("rgb10a2"/"rgba8")
-    (..., h_out, W) int32 dwords.
+    (..., h_out, W) int32 dwords.  ``place`` (surface_h, surface_w, off_y,
+    off_x): the output is a surface of that size with the video's row r,
+    column c at (off_y + r, off_x + c) and the bars black (the packed zero
+    of :data:`PACKED_ZERO`, or zeros for float); the dither keeps the
+    video's rows and columns, as the reference dithers before it places.
 
     Kernel K2 (``csrc/rows3_tail.cu``), replacing
     ``resize_pallas.rows3_tail``.  A block makes K2_TILE_ROWS output rows x
@@ -524,8 +625,13 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     the local tone map, the dither from the global row and column and one
     vector store, so no intermediate RGB reaches device memory.  The tail's
     route is compiled in for the paths' epilogues (:func:`rows3_tail_route`
-    names it).  A map whose window does not fit SMEM_BUDGET raises
-    ValueError.  Measured on one NVIDIA H100 80GB HBM3 at 700 W, the H taps
+    names it).  A placed output goes straight into its surface, 16-byte
+    stores where the column offset is a multiple of 4, scalar stores
+    otherwise; torch writes only the bars.  A map whose window does not fit
+    SMEM_BUDGET takes the long-window route (:func:`k2_route`): the same
+    sums, tail and store with every tap read through the read-only cache,
+    bit-equal, on the runtime tail.  Measured on one NVIDIA H100 80GB HBM3
+    at 700 W, the H taps
     and the store reach 61% (headline) and 79% (c7) of their byte bound;
     the tail, 65% and 86% of K2's time, is bound by its instruction issue
     (96% of that bound at the headline; ``PERF.md`` section 6)."""
@@ -552,22 +658,24 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         if mat is not None and scale is not None:
             raise ValueError(f"{name}: a scale goes into the H matrix, not "
                              "beside it")
+    surface = check_place(place, h_out, w)
     if not _kernel_device(y, u, v):
         return rows3_tail_plain(y, u, v, my, mc, h_out, epilogue, y_scale,
-                                c_scale, pack_format)
+                                c_scale, pack_format, place)
     batch = y.numel() // (hy * w) if y.numel() else 0
     if batch == 0 or batch > 65535 or -(-h_out // K2_TILE_ROWS) > 65535:
         raise ValueError(f"K2 cannot take batch {batch} x {h_out} rows")
-    smem = k2_smem_bytes(y.element_size(), u.element_size(), my, mc)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"K2: the H maps' windows need {smem} bytes of "
-                         f"shared memory, over {SMEM_BUDGET}")
+    long_window = k2_route(y.element_size(), u.element_size(), my,
+                           mc) == "long-window"
+    sh, sw = surface[:2]
     if pack_format is None:
-        out = torch.empty(lead + (3, h_out, w), dtype=torch.float32,
+        out = torch.empty(lead + (3, sh, sw), dtype=torch.float32,
                           device=y.device)
     else:
-        out = torch.empty(lead + (h_out, w), dtype=torch.int32,
+        out = torch.empty(lead + (sh, sw), dtype=torch.int32,
                           device=y.device)
+    if place is not None:
+        fill_bars(out, surface, h_out, w, pack_format)
     mats = epilogue.host_mats()
 
     def h_args(mat):    # (starts, taps, T, tile_lo, win); none: read directly
@@ -583,21 +691,25 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
             *epilogue.launch_args(mats), epilogue.dither_bits,
-            PACK_CODES[pack_format], out.data_ptr())
+            PACK_CODES[pack_format], *surface, int(long_window),
+            out.data_ptr())
     return out
 
 
 def rows3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
-                     epilogue: Epilogue, pack_format: str | None) -> str:
+                     epilogue: Epilogue, pack_format: str | None,
+                     long_window: bool = False) -> str:
     """The K2 instantiation a launch with these plane dtypes, epilogue and
-    pack takes: the name of its compiled route, or "runtime" for the one
-    that reads the tail's flags (vrt_rows3_tail_route; loads the kernel
-    library, so it needs the CUDA toolkit)."""
+    pack takes: the name of its compiled route, "runtime" for the staged
+    one that reads the tail's flags, or with ``long_window`` (the route
+    :func:`k2_route` picks for a map whose windows do not fit) "long-window
+    runtime" (vrt_rows3_tail_route; loads the kernel library, so it needs
+    the CUDA toolkit)."""
     return build.load().vrt_rows3_tail_route(
         DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype],
         int(epilogue.cmat is not None), epilogue.correction,
         epilogue.tonemap, epilogue.dither_bits,
-        PACK_CODES[pack_format]).decode()
+        PACK_CODES[pack_format], int(long_window)).decode()
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,20 @@ the same convert and resize and the HLG -> SDR tail.
 :func:`oracle_dovi` is one frame of c8 (Dolby Vision): normalise, the same
 bilinear chroma upsample, the reshape evaluated piece by piece (the piece
 found with ``torch.searchsorted`` over the pivots), the RPU matrix, the LMS
-step with the PQ formulas, then the resize and the PQ -> SDR tail.
+step with the PQ formulas, then the resize and the PQ -> SDR tail; with
+``video_rect``, placed into a black surface.
 
 :func:`oracle` with ``video_rect`` renders the video at the rect's size,
-dithers it from its own origin and places it into a black surface.
+dithers it from its own origin and places it into a black surface; with
+``fix_bt2020_gamma`` it runs the SDR BT.2020 fix (the source's power gamma,
+BT.2020 -> 709, the 2.2 gamma) in place of PQ -> SDR; with
+``shader_order`` it runs the conversion at source resolution, before the
+resize (the reference's shader path).  Its resize takes the downscaling
+filter on an axis that shrinks by more than 2:1 (a thumbnail), as the
+port's scaler choice does under the 50% rule.
+
+:func:`oracle_gray` is a GRAY (Y8/Y16) source: the one plane through the
+colour matrix's first column, the resize and the dither.
 
 :func:`oracle_c7` is one frame of c7 (4K HDR10 passthrough to a dimmer
 display): the same convert at 1:1, the PQ EOTF to nits, the BT.2390 EETF in
@@ -42,11 +52,11 @@ import math
 import numpy as np
 import torch
 
-from .config import Upscaling
+from .config import Downscaling, Upscaling
 from .csputils import (CSP, CSPParams, Colorspace, Levels,
                        bt2020_to_bt709_matrix, get_csp_matrix)
 from .ops.dither import bayer_matrix
-from .ops.scale import upscale_matrix
+from .ops.scale import downscale_matrix, upscale_matrix
 
 
 def _up420_bilinear_mpeg2(c: torch.Tensor) -> torch.Tensor:
@@ -118,17 +128,29 @@ def _pq_to_sdr(rgb: torch.Tensor, sdr_nits: float) -> torch.Tensor:
     return _to_sdr_display(x)
 
 
+def _axis_matrix(n_in: int, n_out: int, upscaling: Upscaling,
+                 downscaling: Downscaling) -> np.ndarray:
+    """An axis's float64 resize matrix: the downscaling filter where it
+    shrinks by more than 2:1 (the 50% rule), else the upscale filter."""
+    if n_in > 2 * n_out:
+        return downscale_matrix(downscaling, n_in, n_out)
+    return upscale_matrix(upscaling, n_in, n_out)
+
+
 def _resize(rgb: torch.Tensor, out_w: int, out_h: int,
-            upscaling: Upscaling) -> torch.Tensor:
-    """Per-axis upscale-filter resize of (3, H, W) float64, skipped where
-    in == out."""
+            upscaling: Upscaling,
+            downscaling: Downscaling = Downscaling.HAMMING) -> torch.Tensor:
+    """Per-axis resize of (C, H, W) float64 (:func:`_axis_matrix`),
+    skipped where in == out."""
     dev = rgb.device
     h, w = rgb.shape[-2:]
     if w != out_w:
-        mx = torch.from_numpy(upscale_matrix(upscaling, w, out_w)).to(dev)
+        mx = torch.from_numpy(_axis_matrix(w, out_w, upscaling,
+                                           downscaling)).to(dev)
         rgb = torch.einsum("chw,wx->chx", rgb, mx)
     if h != out_h:
-        my = torch.from_numpy(upscale_matrix(upscaling, h, out_h)).to(dev)
+        my = torch.from_numpy(_axis_matrix(h, out_h, upscaling,
+                                           downscaling)).to(dev)
         rgb = torch.einsum("chw,hy->cyw", rgb, my)
     return rgb
 
@@ -147,25 +169,67 @@ def _to_sdr_display(x: torch.Tensor) -> torch.Tensor:
     return torch.pow(torch.clamp(x, 0.0, 1.0), 1 / 2.2)
 
 
+def _fix_bt2020(rgb: torch.Tensor, gamma: float) -> torch.Tensor:
+    """The SDR BT.2020 fix (ps_fix_bt2020.hlsl): the source's power gamma,
+    BT.2020 -> 709, the 2.2 gamma."""
+    x = torch.pow(torch.clamp(rgb, 0.0, 1.0), gamma)
+    gm = torch.from_numpy(bt2020_to_bt709_matrix()).to(x.device)
+    x = torch.einsum("ij,jhw->ihw", gm, x)
+    return torch.pow(torch.clamp(x, 0.0, 1.0), 1 / 2.2)
+
+
 def oracle(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            out_w: int, out_h: int, *, bits_in: int = 16,
            matrix: CSP = CSP.BT_2020_NC, levels: Levels = Levels.TV,
            pq_to_sdr: bool = True, sdr_nits: float = 125.0,
            dither_bits: int = 10,
            upscaling: Upscaling = Upscaling.LANCZOS3,
-           video_rect: tuple[int, int, int, int] | None = None
-           ) -> torch.Tensor:
+           downscaling: Downscaling = Downscaling.HAMMING,
+           video_rect: tuple[int, int, int, int] | None = None,
+           fix_bt2020_gamma: float | None = None,
+           shader_order: bool = False) -> torch.Tensor:
     """One frame: ``y`` (H, W), ``u``/``v`` (H/2, W/2) raw planes of
     ``bits_in`` bits (16 for P010, 8 for NV12) on any device.  With
     ``video_rect`` (left, top, right, bottom) the video is rendered at the
-    rect's size and placed into the black out_w x out_h surface."""
+    rect's size and placed into the black out_w x out_h surface.
+    ``fix_bt2020_gamma``: the SDR BT.2020 fix with this source gamma in
+    place of PQ -> SDR; ``shader_order``: the conversion (PQ -> SDR or the
+    fix) before the resize, at source resolution."""
     vw, vh = ((out_w, out_h) if video_rect is None else
               (video_rect[2] - video_rect[0], video_rect[3] - video_rect[1]))
-    x = _resize(_convert(y, u, v, bits_in, matrix, levels), vw, vh,
-                upscaling)
-    if pq_to_sdr:
-        x = _pq_to_sdr(x, sdr_nits)
+
+    def convert(x):
+        if fix_bt2020_gamma is not None:
+            return _fix_bt2020(x, fix_bt2020_gamma)
+        return _pq_to_sdr(x, sdr_nits) if pq_to_sdr else x
+
+    x = _convert(y, u, v, bits_in, matrix, levels)
+    if shader_order:
+        x = _resize(convert(x), vw, vh, upscaling, downscaling)
+    else:
+        x = convert(_resize(x, vw, vh, upscaling, downscaling))
     return _place(_dither(x, dither_bits), out_w, out_h, video_rect)
+
+
+def oracle_gray(y: torch.Tensor, out_w: int, out_h: int, *,
+                bits_in: int = 16, matrix: CSP = CSP.BT_709,
+                levels: Levels = Levels.TV, dither_bits: int = 10,
+                upscaling: Upscaling = Upscaling.LANCZOS3,
+                downscaling: Downscaling = Downscaling.HAMMING
+                ) -> torch.Tensor:
+    """One frame of a GRAY source: ``y`` (H, W) raw codes of ``bits_in``
+    bits, normalised, resized (:func:`_resize`), through the GRAY colour
+    matrix's first column and offset (SetShaderConvertColorParams with
+    ``gray``), ordered dither.  Returns (3, out_h, out_w) float64 codes /
+    (2**dither_bits - 1)."""
+    cm = get_csp_matrix(CSPParams(color=Colorspace(matrix, levels),
+                                  gray=True, input_bits=bits_in,
+                                  texture_bits=bits_in))
+    yf = _resize(y.to(torch.float64)[None] / (2.0 ** bits_in - 1.0), out_w,
+                 out_h, upscaling, downscaling)[0]
+    m, c = cm.m.tolist(), cm.c.tolist()
+    return _dither(torch.stack([m[i][0] * yf + c[i] for i in range(3)]),
+                   dither_bits)
 
 
 def _deint_f64(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
@@ -324,7 +388,10 @@ def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 ycc_to_rgb: np.ndarray, ycc_offset: np.ndarray,
                 lms: np.ndarray, bits_in: int = 16, sdr_nits: float = 125.0,
                 dither_bits: int = 10,
-                upscaling: Upscaling = Upscaling.CATMULL_ROM) -> torch.Tensor:
+                upscaling: Upscaling = Upscaling.CATMULL_ROM,
+                downscaling: Downscaling = Downscaling.HAMMING,
+                video_rect: tuple[int, int, int, int] | None = None
+                ) -> torch.Tensor:
     """One frame of c8 (4K P010 Dolby Vision -> 1080p SDR RGB10): ``y``
     (H, W), ``u``/``v`` (H/2, W/2) raw 4:2:0 planes; ``curves`` a scene's
     packed reshape values (the ``pack_curves`` layout) and ``structure``
@@ -333,7 +400,9 @@ def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     ``lms`` the combined LMS->RGB @ RGB->LMS matrix.  Normalise, upsample
     the chroma bilinearly (MPEG-2 siting), reshape, RPU matrix, the LMS
     step, resize (2:1 Catmull-Rom at c8), PQ -> SDR, ordered dither.
-    Returns (3, out_h, out_w) float64 codes / (2**dither_bits - 1)."""
+    Returns (3, out_h, out_w) float64 codes / (2**dither_bits - 1); with
+    ``video_rect``, the video at the rect's size placed into the black
+    out_w x out_h surface."""
     f64 = torch.float64
     scale = 1.0 / (2.0 ** bits_in - 1.0)
     ycc = torch.stack([y.to(f64) * scale,
@@ -344,8 +413,10 @@ def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     off = torch.from_numpy(np.asarray(ycc_offset, np.float64)).to(y.device)
     rgb = torch.einsum("ij,jhw->ihw", m, ycc - off[:, None, None])
     rgb = _lms_f64(rgb, lms)
-    x = _pq_to_sdr(_resize(rgb, out_w, out_h, upscaling), sdr_nits)
-    return _dither(x, dither_bits)
+    vw, vh = ((out_w, out_h) if video_rect is None else
+              (video_rect[2] - video_rect[0], video_rect[3] - video_rect[1]))
+    x = _pq_to_sdr(_resize(rgb, vw, vh, upscaling, downscaling), sdr_nits)
+    return _place(_dither(x, dither_bits), out_w, out_h, video_rect)
 
 
 def _bt2390_f64(rgb: torch.Tensor, max_cll: float, display_max_nits: float,

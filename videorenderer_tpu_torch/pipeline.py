@@ -41,8 +41,12 @@ An HDR passthrough with ``Settings.hdr_local_tone_mapping`` (c7: 4K HDR10
 to a 600-nit display, BT.2390) runs the local tone map inside K2's tail,
 its five scalars per launch.  :func:`make_serving_fn` takes a scene's
 curves, colour matrix and HDR10 values per call.
-A letterboxed output (``OutputDescriptor.video_rect``) runs K1 and K3 per
-plane, then the tail and the placement in torch.
+A letterboxed or pillarboxed output (``OutputDescriptor.video_rect``) keeps
+its route: K2 (or K9 for Dolby Vision) stores the video into the surface at
+the rect's origin, dithered from the video's own origin, and torch writes
+the bars.  A GRAY source runs K1 and K3 on its one plane, then the tail in
+torch.  The shader order (``Settings.vp_scaling=False``) runs the
+corrections at source resolution, inside K2's convert on a card.
 
 What this port does not carry yet is refused with ``NotImplementedError``
 naming the ROADMAP item that brings it, never routed elsewhere.
@@ -197,7 +201,6 @@ class PipelinePlan:
 
 # ROADMAP.md "Modules to port": where each refused feature comes in
 _ROADMAP = {
-    "staged": "item 3 (staged and fallback path)",
     "serving": "item 4 (serving and local tone mapping)",
     "dovi": "item 6 (Dolby Vision)",
 }
@@ -252,7 +255,7 @@ def _axis_choices(s: Settings, src: SourceDescriptor, src_rect,
 
 def _check_ported(plan: PipelinePlan) -> None:
     """Refuse every plan combination this port does not carry yet."""
-    s, src, dst, info = plan.settings, plan.src, plan.dst, plan.info
+    src = plan.src
     if src.dovi_trims is not None:
         _refuse("Dolby Vision L2 trims (dovi_trims)", "dovi")
     if src.dovi_ext is not None:
@@ -263,13 +266,6 @@ def _check_ported(plan: PipelinePlan) -> None:
         _refuse("local tone mapping of Dolby Vision (HDR output)", "dovi")
     if plan.local_tonemap and plan.tonemap_type == 7:
         _refuse("the HDR10+ guided tone map (selection 7)", "serving")
-    if info.cs_type == ColorSystem.GRAY:
-        _refuse("GRAY sources", "staged")
-    if not s.vp_scaling:
-        _refuse("the shader-order pipeline (vp_scaling=False)", "staged")
-    if src.dovi is not None and dst.video_rect is not None:
-        _refuse("Dolby Vision with video_rect placement (K2 with a DoVi "
-                "epilogue)", "dovi")
 
 
 def plan_pipeline(settings: Settings, src: SourceDescriptor,
@@ -377,6 +373,13 @@ def _apply_cmat(m: np.ndarray, c: np.ndarray, y, u, v) -> torch.Tensor:
          + float(c[i]) for i in range(3)], dim=-3)
 
 
+def _gray_cmat(m: np.ndarray, c: np.ndarray, y) -> torch.Tensor:
+    """A GRAY source's colour matrix: its one plane through the first
+    column plus the offset -> (..., 3, H, W)."""
+    return torch.stack([y * float(m[i, 0]) + float(c[i]) for i in range(3)],
+                       dim=-3)
+
+
 def _rt_cmat(plan: PipelinePlan, rt_cmat) -> tuple[np.ndarray, np.ndarray]:
     """The colour matrix (float32 m (3,3), c (3,)): a serving call's runtime
     ``{"m", "c"}`` (host arrays) or the plan's."""
@@ -396,6 +399,9 @@ def _convert_color(plan: PipelinePlan, planes, rt_curves=None,
     (..., 3, H, W) float32."""
     info, s = plan.info, plan.settings
     norm = _normalize_planes(plan, _crop_planes(plan, planes))
+    if info.cs_type == ColorSystem.GRAY:
+        # the one plane through the matrix's first column
+        return _gray_cmat(*_rt_cmat(plan, rt_cmat), norm[0])
     if info.cs_type == ColorSystem.YUV:
         y, u, v = norm
         if s.deint_blend and plan.src.interlaced and info.subsampling == 420:
@@ -585,11 +591,27 @@ def _local_tonemap(plan: PipelinePlan, rgb: torch.Tensor,
 
 def _tail_common(plan: PipelinePlan, rgb: torch.Tensor,
                  tm_scalars: np.ndarray | None = None) -> torch.Tensor:
-    """Corrections, the local tone map (``tm_scalars``, see
+    """Corrections (in the VP order; the shader order ran them before the
+    resize), the local tone map (``tm_scalars``, see
     :func:`_tonemap_scalars`), then the final pass (quantization and
     placement)."""
-    rgb = _local_tonemap(plan, _corrections(plan, rgb), tm_scalars)
-    return _final_pass(plan, rgb)
+    if plan.settings.vp_scaling:
+        rgb = _corrections(plan, rgb)
+    return _final_pass(plan, _local_tonemap(plan, rgb, tm_scalars))
+
+
+def _correction_code(plan: PipelinePlan) -> int:
+    """The tail kernels' correction for this plan (the branch of
+    :func:`_corrections` it takes)."""
+    if plan.convert_to_sdr:
+        return (rk.CORR_HLG_TO_SDR
+                if plan.src.transfer == TRC.HLG and plan.dovi is None
+                else rk.CORR_PQ_TO_SDR)
+    if plan.hlg_to_pq:
+        return rk.CORR_HLG_TO_PQ
+    if plan.fix_bt2020_sdr:
+        return rk.CORR_FIX_BT2020
+    return rk.CORR_NONE
 
 
 def _make_tail_epilogue(plan: PipelinePlan, with_cmat: bool = True,
@@ -601,16 +623,7 @@ def _make_tail_epilogue(plan: PipelinePlan, with_cmat: bool = True,
     planes are R, G, B already.  ``cmat``: a serving call's (m, c) in place
     of the plan's.  ``hdr``: None for the tone map's static scalars, or a
     serving call's HDR10 values (possibly empty) for the float32 ones."""
-    if plan.fix_bt2020_sdr and not plan.convert_to_sdr:
-        _refuse("the SDR BT.2020 fix inside kernel K2 (the plain path, "
-                "use_accel_backend=False, has it)", "staged")
-    correction = rk.CORR_NONE
-    if plan.convert_to_sdr:
-        correction = (rk.CORR_HLG_TO_SDR
-                      if plan.src.transfer == TRC.HLG and plan.dovi is None
-                      else rk.CORR_PQ_TO_SDR)
-    elif plan.hlg_to_pq:
-        correction = rk.CORR_HLG_TO_PQ
+    correction = _correction_code(plan)
     m, c = _rt_cmat(plan, None) if cmat is None else cmat
     apply_matrix = with_cmat and plan.apply_matrix
     tm = _tonemap_scalars(plan, hdr)
@@ -630,7 +643,8 @@ def _make_tail_epilogue(plan: PipelinePlan, with_cmat: bool = True,
         plain=plain,
         tonemap=plan.tonemap_type if tm is not None else 0,
         tonemap_scalars=(tm if tm is not None
-                         else np.zeros(5, np.float32)))
+                         else np.zeros(5, np.float32)),
+        sdr_gamma=plan.sdr_gamma)
 
 
 def cmat_epilogue(cmat: np.ndarray) -> rk.Epilogue:
@@ -640,6 +654,24 @@ def cmat_epilogue(cmat: np.ndarray) -> rk.Epilogue:
         cmat=cmat, correction=rk.CORR_NONE, luminance_scale=1.0,
         dither_bits=0, gamut=np.eye(3, dtype=np.float32),
         plain=lambda y, u, v: _apply_cmat(cmat[:, :3], cmat[:, 3], y, u, v))
+
+
+def convert_epilogue(plan: PipelinePlan, cmat: np.ndarray) -> rk.Epilogue:
+    """K2's epilogue of the staged convert of ``plan``: the colour matrix
+    only (:func:`cmat_epilogue`), or in the shader order (``vp_scaling``
+    off) the matrix and then the plan's correction at source resolution,
+    float32 out, no dither; K2's tail runs each correction in the torch
+    order."""
+    if plan.settings.vp_scaling:
+        return cmat_epilogue(cmat)
+    return rk.Epilogue(
+        cmat=cmat, correction=_correction_code(plan),
+        luminance_scale=10000.0 / plan.settings.sdr_display_nits,
+        dither_bits=0,
+        gamut=np.asarray(csputils.bt2020_to_bt709_matrix(), np.float32),
+        plain=lambda y, u, v: _corrections(
+            plan, _apply_cmat(cmat[:, :3], cmat[:, 3], y, u, v)),
+        sdr_gamma=plan.sdr_gamma)
 
 
 def _compose(a: np.ndarray | None, b: np.ndarray | None):
@@ -727,21 +759,27 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     ``{"m", "c"}``) replaces the plan's colour matrix and ``rt["hdr"]`` (its
     HDR10 values) the local tone map's metadata.  Three routes: K1 ×3 + K2
     (the matrix and the whole tail inside K2; c7 reads its luma directly,
-    K1 ×2 + K2); with a ``video_rect``, K1 ×3 + K3 ×3 and the tail and the
-    placement in torch (the JAX package's ``_fused_apply2d`` route); and,
-    without ``use_accel_backend``, the plain products and the torch tail.
-    As in the JAX package, the kernel route takes the tone map's float32
-    serving scalars for any non-empty ``rt``, the torch routes only when it
-    holds "hdr"."""
+    K1 ×2 + K2), which with a ``video_rect`` stores the video into the
+    surface at the rect's origin; for a GRAY source, K1 then K3 on its one
+    plane and the tail and the placement in torch (the JAX package's
+    ``_fused_apply2d`` route); and, without ``use_accel_backend``, the
+    plain products and the torch tail.  As in the JAX package, the kernel
+    route takes the tone map's float32 serving scalars for any non-empty
+    ``rt``, the torch routes only when it holds "hdr"."""
     s, dst, info = plan.settings, plan.dst, plan.info
     use_kernels = s.use_accel_backend and _vp_format_allowed(s, info)
-    vid_h = dst.video_size[1]
+    vid_w, vid_h = dst.video_size
     wx, wy_luma, cwx, cwy, norm = fused_maps(plan)
     static_tm = _tonemap_scalars(plan)
+    gray = info.cs_type == ColorSystem.GRAY
 
     def torch_tail(comps, rt):
-        rgb = (_apply_cmat(*_rt_cmat(plan, rt.get("cmat")), *comps)
-               if plan.apply_matrix else torch.stack(comps, dim=-3))
+        cm = _rt_cmat(plan, rt.get("cmat"))
+        if gray:
+            rgb = _gray_cmat(*cm, comps[0])
+        else:
+            rgb = (_apply_cmat(*cm, *comps) if plan.apply_matrix
+                   else torch.stack(comps, dim=-3))
         hdr = rt.get("hdr")
         rgb = _tail_common(plan, rgb, static_tm if hdr is None
                            else _tonemap_scalars(plan, hdr))
@@ -752,33 +790,31 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
 
         def plain_fn(planes, rt=None):
             planes = _crop_planes(plan, planes)
+            if gray:
+                return torch_tail((app(planes[0], wx, wy_luma, norm),),
+                                  rt or {})
             return torch_tail((app(planes[0], wx, wy_luma, norm),
                                app(planes[1], cwx, cwy, norm),
                                app(planes[2], cwx, cwy, norm)), rt or {})
 
         return plain_fn
 
-    if dst.video_rect is not None:
-        # K2 writes the whole surface, so a placed video takes the maps as
-        # K1 then K3 per plane (float32 between them; the normalisation in
-        # the first map's taps) and the tail in torch
-        maps = (rk.mega_maps(wx, wy_luma, norm), rk.mega_maps(cwx, cwy, norm),
-                rk.mega_maps(cwx, cwy, norm))
+    if gray:
+        # the one plane as K1 then K3 (float32 between them; the
+        # normalisation in the first map's taps), the tail in torch
+        kw_g, kh_g = rk.mega_maps(wx, wy_luma, norm)
 
-        def kapply(p, kw, kh):
-            if kw is not None:
-                p = rk.banded_resize_last_axis(p, kw)
-            if kh is not None:
-                return rk.banded_resize_rows(p, kh)
-            return p if kw is not None else (p.to(torch.float32)
-                                             * float(np.float32(norm)))
+        def gray_fn(planes, rt=None):
+            p = _crop_planes(plan, planes)[0]
+            if kw_g is not None:
+                p = rk.banded_resize_last_axis(p, kw_g)
+            if kh_g is not None:
+                p = rk.banded_resize_rows(p, kh_g)
+            elif kw_g is None:
+                p = p.to(torch.float32) * float(np.float32(norm))
+            return torch_tail((p,), rt or {})
 
-        def placed_fn(planes, rt=None):
-            planes = _crop_planes(plan, planes)
-            return torch_tail(tuple(kapply(p, *m) for p, m in
-                                    zip(planes, maps)), rt or {})
-
-        return placed_fn
+        return gray_fn
 
     # Compact W-pass intermediates: int16 codes round(x * MID16_SCALE), the
     # analogue of the reference's TEXFMT_AUTOINT UNORM intermediate textures
@@ -795,6 +831,7 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     mid16_y, mid16_c = mid16 and fits(wx), mid16 and fits(cwx)
     kw_y, kh_y, y_scale = fused_plane_pass(wx, wy_luma, norm, mid16_y)
     kw_c, kh_c, c_scale = fused_plane_pass(cwx, cwy, norm, mid16_c)
+    place = _place_of(dst)
 
     def kernel_fn(planes, rt=None):
         planes = _crop_planes(plan, planes)
@@ -810,9 +847,18 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
         vw = wpass(planes[2], kw_c, mid16_c)
         return rk.rows3_tail(yw, uw, vw, kh_y, kh_c, vid_h, epi,
                              y_scale=y_scale, c_scale=c_scale,
-                             pack_format=pack_format)
+                             pack_format=pack_format, place=place)
 
     return kernel_fn
+
+
+def _place_of(dst: OutputDescriptor) -> tuple | None:
+    """The tail kernels' ``place`` for a placed output: (surface height,
+    surface width, the rect's top, its left); None without a rect."""
+    if dst.video_rect is None:
+        return None
+    l, t, _, _ = dst.video_rect
+    return dst.height, dst.width, t, l
 
 
 def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
@@ -827,8 +873,10 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     in its taps), K8 upsamples it along H into the source rows, runs the
     reshape, the RPU matrix and the LMS step there and resizes H to the
     output rows, and K9 resizes W and runs the PQ -> SDR tail, the dither
-    and the pack: K1 ×2 + K8 + K9, and the source-resolution RGB never
-    reaches device memory.  Otherwise (the CPU, or ``use_accel_backend``
+    and the pack, into the surface at the rect's origin for a placed
+    output: K1 ×2 + K8 + K9, and the source-resolution RGB never reaches
+    device memory.  (The JAX package runs a placed plan through its
+    two-stage form; the outputs agree within its kernel route's band.)  Otherwise (the CPU, or ``use_accel_backend``
     off) the plain route: the chroma upsample as dense products, the
     convert at source resolution, the resize of R, G and B, the torch
     tail."""
@@ -862,6 +910,7 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     k_out = None if wy is None else rk.BandedMatrix(wy)
     kx = None if wx is None else rk.BandedMatrix(wx)
     epi_rgb = _make_tail_epilogue(plan, with_cmat=False)
+    place = _place_of(dst)
     app = _dense_apply()
 
     def kernel_fn(planes, rt):
@@ -874,7 +923,7 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
         r, g, b = dk.rows3_mid(y, u, v, kin_y, kin_c, src_h, mid, k_out,
                                vid_h, y_scale=y_scale, c_scale=c_scale)
         return dk.cols3_tail(r, g, b, kx, kx, vid_w, epi_rgb,
-                             pack_format=pack_format)
+                             pack_format=pack_format, place=place)
 
     def plain_fn(planes, rt):
         ycc = torch.stack([app(planes[0], None, by, norm),
@@ -908,13 +957,18 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
     """The staged pipeline (the JAX package's non-fused ``make_frame_fn``
     branch): convert at source resolution, resize, corrections, the local
     tone map, final pass, pack to ``fmt``, with the Jinc2 kernels where they
-    apply.  Unrotated, it also takes a serving call's ``rt``
-    (:func:`make_serving_fn`); given runtime values, the convert runs in
-    torch with them, and ``rt["hdr"]`` gives the tone map's metadata."""
+    apply.  In the shader order (``vp_scaling`` off) the corrections run
+    after the convert, at source resolution (on a card inside K2's convert
+    epilogue, :func:`convert_epilogue`), and after the resize only the
+    local tone map and the final pass.  Unrotated, it also takes a serving
+    call's ``rt`` (:func:`make_serving_fn`); given runtime values, the
+    convert runs in torch with them, and ``rt["hdr"]`` gives the tone map's
+    metadata."""
     s, dst, info = plan.settings, plan.dst, plan.info
     want_rot = rotation != 0 or flip
     src_w, src_h, _, _ = _axis_choices(s, plan.src, plan.src_rect, dst)
     vid_w, vid_h = dst.video_size
+    shader = not s.vp_scaling
 
     # Jinc2 with a dither-only tail: the quantization runs inside the Jinc2
     # kernel's epilogue, from the global row and column
@@ -953,7 +1007,7 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
         kw_c = None if kux is None else rk.BandedMatrix(kux, pre_scale=knorm)
         kh_c = None if kuy is None else rk.BandedMatrix(kuy)
         c_scale = knorm if kw_c is None else None
-        cmat_epi = cmat_epilogue(kcmat)
+        cmat_epi = convert_epilogue(plan, kcmat)
         use_k3 = (j2_tail and not (want_rot and not k3_transpose)
                   and scale_ops.jinc2_route(src_h, src_w, vid_h, vid_w,
                                             s.interpolate_at_50pct)
@@ -990,9 +1044,13 @@ def _make_staged_fn(plan: PipelinePlan, fmt: str | None, rotation: int,
         elif kernels_apply(planes):
             if use_k3:
                 return k3_call(planes)
+            # (in the shader order K2's epilogue ran the corrections)
             rgb = kconvert(_crop_planes(plan, planes))
         else:
             rgb = _convert_color(plan, planes)
+        if shader and (rt or not kernels_apply(planes)):
+            # the shader order: the corrections at source resolution
+            rgb = _corrections(plan, rgb)
         if j2_tail and scale_ops.jinc2_route(
                 rgb.shape[-2], rgb.shape[-1], vid_h, vid_w,
                 s.interpolate_at_50pct) == "one_pass":
