@@ -165,6 +165,35 @@ Phases, one line each:
               call, then the torch resize and final pass; the convert's
               K1 and K2 calls against their plain versions on 2 frames (K1
               f32 within 2e-5, K2 within 2e-4), >= 55 dB; ms/frame.
+ 29. c7p      make_serving_fn of c7's source with HDR10+ metadata (one
+              window with a guided curve: knee (0.25, 0.3), anchors 0.4,
+              0.7, 0.9; selection 7): two scenes of 16 frames, each its
+              runtime_hdr_from_hdr10plus values (scene peaks 4000 and
+              2500 nits), K1 x2 + K2 x1 a call and nothing else, no build
+              or library load between scenes, K2 on its runtime route;
+              both scenes >= 55 dB against oracle_c7 with the window; the
+              path's K1 and K2 calls on 2 frames against their plain
+              versions (K1 mid16 within 1 code, K2 within 1 code on < 2%),
+              K2's long-window route forced on the same call bit-equal;
+              ms/frame, K2's time (runtime and forced long-window routes),
+              its plain version's and its bound at batch 16.
+ 30. c8x      make_serving_fn of c8's source with Dolby Vision extension
+              blocks (L1 (62, 3079, 1229), L2 trims for 100-, 600- and
+              1000-nit targets) -> 1080p RGB10 SDR: two scenes of 16
+              frames, each its curves and runtime_trims_from_extensions
+              trims for the 100-nit display, K1 x2 + K8 + K9 a call, no
+              build between scenes, K9 on its runtime route (the trims on
+              the PQ signal before PQ -> SDR); >= 55 dB against
+              oracle_dovi with the trims; K8 (within 1e-5) and K9 (within
+              1 code on < 2%) against their plain versions on 2 frames;
+              ms/frame, K9's time, its plain version's and its bound.
+ 31. c8hdr    the same source to a 600-nit HDR display (1080p RGB10 PQ)
+              with the local tone map (BT.2390 upgraded to ST 2094-10 by
+              L1): two scenes of runtime_hdr_from_extensions values and
+              trims, K1 x2 + K8 + K9 a call, K9 on its runtime route (the
+              trims in nits, then ST 2094-10's general form); >= 55 dB
+              against oracle_dovi's HDR output; the checks and numbers of
+              phase 30.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -172,8 +201,9 @@ PyTorch call computes the same function; K10's top-level numbers are its
 wpass_bf16 form's, and "forms" holds both; K5's "k5_route" and
 "table_launches" its route at c3r270 and the table launches of that path's
 first call; K6's "table" holds the weight table kernel, whose launches are
-the first calls of c3, c3rot and c3r270), nvidia-smi's line, and last the
-result line.
+the first calls of c3, c3rot and c3r270; K2's and K9's "runtime_route" their
+runtime routes' numbers at c7p, c8x and c8hdr), nvidia-smi's line, and last
+the result line.
 Any failure raises and the exit code is not 0.  Imports nothing of JAX.
 Trees from before the weight tables run this script too, so that
 smoke_diff.py compares the two: without K6's tables (TABLES) every output
@@ -184,6 +214,7 @@ computes its weights and the table checks are left out; without K5's
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -211,7 +242,9 @@ from videorenderer_tpu_torch.kernels import resize as rk  # noqa: E402
 from videorenderer_tpu_torch.oracle import (oracle, oracle_c7,  # noqa: E402
                                             oracle_deint, oracle_dovi,
                                             oracle_gray, oracle_jinc2)
-from videorenderer_tpu_torch.ops import chroma, dovi, scale  # noqa: E402
+from videorenderer_tpu_torch.ops import (chroma, dovi, dovi_ext,  # noqa: E402
+                                         hdr10plus, scale)
+from videorenderer_tpu_torch.ops.tonemap import TRIM_KEYS  # noqa: E402
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
                                               _make_tail_epilogue,
                                               cmat_epilogue, fused_maps,
@@ -236,6 +269,7 @@ SMALL_W, SMALL_H = 320, 180               # a 4K preview
 C8_RECT = (320, 180, 1600, 900)           # c8 into a rect of the 1080p surface
 C8_SCENES = 4
 C7_SCENES = 4
+HDR_SCENES = 2                            # scenes of each of phases 29-31
 # the card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -618,6 +652,306 @@ def timed_calls(fn, batches) -> float:
     """ms a frame of ``fn`` over the batches, back to back (CUDA events)."""
     return cuda_ms(lambda: [fn(b) for b in batches], reps=1, warmup=0) / (
         len(batches) * BATCH)
+
+
+def guided_meta(peak: float = 0.4):
+    """c7p's HDR10+ metadata (tests/test_hdr10plus.py:107-111): one window
+    with a guided curve, knee (0.25, 0.3), anchors 0.4, 0.7 and 0.9,
+    maxscl ``peak`` of 10 000 nits (0.4: a 4000-nit scene)."""
+    return hdr10plus.HDR10PlusMetadata(windows=(hdr10plus.HDR10PlusWindow(
+        maxscl=(peak, peak, peak), average_maxrgb=0.05, tone_mapping_flag=1,
+        knee_point_x=0.25, knee_point_y=0.3,
+        bezier_curve_anchors=(0.4, 0.7, 0.9)),))
+
+
+def dovi_extensions(i: int = 0):
+    """Scene i's Dolby Vision extension blocks (tests/test_dovi_ext.py:
+    L1 (62, 3079, 1229), L2 trims for 100-, 600- and 1000-nit targets):
+    the scene moves L1's peak down by 120 i and the 100-nit trim's slope
+    up by 200 i."""
+    def l2(nits, **kw):
+        return dovi_ext.L2Extension(
+            target_max_pq=int(round(dovi_ext.nits_to_pq(nits) * 4095)), **kw)
+    return dovi_ext.DoviExtensions(
+        l1=dovi_ext.L1Extension(min_pq=62, max_pq=3079 - 120 * i,
+                                avg_pq=1229),
+        l2=(l2(100, trim_slope=1800 + 200 * i, trim_offset=2100,
+               trim_power=2200, trim_chroma_weight=2148,
+               trim_saturation_gain=2348),
+            l2(600, trim_slope=2000, trim_power=1900,
+               trim_saturation_gain=2148),
+            l2(1000, trim_slope=2200)))
+
+
+def c7p_args(accel: bool = True):
+    """c7p: c7's source and display with HDR10+ metadata whose window
+    carries a guided curve: selection 7."""
+    s, src, dst = c7_args(accel)
+    return s, dataclasses.replace(src, hdr10plus=guided_meta()), dst
+
+
+def c8ext_args(hdr: bool, accel: bool = True):
+    """c8's source and RPU metadata with extension blocks: c8x to 1080p
+    RGB10 SDR (the trims selected for the 100-nit SDR display), or c8hdr
+    to a 600-nit HDR display at 1080p RGB10 PQ with the local tone map
+    (BT.2390, upgraded to ST 2094-10 by L1)."""
+    s, src, dst = c8_args(dovi_meta(), accel)
+    src = dataclasses.replace(src, dovi_ext=dovi_extensions())
+    if not hdr:
+        return dataclasses.replace(s, hdr_display_max_nits=100), src, dst
+    return (Settings(convert_to_sdr=False, hdr_passthrough=True,
+                     hdr_local_tone_mapping=True,
+                     hdr_local_tone_mapping_type=ToneMapType.BT2390,
+                     hdr_display_max_nits=600,
+                     upscaling=Upscaling.CATMULL_ROM,
+                     use_accel_backend=accel),
+            src, dataclasses.replace(dst, hdr=True))
+
+
+def trim_list(rt: dict) -> list:
+    """A serving call's "l2_trims" values in the oracle's order."""
+    return [float(rt["l2_trims"][k]) for k in TRIM_KEYS]
+
+
+def serve_counted(serve, batches, rts, expect: dict):
+    """Each batch through ``serve`` with its scene's values, counted from 0:
+    the launches must be ``expect`` and no scene may build or load the
+    kernels.  Returns the outputs, the counts and each call's ms (CUDA
+    events)."""
+    lib_before, builds, times = build.load(), [], []
+    real_build = build.build
+    build.build = lambda: builds.append(1) or real_build()
+
+    def run():
+        outs = []
+        for b, rt in zip(batches, rts):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            outs.append(serve(b, rt))
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+        return outs
+
+    try:
+        outs, n = count_launches(run)
+    finally:
+        build.build = real_build
+    if n != expect:
+        raise AssertionError(f"launches {n}, expected {expect}")
+    if builds or build.load() is not lib_before:
+        raise AssertionError("a scene change built or loaded the kernels")
+    return outs, n, times
+
+
+def hdr_dynamic_phases(dev) -> dict:
+    """Phases 29-31: HDR10+ with its guided curve (c7p, K2's runtime route,
+    and K2's long-window route forced on it) and the Dolby Vision extension
+    blocks with their L2 trims (c8x to SDR, c8hdr to an HDR display, K9's
+    runtime route), each served over HDR_SCENES scenes of batch 16 at full
+    4K source width.  Returns each phase's launches, the kernels' errors
+    against their plain versions and K2's and K9's runtime-route numbers
+    for the kernels line."""
+    res = {"launches": {}, "runtime": {"rows3_tail": {}, "cols3_tail": {}},
+           "err": {k: 0.0 for k in ("k1", "k2", "k8", "k9")}}
+
+    def err(k, x):
+        res["err"][k] = max(res["err"][k], float(x))
+
+    # 29. c7p: make_serving_fn of c7's source with HDR10+ (selection 7),
+    #     two scenes of runtime_hdr_from_hdr10plus values (the scene peak
+    #     moves), K1 x2 + K2 x1 a call, K2 on its runtime route
+    plan7 = plan_pipeline(*c7p_args())
+    if plan7.tonemap_type != 7:
+        raise AssertionError(f"c7p plans selection {plan7.tonemap_type}")
+    serve7 = make_serving_fn(plan7, pack_surface=True)
+    metas = [guided_meta(0.4 - 0.15 * i) for i in range(HDR_SCENES)]
+    rts7 = [{"hdr": hdr10plus.runtime_hdr_from_hdr10plus(
+        m, plan7.src.hdr10, 600.0)} for m in metas]
+    b7 = [p010_batch(BATCH, SEED + 90 + i, dev) for i in range(HDR_SCENES)]
+    with recording(rk, "banded_resize_last_axis", "rows3_tail") as calls:
+        serve7(tuple(p[:PLAIN_FRAMES] for p in b7[0]), rts7[1])
+    torch.cuda.synchronize()
+    k1_calls, k2_calls = calls["banded_resize_last_axis"], calls["rows3_tail"]
+    if len(k1_calls) != 2 or len(k2_calls) != 1:
+        raise AssertionError(f"c7p recorded {len(k1_calls)} K1 and "
+                             f"{len(k2_calls)} K2 calls")
+    k1d = max(int((got.float() - rk.banded_resize_last_axis_plain(
+        *a, **kw).float()).abs().max().item()) for a, kw, got in k1_calls)
+    (a2, kw2, got2), = k2_calls
+    route7 = rk.rows3_tail_route(a2[0].dtype, a2[1].dtype, a2[6],
+                                 kw2.get("pack_format"))
+    d7 = code_diff(got2, rk.rows3_tail_plain(*a2, **kw2), 10)
+    long7 = forced_long(rk, "K2_LONG_WINDOW", lambda: rk.rows3_tail(*a2,
+                                                                    **kw2))
+    torch.cuda.synchronize()
+    long_equal = bool(torch.equal(long7, got2))
+    k7_digest = digest(got2)
+    tm7 = a2[6].tonemap
+    err("k1", k1d)
+    err("k2", d7["max_code_diff"] / 1023.0)
+    del calls, k1_calls, k2_calls, a2, kw2, got2, long7
+    if route7 != "runtime" or tm7 != 7 \
+            or k1d > 1 or d7["max_code_diff"] > 1 \
+            or d7["frac_differing"] >= 0.02 or not long_equal:
+        raise AssertionError(f"c7p: K2 route {route7}, K1 {k1d}, K2 {d7}, "
+                             f"long-window bit-equal {long_equal}")
+    with recording(rk, "rows3_tail") as calls:       # also the warm-up
+        serve7(b7[0], rts7[0])
+    torch.cuda.synchronize()
+    (a16, kw16, _), = calls["rows3_tail"]
+    del calls
+    outs7, n7, t7 = serve_counted(
+        serve7, b7, rts7, only(banded_resize_last_axis=2 * HDR_SCENES,
+                               rows3_tail=HDR_SCENES))
+    res["launches"]["c7p"] = n7
+    for o in outs7:
+        if o.shape != (BATCH, H, W) or o.dtype != torch.int32:
+            raise AssertionError(f"c7p output {tuple(o.shape)} {o.dtype}")
+    db7 = {f"scene{i}": psnr(
+        codes(outs7[i][0], 10).double() / 1023.0,
+        oracle_c7(*(p[0] for p in b7[i]),
+                  max_cll=float(rts7[i]["hdr"]["max_cll"]),
+                  display_max_nits=float(rts7[i]["hdr"]["display_max_nits"]),
+                  mastering_max_nits=float(
+                      rts7[i]["hdr"]["mastering_max_nits"]),
+                  window=metas[i].windows[0]))
+        for i in range(HDR_SCENES)}
+    digest7 = digest(*outs7)
+    del outs7
+    ms7 = cuda_ms(lambda: [serve7(b, rt) for b, rt in zip(b7, rts7)],
+                  reps=1, warmup=0) / (HDR_SCENES * BATCH)
+    k2r = {"cell": "c7p", "ms": cuda_ms(lambda: rk.rows3_tail(*a16, **kw16)),
+           "long_window_ms": forced_long(
+               rk, "K2_LONG_WINDOW",
+               lambda: cuda_ms(lambda: rk.rows3_tail(*a16, **kw16))),
+           "plain_ms": cuda_ms(lambda: rk.rows3_tail_plain(*a16, **kw16),
+                               reps=1)}
+    # K2 at c7p: raw luma, the mid16 chroma and the packed surface; the
+    # chroma H taps and the matrix (not the tone map's pows and curve)
+    k2r.update(bound(tbytes(*a16[:3]) + BATCH * H * W * 4 + mbytes(a16[4]),
+                     2 * map_flops(a16[4], BATCH * W) + 18 * BATCH * H * W))
+    res["runtime"]["rows3_tail"] = k2r
+    del a16, kw16
+    if min(db7.values()) < 55.0:
+        raise AssertionError(f"c7p PSNR below 55 dB: {db7}")
+    line("c7p", batch=BATCH, scenes=HDR_SCENES, launches=n7,
+         builds_between_scenes=0, k2_route=route7, psnr_db=db7,
+         ms_per_frame=ms7, ms_per_frame_synced=sum(t7) / (HDR_SCENES * BATCH),
+         k2_ms=k2r["ms"], k2_long_window_ms=k2r["long_window_ms"],
+         k2_plain_ms=k2r["plain_ms"], k2_bound_ms=k2r["bound_ms"],
+         k2_bound_by=k2r["bound_by"], kernels_frames=PLAIN_FRAMES,
+         k1_max_code_diff=k1d, k2_vs_plain=d7,
+         k2_long_window_bit_equal=long_equal, k2_digest=k7_digest,
+         digest=digest7,
+         tolerance="K1 mid16 <= 1 code; K2 <= 1 code on < 2% of channels; "
+                   "long-window K2 bit-equal")
+    del b7, serve7
+    torch.cuda.empty_cache()
+
+    # 30-31. c8x and c8hdr: make_serving_fn of c8's source with extension
+    #     blocks, two scenes of curves and trims (c8x) or HDR10 values and
+    #     trims (c8hdr), K1 x2 + K8 + K9 a call, K9 on its runtime route
+    meta = dovi_meta()
+    structure = dovi.curve_structure(meta)
+    exts = [dovi_extensions(i) for i in range(HDR_SCENES)]
+    for name, hdr, seed in (("c8x", False, SEED + 92),
+                            ("c8hdr", True, SEED + 94)):
+        plan = plan_pipeline(*c8ext_args(hdr))
+        serve = make_serving_fn(plan, pack_surface=True)
+        display = 600.0 if hdr else 100.0
+        rts = []
+        for i, e in enumerate(exts):
+            rt = {"l2_trims": dovi_ext.runtime_trims_from_extensions(
+                e, display)}
+            if hdr:
+                rt["hdr"] = dovi_ext.runtime_hdr_from_extensions(
+                    e, plan.src.hdr10, display)
+            else:
+                rt["dovi_curves"] = dovi_rt(i)
+            rts.append(rt)
+        bs = [p010_batch(BATCH, seed + i, dev) for i in range(HDR_SCENES)]
+        with recording(dk, "rows3_mid", "cols3_tail") as calls:
+            serve(tuple(p[:PLAIN_FRAMES] for p in bs[0]), rts[1])
+        torch.cuda.synchronize()
+        (a8, kw8, got8), = calls["rows3_mid"]
+        (a9, kw9, got9), = calls["cols3_tail"]
+        e8 = max((g - r).abs().max().item() for g, r in zip(
+            got8, dk.rows3_mid_plain(*a8, **kw8)))
+        route9 = dk.cols3_tail_route(a9[0].dtype, a9[1].dtype, a9[6],
+                                     kw9.get("pack_format"))
+        d9 = code_diff(got9, dk.cols3_tail_plain(*a9, **kw9), 10)
+        if hdr != (a9[6].tonemap == 6) or a9[6].trims is None \
+                or a9[6].trims_pq == hdr:
+            raise AssertionError(f"{name}: K9 tone map {a9[6].tonemap}, "
+                                 f"trims {a9[6].trims}")
+        err("k8", e8)
+        err("k9", d9["max_code_diff"] / 1023.0)
+        k9_digest = digest(got9)
+        del calls, a8, kw8, got8, a9, kw9, got9
+        if route9 != "runtime" or e8 > 1e-5 or d9["max_code_diff"] > 1 \
+                or d9["frac_differing"] >= 0.02:
+            raise AssertionError(f"{name}: K9 route {route9}, K8 {e8}, K9 "
+                                 f"{d9}")
+        with recording(dk, "cols3_tail") as calls:   # also the warm-up
+            serve(bs[0], rts[0])
+        torch.cuda.synchronize()
+        (a9, kw9, _), = calls["cols3_tail"]
+        del calls
+        outs, n, times = serve_counted(
+            serve, bs, rts, only(banded_resize_last_axis=2 * HDR_SCENES,
+                                 rows3_mid=HDR_SCENES,
+                                 cols3_tail=HDR_SCENES))
+        res["launches"][name] = n
+        for o in outs:
+            if o.shape != (BATCH, OH, OW) or o.dtype != torch.int32:
+                raise AssertionError(f"{name} output {tuple(o.shape)} "
+                                     f"{o.dtype}")
+
+        def want(i):
+            rt = rts[i]
+            h = rt.get("hdr")
+            return oracle_dovi(
+                *(p[0] for p in bs[i]), OW, OH,
+                curves=rt.get("dovi_curves") or dovi.pack_curves(meta),
+                structure=structure, ycc_to_rgb=meta.ycc_to_rgb_matrix,
+                ycc_offset=meta.ycc_to_rgb_offset,
+                lms=dovi.lms_pipeline_matrix(meta), trims=trim_list(rt),
+                hdr_out=None if h is None else {
+                    k: float(h[k]) for k in ("mastering_min_nits",
+                                             "max_cll", "max_fall",
+                                             "display_max_nits")})
+
+        db = {f"scene{i}": psnr(codes(outs[i][0], 10).double() / 1023.0,
+                                want(i)) for i in range(HDR_SCENES)}
+        out_digest = digest(*outs)
+        del outs
+        ms = cuda_ms(lambda: [serve(b, rt) for b, rt in zip(bs, rts)],
+                     reps=1, warmup=0) / (HDR_SCENES * BATCH)
+        k9r = {"ms": cuda_ms(lambda: dk.cols3_tail(*a9, **kw9)),
+               "plain_ms": cuda_ms(lambda: dk.cols3_tail_plain(*a9, **kw9),
+                                   reps=1)}
+        # K9's bound as at c8 (phase 17): the three float32 mid planes in,
+        # the RGB10 dwords out, the W map once; the W taps' FMAs
+        rows9 = a9[0].numel() // a9[0].shape[-1]
+        k9r.update(bound(tbytes(*a9[:3]) + rows9 * OW * 4 + mbytes(a9[3]),
+                         3 * map_flops(a9[3], rows9)))
+        res["runtime"]["cols3_tail"][name] = k9r
+        del a9, kw9, bs, serve
+        torch.cuda.empty_cache()
+        if min(db.values()) < 55.0:
+            raise AssertionError(f"{name} PSNR below 55 dB: {db}")
+        line(name, batch=BATCH, scenes=HDR_SCENES, launches=n,
+             builds_between_scenes=0, k9_route=route9,
+             tonemap_type=plan.tonemap_type, psnr_db=db, ms_per_frame=ms,
+             ms_per_frame_synced=sum(times) / (HDR_SCENES * BATCH),
+             k9_ms=k9r["ms"], k9_plain_ms=k9r["plain_ms"],
+             k9_bound_ms=k9r["bound_ms"], k9_bound_by=k9r["bound_by"],
+             kernels_frames=PLAIN_FRAMES, k8_max_abs_err=e8, k9_vs_plain=d9,
+             k9_digest=k9_digest, digest=out_digest,
+             tolerance="K8 <= 1e-5; K9 <= 1 code on < 2% of channels")
+    return res
 
 
 def offset_tail_phases(dev) -> dict:
@@ -2288,9 +2622,13 @@ def main() -> None:
     # 22-28: the strong downscales, Dolby Vision in a rect, the SDR
     # BT.2020 fix, GRAY and the shader order
     new = offset_tail_phases(dev)
+    # 29-31: HDR10+ (the guided curve) and the Dolby Vision extension
+    # blocks (the L2 trims), on K2's and K9's runtime routes
+    hdr = hdr_dynamic_phases(dev)
 
     def new_launches(name):
-        return sum(n[name] for n in new["launches"].values())
+        return sum(n[name] for phases in (new, hdr)
+                   for n in phases["launches"].values())
 
     def entry(name, source, replaces, n, k, err):
         return {"name": name, "route": "cuda",
@@ -2317,14 +2655,18 @@ def main() -> None:
                     for n in split_launches.values())
               + new_launches("banded_resize_last_axis"), k1,
               max(k1["max_abs_err"], conv["k1_max_abs_err"],
-                  sr_k["k1_max_abs_err"], new["err"]["k1"])),
-        entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
-              launches["rows3_tail"] + c7_launches["rows3_tail"]
-              + sum(n["rows3_tail"] for n in split_launches.values())
-              + lb_launches["rows3_tail"] + new_launches("rows3_tail"), k2,
-              max(k2["max_abs_err"], conv["k2_max_abs_err"],
-                  sr_k["k2_max_abs_err"], c7k["k2_max_code_diff"] / 1023.0,
-                  new["err"]["k2"])),
+                  sr_k["k1_max_abs_err"], new["err"]["k1"],
+                  hdr["err"]["k1"])),
+        {**entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
+                 launches["rows3_tail"] + c7_launches["rows3_tail"]
+                 + sum(n["rows3_tail"] for n in split_launches.values())
+                 + lb_launches["rows3_tail"] + new_launches("rows3_tail"),
+                 k2, max(k2["max_abs_err"], conv["k2_max_abs_err"],
+                         sr_k["k2_max_abs_err"],
+                         c7k["k2_max_code_diff"] / 1023.0, new["err"]["k2"],
+                         hdr["err"]["k2"])),
+         # the runtime route (selection 7) at c7p, batch 16
+         "runtime_route": hdr["runtime"]["rows3_tail"]},
         entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",
               k4_launches["mega3_tail"], k4,
               max(c["max_abs_err"] for c in k4_cases.values())),
@@ -2357,12 +2699,14 @@ def main() -> None:
         entry("rows3_mid", "rows3_mid.cu", "deint_pallas.py:216",
               c8_launches["rows3_mid"] + new_launches("rows3_mid"), k8,
               max(k8["max_abs_err"], k8["max_abs_err_variant"],
-                  new["err"]["k8"])),
-        entry("cols3_tail", "cols3_tail.cu", "deint_pallas.py:434",
-              c5_launches["cols3_tail"] + c8_launches["cols3_tail"]
-              + new_launches("cols3_tail"), k9,
-              max(k9["max_abs_err"], k8_k9["max_code_diff"] / 1023.0,
-                  new["err"]["k9"])),
+                  new["err"]["k8"], hdr["err"]["k8"])),
+        {**entry("cols3_tail", "cols3_tail.cu", "deint_pallas.py:434",
+                 c5_launches["cols3_tail"] + c8_launches["cols3_tail"]
+                 + new_launches("cols3_tail"), k9,
+                 max(k9["max_abs_err"], k8_k9["max_code_diff"] / 1023.0,
+                     new["err"]["k9"], hdr["err"]["k9"])),
+         # the runtime route (the L2 trims) at c8x and c8hdr, batch 16
+         "runtime_route": hdr["runtime"]["cols3_tail"]},
         {**k10_entry("probe_wpass", "wpass_bf16", k10),
          "forms": {f: k10_entry(f, f, k) for f, k in (("wpass_bf16", k10),
                                                       ("wpass_floor", k10f))}},

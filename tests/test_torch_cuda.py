@@ -50,7 +50,8 @@ from videorenderer_tpu_torch.kernels import deint as dk
 from videorenderer_tpu_torch.kernels import jinc2 as jk
 from videorenderer_tpu_torch.kernels import resize as rk
 from videorenderer_tpu_torch.ops import chroma, geometry, scale
-from videorenderer_tpu_torch.ops import dovi
+from videorenderer_tpu_torch.ops import dovi, dovi_ext, hdr10plus
+from videorenderer_tpu_torch.ops import tonemap as tm_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -360,6 +361,17 @@ K2_ROUTES = [
      lambda: _epi(rk.CORR_PQ_TO_SDR, -10), "rgb10a2"),
     ("runtime", torch.uint16, torch.int16,
      lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, sel="HABLE")),
+     "rgb10a2"),
+    # c7's dtypes and pack with the guided curve (c7p) or the L2 trims:
+    # the runtime route, never a compiled one
+    ("runtime", torch.uint16, torch.int16,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, hdr10plus=GUIDED)),
+     "rgb10a2"),
+    ("runtime", torch.uint16, torch.float32,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, hdr10plus=GUIDED),
+                                   hdr=SCENE), "rgb10a2"),
+    ("runtime", torch.uint16, torch.int16,
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, dovi_trims=TRIMS)),
      "rgb10a2"),
 ]
 
@@ -1056,6 +1068,12 @@ K9_ROUTES = [
     ("runtime", torch.uint16, lambda: P._make_tail_epilogue(_c5_plan()),
      "rgba8"),
     ("runtime", None, lambda: _cmat_epi(), None),
+    # c8's flags with the trims (c8x: PQ domain), c8hdr (trims in nits and
+    # ST 2094-10) and the guided curve: the runtime route
+    ("runtime", torch.float32, lambda: _dovi_ext_epi(False), "rgb10a2"),
+    ("runtime", torch.float32, lambda: _dovi_ext_epi(True), "rgb10a2"),
+    ("runtime", torch.float32,
+     lambda: P._make_tail_epilogue(_c7_plan(hdr10plus=GUIDED)), "rgb10a2"),
 ]
 
 
@@ -1536,9 +1554,12 @@ C7_META = dict(mastering_max_nits=4000.0, max_cll=3000.0, max_fall=800.0)
 
 
 def _c7_plan(w=64, h=36, sel="BT2390", display=600, transfer="PQ",
-             local=True, accel=True, **meta):
+             local=True, accel=True, hdr10plus=None, dovi_trims=None,
+             **meta):
     """A c7-shaped plan (P010 HDR10 1:1 -> RGB10 PQ, the local tone map of
-    selection ``sel`` for a ``display``-nit display) at a small size."""
+    selection ``sel`` for a ``display``-nit display) at a small size; with
+    ``hdr10plus`` metadata (c7p: its guided curve, selection 7) or L2
+    ``dovi_trims``."""
     return P.plan_pipeline(
         C.Settings(convert_to_sdr=False, hdr_passthrough=True,
                    hdr_local_tone_mapping=local,
@@ -1548,8 +1569,58 @@ def _c7_plan(w=64, h=36, sel="BT2390", display=600, transfer="PQ",
                            matrix=S.CSP.BT_2020_NC,
                            primaries=S.Primaries.BT_2020,
                            transfer=S.TRC[transfer],
-                           hdr10=P.HDR10Metadata(**{**C7_META, **meta})),
+                           hdr10=P.HDR10Metadata(**{**C7_META, **meta}),
+                           hdr10plus=hdr10plus, dovi_trims=dovi_trims),
         P.OutputDescriptor(width=w, height=h, bits=10, hdr=True))
+
+
+# c7p's HDR10+ metadata (one window with a guided curve: knee (0.25, 0.3),
+# anchors 0.4, 0.7, 0.9, a 4000-nit scene peak) and a set of L2 trims
+GUIDED = hdr10plus.HDR10PlusMetadata(windows=(hdr10plus.HDR10PlusWindow(
+    maxscl=(0.4, 0.4, 0.4), average_maxrgb=0.05, tone_mapping_flag=1,
+    knee_point_x=0.25, knee_point_y=0.3,
+    bezier_curve_anchors=(0.4, 0.7, 0.9)),))
+TRIMS = tm_ops.DoviTrims(chroma_weight=0.05, saturation_gain=0.1,
+                         trim_slope=1.1, trim_offset=-0.02, trim_power=0.9,
+                         l2_enabled=True)
+
+
+def _dovi_ext():
+    """c8x's extension blocks: L1 (62, 3079, 1229) and L2 trims for 100,
+    600 and 1000-nit targets."""
+    def l2(nits, **kw):
+        return dovi_ext.L2Extension(
+            target_max_pq=int(round(dovi_ext.nits_to_pq(nits) * 4095)), **kw)
+    return dovi_ext.DoviExtensions(
+        l1=dovi_ext.L1Extension(min_pq=62, max_pq=3079, avg_pq=1229),
+        l2=(l2(100, trim_slope=1800, trim_offset=2100, trim_power=2200,
+               trim_chroma_weight=2148, trim_saturation_gain=2348),
+            l2(600, trim_slope=2000, trim_power=1900,
+               trim_saturation_gain=2148),
+            l2(1000, trim_slope=2200)))
+
+
+def _dovi_ext_epi(hdr):
+    """K9's epilogue of c8x (Dolby Vision to SDR with the PQ-domain trims)
+    or of c8hdr (to a 600-nit HDR display: the trims in nits, then ST
+    2094-10 by the L1 upgrade)."""
+    settings = (C.Settings(convert_to_sdr=False, hdr_passthrough=True,
+                           hdr_local_tone_mapping=True,
+                           hdr_local_tone_mapping_type=C.ToneMapType.BT2390,
+                           hdr_display_max_nits=600) if hdr else
+                C.Settings(convert_to_sdr=True, hdr_display_max_nits=100))
+    plan = P.plan_pipeline(
+        settings,
+        P.SourceDescriptor(format=ColorFormat.P010, width=64, height=32,
+                           matrix=S.CSP.BT_2020_NC,
+                           primaries=S.Primaries.BT_2020, transfer=S.TRC.PQ,
+                           dovi=_dovi_meta("c8"), dovi_ext=_dovi_ext(),
+                           hdr10=P.HDR10Metadata()),
+        P.OutputDescriptor(width=64, height=32, bits=10, hdr=hdr))
+    epi = P._make_tail_epilogue(plan, with_cmat=False)
+    assert epi.trims is not None and epi.trims_pq == (not hdr)
+    assert epi.tonemap == (6 if hdr else 0)
+    return epi
 
 
 def _c7_k2_inputs(rng, n=2, w=64, h=36):
@@ -1589,6 +1660,46 @@ def test_k2_local_tonemap_matches_plain(dev, sel, route, passthrough):
     kw = dict(y_scale=1 / 65535.0, pack_format="rgb10a2")
     got = rk.rows3_tail(*args, **kw)
     torch.cuda.synchronize()
+    ref = rk.rows3_tail_plain(*args, **kw)
+    d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+GUIDED_CASES = {
+    # the plan's metadata (float64 scalars), a scene's (float32), a display
+    # at least as bright as the scene peak (the round trip through nits)
+    "guided": dict(hdr10plus=GUIDED),
+    "guided_serving": dict(hdr10plus=GUIDED, hdr=SCENE),
+    "guided_bright": dict(hdr10plus=GUIDED, display=5000),
+    "guided_trims": dict(hdr10plus=GUIDED, dovi_trims=TRIMS),
+    **{f"trims_{sel}": dict(sel=sel, dovi_trims=TRIMS)
+       for sel in ("ACES", "REINHARD", "HABLE", "MOBIUS", "BT2390",
+                   "ST2094_10")},
+    "trims_bright": dict(sel="BT2390", dovi_trims=TRIMS, display=5000),
+}
+
+
+@pytest.mark.parametrize("case", list(GUIDED_CASES))
+def test_k2_guided_and_trims_match_plain(dev, case):
+    """K2's runtime route with the HDR10+ guided curve (selection 7) and
+    with the linear-domain L2 trims before each selection (5 and 6 in
+    their general forms): within 1 code on < 2% of the channels."""
+    rng = np.random.default_rng(22)
+    kw = dict(GUIDED_CASES[case])
+    hdr = kw.pop("hdr", None)
+    plan = _c7_plan(**kw)
+    epi = P._make_tail_epilogue(plan, hdr=hdr)
+    assert (epi.tonemap == 7) == ("hdr10plus" in kw)
+    assert (epi.trims is not None) == ("dovi_trims" in kw)
+    y, u, v, mc = _c7_k2_inputs(rng)
+    args = (y.to(dev), u.to(dev), v.to(dev), None, mc, 36, epi)
+    kw = dict(y_scale=1 / 65535.0, pack_format="rgb10a2")
+    assert rk.rows3_tail_route(torch.uint16, torch.int16, epi,
+                               "rgb10a2") == "runtime"
+    before = rk.launches["rows3_tail"]
+    got = rk.rows3_tail(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches["rows3_tail"] == before + 1
     ref = rk.rows3_tail_plain(*args, **kw)
     d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
     assert d.max() <= 1 and (d > 0).mean() < 0.02
@@ -1780,7 +1891,9 @@ LONG_K2 = [("headline", lambda: _epi(rk.CORR_PQ_TO_SDR, 10), torch.int16,
             "rgb10a2"),
            ("c5", lambda: _epi(rk.CORR_HLG_TO_SDR, 8), torch.int16, "rgba8"),
            ("fix", lambda: _fix_epi(10), torch.int16, "rgb10a2"),
-           ("float", lambda: _epi(rk.CORR_PQ_TO_SDR, 0), torch.float32, None)]
+           ("float", lambda: _epi(rk.CORR_PQ_TO_SDR, 0), torch.float32, None),
+           ("c7p", lambda: P._make_tail_epilogue(_c7_plan(hdr10plus=GUIDED)),
+            torch.int16, "rgb10a2")]
 
 
 @pytest.mark.parametrize("name,make_epi,dtype,pack", LONG_K2,

@@ -1,7 +1,8 @@
 """videorenderer_tpu_torch host planning against the JAX package: config
 enums, colour matrices, axis and chroma matrices, the dither matrix, the
 plan, the tap tables — all exactly equal — plus the port's import
-isolation, its refusals and its device handling."""
+isolation, the plans it once refused (now equal to the JAX plans) and its
+device handling."""
 
 import dataclasses
 import subprocess
@@ -21,6 +22,7 @@ from videorenderer_tpu.kernels import resize_pallas as jrp
 from videorenderer_tpu.ops import chroma as jchroma
 from videorenderer_tpu.ops import dither as jdither
 from videorenderer_tpu.ops import scale as jscale
+from videorenderer_tpu.ops import tonemap as jtonemap
 
 import videorenderer_tpu_torch.config as tcfg
 import videorenderer_tpu_torch.csputils as tcsp
@@ -31,6 +33,9 @@ from videorenderer_tpu_torch.ops import chroma as tchroma
 from videorenderer_tpu_torch.ops import dither as tdither
 from videorenderer_tpu_torch.ops import dovi as tdovi
 from videorenderer_tpu_torch.ops import scale as tscale
+from videorenderer_tpu_torch.ops import tonemap as ttonemap
+
+import torch_hdr_cells as hdr_cells
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -246,18 +251,50 @@ def _identity_dovi():
         rgb_to_lms_matrix=np.linalg.inv(tdovi.DOVI_LMS2RGB))
 
 
-@pytest.mark.parametrize("case", [
-    # Dolby Vision is ported (ROADMAP item 6) without its L2 trims
-    dict(dovi_trims=object()), dict(dovi_ext=object()),
-    dict(hdr10plus=object()),
-    # the local tone map is ported, but not for Dolby Vision (HDR output)
-    dict(dovi=_identity_dovi(),
-         settings=tcfg.Settings(hdr_local_tone_mapping=True),
-         dst=tpipe.OutputDescriptor(width=64, height=32, bits=10, hdr=True)),
-], ids=["dovi", "dovi_ext", "hdr10plus", "local_tonemap"])
-def test_unported_plans_refused(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.plan_pipeline(*_hl(**case))
+def _formerly_unported(case: str, m: dict):
+    """The plans the port refused before it carried the L2 trims, the
+    extension blocks, HDR10+ and Dolby Vision's local tone map, in package
+    ``m`` (tests/torch_hdr_cells.py's JAX or TORCH)."""
+    pipe = m["pipe"]
+    src = dict(dovi=hdr_cells.dovi_meta(m["dovi"]))
+    if case == "dovi_trims":
+        src["dovi_trims"] = m["tonemap"].DoviTrims(
+            trim_slope=1.1, trim_power=0.9, saturation_gain=0.1,
+            l2_enabled=True)
+    elif case == "dovi_ext":
+        src["dovi_ext"] = hdr_cells.dovi_extensions(m["ext"])
+    elif case == "hdr10plus":
+        src = dict(hdr10plus=hdr_cells.guided_meta(m["h10p"]))
+    hdr = case in ("hdr10plus", "local_tonemap")
+    settings = m["cfg"].Settings(hdr_local_tone_mapping=hdr,
+                                 convert_to_sdr=not hdr,
+                                 hdr_passthrough=hdr)
+    return (settings,
+            pipe.SourceDescriptor(
+                format=m["fmt"].P010, width=128, height=64,
+                transfer=m["csp"].TRC.PQ, primaries=m["csp"].Primaries.BT_2020,
+                matrix=m["csp"].CSP.BT_2020_NC, hdr10=pipe.HDR10Metadata(),
+                **src),
+            pipe.OutputDescriptor(width=64, height=32, bits=10, hdr=hdr))
+
+
+@pytest.mark.parametrize("case", ["dovi", "dovi_ext", "hdr10plus",
+                                  "local_tonemap"])
+def test_formerly_unported_plans_match_jax(case):
+    """Dolby Vision's L2 trims, its extension blocks, HDR10+ and Dolby
+    Vision with the local tone map (HDR output) now plan as in the JAX
+    package: every plan field and the output signal equal."""
+    case = "dovi_trims" if case == "dovi" else case
+    jm = dict(hdr_cells.JAX, tonemap=jtonemap)
+    tm = dict(hdr_cells.TORCH, tonemap=ttonemap)
+    jplan = jpipe.plan_pipeline(*_formerly_unported(case, jm))
+    tplan = tpipe.plan_pipeline(*_formerly_unported(case, tm))
+    assert hdr_cells.plan_differences(jplan, tplan) == []
+    assert (tpipe.output_signal_info(tplan).to_dict()
+            == jpipe.output_signal_info(jplan).to_dict())
+    assert tpipe.serving_rt_keys(tplan) == jpipe.serving_rt_keys(jplan)
+    assert tpipe._can_fuse(tplan) == jpipe._can_fuse(jplan)
+    assert tpipe._can_split_fuse(tplan) == jpipe._can_split_fuse(jplan)
 
 
 @pytest.mark.parametrize("case", [
@@ -315,7 +352,7 @@ def test_kernel_tail_refuses_unported_corrections(dst):
                               device="cpu")
     epi = tpipe._make_tail_epilogue(vp.plan)
     assert epi.correction == trk.CORR_FIX_BT2020 and epi.sdr_gamma == 2.8
-    assert epi.host_mats()[-1] == np.float32(2.8)
+    assert epi.host_mats()[26] == np.float32(2.8)     # after cmat, gamut, tm
     rng = np.random.default_rng(4)
     planes = (rng.integers(0, 65535, (1, 64, 128), np.uint16),
               rng.integers(0, 65535, (1, 32, 64), np.uint16),

@@ -384,7 +384,8 @@ def test_place_output_and_check_place():
 
 def test_epilogue_carries_the_fix_gamma():
     """The SDR BT.2020 fix rides the launch: the epilogue's 27th host float
-    is the plan's source gamma, for each power-law transfer."""
+    (of 59: the trims and the guided curve follow it) is the plan's source
+    gamma, for each power-law transfer."""
     for trc, gamma in ((tcsp.TRC.GAMMA18, 1.8), (tcsp.TRC.GAMMA28, 2.8),
                        (tcsp.TRC.BT_1886, 2.2), (tcsp.TRC.LINEAR, 1.0)):
         plan = tpipe.plan_pipeline(
@@ -396,6 +397,124 @@ def test_epilogue_carries_the_fix_gamma():
         epi = tpipe._make_tail_epilogue(plan)
         mats = epi.host_mats()
         assert epi.correction == trk.CORR_FIX_BT2020
-        assert mats.shape == (27,) and mats[26] == np.float32(gamma)
+        assert mats.shape == (59,) and mats[26] == np.float32(gamma)
         epi2 = dataclasses.replace(epi, sdr_gamma=2.4)
         assert epi2.host_mats()[26] == np.float32(2.4)
+
+
+# --- which tail route an epilogue takes (the CPU half of the card's test) -----
+
+CSRC = tpipe.__file__.rsplit("/", 1)[0] + "/csrc/"
+_CTYPES = {"uint8_t": 0, "uint16_t": 1, "int16_t": 2, "float": 3}
+
+
+def _enum_values() -> dict:
+    """The route constants of tail.cuh, epilogue.cuh and route.cuh (kCorr*,
+    kTm*, kQuant*, kPack*, kRuntime and kRt), from the sources."""
+    import re
+    out = {}
+    for name in ("tail.cuh", "epilogue.cuh", "route.cuh"):
+        text = open(CSRC + name).read()
+        for body in re.findall(r"enum\s*\{([^}]*)\}", text):
+            for k, v in re.findall(r"(k\w+)\s*=\s*(-?\d+)", body):
+                out[k] = int(v)
+        for k, v in re.findall(r"constexpr int (k\w+) = (-?\d+|k\w+);",
+                               text):
+            out[k] = out[v] if v in out else int(v)
+    return out
+
+
+def _compiled_routes(source: str) -> dict:
+    """{route name: (y dtype, c dtype, matrix, correction, tone map, quant
+    mode, pack)} of the compiled Specs of a tail kernel's source, its
+    routes' template arguments read from route.cuh."""
+    import re
+    consts = dict(_enum_values(), true=1, false=0)
+    # the first five arguments: the flags; a sixth, the extended tail, is
+    # no flag of a compiled route
+    routes = {m[0]: [int(a) if a.isdigit() else consts[a]
+                     for a in (x.strip() for x in m[1].split(","))][:5]
+              for m in re.findall(r"using (\w+) = Route<([^>]*)>;",
+                                  open(CSRC + "route.cuh").read())}
+    return {name: (_CTYPES[ty], _CTYPES[tc], *routes[r])
+            for r, ty, tc, name in re.findall(
+                r'Spec<(\w+), (\w+), (\w+)>\{"([^"]+)"\}',
+                open(CSRC + source).read())}
+
+
+def _route_of(source: str, flags: tuple) -> str:
+    """route.cuh's with_spec over ``flags`` (kernels/resize.route_flags):
+    the first compiled route whose flags they are, with no trims; else the
+    runtime route."""
+    y, c, mat, corr, tm, trims, dither_bits, pack = flags
+    quant = 1 if dither_bits > 0 else 2 if dither_bits < 0 else 0
+    for name, spec in _compiled_routes(source).items():
+        if not trims and spec == (y, c, mat, corr, tm, quant, pack):
+            return name
+    return "runtime"
+
+
+def _hdr_epilogue(cell: str):
+    import torch_hdr_cells as cells
+    plan = tpipe.plan_pipeline(*cells.cell_args(cells.TORCH, cell))
+    return tpipe._make_tail_epilogue(plan, with_cmat=plan.dovi is None)
+
+
+def _c7_epilogue(**src):
+    import torch_hdr_cells as cells
+    plan = tpipe.plan_pipeline(*cells.cell_args(cells.TORCH, "c7p",
+                                                hdr10plus=None, **src))
+    return tpipe._make_tail_epilogue(plan)
+
+
+ROUTE_CASES = {
+    # the compiled routes the paths take stay theirs ...
+    "k2_c7": ("rows3_tail.cu", torch.uint16, torch.int16, _c7_epilogue,
+              "c7 uint16/int16"),
+    "k2_headline": ("rows3_tail.cu", torch.int16, torch.int16,
+                    lambda: tpipe._make_tail_epilogue(_plan(
+                        128, 64, 64, 32, tcfg.Downscaling.HAMMING)),
+                    "headline int16"),
+    "k9_c8": ("cols3_tail.cu", torch.float32, torch.float32,
+              lambda: tpipe._make_tail_epilogue(_plan(
+                  128, 64, 64, 32, tcfg.Downscaling.HAMMING, dovi=_dovi()),
+                  with_cmat=False), "c8 float32"),
+    # ... and the guided curve and the trims take the runtime route
+    "k2_c7p": ("rows3_tail.cu", torch.uint16, torch.int16,
+               lambda: _hdr_epilogue("c7p"), "runtime"),
+    "k2_c7_trims": ("rows3_tail.cu", torch.uint16, torch.int16,
+                    lambda: _c7_epilogue(dovi_trims=_trims()), "runtime"),
+    "k9_c8x": ("cols3_tail.cu", torch.float32, torch.float32,
+               lambda: _hdr_epilogue("c8x"), "runtime"),
+    "k9_c8hdr": ("cols3_tail.cu", torch.float32, torch.float32,
+                 lambda: _hdr_epilogue("c8hdr"), "runtime"),
+}
+
+
+def _dovi():
+    import torch_hdr_cells as cells
+    return cells.dovi_meta(tdovi)
+
+
+def _trims():
+    from videorenderer_tpu_torch.ops import tonemap as ttm
+    return ttm.DoviTrims(trim_slope=1.1, trim_power=0.9, l2_enabled=True)
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_tail_route_choice(case):
+    """K2's and K9's route for the paths' epilogues: c7, the headline and
+    c8 keep their compiled routes; c7p (selection 7), c7 with L2 trims,
+    c8x (PQ-domain trims) and c8hdr (trims in nits, ST 2094-10 general)
+    match no compiled route (route.cuh's ``matches`` refuses trims and no
+    route has selection 7), so they take the runtime route.  The card's
+    tests ask the library the same question (rows3_tail_route)."""
+    source, ytype, ctype, make, want = ROUTE_CASES[case]
+    epi = make()
+    flags = trk.route_flags(ytype, ctype, epi, "rgb10a2")
+    assert _route_of(source, flags) == want
+    assert flags[5] == int(epi.trims is not None)
+    if want == "runtime":
+        assert epi.trims is not None or epi.tonemap == 7
+    else:
+        assert epi.trims is None and epi.tonemap != 7

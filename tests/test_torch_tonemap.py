@@ -250,13 +250,28 @@ def test_passthrough_keeps_the_pq_round_trip():
     assert not torch.equal(got, t(x))
 
 
-def test_tonemap_refuses_what_is_not_ported():
-    x = t(_pq(8))
-    p = ttm.HDRParams(**C7)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttm.local_tonemap_pq(x, 7, p, axis=-3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttm.local_tonemap_pq(x, 5, p, trims=object(), axis=-3)
+def test_tonemap_guided_and_trims_and_input_checks():
+    """Selection 7 (with its HDR10+ window) and the L2 trims run on every
+    route and agree with the JAX package within the per-pixel band above;
+    the serving values' checks and the epilogue's still refuse bad input."""
+    from videorenderer_tpu.ops import hdr10plus as jh10p
+    from videorenderer_tpu_torch.ops import hdr10plus as th10p
+    from torch_hdr_cells import guided_meta
+    x = _pq(8)
+    p = dict(C7)
+    jw, tw = guided_meta(jh10p).windows[0], guided_meta(th10p).windows[0]
+    ref = jtm.local_tonemap_pq(jnp.asarray(x), 7, jtm.HDRParams(**p),
+                               axis=-3, window=jw)
+    got = ttm.local_tonemap_pq(t(x), 7, ttm.HDRParams(**p), axis=-3,
+                               window=tw)
+    _close_pq(got.numpy(), np.asarray(ref))
+    trims = dict(trim_slope=1.1, trim_offset=-0.02, trim_power=0.9,
+                 saturation_gain=0.1, chroma_weight=0.05, l2_enabled=True)
+    ref = jtm.local_tonemap_pq(jnp.asarray(x), 5, jtm.HDRParams(**p),
+                               trims=jtm.DoviTrims(**trims), axis=-3)
+    got = ttm.local_tonemap_pq(t(x), 5, ttm.HDRParams(**p),
+                               trims=ttm.DoviTrims(**trims), axis=-3)
+    _close_pq(got.numpy(), np.asarray(ref))
     with pytest.raises(TypeError, match="synchronise"):
         ttm.hdr_values({"max_cll": torch.tensor(1000.0, device="meta")})
     with pytest.raises(ValueError, match="unknown"):
@@ -265,8 +280,12 @@ def test_tonemap_refuses_what_is_not_ported():
                        luminance_scale=1.0, dither_bits=0,
                        gamut=np.eye(3, dtype=np.float32), plain=None,
                        tonemap=7)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="window"):
         epi.validate()
+    dataclasses.replace(epi, window=tw).validate()
+    with pytest.raises(ValueError, match="trims"):
+        dataclasses.replace(epi, tonemap=0,
+                            trims=np.ones(5, np.float32)).validate()
 
 
 # --- plans -------------------------------------------------------------------
@@ -308,17 +327,26 @@ def test_plan_tonemap_fields_match_jax(case):
     assert tpipe._can_fuse(tplan) == jpipe._can_fuse(jplan) is True
 
 
-def test_refused_tonemap_plans():
-    dovi = tdovi.DoviMetadata(
-        curves=(tdovi.identity_curve(),) * 3,
-        ycc_to_rgb_matrix=np.eye(3), ycc_to_rgb_offset=np.zeros(3),
-        rgb_to_lms_matrix=np.linalg.inv(tdovi.DOVI_LMS2RGB))
-    s, src, dst = _c7_args(tcfg, tcsp, tpipe, TFmt)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tpipe.plan_pipeline(s, dataclasses.replace(src, dovi=dovi), dst)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tpipe.plan_pipeline(s, dataclasses.replace(src, hdr10plus=object()),
-                            dst)
+def test_formerly_refused_tonemap_plans_match_jax():
+    """c7's settings on a Dolby Vision source (its local tone map in K9's
+    tail) and with HDR10+ metadata (selection 7) plan as in the JAX
+    package: every plan field equal."""
+    from videorenderer_tpu.ops import dovi as jdovi
+    from videorenderer_tpu.ops import hdr10plus as jh10p
+    from videorenderer_tpu_torch.ops import hdr10plus as th10p
+    from torch_hdr_cells import dovi_meta, guided_meta, plan_differences
+    jargs = _c7_args(jcfg, jcsp, jpipe, JFmt)
+    targs = _c7_args(tcfg, tcsp, tpipe, TFmt)
+    for jsrc, tsrc in (
+            (dict(dovi=dovi_meta(jdovi)), dict(dovi=dovi_meta(tdovi))),
+            (dict(hdr10plus=guided_meta(jh10p)),
+             dict(hdr10plus=guided_meta(th10p)))):
+        jplan = jpipe.plan_pipeline(
+            jargs[0], dataclasses.replace(jargs[1], **jsrc), jargs[2])
+        tplan = tpipe.plan_pipeline(
+            targs[0], dataclasses.replace(targs[1], **tsrc), targs[2])
+        assert plan_differences(jplan, tplan) == []
+        assert tplan.local_tonemap
 
 
 # --- K2 with c7's epilogue, and HLG -> PQ -------------------------------------

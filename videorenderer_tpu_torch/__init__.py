@@ -7,7 +7,9 @@ an NVIDIA Hopper card through two hand-written CUDA kernels
 their first launch; the Jinc2 upscale and motion-adaptive deinterlacing
 have kernels of their own (``csrc/jinc2_*.cu``, ``csrc/deint3_rows_dual.cu``,
 ``csrc/cols3_tail.cu``), as do Dolby Vision (``csrc/rows3_mid.cu``) and a
-letterboxed output (``csrc/banded_resize_rows.cu``).  On CPU tensors the
+letterboxed output (``csrc/banded_resize_rows.cu``); HDR10+'s guided curve
+and Dolby Vision's L2 trims run in the tails of ``csrc/rows3_tail.cu`` and
+``csrc/cols3_tail.cu``.  On CPU tensors the
 same functions run their plain PyTorch versions.  This package imports torch and numpy, never jax.
 
     vp = VideoProcessor(settings, src, dst, device="cuda", pack_surface=True)
@@ -27,18 +29,19 @@ from .config import (ChromaScaling, Deinterlacing, Downscaling, Settings,
                      Upscaling)
 from .csputils import CSP, ChromaLocation, Levels, Primaries, TRC
 from .formats import ColorFormat, get_format_info
-from .pipeline import (HDR10Metadata, OutputDescriptor, SourceDescriptor,
-                       VideoProcessor, make_deint_fields_fn,
+from .pipeline import (HDR10Metadata, OutputDescriptor, OutputSignalInfo,
+                       SourceDescriptor, VideoProcessor, make_deint_fields_fn,
                        make_deint_frame_fn, make_frame_fn, make_serving_fn,
-                       plan_pipeline)
+                       output_signal_info, plan_pipeline)
 from .runner import DeinterlaceSession
 
 __all__ = [
     "CSP", "ChromaLocation", "ChromaScaling", "ColorFormat", "Deinterlacing",
     "DeinterlaceSession", "Downscaling", "HDR10Metadata", "Levels",
-    "OutputDescriptor", "Primaries", "Settings", "SourceDescriptor",
+    "OutputDescriptor", "OutputSignalInfo", "Primaries", "Settings",
+    "SourceDescriptor",
     "SuperResolution", "SwapEffect", "TRC", "TexFormat", "ToneMapType",
     "Upscaling", "VideoProcessor", "get_format_info", "make_deint_fields_fn",
     "make_deint_frame_fn", "make_frame_fn", "make_serving_fn",
-    "plan_pipeline",
+    "output_signal_info", "plan_pipeline",
 ]

@@ -428,11 +428,45 @@ int launch(const void* y, const void* u, const void* v, const Geometry& G,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The long-window kernel's launch (no shared memory): compiled for the
-// runtime route at every pair of plane dtypes, in cols3_tail_long.cu.
+// The staged kernel's launch on the runtime route R (RuntimeRoute or
+// RuntimeExtended) at the plane dtypes' pair; an unknown code launches
+// nothing and returns cudaErrorInvalidValue.
+template <typename R>
+int launch_runtime(int y_dtype, int c_dtype, const void* y, const void* u,
+                   const void* v, const Geometry& G, const vrt::TailParams& P,
+                   int batch, void* out, cudaStream_t st) {
+  int err = 0;
+  bool known = false;
+  vrt::dispatch_planes(y_dtype, c_dtype, [&](auto y_tag, auto c_tag) {
+    using TY = decltype(y_tag);
+    using TC = decltype(c_tag);
+    known = true;
+    err = launch<R, TY, TC>(y, u, v, G, P, batch, out, st);
+  });
+  return known ? err : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The long-window kernel's launch (no shared memory) on the runtime route R
+// at the plane dtypes' pair: RuntimeRoute compiled in cols3_tail_long.cu,
+// RuntimeExtended in cols3_tail_ext.cu.
+template <typename R>
 int launch_long(int y_dtype, int c_dtype, const void* y, const void* u,
                 const void* v, const Geometry& G, const vrt::TailParams& P,
-                int batch, void* out, cudaStream_t st);
+                int batch, void* out, cudaStream_t st) {
+  if (G.tile_rows < 1 || G.tile_rows > kMaxTileRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((G.w_out + kTileCols - 1) / kTileCols,
+                  (G.h + G.tile_rows - 1) / G.tile_rows, batch);
+  return vrt::dispatch_planes(y_dtype, c_dtype, [&](auto y_tag, auto c_tag) {
+    using TY = decltype(y_tag);
+    using TC = decltype(c_tag);
+    cols3_tail_long_kernel<R, TY, TC>
+        <<<grid, dim3(kColThreads, kRowThreads), 0, st>>>(
+            static_cast<const TY*>(y), static_cast<const TC*>(u),
+            static_cast<const TC*>(v), G, P, out);
+  });
+}
 
 }  // namespace k9
 }  // namespace vrt
@@ -444,3 +478,9 @@ int launch_long(int y_dtype, int c_dtype, const void* y, const void* u,
   int vrt::k9::launch<vrt::R, TY, TC>(                                     \
       const void*, const void*, const void*, const vrt::k9::Geometry&,     \
       const vrt::TailParams&, int, void*, cudaStream_t)
+// The same for a runtime route's launch at every pair of plane dtypes
+// (launch_runtime, launch_long).
+#define VRT_K9_LAUNCH_ANY(FN, R)                                          \
+  int vrt::k9::FN<vrt::R>(int, int, const void*, const void*, const void*, \
+                          const vrt::k9::Geometry&, const vrt::TailParams&, \
+                          int, void*, cudaStream_t)

@@ -108,8 +108,9 @@ __device__ __forceinline__ float h_pass(const float* win, const PlaneMaps& M,
 }
 
 // grid: x = column strips of kCols, y = tiles of kTileRows output rows,
-// z = frames; block (kCols, kRowThreads)
-template <typename TY, typename TC>
+// z = frames; block (kCols, kRowThreads).  kExt: the tail carries the L2
+// trims and the guided curve (tail.cuh), for the launches that need them.
+template <typename TY, typename TC, bool kExt>
 __global__ void __launch_bounds__(kCols * kRowThreads) mega3_tail_kernel(
     const TY* __restrict__ y, const TC* __restrict__ u,
     const TC* __restrict__ v, const Geometry G, const vrt::TailParams P,
@@ -141,7 +142,8 @@ __global__ void __launch_bounds__(kCols * kRowThreads) mega3_tail_kernel(
     const float uv = h_pass(wu, G.c, G.h_out, lo_c, r);
     const float vv = h_pass(wv, G.c, G.h_out, lo_c, r);
     float c[3];
-    vrt::color_tail(P.tail, yv, uv, vv, c);
+    vrt::color_tail<vrt::kRuntime, vrt::kRuntime, vrt::kRuntime, kExt>(
+        P.tail, yv, uv, vv, c);
     vrt::store_pixel(c, P.quant, vrt::kPackNone, out, b, G.h_out, G.w_out, r,
                      col);
   }
@@ -157,7 +159,9 @@ __global__ void __launch_bounds__(kCols * kRowThreads) mega3_tail_kernel(
 // without an H map (its height is h_out).  A plane without a W map (its
 // width is w_out) is read times ``y_scale``/``c_scale``.  ``host_mats`` is
 // HOST memory: the colour matrix (12 floats), the gamut matrix (9), the 5
-// tone-map scalars.  ``out`` is (batch, 3, h_out, w_out) float32.
+// tone-map scalars, the SDR BT.2020 fix's gamma, the L2 trims and the
+// guided curve (tail.cuh's make_tail).  ``out`` is (batch, 3, h_out,
+// w_out) float32.
 extern "C" int vrt_mega3_tail(
     const void* y, int y_dtype, const void* u, const void* v, int c_dtype,
     int batch, int hy, int wy, int hc, int wc, int h_out, int w_out,
@@ -188,20 +192,30 @@ extern "C" int vrt_mega3_tail(
       sizeof(float) * kCols * (static_cast<size_t>(win_y) + 2 * win_c);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int attr_err = 0;
-  const int err = vrt::dispatch_planes(y_dtype, c_dtype,
-                                       [&](auto y_tag, auto c_tag) {
+  auto run = [&](auto kernel, auto y_tag, auto c_tag) {
     using TY = decltype(y_tag);
     using TC = decltype(c_tag);
     if (smem > 48 * 1024) {
       attr_err = static_cast<int>(cudaFuncSetAttribute(
-          mega3_tail_kernel<TY, TC>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem)));
       if (attr_err != 0) return;
     }
-    mega3_tail_kernel<TY, TC><<<grid, block, smem, st>>>(
+    kernel<<<grid, block, smem, st>>>(
         static_cast<const TY*>(y), static_cast<const TC*>(u),
         static_cast<const TC*>(v), G, P, static_cast<float*>(out));
+  };
+  const bool ext = P.tail.trims != vrt::kTrimsNone ||
+                   tonemap == vrt::kTmGuided;
+  const int err = vrt::dispatch_planes(y_dtype, c_dtype,
+                                       [&](auto y_tag, auto c_tag) {
+    using TY = decltype(y_tag);
+    using TC = decltype(c_tag);
+    if (ext) {
+      run(mega3_tail_kernel<TY, TC, true>, y_tag, c_tag);
+    } else {
+      run(mega3_tail_kernel<TY, TC, false>, y_tag, c_tag);
+    }
   });
   return attr_err != 0 ? attr_err : err;
 }

@@ -36,14 +36,18 @@ struct alignas(sizeof(T) * kGroup) Vec {
 
 // A tail route fixed at compile time: colour matrix (0/1), correction,
 // tone-map selection, quantization mode and pack; kRt in a field reads that
-// flag from the launch's parameters.
-template <int M, int C, int TM, int Q, int PK>
+// flag from the launch's parameters.  X: the route carries the L2 trims and
+// the guided curve (tail.cuh's kExt).
+template <int M, int C, int TM, int Q, int PK, bool X = false>
 struct Route {
   static constexpr int kMat = M, kCorr = C, kTm = TM, kQuant = Q, kPack = PK;
-  static constexpr bool kReadsFlags = M == kRt;
+  static constexpr bool kReadsFlags = M == kRt, kExt = X;
 };
 
+// The runtime routes read every flag; the extended one carries the L2 trims
+// and the guided curve as well, and takes the launches that need them.
 using RuntimeRoute = Route<kRt, kRt, kRt, kRt, kRt>;
+using RuntimeExtended = Route<kRt, kRt, kRt, kRt, kRt, true>;
 
 // The routes the port's paths run (pipeline._make_tail_epilogue,
 // cmat_epilogue, torch_headline_micro's stages).
@@ -91,8 +95,8 @@ __device__ __forceinline__ void tail_exact(const TailParams& P,
 #pragma unroll 1
   for (int k = 0; k < kGroup; ++k) {
     float ck[3];
-    color_tail<R::kMat, R::kCorr, R::kTm>(P.tail, pick(yv, k), pick(uv, k),
-                                          pick(vv, k), ck);
+    color_tail<R::kMat, R::kCorr, R::kTm, R::kExt>(
+        P.tail, pick(yv, k), pick(uv, k), pick(vv, k), ck);
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       if (j == k) {
@@ -120,8 +124,8 @@ __device__ __forceinline__ void tail_group(const TailParams& P,
     CheckedDiv div;
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
-      color_tail<R::kMat, R::kCorr, R::kTm>(P.tail, yv[k], uv[k], vv[k],
-                                            c[k], div);
+      color_tail<R::kMat, R::kCorr, R::kTm, R::kExt>(P.tail, yv[k], uv[k],
+                                                     vv[k], c[k], div);
     }
     if (!div.ok) tail_exact<R>(P, yv, uv, vv, c);
   }
@@ -221,22 +225,29 @@ constexpr int dtype_code() {
   return sizeof(T) == 1 ? 0 : sizeof(T) == 4 ? 3 : T(-1) > T(0) ? 1 : 2;
 }
 
-// The launch's flags, as the routes name them.
+// The launch's flags, as the routes name them; ``trims``: the launch runs
+// the L2 trims (tail.cuh's kTrims*), which no compiled route carries.
 struct Flags {
-  int y_dtype, c_dtype, mat, corr, tm, quant, pack;
+  int y_dtype, c_dtype, mat, corr, tm, trims, quant, pack;
+  // the launch needs the extended runtime route: the trims or the guided
+  // curve
+  bool extended() const { return trims || tm == kTmGuided; }
 };
 
 inline Flags flags_of(int y_dtype, int c_dtype, int apply_matrix,
-                      int correction, int tonemap, int dither_bits,
-                      int pack) {
+                      int correction, int tonemap, int trims,
+                      int dither_bits, int pack) {
   return Flags{y_dtype, c_dtype, apply_matrix ? 1 : 0, correction, tonemap,
-               quant_mode(dither_bits), pack};
+               trims ? 1 : 0, quant_mode(dither_bits), pack};
 }
 
+// Whether the compiled route of spec ``S`` computes a launch with flags
+// ``f``: the same flags, and no trims (a launch with the trims or the
+// guided curve, selection 7, matches none and takes the runtime route).
 template <typename S>
 bool matches(const S&, const Flags& f) {
   using R = typename S::R;
-  return dtype_code<typename S::TY>() == f.y_dtype &&
+  return !f.trims && dtype_code<typename S::TY>() == f.y_dtype &&
          dtype_code<typename S::TC>() == f.c_dtype && R::kMat == f.mat &&
          R::kCorr == f.corr && R::kTm == f.tm && R::kQuant == f.quant &&
          R::kPack == f.pack;

@@ -5,24 +5,4 @@
 
 #include "rows3_tail.cuh"
 
-namespace vrt {
-namespace k2 {
-
-int launch_long(int y_dtype, int c_dtype, const void* y, const void* u,
-                const void* v, const Geometry& G, const vrt::TailParams& P,
-                int batch, void* out, cudaStream_t st) {
-  if (G.tile_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((G.w + kTileCols - 1) / kTileCols,
-                  (G.h_out + G.tile_rows - 1) / G.tile_rows, batch);
-  return vrt::dispatch_planes(y_dtype, c_dtype, [&](auto y_tag, auto c_tag) {
-    using TY = decltype(y_tag);
-    using TC = decltype(c_tag);
-    rows3_tail_long_kernel<vrt::RuntimeRoute, TY, TC>
-        <<<grid, dim3(kColThreads, kRowThreads), 0, st>>>(
-            static_cast<const TY*>(y), static_cast<const TC*>(u),
-            static_cast<const TC*>(v), G, P, out);
-  });
-}
-
-}  // namespace k2
-}  // namespace vrt
+template VRT_K2_LAUNCH_ANY(launch_long, RuntimeRoute);

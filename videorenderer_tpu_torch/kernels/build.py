@@ -41,7 +41,9 @@ SIGNATURES = {
     # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_out, tile_rows, the
     # (starts, taps, n_taps, tile_lo, win) of the y and c H maps, y_scale,
     # c_scale, mats (host: cmat 12, gamut 9, tone map 5 floats, the SDR
-    # BT.2020 fix's gamma), apply_matrix, correction, tonemap,
+    # BT.2020 fix's gamma, trims 5 + mode, the guided curve's 26
+    # constants; kernels/resize.Epilogue.host_mats), apply_matrix,
+    # correction, tonemap,
     # luminance_scale, dither_bits, pack, surface_h, surface_w, off_y,
     # off_x, long_window, out, stream
     "vrt_rows3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -60,7 +62,7 @@ SIGNATURES = {
     # y, y_dtype, u, v, c_dtype, batch, hy, wy, hc, wc, h_out, w_out, the
     # (starts, taps, n_taps) of the W maps of y and c, the (starts, taps,
     # n_taps, tile_lo, win) of their H maps, y_scale, c_scale, mats (host,
-    # 27 floats), apply_matrix, correction, tonemap, luminance_scale,
+    # 59 floats), apply_matrix, correction, tonemap, luminance_scale,
     # dither_bits, out, stream
     "vrt_mega3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P, _P, _I,
@@ -109,11 +111,11 @@ SIGNATURES = {
 # entry points that return a string, not an error code
 STRING_SIGNATURES = {
     "vrt_error_string": (_I,),
-    # y_dtype, c_dtype, apply_matrix, correction, tonemap, dither_bits,
-    # pack, long_window
-    "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I),
+    # y_dtype, c_dtype, apply_matrix, correction, tonemap, trims,
+    # dither_bits, pack, long_window (kernels/resize.route_flags)
+    "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I, _I),
     # the same flags, for K9
-    "vrt_cols3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I),
+    "vrt_cols3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I, _I),
     # y_dtype, c_dtype, vals (host), n_vals, structure (host), lms_identity
     "vrt_rows3_mid_route": (_I, _I, _P, _I, _P, _I),
 }

@@ -42,7 +42,7 @@ from . import build
 from .resize import (DTYPE_CODES, PACK_CODES, SMEM_BUDGET, BandedMatrix,
                      Epilogue, _check_plane, _h_plain, _kernel_device,
                      _launch, _no_tf32, _taps_args, check_place, fill_bars,
-                     pack_surface, place_output)
+                     pack_surface, place_output, route_flags)
 
 K7_TILE_ROWS = 32     # output rows a K7 block makes (its tile_rows)
 K7_TILE_COLS = 64     # columns a K7 block makes (kTileCols)
@@ -637,11 +637,11 @@ def cols3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
                      long_window: bool = False) -> str:
     """The K9 instantiation a launch with these plane dtypes, epilogue and
     pack takes: the name of its compiled route ("c5 float32", "c8
-    float32"), "runtime" for the staged one that reads the tail's flags,
-    or with ``long_window`` "long-window runtime" (vrt_cols3_tail_route;
-    loads the kernel library, so it needs the CUDA toolkit)."""
+    float32"), "runtime" for the staged one that reads the tail's flags
+    (every epilogue with trims or the guided curve), or with
+    ``long_window`` "long-window runtime" (vrt_cols3_tail_route over
+    ``resize.route_flags``; loads the kernel library, so it needs the CUDA
+    toolkit)."""
     return build.load().vrt_cols3_tail_route(
-        DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype],
-        int(epilogue.cmat is not None), epilogue.correction,
-        epilogue.tonemap, epilogue.dither_bits,
-        PACK_CODES[pack_format], int(long_window)).decode()
+        *route_flags(y_dtype, c_dtype, epilogue, pack_format),
+        int(long_window)).decode()

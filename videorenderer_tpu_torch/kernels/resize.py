@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from . import build
+from ..ops.hdr10plus import guided_constants
 
 MID16_SCALE = 16384.0
 """W-pass intermediates may be int16 codes round(value * 16384) ("mid16"):
@@ -450,9 +451,17 @@ class Epilogue:
     using ``luminance_scale`` and the (3, 3) BT.2020 -> BT.709 ``gamut``
     matrix, the SDR BT.2020 fix ``sdr_gamma``, the source's power gamma,
     which rides the launch by value.  ``tonemap``: the local tone map's
-    selection (1-6, ``ops/tonemap``; 0 none) and ``tonemap_scalars`` its
-    five float32 scalars, likewise.  ``dither_bits``: +b ordered dither to b
-    bits, -b round to b bits, 0 none (float output); b is 8 or 10."""
+    selection (1-7, ``ops/tonemap``; 0 none) and ``tonemap_scalars`` its
+    five float32 scalars, likewise; selection 7 runs the HDR10+ guided
+    curve of ``window`` (an ``ops.hdr10plus.HDR10PlusWindow``).
+    ``trims``: the five float32 Dolby Vision L2 trim scalars
+    (``ops.tonemap.trim_values``), or None for no trims; with ``trims_pq``
+    they run on the PQ signal before PQ -> SDR (the correction), else in
+    nits before the local tone map.  An epilogue with trims or selection 7
+    takes the tail kernels' extended runtime route (``csrc/route.cuh``'s
+    ``RuntimeExtended``).  ``dither_bits``: +b ordered
+    dither to b bits, -b round to b bits, 0 none (float output); b is 8 or
+    10."""
 
     cmat: np.ndarray | None
     correction: int
@@ -464,16 +473,32 @@ class Epilogue:
     tonemap_scalars: np.ndarray = field(
         default_factory=lambda: np.zeros(5, np.float32))
     sdr_gamma: float = 2.2
+    trims: np.ndarray | None = None
+    trims_pq: bool = False
+    window: object | None = None
 
     def validate(self) -> None:
         if self.correction not in (CORR_NONE, CORR_PQ_TO_SDR, CORR_HLG_TO_SDR,
                                    CORR_HLG_TO_PQ, CORR_FIX_BT2020):
             raise NotImplementedError(
                 f"K2 epilogue: correction {self.correction} is not ported")
-        if self.tonemap not in range(7):
-            raise NotImplementedError(
-                f"K2 epilogue: tone map selection {self.tonemap} is not "
-                "ported (ROADMAP item 4: the HDR10+ guided curve)")
+        if self.tonemap not in range(8):
+            raise ValueError(
+                f"K2 epilogue: tone map selection {self.tonemap} is not one "
+                "of 0-7")
+        if (self.tonemap == 7) != (self.window is not None):
+            raise ValueError("K2 epilogue: selection 7 and an HDR10+ window "
+                             "come together")
+        if self.trims is not None and np.shape(self.trims) != (5,):
+            raise ValueError("trims must hold 5 values, got "
+                             f"{np.shape(self.trims)}")
+        if self.trims is not None and not self.trims_pq and not self.tonemap:
+            raise ValueError("linear-domain trims run before a local tone "
+                             "map, and this epilogue has none")
+        if self.trims is not None and self.trims_pq \
+                and self.correction != CORR_PQ_TO_SDR:
+            raise ValueError("PQ-domain trims run before PQ -> SDR, and this "
+                             "epilogue's correction is another")
         if np.shape(self.tonemap_scalars) != (5,):
             raise ValueError("tonemap_scalars must hold 5 values, got "
                              f"{np.shape(self.tonemap_scalars)}")
@@ -484,15 +509,22 @@ class Epilogue:
             raise ValueError(f"cmat must be (3, 4), got {np.shape(self.cmat)}")
 
     def host_mats(self) -> np.ndarray:
-        """The 27 floats the tail kernels take in host memory: the colour
-        matrix (zeros without one), the gamut matrix, the tone-map
-        scalars, the SDR BT.2020 fix's gamma."""
+        """The 59 floats the tail kernels take in host memory: the
+        colour matrix (zeros without one), the gamut matrix, the tone-map
+        scalars, the SDR BT.2020 fix's gamma (27 floats); then the trims'
+        five scalars, their mode (0 none, 1 PQ domain, 2 linear) and the
+        guided curve's constants (``ops.hdr10plus.guided_constants``)."""
         cm = (np.zeros((3, 4), np.float32) if self.cmat is None
               else np.asarray(self.cmat, np.float32))
+        trims = (np.zeros(5, np.float32) if self.trims is None
+                 else np.asarray(self.trims, np.float32).reshape(-1))
+        mode = 0 if self.trims is None else 1 if self.trims_pq else 2
         return np.ascontiguousarray(np.concatenate(
             [cm.reshape(-1), np.asarray(self.gamut, np.float32).reshape(-1),
              np.asarray(self.tonemap_scalars, np.float32).reshape(-1),
-             np.asarray([self.sdr_gamma], np.float32)]))
+             np.asarray([self.sdr_gamma], np.float32), trims,
+             np.asarray([mode], np.float32),
+             guided_constants(self.window)]))
 
     def launch_args(self, mats: np.ndarray) -> tuple:
         """(mats pointer, apply_matrix, correction, tonemap,
@@ -696,20 +728,31 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def route_flags(y_dtype: torch.dtype, c_dtype: torch.dtype,
+                epilogue: Epilogue, pack_format: str | None) -> tuple:
+    """The flags by which the tail kernels (K2, K9) pick a compiled route:
+    (y dtype code, c dtype code, matrix, correction, tone map, trims,
+    dither bits, pack code).  No compiled route has trims or selection 7,
+    so such an epilogue takes the runtime route."""
+    return (DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype],
+            int(epilogue.cmat is not None), epilogue.correction,
+            epilogue.tonemap, int(epilogue.trims is not None),
+            epilogue.dither_bits, PACK_CODES[pack_format])
+
+
 def rows3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
                      epilogue: Epilogue, pack_format: str | None,
                      long_window: bool = False) -> str:
     """The K2 instantiation a launch with these plane dtypes, epilogue and
     pack takes: the name of its compiled route, "runtime" for the staged
-    one that reads the tail's flags, or with ``long_window`` (the route
-    :func:`k2_route` picks for a map whose windows do not fit) "long-window
-    runtime" (vrt_rows3_tail_route; loads the kernel library, so it needs
-    the CUDA toolkit)."""
+    one that reads the tail's flags (every epilogue with trims or the
+    guided curve), or with ``long_window`` (the route :func:`k2_route`
+    picks for a map whose windows do not fit) "long-window runtime"
+    (vrt_rows3_tail_route over :func:`route_flags`; loads the kernel
+    library, so it needs the CUDA toolkit)."""
     return build.load().vrt_rows3_tail_route(
-        DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype],
-        int(epilogue.cmat is not None), epilogue.correction,
-        epilogue.tonemap, epilogue.dither_bits,
-        PACK_CODES[pack_format], int(long_window)).decode()
+        *route_flags(y_dtype, c_dtype, epilogue, pack_format),
+        int(long_window)).decode()
 
 
 # ---------------------------------------------------------------------------

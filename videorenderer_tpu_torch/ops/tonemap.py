@@ -1,11 +1,9 @@
 """HDR tone mapping on torch tensors: the Hable "Convert to SDR" curve
-(Shaders/convert/hdr_tone_mapping.hlsl), the HDR10 parameter block and the
+(Shaders/convert/hdr_tone_mapping.hlsl), the HDR10 parameter block, the
 six local tone-map operators of the HDR passthrough
-(Shaders/d3d11/ps_hdr10_tonemap.hlsl).
-
-Port of ``videorenderer_tpu.ops.tonemap`` without ICtCp, the Dolby Vision
-L2 trims (ROADMAP item 6) and the HDR10+ guided curve, selection 7 (item
-4): a call that needs them raises ``NotImplementedError``.
+(Shaders/d3d11/ps_hdr10_tonemap.hlsl), the HDR10+ guided curve (selection
+7, which only HDR10+ metadata selects), ICtCp and the Dolby Vision L2
+trims.  Port of ``videorenderer_tpu.ops.tonemap``.
 
 The local tone map is PQ in, PQ out.  Its per-pixel half reads five
 float32 scalars derived from the HDR10 metadata (the reference's cbuffer):
@@ -14,7 +12,9 @@ from a plan's :class:`HDRParams` (then rounds them to float32), and
 :func:`local_tonemap_rt_scalars` in float32 from a serving call's values,
 as the JAX package's two routes do.  :func:`local_tonemap_pq_from_scalars`
 is the per-pixel half; ``csrc/tail.cuh`` carries the same operations, each
-rounded on its own in this order.  Scalars that enter the per-pixel math
+rounded on its own in this order.  With L2 trims on, selections 5 and 6
+leave their m1-power fast paths for the general linear-domain forms (the
+trims run in between), as the JAX package's do.  Scalars that enter the per-pixel math
 become 0-d tensors on the pixels' device, so a division by one is a true
 division on the card too (a CUDA division by a host scalar multiplies by
 its reciprocal).
@@ -88,19 +88,6 @@ def _pq_decode_scalar(pq: float) -> float:
     return float(x ** (1.0 / ST2084_M1) * 10000.0)
 
 
-def _refuse_unported(selection: int, trims=None, window=None) -> None:
-    if trims is not None:
-        raise NotImplementedError(
-            "Dolby Vision L2 trims in the local tone map are not ported to "
-            "videorenderer_tpu_torch yet: ROADMAP.md, modules to port, item "
-            "6 (Dolby Vision)")
-    if selection == HDR10PLUS_GUIDED or window is not None:
-        raise NotImplementedError(
-            "the HDR10+ guided tone map (selection 7) is not ported to "
-            "videorenderer_tpu_torch yet: ROADMAP.md, modules to port, item "
-            "4 (serving and local tone mapping)")
-
-
 def _safe_max_cll(p: HDRParams) -> float:
     return p.max_cll if p.max_cll > 10.0 else (
         p.mastering_max_nits if p.mastering_max_nits > 10.0 else 1000.0)
@@ -171,10 +158,12 @@ def local_tonemap_static_scalars(selection: int, p: HDRParams) -> np.ndarray:
     the JAX package's static route computes them), rounded to float32.
     Selection 5: [disp, safe MaxCLL, PQ(safe), PQ(disp), knee start]; 6:
     [disp, MaxCLL, c1, c2, c3] (zeros for c when the display is at least as
-    bright as MaxCLL); 1-4: [disp, effective peak, MaxFALL gain, 0, 0]."""
-    _refuse_unported(selection)
+    bright as MaxCLL); 7: [disp, MaxCLL (the scene peak), 0, 0, 0]; 1-4:
+    [disp, effective peak, MaxFALL gain, 0, 0]."""
     disp = float(p.display_max_nits)
-    if selection == BT2390:
+    if selection == HDR10PLUS_GUIDED:
+        vals = [disp, p.max_cll, 0.0, 0.0, 0.0]
+    elif selection == BT2390:
         safe = _safe_max_cll(p)
         max_pq, target_pq = _pq_encode_scalar(safe), _pq_encode_scalar(disp)
         vals = [disp, safe, max_pq, target_pq,
@@ -199,6 +188,12 @@ def hdr_values(values: Mapping, name: str = "hdr") -> dict:
     if bad:
         raise ValueError(f"{name}: unknown key(s) {sorted(bad)}; the local "
                          f"tone map takes {list(HDR_KEYS)}")
+    return _host_floats(values, name)
+
+
+def _host_floats(values: Mapping, name: str) -> dict:
+    """A serving call's values as float32-rounded Python floats; a value
+    on a device is refused (reading it back would synchronise)."""
     out = {}
     for k, v in values.items():
         if isinstance(v, torch.Tensor):
@@ -269,14 +264,15 @@ def local_tonemap_rt_scalars(selection: int, p: Mapping) -> np.ndarray:
     (see :func:`hdr_values`), computed in float32 on the host as the JAX
     package's ``local_tonemap_rt_scalars`` computes them per call.  The
     layout is :func:`local_tonemap_static_scalars`'."""
-    _refuse_unported(selection)
     v = hdr_values(p)
     missing = set(HDR_KEYS) - set(v)
     if missing:
         raise ValueError(f"hdr: missing key(s) {sorted(missing)}")
     mmin, mmax, mcll, mfall, disp = (_f32(v[k]) for k in HDR_KEYS)
 
-    if selection == BT2390:
+    if selection == HDR10PLUS_GUIDED:
+        out = [disp, mcll, _f32(0.0), _f32(0.0), _f32(0.0)]
+    elif selection == BT2390:
         safe = torch.where(mcll > 10.0, mcll,
                            torch.where(mmax > 10.0, mmax, _f32(1000.0)))
         max_pq = linear_to_st2084(safe, 10000.0)
@@ -416,6 +412,166 @@ def st2094_10(rgb: torch.Tensor, p: HDRParams, axis: int = -1
     return rgb * scale
 
 
+
+
+# -- ICtCp and the Dolby Vision L2 trims ----------------------------------------
+
+@dataclass(frozen=True)
+class DoviTrims:
+    """DolbyConstants cbuffer (ps_hdr10_tonemap.hlsl:24-33)."""
+
+    chroma_weight: float = 0.0
+    saturation_gain: float = 1.0
+    trim_slope: float = 1.0
+    trim_offset: float = 0.0
+    trim_power: float = 1.0
+    l2_enabled: bool = False
+
+
+# a serving call's "l2_trims" keys, in the order of the trims' five scalars
+TRIM_KEYS = ("chroma_weight", "saturation_gain", "trim_slope", "trim_offset",
+             "trim_power")
+
+
+def trim_values(trims: DoviTrims) -> np.ndarray:
+    """The five float32 scalars of ``trims`` in :data:`TRIM_KEYS` order (the
+    tail kernels' trims block, ``kernels/resize.Epilogue.trims``)."""
+    return np.asarray([getattr(trims, k) for k in TRIM_KEYS],
+                      np.float64).astype(np.float32)
+
+
+def trims_from_values(values: Mapping, name: str = "l2_trims") -> DoviTrims:
+    """A serving call's trims (all five :data:`TRIM_KEYS`, host numbers as
+    :func:`hdr_values` takes them) as enabled :class:`DoviTrims` of float32
+    values."""
+    bad = set(values) - set(TRIM_KEYS)
+    missing = set(TRIM_KEYS) - set(values)
+    if bad or missing:
+        raise ValueError(f"{name}: needs exactly the keys {list(TRIM_KEYS)}"
+                         f" (unknown {sorted(bad)}, missing {sorted(missing)})")
+    return DoviTrims(**_host_floats(values, name), l2_enabled=True)
+
+
+def _enabled(trims) -> bool:
+    return trims is not None and bool(trims.l2_enabled)
+
+
+def _split3(x: torch.Tensor, axis: int):
+    return tuple(x.narrow(axis, i, 1) for i in range(3))
+
+
+def rgb_to_ictcp(rgb_nits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """RGB_to_ICTCP (ps_hdr10_tonemap.hlsl:191-208): BT.2020 RGB nits ->
+    ICtCp via the LMS/4096 integer matrices."""
+    r, g, b = _split3(rgb_nits, axis)
+    l = (1688.0 * r + 2146.0 * g + 262.0 * b) / 4096.0
+    m = (683.0 * r + 2951.0 * g + 462.0 * b) / 4096.0
+    s = (99.0 * r + 309.0 * g + 3688.0 * b) / 4096.0
+    l = linear_to_st2084(l, 10000.0)
+    m = linear_to_st2084(m, 10000.0)
+    s = linear_to_st2084(s, 10000.0)
+    i = (2048.0 * l + 2048.0 * m) / 4096.0
+    ct = (6610.0 * l - 13613.0 * m + 7003.0 * s) / 4096.0
+    cp = (17933.0 * l - 17390.0 * m - 543.0 * s) / 4096.0
+    return torch.cat([i, ct, cp], dim=axis)
+
+
+def ictcp_to_rgb(ictcp: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """ICTCP_to_RGB (ps_hdr10_tonemap.hlsl:210-229)."""
+    i, ct, cp = _split3(ictcp, axis)
+    l = i + 0.00860904 * ct + 0.11102963 * cp
+    m = i - 0.00860904 * ct - 0.11102963 * cp
+    s = i + 0.56003134 * ct - 0.32062717 * cp
+    l = st2084_to_linear(l, 10000.0)
+    m = st2084_to_linear(m, 10000.0)
+    s = st2084_to_linear(s, 10000.0)
+    r = 3.43660669 * l - 2.50645212 * m + 0.06984542 * s
+    g = -0.79132956 * l + 1.98360045 * m - 0.19227090 * s
+    b = -0.02594990 * l - 0.09891371 * m + 1.12486361 * s
+    return torch.cat([r, g, b], dim=axis)
+
+
+def apply_l2_trim(rgb_nits: torch.Tensor, t: DoviTrims,
+                  axis: int = -1) -> torch.Tensor:
+    """ApplyL2Trim (ps_hdr10_tonemap.hlsl:231-248): intensity trim in ICtCp
+    with highlight-weighted saturation.  No path of the port calls it (the
+    pipeline's trims are :func:`dolby_vision_trims`, as the JAX package's
+    are)."""
+    i, ct, cp = _split3(rgb_to_ictcp(rgb_nits, axis=axis), axis)
+    orig_i = i
+    i = torch.clamp(i * float(t.trim_slope) + float(t.trim_offset), min=0.0)
+    i = torch.pow(i, float(np.float32(max(t.trim_power, 0.1))))
+    sat = float(np.float32(max(t.saturation_gain, 0.0)))
+    hw = torch.clamp(orig_i * 2.0, 0.0, 1.0)
+    eff = sat + float(np.float32(1.0) - np.float32(sat)) * hw \
+        * (1.0 - float(t.chroma_weight))
+    return ictcp_to_rgb(torch.cat([i, ct * eff, cp * eff], dim=axis),
+                        axis=axis)
+
+
+def _trims_on(color: torch.Tensor, tr: Sequence[torch.Tensor],
+              axis: int) -> torch.Tensor:
+    """The trims' per-pixel half on PQ values: ``tr`` the five scalars of
+    :func:`trim_values` as 0-d tensors on the pixels' device (so every
+    product, power and division is a tensor op, on the card too)."""
+    cw, sat, slope, offset, power = tr
+    color = torch.pow(torch.clamp(color * slope + offset, min=0.0), power)
+    y = _luma(color, axis)
+    return color * torch.pow(
+        torch.clamp((1.0 + cw) * color / torch.clamp(y, min=1e-9), min=0.0),
+        sat)
+
+
+def dolby_vision_trims(linear: torch.Tensor, t: DoviTrims, axis: int = -1,
+                       pq_input: bool = False) -> torch.Tensor:
+    """DolbyVisionTrims (ps_hdr10_tonemap.hlsl:250-263): slope/offset/power
+    in PQ plus chroma-weighted saturation; in and out linear nits (the
+    10000-nit scale) unless ``pq_input`` (the convert-color codegen variant,
+    Source/Shaders.cpp:788-796, on PQ-coded values).  Applies ``t`` whatever
+    its ``l2_enabled``, as the JAX function does."""
+    tr = _device_scalars(trim_values(t), linear)
+    if pq_input:
+        return _trims_on(linear, tr, axis)
+    return st2084_to_linear(
+        _trims_on(linear_to_st2084(linear, 10000.0), tr, axis), 10000.0)
+
+
+# -- the HDR10+ guided curve (selection 7) --------------------------------------
+
+def _guided_scale(lum: torch.Tensor, disp: torch.Tensor, peak: torch.Tensor,
+                  window) -> torch.Tensor:
+    """The guided curve's scale of RGB from the BT.2020 luminance ``lum``
+    (nits): the scene-peak-relative luminance through the window's knee +
+    Bezier curve, rescaled to the display peak; below the knee the curve is
+    linear, so the scale is its slope there (no 0/0 at black)."""
+    from .hdr10plus import apply_hdr10plus_curve
+    kx = float(window.knee_point_x)
+    ky = float(window.knee_point_y)
+    xn = lum / peak
+    yn = apply_hdr10plus_curve(torch.clamp(xn, 0.0, 1.0), window)
+    slope0 = (ky / kx) if kx > 1e-6 else 1.0
+    return torch.where(xn <= max(kx, 1e-6), slope0 * disp / peak,
+                       yn * disp / torch.clamp(xn * peak, min=1e-9))
+
+
+def st2094_40_guided(color: torch.Tensor, disp, peak, window,
+                     axis: int = -1) -> torch.Tensor:
+    """ST 2094-40 (HDR10+) guided tone map, selection 7: scene luminance
+    normalised to the scene peak runs through the metadata's knee + Bezier
+    basis curve (:func:`~.hdr10plus.apply_hdr10plus_curve`), rescaled to
+    the display peak, ratio-preserving on RGB.  ``disp``/``peak``: numbers
+    or 0-d tensors; the curve's knee and anchors come from ``window`` (plan
+    structure, like the DoVi reshape's).  Linear nits in and out."""
+    d, pk = (x if isinstance(x, torch.Tensor) else
+             torch.tensor(float(np.float32(x)), device=color.device)
+             for x in (disp, peak))
+    d, pk = d.to(color.device), pk.to(color.device)
+    out = color * _guided_scale(_luma(color, axis), d, pk, window)
+    return torch.where(d >= pk, color, out)
+
+
+# -- the local tone map -----------------------------------------------------------
+
 def _device_scalars(sc, like: torch.Tensor) -> list[torch.Tensor]:
     t = torch.tensor(np.asarray(sc, np.float32), device=like.device)
     return list(t.unbind())
@@ -434,51 +590,91 @@ def _host_scalars(sc) -> np.ndarray:
 
 
 def local_tonemap_pq_from_scalars(pq_rgb: torch.Tensor, selection: int,
-                                  sc: Sequence | np.ndarray, trims=None,
+                                  sc: Sequence | np.ndarray,
+                                  trims: DoviTrims | None = None,
                                   axis: int = -1,
                                   window=None) -> torch.Tensor:
     """Per-pixel half of the local tone map: ``sc`` the five float32 host
     scalars of :func:`local_tonemap_static_scalars` or
     :func:`local_tonemap_rt_scalars`.  Whether the display is at least as
     bright as the source peak (sc[0] >= sc[1] in float32) is decided on the
-    host; the PQ round trip then runs alone.  The operations and their
-    order are K2's (``csrc/tail.cuh``)."""
-    _refuse_unported(selection, trims, window)
+    host.  Selections 5 and 6 without trims run in the m1-power domain (a
+    bright display leaves the PQ round trip there); everything else decodes
+    to nits, runs the L2 trims (``trims`` with ``l2_enabled``), then the
+    operator (7: the guided curve of ``window``; a bright display leaves
+    the round trip through nits), and encodes.  The operations and their
+    order are the tail kernels' (``csrc/tail.cuh``)."""
+    if selection == HDR10PLUS_GUIDED and window is None:
+        raise ValueError("selection 7 (the HDR10+ guided curve) needs the "
+                         "plan's HDR10PlusWindow")
     v = _host_scalars(sc)
-    if selection in (BT2390, ST2094_10) and v[0] >= v[1]:
-        return _passthrough_pq(pq_rgb)
-    s = _device_scalars(v, pq_rgb)
-    if selection == BT2390:
-        return _bt2390_pq_p(pq_rgb, s[2], s[3], s[4], axis)
-    if selection == ST2094_10:
+    l2 = _enabled(trims)
+    if selection in (BT2390, ST2094_10) and not l2:
+        if v[0] >= v[1]:
+            return _passthrough_pq(pq_rgb)
+        s = _device_scalars(v, pq_rgb)
+        if selection == BT2390:
+            return _bt2390_pq_p(pq_rgb, s[2], s[3], s[4], axis)
         return _st2094_10_pq_p(pq_rgb, s[2], s[3], s[4], axis)
-    disp, eff, fall_adj = s[0], s[1], s[2]
+    s = _device_scalars(v, pq_rgb)
     color = st2084_to_linear(pq_rgb, 10000.0)
+    if l2:
+        color = st2084_to_linear(_trims_on(
+            linear_to_st2084(color, 10000.0),
+            _device_scalars(trim_values(trims), pq_rgb), axis), 10000.0)
+    if selection in (HDR10PLUS_GUIDED, BT2390, ST2094_10):
+        if v[0] < v[1]:
+            color = color * _linear_scale(selection, color, s, axis, window)
+        return linear_to_st2084(color, 10000.0)
+    disp, eff, fall_adj = s[0], s[1], s[2]
     c = torch.clamp(color / eff, 0.0, 1.0) * fall_adj
     return linear_to_st2084(_operator(selection, c, disp) * disp, 10000.0)
 
 
+def _linear_scale(selection: int, color: torch.Tensor, s, axis: int,
+                  window) -> torch.Tensor:
+    """The scale of nits RGB of selections 7, 5 and 6 in their general
+    (linear-domain) forms, below the source peak."""
+    if selection == HDR10PLUS_GUIDED:
+        return _guided_scale(_luma(color, axis), s[0], s[1], window)
+    if selection == BT2390:
+        max_pq, target_pq, ks = s[2], s[3], s[4]
+        avg = _luma(color, axis)
+        e1 = linear_to_st2084(avg, 10000.0)
+        t = (e1 - ks) / torch.clamp(max_pq - ks, min=1e-6)
+        t2, t3 = t * t, t * t * t
+        e2s = ((2 * t3 - 3 * t2 + 1) * ks + (t3 - 2 * t2 + t) * (max_pq - ks)
+               + (-2 * t3 + 3 * t2) * target_pq)
+        mapped = st2084_to_linear(torch.where(e1 > ks, e2s, e1), 10000.0)
+        return torch.where(avg <= 1e-6, 1.0,
+                           mapped / torch.clamp(avg, min=1e-6))
+    c1, c2, c3 = s[2], s[3], s[4]
+    xn = _luma(color, axis)
+    yn = (c1 + c2 * xn) / (1.0 + c3 * xn)
+    return torch.where(xn > 0.0, yn / torch.clamp(xn, min=1e-9), 1.0)
+
+
 def local_tonemap_pq_rt(pq_rgb: torch.Tensor, selection: int, p: Mapping,
-                        trims=None, axis: int = -1,
+                        trims: DoviTrims | None = None, axis: int = -1,
                         window=None) -> torch.Tensor:
     """The local tone map with a serving call's HDR10 values ``p`` (the
     five :data:`HDR_KEYS`, host numbers): :func:`local_tonemap_rt_scalars`
     then :func:`local_tonemap_pq_from_scalars`.  A new scene is a new set
     of five scalars, nothing else."""
-    _refuse_unported(selection, trims, window)
     return local_tonemap_pq_from_scalars(
-        pq_rgb, selection, local_tonemap_rt_scalars(selection, p), axis=axis)
+        pq_rgb, selection, local_tonemap_rt_scalars(selection, p),
+        trims=trims, axis=axis, window=window)
 
 
 def local_tonemap_pq(pq_rgb: torch.Tensor, selection: int, p: HDRParams,
-                     trims=None, axis: int = -1,
+                     trims: DoviTrims | None = None, axis: int = -1,
                      window=None) -> torch.Tensor:
     """Full ps_hdr10_tonemap main() (ps_hdr10_tonemap.hlsl:265-331) with a
     plan's static metadata: PQ in, PQ out, the operator chosen by
-    ``selection`` (ToneMapType), R, G, B on ``axis``.  Its scalars are
+    ``selection`` (ToneMapType, or 7 with an HDR10+ ``window``), R, G, B on
+    ``axis``, the L2 ``trims`` first where enabled.  Its scalars are
     :func:`local_tonemap_static_scalars`, float64 on the host as the JAX
     package's ``local_tonemap_pq`` computes them."""
-    _refuse_unported(selection, trims, window)
     return local_tonemap_pq_from_scalars(
         pq_rgb, selection, local_tonemap_static_scalars(selection, p),
-        axis=axis)
+        trims=trims, axis=axis, window=window)

@@ -42,7 +42,16 @@ colour matrix's first column, the resize and the dither.
 display): the same convert at 1:1, the PQ EOTF to nits, the BT.2390 EETF in
 its linear formulation (a hue-preserving scale of RGB by the mapped over
 the original BT.2020 luminance, independent of the port's m1-power
-rewrite), the PQ OETF and the ordered dither.
+rewrite), the PQ OETF and the ordered dither; with an HDR10+ ``window``
+(c7p) the ST 2094-40 guided curve in place of the EETF: the knee and the
+Bernstein polynomial evaluated with float64 powers, the scene peak, the
+display peak, the ratio on RGB.
+
+:func:`oracle_dovi` with ``trims`` (c8x) runs the Dolby Vision L2 trims on
+the PQ signal before PQ -> SDR; with ``hdr_out`` (c8hdr) it keeps the PQ
+output for an HDR display instead: the trims in nits, then the ST 2094-10
+EETF (its knee adaptation and rational spline solved in float64 here),
+the PQ OETF and the dither.
 """
 
 from __future__ import annotations
@@ -390,8 +399,8 @@ def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 dither_bits: int = 10,
                 upscaling: Upscaling = Upscaling.CATMULL_ROM,
                 downscaling: Downscaling = Downscaling.HAMMING,
-                video_rect: tuple[int, int, int, int] | None = None
-                ) -> torch.Tensor:
+                video_rect: tuple[int, int, int, int] | None = None,
+                trims=None, hdr_out: dict | None = None) -> torch.Tensor:
     """One frame of c8 (4K P010 Dolby Vision -> 1080p SDR RGB10): ``y``
     (H, W), ``u``/``v`` (H/2, W/2) raw 4:2:0 planes; ``curves`` a scene's
     packed reshape values (the ``pack_curves`` layout) and ``structure``
@@ -402,7 +411,12 @@ def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     step, resize (2:1 Catmull-Rom at c8), PQ -> SDR, ordered dither.
     Returns (3, out_h, out_w) float64 codes / (2**dither_bits - 1); with
     ``video_rect``, the video at the rect's size placed into the black
-    out_w x out_h surface."""
+    out_w x out_h surface.  ``trims``: the L2 trims' five values
+    (:func:`_trims_f64`), on the PQ signal before PQ -> SDR, or with
+    ``hdr_out`` in nits.  ``hdr_out``: the HDR output of c8hdr, a dict of
+    the ST 2094-10 parameters (mastering_min_nits, max_cll, max_fall,
+    display_max_nits): the PQ EOTF to nits, the trims, the EETF, the PQ
+    OETF in place of PQ -> SDR."""
     f64 = torch.float64
     scale = 1.0 / (2.0 ** bits_in - 1.0)
     ycc = torch.stack([y.to(f64) * scale,
@@ -415,7 +429,17 @@ def oracle_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     rgb = _lms_f64(rgb, lms)
     vw, vh = ((out_w, out_h) if video_rect is None else
               (video_rect[2] - video_rect[0], video_rect[3] - video_rect[1]))
-    x = _pq_to_sdr(_resize(rgb, vw, vh, upscaling, downscaling), sdr_nits)
+    x = _resize(rgb, vw, vh, upscaling, downscaling)
+    if hdr_out is not None:
+        nits = _pq_eotf(x) * 10000.0
+        if trims is not None:
+            nits = _trims_f64(nits, trims, pq_input=False)
+        x = _pq_oetf(_st2094_10_f64(nits, **hdr_out) / 10000.0)
+    else:
+        x = torch.clamp(x, 0.0, 1.0)
+        if trims is not None:
+            x = _trims_f64(x, trims, pq_input=True)
+        x = _to_sdr_display(_pq_eotf(x) * (10000.0 / sdr_nits))
     return _place(_dither(x, dither_bits), out_w, out_h, video_rect)
 
 
@@ -445,17 +469,119 @@ def _bt2390_f64(rgb: torch.Tensor, max_cll: float, display_max_nits: float,
     return rgb * scale
 
 
+def _luma_f64(rgb: torch.Tensor) -> torch.Tensor:
+    return 0.2627 * rgb[0] + 0.6780 * rgb[1] + 0.0593 * rgb[2]
+
+
+def _guided_f64(rgb: torch.Tensor, display_max_nits: float, peak: float,
+                window) -> torch.Tensor:
+    """The ST 2094-40 guided tone map on (3, H, W) float64 nits: the BT.2020
+    luminance over the scene ``peak`` through the window's curve (linear
+    with slope ky / kx up to the knee, above it ky + (1 - ky) B(t) with
+    B(t) = sum_k C(n, k) t^k (1 - t)^(n - k) P_k, P_0 = 0, the anchors,
+    P_n = 1, t = (x - kx) / (1 - kx)), times the display peak, as a ratio
+    of RGB; no change where the display is at least as bright as the peak."""
+    if display_max_nits >= peak:
+        return rgb
+    kx, ky = float(window.knee_point_x), float(window.knee_point_y)
+    ctrl = [0.0, *(float(a) for a in window.bezier_curve_anchors), 1.0]
+    n = len(ctrl) - 1
+    lum = _luma_f64(rgb)
+    xn = lum / peak
+    x = torch.clamp(xn, 0.0, 1.0)
+    if window.tone_mapping_flag:
+        t = torch.clamp((x - kx) / max(1.0 - kx, 1e-6), 0.0, 1.0)
+        bez = sum(math.comb(n, k) * ctrl[k] * t ** k * (1.0 - t) ** (n - k)
+                  for k in range(n + 1))
+        below = x * (ky / max(kx, 1e-6)) if kx > 0 else torch.zeros_like(x)
+        y = torch.where(x <= kx, below, ky + (1.0 - ky) * bez)
+    else:
+        y = x
+    slope0 = ky / kx if kx > 1e-6 else 1.0
+    scale = torch.where(xn <= max(kx, 1e-6),
+                        slope0 * display_max_nits / peak,
+                        y * display_max_nits
+                        / torch.clamp(xn * peak, min=1e-9))
+    return rgb * scale
+
+
+def _trims_f64(x: torch.Tensor, trims, pq_input: bool) -> torch.Tensor:
+    """The Dolby Vision L2 trims (DolbyVisionTrims,
+    ps_hdr10_tonemap.hlsl:250-263) on (3, H, W) float64: ``trims`` the
+    (chroma weight, saturation gain, slope, offset, power) values; PQ
+    values in and out with ``pq_input``, else nits through the PQ curve."""
+    cw, sat, slope, offset, power = (float(v) for v in trims)
+    c = x if pq_input else _pq_oetf(x / 10000.0)
+    c = torch.pow(torch.clamp(c * slope + offset, min=0.0), power)
+    y = torch.clamp(_luma_f64(c), min=1e-9)
+    c = c * torch.pow(torch.clamp((1.0 + cw) * c / y, min=0.0), sat)
+    return c if pq_input else _pq_eotf(c) * 10000.0
+
+
+def _st2094_10_f64(rgb: torch.Tensor, mastering_min_nits: float,
+                   max_cll: float, max_fall: float,
+                   display_max_nits: float) -> torch.Tensor:
+    """ST209410Tonemap (ps_hdr10_tonemap.hlsl:119-189) on (3, H, W) float64
+    nits: the knee between 10% and 80% of the PQ range, adapted toward the
+    display's, the rational spline through (min, knee, max) solved as a
+    3 x 3 system in float64, applied as a scale of RGB by the mapped over
+    the BT.2020 luminance; no change where the display is at least as bright
+    as MaxCLL."""
+    if display_max_nits >= max_cll:
+        return rgb
+
+    def pq(nits):
+        return _pq_oetf(torch.tensor(nits / 10000.0,
+                                     dtype=torch.float64)).item()
+
+    def nits_of(code):
+        return _pq_eotf(torch.tensor(code, dtype=torch.float64)).item() \
+            * 10000.0
+
+    def smoothstep(e0, e1, x):
+        t = min(max((x - e0) / (e1 - e0), 0.0), 1.0)
+        return t * t * (3.0 - 2.0 * t)
+
+    s_min, s_max, s_avg = pq(mastering_min_nits), pq(max_cll), pq(max_fall)
+    d_min, d_max = pq(0.0), pq(display_max_nits)
+    knee = s_avg if max_fall > 0.0 else s_min + (s_max - s_min) * 0.4
+    knee = min(max(knee, s_min + (s_max - s_min) * 0.1),
+               s_min + (s_max - s_min) * 0.8)
+    target = (knee - s_min) / (s_max - s_min)
+    adapted = d_min + (d_max - d_min) * target
+    tuning = 1.0 - smoothstep(0.8, 0.4, target) * smoothstep(0.1, 0.4, target)
+    adaptation = 0.4 + 0.6 * tuning
+    d_knee = min(max(knee + (adapted - knee) * adaptation,
+                     d_min + (d_max - d_min) * 0.1),
+                 d_min + (d_max - d_min) * 0.8)
+    xs = (mastering_min_nits, nits_of(knee), max_cll)
+    ys = (0.0, nits_of(d_knee), display_max_nits)
+    # y (1 + c3 x) = c1 + c2 x at the three anchors
+    a = np.array([[1.0, xi, -xi * yi] for xi, yi in zip(xs, ys)])
+    c1, c2, c3 = np.linalg.solve(a, np.array(ys))
+    lum = _luma_f64(rgb)
+    mapped = (c1 + c2 * lum) / (1.0 + c3 * lum)
+    return rgb * torch.where(lum > 0.0,
+                             mapped / torch.clamp(lum, min=1e-9), 1.0)
+
+
 def oracle_c7(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
               max_cll: float, display_max_nits: float,
               mastering_max_nits: float = 1000.0, bits_in: int = 16,
               matrix: CSP = CSP.BT_2020_NC, levels: Levels = Levels.TV,
-              dither_bits: int = 10) -> torch.Tensor:
+              dither_bits: int = 10, window=None) -> torch.Tensor:
     """One frame of c7 (4K P010 HDR10 -> the same size in PQ for a display
     of ``display_max_nits``, BT.2390 local tone map of a scene with
     ``max_cll``): ``y`` (H, W), ``u``/``v`` (H/2, W/2) raw 4:2:0 planes.
     Normalise, upsample the chroma bilinearly (MPEG-2 siting), BT.2020 NCL
-    matrix, PQ EOTF to nits, the EETF, PQ OETF, ordered dither.  Returns
-    (3, H, W) float64 codes / (2**dither_bits - 1)."""
+    matrix, PQ EOTF to nits, the EETF, PQ OETF, ordered dither.  With an
+    HDR10+ ``window`` (c7p) the guided curve of :func:`_guided_f64` with
+    ``max_cll`` the scene peak in place of the EETF.  Returns (3, H, W)
+    float64 codes / (2**dither_bits - 1)."""
     nits = _pq_eotf(_convert(y, u, v, bits_in, matrix, levels)) * 10000.0
-    mapped = _bt2390_f64(nits, max_cll, display_max_nits, mastering_max_nits)
+    if window is not None:
+        mapped = _guided_f64(nits, display_max_nits, max_cll, window)
+    else:
+        mapped = _bt2390_f64(nits, max_cll, display_max_nits,
+                             mastering_max_nits)
     return _dither(_pq_oetf(mapped / 10000.0), dither_bits)
