@@ -194,6 +194,39 @@ Phases, one line each:
               trims in nits, then ST 2094-10's general form); >= 55 dB
               against oracle_dovi's HDR output; the checks and numbers of
               phase 30.
+ 32. c5s      api.VideoRenderer(Settings(convert_to_sdr=True,
+              upscaling=LANCZOS3), pack_surface=True) on c5's source with
+              a subtitle provider serving bench_common's 800 x 96 bitmap at
+              (560, 950) at every time: 16 frames pushed with times through
+              process_frame, then flush; K7 x1 + K9 x1 a pushed frame and
+              nothing else; every field bit-equal to DeinterlaceSession.push
+              + ops.overlay.blend_in_rect_packed on the same frames; field 0
+              of frame 0 >= 55 dB against oracle_deint + the float64 blend
+              (oracle.blend_packed_codes); ms a field through the renderer
+              (synced per frame; with the threaded subtitle queue, the
+              render-on-demand one and no overlay), and bench's form
+              (push_batch at batch 16 + the blend on each output) beside
+              phase 14's c5.
+ 33. renderer the headline through the renderer, pack_surface=True: an SRT
+              line (io.srt, TextSubtitleProvider), a 256 x 64 logo bitmap
+              and the stats OSD; 16 frames, each bit-equal to
+              VideoProcessor.process + the blends (the OSD panels the
+              renderer drew), K1 x3 + K2 a frame; rotation 180 bit-equal to
+              the rotated packed dwords + the blends; a changed upscaler
+              rebuilds once and the way back hits the cache; the BGR48
+              displayed image and the source-sized current image; ms a
+              frame, synced, with the overlays and without, and the stats
+              panel's host rasterisation (the digest leaves the panel's
+              rect out: it shows this run's timings).
+ 34. ingest   VideoProcessor.process_packed of 16 frames of 4K P010 bytes
+              and of 4K v210 dwords -> 1080p RGB10: K1 x3 + K2 a call,
+              bit-equal to process(unpack_frame(...).planes) on the card;
+              ms a frame with the host->device copy, packed and planar, and
+              the host unpack's.
+ 35. clip     runner.run_clip of the headline over 4 host (numpy) batches of
+              16 (pinned staging buffers, a side copy stream): K1 x3 + K2 a
+              batch, each output bit-equal to VideoProcessor.process of its
+              batch; frames/s overlapped, and serial (put, compute, sync).
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -245,6 +278,15 @@ from videorenderer_tpu_torch.oracle import (oracle, oracle_c7,  # noqa: E402
 from videorenderer_tpu_torch.ops import (chroma, dovi, dovi_ext,  # noqa: E402
                                          hdr10plus, scale)
 from videorenderer_tpu_torch.ops.tonemap import TRIM_KEYS  # noqa: E402
+from videorenderer_tpu_torch import formats  # noqa: E402
+from videorenderer_tpu_torch.api import VideoRenderer  # noqa: E402
+from videorenderer_tpu_torch.io.srt import parse_srt  # noqa: E402
+from videorenderer_tpu_torch.oracle import blend_packed_codes  # noqa: E402
+from videorenderer_tpu_torch.ops.geometry import rotate_flip  # noqa: E402
+from videorenderer_tpu_torch.ops.overlay import blend_in_rect_packed  # noqa: E402
+from videorenderer_tpu_torch.runner import run_clip  # noqa: E402
+from videorenderer_tpu_torch.subtitles import (SubPic,  # noqa: E402
+                                               TextSubtitleProvider)
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
                                               _make_tail_epilogue,
                                               cmat_epilogue, fused_maps,
@@ -270,6 +312,17 @@ C8_RECT = (320, 180, 1600, 900)           # c8 into a rect of the 1080p surface
 C8_SCENES = 4
 C7_SCENES = 4
 HDR_SCENES = 2                            # scenes of each of phases 29-31
+# c5s's subtitle band: 800 x 96 at (560, 950) (bench_common.py:30)
+SUB_W, SUB_H, SUB_X, SUB_Y = 800, 96, 560, 950
+# phase 33's overlays on the headline: an SRT line, a logo, the stats OSD
+SRT_XY = (480, 880)
+LOGO_W, LOGO_H, LOGO_XY = 256, 64, (1600, 40)
+SRT_TEXT = """1
+00:00:00,000 --> 00:01:00,000
+<i>The port draws this line</i>
+on the packed backbuffer
+"""
+CLIP_BATCHES = 4                          # phase 35: host batches of BATCH
 # the card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1331,6 +1384,381 @@ def offset_tail_phases(dev) -> dict:
     line("shader", batch=BATCH, launches=n_h, psnr_db=db_h,
          ms_per_frame=ms_h, digest=shader_digest, **sh,
          tolerance="K1 f32 <= 2e-5; K2 float out with a correction <= 2e-4")
+    torch.cuda.empty_cache()
+    return res
+
+
+def subtitle_overlay():
+    """bench_common.subtitle_overlay(): a deterministic subtitle-style
+    bitmap, rgb 0.95 and alpha 0.85 on about 55% of its pixels."""
+    rng = np.random.default_rng(99)
+    rgb = np.ones((3, SUB_H, SUB_W), np.float32) * 0.95
+    alpha = (rng.random((SUB_H, SUB_W)) > 0.45).astype(np.float32) * 0.85
+    return rgb, alpha
+
+
+class FixedSubtitle:
+    """A subtitle provider that serves one bitmap at every time."""
+
+    def __init__(self, rgb, alpha, x: int, y: int):
+        self.pics = [SubPic(rgb=rgb, alpha=alpha, x=x, y=y, start=0.0,
+                            stop=float("inf"))]
+
+    def render(self, t: float) -> list:
+        return self.pics
+
+    def next_change(self, t: float):
+        return None
+
+
+@contextlib.contextmanager
+def osd_recording():
+    """Keep every stats panel the renderer draws: (rgb, alpha) in order,
+    and the host ms each took to rasterise (``kept.ms``)."""
+    from videorenderer_tpu_torch import osd
+
+    class Kept(list):
+        ms: list
+
+    kept, real = Kept(), osd.render_stats_overlay
+    kept.ms = []
+
+    def keep(*a, **kw):
+        t0 = time.perf_counter()
+        kept.append(real(*a, **kw))
+        kept.ms.append((time.perf_counter() - t0) * 1e3)
+        return kept[-1]
+
+    osd.render_stats_overlay = keep
+    try:
+        yield kept
+    finally:
+        osd.render_stats_overlay = real
+
+
+def p010_bytes(planes) -> np.ndarray:
+    """(B, H, W) / (B, H/2, W/2) uint16 planes -> (B, n_words) P010
+    buffers: the luma rows, then the interleaved chroma rows."""
+    y, u, v = (np.ascontiguousarray(p) for p in planes)
+    uv = np.stack([u, v], -1).reshape(y.shape[0], -1)
+    return np.concatenate([y.reshape(y.shape[0], -1), uv], axis=1)
+
+
+def v210_dwords(batch: int, seed: int, dev) -> np.ndarray:
+    """(B, H * row_dwords) uint32 v210 frames of TV-range 10-bit codes,
+    drawn on ``dev`` from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    row = ((W + 47) // 48) * 32
+    c = torch.randint(64, 941, (batch, H * row, 3), generator=g,
+                      device=dev, dtype=torch.int32)
+    d = c[..., 0] | (c[..., 1] << 10) | (c[..., 2] << 20)
+    return d.cpu().numpy().view(np.uint32)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean ms of ``fn()`` on the host clock, synced, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def renderer_phases(dev, c5_ms_per_field: float) -> dict:
+    """Phases 32-35: the entry points a player drives.  c5s and the
+    headline through api.VideoRenderer with overlays on the packed surface,
+    device ingest (VideoProcessor.process_packed of P010 and v210 bytes)
+    and the overlapped clip runner.  Every output is held bit-equal to the
+    functions the entry point composes.  Returns each phase's launches."""
+    res = {"launches": {}}
+    src, dst = headline_args()
+    t_phase = time.perf_counter()
+
+    # 32. c5s: VideoRenderer on c5's interlaced source with a subtitle on
+    #     every field, 16 frames pushed one at a time, then flush; K7 x1 +
+    #     K9 x1 a pushed frame; each field bit-equal to the session + the
+    #     packed blend
+    settings5, src5, dst5 = c5_args()
+    rgb, alpha = subtitle_overlay()
+    vr = VideoRenderer(Settings(convert_to_sdr=True,
+                                upscaling=Upscaling.LANCZOS3),
+                       pack_surface=True, device=dev)
+    vr.open(src5, dst5)
+    vr.set_subtitle_provider(FixedSubtitle(rgb, alpha, SUB_X, SUB_Y))
+    frames = p010_batch(BATCH, SEED + 110, dev)
+
+    def push_all():
+        outs = []
+        for i in range(BATCH):
+            outs += vr.process_frame(tuple(p[i] for p in frames),
+                                     time=i / 50.0)
+        return outs + vr.flush()
+
+    fields, n32 = count_launches(push_all)
+    res["launches"]["c5s"] = n32
+    if n32 != only(deint3_rows_dual=BATCH, cols3_tail=BATCH):
+        raise AssertionError(f"c5s launches {n32}")
+    if len(fields) != 2 * BATCH or any(
+            f.shape != (OH, OW) or f.dtype != torch.int32 for f in fields):
+        raise AssertionError(f"c5s gave {len(fields)} fields "
+                             f"{tuple(fields[0].shape)}")
+    if (vr._plan.settings, vr._plan.dst) != (settings5, dst5):
+        raise AssertionError("c5s: the renderer's plan is not c5's")
+    rgb_d, a_d = (torch.as_tensor(a, device=dev) for a in (rgb, alpha))
+
+    def sub(o):
+        return blend_in_rect_packed(o, rgb_d, a_d, x=SUB_X, y=SUB_Y,
+                                    fmt="rgba8")
+
+    sess = DeinterlaceSession(vr._plan, pack_surface=True, device=dev)
+    ref = []
+    for i in range(BATCH):
+        ref += sess.push(tuple(p[i] for p in frames))
+    ref += sess.flush()
+    equal32 = len(ref) == len(fields) and all(
+        torch.equal(f, sub(r)) for f, r in zip(fields, ref))
+    f0 = tuple(p[0] for p in frames)
+    f1 = tuple(p[1] for p in frames)
+    db32 = psnr(codes(fields[0], 8).double() / 255.0, blend_packed_codes(
+        oracle_deint(f0, f0, f1, OW, OH, field=0), rgb, alpha, SUB_X, SUB_Y,
+        8))
+    digest32 = digest(*fields)
+    del fields, ref, sess
+    if not equal32 or db32 < 55.0:
+        raise AssertionError(f"c5s: fields bit-equal {equal32}, PSNR {db32}")
+    def renderer_ms(**queue) -> float:
+        """ms a field through the renderer (a fresh window, synced per
+        frame), with the subtitle queue ``queue`` gives or none."""
+        vr.set_subtitle_provider(
+            FixedSubtitle(rgb, alpha, SUB_X, SUB_Y) if queue else None,
+            **queue)
+        vr.open(src5, dst5)
+        t0 = time.perf_counter()
+        n = len(push_all())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    renderer = {"threaded_queue": renderer_ms(threaded=True),
+                "render_on_demand_queue": renderer_ms(threaded=False),
+                "no_overlay": renderer_ms()}
+    # bench's form: push_batch at batch 16, the blend on each output
+    sess_b = DeinterlaceSession(vr._plan, pack_surface=True, device=dev)
+    sess_b.push_batch(frames)
+    ms_blend = cuda_ms(lambda: [sub(o) for o in sess_b.push_batch(frames)],
+                       reps=4) / (2 * BATCH)
+    ms_bare = cuda_ms(lambda: sess_b.push_batch(frames), reps=4) / (2 * BATCH)
+    outs16 = sess_b.push_batch(frames)
+    blend_only = cuda_ms(lambda: sub(outs16[0])) / BATCH
+    del outs16, sess_b
+    line("c5s", seconds=time.perf_counter() - t_phase, frames=BATCH,
+         fields=2 * BATCH, launches=n32,
+         fields_bit_equal_session_blend=equal32, psnr_db_field0=db32,
+         overlay=[SUB_W, SUB_H, SUB_X, SUB_Y], digest=digest32,
+         renderer_ms_per_field=renderer, bench_ms_per_field=ms_blend,
+         bench_ms_per_field_no_overlay=ms_bare,
+         blend_ms_per_field=blend_only,
+         c5_ms_per_field_phase14=c5_ms_per_field)
+    vr.set_subtitle_provider(None)
+    del vr
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # 33. the headline through the renderer: an SRT line through io.srt, a
+    #     logo bitmap and the stats OSD on the packed RGB10 surface; each of
+    #     16 frames bit-equal to VideoProcessor.process + the blends, K1 x3
+    #     + K2 a frame; then rotation 180, a changed upscaler and back,
+    #     the screenshots
+    settings = dataclasses.replace(headline_settings(True), show_stats=True)
+    vr = VideoRenderer(settings, pack_surface=True, device=dev)
+    vr.open(src, dst)
+    events = parse_srt(SRT_TEXT)
+    for e in events:
+        e.x, e.y = SRT_XY
+    vr.set_subtitle_provider(TextSubtitleProvider(events, size=32))
+    rng = np.random.default_rng(SEED + 120)
+    logo = (rng.random((3, LOGO_H, LOGO_W)).astype(np.float32),
+            np.full((LOGO_H, LOGO_W), 0.7, np.float32))
+    vr.set_alpha_bitmap(*logo, *LOGO_XY)
+    vp = VideoProcessor(settings, src, dst, device=dev, pack_surface=True)
+    sub_pic, = TextSubtitleProvider(events, size=32).render(0.5)
+    ovs = [(torch.as_tensor(sub_pic.rgb, device=dev),
+            torch.as_tensor(sub_pic.alpha, device=dev), *SRT_XY),
+           (torch.as_tensor(logo[0], device=dev),
+            torch.as_tensor(logo[1], device=dev), *LOGO_XY)]
+
+    def blends(out, panel):
+        for orgb, oa, x, y in ovs:
+            out = blend_in_rect_packed(out, orgb, oa, x=x, y=y,
+                                       fmt="rgb10a2")
+        prgb, pa = panel
+        h, w = min(pa.shape[0], OH - 8), min(pa.shape[1], OW - 8)
+        return blend_in_rect_packed(
+            out, torch.as_tensor(prgb[:, :h, :w], device=dev),
+            torch.as_tensor(pa[:h, :w], device=dev), x=8, y=8,
+            fmt="rgb10a2")
+
+    frames = p010_batch(BATCH, SEED + 121, dev)
+    one = [tuple(p[i] for p in frames) for i in range(BATCH)]
+    ms33 = []
+
+    def render_all():
+        outs = []
+        for i, f in enumerate(one):
+            t0 = time.perf_counter()
+            outs.append(vr.process_frame(f, time=0.5 + i / 24.0))
+            ms33.append((time.perf_counter() - t0) * 1e3)
+        return outs
+
+    with osd_recording() as panels:
+        outs33, n33 = count_launches(render_all)
+    res["launches"]["renderer"] = n33
+    if n33 != only(banded_resize_last_axis=3 * BATCH, rows3_tail=BATCH):
+        raise AssertionError(f"renderer launches {n33}")
+    equal33 = len(panels) == BATCH and all(
+        o.shape == (OH, OW) and torch.equal(o, blends(vp.process(f), pnl))
+        for o, f, pnl in zip(outs33, one, panels))
+    osd_ms = float(np.median(panels.ms[1:]))
+
+    def no_panel(o, pnl):
+        """The output with the stats panel's rect zeroed: the panel shows
+        this run's timings, the rest of the surface is deterministic."""
+        o = o.clone()
+        o[8:8 + min(pnl[1].shape[0], OH - 8),
+          8:8 + min(pnl[1].shape[1], OW - 8)] = 0
+        return o
+
+    digest33 = digest(*(no_panel(o, p) for o, p in zip(outs33, panels)))
+    del outs33
+    # rotation 180: the in-kernel pack kept, the packed dwords rotated
+    vr.flt_set("rotation", 180)
+    with osd_recording() as panels:
+        rot = vr.process_frame(one[0], time=0.5)
+    rot_equal = bool(torch.equal(rot, blends(
+        rotate_flip(vp.process(one[0]), 180), panels[0])))
+    vr.flt_set("rotation", 0)
+    # a changed upscaler rebuilds once; the way back is a cache hit
+    fn0, n_cache = vr._fn, len(vr._fn_cache)
+    vr.set_settings(dataclasses.replace(settings,
+                                        upscaling=Upscaling.CATMULL_ROM))
+    rebuilt = vr._fn is not fn0 and len(vr._fn_cache) == n_cache + 1
+    vr.set_settings(settings)
+    cache_hit = vr._fn is fn0 and len(vr._fn_cache) == n_cache + 1
+    disp = vr.get_displayed_image()
+    bgr48_ok = (disp.shape == (OH, OW, 3) and disp.dtype == np.uint16
+                and np.array_equal(disp, formats.rgb10_dwords_to_bgr48(
+                    vr._last_output.cpu().numpy().view(np.uint32))))
+    cur = vr.get_current_image()
+    shot_fn = vr._shot_cache[1]
+    cur_ok = (cur.shape == (H, W, 3) and cur.dtype == np.uint8
+              and np.array_equal(vr.get_current_image(), cur)
+              and vr._shot_cache[1] is shot_fn)
+    if not (equal33 and rot_equal and rebuilt and cache_hit and bgr48_ok
+            and cur_ok):
+        raise AssertionError(
+            f"renderer: bit-equal {equal33}, rotation {rot_equal}, rebuild "
+            f"{rebuilt}, cache hit {cache_hit}, BGR48 {bgr48_ok}, current "
+            f"image {cur_ok}")
+    # the same frames with no overlay: what the overlays cost a frame
+    vr.set_subtitle_provider(None)
+    vr.set_alpha_bitmap(None, None)
+    vr.flt_set("statsEnable", False)
+    bare = []
+    for i, f in enumerate(one):
+        t0 = time.perf_counter()
+        vr.process_frame(f, time=0.5 + i / 24.0)
+        bare.append((time.perf_counter() - t0) * 1e3)
+    line("renderer", seconds=time.perf_counter() - t_phase, frames=BATCH,
+         launches=n33,
+         outputs_bit_equal_process_blends=equal33,
+         rotation180_bit_equal=rot_equal, upscaler_change_rebuilt=rebuilt,
+         upscaler_back_cache_hit=cache_hit, displayed_image_bgr48=bgr48_ok,
+         current_image_source_size=cur_ok, digest=digest33,
+         ms_per_frame_synced_median=float(np.median(ms33[1:])),
+         ms_per_frame_synced_p90=float(np.percentile(ms33[1:], 90)),
+         ms_per_frame_no_overlay_median=float(np.median(bare[1:])),
+         osd_raster_ms_median=osd_ms, overlays=["srt", "logo", "stats"])
+    del vr, one, frames
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # 34. ingest: process_packed of 16 frames of 4K P010 and of v210 bytes
+    #     -> 1080p RGB10, each bit-equal to process(unpack_frame(...)) on
+    #     the card; ms a frame with the host->device copy, packed and planar
+    ingest = {}
+    v210_src = dataclasses.replace(src, format=ColorFormat.V210)
+    for name, s, bufs in (
+            ("p010", src, p010_bytes(tuple(
+                p.cpu().numpy() for p in p010_batch(BATCH, SEED + 130,
+                                                    "cpu")))),
+            ("v210", v210_src, v210_dwords(BATCH, SEED + 131, dev))):
+        vpi = VideoProcessor(headline_settings(True), s, dst, device=dev,
+                             pack_surface=True)
+        packed, n = count_launches(lambda: vpi.process_packed(bufs))
+        res["launches"][f"ingest_{name}"] = n
+        t0 = time.perf_counter()
+        host = [formats.unpack_frame(s.format, b.tobytes(), W, H).planes
+                for b in bufs]
+        unpack_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+        planar = tuple(np.stack(p) for p in zip(*host))
+        del host
+        equal = bool(torch.equal(packed, vpi.process(planar)))
+        ingest[name] = {
+            "launches": n, "bit_equal_process_unpack_frame": equal,
+            "digest": digest(packed),
+            "packed_ms_per_frame": host_ms(
+                lambda: vpi.process_packed(bufs)) / BATCH,
+            "planar_ms_per_frame": host_ms(
+                lambda: vpi.process(planar)) / BATCH,
+            "host_unpack_ms_per_frame": unpack_ms,
+            "packed_mb_per_frame": bufs[0].nbytes / 1e6,
+            "planar_mb_per_frame": sum(p[0].nbytes for p in planar) / 1e6}
+        del packed, planar, bufs, vpi
+        if n != only(banded_resize_last_axis=3, rows3_tail=1) or not equal:
+            raise AssertionError(f"ingest {name}: {ingest[name]}")
+    line("ingest", seconds=time.perf_counter() - t_phase, frames=BATCH,
+         **ingest)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # 35. clip: run_clip of the headline over 4 host batches of 16 (pinned
+    #     staging, a side copy stream), each output bit-equal to
+    #     VideoProcessor.process of its batch; frames/s overlapped and
+    #     serial (put, compute, sync)
+    vp = VideoProcessor(headline_settings(True), src, dst, device=dev,
+                        pack_surface=True)
+    host = [tuple(p.cpu().numpy() for p in p010_batch(BATCH, SEED + 140 + k,
+                                                        "cpu"))
+            for k in range(CLIP_BATCHES)]
+    clip, n35 = count_launches(lambda: run_clip(vp.process, host,
+                                                device=dev))
+    res["launches"]["clip"] = n35
+    equal35 = clip.frames == CLIP_BATCHES * BATCH and all(
+        torch.equal(o, vp.process(b)) for o, b in zip(clip.outputs, host))
+    digest35 = digest(*clip.outputs)
+    del clip
+    fps_overlapped = run_clip(vp.process, host, device=dev).fps
+
+    def serial():
+        for b in host:
+            planes = tuple(torch.as_tensor(p, device=dev) for p in b)
+            torch.cuda.synchronize()
+            vp.process(planes)
+            torch.cuda.synchronize()
+
+    serial()
+    t0 = time.perf_counter()
+    serial()
+    fps_serial = CLIP_BATCHES * BATCH / (time.perf_counter() - t0)
+    if n35 != only(banded_resize_last_axis=3 * CLIP_BATCHES,
+                   rows3_tail=CLIP_BATCHES) or not equal35:
+        raise AssertionError(f"clip: launches {n35}, bit-equal {equal35}")
+    line("clip", seconds=time.perf_counter() - t_phase,
+         batches=CLIP_BATCHES, batch=BATCH, launches=n35,
+         outputs_bit_equal_process=equal35, digest=digest35,
+         fps_overlapped=fps_overlapped, fps_serial=fps_serial)
+    del host, vp
     torch.cuda.empty_cache()
     return res
 
@@ -2625,9 +3053,12 @@ def main() -> None:
     # 29-31: HDR10+ (the guided curve) and the Dolby Vision extension
     # blocks (the L2 trims), on K2's and K9's runtime routes
     hdr = hdr_dynamic_phases(dev)
+    # 32-35: c5s and the headline through the renderer facade, device
+    # ingest and the clip runner
+    ren = renderer_phases(dev, ms_field)
 
     def new_launches(name):
-        return sum(n[name] for phases in (new, hdr)
+        return sum(n[name] for phases in (new, hdr, ren)
                    for n in phases["launches"].values())
 
     def entry(name, source, replaces, n, k, err):

@@ -36,7 +36,11 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
    flags), and within their kernel's band of the plain version on maps
    only they take; a placed K2 or K9 output bit-equal inside its rect to
    the unplaced output, every bar the packed zero (or float zeros);
- * K2, K9 and K4 with the SDR BT.2020 fix as K2 with a correction above.
+ * K2, K9 and K4 with the SDR BT.2020 fix as K2 with a correction above;
+ * the renderer facade (``api.VideoRenderer``) on the card against the same
+   renderer on the CPU as K2/K9 (1 code on < 2%), its overlays included;
+   ``process_packed`` bit-equal to ``process`` of the host-unpacked planes
+   on the card, and ``run_clip`` bit-equal to ``process`` of each batch.
 """
 
 import numpy as np
@@ -2187,3 +2191,101 @@ def test_new_paths_on_card_match_cpu(dev, case, monkeypatch):
     assert got.shape == ref.shape
     d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
     assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def _renderer(device, pack=True, interlaced=False):
+    """A small headline-shaped renderer (P010 PQ -> SDR RGB10, or c5's
+    P010 HLG interlaced source -> RGBA8) with a subtitle and an alpha
+    bitmap."""
+    from videorenderer_tpu_torch.api import VideoRenderer
+    from videorenderer_tpu_torch.subtitles import (TextEvent,
+                                                   TextSubtitleProvider)
+    vr = VideoRenderer(C.Settings(convert_to_sdr=True,
+                                  upscaling=C.Upscaling.LANCZOS3),
+                       pack_surface=pack, device=device)
+    transfer = S.TRC.HLG if interlaced else S.TRC.PQ
+    vr.open(P.SourceDescriptor(format=ColorFormat.P010, width=256, height=128,
+                               matrix=S.CSP.BT_2020_NC, levels=S.Levels.TV,
+                               primaries=S.Primaries.BT_2020,
+                               transfer=transfer, interlaced=interlaced,
+                               hdr10=P.HDR10Metadata()),
+            P.OutputDescriptor(width=128, height=64,
+                               bits=8 if interlaced else 10))
+    vr.set_subtitle_provider(TextSubtitleProvider(
+        [TextEvent(0.0, 5.0, "Sub", x=4, y=40)], size=12), threaded=False)
+    vr.set_alpha_bitmap(np.full((3, 8, 12), 0.8, np.float32),
+                        np.full((8, 12), 0.5, np.float32), x=100, y=2)
+    return vr
+
+
+@pytest.mark.parametrize("interlaced", [False, True],
+                         ids=["headline", "c5s"])
+def test_renderer_on_card_matches_cpu(dev, interlaced):
+    """The facade on the card (K1 x3 + K2 a frame, or K7 + K9 a pushed
+    frame), overlays on the packed surface, against the CPU renderer."""
+    rng = np.random.default_rng(31)
+    frames = [tuple(p[0] for p in _p010(rng, 1, 256, 128)) for _ in range(3)]
+    outs = {}
+    for device in ("cpu", dev):
+        vr = _renderer(device, interlaced=interlaced)
+        rk.reset_launches()
+        got = []
+        for i, f in enumerate(frames):
+            o = vr.process_frame(tuple(p.numpy() for p in f), time=i / 25)
+            got += o if interlaced else [o]
+        got += vr.flush()
+        if device != "cpu":
+            want = (only(deint3_rows_dual=3, cols3_tail=3) if interlaced
+                    else only(banded_resize_last_axis=9, rows3_tail=3))
+            assert rk.launches == want
+            assert "CUDA kernels (sm_90a)" in vr.get_video_processor_info()
+        outs[str(device)] = got
+    fmt = "rgba8" if interlaced else "rgb10a2"
+    assert len(outs["cpu"]) == len(outs[str(dev)]) > 0
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        assert b.device.type == "cuda" and a.shape == b.shape
+        d = np.abs(_codes(a, fmt) - _codes(b, fmt))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+@pytest.mark.parametrize("fmt", [ColorFormat.P010, ColorFormat.V210,
+                                 ColorFormat.R210, ColorFormat.B64A,
+                                 ColorFormat.YUY2, ColorFormat.YV12])
+def test_process_packed_on_card(dev, fmt):
+    """The packed bytes unpacked on the card: the planes equal the host
+    unpack_frame's, and process_packed is bit-equal to process of those."""
+    from videorenderer_tpu_torch import formats as F
+    from videorenderer_tpu_torch.kernels import unpack_device as ud
+    w, h = 96, 32
+    info = F.get_format_info(fmt)
+    nbytes = sum(r * t for r, t, _ in F.plane_segments(info, w, h))
+    raw = np.random.default_rng(int(fmt)).integers(
+        0, 256, nbytes, dtype=np.uint8).tobytes()
+    host = F.unpack_frame(fmt, raw, w, h).planes
+    vp = P.VideoProcessor(C.Settings(), P.SourceDescriptor(
+        format=fmt, width=w, height=h, matrix=S.CSP.BT_709),
+        P.OutputDescriptor(width=64, height=24, bits=10), device=dev,
+        pack_surface=True)
+    if ud.has_device_unpacker(info.name):
+        buf = torch.from_numpy(np.frombuffer(
+            raw, ud.DEVICE_BUFFER_DTYPE[info.name]).copy()).to(dev)
+        for a, b in zip(ud.unpack_frame_device(info.name, buf, w, h), host):
+            assert a.device.type == "cuda"
+            assert np.array_equal(a.cpu().numpy(), b)
+    assert torch.equal(vp.process_packed(raw), vp.process(host))
+
+
+def test_run_clip_on_card(dev):
+    """Four host batches through pinned staging and a side copy stream:
+    each output bit-equal to process of its batch."""
+    from videorenderer_tpu_torch.runner import run_clip
+    rng = np.random.default_rng(41)
+    plan = _small_plan(w=256, h=128, ow=128, oh=64)
+    vp = P.VideoProcessor(plan.settings, plan.src, plan.dst, device=dev,
+                          pack_surface=True)
+    batches = [tuple(p.numpy() for p in _p010(rng, 4, 256, 128))
+               for _ in range(4)]
+    res = run_clip(vp.process, batches, device=dev)
+    assert res.frames == 16 and len(res.outputs) == 4
+    for out, b in zip(res.outputs, batches):
+        assert torch.equal(out, vp.process(b))

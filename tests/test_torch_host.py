@@ -408,7 +408,12 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.ops.deinterlace, "
             "videorenderer_tpu_torch.ops.dovi, "
             "videorenderer_tpu_torch.runner, "
-            "videorenderer_tpu_torch.ops.geometry; "
+            "videorenderer_tpu_torch.ops.geometry, "
+            "videorenderer_tpu_torch.api, videorenderer_tpu_torch.stats, "
+            "videorenderer_tpu_torch.osd, videorenderer_tpu_torch.subtitles, "
+            "videorenderer_tpu_torch.io.srt, videorenderer_tpu_torch.io.native, "
+            "videorenderer_tpu_torch.ops.overlay, "
+            "videorenderer_tpu_torch.kernels.unpack_device; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('videorenderer_tpu.') or m == 'videorenderer_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -22,26 +22,41 @@ same functions run their plain PyTorch versions.  This package imports torch and
     serve = make_serving_fn(plan_pipeline(settings, dovi_src, dst),
                             pack_surface=True)
     surface = serve((y, u, v), {"dovi_curves": serve.pack_curves(scene)})
+
+    vr = VideoRenderer(settings, pack_surface=True, device="cuda")
+    vr.open(src, dst)
+    vr.set_subtitle_provider(load_srt("movie.srt"))
+    surface = vr.process_frame((y, u, v), time=12.5)
+
+The renderer facade (:class:`~.api.VideoRenderer`) composites subtitles, an
+alpha bitmap and the stats OSD on the surface; ``VideoProcessor.process_packed``
+unpacks packed frame bytes on the device and :func:`~.runner.run_clip`
+streams host batches with the copies overlapped.
 """
 
 from .config import (ChromaScaling, Deinterlacing, Downscaling, Settings,
                      SuperResolution, SwapEffect, TexFormat, ToneMapType,
                      Upscaling)
 from .csputils import CSP, ChromaLocation, Levels, Primaries, TRC
-from .formats import ColorFormat, get_format_info
+from .formats import ColorFormat, PlanarFrame, get_format_info, unpack_frame
 from .pipeline import (HDR10Metadata, OutputDescriptor, OutputSignalInfo,
                        SourceDescriptor, VideoProcessor, make_deint_fields_fn,
                        make_deint_frame_fn, make_frame_fn, make_serving_fn,
                        output_signal_info, plan_pipeline)
-from .runner import DeinterlaceSession
+from .runner import DeinterlaceSession, run_clip
+
+__version__ = "0.3.0"
+
+from .api import VideoRenderer  # noqa: E402  (needs __version__ above)
 
 __all__ = [
     "CSP", "ChromaLocation", "ChromaScaling", "ColorFormat", "Deinterlacing",
     "DeinterlaceSession", "Downscaling", "HDR10Metadata", "Levels",
-    "OutputDescriptor", "OutputSignalInfo", "Primaries", "Settings",
-    "SourceDescriptor",
+    "OutputDescriptor", "OutputSignalInfo", "PlanarFrame", "Primaries",
+    "Settings", "SourceDescriptor",
     "SuperResolution", "SwapEffect", "TRC", "TexFormat", "ToneMapType",
-    "Upscaling", "VideoProcessor", "get_format_info", "make_deint_fields_fn",
-    "make_deint_frame_fn", "make_frame_fn", "make_serving_fn",
-    "output_signal_info", "plan_pipeline",
+    "Upscaling", "VideoProcessor", "VideoRenderer", "get_format_info",
+    "make_deint_fields_fn", "make_deint_frame_fn", "make_frame_fn",
+    "make_serving_fn", "output_signal_info", "plan_pipeline", "run_clip",
+    "unpack_frame",
 ]

@@ -6,8 +6,13 @@ The registry is a port of the reference's ``ColorFormat_t`` enum
 ``videorenderer_tpu.formats``.  Frames arrive as **canonical planar
 textures**: 2D ``uint8`` or ``uint16`` planes, 10-bit data MSB-aligned into
 16 bits, normalised by 255 / 65535 on the device like D3D UNORM sampling.
-The host-side unpackers of packed formats are not ported yet (ROADMAP:
-device ingest).
+
+The host half is a numpy copy of the JAX package's: :class:`PlanarFrame`,
+:func:`unpack_frame` (the SIMD copiers' analogue, through the native
+library of :mod:`.io.native` where it is built, numpy otherwise), pitched
+and bottom-up buffers (:func:`repitch`), and the screenshot packers
+(``pack_rgb8``/``pack_rgb10``/``pack_rgb16``, ``rgb10_dwords_to_bgr48``).
+The device unpackers are :mod:`.kernels.unpack_device`.
 """
 
 from __future__ import annotations
@@ -168,7 +173,368 @@ def get_format_info(fmt: ColorFormat) -> FormatInfo:
     return FORMATS[fmt]
 
 
-# decoders of the packed output surfaces (the pipeline's pack_surface output)
+@dataclass
+class PlanarFrame:
+    """Canonical unpacked frame: planes in texture representation.
+
+    ``planes`` are 2D numpy arrays, uint8 or uint16, ordered (Y,U,V), (R,G,B)
+    or (Y,) per the format's color system.  Values follow D3D UNORM texture
+    semantics — normalize by ``2**info.plane_bits - 1`` on device.
+    """
+
+    info: FormatInfo
+    width: int
+    height: int
+    planes: tuple[np.ndarray, ...]
+
+
+# ---------------------------------------------------------------------------
+# unpackers (host side; numpy-vectorized analogues of the SIMD copiers)
+# ---------------------------------------------------------------------------
+
+def _as_u8(buf: bytes | np.ndarray) -> np.ndarray:
+    a = np.frombuffer(buf, dtype=np.uint8) if isinstance(buf, (bytes, bytearray, memoryview)) else buf
+    return a.reshape(-1).view(np.uint8)
+
+
+def _shift10to16(p: np.ndarray) -> np.ndarray:
+    """10-bit LSB data -> MSB-aligned 16-bit (CopyPlane10to16, value << 6)."""
+    return (p.astype(np.uint16) << 6)
+
+
+def _unpack_biplanar(buf, w, h, dtype, div_h):
+    a = _as_u8(buf).view(dtype)
+    y = a[: w * h].reshape(h, w)
+    ch = h // div_h
+    uv = a[w * h: w * h + w * ch].reshape(ch, w // 2, 2)
+    return y, uv[..., 0], uv[..., 1]
+
+
+def _unpack_planar(buf, w, h, dtype, div_w, div_h, order=(0, 1, 2)):
+    a = _as_u8(buf).view(dtype)
+    cw, ch = w // div_w, h // div_h
+    p0 = a[: w * h].reshape(h, w)
+    p1 = a[w * h: w * h + cw * ch].reshape(ch, cw)
+    p2 = a[w * h + cw * ch: w * h + 2 * cw * ch].reshape(ch, cw)
+    planes = [p0, p1, p2]
+    return tuple(planes[i] for i in order)
+
+
+# ---------------------------------------------------------------------------
+# pitched (strided) buffers — real decoder output pads rows to alignment
+# boundaries; the reference negotiates the pitch and every copier honors it
+# (srcPitch through GetCopyPlaneFunction, Source/Helper.cpp:377-428;
+# per-plane pitch rules in MemCopyToTexSrcVideo,
+# Source/DX11VideoProcessor.cpp:1213-1252)
+# ---------------------------------------------------------------------------
+
+# formats whose buffer is luma rows followed by interleaved-chroma rows at
+# the same pitch
+_BIPLANAR = frozenset({ColorFormat.NV12, ColorFormat.P010, ColorFormat.P016,
+                       ColorFormat.P210, ColorFormat.P216})
+# three separate planes; chroma pitch = luma pitch / div_chroma_w
+_PLANAR3 = frozenset({
+    ColorFormat.YV12, ColorFormat.YV16, ColorFormat.YV24,
+    ColorFormat.YUV420P8, ColorFormat.YUV422P8, ColorFormat.YUV444P8,
+    ColorFormat.YUV420P10, ColorFormat.YUV420P16,
+    ColorFormat.YUV422P10, ColorFormat.YUV422P16,
+    ColorFormat.YUV444P10, ColorFormat.YUV444P16,
+    ColorFormat.GBRP8, ColorFormat.GBRP10, ColorFormat.GBRP16,
+})
+
+
+def plane_segments(info: FormatInfo, w: int, h: int) -> list[tuple[int, int, int]]:
+    """Pitched-buffer row structure: [(rows, tight_row_bytes, pitch_div)]
+    per stored plane, where a segment's actual pitch is the negotiated luma
+    pitch // pitch_div (the MemCopyToTexSrcVideo rules)."""
+    f = info.cformat
+    it = int(info.pack_size)
+    if f in _BIPLANAR:
+        dh = info.chroma_div[1]
+        return [(h, w * it, 1), (h // dh, w * it, 1)]
+    if f in _PLANAR3:
+        dw, dh = info.chroma_div
+        cw, ch = w // dw, h // dh
+        return [(h, w * it, 1), (ch, cw * it, dw), (ch, cw * it, dw)]
+    if f == ColorFormat.V210:
+        return [(h, ((w + 47) // 48) * 128, 1)]
+    return [(h, int(w * info.pack_size), 1)]
+
+
+def default_pitch(info: FormatInfo, w: int) -> int:
+    """Tightly-packed luma/packed-row pitch in bytes."""
+    return plane_segments(info, w, 1)[0][1]
+
+
+def repitch(fmt: ColorFormat, buf, w: int, h: int, pitch: int) -> np.ndarray:
+    """Strip row padding from a pitched frame buffer -> tightly-packed bytes
+    the unpackers consume.  Negative pitch = bottom-up rows (DIB RGB
+    convention; the reference starts at ``srcData + srcPitch*(1 - lines)``,
+    Source/DX11VideoProcessor.cpp:1245-1248)."""
+    info = FORMATS[fmt]
+    a = _as_u8(buf)
+    segs = plane_segments(info, w, h)
+    if pitch < 0:
+        if len(segs) != 1:
+            raise ValueError("negative (bottom-up) pitch is only defined "
+                             "for packed single-plane formats")
+        rows, tight, _ = segs[0]
+        p = -pitch
+        if p < tight:
+            raise ValueError(f"|pitch| {p} < row size {tight}")
+        if a.size < p * (rows - 1) + tight:
+            raise ValueError("buffer too small for pitched frame")
+        view = np.lib.stride_tricks.as_strided(a, shape=(rows, tight),
+                                               strides=(p, 1))
+        return np.ascontiguousarray(view[::-1]).reshape(-1)
+    parts = []
+    off = 0
+    for rows, tight, div in segs:
+        p = pitch // div
+        if p < tight:
+            raise ValueError(f"pitch {pitch} too small: plane rows need "
+                             f"{tight * div} bytes")
+        if a.size < off + p * (rows - 1) + tight:
+            raise ValueError("buffer too small for pitched frame")
+        view = np.lib.stride_tricks.as_strided(a[off:], shape=(rows, tight),
+                                               strides=(p, 1))
+        parts.append(np.ascontiguousarray(view).reshape(-1))
+        off += p * rows
+    return np.concatenate(parts)
+
+
+def pitched_buffer_size(fmt: ColorFormat, w: int, h: int, pitch: int) -> int:
+    """Total bytes of one frame at the given luma pitch."""
+    return sum((abs(pitch) // div) * rows
+               for rows, _, div in plane_segments(FORMATS[fmt], w, h))
+
+
+# Native (C++) repack acceleration — the SIMD-copier dispatch analogue.
+# Set False to force the pure-numpy path.
+USE_NATIVE = True
+
+
+def _try_native(fmt: ColorFormat, buf, w: int, h: int,
+                pitch: int | None = None):
+    if not USE_NATIVE:
+        return None
+    try:
+        from .io import native
+    except Exception:
+        return None
+    if not native.available():
+        return None
+    a = np.frombuffer(buf, dtype=np.uint8) if isinstance(
+        buf, (bytes, bytearray, memoryview)) else np.asarray(buf)
+    F = ColorFormat
+    if fmt == F.NV12:
+        return native.nv12_split(a, w, h, pitch=pitch)
+    if fmt in (F.P010, F.P016):
+        return native.p010_split(a, w, h, 2, pitch=pitch)
+    if fmt in (F.P210, F.P216):
+        return native.p010_split(a, w, h, 1, pitch=pitch)
+    if fmt == F.YUY2:
+        return native.packed422_to_planar(a, w, h, "yuy2", pitch=pitch)
+    if fmt == F.UYVY:
+        return native.packed422_to_planar(a, w, h, "uyvy", pitch=pitch)
+    if fmt in (F.Y210, F.Y216):
+        return native.packed422_to_planar(a, w, h, "y210", pitch=pitch)
+    if fmt == F.V210:
+        return native.packed422_to_planar(a, w, h, "v210", pitch=pitch)
+    if fmt == F.RGB24:
+        return native.rgb_to_planar(a, w, h, "rgb24", pitch=pitch)
+    if fmt in (F.XRGB32, F.ARGB32):
+        return native.rgb_to_planar(a, w, h, "bgra32", pitch=pitch)
+    if fmt == F.R210:
+        return native.rgb_to_planar(a, w, h, "r210", pitch=pitch)
+    return None
+
+
+def unpack_frame(fmt: ColorFormat, buf: bytes | np.ndarray, width: int,
+                 height: int, pitch: int | None = None) -> PlanarFrame:
+    """Unpack raw frame bytes into canonical planes.
+
+    Replacement for the copy-function dispatch ``GetCopyPlaneFunction``
+    (Source/Helper.cpp:377-412) plus the per-format ``MemCopyToTexSrcVideo``
+    plane split (Source/DX11VideoProcessor.cpp:1213-1252).  Hot formats
+    dispatch to the native C++ library when built; numpy otherwise.
+
+    ``pitch``: bytes per luma/packed row when the buffer has padded strides
+    (real decoder output); None or the tight pitch means packed rows.
+    Negative = bottom-up rows (DIB RGB).
+    """
+    info = FORMATS[fmt]
+    w, h = width, height
+    F = ColorFormat
+
+    if pitch is not None and pitch != default_pitch(info, w):
+        # pitched native fast path: the *_p copiers take src_pitch directly
+        # (Source/Helper.cpp:414-428) — no intermediate repitch copy
+        native_planes = _try_native(fmt, buf, w, h, pitch=pitch)
+        if native_planes is not None:
+            return PlanarFrame(info=info, width=w, height=h,
+                               planes=tuple(native_planes))
+        buf = repitch(fmt, buf, w, h, pitch)
+
+    native_planes = _try_native(fmt, buf, w, h)
+    if native_planes is not None:
+        return PlanarFrame(info=info, width=w, height=h,
+                           planes=tuple(native_planes))
+
+    if fmt in (F.NV12,):
+        y, u, v = _unpack_biplanar(buf, w, h, np.uint8, 2)
+        planes = (y, u, v)
+    elif fmt in (F.P010, F.P016):
+        y, u, v = _unpack_biplanar(buf, w, h, np.uint16, 2)
+        planes = (y, u, v)
+    elif fmt in (F.P210, F.P216):
+        y, u, v = _unpack_biplanar(buf, w, h, np.uint16, 1)
+        planes = (y, u, v)
+    elif fmt == F.YUY2:  # Y0 U Y1 V
+        a = _as_u8(buf).reshape(h, w // 2, 4)
+        y = a[..., 0::2].reshape(h, w)
+        planes = (y, a[..., 1], a[..., 3])
+    elif fmt == F.UYVY:  # U Y0 V Y1
+        a = _as_u8(buf).reshape(h, w // 2, 4)
+        y = a[..., 1::2].reshape(h, w)
+        planes = (y, a[..., 0], a[..., 2])
+    elif fmt in (F.Y210, F.Y216):  # 16-bit Y0 U Y1 V (Y210: 10-bit MSB-aligned)
+        a = _as_u8(buf).view(np.uint16).reshape(h, w // 2, 4)
+        y = a[..., 0::2].reshape(h, w)
+        planes = (y, a[..., 1], a[..., 3])
+    elif fmt == F.V210:
+        planes = _unpack_v210(buf, w, h)
+    elif fmt == F.AYUV:  # byte order V U Y A (MSDN AYUV layout)
+        a = _as_u8(buf).reshape(h, w, 4)
+        planes = (a[..., 2], a[..., 1], a[..., 0])
+    elif fmt == F.Y410:  # dword: U(0-9) Y(10-19) V(20-29) A(30-31)
+        a = _as_u8(buf).view(np.uint32).reshape(h, w)
+        u = _shift10to16((a & 0x3FF).astype(np.uint16))
+        y = _shift10to16(((a >> 10) & 0x3FF).astype(np.uint16))
+        v = _shift10to16(((a >> 20) & 0x3FF).astype(np.uint16))
+        planes = (y, u, v)
+    elif fmt == F.Y416:  # u16 x4: U Y V A
+        a = _as_u8(buf).view(np.uint16).reshape(h, w, 4)
+        planes = (a[..., 1], a[..., 0], a[..., 2])
+    elif fmt in (F.YV12,):  # planar, V before U (Source/Helper.cpp:159-165 swizzle)
+        planes = _unpack_planar(buf, w, h, np.uint8, 2, 2, order=(0, 2, 1))
+    elif fmt == F.YV16:
+        planes = _unpack_planar(buf, w, h, np.uint8, 2, 1, order=(0, 2, 1))
+    elif fmt == F.YV24:
+        planes = _unpack_planar(buf, w, h, np.uint8, 1, 1, order=(0, 2, 1))
+    elif fmt == F.YUV420P8:
+        planes = _unpack_planar(buf, w, h, np.uint8, 2, 2)
+    elif fmt == F.YUV422P8:
+        planes = _unpack_planar(buf, w, h, np.uint8, 2, 1)
+    elif fmt == F.YUV444P8:
+        planes = _unpack_planar(buf, w, h, np.uint8, 1, 1)
+    elif fmt in (F.YUV420P10, F.YUV420P16):
+        planes = _unpack_planar(buf, w, h, np.uint16, 2, 2)
+        if fmt == F.YUV420P10:
+            planes = tuple(_shift10to16(p) for p in planes)
+    elif fmt in (F.YUV422P10, F.YUV422P16):
+        planes = _unpack_planar(buf, w, h, np.uint16, 2, 1)
+        if fmt == F.YUV422P10:
+            planes = tuple(_shift10to16(p) for p in planes)
+    elif fmt in (F.YUV444P10, F.YUV444P16):
+        planes = _unpack_planar(buf, w, h, np.uint16, 1, 1)
+        if fmt == F.YUV444P10:
+            planes = tuple(_shift10to16(p) for p in planes)
+    elif fmt in (F.GBRP8, F.GBRP10, F.GBRP16):
+        dtype = np.uint8 if fmt == F.GBRP8 else np.uint16
+        g, b, r = _unpack_planar(buf, w, h, dtype, 1, 1)
+        if fmt == F.GBRP10:
+            r, g, b = _shift10to16(r), _shift10to16(g), _shift10to16(b)
+        planes = (r, g, b)
+    elif fmt == F.RGB24:  # BGR byte order (DIB convention, CopyFrameRGB24)
+        a = _as_u8(buf).reshape(h, w, 3)
+        planes = (a[..., 2], a[..., 1], a[..., 0])
+    elif fmt in (F.XRGB32, F.ARGB32):  # BGRA byte order
+        a = _as_u8(buf).reshape(h, w, 4)
+        planes = (a[..., 2], a[..., 1], a[..., 0])
+    elif fmt == F.R210:  # big-endian dword, 2b pad | R10 | G10 | B10 (CopyFrameR210)
+        a = _as_u8(buf).view(np.uint32).reshape(h, w).byteswap()
+        r = _shift10to16(((a >> 20) & 0x3FF).astype(np.uint16))
+        g = _shift10to16(((a >> 10) & 0x3FF).astype(np.uint16))
+        b = _shift10to16((a & 0x3FF).astype(np.uint16))
+        planes = (r, g, b)
+    elif fmt == F.RGB48:  # u16 R G B (CopyFrameRGB48)
+        a = _as_u8(buf).view(np.uint16).reshape(h, w, 3)
+        planes = (a[..., 0], a[..., 1], a[..., 2])
+    elif fmt == F.BGR48:  # u16 B G R (CopyFrameBGR48)
+        a = _as_u8(buf).view(np.uint16).reshape(h, w, 3)
+        planes = (a[..., 2], a[..., 1], a[..., 0])
+    elif fmt == F.BGRA64:  # u16 B G R A (CopyFrameBGRA64)
+        a = _as_u8(buf).view(np.uint16).reshape(h, w, 4)
+        planes = (a[..., 2], a[..., 1], a[..., 0])
+    elif fmt == F.B64A:  # big-endian u16 A R G B (CopyFrameB64A)
+        a = _as_u8(buf).view(np.uint16).reshape(h, w, 4).byteswap()
+        planes = (a[..., 1], a[..., 2], a[..., 3])
+    elif fmt == F.Y8:
+        planes = (_as_u8(buf)[: w * h].reshape(h, w),)
+    elif fmt in (F.Y10, F.Y16):
+        p = _as_u8(buf).view(np.uint16)[: w * h].reshape(h, w)
+        planes = (_shift10to16(p) if fmt == F.Y10 else p,)
+    else:
+        raise ValueError(f"unsupported format: {fmt!r}")
+
+    planes = tuple(np.ascontiguousarray(p) for p in planes)
+    return PlanarFrame(info=info, width=w, height=h, planes=planes)
+
+
+def _unpack_v210(buf, w, h) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """v210: 6 pixels per 16 bytes; each dword packs three 10-bit values
+    (little-endian, bits 0-9 / 10-19 / 20-29) in the component sequence
+    U0 Y0 V0 | Y1 U2 Y2 | V2 Y3 U4 | Y4 V4 Y5  (CopyFrameV210,
+    Source/Helper.cpp:703-760 converts this to Y210; we go straight to
+    planar 16-bit MSB-aligned).
+    """
+    row_dwords = ((w + 47) // 48) * 32  # 128-byte aligned rows
+    a = _as_u8(buf).view(np.uint32).reshape(h, row_dwords)
+    c0 = (a & 0x3FF).astype(np.uint16)
+    c1 = ((a >> 10) & 0x3FF).astype(np.uint16)
+    c2 = ((a >> 20) & 0x3FF).astype(np.uint16)
+    # per group of 4 dwords: components [U0 Y0 V0][Y1 U2 Y2][V2 Y3 U4][Y4 V4 Y5]
+    g = row_dwords // 4
+    c0 = c0.reshape(h, g, 4)
+    c1 = c1.reshape(h, g, 4)
+    c2 = c2.reshape(h, g, 4)
+    y = np.empty((h, g, 6), np.uint16)
+    y[..., 0] = c1[..., 0]
+    y[..., 1] = c0[..., 1]
+    y[..., 2] = c2[..., 1]
+    y[..., 3] = c1[..., 2]
+    y[..., 4] = c0[..., 3]
+    y[..., 5] = c2[..., 3]
+    u = np.empty((h, g, 3), np.uint16)
+    u[..., 0] = c0[..., 0]
+    u[..., 1] = c1[..., 1]
+    u[..., 2] = c2[..., 2]
+    v = np.empty((h, g, 3), np.uint16)
+    v[..., 0] = c2[..., 0]
+    v[..., 1] = c0[..., 2]
+    v[..., 2] = c1[..., 3]
+    y = y.reshape(h, g * 6)[:, :w]
+    u = u.reshape(h, g * 3)[:, : w // 2]
+    v = v.reshape(h, g * 3)[:, : w // 2]
+    return _shift10to16(y), _shift10to16(u), _shift10to16(v)
+
+
+# ---------------------------------------------------------------------------
+# output packers (screenshot/sink path analogues:
+# ConvertR10G10B10A2toBGR32/48/64, Source/Helper.cpp:828-900)
+# ---------------------------------------------------------------------------
+
+def pack_rgb8(rgb: np.ndarray) -> np.ndarray:
+    """float RGB [0,1] (H,W,3) -> interleaved uint8 (H,W,3)."""
+    return np.clip(np.rint(rgb * 255.0), 0, 255).astype(np.uint8)
+
+
+def pack_rgb10(rgb: np.ndarray) -> np.ndarray:
+    """float RGB [0,1] (H,W,3) -> R10G10B10A2 dwords (H,W) uint32."""
+    q = np.clip(np.rint(rgb * 1023.0), 0, 1023).astype(np.uint32)
+    return q[..., 0] | (q[..., 1] << 10) | (q[..., 2] << 20) | np.uint32(0xC0000000)
+
 
 def unpack_rgb10(dwords: np.ndarray) -> np.ndarray:
     """R10G10B10A2 dwords -> float RGB [0,1] (H,W,3)."""
@@ -176,6 +542,24 @@ def unpack_rgb10(dwords: np.ndarray) -> np.ndarray:
     g = ((dwords >> 10) & 0x3FF).astype(np.float32)
     b = ((dwords >> 20) & 0x3FF).astype(np.float32)
     return np.stack([r, g, b], axis=-1) / 1023.0
+
+
+def pack_rgb16(rgb: np.ndarray) -> np.ndarray:
+    """float RGB [0,1] (H,W,3) -> interleaved uint16 (H,W,3)."""
+    return np.clip(np.rint(rgb * 65535.0), 0, 65535).astype(np.uint16)
+
+
+def rgb10_dwords_to_bgr48(dwords: np.ndarray) -> np.ndarray:
+    """R10G10B10A2 dwords (H,W) -> interleaved BGR48 uint16 (H,W,3), the
+    10-bit codes MSB-aligned (<<6) in B,G,R channel order — exactly
+    ConvertR10G10B10A2toBGR48 (Source/Helper.cpp:836-857), the reference's
+    10-bit GetDisplayedImage conversion
+    (Source/DX11VideoProcessor.cpp:3622-3696)."""
+    d = dwords.astype(np.uint32)
+    b = ((d >> 20) & 0x3FF).astype(np.uint16) << 6
+    g = ((d >> 10) & 0x3FF).astype(np.uint16) << 6
+    r = (d & 0x3FF).astype(np.uint16) << 6
+    return np.stack([b, g, r], axis=-1)
 
 
 def unpack_rgba8(dwords: np.ndarray) -> np.ndarray:

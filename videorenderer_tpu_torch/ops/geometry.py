@@ -1,7 +1,7 @@
 """Rotation and flip of rendered frames.
 
 Port of ``videorenderer_tpu.ops.geometry`` (``rotate_flip``, ``rf_decompose``,
-``rotated_size``).  The reference exposes rotation and flip through
+``rotated_size``, ``half_overunder_to_interlace``).  The reference exposes rotation and flip through
 IExFilterConfig ("rotation", "flip", Source/VideoRenderer.cpp:1335-1559) and
 applies them during the resize pass by vertex permutation (FillVertices,
 Source/DX11VideoProcessor.cpp:130-179).  Here they are layout operations on
@@ -48,3 +48,16 @@ def rotated_size(width: int, height: int, rotation: int) -> tuple[int, int]:
     if rotation in (90, 270):
         return height, width
     return width, height
+
+
+def half_overunder_to_interlace(x: torch.Tensor) -> torch.Tensor:
+    """Stereo3D half-over/under -> row-interlaced
+    (ps_halfoverunder_to_interlace.hlsl): even output rows sample the top
+    half, odd rows the bottom half, both at the output row's vertical
+    position within the half."""
+    half = x.shape[-2] // 2
+    top = x[..., :half, :]
+    bottom = x[..., half:half * 2, :]
+    # output row r: source half-row r//2 from top (r even) / bottom (r odd)
+    stacked = torch.stack([top, bottom], dim=-2)   # (..., half, 2, W)
+    return stacked.reshape(x.shape[:-2] + (half * 2, x.shape[-1]))

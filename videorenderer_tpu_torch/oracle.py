@@ -19,6 +19,9 @@ optional rotation and flip of the finished frame.
 :func:`oracle_deint` is one field of c5: a motion-adaptive deinterlace of
 every raw plane by row indices (independent of ``ops/deinterlace``), then
 the same convert and resize and the HLG -> SDR tail.
+:func:`blend_packed_codes` is c5s's subtitle on such a field: the float64
+blend against the quantized backbuffer codes, requantized round-half-up
+(``bench_common.np_blend_packed_codes``).
 
 :func:`oracle_dovi` is one frame of c8 (Dolby Vision): normalise, the same
 bilinear chroma upsample, the reshape evaluated piece by piece (the piece
@@ -285,6 +288,25 @@ def oracle_deint(prev, cur, nxt, out_w: int, out_h: int, *, field: int = 0,
     x = x * torch.pow(torch.clamp(ys, min=1e-7), 0.2)
     x = torch.clamp(x / 1000.0, 0.0, 1.0) * (10000.0 / sdr_nits)
     return _dither(_to_sdr_display(x), dither_bits)
+
+
+def blend_packed_codes(codes: torch.Tensor, ov_rgb, ov_a, x: int, y: int,
+                       bits: int) -> torch.Tensor:
+    """Float64 reference of ``ops.overlay.blend_in_rect_packed`` on decoded
+    (3, H, W) codes / (2**bits - 1): the overlay (rgb (3, h, w), alpha
+    (h, w), straight alpha) blended in float64 over the quantized
+    backbuffer at (x, y), then requantized as floor(clip * maxv + 0.5) /
+    maxv (bench_common.np_blend_packed_codes)."""
+    maxv = float(2 ** bits - 1)
+    ov_rgb = torch.as_tensor(ov_rgb, dtype=torch.float64, device=codes.device)
+    ov_a = torch.as_tensor(ov_a, dtype=torch.float64, device=codes.device)
+    out = codes.to(torch.float64).clone()
+    h, w = ov_a.shape
+    region = out[:, y:y + h, x:x + w]
+    blended = ov_rgb * ov_a + region * (1.0 - ov_a)
+    out[:, y:y + h, x:x + w] = torch.floor(
+        torch.clamp(blended, 0.0, 1.0) * maxv + 0.5) / maxv
+    return out
 
 
 def _jinc2_f64(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

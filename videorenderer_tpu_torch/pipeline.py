@@ -1486,3 +1486,28 @@ class VideoProcessor:
     def process_frame(self, frame) -> torch.Tensor:
         """Process an unpacked frame (an object with ``.planes``)."""
         return self.process(frame.planes)
+
+    def process_packed(self, buf) -> torch.Tensor:
+        """Ship the PACKED frame bytes to ``self.device`` as one tensor (the
+        smallest transfer) and unpack them there
+        (:func:`~.kernels.unpack_device.unpack_frame_device`) before the
+        frame function — the analogue of the reference sampling packed
+        textures on the GPU (Source/Shaders.cpp:82-529) instead of
+        repacking on the CPU.  ``buf``: bytes, a numpy array or a tensor
+        holding one tightly packed frame (arrays and tensors may have
+        leading batch dims, shaped (..., n_words) in the format's word).
+        A format with no device unpacker is unpacked on the host
+        (:func:`~.formats.unpack_frame`), as in the JAX package."""
+        from .formats import unpack_frame
+        from .kernels.unpack_device import (DEVICE_BUFFER_DTYPE,
+                                            has_device_unpacker,
+                                            unpack_frame_device)
+        info, src = self.plan.info, self.plan.src
+        if not has_device_unpacker(info.name):
+            return self.process(
+                unpack_frame(info.cformat, buf, src.width, src.height).planes)
+        if isinstance(buf, (bytes, bytearray, memoryview)):
+            buf = np.frombuffer(buf, DEVICE_BUFFER_DTYPE[info.name])
+        return self._fn(unpack_frame_device(
+            info.name, torch.as_tensor(buf, device=self.device), src.width,
+            src.height))
