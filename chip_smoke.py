@@ -227,6 +227,32 @@ Phases, one line each:
               16 (pinned staging buffers, a side copy stream): K1 x3 + K2 a
               batch, each output bit-equal to VideoProcessor.process of its
               batch; frames/s overlapped, and serial (put, compute, sync).
+ 36. c3sr     1080p NV12 -> 4K RGBA8 through VideoRenderer(vp_superres=P1080,
+              pack_surface=True) with weights/superres_2x.npz, batch 8: the
+              weights moved to the card once (the caller's model stays on
+              the CPU), the gate engaged, the pipeline 1:1 on c1's route
+              (K1 x2 + K2 a call, float output) then the net then the pack;
+              the path's K1 and K2 calls on 2 frames against their plain
+              versions; every output bit-equal to pack(net(pipeline));
+              frame 0 >= 40 dB against the float64 oracle of the 1:1 plan
+              then the same net (clamped, as the pack clamps), the pipeline
+              alone >= 55 dB; a model left on the CPU raises on card
+              input; ms/frame of the pipeline, the net and the pack (CUDA
+              events) and of the renderer's call; the net's FLOPs and rate.
+ 37. c1vh     the same for 1080p NV12 SDR -> 1080p RGB10 PQ / BT.2020
+              through VideoRenderer(vp_rtx_video_hdr=True) with an HDR
+              output and weights/videohdr.npz, batch 32; the output signal
+              info PQ / BT.2020.
+ 38. cli      videorenderer_tpu_torch.cli.main in this process: a .y4m clip
+              of 8 1080p 4:2:0 frames -> 4K with --superres P1080 and the
+              shipped weights and a BMP screenshot; 16 raw 4K P010 frames
+              -> 1080p RGB10 with the headline's flags, --batch 16; 4 raw
+              4K P010 HLG frames with --deinterlace double.  Each output
+              file byte-equal to the renderer's output on the same frames
+              through io.raw.RawVideoSink, the screenshot to its first
+              frame; K1 x2 + K2, K1 x3 + K2, and K7 + K9 a frame; frames/s
+              of each run (host clock, file IO included); ``cli info``
+              names the card.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -248,11 +274,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import filecmp
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -265,8 +294,10 @@ from videorenderer_tpu_torch import (ColorFormat,  # noqa: E402
                                      Settings, SourceDescriptor,
                                      VideoProcessor)
 from videorenderer_tpu_torch.config import (ChromaScaling,  # noqa: E402
-                                            TexFormat, ToneMapType, Upscaling)
-from videorenderer_tpu_torch.csputils import CSP, Levels, Primaries, TRC  # noqa: E402
+                                            SuperResolution, TexFormat,
+                                            ToneMapType, Upscaling)
+from videorenderer_tpu_torch.csputils import (CSP, ChromaLocation,  # noqa: E402
+                                              Levels, Primaries, TRC)
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
 from videorenderer_tpu_torch.kernels import deint as dk  # noqa: E402
 from videorenderer_tpu_torch.kernels import jinc2 as jk  # noqa: E402
@@ -285,6 +316,13 @@ from videorenderer_tpu_torch.oracle import blend_packed_codes  # noqa: E402
 from videorenderer_tpu_torch.ops.geometry import rotate_flip  # noqa: E402
 from videorenderer_tpu_torch.ops.overlay import blend_in_rect_packed  # noqa: E402
 from videorenderer_tpu_torch.runner import run_clip  # noqa: E402
+from videorenderer_tpu_torch.cli import main as cli_main  # noqa: E402
+from videorenderer_tpu_torch.io.raw import RawVideoSink  # noqa: E402
+from videorenderer_tpu_torch.io.y4m import write_y4m  # noqa: E402
+from videorenderer_tpu_torch.models import real_eval  # noqa: E402
+from videorenderer_tpu_torch.models import superres as sr_model  # noqa: E402
+from videorenderer_tpu_torch.models import videohdr as vh_model  # noqa: E402
+from videorenderer_tpu_torch.models.checkpoint import load_params  # noqa: E402
 from videorenderer_tpu_torch.subtitles import (SubPic,  # noqa: E402
                                                TextSubtitleProvider)
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
@@ -323,6 +361,10 @@ SRT_TEXT = """1
 on the packed backbuffer
 """
 CLIP_BATCHES = 4                          # phase 35: host batches of BATCH
+SR_BATCH, VH_BATCH = 8, 32                # c3sr, c1vh (bench_common.py:242)
+CLI_SR_FRAMES = 8                         # phase 38's three runs
+CLI_HEAD_FRAMES = 16
+CLI_DEINT_FRAMES = 4
 # the card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1763,6 +1805,299 @@ def renderer_phases(dev, c5_ms_per_field: float) -> dict:
     return res
 
 
+def cli_settings(**kw) -> Settings:
+    """The Settings ``cli process`` builds from its default flags (an SDR
+    display: no HDR passthrough), with ``kw`` on top."""
+    return Settings(hdr_passthrough=False, **kw)
+
+
+def model_renderer(dev, key: str):
+    """c3sr's or c1vh's renderer on ``dev`` (bench_common.py:188-199, the
+    batches :242-251): 1080p NV12 BT.709 TV -> 4K RGBA8 under SuperRes
+    P1080, or -> 1080p RGB10 for an HDR display under VideoHDR, packed, the
+    shipped weights loaded on the CPU and given to the hook, opened.
+    Returns (renderer, the caller's model, the output)."""
+    src = SourceDescriptor(format=ColorFormat.NV12, width=C1_W, height=C1_H,
+                           matrix=CSP.BT_709, levels=Levels.TV)
+    if key == "c3sr":
+        settings = Settings(vp_superres=SuperResolution.P1080)
+        dst = OutputDescriptor(width=2 * C1_W, height=2 * C1_H, bits=8)
+        model = real_eval.load_shipped_superres("cpu")
+    else:
+        settings = Settings(vp_rtx_video_hdr=True)
+        dst = OutputDescriptor(width=C1_W, height=C1_H, bits=10, hdr=True)
+        model = real_eval.load_shipped_videohdr("cpu")
+    vr = VideoRenderer(settings, pack_surface=True, device=dev)
+    (vr.set_superres_params if key == "c3sr"
+     else vr.set_videohdr_params)(model)
+    vr.open(src, dst)
+    return vr, model, dst
+
+
+def model_phase(dev, key: str) -> dict:
+    """Phase 36 (c3sr) or 37 (c1vh): the shipped model through
+    api.VideoRenderer(pack_surface=True) at full width.  The pipeline runs
+    1:1 on c1's route (K1 x2 + K2, float output), then the net, then the
+    pack; the path's K1 and K2 calls against their plain versions on
+    PLAIN_FRAMES frames; every output bit-equal to pack(net(pipeline));
+    frame 0 >= 40 dB against the float64 oracle then the same net.
+    Returns the phase's launches and the kernels' errors."""
+    sr = key == "c3sr"
+    batch, bits = (SR_BATCH, 8) if sr else (VH_BATCH, 10)
+    fmt = "rgba8" if sr else "rgb10a2"
+    mod = sr_model if sr else vh_model
+    t_phase = time.perf_counter()
+    vr, model, dst = model_renderer(dev, key)
+    net = vr._superres if sr else vr._videohdr
+    weights = {"on_device": all(p.device.type == dev.type
+                                for p in net.parameters()),
+               "caller_model_on_cpu": all(p.device.type == "cpu"
+                                          for p in model.parameters())}
+    engaged = vr._superres_engaged() if sr else vr._videohdr_engaged()
+    info = vr.get_output_signal_info().to_dict()
+    info_ok = (info["width"], info["height"], info["bits"]) == (
+        dst.width, dst.height, bits) and (sr or (
+            info["transfer"], info["primaries"]) == ("PQ", "BT_2020"))
+    if not (engaged and info_ok and all(weights.values())
+            and (vr._plan.dst.width, vr._plan.dst.height) == (C1_W, C1_H)):
+        raise AssertionError(f"{key}: engaged {engaged}, signal info {info}, "
+                             f"weights {weights}, plan {vr._plan.dst}")
+    frames = nv12_batch(batch, SEED + (150 if sr else 151), dev)
+    vr.process_frame(tuple(p[:1] for p in frames))          # warm-up
+    # the path's K1 and K2 calls on PLAIN_FRAMES frames against their
+    # plain versions on the same inputs
+    with recording(rk, "banded_resize_last_axis", "rows3_tail") as calls:
+        vr.process_frame(tuple(p[:PLAIN_FRAMES] for p in frames))
+    torch.cuda.synchronize()
+    k1_calls, k2_calls = calls["banded_resize_last_axis"], calls["rows3_tail"]
+    if len(k1_calls) != 2 or len(k2_calls) != 1:
+        raise AssertionError(f"{key} recorded {len(k1_calls)} K1 and "
+                             f"{len(k2_calls)} K2 calls")
+    kk = {"k1_max_code_diff": 0, "k1_max_abs_err": 0.0}
+    for a, kw, got in k1_calls:
+        err = (got.float() - rk.banded_resize_last_axis_plain(*a, **kw)
+               .float()).abs().max().item()
+        if got.dtype == torch.int16:
+            kk["k1_max_code_diff"] = max(kk["k1_max_code_diff"], int(err))
+        else:
+            kk["k1_max_abs_err"] = max(kk["k1_max_abs_err"], err)
+    (a, kw, got), = k2_calls
+    if kw.get("pack_format") is not None or got.dtype != torch.float32:
+        raise AssertionError(f"{key}: K2 packed {kw.get('pack_format')}")
+    kk.update({"k2_" + k: v for k, v in float_code_diff(
+        got, rk.rows3_tail_plain(*a, **kw), 2 ** bits - 1).items()})
+    kk["k1_digest"] = digest(*(o for _, _, o in k1_calls))
+    kk["k2_digest"] = digest(got)
+    del calls, k1_calls, k2_calls, a, kw, got
+    if kk["k1_max_code_diff"] > 1 or kk["k1_max_abs_err"] > 2e-5 \
+            or kk["k2_max_code_diff"] > 1 or kk["k2_frac_differing"] >= 0.02:
+        raise AssertionError(f"{key}: K1 or K2 disagrees with its plain "
+                             f"version: {kk}")
+    # one call at the full batch, counted
+    out, n = count_launches(lambda: vr.process_frame(frames))
+    if n != only(banded_resize_last_axis=2, rows3_tail=1):
+        raise AssertionError(f"{key} launches {n}")
+    if out.shape != (batch, dst.height, dst.width) or out.dtype != torch.int32:
+        raise AssertionError(f"{key} output {tuple(out.shape)} {out.dtype}")
+    base = make_frame_fn(vr._plan)
+    rgb = base(frames)
+    enhanced = mod.enhance_plane_chw(net, rgb)
+    composed = bool(torch.equal(out, rk.pack_surface(enhanced, fmt)))
+    # frame 0 against the float64 oracle of the 1:1 plan, then the net
+    ref = oracle(frames[0][0], frames[1][0], frames[2][0], C1_W, C1_H,
+                 bits_in=8, matrix=CSP.BT_709, pq_to_sdr=False,
+                 dither_bits=bits)
+    db = {"pipeline": psnr(rgb[0], ref),
+          "output": psnr(codes(out[0], bits).double() / (2 ** bits - 1),
+                         mod.enhance_plane_chw(net, ref[None].float())[0]
+                         .clamp(0.0, 1.0))}
+    out_digest = digest(out)
+    del out, ref
+    wrong_device = "not checked on the CPU"
+    if dev.type == "cuda":
+        try:
+            mod.enhance_plane_chw(model, rgb)
+            wrong_device = "ran"
+        except RuntimeError:
+            wrong_device = "raised"
+    ms = {"pipeline": cuda_ms(lambda: base(frames)) / batch,
+          "net": cuda_ms(lambda: mod.enhance_plane_chw(net, rgb)) / batch,
+          "pack": cuda_ms(lambda: rk.pack_surface(enhanced, fmt)) / batch,
+          "renderer": cuda_ms(lambda: vr.process_frame(frames)) / batch}
+    # the net's convolution FLOPs a frame (multiply-adds x 2), on the s2d grid
+    k = model.cfg.s2d
+    cells = -(-C1_H // k) * -(-C1_W // k)
+    net_flop = 2 * 9 * cells * sum(p.shape[0] * p.shape[1]
+                                   for n_, p in net.named_parameters()
+                                   if n_.endswith("weight"))
+    del rgb, enhanced, frames, base
+    if not composed or min(db.values()) < 40.0 or db["pipeline"] < 55.0 \
+            or wrong_device == "ran":
+        raise AssertionError(f"{key}: composed {composed}, PSNR {db}, a "
+                             f"model on the wrong device {wrong_device}")
+    line(key, seconds=time.perf_counter() - t_phase, batch=batch,
+         launches={k: v for k, v in n.items() if v}, engaged=engaged,
+         signal_info=info, weights=weights,
+         output_bit_equal_pack_net_pipeline=composed, psnr_db=db,
+         ms_per_frame=ms, net_gflop_per_frame=net_flop / 1e9,
+         net_tflop_s=net_flop / (ms["net"] * 1e-3) / 1e12,
+         model_on_wrong_device=wrong_device, digest=out_digest,
+         tolerance="K1 mid16 <= 1 code, f32 <= 2e-5; K2 <= 1 code on < 2%; "
+                   "the output >= 40 dB, the pipeline >= 55 dB vs the "
+                   "float64 oracle", **kk)
+    del vr, net, model
+    torch.cuda.empty_cache()
+    return {"launches": n, "k1": kk["k1_max_abs_err"],
+            "k2": kk["k2_max_code_diff"] / (2 ** bits - 1)}
+
+
+def _bmp_pixels(path: str, w: int, h: int) -> np.ndarray:
+    """(h, w, 3) RGB of a 24-bit bottom-up BMP whose rows need no pad."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return np.frombuffer(data[54:], np.uint8).reshape(h, w, 3)[::-1, :, ::-1]
+
+
+def cli_phase(dev, tmp: str) -> dict:
+    """Phase 38: ``cli.main`` in this process, three runs: a .y4m clip of
+    CLI_SR_FRAMES 1080p 4:2:0 frames to 4K with the shipped SuperRes and a
+    BMP screenshot; CLI_HEAD_FRAMES raw 4K P010 frames to 1080p RGB10 with
+    the headline's flags; CLI_DEINT_FRAMES raw 4K P010 HLG frames
+    deinterlaced at double rate.  Each output file byte-equal to the
+    renderer's output on the same frames through RawVideoSink, the
+    screenshot to its first frame; each run's launches counted; ``cli
+    info`` names the device."""
+    t_phase = time.perf_counter()
+    on = ["--device", dev.type]
+    sr_weights = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "weights", "superres_2x.npz")
+    runs, launches = {}, {}
+
+    def drive(name, argv, ref_vr, ref_frames, bits, fields=False):
+        out = os.path.join(tmp, f"{name}.rgb")
+        t0 = time.perf_counter()
+        rc, n = count_launches(lambda: cli_main(
+            ["process", *argv, "--out", out] + on))
+        seconds = time.perf_counter() - t0
+        ref = os.path.join(tmp, f"{name}_ref.rgb")
+        with RawVideoSink(ref, bits=bits) as sink:
+            if fields:
+                for f in ref_frames:
+                    for o in ref_vr.process_frame(f):
+                        sink.present(o)
+                for o in ref_vr.flush():
+                    sink.present(o)
+            else:
+                sink.present(ref_vr.process_frame(ref_frames))
+        equal = rc == 0 and filecmp.cmp(out, ref, shallow=False)
+        with open(out, "rb") as f:
+            out_digest = hashlib.sha256(f.read()).hexdigest()
+        launches[name] = n
+        runs[name] = {"rc": rc, "launches": {k: v for k, v in n.items() if v},
+                      "bit_equal_renderer": equal,
+                      "frames_out": sink.frames, "seconds": seconds,
+                      "frames_per_s": sink.frames / seconds,
+                      "digest": out_digest}
+        return ref
+
+    # run 1: c3sr from a .y4m file
+    rng = np.random.default_rng(SEED + 160)
+    yuv = (rng.integers(16, 236, (CLI_SR_FRAMES, C1_H, C1_W), np.uint8),
+           rng.integers(16, 241, (CLI_SR_FRAMES, C1_H // 2, C1_W // 2),
+                        np.uint8),
+           rng.integers(16, 241, (CLI_SR_FRAMES, C1_H // 2, C1_W // 2),
+                        np.uint8))
+    clip = os.path.join(tmp, "c3sr.y4m")
+    write_y4m(clip, zip(*yuv), C1_W, C1_H, fps=(24, 1))
+    vr = VideoRenderer(cli_settings(vp_superres=SuperResolution.P1080),
+                       device=dev)
+    vr.set_superres_params(load_params(sr_weights, sr_model.SuperRes()))
+    vr.open(SourceDescriptor(format=ColorFormat.YUV420P8, width=C1_W,
+                             height=C1_H, matrix=CSP.BT_709,
+                             levels=Levels.TV,
+                             chroma_location=ChromaLocation.MPEG2),
+            OutputDescriptor(width=2 * C1_W, height=2 * C1_H, bits=8))
+    shot = os.path.join(tmp, "c3sr.bmp")
+    ref = drive("c3sr", [clip, "--out-size", f"{2 * C1_W}x{2 * C1_H}",
+                              "--matrix", "BT_709", "--levels", "TV",
+                              "--superres", "P1080", "--superres-weights",
+                              sr_weights, "--screenshot", shot],
+                vr, yuv, 8)
+    first = np.fromfile(ref, np.uint8, count=4 * C1_H * C1_W * 3).reshape(
+        2 * C1_H, 2 * C1_W, 3)
+    runs["c3sr"]["screenshot_equal_first_frame"] = bool(np.array_equal(
+        _bmp_pixels(shot, 2 * C1_W, 2 * C1_H), first))
+    del vr, yuv, first
+    # run 2: the headline from a raw P010 file
+    hdr_src = dict(format=ColorFormat.P010, width=W, height=H,
+                   matrix=CSP.BT_2020_NC, levels=Levels.TV,
+                   primaries=Primaries.BT_2020)
+    hdr_flags = ["--format", "P010", "--size", f"{W}x{H}", "--out-size",
+                 f"{OW}x{OH}", "--primaries", "BT_2020", "--matrix",
+                 "BT_2020_NC", "--levels", "TV", "--upscaling", "LANCZOS3"]
+    head = tuple(p.cpu().numpy() for p in p010_batch(CLI_HEAD_FRAMES,
+                                                      SEED + 161, "cpu"))
+    raw = os.path.join(tmp, "headline.p010")
+    p010_bytes(head).tofile(raw)
+    vr = VideoRenderer(cli_settings(upscaling=Upscaling.LANCZOS3), device=dev)
+    vr.open(SourceDescriptor(transfer=TRC.PQ, **hdr_src),
+            OutputDescriptor(width=OW, height=OH, bits=10))
+    drive("headline", [raw, *hdr_flags, "--transfer", "PQ", "--out-bits",
+                       "10", "--batch", str(CLI_HEAD_FRAMES)], vr, head, 10)
+    del vr, head
+    # run 3: double-rate deinterlacing of HLG from a raw P010 file
+    deint = tuple(p.cpu().numpy() for p in p010_batch(CLI_DEINT_FRAMES,
+                                                       SEED + 162, "cpu"))
+    raw = os.path.join(tmp, "c5.p010")
+    p010_bytes(deint).tofile(raw)
+    vr = VideoRenderer(cli_settings(upscaling=Upscaling.LANCZOS3), device=dev)
+    vr.open(SourceDescriptor(transfer=TRC.HLG, interlaced=True, **hdr_src),
+            OutputDescriptor(width=OW, height=OH, bits=8))
+    drive("c5", [raw, *hdr_flags, "--transfer", "HLG", "--deinterlace",
+                 "double"], vr,
+          [tuple(p[i] for p in deint) for i in range(CLI_DEINT_FRAMES)], 8,
+          fields=True)
+    del vr, deint
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_info = cli_main(["info"] + on)
+    device_name = (torch.cuda.get_device_name(0) if dev.type == "cuda"
+                   else "cpu")
+    info_ok = rc_info == 0 and f"Device: {device_name}" in buf.getvalue()
+    want = {"c3sr": only(banded_resize_last_axis=2, rows3_tail=1),
+            "headline": only(banded_resize_last_axis=3, rows3_tail=1),
+            "c5": only(deint3_rows_dual=CLI_DEINT_FRAMES,
+                       cols3_tail=CLI_DEINT_FRAMES)}
+    ok = (info_ok and launches == want and all(
+        r["rc"] == 0 and r["bit_equal_renderer"] for r in runs.values())
+        and runs["c3sr"]["screenshot_equal_first_frame"]
+        and [r["frames_out"] for r in runs.values()] == [
+            CLI_SR_FRAMES, CLI_HEAD_FRAMES, 2 * CLI_DEINT_FRAMES])
+    line("cli", seconds=time.perf_counter() - t_phase, runs=runs,
+         info_names_device=info_ok, device_name=device_name)
+    if not ok:
+        raise AssertionError(f"cli: runs {runs}, info {info_ok}, launches "
+                             f"{launches} (want {want})")
+    return launches
+
+
+def model_cli_phases(dev) -> dict:
+    """Phases 36-38: c3sr and c1vh through the renderer with the shipped
+    weights, then the command line.  Returns each phase's launches and the
+    kernels' largest errors against their plain versions."""
+    dev = torch.device(dev)
+    res = {"launches": {}, "err": {"k1": 0.0, "k2": 0.0}}
+    for key in ("c3sr", "c1vh"):
+        r = model_phase(dev, key)
+        res["launches"][key] = r["launches"]
+        for k in ("k1", "k2"):
+            res["err"][k] = max(res["err"][k], r[k])
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n in cli_phase(dev, tmp).items():
+            res["launches"][f"cli_{name}"] = n
+    return res
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -3056,9 +3391,11 @@ def main() -> None:
     # 32-35: c5s and the headline through the renderer facade, device
     # ingest and the clip runner
     ren = renderer_phases(dev, ms_field)
+    # 36-38: the learned models (c3sr, c1vh) and the command line
+    mc = model_cli_phases(dev)
 
     def new_launches(name):
-        return sum(n[name] for phases in (new, hdr, ren)
+        return sum(n[name] for phases in (new, hdr, ren, mc)
                    for n in phases["launches"].values())
 
     def entry(name, source, replaces, n, k, err):
@@ -3087,7 +3424,7 @@ def main() -> None:
               + new_launches("banded_resize_last_axis"), k1,
               max(k1["max_abs_err"], conv["k1_max_abs_err"],
                   sr_k["k1_max_abs_err"], new["err"]["k1"],
-                  hdr["err"]["k1"])),
+                  hdr["err"]["k1"], mc["err"]["k1"])),
         {**entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
                  launches["rows3_tail"] + c7_launches["rows3_tail"]
                  + sum(n["rows3_tail"] for n in split_launches.values())
@@ -3095,7 +3432,7 @@ def main() -> None:
                  k2, max(k2["max_abs_err"], conv["k2_max_abs_err"],
                          sr_k["k2_max_abs_err"],
                          c7k["k2_max_code_diff"] / 1023.0, new["err"]["k2"],
-                         hdr["err"]["k2"])),
+                         hdr["err"]["k2"], mc["err"]["k2"])),
          # the runtime route (selection 7) at c7p, batch 16
          "runtime_route": hdr["runtime"]["rows3_tail"]},
         entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",

@@ -2,10 +2,11 @@
 """Where the device time of the port's configurations goes, on one NVIDIA
 card.
 
-    python3 profile_torch.py [c8] [letterbox] [c7] [c7plain]
+    python3 profile_torch.py [c8] [letterbox] [c7] [c7plain] [c3sr] [c1vh]
 
-Each configuration is driven as ``chip_smoke.py`` drives it (batch 16, full
-width): a warm-up call, then ``CALLS`` calls back to back under
+Each configuration is driven as ``chip_smoke.py`` drives it (batch 16, or
+c3sr's 8 and c1vh's 32, through the renderer with the shipped weights;
+full width): a warm-up call, then ``CALLS`` calls back to back under
 ``torch.profiler`` ending in one synchronise.  One JSON line each: the
 traced window's span (host-marked), the union of the device's kernel
 intervals over it (the busy share; in brackets the same union over the
@@ -115,10 +116,15 @@ def main(names) -> None:
                 device=dev, pack_surface=True)
             batch = cs.p010_batch(cs.BATCH, cs.SEED + 30, dev, h=cs.LB_H)
             out = profile_calls(lambda: vp.process(batch))
+        elif name in ("c3sr", "c1vh"):
+            vr = cs.model_renderer(dev, name)[0]
+            batch = cs.nv12_batch(cs.SR_BATCH if name == "c3sr"
+                                  else cs.VH_BATCH, cs.SEED + 150, dev)
+            out = profile_calls(lambda: vr.process_frame(batch))
         else:
             raise ValueError(f"unknown configuration {name!r}")
-        print(json.dumps({"config": name, "batch": cs.BATCH, **out}),
-              flush=True)
+        print(json.dumps({"config": name, "batch": batch[0].shape[0],
+                          **out}), flush=True)
     print(cs.smi())
 
 

@@ -641,10 +641,19 @@ def test_device_and_model_hooks():
         with pytest.raises(RuntimeError, match="CUDA"):
             tapi.VideoRenderer(device="cuda")
     vr = _renderers()[1]
-    for hook in (vr.set_superres_params, vr.set_videohdr_params):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            hook(None)
     assert not vr._superres_engaged() and not vr._videohdr_engaged()
+    # the hooks take the port's models (their tests: test_torch_models.py)
+    from videorenderer_tpu_torch.models import superres, videohdr
+    sr = superres.SuperRes(superres.SuperResConfig(channels=8, num_blocks=1))
+    vh = videohdr.VideoHDR(videohdr.VideoHDRConfig(channels=8))
+    vr.set_superres_params(sr)
+    vr.set_videohdr_params(vh)
+    assert vr._superres is sr and vr._videohdr is vh
+    # a 32 x 16 -> 32 x 16 SDR output: neither gate engages
+    assert not vr._superres_engaged() and not vr._videohdr_engaged()
+    for hook in (vr.set_superres_params, vr.set_videohdr_params):
+        hook(None)
+    assert vr._superres is None and vr._videohdr is None
     with pytest.raises(KeyError):
         vr.flt_set("nope", 1)
     with pytest.raises(RuntimeError, match="open"):

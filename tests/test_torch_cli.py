@@ -1,0 +1,259 @@
+"""videorenderer_tpu_torch.cli against videorenderer_tpu.cli: both CLIs on
+the same raw NV12 / P010 and .y4m clips with the same flags (the port's
+with ``--device cpu``), their output files compared channel by channel:
+paths without a model within 1 code on >= 99.9% of the channels and at
+most 3 (tests/test_torch_api.py's band), model paths (--superres,
+--videohdr) >= 50 dB with codes at most 3 apart at 8 bits.  Also
+``settings`` files equal, ``info``, the training commands' refusal and the
+error exits."""
+
+import json
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from videorenderer_tpu.cli import main as jmain
+from videorenderer_tpu.io.y4m import write_y4m
+
+from videorenderer_tpu_torch.cli import main as tmain
+
+
+def _nv12(path, w, h, frames, seed, pitch=None):
+    rng = np.random.default_rng(seed)
+    p = pitch or w
+    bufs = []
+    for _ in range(frames):
+        y = rng.integers(16, 236, (h, p), np.uint8)
+        uv = rng.integers(16, 241, (h // 2, p), np.uint8)
+        bufs.append(y.tobytes() + uv.tobytes())
+    path.write_bytes(b"".join(bufs))
+    return str(path)
+
+
+def _p010(path, w, h, frames, seed):
+    rng = np.random.default_rng(seed)
+    data = [np.concatenate([
+        (rng.integers(64, 941, (h, w), np.uint16) << 6).reshape(-1),
+        (rng.integers(64, 961, (h // 2, w), np.uint16) << 6).reshape(-1)])
+        for _ in range(frames)]
+    path.write_bytes(np.concatenate(data).tobytes())
+    return str(path)
+
+
+def _codes(path, bits):
+    """(N * H * W, 3) channel codes of a raw RGB output file."""
+    if bits == 10:
+        d = np.fromfile(path, np.uint32)
+        return np.stack([(d >> (10 * i)) & 1023 for i in range(3)], -1) \
+            .astype(np.int64)
+    return np.fromfile(path, np.uint8).reshape(-1, 3).astype(np.int64)
+
+
+def _check(jpath, tpath, bits, model):
+    j, t = _codes(jpath, bits), _codes(tpath, bits)
+    assert j.shape == t.shape and j.size
+    d = np.abs(j - t)
+    if model:
+        top = 2 ** bits - 1
+        mse = np.mean(((j - t) / top) ** 2)
+        assert mse == 0 or 10 * np.log10(1 / mse) >= 50.0
+        assert (d / top * 255).max() <= 3.0, d.max()
+    else:
+        assert d.max() <= 3 and (d > 1).mean() <= 1e-3, (d.max(),
+                                                          (d > 1).mean())
+
+
+def _both(tmp_path, argv, out_bits=8, model=False):
+    """Run both CLIs with ``argv`` (``{out}`` and ``{shot}`` filled per
+    package); returns the two output paths."""
+    outs = []
+    for tag, main, extra in (("j", jmain, []), ("t", tmain,
+                                                ["--device", "cpu"])):
+        out = str(tmp_path / f"{tag}.rgb")
+        args = [a.format(out=out, shot=str(tmp_path / f"{tag}.bmp"))
+                for a in argv]
+        assert main(args + extra) == 0
+        outs.append(out)
+    _check(*outs, out_bits, model)
+    return outs
+
+
+NV12 = ["--format", "NV12", "--size", "32x16", "--matrix", "BT_709"]
+CASES = {
+    "plain": ([], 8, False),
+    "lanczos_up": (["--out-size", "64x32", "--upscaling", "LANCZOS3"], 8,
+                   False),
+    "rgb10_down": (["--out-size", "16x8", "--out-bits", "10"], 10, False),
+    "rotation_flip": (["--rotation", "90", "--flip", "--out-size", "48x24"],
+                      8, False),
+    "batch2": (["--batch", "2", "--no-dither", "--chroma", "CATMULL_ROM"], 8,
+               False),
+    "deint_double": (["--deinterlace", "double", "--no-dither"], 8, False),
+    "deint_single": (["--deinterlace", "single"], 8, False),
+    "superres_untrained": (["--superres", "P1080", "--out-size", "64x32"], 8,
+                           True),
+    "superres_shipped": (["--superres", "P1080", "--out-size", "64x32",
+                          "--superres-weights", "weights/superres_2x.npz"],
+                         8, True),
+    "videohdr_shipped": (["--videohdr-weights", "weights/videohdr.npz",
+                          "--hdr-passthrough", "--out-bits", "10"], 10, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_process_nv12(tmp_path, case):
+    argv, bits, model = CASES[case]
+    clip = _nv12(tmp_path / "clip.nv12", 32, 16, 3, seed=len(case))
+    _both(tmp_path, ["process", clip, "--out", "{out}"] + NV12 + argv,
+          bits, model)
+
+
+def test_process_pitch_and_srt(tmp_path):
+    clip = _nv12(tmp_path / "clip.nv12", 32, 16, 3, seed=5, pitch=48)
+    _both(tmp_path, ["process", clip, "--out", "{out}", "--pitch", "48"]
+          + NV12)
+    srt = tmp_path / "s.srt"
+    srt.write_text("1\n00:00:00,000 --> 00:00:10,000\nHI\n")
+    clip = _nv12(tmp_path / "clip2.nv12", 64, 32, 3, seed=6)
+    _both(tmp_path, ["process", clip, "--out", "{out}", "--srt", str(srt),
+                     "--no-dither", "--format", "NV12", "--size", "64x32",
+                     "--matrix", "BT_709"])
+
+
+@pytest.mark.parametrize("case", ["sdr", "passthrough_bt2390"])
+def test_process_p010_hdr(tmp_path, case):
+    clip = _p010(tmp_path / "clip.p010", 32, 16, 2, seed=7)
+    argv = ["process", clip, "--out", "{out}", "--format", "P010", "--size",
+            "32x16", "--transfer", "PQ", "--primaries", "BT_2020",
+            "--matrix", "BT_2020_NC", "--out-size", "16x8"]
+    if case == "sdr":
+        _both(tmp_path, argv)
+    else:
+        _both(tmp_path, argv + ["--hdr-passthrough", "--tone-map", "BT2390",
+                                "--display-nits", "600", "--out-bits", "10"],
+              10)
+
+
+def test_process_y4m_superres_screenshot(tmp_path):
+    rng = np.random.default_rng(8)
+    frames = [(rng.integers(16, 236, (16, 32), np.uint8),
+               rng.integers(16, 241, (8, 16), np.uint8),
+               rng.integers(16, 241, (8, 16), np.uint8)) for _ in range(3)]
+    clip = str(tmp_path / "clip.y4m")
+    write_y4m(clip, frames, 32, 16, fps=(30, 1))
+    _both(tmp_path, ["process", clip, "--out", "{out}", "--out-size",
+                     "64x32", "--superres", "P1080", "--superres-weights",
+                     "weights/superres_2x.npz", "--screenshot", "{shot}",
+                     "--matrix", "BT_709"], model=True)
+    from PIL import Image
+    j, t = (np.asarray(Image.open(tmp_path / f"{k}.bmp").convert("RGB"))
+            .astype(np.int64) for k in "jt")
+    assert t.shape == (32, 64, 3) and np.abs(j - t).max() <= 3
+    first = _codes(str(tmp_path / "t.rgb"), 8)[:32 * 64].reshape(32, 64, 3)
+    assert np.array_equal(first, t)          # the first output frame
+
+
+def test_settings_files_equal(tmp_path, capsys):
+    for tag, main in (("j", jmain), ("t", tmain)):
+        f = str(tmp_path / f"{tag}.json")
+        assert main(["settings", "--file", f, "--set", "upscaling=4",
+                     "--set", "use_dither=false", "--set",
+                     "vp_superres=2"]) == 0
+    capsys.readouterr()
+    j, t = (json.loads((tmp_path / f"{k}.json").read_text()) for k in "jt")
+    assert j == t and t["upscaling"] == 4 and t["use_dither"] is False
+    assert tmain(["settings", "--file", str(tmp_path / "t.json")]) == 0
+    assert json.loads(capsys.readouterr().out) == t
+    for tag, main in (("j", jmain), ("t", tmain)):
+        assert main(["settings", "--file", str(tmp_path / f"{tag}.json"),
+                     "--reset"]) == 0
+    assert (tmp_path / "j.json").read_text() == \
+        (tmp_path / "t.json").read_text()
+    with pytest.raises(SystemExit):
+        tmain(["settings", "--set", "nope=1"])
+    with pytest.raises(SystemExit):
+        tmain(["settings", "--edit"])        # no interactive terminal
+
+
+def test_info_train_and_errors(tmp_path, capsys):
+    assert tmain(["info", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "videorenderer_tpu_torch" in out and "Device: cpu" in out
+    for cmd in ("train-superres", "train-videohdr"):
+        assert tmain([cmd, "--out", "x.npz", "--steps", "10"]) == 2
+        assert "ROADMAP.md item 10" in capsys.readouterr().err
+    assert tmain(["process", str(tmp_path / "nothere.nv12"), "--out",
+                  str(tmp_path / "x.rgb"), "--device", "cpu"] + NV12) == 2
+    clip = _nv12(tmp_path / "c.nv12", 32, 16, 1, seed=1)
+    with pytest.raises(SystemExit):
+        tmain(["process", clip, "--format", "NOPE", "--size", "32x16",
+               "--out", str(tmp_path / "x.rgb"), "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        tmain(["process", clip, "--out", str(tmp_path / "x.rgb"),
+               "--bogus"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tmain(["info"])
+
+
+def test_bench_outside_a_checkout_root(monkeypatch, capsys):
+    """``bench`` runs the repo-root script: where it cannot be imported
+    (an installed ``vrt-torch`` run elsewhere) the command exits 2 with a
+    message, not a traceback."""
+    monkeypatch.setitem(sys.modules, "torch_headline_micro", None)
+    assert tmain(["bench", "--frames", "2"]) == 2
+    assert "root of a checkout" in capsys.readouterr().err
+
+
+@pytest.fixture
+def smoke_on_cpu(monkeypatch):
+    """chip_smoke at a small size on the CPU: the frames shrunk, the
+    device syncs no-ops, a host timer for cuda_ms, and the kernel wrappers
+    K1, K2, K7 and K9 counting their calls (their plain versions run on
+    CPU tensors) as they count their launches on the card."""
+    import chip_smoke as cs
+    from videorenderer_tpu_torch.kernels import deint as dk
+    from videorenderer_tpu_torch.kernels import resize as rk
+    for name, val in (("W", 128), ("H", 64), ("OW", 64), ("OH", 32),
+                      ("C1_W", 64), ("C1_H", 32), ("SR_BATCH", 2),
+                      ("VH_BATCH", 3), ("CLI_SR_FRAMES", 2),
+                      ("CLI_HEAD_FRAMES", 3), ("CLI_DEINT_FRAMES", 2),
+                      ("PLAIN_FRAMES", 1)):
+        monkeypatch.setattr(cs, name, val)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+    def host_ms(fn, reps=5, warmup=1):
+        import time
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(cs, "cuda_ms", host_ms)
+    for mod, name in ((rk, "banded_resize_last_axis"), (rk, "rows3_tail"),
+                      (dk, "deint3_rows_dual"), (dk, "cols3_tail")):
+        def counted(*a, _real=getattr(mod, name), _name=name, **kw):
+            rk.launches[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    return cs
+
+
+def test_chip_smoke_model_cli_phases_rehearsal(smoke_on_cpu, capsys):
+    """Phases 36-38 end to end on the CPU: the launch counts of each path,
+    every bit-equality, the PSNR bars and the CLI's files."""
+    cs = smoke_on_cpu
+    res = cs.model_cli_phases("cpu")
+    two = cs.only(banded_resize_last_axis=2, rows3_tail=1)
+    assert res["launches"] == {
+        "c3sr": two, "c1vh": two, "cli_c3sr": two,
+        "cli_headline": cs.only(banded_resize_last_axis=3, rows3_tail=1),
+        "cli_c5": cs.only(deint3_rows_dual=2, cols3_tail=2)}
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()
+             if s.startswith("{")]
+    by = {d["phase"]: d for d in lines}
+    assert by["c3sr"]["psnr_db"]["output"] >= 40.0
+    assert by["c1vh"]["signal_info"]["transfer"] == "PQ"
+    assert all(r["bit_equal_renderer"] for r in by["cli"]["runs"].values())
+    assert by["cli"]["runs"]["c3sr"]["screenshot_equal_first_frame"]

@@ -2289,3 +2289,104 @@ def test_run_clip_on_card(dev):
     assert res.frames == 16 and len(res.outputs) == 4
     for out, b in zip(res.outputs, batches):
         assert torch.equal(out, vp.process(b))
+
+
+def _model_band(a, b, db, max_abs):
+    a, b = a.double().cpu(), b.double().cpu()
+    d = (a - b).abs().max().item()
+    mse = ((a - b) ** 2).mean().item()
+    assert (mse == 0 or 10 * np.log10(1 / mse) >= db) and d <= max_abs, (
+        mse, d)
+
+
+@pytest.mark.parametrize("kind", ["superres", "videohdr"])
+def test_shipped_models_on_card_match_cpu(dev, kind):
+    """The shipped nets on the card (cuDNN, bf16) against the same nets on
+    the CPU, within the bands the CPU tests hold them to against the JAX
+    package: SuperRes >= 50 dB and <= 2^-6, VideoHDR >= 80 dB and
+    <= 1e-3; a 1080p-sized input's odd crop is padded to the grid."""
+    from videorenderer_tpu_torch.models import real_eval, superres, videohdr
+    mod = superres if kind == "superres" else videohdr
+    load = (real_eval.load_shipped_superres if kind == "superres"
+            else real_eval.load_shipped_videohdr)
+    x = torch.from_numpy(np.random.default_rng(51).random(
+        (2, 3, 134, 243)).astype(np.float32))
+    cpu_model = load("cpu")
+    card_model = load(dev)
+    assert all(p.device.type == "cuda" for p in card_model.parameters())
+    want = mod.enhance_plane_chw(cpu_model, x)
+    got = mod.enhance_plane_chw(card_model, x.to(dev))
+    assert got.device.type == "cuda" and got.shape == want.shape
+    if kind == "superres":
+        _model_band(got, want, 50.0, 2.0 ** -6)
+    else:
+        _model_band(got, want, 80.0, 1e-3)
+    with pytest.raises(RuntimeError, match="move the model first"):
+        mod.enhance_plane_chw(cpu_model, x.to(dev))
+
+
+def test_model_convs_keep_tf32_off(dev):
+    """A float32 config's convs run without TF32 inside the hook, whatever
+    the global flag says: they match float64 convs to float32 rounding."""
+    from videorenderer_tpu_torch.models import superres
+    cfg = superres.SuperResConfig(channels=32, num_blocks=1,
+                                  dtype=torch.float32)
+    model = superres.init_params(torch.Generator().manual_seed(2), cfg)
+    model.tail.weight.normal_(0, 0.01,
+                              generator=torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(52).random(
+        (1, 3, 64, 96)).astype(np.float32))
+    b = torch.backends.cudnn
+    prev = b.allow_tf32
+    b.allow_tf32 = True
+    try:
+        got = superres.enhance_plane_chw(model.to(dev), x.to(dev))
+        assert b.allow_tf32                      # restored after the hook
+    finally:
+        b.allow_tf32 = prev
+    m64 = superres.SuperRes(superres.SuperResConfig(
+        channels=32, num_blocks=1, dtype=torch.float64))
+    m64.load_state_dict({k: v.double() for k, v in
+                         model.cpu().state_dict().items()})
+    want = superres.enhance_plane_chw(m64, x.double())
+    assert (got.cpu().double() - want).abs().max().item() < 1e-5
+
+
+def test_renderer_models_on_card_match_cpu(dev):
+    """c3sr's and c1vh's renderer paths at a small size: the pipeline 1:1
+    on the kernels (K1 x2 + K2 a frame), then the net, then the pack; the
+    card's surface against the CPU renderer's within 3 codes at 8 bits;
+    the caller's CPU model stays on the CPU."""
+    from videorenderer_tpu_torch.api import VideoRenderer
+    from videorenderer_tpu_torch.models import real_eval
+    rng = np.random.default_rng(53)
+    w, h = 128, 64
+    frame = (rng.integers(16, 236, (h, w), np.uint8),
+             rng.integers(16, 241, (h // 2, w // 2), np.uint8),
+             rng.integers(16, 241, (h // 2, w // 2), np.uint8))
+    src = P.SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
+                             matrix=S.CSP.BT_709, levels=S.Levels.TV)
+    for kind in ("superres", "videohdr"):
+        if kind == "superres":
+            model = real_eval.load_shipped_superres("cpu")
+            st = C.Settings(vp_superres=C.SuperResolution.P1080)
+            dst = P.OutputDescriptor(width=2 * w, height=2 * h, bits=8)
+        else:
+            model = real_eval.load_shipped_videohdr("cpu")
+            st = C.Settings(vp_rtx_video_hdr=True)
+            dst = P.OutputDescriptor(width=w, height=h, bits=10, hdr=True)
+        outs = []
+        for device in ("cpu", dev):
+            vr = VideoRenderer(st, pack_surface=True, device=device)
+            (vr.set_superres_params if kind == "superres"
+             else vr.set_videohdr_params)(model)
+            vr.open(src, dst)
+            rk.reset_launches()
+            outs.append(vr.process_frame(frame))
+            if device != "cpu":
+                assert rk.launches == only(banded_resize_last_axis=2,
+                                           rows3_tail=1)
+        assert next(model.parameters()).device.type == "cpu"
+        fmt = "rgba8" if dst.bits == 8 else "rgb10a2"
+        d = np.abs(_codes(outs[0], fmt) - _codes(outs[1], fmt))
+        assert d.max() <= (3 if dst.bits == 8 else 12), (kind, d.max())

@@ -413,7 +413,18 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.osd, videorenderer_tpu_torch.subtitles, "
             "videorenderer_tpu_torch.io.srt, videorenderer_tpu_torch.io.native, "
             "videorenderer_tpu_torch.ops.overlay, "
-            "videorenderer_tpu_torch.kernels.unpack_device; "
+            "videorenderer_tpu_torch.kernels.unpack_device, "
+            "videorenderer_tpu_torch.cli, videorenderer_tpu_torch.display, "
+            "videorenderer_tpu_torch.proppage, "
+            "videorenderer_tpu_torch.io.raw, videorenderer_tpu_torch.io.y4m, "
+            "videorenderer_tpu_torch.io.image, "
+            "videorenderer_tpu_torch.utils.trace, "
+            "videorenderer_tpu_torch.models.checkpoint, "
+            "videorenderer_tpu_torch.models.superres, "
+            "videorenderer_tpu_torch.models.videohdr, "
+            "videorenderer_tpu_torch.models.sr_train, "
+            "videorenderer_tpu_torch.models.hdr_train, "
+            "videorenderer_tpu_torch.models.real_eval; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('videorenderer_tpu.') or m == 'videorenderer_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

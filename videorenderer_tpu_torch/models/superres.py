@@ -1,0 +1,186 @@
+"""Learned super-resolution — the "SuperRes" slot of the fixed-function VP;
+the inference half of ``videorenderer_tpu.models.superres``.
+
+The reference enables vendor super-resolution blocks (NVIDIA SuperRes GUID /
+Intel VPE, Source/D3D11VP.cpp:712-844) gated by source size per the
+``SUPERRES_*`` setting.  Here the model is explicit: an ESPCN-style residual
+conv net in a ``s2d``x space-to-depth domain with pixel-shuffle upsampling,
+predicting a residual over the nearest-upsampled frame, in bfloat16.
+
+The parameters are those of the JAX model, flattened under the same keys
+(:mod:`.checkpoint`), so the shipped ``weights/superres_2x.npz`` loads in
+both packages.  The model holds its weights in the channel order of
+``pixel_unshuffle`` / ``pixel_shuffle``; the checkpoint loader permutes
+the JAX order into it once.  Training (``loss_fn``, ``sgd_train_step``)
+stays in the JAX package for now (ROADMAP.md item 10).
+
+Size gating mirrors SetSuperRes (Source/D3D11VP.cpp:804-844): a level only
+engages when the source is at most the level's resolution class and the
+target is larger.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import SuperResolution
+
+# max source size per gating level (Source/D3D11VP.cpp:806-836 classes)
+_GATE_LIMITS = {
+    SuperResolution.SD: (1024, 576),
+    SuperResolution.P720: (1280, 720),
+    SuperResolution.P1080: (1920, 1080),
+    SuperResolution.P1440: (2560, 1440),
+}
+
+
+def superres_engages(level: SuperResolution, src_w: int, src_h: int,
+                     dst_w: int, dst_h: int) -> bool:
+    """Size gate: level covers the source size AND we are upscaling."""
+    if level == SuperResolution.DISABLE:
+        return False
+    lw, lh = _GATE_LIMITS[level]
+    return src_w <= lw and src_h <= lh and (dst_w > src_w or dst_h > src_h)
+
+
+@dataclass(frozen=True)
+class SuperResConfig:
+    """The JAX model's shape: the conv stack runs on a ``s2d``x
+    space-to-depth grid (1080p -> 270 x 480) with ``channels``-wide
+    activations, and the tail pixel-shuffles by ``scale * s2d`` straight
+    back to output resolution.  ``dtype``: activations and weights (the
+    JAX config's bfloat16)."""
+    channels: int = 128
+    num_blocks: int = 4
+    scale: int = 2           # output upscale factor
+    s2d: int = 4             # space-to-depth factor for the conv domain
+    dtype: torch.dtype = torch.bfloat16
+
+
+@contextlib.contextmanager
+def exact_convs():
+    """cuDNN without TF32 for the enclosed convs, so that a float32 config
+    computes in float32 (the default lets cuDNN round float32 convs'
+    operands to TF32); the other cuDNN flags stay as they are."""
+    b = torch.backends.cudnn
+    with b.flags(enabled=b.enabled, benchmark=b.benchmark,
+                 deterministic=b.deterministic, allow_tf32=False):
+        yield
+
+
+def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
+    """3x3 'same' conv in ``x``'s dtype, then the bias added in that dtype
+    (the JAX ``_conv``: the conv rounds, then the bias add rounds)."""
+    w, b = layer.weight, layer.bias
+    if w.device != x.device:
+        raise RuntimeError(f"model weights on {w.device}, input on "
+                           f"{x.device}: move the model first")
+    return F.conv2d(x, w.to(x.dtype), padding=1) + b.to(x.dtype)[:, None, None]
+
+
+def pad_to_grid(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Edge-pad the last two axes up to multiples of ``k``."""
+    ph, pw = (-x.shape[-2]) % k, (-x.shape[-1]) % k
+    if not (ph or pw):
+        return x
+    lead = x.shape[:-3]
+    y = F.pad(x.reshape((-1,) + x.shape[-3:]), (0, pw, 0, ph),
+              mode="replicate")
+    return y.reshape(lead + y.shape[-3:])
+
+
+def conv3x3(cin: int, cout: int, dtype: torch.dtype) -> nn.Conv2d:
+    """A 3x3 conv layer made without the default initialisation (which
+    would draw from the global generator): uninitialised, on the CPU."""
+    return nn.Conv2d(cin, cout, 3, padding=1, device="meta",
+                     dtype=dtype).to_empty(device="cpu")
+
+
+class _Block(nn.Module):
+    def __init__(self, ch: int, dtype: torch.dtype):
+        super().__init__()
+        self.c1 = conv3x3(ch, ch, dtype)
+        self.c2 = conv3x3(ch, ch, dtype)
+
+
+class SuperRes(nn.Module):
+    """Head (3 s2d^2 -> channels), ``num_blocks`` residual blocks of two
+    3x3 convs, tail (channels -> 3 (scale s2d)^2), all 3x3 with padding 1;
+    parameters in ``cfg.dtype``, zero until :func:`init_params` or
+    :func:`~.checkpoint.load_params` fills them."""
+
+    def __init__(self, cfg: SuperResConfig = SuperResConfig()):
+        super().__init__()
+        self.cfg = cfg
+        k, kk = cfg.s2d, cfg.scale * cfg.s2d
+        self.head = conv3x3(3 * k * k, cfg.channels, cfg.dtype)
+        self.body = nn.ModuleList(_Block(cfg.channels, cfg.dtype)
+                                  for _ in range(cfg.num_blocks))
+        self.tail = conv3x3(cfg.channels, 3 * kk * kk, cfg.dtype)
+        self.requires_grad_(False)
+        for p in self.parameters():
+            p.zero_()
+
+
+def init_params(generator: torch.Generator,
+                cfg: SuperResConfig = SuperResConfig()) -> SuperRes:
+    """He-init conv stack (normal, std sqrt(2 / (9 cin)), zero biases) with
+    the tail exactly zero, as the JAX ``init_params``: the residual starts
+    at zero, so an untrained net IS the nearest-upsampled base."""
+    model = SuperRes(cfg)
+    for name, layer in model.named_modules():
+        if isinstance(layer, nn.Conv2d) and name != "tail":
+            he_init(layer, generator)
+    return model
+
+
+def he_init(layer: nn.Conv2d, generator: torch.Generator) -> None:
+    """Weights drawn normal with std sqrt(2 / (9 cin)) in float32, then
+    rounded to the layer's dtype."""
+    w = layer.weight
+    w.copy_(torch.randn(w.shape, generator=generator)
+            * float(np.sqrt(2.0 / (9 * w.shape[1]))))
+
+
+def _trunk(model: SuperRes, h0: torch.Tensor) -> torch.Tensor:
+    """Head + residual body + tail on s2d-grid features (N, C, hh, ww)."""
+    h = torch.relu(conv(h0, model.head))
+    for blk in model.body:
+        r = torch.relu(conv(h, blk.c1))
+        h = h + conv(r, blk.c2)
+    return conv(h, model.tail)
+
+
+@torch.no_grad()
+def enhance_plane_chw(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
+    """Pipeline hook: (..., 3, H, W) float in [0, 1] -> (..., 3, H s, W s)
+    float32 — the function of the JAX ``enhance_plane_chw``: space-to-depth
+    by ``s2d``, the trunk, depth-to-space by ``scale s2d``, plus the
+    nearest-upsampled base (added in the model's dtype).  Sizes that are
+    not multiples of ``s2d`` are edge-padded to the grid and cropped."""
+    cfg = model.cfg
+    k, s = cfg.s2d, cfg.scale
+    lead, (in_h, in_w) = rgb_chw.shape[:-3], rgb_chw.shape[-2:]
+    x = pad_to_grid(rgb_chw.reshape((-1,) + rgb_chw.shape[-3:]), k)
+    x = x.to(cfg.dtype)
+    n, _, hp, wp = x.shape
+    with exact_convs():
+        res = _trunk(model, F.pixel_unshuffle(x, k) if k > 1 else x)
+    res = F.pixel_shuffle(res, s * k)                # (n, 3, hp s, wp s)
+    # the nearest-upsampled base, added by broadcasting
+    out = (res.view(n, 3, hp, s, wp, s) + x.view(n, 3, hp, 1, wp, 1)) \
+        .view(n, 3, hp * s, wp * s).float()
+    return out[..., :in_h * s, :in_w * s].reshape(
+        lead + (3, in_h * s, in_w * s))
+
+
+def apply_fn(model: SuperRes, lr_rgb: torch.Tensor) -> torch.Tensor:
+    """lr_rgb: (N, H, W, 3) in [0, 1] -> (N, H scale, W scale, 3) float32,
+    the NHWC form of :func:`enhance_plane_chw` (the JAX ``apply_fn``)."""
+    return enhance_plane_chw(model, lr_rgb.movedim(-1, -3)).movedim(-3, -1)
