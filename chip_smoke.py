@@ -253,6 +253,28 @@ Phases, one line each:
               frame; K1 x2 + K2, K1 x3 + K2, and K7 + K9 a frame; frames/s
               of each run (host clock, file IO included); ``cli info``
               names the card.
+ 39. train_sr sr_train.train of SuperResConfig() (128 channels, 4 blocks,
+              s2d 4) from init_params(seed 0) at the command line's
+              training defaults (256 synthetic frames, batch 16, patch 128,
+              lr 1e-3): 3 steps twice on the card (bit-equal or not is
+              recorded) and once on the CPU, within 1%; 40 steps, every
+              loss finite, the mean of the last 8 below the first 8's;
+              ms/step over steps 10-40 of that run (CUDA events around
+              each of train's steps), the step's TFLOP/s (the forward,
+              every weight gradient and every input gradient but the
+              first conv's) and its bf16 bound; the
+              parameters' digest, float32, and the held-out PSNR.
+ 40. train_hdr the same for hdr_train.train of VideoHDRConfig() (64
+              channels, s2d 4); the held-out PQ PSNR against the base.
+ 41. train_dp make_mesh(device="cuda"): an NCCL group of one from a
+              FileStore; 10 SuperRes steps with mesh= bit-equal to 10
+              without (losses and parameters); the group destroyed.
+ 42. train_cli cli train-superres and train-videohdr (20 steps, 64 frames)
+              with their JSON keys those of the JAX CLI, then cli process
+              of phase 38's .y4m clip with each checkpoint (--superres
+              P1080 to 4K; --videohdr-weights to RGB10 PQ): each file
+              byte-equal to the renderer's with the checkpoint, the same
+              K1 and K2 launches.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -319,10 +341,13 @@ from videorenderer_tpu_torch.runner import run_clip  # noqa: E402
 from videorenderer_tpu_torch.cli import main as cli_main  # noqa: E402
 from videorenderer_tpu_torch.io.raw import RawVideoSink  # noqa: E402
 from videorenderer_tpu_torch.io.y4m import write_y4m  # noqa: E402
+from videorenderer_tpu_torch.models import hdr_train, optim  # noqa: E402
 from videorenderer_tpu_torch.models import real_eval  # noqa: E402
+from videorenderer_tpu_torch.models import sr_train  # noqa: E402
 from videorenderer_tpu_torch.models import superres as sr_model  # noqa: E402
 from videorenderer_tpu_torch.models import videohdr as vh_model  # noqa: E402
 from videorenderer_tpu_torch.models.checkpoint import load_params  # noqa: E402
+from videorenderer_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from videorenderer_tpu_torch.subtitles import (SubPic,  # noqa: E402
                                                TextSubtitleProvider)
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
@@ -365,6 +390,16 @@ SR_BATCH, VH_BATCH = 8, 32                # c3sr, c1vh (bench_common.py:242)
 CLI_SR_FRAMES = 8                         # phase 38's three runs
 CLI_HEAD_FRAMES = 16
 CLI_DEINT_FRAMES = 4
+# phases 39-42: the full-width models at the command line's training
+# defaults (cli.py's train parsers: batch 16, patch 128, 256 frames, lr 1e-3)
+SR_TRAIN_CFG = sr_model.SuperResConfig()
+VH_TRAIN_CFG = vh_model.VideoHDRConfig()
+TRAIN_BATCH, TRAIN_PATCH, TRAIN_FRAMES, TRAIN_LR = 16, 128, 256, 1e-3
+TRAIN_STEPS, TRAIN_TIMED_FROM = 40, 10    # ms/step over steps 10-40
+TRAIN_CPU_STEPS = 3                       # the card's first steps vs the CPU's
+TRAIN_VAL_FRAMES = 16
+DP_STEPS = 10
+CLI_TRAIN_STEPS, CLI_TRAIN_FRAMES = 20, 64
 # the card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1927,9 +1962,7 @@ def model_phase(dev, key: str) -> dict:
     # the net's convolution FLOPs a frame (multiply-adds x 2), on the s2d grid
     k = model.cfg.s2d
     cells = -(-C1_H // k) * -(-C1_W // k)
-    net_flop = 2 * 9 * cells * sum(p.shape[0] * p.shape[1]
-                                   for n_, p in net.named_parameters()
-                                   if n_.endswith("weight"))
+    net_flop = conv_flops(net, cells)
     del rgb, enhanced, frames, base
     if not composed or min(db.values()) < 40.0 or db["pipeline"] < 55.0 \
             or wrong_device == "ran":
@@ -1958,6 +1991,64 @@ def _bmp_pixels(path: str, w: int, h: int) -> np.ndarray:
     return np.frombuffer(data[54:], np.uint8).reshape(h, w, 3)[::-1, :, ::-1]
 
 
+def sr_clip(tmp: str, name: str):
+    """Phase 38's clip: CLI_SR_FRAMES 1080p 4:2:0 frames of noise (SEED +
+    160) written to ``tmp``/``name``.y4m.  Returns its path, its (Y, U, V)
+    planes and its SourceDescriptor."""
+    rng = np.random.default_rng(SEED + 160)
+    yuv = (rng.integers(16, 236, (CLI_SR_FRAMES, C1_H, C1_W), np.uint8),
+           rng.integers(16, 241, (CLI_SR_FRAMES, C1_H // 2, C1_W // 2),
+                        np.uint8),
+           rng.integers(16, 241, (CLI_SR_FRAMES, C1_H // 2, C1_W // 2),
+                        np.uint8))
+    clip = os.path.join(tmp, f"{name}.y4m")
+    write_y4m(clip, zip(*yuv), C1_W, C1_H, fps=(24, 1))
+    return clip, yuv, SourceDescriptor(
+        format=ColorFormat.YUV420P8, width=C1_W, height=C1_H,
+        matrix=CSP.BT_709, levels=Levels.TV,
+        chroma_location=ChromaLocation.MPEG2)
+
+
+def drive_process(dev, tmp: str, name: str, argv, ref_vr, ref_frames,
+                  bits: int, fields: bool = False):
+    """``cli process`` of ``argv`` into ``tmp``/``name``.rgb on ``dev`` in
+    this process, its launches counted; then ``ref_frames`` through the
+    opened renderer ``ref_vr`` into a RawVideoSink (``fields``: one frame a
+    call, then the flush), its launches counted too.  Returns (the run's
+    record: exit code, launches, the output file byte-equal to the
+    renderer's, the same launches as the renderer's, frames, seconds,
+    digest; the CLI's launches; the renderer's file)."""
+    out = os.path.join(tmp, f"{name}.rgb")
+    t0 = time.perf_counter()
+    rc, n = count_launches(lambda: cli_main(
+        ["process", *argv, "--out", out, "--device", dev.type]))
+    seconds = time.perf_counter() - t0
+    ref = os.path.join(tmp, f"{name}_ref.rgb")
+
+    def present():
+        with RawVideoSink(ref, bits=bits) as sink:
+            if fields:
+                for f in ref_frames:
+                    for o in ref_vr.process_frame(f):
+                        sink.present(o)
+                for o in ref_vr.flush():
+                    sink.present(o)
+            else:
+                sink.present(ref_vr.process_frame(ref_frames))
+        return sink
+
+    sink, n_ref = count_launches(present)
+    with open(out, "rb") as f:
+        out_digest = hashlib.sha256(f.read()).hexdigest()
+    return ({"rc": rc, "launches": {k: v for k, v in n.items() if v},
+             "bit_equal_renderer": rc == 0 and filecmp.cmp(out, ref,
+                                                           shallow=False),
+             "launches_equal_renderer": n == n_ref,
+             "frames_out": sink.frames, "seconds": seconds,
+             "frames_per_s": sink.frames / seconds, "digest": out_digest},
+            n, ref)
+
+
 def cli_phase(dev, tmp: str) -> dict:
     """Phase 38: ``cli.main`` in this process, three runs: a .y4m clip of
     CLI_SR_FRAMES 1080p 4:2:0 frames to 4K with the shipped SuperRes and a
@@ -1968,55 +2059,21 @@ def cli_phase(dev, tmp: str) -> dict:
     screenshot to its first frame; each run's launches counted; ``cli
     info`` names the device."""
     t_phase = time.perf_counter()
-    on = ["--device", dev.type]
     sr_weights = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "weights", "superres_2x.npz")
     runs, launches = {}, {}
 
     def drive(name, argv, ref_vr, ref_frames, bits, fields=False):
-        out = os.path.join(tmp, f"{name}.rgb")
-        t0 = time.perf_counter()
-        rc, n = count_launches(lambda: cli_main(
-            ["process", *argv, "--out", out] + on))
-        seconds = time.perf_counter() - t0
-        ref = os.path.join(tmp, f"{name}_ref.rgb")
-        with RawVideoSink(ref, bits=bits) as sink:
-            if fields:
-                for f in ref_frames:
-                    for o in ref_vr.process_frame(f):
-                        sink.present(o)
-                for o in ref_vr.flush():
-                    sink.present(o)
-            else:
-                sink.present(ref_vr.process_frame(ref_frames))
-        equal = rc == 0 and filecmp.cmp(out, ref, shallow=False)
-        with open(out, "rb") as f:
-            out_digest = hashlib.sha256(f.read()).hexdigest()
-        launches[name] = n
-        runs[name] = {"rc": rc, "launches": {k: v for k, v in n.items() if v},
-                      "bit_equal_renderer": equal,
-                      "frames_out": sink.frames, "seconds": seconds,
-                      "frames_per_s": sink.frames / seconds,
-                      "digest": out_digest}
+        runs[name], launches[name], ref = drive_process(
+            dev, tmp, name, argv, ref_vr, ref_frames, bits, fields)
         return ref
 
     # run 1: c3sr from a .y4m file
-    rng = np.random.default_rng(SEED + 160)
-    yuv = (rng.integers(16, 236, (CLI_SR_FRAMES, C1_H, C1_W), np.uint8),
-           rng.integers(16, 241, (CLI_SR_FRAMES, C1_H // 2, C1_W // 2),
-                        np.uint8),
-           rng.integers(16, 241, (CLI_SR_FRAMES, C1_H // 2, C1_W // 2),
-                        np.uint8))
-    clip = os.path.join(tmp, "c3sr.y4m")
-    write_y4m(clip, zip(*yuv), C1_W, C1_H, fps=(24, 1))
+    clip, yuv, src = sr_clip(tmp, "c3sr")
     vr = VideoRenderer(cli_settings(vp_superres=SuperResolution.P1080),
                        device=dev)
     vr.set_superres_params(load_params(sr_weights, sr_model.SuperRes()))
-    vr.open(SourceDescriptor(format=ColorFormat.YUV420P8, width=C1_W,
-                             height=C1_H, matrix=CSP.BT_709,
-                             levels=Levels.TV,
-                             chroma_location=ChromaLocation.MPEG2),
-            OutputDescriptor(width=2 * C1_W, height=2 * C1_H, bits=8))
+    vr.open(src, OutputDescriptor(width=2 * C1_W, height=2 * C1_H, bits=8))
     shot = os.path.join(tmp, "c3sr.bmp")
     ref = drive("c3sr", [clip, "--out-size", f"{2 * C1_W}x{2 * C1_H}",
                               "--matrix", "BT_709", "--levels", "TV",
@@ -2060,7 +2117,7 @@ def cli_phase(dev, tmp: str) -> dict:
     del vr, deint
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc_info = cli_main(["info"] + on)
+        rc_info = cli_main(["info", "--device", dev.type])
     device_name = (torch.cuda.get_device_name(0) if dev.type == "cuda"
                    else "cpu")
     info_ok = rc_info == 0 and f"Device: {device_name}" in buf.getvalue()
@@ -2096,6 +2153,256 @@ def model_cli_phases(dev) -> dict:
         for name, n in cli_phase(dev, tmp).items():
             res["launches"][f"cli_{name}"] = n
     return res
+
+
+def conv_flops(model, cells: int) -> int:
+    """FLOPs (multiply-adds x 2) of a model's 3x3 convs over ``cells``
+    cells of its grid."""
+    return 2 * 9 * cells * sum(p.shape[0] * p.shape[1]
+                               for n, p in model.named_parameters()
+                               if n.endswith("weight"))
+
+
+def step_flops(model, cells: int) -> int:
+    """FLOPs of a training step's convs over ``cells`` cells: the forward,
+    each conv's weight gradient, and the input gradient of every conv but
+    the first, whose input (the data) needs none."""
+    first = next(p for n, p in model.named_parameters()
+                 if n.endswith("weight"))
+    return 3 * conv_flops(model, cells) - 2 * 9 * cells * (
+        first.shape[0] * first.shape[1])
+
+
+def timed_steps(run):
+    """``run()``, a trainer's run, with a CUDA event recorded on the
+    current stream as each of its steps starts and as it ends: the
+    trainers' loop (``optim.fit``) takes its step from
+    ``optim.train_step``, which is wrapped for the run.  Returns
+    (``run()``'s result, each step's (start, end) events, each step's
+    start on the host clock and the host clock after the run)."""
+    events, host = [], []
+    real = optim.train_step
+
+    def timed(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def stepped(xb, yb):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            host.append(time.perf_counter())
+            e0.record()
+            loss = step(xb, yb)
+            e1.record()
+            events.append((e0, e1))
+            return loss
+
+        return stepped
+
+    optim.train_step = timed
+    try:
+        out = run()
+    finally:
+        optim.train_step = real
+    torch.cuda.synchronize()
+    return out, events, host, time.perf_counter()
+
+
+def train_phase(dev, key: str) -> dict:
+    """Phase 39 (train_sr) or 40 (train_hdr): the trainer at full width
+    from init_params(seed 0) on TRAIN_FRAMES synthetic frames, batch
+    TRAIN_BATCH, patch TRAIN_PATCH.  TRAIN_CPU_STEPS steps twice on the
+    card (whether the two are bit-equal is recorded, not gated: cuDNN's
+    weight gradients may be non-deterministic) and once on the CPU, each
+    loss within 1%; TRAIN_STEPS steps, every loss finite and the mean of
+    the last 8 below that of the first 8; ms/step over that run's steps
+    TRAIN_TIMED_FROM to TRAIN_STEPS from CUDA events recorded around each
+    (:func:`timed_steps`); the step's TFLOP/s from the conv shapes
+    (:func:`step_flops`); the parameters' digest and the held-out PSNR
+    (not gated).  Returns the SR frames and start for phase 41."""
+    sr = key == "train_sr"
+    t_phase = time.perf_counter()
+    if sr:
+        cfg, mod, train = SR_TRAIN_CFG, sr_model, sr_train.train
+        frames = sr_train.synth_frames(SEED, TRAIN_FRAMES, TRAIN_PATCH)
+        val = sr_train.synth_frames(SEED + 777, TRAIN_VAL_FRAMES, TRAIN_PATCH)
+        cells = (TRAIN_PATCH // cfg.scale // cfg.s2d) ** 2
+    else:
+        cfg, mod, train = VH_TRAIN_CFG, vh_model, hdr_train.train
+        frames = hdr_train.synth_hdr_frames(SEED, TRAIN_FRAMES, TRAIN_PATCH,
+                                            cfg)
+        val = hdr_train.synth_hdr_frames(SEED + 777, TRAIN_VAL_FRAMES,
+                                         TRAIN_PATCH, cfg)
+        cells = (TRAIN_PATCH // cfg.s2d) ** 2
+    start = mod.init_params(torch.Generator().manual_seed(SEED), cfg)
+
+    def run(steps, device):
+        return train(cfg, steps, TRAIN_BATCH, frames, seed=SEED,
+                     learning_rate=TRAIN_LR, model=start, device=device)
+
+    def params_digest(model):
+        return digest(*model.state_dict().values())
+
+    first = [run(TRAIN_CPU_STEPS, dev) for _ in range(2)]
+    t_cpu = time.perf_counter()
+    cpu = run(TRAIN_CPU_STEPS, "cpu")
+    t_cpu = time.perf_counter() - t_cpu
+    first_rel = max(abs(a - b) / b for a, b in zip(first[0][1], cpu[1]))
+    repeat_equal = (first[0][1] == first[1][1] and params_digest(
+        first[0][0]) == params_digest(first[1][0]))
+    t_train = time.perf_counter()
+    (model, losses), events, host, t_end = timed_steps(
+        lambda: run(TRAIN_STEPS, dev))
+    t_train = time.perf_counter() - t_train
+    if len(events) != TRAIN_STEPS:
+        raise AssertionError(f"{key}: {len(events)} steps timed of "
+                             f"{TRAIN_STEPS}")
+    n_timed = TRAIN_STEPS - TRAIN_TIMED_FROM
+    ms_step = events[TRAIN_TIMED_FROM][0].elapsed_time(events[-1][1]) \
+        / n_timed
+    host_ms_step = 1e3 * (t_end - host[TRAIN_TIMED_FROM]) / n_timed
+    fwd = conv_flops(model, TRAIN_BATCH * cells)
+    flop = step_flops(model, TRAIN_BATCH * cells)
+    head, tail = np.mean(losses[:8]), np.mean(losses[-8:])
+    falling = bool(np.isfinite(losses).all() and tail < head)
+    master = all(p.dtype == torch.float32 and p.device.type == dev.type
+                 for p in model.parameters())
+    if sr:
+        net_db, base_db = sr_train.evaluate_psnr(model, val)
+        val_db = {"net": net_db, "catmull_rom": base_db}
+    else:
+        net_db, base_db = hdr_train.evaluate_pq_psnr(model, val)
+        val_db = {"net_pq": net_db, "base_pq": base_db}
+    line(key, seconds=time.perf_counter() - t_phase, batch=TRAIN_BATCH,
+         patch=TRAIN_PATCH, frames=TRAIN_FRAMES, steps=TRAIN_STEPS,
+         lr=TRAIN_LR, losses=losses, loss_head8=head, loss_tail8=tail,
+         first_losses_card=first[0][1], first_losses_cpu=cpu[1],
+         first_max_rel=first_rel, cpu_seconds=t_cpu,
+         card_repeat_bit_equal=repeat_equal, master_float32=master,
+         train_seconds=t_train, ms_per_step=ms_step,
+         host_ms_per_step=host_ms_step,
+         forward_gflop_per_step=fwd / 1e9, gflop_per_step=flop / 1e9,
+         tflop_s=flop / (ms_step * 1e-3) / 1e12,
+         bound_ms_per_step=1e3 * flop / PEAK_BF16_S,
+         params_digest=params_digest(model), val_psnr_db=val_db,
+         tolerance="first steps within 1% of the CPU's; losses finite and "
+                   "falling")
+    if not (falling and first_rel <= 0.01 and master):
+        raise AssertionError(f"{key}: losses {losses}, card {first[0][1]} "
+                             f"vs CPU {cpu[1]}, float32 masters {master}")
+    del model, first, cpu
+    torch.cuda.empty_cache()
+    return {"frames": frames, "start": start}
+
+
+def dp_phase(dev, data, start) -> None:
+    """Phase 41 (train_dp): make_mesh on one device (a world of one from a
+    FileStore: NCCL on the card), DP_STEPS SuperRes steps with ``mesh=``
+    against without: the losses and the parameters bit-equal; then the
+    group destroyed."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+
+    def run(mesh):
+        return sr_train.train(SR_TRAIN_CFG, DP_STEPS, TRAIN_BATCH, data,
+                              seed=SEED, learning_rate=TRAIN_LR, mesh=mesh,
+                              model=start, device=dev)
+
+    plain, plain_losses = run(None)
+    mesh = make_mesh(device=dev.type)
+    try:
+        backend = dist.get_backend()
+        meshed, mesh_losses = run(mesh)
+    finally:
+        mesh.destroy()
+    equal = plain_losses == mesh_losses and digest(
+        *plain.state_dict().values()) == digest(*meshed.state_dict().values())
+    line("train_dp", seconds=time.perf_counter() - t_phase, steps=DP_STEPS,
+         backend=backend, ranks=mesh.size, device=str(mesh.device),
+         bit_equal_no_mesh=equal, losses=mesh_losses,
+         group_destroyed=not dist.is_initialized())
+    if not equal or dist.is_initialized():
+        raise AssertionError(f"train_dp: mesh losses {mesh_losses} vs "
+                             f"{plain_losses}, group left "
+                             f"{dist.is_initialized()}")
+
+
+TRAIN_KEYS = {  # the JSON keys of the JAX CLI's train commands (cli.py)
+    "train-superres": {"steps", "final_loss", "val_psnr_net_db",
+                       "val_psnr_catmull_db", "out"},
+    "train-videohdr": {"steps", "final_loss", "val_pq_psnr_net_db",
+                       "val_pq_psnr_base_db", "out"}}
+
+
+def train_cli_phase(dev, tmp: str) -> dict:
+    """Phase 42 (train_cli): ``cli train-superres`` and ``train-videohdr``
+    (CLI_TRAIN_STEPS steps on CLI_TRAIN_FRAMES frames, batch and patch as
+    phases 39-40) in this process, their JSON keys those of the JAX CLI,
+    then ``cli process`` of phase 38's .y4m clip with each checkpoint
+    (--superres P1080 to 4K; --videohdr-weights to an HDR display,
+    RGB10): exit 0, the output file byte-equal to the renderer's with the
+    checkpoint loaded, the same launches.  Returns each run's launches."""
+    t_phase = time.perf_counter()
+    clip, yuv, src = sr_clip(tmp, "train_cli")
+    runs, launches = {}, {}
+    for cmd, flags, bits in (
+            ("train-superres", ["--superres", "P1080", "--out-size",
+                                f"{2 * C1_W}x{2 * C1_H}",
+                                "--superres-weights"], 8),
+            ("train-videohdr", ["--hdr-passthrough", "--out-bits", "10",
+                                "--videohdr-weights"], 10)):
+        ckpt = os.path.join(tmp, f"{cmd}.npz")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc_train = cli_main([cmd, "--out", ckpt, "--steps",
+                                 str(CLI_TRAIN_STEPS), "--frames",
+                                 str(CLI_TRAIN_FRAMES), "--batch",
+                                 str(TRAIN_BATCH), "--patch",
+                                 str(TRAIN_PATCH), "--device", dev.type])
+        train_s = time.perf_counter() - t0
+        result = json.loads(buf.getvalue().splitlines()[-1])
+        sr = cmd == "train-superres"
+        # the settings the CLI builds from these flags
+        vr = VideoRenderer(cli_settings(vp_superres=SuperResolution.P1080)
+                           if sr else Settings(convert_to_sdr=False,
+                                               hdr_passthrough=True,
+                                               vp_rtx_video_hdr=True),
+                           device=dev)
+        model = load_params(ckpt, sr_model.SuperRes() if sr
+                            else vh_model.VideoHDR())
+        (vr.set_superres_params if sr else vr.set_videohdr_params)(model)
+        vr.open(src, OutputDescriptor(
+            width=2 * C1_W if sr else C1_W, height=2 * C1_H if sr else C1_H,
+            bits=bits, hdr=not sr))
+        run, launches[cmd], _ = drive_process(
+            dev, tmp, cmd, [clip, "--matrix", "BT_709", "--levels", "TV",
+                            *flags, ckpt], vr, yuv, bits)
+        runs[cmd] = {"rc_train": rc_train, "train_seconds": train_s,
+                     "result": result,
+                     "keys_equal_jax_cli": set(result) == TRAIN_KEYS[cmd],
+                     **run}
+        del vr, model
+    line("train_cli", seconds=time.perf_counter() - t_phase,
+         steps=CLI_TRAIN_STEPS, frames=CLI_TRAIN_FRAMES, runs=runs)
+    if not all(r["rc_train"] == 0 and r["keys_equal_jax_cli"]
+               and r["launches_equal_renderer"] and r["bit_equal_renderer"]
+               and r["launches"].get("rows3_tail", 0)
+               for r in runs.values()):
+        raise AssertionError(f"train_cli: {runs}")
+    return launches
+
+
+def train_phases(dev) -> dict:
+    """Phases 39-42: training at full width on the card (SuperRes, VideoHDR),
+    data parallelism over a one-device mesh, and the command line's train
+    commands.  Returns the launches of phase 42's process runs."""
+    dev = torch.device(dev)
+    sr = train_phase(dev, "train_sr")
+    train_phase(dev, "train_hdr")
+    dp_phase(dev, sr["frames"], sr["start"])
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = train_cli_phase(dev, tmp)
+    return {"launches": {f"train_cli_{k}": v for k, v in launches.items()}}
 
 
 def main() -> None:
@@ -3393,9 +3700,11 @@ def main() -> None:
     ren = renderer_phases(dev, ms_field)
     # 36-38: the learned models (c3sr, c1vh) and the command line
     mc = model_cli_phases(dev)
+    # 39-42: training, data parallelism and the train commands
+    tr = train_phases(dev)
 
     def new_launches(name):
-        return sum(n[name] for phases in (new, hdr, ren, mc)
+        return sum(n[name] for phases in (new, hdr, ren, mc, tr)
                    for n in phases["launches"].values())
 
     def entry(name, source, replaces, n, k, err):

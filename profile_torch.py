@@ -3,10 +3,14 @@
 card.
 
     python3 profile_torch.py [c8] [letterbox] [c7] [c7plain] [c3sr] [c1vh]
+                             [train_sr] [train_hdr]
 
 Each configuration is driven as ``chip_smoke.py`` drives it (batch 16, or
 c3sr's 8 and c1vh's 32, through the renderer with the shipped weights;
-full width): a warm-up call, then ``CALLS`` calls back to back under
+full width; train_sr and train_hdr: one step of the trainers' loop,
+``models.optim.train_step``, at phases 39-40's width, batch and patch, on
+one batch already on the card): a warm-up call, then ``CALLS`` calls back
+to back under
 ``torch.profiler`` ending in one synchronise.  One JSON line each: the
 traced window's span (host-marked), the union of the device's kernel
 intervals over it (the busy share; in brackets the same union over the
@@ -25,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke as cs
 from videorenderer_tpu_torch import VideoProcessor, make_serving_fn
+from videorenderer_tpu_torch.models import hdr_train, optim, sr_train
 from videorenderer_tpu_torch.pipeline import plan_pipeline
 
 CALLS = 4
@@ -62,9 +67,11 @@ def profile_calls(fn) -> dict:
     events = prof.events()
     window = next(e for e in events if e.name == "window")
     w0, w1 = window.time_range.start, window.time_range.end
-    # the device's kernels and copies (not the window's own annotation)
+    # the device's kernels and copies, not the annotations mirrored on the
+    # device's timeline (the window's, the optimiser's step)
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name != "window" and w0 <= e.time_range.start <= w1]
+           and e.name != "window" and not e.is_user_annotation
+           and w0 <= e.time_range.start <= w1]
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     by_kernel: dict = {}
     for e in dev:
@@ -82,6 +89,30 @@ def profile_calls(fn) -> dict:
                 by_kernel.items(), key=lambda kv: -kv[1])},
             "device_share_by_kernel": {k: v / total for k, v in sorted(
                 by_kernel.items(), key=lambda kv: -kv[1])}}
+
+
+def train_batch(dev, name: str):
+    """(inputs, targets, step): a batch of phase 39's or 40's data on the
+    card and a training step of the full-width model from init_params
+    (float32 masters, Adam under the trainers' schedule)."""
+    sr = name == "train_sr"
+    cfg = cs.SR_TRAIN_CFG if sr else cs.VH_TRAIN_CFG
+    mod = cs.sr_model if sr else cs.vh_model
+    if sr:
+        hr = sr_train.synth_frames(cs.SEED, cs.TRAIN_BATCH, cs.TRAIN_PATCH)
+        x, y, loss_fn = sr_train.degrade(hr), hr, cs.sr_model.loss_fn
+    else:
+        hdr = hdr_train.synth_hdr_frames(cs.SEED, cs.TRAIN_BATCH,
+                                         cs.TRAIN_PATCH, cfg)
+        x, y = hdr_train.degrade_to_sdr(hdr, cfg), hdr_train.hdr_truth_pq(
+            hdr, cfg)
+        loss_fn = hdr_train.loss_fn
+    model = mod.init_params(torch.Generator().manual_seed(cs.SEED), cfg) \
+        .to(dev, torch.float32)
+    opt = optim.Adam(model.parameters(), optim.lr_schedule(
+        cs.TRAIN_STEPS, cs.TRAIN_LR, 0.3))
+    return (torch.tensor(x, device=dev), torch.tensor(y, device=dev),
+            optim.train_step(model, loss_fn, opt))
 
 
 def main(names) -> None:
@@ -121,6 +152,9 @@ def main(names) -> None:
             batch = cs.nv12_batch(cs.SR_BATCH if name == "c3sr"
                                   else cs.VH_BATCH, cs.SEED + 150, dev)
             out = profile_calls(lambda: vr.process_frame(batch))
+        elif name in ("train_sr", "train_hdr"):
+            batch = train_batch(dev, name)
+            out = profile_calls(lambda: batch[2](batch[0], batch[1]))
         else:
             raise ValueError(f"unknown configuration {name!r}")
         print(json.dumps({"config": name, "batch": batch[0].shape[0],

@@ -4,8 +4,8 @@ with ``--device cpu``), their output files compared channel by channel:
 paths without a model within 1 code on >= 99.9% of the channels and at
 most 3 (tests/test_torch_api.py's band), model paths (--superres,
 --videohdr) >= 50 dB with codes at most 3 apart at 8 bits.  Also
-``settings`` files equal, ``info``, the training commands' refusal and the
-error exits."""
+``settings`` files equal, ``info``, the training commands (their checkpoints
+processed by both CLIs) and the error exits."""
 
 import json
 import sys
@@ -177,13 +177,48 @@ def test_settings_files_equal(tmp_path, capsys):
         tmain(["settings", "--edit"])        # no interactive terminal
 
 
-def test_info_train_and_errors(tmp_path, capsys):
+def _jax_train_keys(monkeypatch, capsys, tmp_path, cmd, extra):
+    """The keys of the JAX CLI's JSON line for ``cmd`` with ``extra``
+    flags, its training and evaluation stubbed (the keys depend on the
+    flags only)."""
+    import videorenderer_tpu.models.hdr_train as jh
+    import videorenderer_tpu.models.sr_train as js
+    for mod, name, ret in ((js, "train", (None, [0.5])),
+                           (jh, "train", (None, [0.5])),
+                           (js, "evaluate_psnr", (1.0, 2.0)),
+                           (jh, "evaluate_pq_psnr", (1.0, 2.0))):
+        monkeypatch.setattr(mod, name, lambda *a, _r=ret, **k: _r)
+    monkeypatch.setattr("videorenderer_tpu.models.checkpoint.save_params",
+                        lambda *a: None)
+    assert jmain([cmd, "--out", str(tmp_path / "j.npz")] + extra) == 0
+    return set(json.loads(capsys.readouterr().out.splitlines()[-1]))
+
+
+def test_info_train_and_errors(tmp_path, capsys, monkeypatch):
     assert tmain(["info", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "videorenderer_tpu_torch" in out and "Device: cpu" in out
-    for cmd in ("train-superres", "train-videohdr"):
-        assert tmain([cmd, "--out", "x.npz", "--steps", "10"]) == 2
-        assert "ROADMAP.md item 10" in capsys.readouterr().err
+    # both training commands on the CPU (2 steps), their JSON keys those of
+    # the JAX CLI, then process with the checkpoint in both packages
+    small = ["--steps", "2", "--frames", "4", "--patch", "32", "--batch",
+             "2"]
+    for cmd, extra, flags, bits in (
+            ("train-superres", ["--natural-mix", "0.25"],
+             ["--superres", "P1080", "--out-size", "64x32",
+              "--superres-weights"], 8),
+            ("train-videohdr", [], ["--hdr-passthrough", "--out-bits", "10",
+                                    "--videohdr-weights"], 10)):
+        ckpt = str(tmp_path / f"{cmd}.npz")
+        assert tmain([cmd, "--out", ckpt, "--device", "cpu"] + small
+                     + extra) == 0
+        res = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert res["steps"] == 2 and np.isfinite(res["final_loss"])
+        assert res["out"] == ckpt
+        assert set(res) == _jax_train_keys(monkeypatch, capsys, tmp_path,
+                                           cmd, small + extra)
+        clip = _nv12(tmp_path / "c.nv12", 32, 16, 1, seed=1)
+        _both(tmp_path, ["process", clip, *NV12, "--out", "{out}",
+                         "--batch", "1", *flags, ckpt], bits, model=True)
     assert tmain(["process", str(tmp_path / "nothere.nv12"), "--out",
                   str(tmp_path / "x.rgb"), "--device", "cpu"] + NV12) == 2
     clip = _nv12(tmp_path / "c.nv12", 32, 16, 1, seed=1)
@@ -257,3 +292,52 @@ def test_chip_smoke_model_cli_phases_rehearsal(smoke_on_cpu, capsys):
     assert by["c1vh"]["signal_info"]["transfer"] == "PQ"
     assert all(r["bit_equal_renderer"] for r in by["cli"]["runs"].values())
     assert by["cli"]["runs"]["c3sr"]["screenshot_equal_first_frame"]
+
+
+def test_chip_smoke_train_phases_rehearsal(smoke_on_cpu, monkeypatch,
+                                           capsys):
+    """Phases 39-42 end to end on the CPU at tiny width: the trainers'
+    checks, the one-rank mesh (gloo here) bit-equal to no mesh, and the
+    train commands' checkpoints through ``process``."""
+    import time
+
+    class HostEvent:            # torch.cuda.Event on the host clock
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) * 1e3
+
+    cs = smoke_on_cpu
+    for name, val in (("SR_TRAIN_CFG", cs.sr_model.SuperResConfig(
+            channels=16, num_blocks=1, s2d=2)),
+            ("VH_TRAIN_CFG", cs.vh_model.VideoHDRConfig(channels=8)),
+            ("TRAIN_BATCH", 2), ("TRAIN_PATCH", 32), ("TRAIN_FRAMES", 8),
+            ("TRAIN_STEPS", 16), ("TRAIN_TIMED_FROM", 2),
+            ("TRAIN_VAL_FRAMES", 2), ("DP_STEPS", 2),
+            ("CLI_TRAIN_STEPS", 2), ("CLI_TRAIN_FRAMES", 4)):
+        monkeypatch.setattr(cs, name, val)
+
+    monkeypatch.setattr(torch.cuda, "Event", HostEvent)
+    res = cs.train_phases("cpu")
+    two = cs.only(banded_resize_last_axis=2, rows3_tail=1)
+    assert res["launches"]["train_cli_train-superres"] == two
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()
+             if s.startswith('{"phase"')]
+    by = {d["phase"]: d for d in lines}
+    assert set(by) == {"train_sr", "train_hdr", "train_dp", "train_cli"}
+    for key in ("train_sr", "train_hdr"):
+        assert by[key]["first_max_rel"] == 0.0 and by[key]["master_float32"]
+        assert len(by[key]["losses"]) == 16
+        assert by[key]["ms_per_step"] > 0.0
+        assert (by[key]["gflop_per_step"]
+                < 3 * by[key]["forward_gflop_per_step"])
+    assert by["train_dp"]["bit_equal_no_mesh"]
+    assert by["train_dp"]["backend"] == "gloo"
+    assert by["train_dp"]["group_destroyed"]
+    for run in by["train_cli"]["runs"].values():
+        assert run["keys_equal_jax_cli"] and run["bit_equal_renderer"]
+        assert run["launches_equal_renderer"]

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K10 of videorenderer_tpu_torch on the card, against
-their plain PyTorch versions on the same card and inputs.
+their plain PyTorch versions on the same card and inputs, and the paths
+built on them.
 
 Every test here needs an NVIDIA card with nvcc (marker ``cuda``) and skips
 elsewhere.  The file imports no JAX, so it runs on a machine without it:
@@ -40,7 +41,9 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
  * the renderer facade (``api.VideoRenderer``) on the card against the same
    renderer on the CPU as K2/K9 (1 code on < 2%), its overlays included;
    ``process_packed`` bit-equal to ``process`` of the host-unpacked planes
-   on the card, and ``run_clip`` bit-equal to ``process`` of each batch.
+   on the card, and ``run_clip`` bit-equal to ``process`` of each batch;
+ * training: 3 steps of either trainer on the card within 1% of the
+   CPU's, loss by loss; a one-rank NCCL mesh bit-equal to no mesh.
 """
 
 import numpy as np
@@ -2390,3 +2393,49 @@ def test_renderer_models_on_card_match_cpu(dev):
         fmt = "rgba8" if dst.bits == 8 else "rgb10a2"
         d = np.abs(_codes(outs[0], fmt) - _codes(outs[1], fmt))
         assert d.max() <= (3 if dst.bits == 8 else 12), (kind, d.max())
+
+
+@pytest.mark.parametrize("kind", ["superres", "videohdr"])
+def test_train_on_card_matches_cpu(dev, kind):
+    """Both trainers at the tiny configs of tests/test_torch_train.py:
+    3 steps on the card and on the CPU from the same start and batches,
+    each loss within 1%; float32 masters on the card."""
+    if kind == "superres":
+        from videorenderer_tpu_torch.models import sr_train as t
+        from videorenderer_tpu_torch.models import superres as m
+        cfg = m.SuperResConfig(channels=16, num_blocks=1, s2d=2)
+        data = t.synth_frames(5, 16, 32)
+    else:
+        from videorenderer_tpu_torch.models import hdr_train as t
+        from videorenderer_tpu_torch.models import videohdr as m
+        cfg = m.VideoHDRConfig(channels=8)
+        data = t.synth_hdr_frames(5, 16, 32, cfg)
+    start = m.init_params(torch.Generator().manual_seed(0), cfg)
+    runs = [t.train(cfg, 3, 8, data, model=start, device=d)
+            for d in ("cpu", dev)]
+    rel = np.abs(np.subtract(runs[1][1], runs[0][1])) / np.asarray(
+        runs[0][1])
+    assert rel.max() <= 0.01, rel
+    assert all(p.dtype == torch.float32 and p.is_cuda
+               for p in runs[1][0].parameters())
+
+
+def test_one_rank_nccl_mesh_equals_no_mesh(dev):
+    import torch.distributed as dist
+    from videorenderer_tpu_torch.models import sr_train, superres
+    from videorenderer_tpu_torch.parallel.mesh import make_mesh
+    cfg = superres.SuperResConfig(channels=16, num_blocks=1, s2d=2)
+    data = sr_train.synth_frames(5, 16, 32)
+    start = superres.init_params(torch.Generator().manual_seed(0), cfg)
+    plain = sr_train.train(cfg, 4, 8, data, model=start, device=dev)
+    mesh = make_mesh(device=dev)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size == 1
+        meshed = sr_train.train(cfg, 4, 8, data, model=start, mesh=mesh,
+                                device=dev)
+    finally:
+        mesh.destroy()
+    assert not dist.is_initialized()
+    assert plain[1] == meshed[1]
+    for k, v in plain[0].state_dict().items():
+        assert torch.equal(meshed[0].state_dict()[k], v)

@@ -404,7 +404,7 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.kernels.jinc2, "
             "videorenderer_tpu_torch.kernels.deint, "
             "videorenderer_tpu_torch.kernels.probe, torch_headline_micro, "
-            "kernel_report, smoke_diff, "
+            "kernel_report, smoke_diff, chip_smoke, profile_torch, "
             "videorenderer_tpu_torch.ops.deinterlace, "
             "videorenderer_tpu_torch.ops.dovi, "
             "videorenderer_tpu_torch.runner, "
@@ -424,7 +424,9 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.models.videohdr, "
             "videorenderer_tpu_torch.models.sr_train, "
             "videorenderer_tpu_torch.models.hdr_train, "
-            "videorenderer_tpu_torch.models.real_eval; "
+            "videorenderer_tpu_torch.models.real_eval, "
+            "videorenderer_tpu_torch.models.optim, "
+            "videorenderer_tpu_torch.parallel.mesh; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('videorenderer_tpu.') or m == 'videorenderer_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

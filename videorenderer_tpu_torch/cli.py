@@ -1,6 +1,7 @@
-"""Command-line interface: file-in/file-out processing and info reporting —
-the standalone analogue of dropping the filter into a player graph; the
-port of ``videorenderer_tpu.cli``.  Runs on the card unless ``--device cpu``.
+"""Command-line interface: file-in/file-out processing, training and info
+reporting — the standalone analogue of dropping the filter into a player
+graph; the port of ``videorenderer_tpu.cli``.  Runs on the card unless
+``--device cpu``.
 
 Examples:
   python -m videorenderer_tpu_torch.cli process in.yuv --format NV12 \\
@@ -11,6 +12,8 @@ Examples:
       --superres-weights weights/superres_2x.npz --screenshot first.bmp
   python -m videorenderer_tpu_torch.cli info
   python -m videorenderer_tpu_torch.cli bench --frames 16
+  python -m videorenderer_tpu_torch.cli train-superres --out sr.npz \\
+      --steps 2000
 """
 
 from __future__ import annotations
@@ -33,9 +36,6 @@ from .formats import ColorFormat
 from .io.raw import RawVideoSink, RawVideoSource
 from .pipeline import OutputDescriptor, SourceDescriptor
 from .runner import DeinterlaceSession, run_clip, windowed_batches
-
-TRAINING_TODO = "training is not ported yet (ROADMAP.md item 10)"
-
 
 def _parse_size(s: str) -> tuple[int, int]:
     w, h = s.lower().split("x")
@@ -235,9 +235,85 @@ def cmd_bench(args) -> int:
     return 0
 
 
-def cmd_train(args) -> int:
-    print(f"error: {TRAINING_TODO}", file=sys.stderr)
-    return 2
+def cmd_train_superres(args) -> int:
+    """Train the learned 2x upscaler on synthetic frames degraded by the
+    framework's own downscalers; writes a checkpoint usable with
+    ``process --superres ... --superres-weights`` (in either package)."""
+    from .models.checkpoint import load_params, save_params
+    from .models.sr_train import (evaluate_psnr, natural_frames,
+                                  synth_frames, train)
+    from .models.superres import SuperResConfig, init_params
+
+    cfg = SuperResConfig()
+    n_real = int(args.frames * args.real_mix)
+    n_nat = int(args.frames * args.natural_mix)
+    data = synth_frames(seed=args.seed, n=args.frames - n_real - n_nat,
+                        size=args.patch)
+    if n_real or n_nat:
+        from .models.real_eval import real_frames
+        parts = [data]
+        if n_nat:
+            parts.append(natural_frames(seed=args.seed + 3, n=n_nat,
+                                        size=args.patch))
+        if n_real:
+            parts.append(real_frames(n_real, args.patch,
+                                     seed=args.seed + 1))
+        rng = np.random.default_rng(args.seed + 5)
+        data = rng.permutation(np.concatenate(parts))
+    val = synth_frames(seed=args.seed + 777, n=16, size=args.patch)
+    model = None
+    if args.resume:
+        model = load_params(args.resume,
+                            init_params(torch.Generator().manual_seed(0),
+                                        cfg))
+    model, losses = train(cfg, steps=args.steps, batch=args.batch,
+                          data_hr=data, seed=args.seed,
+                          learning_rate=args.lr, log_every=args.log_every,
+                          model=model, device=args.device)
+    net_db, base_db = evaluate_psnr(model, val)
+    save_params(args.out, model)
+    result = {"steps": args.steps, "final_loss": losses[-1],
+              "val_psnr_net_db": round(net_db, 2),
+              "val_psnr_catmull_db": round(base_db, 2),
+              "out": args.out}
+    if n_real or n_nat:
+        rval = real_frames(16, args.patch, seed=args.seed + 999)
+        rnet, rbase = evaluate_psnr(model, rval)
+        result["real_psnr_net_db"] = round(rnet, 2)
+        result["real_psnr_catmull_db"] = round(rbase, 2)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_train_videohdr(args) -> int:
+    """Train the learned SDR->HDR gain net against the framework's own
+    BT.2390 tone mapper (round-trip consistency); writes a checkpoint
+    usable with ``process --videohdr-weights`` (in either package)."""
+    from .models.checkpoint import load_params, save_params
+    from .models.hdr_train import evaluate_pq_psnr, synth_hdr_frames, train
+    from .models.videohdr import VideoHDRConfig, init_params
+
+    cfg = VideoHDRConfig()
+    data = synth_hdr_frames(seed=args.seed, n=args.frames, size=args.patch,
+                            cfg=cfg)
+    val = synth_hdr_frames(seed=args.seed + 777, n=16, size=args.patch,
+                           cfg=cfg)
+    model = None
+    if args.resume:
+        model = load_params(args.resume,
+                            init_params(torch.Generator().manual_seed(0),
+                                        cfg))
+    model, losses = train(cfg, steps=args.steps, batch=args.batch,
+                          hdr_nits=data, seed=args.seed,
+                          learning_rate=args.lr, log_every=args.log_every,
+                          model=model, device=args.device)
+    net_db, base_db = evaluate_pq_psnr(model, val)
+    save_params(args.out, model)
+    print(json.dumps({"steps": args.steps, "final_loss": losses[-1],
+                      "val_pq_psnr_net_db": round(net_db, 2),
+                      "val_pq_psnr_base_db": round(base_db, 2),
+                      "out": args.out}))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -319,13 +395,47 @@ def main(argv=None) -> int:
     pb.add_argument("--frames", type=int, default=16)
     pb.set_defaults(fn=cmd_bench)
 
-    for name in ("train-superres", "train-videohdr"):
-        sub.add_parser(name, help=TRAINING_TODO).set_defaults(fn=cmd_train)
+    pt = sub.add_parser("train-superres",
+                        help="train the learned 2x upscaler (synthetic data)")
+    pt.add_argument("--out", required=True, help="checkpoint .npz path")
+    pt.add_argument("--steps", type=int, default=2000)
+    pt.add_argument("--batch", type=int, default=16)
+    pt.add_argument("--frames", type=int, default=256,
+                    help="synthetic training frames")
+    pt.add_argument("--patch", type=int, default=128, help="HR patch size")
+    pt.add_argument("--lr", type=float, default=1e-3)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--resume", default=None, help="checkpoint to continue")
+    pt.add_argument("--log-every", type=int, default=100)
+    pt.add_argument("--real-mix", type=float, default=0.0,
+                    help="fraction of training frames drawn from real-photo "
+                         "crops (models/real_eval.py); also reports "
+                         "real-content validation PSNR")
+    pt.add_argument("--natural-mix", type=float, default=0.0,
+                    help="fraction of training frames with generative "
+                         "natural-image statistics (pink-noise spectra + "
+                         "grain, sr_train.natural_frames); also reports "
+                         "real-content validation PSNR")
+    device_flag(pt)
+    pt.set_defaults(fn=cmd_train_superres)
 
-    # the training commands take the JAX CLI's flags and refuse them all
-    args, rest = p.parse_known_args(argv)
-    if rest and args.fn is not cmd_train:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    pv = sub.add_parser("train-videohdr",
+                        help="train the learned SDR->HDR gain net "
+                             "(synthetic HDR, BT.2390 round trip)")
+    pv.add_argument("--out", required=True, help="checkpoint .npz path")
+    pv.add_argument("--steps", type=int, default=2000)
+    pv.add_argument("--batch", type=int, default=16)
+    pv.add_argument("--frames", type=int, default=256,
+                    help="synthetic HDR training frames")
+    pv.add_argument("--patch", type=int, default=128, help="patch size")
+    pv.add_argument("--lr", type=float, default=1e-3)
+    pv.add_argument("--seed", type=int, default=0)
+    pv.add_argument("--resume", default=None, help="checkpoint to continue")
+    pv.add_argument("--log-every", type=int, default=100)
+    device_flag(pv)
+    pv.set_defaults(fn=cmd_train_videohdr)
+
+    args = p.parse_args(argv)
     try:
         return args.fn(args)
     except FileNotFoundError as e:

@@ -1,5 +1,5 @@
-"""VideoHDR evaluation: synthetic HDR scenes and the PQ-PSNR gate — the
-evaluation half of ``videorenderer_tpu.models.hdr_train``.
+"""VideoHDR training: synthetic HDR scenes, the training loop and the
+PQ-PSNR gate — the port of ``videorenderer_tpu.models.hdr_train``.
 
 The objective is round-trip consistency against the framework's own tone
 mapper: HDR scenes in linear nits are tone-mapped to SDR with the
@@ -12,11 +12,11 @@ original HDR from that SDR, scored in PQ space.
  * :func:`degrade_to_sdr` — HDR nits -> SDR sRGB via ``ops.tonemap.bt2390``
    + ``transfer.linear_to_srgb_like``;
  * :func:`hdr_truth_pq` — the true PQ/BT.2020 encoding;
+ * :func:`loss_fn`, :func:`train` — Charbonnier in PQ, Adam with float32
+   master weights (:mod:`.optim`), optionally data parallel over a mesh
+   of processes, as :func:`.sr_train.train`;
  * :func:`evaluate_pq_psnr` — PQ-domain PSNR of the net vs the
    deterministic inverse-Reinhard base.
-
-Training (``train``, ``loss_fn``) is ROADMAP.md item 10's remainder and
-stays in the JAX package for now.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ import torch
 
 from .. import csputils
 from ..ops import tonemap, transfer
+from .optim import fit
 from .sr_train import psnr, synth_frames
+from .superres import charbonnier
 from .videohdr import VideoHDR, VideoHDRConfig, apply_fn, init_params
 
 
@@ -92,8 +94,31 @@ def hdr_truth_pq(hdr_nits: np.ndarray,
         .numpy().astype(np.float32)
 
 
+# ---------------------------------------------------------------- training
+
+def loss_fn(model: VideoHDR, sdr: torch.Tensor, pq_truth: torch.Tensor
+            ) -> torch.Tensor:
+    """Charbonnier in PQ space (the output/perceptual domain)."""
+    return charbonnier(apply_fn(model, sdr), pq_truth)
+
+
+def train(cfg: VideoHDRConfig, steps: int, batch: int, hdr_nits: np.ndarray,
+          seed: int = 0, learning_rate: float = 1e-3, lr_decay: float = 0.3,
+          mesh=None, log_every: int = 0, model: VideoHDR | None = None,
+          device="cuda") -> tuple[VideoHDR, list[float]]:
+    """Adam with float32 master weights on ``device``; returns (model,
+    losses).  The SDR inputs and PQ truths are made on the host once;
+    ``model``, ``mesh`` and the schedule as :func:`.sr_train.train`."""
+    if model is None:
+        model = init_params(torch.Generator().manual_seed(seed), cfg)
+    return fit(model, loss_fn, degrade_to_sdr(hdr_nits, cfg),
+               hdr_truth_pq(hdr_nits, cfg), steps, batch, seed,
+               learning_rate, lr_decay, mesh, log_every, device)
+
+
 # ---------------------------------------------------------------- evaluation
 
+@torch.no_grad()
 def evaluate_pq_psnr(model: VideoHDR,
                      hdr_val: np.ndarray) -> tuple[float, float]:
     """(net PQ-PSNR, deterministic-base PQ-PSNR) against the true HDR on

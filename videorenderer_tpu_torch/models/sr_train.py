@@ -1,18 +1,21 @@
-"""SuperRes evaluation: synthetic data and the PSNR gate — the evaluation
-half of ``videorenderer_tpu.models.sr_train``.
+"""SuperRes training: synthetic data, the training loop, the PSNR gate —
+the port of ``videorenderer_tpu.models.sr_train``.
 
  * :func:`synth_frames` — procedural HR content (gradients, oriented
    edges, sinusoid textures, checkerboards, glyph-like blocks);
  * :func:`natural_frames` — frames with natural-image statistics (1/f
    spectra, luma-correlated chroma, highlights, grain);
+ * :func:`jpeg_roundtrip`, :func:`soften` — the JPEG and defocus
+   augmentations (PIL, imported when called);
  * :func:`degrade` — HR -> LR through ``ops.scale.downscale_matrix`` (the
    same banded math the pipeline's downscaler uses);
+ * :func:`train` — Adam with float32 master weights (:mod:`.optim`),
+   optionally data parallel over a mesh of processes;
  * :func:`evaluate_psnr` — PSNR of the net vs a classical upscaler
    baseline on held-out frames.
 
 The data generators are numpy, equal to the JAX package's for the same
-seed.  Training (``train``, the Adam loop, the sharded step) is ROADMAP.md
-item 10's remainder and stays in the JAX package for now.
+seed.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 
 from ..config import Downscaling, Upscaling
 from ..ops.scale import downscale_matrix, upscale_matrix
-from .superres import SuperRes, apply_fn
+from .optim import fit
+from .superres import SuperRes, SuperResConfig, apply_fn, init_params, loss_fn
 
 
 # ---------------------------------------------------------------- data
@@ -126,6 +130,44 @@ def natural_frames(seed: int, n: int, size: int,
     return out
 
 
+def jpeg_roundtrip(frames: np.ndarray, seed: int,
+                   quality_range: tuple[int, int] = (55, 90)) -> np.ndarray:
+    """Re-encode each frame through a real JPEG encode/decode at a random
+    quality — block-DCT ringing, chroma subsampling and quantisation noise,
+    the dominant non-optical statistic of consumer content.  Needs PIL."""
+    from io import BytesIO
+
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    out = np.empty_like(frames)
+    for i, f in enumerate(frames):
+        q = int(rng.integers(quality_range[0], quality_range[1] + 1))
+        buf = BytesIO()
+        Image.fromarray((np.clip(f, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)) \
+            .save(buf, "JPEG", quality=q)
+        buf.seek(0)
+        out[i] = np.asarray(Image.open(buf).convert("RGB"),
+                            np.float32) / 255.0
+    return out
+
+
+def soften(frames: np.ndarray, seed: int,
+           sigma_range: tuple[float, float] = (0.5, 1.4)) -> np.ndarray:
+    """Defocus a clip: a Gaussian blur of a random sigma a frame — the
+    statistic of low-grade optics, where the HR truth itself is soft.
+    Needs PIL."""
+    from PIL import Image, ImageFilter
+    rng = np.random.default_rng(seed)
+    out = np.empty_like(frames)
+    for i, f in enumerate(frames):
+        sig = float(rng.uniform(*sigma_range))
+        im = Image.fromarray(
+            (np.clip(f, 0.0, 1.0) * 255 + 0.5).astype(np.uint8))
+        out[i] = np.asarray(im.filter(ImageFilter.GaussianBlur(sig)),
+                            np.float32) / 255.0
+    return out
+
+
 def degrade(hr: np.ndarray, scale: int = 2, method=None) -> np.ndarray:
     """HR -> LR with the framework's own downscale matrices (box default,
     matching a mastering-chain decimation; any `Downscaling` works)."""
@@ -138,6 +180,26 @@ def degrade(hr: np.ndarray, scale: int = 2, method=None) -> np.ndarray:
     return np.clip(lr, 0.0, 1.0).astype(np.float32)
 
 
+# ---------------------------------------------------------------- training
+
+def train(cfg: SuperResConfig, steps: int, batch: int, data_hr: np.ndarray,
+          seed: int = 0, learning_rate: float = 1e-3, lr_decay: float = 0.3,
+          mesh=None, log_every: int = 0, model: SuperRes | None = None,
+          device="cuda") -> tuple[SuperRes, list[float]]:
+    """Adam with float32 master weights on ``device`` (the card unless the
+    caller asks for the CPU); returns (model, losses).  HR is degraded on
+    the host once.  Without ``model`` it starts from
+    ``init_params(torch.Generator().manual_seed(seed), cfg)``; a given
+    model is copied, not changed.  ``mesh``: a
+    :class:`~videorenderer_tpu_torch.parallel.mesh.Mesh`, the batch split
+    over its ranks (see :func:`.optim.fit`).  The LR decays by
+    ``lr_decay`` at 60% and 85% of the steps."""
+    if model is None:
+        model = init_params(torch.Generator().manual_seed(seed), cfg)
+    return fit(model, loss_fn, degrade(data_hr, cfg.scale), data_hr, steps,
+               batch, seed, learning_rate, lr_decay, mesh, log_every, device)
+
+
 # ---------------------------------------------------------------- evaluation
 
 def psnr(a: np.ndarray, ref: np.ndarray) -> float:
@@ -146,6 +208,7 @@ def psnr(a: np.ndarray, ref: np.ndarray) -> float:
     return float(10 * np.log10(1.0 / mse)) if mse else float("inf")
 
 
+@torch.no_grad()
 def evaluate_psnr(model: SuperRes, hr_val: np.ndarray,
                   baseline=None) -> tuple[float, float]:
     """(net PSNR, classical-upscaler PSNR) against HR on held-out frames.

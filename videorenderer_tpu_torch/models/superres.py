@@ -11,8 +11,14 @@ The parameters are those of the JAX model, flattened under the same keys
 (:mod:`.checkpoint`), so the shipped ``weights/superres_2x.npz`` loads in
 both packages.  The model holds its weights in the channel order of
 ``pixel_unshuffle`` / ``pixel_shuffle``; the checkpoint loader permutes
-the JAX order into it once.  Training (``loss_fn``, ``sgd_train_step``)
-stays in the JAX package for now (ROADMAP.md item 10).
+the JAX order into it once.
+
+Training: :func:`apply_fn` is differentiable (the inference hook
+:func:`enhance_plane_chw` is the same arithmetic under ``no_grad``), and
+:func:`loss_fn`, :func:`sgd_train_step` and :func:`init_opt_state` are the
+JAX package's; the Adam trainer is :func:`.sr_train.train`.  A model whose
+parameters are float32 (the trainers' master weights) still computes in
+``cfg.dtype``: :func:`conv` casts each weight to the activations' dtype.
 
 Size gating mirrors SetSuperRes (Source/D3D11VP.cpp:804-844): a level only
 engages when the source is at most the level's resolution class and the
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SuperResolution
+from .optim import value_and_grad
 
 # max source size per gating level (Source/D3D11VP.cpp:806-836 classes)
 _GATE_LIMITS = {
@@ -157,13 +164,12 @@ def _trunk(model: SuperRes, h0: torch.Tensor) -> torch.Tensor:
     return conv(h, model.tail)
 
 
-@torch.no_grad()
-def enhance_plane_chw(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
-    """Pipeline hook: (..., 3, H, W) float in [0, 1] -> (..., 3, H s, W s)
-    float32 — the function of the JAX ``enhance_plane_chw``: space-to-depth
-    by ``s2d``, the trunk, depth-to-space by ``scale s2d``, plus the
-    nearest-upsampled base (added in the model's dtype).  Sizes that are
-    not multiples of ``s2d`` are edge-padded to the grid and cropped."""
+def _enhance(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
+    """The model's function, differentiable: (..., 3, H, W) float in
+    [0, 1] -> (..., 3, H s, W s) float32.  Space-to-depth by ``s2d``, the
+    trunk, depth-to-space by ``scale s2d``, plus the nearest-upsampled base
+    (added in the model's dtype).  Sizes that are not multiples of ``s2d``
+    are edge-padded to the grid and cropped."""
     cfg = model.cfg
     k, s = cfg.s2d, cfg.scale
     lead, (in_h, in_w) = rgb_chw.shape[:-3], rgb_chw.shape[-2:]
@@ -180,7 +186,52 @@ def enhance_plane_chw(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
         lead + (3, in_h * s, in_w * s))
 
 
+@torch.no_grad()
+def enhance_plane_chw(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
+    """Pipeline hook: (..., 3, H, W) float in [0, 1] -> (..., 3, H s, W s)
+    float32 — the function of the JAX ``enhance_plane_chw`` (the model's
+    function without a graph)."""
+    return _enhance(model, rgb_chw)
+
+
 def apply_fn(model: SuperRes, lr_rgb: torch.Tensor) -> torch.Tensor:
     """lr_rgb: (N, H, W, 3) in [0, 1] -> (N, H scale, W scale, 3) float32,
-    the NHWC form of :func:`enhance_plane_chw` (the JAX ``apply_fn``)."""
-    return enhance_plane_chw(model, lr_rgb.movedim(-1, -3)).movedim(-3, -1)
+    the NHWC form of :func:`enhance_plane_chw` (the JAX ``apply_fn``);
+    differentiable in the model's parameters."""
+    return _enhance(model, lr_rgb.movedim(-1, -3)).movedim(-3, -1)
+
+
+def charbonnier(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Charbonnier loss (smooth L1), ``mean(sqrt(d^2 + eps^2))`` with eps
+    1e-3, as the JAX ``loss_fn``s compute it."""
+    eps = 1e-3
+    return torch.mean(torch.sqrt((pred - target) ** 2 + eps * eps))
+
+
+def loss_fn(model: SuperRes, lr: torch.Tensor, hr: torch.Tensor
+            ) -> torch.Tensor:
+    """Charbonnier loss of :func:`apply_fn` against HR (N, H s, W s, 3) —
+    standard for SR training."""
+    return charbonnier(apply_fn(model, lr), hr)
+
+
+def init_opt_state(model: nn.Module) -> dict[str, torch.Tensor]:
+    """Float32 zeros for each parameter: the momentum of
+    :func:`sgd_train_step`."""
+    return {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for name, p in model.named_parameters()}
+
+
+def sgd_train_step(model: SuperRes, opt_state: dict, lr_batch: torch.Tensor,
+                   hr_batch: torch.Tensor, learning_rate: float = 1e-3):
+    """One momentum-SGD step (momentum 0.9, float32), in place: each
+    parameter keeps its dtype, rounded once from the float32 update, as the
+    JAX ``sgd_train_step``.  Returns (model, opt_state, loss) with the loss
+    before the step."""
+    loss, grads = value_and_grad(loss_fn, model, lr_batch, hr_batch)
+    with torch.no_grad():
+        for (name, p), g in zip(model.named_parameters(), grads):
+            m = 0.9 * opt_state[name] + g.float()
+            opt_state[name] = m
+            p.copy_(p.float() - learning_rate * m)
+    return model, opt_state, loss

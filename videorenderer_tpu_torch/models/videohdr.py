@@ -13,8 +13,9 @@ toward the display peak, convert 709->2020 primaries, encode PQ.
 Weights are the JAX model's (:mod:`.checkpoint`), the first layer's input
 channels in ``pixel_unshuffle``'s order as in :mod:`.superres`; the
 gain's (d, e) channels are already ``pixel_shuffle``'s order for one
-output channel.  Training stays in the JAX package for now (ROADMAP.md
-item 10).
+output channel.  :func:`apply_fn` is differentiable (its backward runs
+through ``tanh``, ``exp`` and the PQ encode in float32); the trainer is
+:func:`.hdr_train.train`.
 """
 
 from __future__ import annotations
@@ -108,12 +109,11 @@ def _gain_s2d(model: VideoHDR, h0: torch.Tensor) -> torch.Tensor:
     return conv(h, model.c3)
 
 
-@torch.no_grad()
-def enhance_plane_chw(model: VideoHDR, rgb_chw: torch.Tensor) -> torch.Tensor:
-    """Pipeline hook: (..., 3, H, W) sRGB in [0, 1] -> PQ/BT.2020 float32 —
-    the function of the JAX ``enhance_plane_chw``: the gain logits on the
-    s2d grid, depth-to-space, ``2 tanh`` as the log-gain, applied to the
-    base expansion's linear light, then PQ."""
+def _enhance(model: VideoHDR, rgb_chw: torch.Tensor) -> torch.Tensor:
+    """The model's function, differentiable: (..., 3, H, W) sRGB in
+    [0, 1] -> PQ/BT.2020 float32.  The gain logits on the s2d grid,
+    depth-to-space, ``2 tanh`` as the log-gain, applied to the base
+    expansion's linear light, then PQ."""
     cfg = model.cfg
     k = cfg.s2d
     x = rgb_chw.reshape((-1,) + rgb_chw.shape[-3:])
@@ -129,8 +129,16 @@ def enhance_plane_chw(model: VideoHDR, rgb_chw: torch.Tensor) -> torch.Tensor:
     return out.reshape(rgb_chw.shape)
 
 
+@torch.no_grad()
+def enhance_plane_chw(model: VideoHDR, rgb_chw: torch.Tensor) -> torch.Tensor:
+    """Pipeline hook: (..., 3, H, W) sRGB in [0, 1] -> PQ/BT.2020 float32 —
+    the function of the JAX ``enhance_plane_chw`` (the model's function
+    without a graph)."""
+    return _enhance(model, rgb_chw)
+
+
 def apply_fn(model: VideoHDR, sdr_rgb_nhwc: torch.Tensor) -> torch.Tensor:
     """(N, H, W, 3) sRGB in [0, 1] -> (N, H, W, 3) PQ/BT.2020 in [0, 1],
-    the NHWC form of :func:`enhance_plane_chw` (the JAX ``apply_fn``)."""
-    return enhance_plane_chw(model, sdr_rgb_nhwc.movedim(-1, -3)) \
-        .movedim(-3, -1)
+    the NHWC form of :func:`enhance_plane_chw` (the JAX ``apply_fn``);
+    differentiable in the model's parameters."""
+    return _enhance(model, sdr_rgb_nhwc.movedim(-1, -3)).movedim(-3, -1)
