@@ -275,6 +275,59 @@ Phases, one line each:
               P1080 to 4K; --videohdr-weights to RGB10 PQ): each file
               byte-equal to the renderer's with the checkpoint, the same
               K1 and K2 launches.
+ 43. c6       parallel/spatial's fused form of the headline's plan
+              (build_plan("c6")), packed, batch 32, on a one-rank NCCL mesh
+              (make_mesh(axis="spatial")): K1 x3 + K3 x3 a call, each call
+              against its plain version (K1 mid16 within 1 code, K3 within
+              2e-6), each K1 call's block rows and K3 call's route; the
+              surface bit-equal to the same function without a mesh (a
+              Shard(0, 1)), within 1 code on < 2% of the unsharded
+              make_frame_fn's (K1 x3 + K2), >= 55 dB against the oracle;
+              ms/frame beside make_frame_fn's.
+ 44. c6x4     the c6 plan as four shards run one after another on the card
+              with no collective (spatial.drive_shards_locally: each
+              shard's halos cut from the other shards' blocks, two passes):
+              each shard's K3 on its own table, against its plain version
+              on the same inputs (within 2e-6), its route and halo rows; the
+              stitched surface bit-equal to phase 43's; an inner shard's
+              three K3 calls timed with the plain version, the library call
+              and the bound (K3's "per_shard" entry in the kernels line).
+ 45. c9       8K P010 PQ -> 4K RGB10 float (bench_common:229-236), batch 4:
+              the checks and times of phase 43; the unsharded K2's route.
+ 46. spatial_dovi  c8's plan through the spatial Dolby Vision form (stage
+              A: K1 on the chroma, K3 on its upsample, the reshape, matrix
+              and LMS step in torch; stage B: K1 + K3 on the PQ RGB), batch
+              16: K1 x3 + K3 x3 a call against their plain versions, within
+              the JAX spatial DoVi band of the unsharded K1 x2 + K8 + K9
+              surface (1.5/255, over 0.5/255 on < 1e-3 of the channels),
+              >= 55 dB against oracle_dovi; ms/frame.
+ 47. spatial_sr  c3sr's plan (the 1:1 convert) and the shipped SuperRes
+              through make_spatial_learned_fn, packed, batch 8: K1 x2 + K3
+              x2 a call against their plain versions, >= 50 dB against the
+              net on the unsharded frame function's output; ms/frame; then
+              as four shards on the card (each shard's 40 halo rows zeroed
+              outside the frame, row_valid, the s2d unit's pad 1080 -> 1088
+              rows, the crop), the stitched surface bit-equal to the
+              one-shard surface.
+ 48. spatial_c3  c3's plan (1080p NV12 -> 4K Jinc2, RGBA8) through the
+              spatial Jinc2 form, batch 16: one K6 launch on each shard's
+              band of rows (the frame's tap tables and weight table, the
+              dither at the frame's rows), on the mesh and as four shards on
+              the card (two passes), each surface bit-equal to the unsharded
+              make_frame_fn's K6 call, >= 55 dB against oracle_jinc2;
+              ms/frame beside make_frame_fn's.  Then c3 letterboxed into
+              the 4K surface (J3_RECT), the form's K5 route: K1 x2 + K3 x2
+              (stage A, the matrix in torch) + K5 on the band a call, each
+              against its plain version (K5 within 1e-5); four shards
+              bit-equal to one; within 1 code on < 2% of the unsharded K1 x2
+              + K2 + K5 surface; the bars the packed zero; the rect >= 55 dB
+              against oracle_jinc2; ms/frame beside make_frame_fn's.
+ 49. c2       VideoProcessor of 4K P010 -> 1080p RGB10, Catmull-Rom up and
+              Hamming down (bench_common:171-176): two distinct batches of
+              16, K1 x3 + K2 a call, the path's K1 and K2 calls on 2 frames
+              against their plain versions, >= 55 dB; ms/frame.
+ 50. c4       the 4K tone map 1:1 to RGB8 (:200-204): K1 x2 + K2 a call
+              (K2 reads the luma directly), the same checks.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -316,8 +369,8 @@ from videorenderer_tpu_torch import (ColorFormat,  # noqa: E402
                                      Settings, SourceDescriptor,
                                      VideoProcessor)
 from videorenderer_tpu_torch.config import (ChromaScaling,  # noqa: E402
-                                            SuperResolution, TexFormat,
-                                            ToneMapType, Upscaling)
+                                            Downscaling, SuperResolution,
+                                            TexFormat, ToneMapType, Upscaling)
 from videorenderer_tpu_torch.csputils import (CSP, ChromaLocation,  # noqa: E402
                                               Levels, Primaries, TRC)
 from videorenderer_tpu_torch.kernels import build  # noqa: E402
@@ -348,6 +401,7 @@ from videorenderer_tpu_torch.models import superres as sr_model  # noqa: E402
 from videorenderer_tpu_torch.models import videohdr as vh_model  # noqa: E402
 from videorenderer_tpu_torch.models.checkpoint import load_params  # noqa: E402
 from videorenderer_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from videorenderer_tpu_torch.parallel import spatial as sp  # noqa: E402
 from videorenderer_tpu_torch.subtitles import (SubPic,  # noqa: E402
                                                TextSubtitleProvider)
 from videorenderer_tpu_torch.pipeline import (HDR10Metadata,  # noqa: E402
@@ -412,6 +466,13 @@ PEAK_BF16_S = 989e12      # dense bf16 in the tensor cores (K10's products)
 TABLES = hasattr(jk, "jinc2_weight_table")
 K5_ROUTES = hasattr(jk, "k5_route")
 C3R270_PLANES = 3 * BATCH                 # K5's planes at c3r270's batch
+# phases 43-50: parallel/spatial (c6, c9, four shards of c6 on one card, the
+# Dolby Vision, learned and Jinc2 forms) and c2, c4
+C6_BATCH = 32                             # input_spec("c6"), bench_common:264
+C9_W, C9_H, C9_OW, C9_OH = 7680, 4320, 3840, 2160   # c9: 8K -> 4K
+C9_BATCH = 4                              # input_spec("c9"), bench_common:277
+SHARDS = 4                                # phase 44: shards run on one card
+J3_RECT = (0, 140, 3840, 2020)            # phase 48: c3 letterboxed, K5 route
 
 
 def line(phase: str, **kw) -> None:
@@ -2405,6 +2466,471 @@ def train_phases(dev) -> dict:
     return {"launches": {f"train_cli_{k}": v for k, v in launches.items()}}
 
 
+def checked_calls(calls, err) -> dict:
+    """The recorded K1 and K3 calls of a path (``recording``) against their
+    plain versions on the same inputs (K1 mid16 within 1 code, float32
+    within 2e-5; K3 within 2e-6), with each K1 call's block rows and each
+    K3 call's route; ``err(k, x)`` keeps the largest error per kernel."""
+    out = {"k1_max_code_diff": 0, "k1_max_abs_err": 0.0,
+           "k3_max_abs_err": 0.0, "k1_block_rows": [], "k3_routes": []}
+    for args, kw, got in calls.get("banded_resize_last_axis", []):
+        d = (got.float() - rk.banded_resize_last_axis_plain(*args, **kw)
+             .float()).abs().max().item()
+        if got.dtype == torch.int16:
+            out["k1_max_code_diff"] = max(out["k1_max_code_diff"], int(d))
+        else:
+            out["k1_max_abs_err"] = max(out["k1_max_abs_err"], d)
+            err("k1", d)
+        out["k1_block_rows"].append(rk.k1_rows(
+            args[0].element_size(), args[1].row_windows(rk.K1_SPAN)[1]))
+    for args, kw, got in calls.get("banded_resize_rows", []):
+        d = (got - rk.banded_resize_rows_plain(*args, **kw)).abs().max().item()
+        out["k3_max_abs_err"] = max(out["k3_max_abs_err"], d)
+        err("k3", d)
+        out["k3_routes"].append("/".join(map(str, rk.k3_route(
+            args[0].element_size(), args[1]))))
+    if out["k1_max_code_diff"] > 1 or out["k1_max_abs_err"] > 2e-5 \
+            or out["k3_max_abs_err"] > 2e-6:
+        raise AssertionError(f"K1 or K3 disagrees with its plain version: "
+                             f"{out}")
+    return out
+
+
+def spatial_call(fn, planes, err, expect: dict):
+    """One call of a spatial function, counted from 0 and its K1 and K3
+    calls held against their plain versions: (output, launches, checks)."""
+    with recording(rk, "banded_resize_last_axis",
+                   "banded_resize_rows") as calls:
+        out, n = count_launches(lambda: fn(planes))
+    if n != expect:
+        raise AssertionError(f"spatial launches {n}, expected {expect}")
+    return out, n, checked_calls(calls, err)
+
+
+def k3_numbers(calls) -> dict:
+    """K3's time, its plain version's, the library call's (one float32
+    product a plane) and the bound over the recorded calls (args, kwargs,
+    output), run together."""
+    def run(f):
+        return lambda: [f(*a, **kw) for a, kw, _ in calls]
+    dense = [(a[1].dense_on(a[0].device).T, a[0].float()) for a, _, _ in calls]
+    k = {"ms": cuda_ms(run(rk.banded_resize_rows)),
+         "plain_ms": cuda_ms(run(rk.banded_resize_rows_plain)),
+         "library_ms": cuda_ms(lambda: [torch.matmul(m, x)
+                                        for m, x in dense])}
+    k.update(bound(sum(tbytes(a[0], o) + mbytes(a[1]) for a, _, o in calls),
+                   sum(map_flops(a[1], a[0].numel() // a[1].in_size)
+                       for a, _, _ in calls)))
+    return k
+
+
+def spatial_phases(dev) -> dict:
+    """Phases 43-48: parallel/spatial on the card.  43 (c6) and 45 (c9) on
+    a one-rank NCCL mesh: K1 x3 + K3 x3 a call, each call against its plain
+    version, bit-equal to the same function without a mesh, within K2's
+    band of the unsharded make_frame_fn (K1 x3 + K2), >= 55 dB, ms/frame
+    beside make_frame_fn's; 44: c6 as four shards one after another on the
+    card (the halos cut from the other shards' blocks), each shard's own K3
+    table, the stitched surface bit-equal to 43's; 46: the Dolby Vision
+    form (c8's plan) and 47: the learned form (c3sr's plan, the shipped
+    SuperRes) on the mesh and as four shards, each against its unsharded
+    counterpart; 48: the Jinc2 form on the mesh and as four shards, c3's
+    plan (K6) bit-equal to the unsharded K6, c3 letterboxed (stage A, K5 on
+    each shard's band, the torch tail) bit-equal to one shard and within
+    K2's band of the unsharded K1 x2 + K2 + K5.  Returns
+    the phases' launches, the kernels' errors and K3's per-shard numbers."""
+    dev = torch.device(dev)
+    res = {"launches": {}, "err": {k: 0.0 for k in ("k1", "k3", "k5")}}
+
+    def err(k, x):
+        res["err"][k] = max(res["err"][k], float(x))
+
+    six = only(banded_resize_last_axis=3, banded_resize_rows=3)
+    mesh = make_mesh(axis="spatial", device=dev)
+    try:
+        # 43. c6: the headline's plan (build_plan("c6"), bench_common:210),
+        #     packed, at input_spec's batch of 32
+        src, dst = headline_args()
+        plan6 = plan_pipeline(headline_settings(True), src, dst)
+        b6 = p010_batch(C6_BATCH, SEED + 100, dev)
+        fn6 = sp.make_spatial_frame_fn(plan6, mesh, pack_surface=True)
+        sh6 = sp.shard_planes_rows(mesh, b6)
+        out6, n6, k6 = spatial_call(fn6, sh6, err, six)
+        res["launches"]["c6"] = n6
+        bare = sp.make_spatial_frame_fn(plan6, sp.Shard(0, 1),
+                                        pack_surface=True)(b6)
+        frame6 = make_frame_fn(plan6, pack_surface=True)
+        ref6, n_ref = count_launches(lambda: frame6(b6))
+        if n_ref != only(banded_resize_last_axis=3, rows3_tail=1):
+            raise AssertionError(f"c6 unsharded launches {n_ref}")
+        c6 = {"bit_equal_no_mesh": bool(torch.equal(out6, bare)),
+              "unsharded": code_diff(out6, ref6, 10),
+              "psnr_db": psnr(codes(out6[0], 10).double() / 1023.0,
+                              oracle(*(p[0] for p in b6), OW, OH)),
+              "ms_per_frame": cuda_ms(lambda: fn6(sh6), reps=3) / C6_BATCH,
+              "frame_fn_ms_per_frame": cuda_ms(lambda: frame6(b6),
+                                               reps=3) / C6_BATCH,
+              "digest": digest(out6)}
+        del bare, ref6
+        u = c6["unsharded"]
+        if not c6["bit_equal_no_mesh"] or u["max_code_diff"] > 1 \
+                or u["frac_differing"] >= 0.02 or c6["psnr_db"] < 55.0:
+            raise AssertionError(f"c6: {c6}")
+        line("c6", batch=C6_BATCH, mesh_ranks=mesh.size, launches=n6,
+             kernels=k6, tolerance="K1 mid16 <= 1 code, f32 <= 2e-5; K3 <= "
+             "2e-6; the unsharded plan <= 1 code on < 2% of channels", **c6)
+
+        # 44. four shards of c6 on the card, one after another, no
+        #     collective: each shard's K3 runs its own table
+        with recording(rk, "banded_resize_rows") as calls:
+            outs4, n4 = count_launches(lambda: sp.drive_shards_locally(
+                lambda sh: sp.make_spatial_frame_fn(plan6, sh,
+                                                    pack_surface=True),
+                lambda r: sp.shard_planes_rows(sp.Shard(r, SHARDS), b6),
+                SHARDS))
+        passes = n4["banded_resize_rows"] // (3 * SHARDS)
+        if n4 != only(banded_resize_last_axis=3 * SHARDS * passes,
+                      banded_resize_rows=3 * SHARDS * passes) or passes != 2:
+            raise AssertionError(f"c6 x{SHARDS}: launches {n4}")
+        settled = calls["banded_resize_rows"][-3 * SHARDS:]
+        del calls
+        shards = []
+        for r in range(SHARDS):
+            mine = settled[3 * r:3 * r + 3]
+            e = max((o - rk.banded_resize_rows_plain(*a, **kw)).abs().max()
+                    .item() for a, kw, o in mine)
+            err("k3", e)
+            shards.append({
+                "rank": r, "k3_max_abs_err": e,
+                "k3_routes": ["/".join(map(str, rk.k3_route(
+                    a[0].element_size(), a[1]))) for a, _, _ in mine],
+                "k3_in_rows": [a[0].shape[-2] for a, _, _ in mine],
+                "k3_out_rows": [o.shape[-2] for _, _, o in mine],
+                # a call's input: the shard's rows of its plane + 2 halos
+                "halo_rows": [(a[0].shape[-2] - p.shape[-2] // SHARDS) // 2
+                              for (a, _, _), p in zip(mine, b6)]})
+        # the per-shard K3 numbers: rank 1's three calls (an inner shard)
+        k3s = k3_numbers(settled[3:6])
+        k3s["max_abs_err"] = max(d["k3_max_abs_err"] for d in shards)
+        k3s["route"] = shards[1]["k3_routes"][0]
+        del settled
+        whole = torch.cat(outs4, dim=-2)
+        c6x = {"bit_equal_one_shard": bool(torch.equal(whole, out6)),
+               "passes": passes, "digest": digest(whole)}
+        del outs4, whole
+        if not c6x["bit_equal_one_shard"] or k3s["max_abs_err"] > 2e-6:
+            raise AssertionError(f"c6 x{SHARDS}: {c6x}, K3 {k3s}")
+        res["launches"][f"c6x{SHARDS}"] = n4
+        res["k3_shard"] = k3s
+        line(f"c6x{SHARDS}", batch=C6_BATCH, shards=shards, launches=n4,
+             k3_per_shard=k3s, tolerance="bit-equal to c6's surface; K3 <= "
+             "2e-6", **c6x)
+        del out6, b6, sh6, fn6, frame6
+        torch.cuda.empty_cache()
+
+        # 45. c9: 8K P010 PQ -> 4K RGB10 (bench_common:229-236), float out
+        #     as bench runs it, batch 4
+        src9 = SourceDescriptor(format=ColorFormat.P010, width=C9_W,
+                                height=C9_H, matrix=CSP.BT_2020_NC,
+                                levels=Levels.TV, primaries=Primaries.BT_2020,
+                                transfer=TRC.PQ, hdr10=HDR10Metadata())
+        plan9 = plan_pipeline(headline_settings(True), src9,
+                              OutputDescriptor(width=C9_OW, height=C9_OH,
+                                               bits=10))
+        b9 = p010_frames(C9_BATCH, SEED + 101, dev, C9_W, C9_H)
+        fn9 = sp.make_spatial_frame_fn(plan9, mesh)
+        sh9 = sp.shard_planes_rows(mesh, b9)
+        out9, n9, k9 = spatial_call(fn9, sh9, err, six)
+        res["launches"]["c9"] = n9
+        bare = sp.make_spatial_frame_fn(plan9, sp.Shard(0, 1))(b9)
+        frame9 = make_frame_fn(plan9)
+        with recording(rk, "rows3_tail") as k2calls:
+            ref9, n_ref = count_launches(lambda: frame9(b9))
+        a2 = k2calls["rows3_tail"][0][0]
+        del k2calls
+        if n_ref != only(banded_resize_last_axis=3, rows3_tail=1):
+            raise AssertionError(f"c9 unsharded launches {n_ref}")
+        c9 = {"bit_equal_no_mesh": bool(torch.equal(out9, bare)),
+              "unsharded": float_code_diff(out9, ref9, 1023),
+              "unsharded_k2_route": rk.k2_route(
+                  a2[0].element_size(), a2[1].element_size(), a2[3], a2[4]),
+              "psnr_db": psnr(out9[0].double(), oracle(
+                  *(p[0] for p in b9), C9_OW, C9_OH)),
+              "ms_per_frame": cuda_ms(lambda: fn9(sh9), reps=3) / C9_BATCH,
+              "frame_fn_ms_per_frame": cuda_ms(lambda: frame9(b9),
+                                               reps=3) / C9_BATCH,
+              "digest": digest(out9)}
+        del bare, ref9, a2
+        u = c9["unsharded"]
+        if not c9["bit_equal_no_mesh"] or u["max_code_diff"] > 1 \
+                or u["frac_differing"] >= 0.02 or c9["psnr_db"] < 55.0:
+            raise AssertionError(f"c9: {c9}")
+        line("c9", batch=C9_BATCH, mesh_ranks=mesh.size, launches=n9,
+             kernels=k9, tolerance="as c6", **c9)
+        del out9, b9, sh9, fn9, frame9
+        torch.cuda.empty_cache()
+
+        # 46. the Dolby Vision form: c8's plan on the mesh, stage A (K1 on
+        #     the chroma, K3 on the chroma's upsample) and stage B (K1 and
+        #     K3 on the PQ RGB), against the unsharded K1 x2 + K8 + K9
+        meta = dovi_meta()
+        plan8 = plan_pipeline(*c8_args(meta))
+        b8 = p010_batch(BATCH, SEED + 102, dev)
+        fn8 = sp.make_spatial_frame_fn(plan8, mesh, pack_surface=True)
+        sh8 = sp.shard_planes_rows(mesh, b8)
+        out8, n8, kd = spatial_call(fn8, sh8, err, only(
+            banded_resize_last_axis=3, banded_resize_rows=3))
+        res["launches"]["spatial_dovi"] = n8
+        ref8, n_ref = count_launches(
+            lambda: make_frame_fn(plan8, pack_surface=True)(b8))
+        if n_ref != only(banded_resize_last_axis=2, rows3_mid=1,
+                         cols3_tail=1):
+            raise AssertionError(f"c8 unsharded launches {n_ref}")
+        dd = (codes(out8, 10) - codes(ref8, 10)).abs().double() / 1023.0
+        d8 = {"unsharded": {"max_abs_diff": dd.max().item(),
+                            "frac_over_half_8bit_code": (
+                                dd > 0.5 / 255).double().mean().item(),
+                            **code_diff(out8, ref8, 10)},
+              "psnr_db": psnr(codes(out8[0], 10).double() / 1023.0,
+                              c8_oracle(b8, meta, dovi_rt(0))),
+              "ms_per_frame": cuda_ms(lambda: fn8(sh8), reps=3) / BATCH,
+              "digest": digest(out8)}
+        del out8, ref8, b8, sh8, fn8, dd
+        u = d8["unsharded"]
+        if u["max_abs_diff"] > 1.5 / 255 \
+                or u["frac_over_half_8bit_code"] >= 1e-3 \
+                or d8["psnr_db"] < 55.0:
+            raise AssertionError(f"spatial DoVi: {d8}")
+        # the JAX package's band between its spatial and one-device DoVi
+        # forms (tests/test_spatial.py:329-330): the two forms resize in
+        # other orders around the PQ -> SDR chain
+        line("spatial_dovi", batch=BATCH, launches=n8, kernels=kd,
+             tolerance="the unsharded K1 x2 + K8 + K9 within 1.5/255, over "
+             "0.5/255 on < 1e-3 of channels", **d8)
+
+        # 47. the learned form: c3sr's plan (the 1:1 convert, bench_common
+        #     :188-192) and the shipped SuperRes on the mesh, against the net
+        #     on the unsharded frame function's output
+        src_sr = SourceDescriptor(format=ColorFormat.NV12, width=C1_W,
+                                  height=C1_H, matrix=CSP.BT_709,
+                                  levels=Levels.TV)
+        plan_sr = plan_pipeline(Settings(vp_superres=SuperResolution.P1080),
+                                src_sr, OutputDescriptor(width=C1_W,
+                                                         height=C1_H, bits=8))
+        model = real_eval.load_shipped_superres(dev)
+        bsr = nv12_batch(SR_BATCH, SEED + 103, dev)
+        fnsr = sp.make_spatial_learned_fn(plan_sr, mesh, model, "superres",
+                                          pack_surface=True)
+        shsr = sp.shard_planes_rows(mesh, bsr)
+        outsr, nsr, ksr = spatial_call(fnsr, shsr, err, only(
+            banded_resize_last_axis=2, banded_resize_rows=2))
+        res["launches"]["spatial_sr"] = nsr
+        refsr = rk.pack_surface(sr_model.enhance_plane_chw(
+            model, make_frame_fn(plan_sr)(bsr)), "rgba8")
+        dsr = {"unsharded": code_diff(outsr, refsr, 8),
+               "unsharded_psnr_db": psnr(codes(outsr, 8).double() / 255.0,
+                                         codes(refsr, 8).double() / 255.0),
+               "halo_rows": sp.model_receptive_radius_s2d(model)
+               * model.cfg.s2d,
+               "ms_per_frame": cuda_ms(lambda: fnsr(shsr), reps=3) / SR_BATCH,
+               "digest": digest(outsr)}
+        # four shards of it on the card, one after another: each shard's
+        # halo rows (zeroed outside the frame, row_valid), the s2d unit's
+        # mesh pad (1080 -> 1088 rows), the crop
+        with recording(rk, "banded_resize_rows") as calls:
+            outs4, nsr4 = count_launches(lambda: sp.drive_shards_locally(
+                lambda sh: sp.make_spatial_learned_fn(
+                    plan_sr, sh, model, "superres", pack_surface=True),
+                lambda r: sp.shard_planes_rows(sp.Shard(r, SHARDS), bsr),
+                SHARDS))
+        passes = nsr4["banded_resize_last_axis"] // (2 * SHARDS)
+        k3_per = nsr4["banded_resize_rows"] // (SHARDS * passes)
+        if nsr4 != only(banded_resize_last_axis=2 * SHARDS * passes,
+                        banded_resize_rows=k3_per * SHARDS * passes):
+            raise AssertionError(f"spatial SuperRes x{SHARDS}: {nsr4}")
+        for a, kw, o in calls["banded_resize_rows"]:
+            err("k3", (o - rk.banded_resize_rows_plain(*a, **kw)).abs().max()
+                .item())
+        del calls
+        whole = torch.cat(outs4, dim=-2)[..., :outsr.shape[-2], :]
+        dsr.update({
+            "x4_passes": passes, "x4_k3_per_shard_call": k3_per,
+            "x4_bit_equal_one_shard": bool(torch.equal(whole, outsr)),
+            "x4_one_shard": code_diff(whole, outsr, 8),
+            "x4_unsharded_psnr_db": psnr(codes(whole, 8).double() / 255.0,
+                                         codes(refsr, 8).double() / 255.0),
+            "x4_digest": digest(whole)})
+        res["launches"][f"spatial_srx{SHARDS}"] = nsr4
+        del outs4, whole, outsr, refsr, bsr, shsr, fnsr, model
+        if dsr["unsharded_psnr_db"] < 50.0 \
+                or not dsr["x4_bit_equal_one_shard"]:
+            raise AssertionError(f"spatial SuperRes: {dsr}")
+        line("spatial_sr", batch=SR_BATCH, launches=nsr, kernels=ksr,
+             shard_launches=nsr4, tolerance="the unsharded composition >= "
+             "50 dB; four shards bit-equal to one", **dsr)
+
+        # 48. the Jinc2 form: c3's plan (1080p NV12 -> 4K Jinc2, RGBA8,
+        #     bench_common:177-187) on the mesh and as four shards on the
+        #     card, one K6 launch on each shard's band of rows
+        plan3 = plan_pipeline(*c3_args())
+        b3 = nv12_batch(BATCH, SEED + 104, dev)
+        fn3 = sp.make_spatial_frame_fn(plan3, mesh, pack_surface=True)
+        sh3 = sp.shard_planes_rows(mesh, b3)
+        frame3 = make_frame_fn(plan3, pack_surface=True)
+        frame3(b3)          # builds the geometry's weight table if dropped
+        ref3, n_ref = count_launches(lambda: frame3(b3))
+        out3, n3 = count_launches(lambda: fn3(sh3))
+        outs3, n34 = count_launches(lambda: sp.drive_shards_locally(
+            lambda sh: sp.make_spatial_frame_fn(plan3, sh, pack_surface=True),
+            lambda r: sp.shard_planes_rows(sp.Shard(r, SHARDS), b3), SHARDS))
+        k6 = only(jinc2_convert_fused=1)
+        if n_ref != k6 or n3 != k6 \
+                or n34 != only(jinc2_convert_fused=2 * SHARDS):
+            raise AssertionError(f"spatial c3 launches {n_ref}, {n3}, {n34}")
+        res["launches"]["spatial_c3"] = n3
+        res["launches"][f"spatial_c3x{SHARDS}"] = n34
+        j3 = {"bit_equal_unsharded_k6": bool(torch.equal(out3, ref3)),
+              f"x{SHARDS}_bit_equal_unsharded_k6": bool(torch.equal(
+                  torch.cat(outs3, dim=-2), ref3)),
+              "psnr_db": psnr(codes(out3[0], 8).double() / 255.0,
+                              oracle_jinc2(b3[0][0], b3[1][0], b3[2][0],
+                                           C3_OW, C3_OH)),
+              "ms_per_frame": cuda_ms(lambda: fn3(sh3), reps=3) / BATCH,
+              "frame_fn_ms_per_frame": cuda_ms(lambda: frame3(b3),
+                                               reps=3) / BATCH,
+              "digest": digest(out3)}
+        del out3, outs3, ref3, fn3, frame3
+        if not (j3["bit_equal_unsharded_k6"]
+                and j3[f"x{SHARDS}_bit_equal_unsharded_k6"]) \
+                or j3["psnr_db"] < 55.0:
+            raise AssertionError(f"spatial c3: {j3}")
+        line("spatial_c3", batch=BATCH, launches=n3,
+             shard_launches=n34, tolerance="bit-equal to the unsharded K6",
+             **j3)
+
+        # c3 letterboxed into the 4K surface (J3_RECT): the K5 route, stage
+        # A (K1 x2, K3 x2, the matrix in torch), K5 on each shard's band of
+        # rows, the torch tail; against the unsharded K1 x2 + K2 + K5
+        st3, src3, dst3 = c3_args()
+        plan3p = plan_pipeline(st3, src3, dataclasses.replace(
+            dst3, video_rect=J3_RECT))
+        l, t, r, b = J3_RECT
+        fn3p = sp.make_spatial_frame_fn(plan3p, mesh, pack_surface=True)
+        fn3p(sh3)           # builds the geometry's weight table if dropped
+        with recording(jk, "jinc2_resize_fused") as k5calls:
+            out3p, n3p, k3p = spatial_call(fn3p, sh3, err, only(
+                banded_resize_last_axis=2, banded_resize_rows=2,
+                jinc2_resize_fused=1))
+        (a5, kw5, got5), = k5calls["jinc2_resize_fused"]
+        e5 = (got5 - jk.jinc2_resize_fused_plain(*a5, **kw5)).abs().max()
+        k3p.update({"k5_max_abs_err": e5.item(), "k5_route": "/".join(
+            jk.k5_route(a5[0].shape[-2], a5[0].shape[-1], a5[1], a5[2],
+                        kw5.get("rows")))})
+        err("k5", k3p["k5_max_abs_err"])
+        del k5calls, a5, kw5, got5, e5
+        frame3p = make_frame_fn(plan3p, pack_surface=True)
+        ref3p, n_ref = count_launches(lambda: frame3p(b3))
+        if n_ref != only(banded_resize_last_axis=2, rows3_tail=1,
+                         jinc2_resize_fused=1):
+            raise AssertionError(f"c3 letterboxed unsharded launches {n_ref}")
+        outs3p, n3p4 = count_launches(lambda: sp.drive_shards_locally(
+            lambda sh: sp.make_spatial_frame_fn(plan3p, sh,
+                                                pack_surface=True),
+            lambda r: sp.shard_planes_rows(sp.Shard(r, SHARDS), b3), SHARDS))
+        passes = n3p4["jinc2_resize_fused"] // SHARDS
+        if n3p4 != only(banded_resize_last_axis=2 * SHARDS * passes,
+                        banded_resize_rows=2 * SHARDS * passes,
+                        jinc2_resize_fused=SHARDS * passes):
+            raise AssertionError(f"c3 letterboxed x{SHARDS}: {n3p4}")
+        res["launches"]["spatial_c3_placed"] = n3p
+        res["launches"][f"spatial_c3_placedx{SHARDS}"] = n3p4
+        bars = torch.cat([out3p[..., :t, :], out3p[..., b:, :]], dim=-2)
+        j3p = {"x4_bit_equal_one_shard": bool(torch.equal(
+                   torch.cat(outs3p, dim=-2), out3p)),
+               "x4_passes": passes,
+               "unsharded": code_diff(out3p, ref3p, 8),
+               "bars_packed_zero": bool(
+                   (bars == rk.PACKED_ZERO["rgba8"]).all().item()),
+               "psnr_db": psnr(codes(out3p[0, t:b], 8).double() / 255.0,
+                               oracle_jinc2(b3[0][0], b3[1][0], b3[2][0],
+                                            r - l, b - t)),
+               "ms_per_frame": cuda_ms(lambda: fn3p(sh3), reps=3) / BATCH,
+               "frame_fn_ms_per_frame": cuda_ms(lambda: frame3p(b3),
+                                                reps=3) / BATCH,
+               "digest": digest(out3p)}
+        del out3p, outs3p, ref3p, bars, b3, sh3, fn3p, frame3p
+        u = j3p["unsharded"]
+        if not (j3p["x4_bit_equal_one_shard"] and j3p["bars_packed_zero"]) \
+                or u["max_code_diff"] > 1 or u["frac_differing"] >= 0.02 \
+                or j3p["psnr_db"] < 55.0 or k3p["k5_max_abs_err"] > 1e-5:
+            raise AssertionError(f"spatial c3 letterboxed: {j3p}")
+        line("spatial_c3_placed", batch=BATCH, rect=J3_RECT, launches=n3p,
+             kernels=k3p, shard_launches=n3p4, tolerance="four shards "
+             "bit-equal to one; K5 <= 1e-5 of its plain version; the "
+             "unsharded plan <= 1 code on < 2% of channels", **j3p)
+    finally:
+        mesh.destroy()
+    torch.cuda.empty_cache()
+    return res
+
+
+def coverage_phases(dev) -> dict:
+    """Phases 49-50: c2 (4K P010 -> 1080p RGB10, Catmull-Rom up and Hamming
+    down, bench_common:171-176) and c4 (the 4K tone map 1:1 to RGB8,
+    :200-204) through VideoProcessor: launches, each kernel's call against
+    its plain version, >= 55 dB, ms/frame."""
+    dev = torch.device(dev)
+    res = {"launches": {}, "err": {k: 0.0 for k in ("k1", "k2", "k3")}}
+
+    def err(k, x):
+        res["err"][k] = max(res["err"][k], float(x))
+
+    src, dst = headline_args()
+    cases = {
+        "c2": (Settings(upscaling=Upscaling.CATMULL_ROM,
+                        downscaling=Downscaling.HAMMING), dst,
+               dict(upscaling=Upscaling.CATMULL_ROM,
+                    downscaling=Downscaling.HAMMING), 3),
+        "c4": (Settings(convert_to_sdr=True),
+               OutputDescriptor(width=W, height=H, bits=8),
+               dict(dither_bits=8), 2)}
+    for i, (key, (settings, out, okw, n_k1)) in enumerate(cases.items()):
+        src_k = (src if key == "c2" else dataclasses.replace(
+            src, hdr10=HDR10Metadata(max_cll=4000, max_fall=1000)))
+        vp = VideoProcessor(settings, src_k, out, device=dev,
+                            pack_surface=True)
+        bits = out.bits
+        batches = [p010_batch(BATCH, SEED + 110 + 2 * i + j, dev)
+                   for j in range(2)]
+        two = tuple(p[:PLAIN_FRAMES] for p in batches[0])
+        with recording(rk, "banded_resize_last_axis", "rows3_tail") as calls:
+            vp.process(two)
+        torch.cuda.synchronize()
+        chk = checked_calls(calls, err)
+        (a2, kw2, got2), = calls["rows3_tail"]
+        k2 = code_diff(got2, rk.rows3_tail_plain(*a2, **kw2), bits)
+        err("k2", k2["max_code_diff"] / (2 ** bits - 1))
+        del calls, a2, kw2, got2
+        outs, n = count_launches(lambda: [vp.process(b) for b in batches])
+        res["launches"][key] = n
+        db = psnr(codes(outs[0][0], bits).double() / (2 ** bits - 1),
+                  oracle(*(p[0] for p in batches[0]), out.width, out.height,
+                         **okw))
+        ck = {"launches": n, "psnr_db": db, "k1": chk, "k2": k2,
+              "ms_per_frame": timed_calls(vp.process, batches),
+              "digest": digest(*outs)}
+        del outs, batches, vp
+        if n != only(banded_resize_last_axis=2 * n_k1, rows3_tail=2) \
+                or k2["max_code_diff"] > 1 or k2["frac_differing"] >= 0.02 \
+                or db < 55.0:
+            raise AssertionError(f"{key}: {ck}")
+        line(key, batch=BATCH, kernels_frames=PLAIN_FRAMES,
+             tolerance="K1 mid16 <= 1 code, f32 <= 2e-5; K2 <= 1 code on "
+             "< 2% of channels", **ck)
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -3702,9 +4228,14 @@ def main() -> None:
     mc = model_cli_phases(dev)
     # 39-42: training, data parallelism and the train commands
     tr = train_phases(dev)
+    # 43-48: parallel/spatial: c6, four shards of c6 on the card, c9, the
+    # Dolby Vision, learned and Jinc2 forms
+    spa = spatial_phases(dev)
+    # 49-50: c2 and c4
+    cov = coverage_phases(dev)
 
     def new_launches(name):
-        return sum(n[name] for phases in (new, hdr, ren, mc, tr)
+        return sum(n[name] for phases in (new, hdr, ren, mc, tr, spa, cov)
                    for n in phases["launches"].values())
 
     def entry(name, source, replaces, n, k, err):
@@ -3733,7 +4264,8 @@ def main() -> None:
               + new_launches("banded_resize_last_axis"), k1,
               max(k1["max_abs_err"], conv["k1_max_abs_err"],
                   sr_k["k1_max_abs_err"], new["err"]["k1"],
-                  hdr["err"]["k1"], mc["err"]["k1"])),
+                  hdr["err"]["k1"], mc["err"]["k1"], spa["err"]["k1"],
+                  cov["err"]["k1"])),
         {**entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
                  launches["rows3_tail"] + c7_launches["rows3_tail"]
                  + sum(n["rows3_tail"] for n in split_launches.values())
@@ -3741,7 +4273,8 @@ def main() -> None:
                  k2, max(k2["max_abs_err"], conv["k2_max_abs_err"],
                          sr_k["k2_max_abs_err"],
                          c7k["k2_max_code_diff"] / 1023.0, new["err"]["k2"],
-                         hdr["err"]["k2"], mc["err"]["k2"])),
+                         hdr["err"]["k2"], mc["err"]["k2"],
+                         cov["err"]["k2"])),
          # the runtime route (selection 7) at c7p, batch 16
          "runtime_route": hdr["runtime"]["rows3_tail"]},
         entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",
@@ -3750,17 +4283,28 @@ def main() -> None:
         {**entry("banded_resize_rows", "banded_resize_rows.cu",
                  "resize_pallas.py:340", new_launches("banded_resize_rows"),
                  new["k3"], max(k3["max_abs_err"], k3["max_abs_err_u16"],
-                                new["k3"]["max_abs_err"])),
-         "k3_route": new["k3"]["route"]},
+                                new["k3"]["max_abs_err"], spa["err"]["k3"])),
+         "k3_route": new["k3"]["route"],
+         # the per-shard form (an inner shard of phase 44's four, each its
+         # own table), in place of the stacked band tables
+         "per_shard": {**entry(
+             "banded_resize_rows", "banded_resize_rows.cu",
+             "resize_pallas.py:355",
+             sum(n["banded_resize_rows"] for k, n in spa["launches"].items()
+                 if k.startswith("c6x")),
+             spa["k3_shard"], spa["k3_shard"]["max_abs_err"]),
+             "k3_route": spa["k3_shard"]["route"]}},
         {**entry("jinc2_resize_fused", "jinc2_resize.cu",
-                 "jinc2_pallas.py:242", r270_launches["jinc2_resize_fused"],
-                 k5, k5["max_abs_err"]),
+                 "jinc2_pallas.py:242", r270_launches["jinc2_resize_fused"]
+                 + new_launches("jinc2_resize_fused"),
+                 k5, max(k5["max_abs_err"], spa["err"]["k5"])),
          "k5_route": k5["route"],
          "table_launches": r270_first["jinc2_weight_table"]},
         {**entry("jinc2_convert_fused", "jinc2_convert.cu",
                  "jinc2_pallas.py:705",
                  c3_launches["jinc2_convert_fused"]
-                 + rot_launches["jinc2_convert_fused"], k6,
+                 + rot_launches["jinc2_convert_fused"]
+                 + new_launches("jinc2_convert_fused"), k6,
                  k6["max_abs_err"]),
          # the table kernel's launches: the first calls of c3, c3rot and
          # c3 rotation 270 (K5's, where its table route builds one)

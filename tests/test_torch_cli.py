@@ -341,3 +341,76 @@ def test_chip_smoke_train_phases_rehearsal(smoke_on_cpu, monkeypatch,
     for run in by["train_cli"]["runs"].values():
         assert run["keys_equal_jax_cli"] and run["bit_equal_renderer"]
         assert run["launches_equal_renderer"]
+
+
+def test_chip_smoke_spatial_coverage_phases_rehearsal(smoke_on_cpu,
+                                                      monkeypatch, capsys):
+    """Phases 43-50 end to end on the CPU at small sizes: parallel/spatial
+    on a gloo world of one (c6, its four shards one after another, c9, the
+    Dolby Vision, learned and Jinc2 forms, the last two as four shards too,
+    the Jinc2 form's K5 route on a letterboxed c3) and c2, c4; the launch
+    counts, every bit-equality and the bands of each phase, K3, K5, K6 and
+    K8 counting too (the kernels' plain versions, ``pipeline._on_card``
+    true).  168 rows: four shards of the shipped SuperRes (40 halo rows)
+    pad the surface to 176, as 1080 pads to 1088 on the card."""
+    from videorenderer_tpu_torch import pipeline as tpipe
+    from videorenderer_tpu_torch.kernels import deint as dk
+    from videorenderer_tpu_torch.kernels import resize as rk
+    cs = smoke_on_cpu
+    # the Dolby Vision frame function picks K8 + K9 from the planes' device
+    monkeypatch.setattr(tpipe, "_on_card", lambda planes: True)
+    for name, val in (("C6_BATCH", 2), ("C9_W", 256), ("C9_H", 128),
+                      ("C9_OW", 128), ("C9_OH", 64), ("C9_BATCH", 1),
+                      ("BATCH", 2), ("SR_BATCH", 1), ("C1_H", 168),
+                      ("C3_OW", 128), ("C3_OH", 192),
+                      ("J3_RECT", (0, 8, 128, 184))):
+        monkeypatch.setattr(cs, name, val)
+    from videorenderer_tpu_torch.kernels import jinc2 as jk
+    for mod, name in ((rk, "banded_resize_rows"), (dk, "rows3_mid"),
+                      (jk, "jinc2_convert_fused"),
+                      (jk, "jinc2_resize_fused")):
+        def counted(*a, _real=getattr(mod, name), _name=name, **kw):
+            rk.launches[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    spa = cs.spatial_phases("cpu")
+    cov = cs.coverage_phases("cpu")
+    six = cs.only(banded_resize_last_axis=3, banded_resize_rows=3)
+    assert spa["launches"] == {
+        "c6": six, "c9": six, "spatial_dovi": six,
+        "c6x4": cs.only(banded_resize_last_axis=24, banded_resize_rows=24),
+        "spatial_sr": cs.only(banded_resize_last_axis=2,
+                              banded_resize_rows=2),
+        # the pad's luma map joins the chroma's; three passes settle the
+        # net's halo, which reads the settled frame rows
+        "spatial_srx4": cs.only(banded_resize_last_axis=24,
+                                banded_resize_rows=36),
+        "spatial_c3": cs.only(jinc2_convert_fused=1),
+        "spatial_c3x4": cs.only(jinc2_convert_fused=8),
+        "spatial_c3_placed": cs.only(banded_resize_last_axis=2,
+                                     banded_resize_rows=2,
+                                     jinc2_resize_fused=1),
+        "spatial_c3_placedx4": cs.only(banded_resize_last_axis=24,
+                                       banded_resize_rows=24,
+                                       jinc2_resize_fused=12)}
+    assert cov["launches"] == {
+        "c2": cs.only(banded_resize_last_axis=6, rows3_tail=2),
+        "c4": cs.only(banded_resize_last_axis=4, rows3_tail=2)}
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()
+             if s.startswith('{"phase"')]
+    by = {d["phase"]: d for d in lines}
+    assert list(by) == ["c6", "c6x4", "c9", "spatial_dovi", "spatial_sr",
+                        "spatial_c3", "spatial_c3_placed", "c2", "c4"]
+    assert by["spatial_sr"]["x4_bit_equal_one_shard"]
+    assert by["spatial_sr"]["x4_passes"] == 3
+    assert by["spatial_c3_placed"]["x4_bit_equal_one_shard"]
+    assert by["spatial_c3_placed"]["bars_packed_zero"]
+    assert by["spatial_c3_placed"]["kernels"]["k5_max_abs_err"] == 0.0
+    assert by["spatial_c3"]["bit_equal_unsharded_k6"]
+    assert by["spatial_c3"]["x4_bit_equal_unsharded_k6"]
+    assert by["c6"]["bit_equal_no_mesh"] and by["c9"]["bit_equal_no_mesh"]
+    assert by["c6x4"]["bit_equal_one_shard"] and by["c6x4"]["passes"] == 2
+    assert [s["rank"] for s in by["c6x4"]["shards"]] == [0, 1, 2, 3]
+    assert spa["k3_shard"]["ms"] > 0.0 and spa["k3_shard"]["bound_ms"] > 0.0
+    assert min(by[k]["psnr_db"] for k in ("c6", "c9", "spatial_dovi", "c2",
+                                          "c4", "spatial_c3_placed")) >= 55.0

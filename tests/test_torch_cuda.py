@@ -2439,3 +2439,140 @@ def test_one_rank_nccl_mesh_equals_no_mesh(dev):
     assert plain[1] == meshed[1]
     for k, v in plain[0].state_dict().items():
         assert torch.equal(meshed[0].state_dict()[k], v)
+
+
+# ---------------------------------------------------------------------------
+# parallel/spatial: bands of a frame's rows (K5, K6) and the sharded forms
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dither_bits", [0, 8, -10])
+@pytest.mark.parametrize("geom", K5_GEOMS[:5])
+def test_k5_band_of_rows_bit_equal_to_the_frame(dev, geom, dither_bits):
+    """K5 on a band of a frame's output rows (jinc2.Jinc2Rows: the source
+    rows its taps read, clamped as the frame clamps them) gives the frame's
+    rows bit for bit, the dither at the frame's rows included."""
+    h, w, oh, ow = geom
+    x = torch.from_numpy(np.random.default_rng(8).random(
+        (2, h, w), dtype=np.float32)).to(dev)
+    epi = jk.dither_epilogue(dither_bits) if dither_bits else None
+    full = jk.jinc2_resize_fused(x, oh, ow, epi)
+    base, _ = scale.jinc2_axis_tables(h, oh)
+    for o0, o1 in ((0, oh // 3), (oh // 3, oh - 5), (oh - 5, oh)):
+        lo, hi = int(base[o0]) - 1, int(base[o1 - 1]) + 3
+        rows = torch.from_numpy(np.clip(np.arange(lo, hi), 0, h - 1)).to(dev)
+        band = jk.jinc2_resize_fused(
+            x.index_select(-2, rows).contiguous(), o1 - o0, ow, epi,
+            rows=jk.Jinc2Rows(h, oh, o0, lo))
+        torch.cuda.synchronize()
+        assert torch.equal(band, full[..., o0:o1, :])
+
+
+def _spatial_case(kind):
+    """(plan, planes) on the CPU: a small fused, Dolby Vision or Jinc2 plan
+    (widths multiples of 16; 100 rows, which 4 shards pad); "jinc2_vrect"
+    letterboxes the Jinc2 output, the form's K5 route."""
+    rng = np.random.default_rng(9)
+    w, h = 96, 100
+    if kind.startswith("jinc2"):
+        src = P.SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
+                                 matrix=S.CSP.BT_709)
+        rect = (0, 14, 2 * w, 2 * h - 14) if kind == "jinc2_vrect" else None
+        settings, dst = (C.Settings(upscaling=C.Upscaling.JINC2),
+                         P.OutputDescriptor(width=2 * w, height=2 * h,
+                                            bits=8, video_rect=rect))
+        planes = (rng.integers(16, 236, (2, h, w), dtype=np.uint8),
+                  *(rng.integers(16, 241, (2, h // 2, w // 2),
+                                 dtype=np.uint8) for _ in range(2)))
+    else:
+        meta = dovi.DoviMetadata(
+            curves=(dovi.identity_curve(),) * 3,
+            ycc_to_rgb_matrix=np.array([[1, 0, 1.4746],
+                                        [1, -0.164553, -0.571353],
+                                        [1, 1.8814, 0]]),
+            ycc_to_rgb_offset=np.array([0.0, 0.5, 0.5]),
+            rgb_to_lms_matrix=np.linalg.inv(dovi.DOVI_LMS2RGB))
+        src = P.SourceDescriptor(
+            format=ColorFormat.P010, width=w, height=h,
+            matrix=S.CSP.BT_2020_NC, primaries=S.Primaries.BT_2020,
+            transfer=S.TRC.PQ, dovi=meta if kind == "dovi" else None,
+            hdr10=P.HDR10Metadata())
+        settings = C.Settings(upscaling=C.Upscaling.LANCZOS3,
+                              convert_to_sdr=True)
+        dst = P.OutputDescriptor(width=w // 2, height=h // 2, bits=10)
+        planes = tuple((rng.integers(64, 941, s, dtype=np.uint16) << 6)
+                       for s in ((2, h, w), (2, h // 2, w // 2),
+                                 (2, h // 2, w // 2)))
+    return P.plan_pipeline(settings, src, dst), tuple(
+        torch.from_numpy(p) for p in planes)
+
+
+@pytest.mark.parametrize("kind", ["fused", "dovi", "jinc2", "jinc2_vrect"])
+def test_spatial_shards_on_card_bit_equal_to_one(dev, kind):
+    """Four shards of a plan run one after another on the card
+    (spatial.drive_shards_locally) give the one-shard surface bit for bit,
+    each shard's H passes on its own K3 table or its band of K5's or K6's
+    rows; one shard against the unsharded frame function: the Jinc2 form's
+    K6 route bit-equal to K6, the others within K2's band (1 code on
+    < 2%)."""
+    from videorenderer_tpu_torch.parallel import spatial as sp
+    plan, planes = _spatial_case(kind)
+    planes = tuple(p.to(dev) for p in planes)
+
+    def build(sh):
+        return sp.make_spatial_frame_fn(plan, sh, pack_surface=True)
+
+    one = build(sp.Shard(0, 1))(planes)
+    four = torch.cat(sp.drive_shards_locally(
+        build, lambda r: sp.pad_shard_planes_rows(plan, sp.Shard(r, 4),
+                                                  planes), 4), dim=-2)
+    h = plan.dst.height
+    assert torch.equal(four[..., :h, :], one)
+    ref = P.make_frame_fn(plan, pack_surface=True)(planes)
+    if kind == "jinc2":
+        assert torch.equal(one, ref)
+    else:
+        bits = plan.dst.bits
+        d = np.abs(_codes(one, "rgb10a2" if bits == 10 else "rgba8")
+                   - _codes(ref, "rgb10a2" if bits == 10 else "rgba8"))
+        if kind == "dovi":      # the JAX spatial DoVi band
+            assert d.max() <= 1.5 / 255 * 1023 and (
+                d > 0.5 / 255 * 1023).mean() < 1e-3
+        else:
+            assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def test_spatial_learned_shards_on_card(dev):
+    """The learned form with the shipped SuperRes as four shards on the
+    card (40 halo rows zeroed outside the frame, ``row_valid``, the s2d
+    unit's pad 168 -> 176 rows, the crop): the stitched surface bit-equal
+    to one shard's, and one shard >= 50 dB against the net on the
+    unsharded frame function's output (tests/test_torch_models.py's band)."""
+    from videorenderer_tpu_torch.models import real_eval, superres
+    from videorenderer_tpu_torch.parallel import spatial as sp
+    model = real_eval.load_shipped_superres(dev)
+    rng = np.random.default_rng(10)
+    w, h = 96, 168
+    src = P.SourceDescriptor(format=ColorFormat.NV12, width=w, height=h,
+                             matrix=S.CSP.BT_709)
+    plan = P.plan_pipeline(C.Settings(vp_superres=C.SuperResolution.P1080),
+                           src, P.OutputDescriptor(width=w, height=h, bits=8))
+    planes = tuple(torch.from_numpy(p).to(dev) for p in (
+        rng.integers(16, 236, (2, h, w), dtype=np.uint8),
+        *(rng.integers(16, 241, (2, h // 2, w // 2), dtype=np.uint8)
+          for _ in range(2))))
+
+    def build(sh):
+        return sp.make_spatial_learned_fn(plan, sh, model, "superres",
+                                          pack_surface=True)
+
+    one = build(sp.Shard(0, 1))(planes)
+    four = torch.cat(sp.drive_shards_locally(
+        build, lambda r: sp.pad_shard_planes_rows(plan, sp.Shard(r, 4),
+                                                  planes), 4), dim=-2)
+    assert four.shape[-2] == 2 * 176
+    assert torch.equal(four[..., :2 * h, :], one)
+    ref = rk.pack_surface(superres.enhance_plane_chw(
+        model, P.make_frame_fn(plan)(planes)), "rgba8")
+    d = (_codes(one, "rgba8") - _codes(ref, "rgba8")) / 255.0
+    assert np.mean(d ** 2) <= 1e-5             # >= 50 dB

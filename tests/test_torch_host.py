@@ -426,7 +426,8 @@ def test_import_keeps_jax_out():
             "videorenderer_tpu_torch.models.hdr_train, "
             "videorenderer_tpu_torch.models.real_eval, "
             "videorenderer_tpu_torch.models.optim, "
-            "videorenderer_tpu_torch.parallel.mesh; "
+            "videorenderer_tpu_torch.parallel.mesh, "
+            "videorenderer_tpu_torch.parallel.spatial; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('videorenderer_tpu.') or m == 'videorenderer_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -177,6 +177,22 @@ def test_device_unpacker_equal(name):
             np.testing.assert_array_equal(s, ref, err_msg=name)
 
 
+@pytest.mark.parametrize("dt", [np.uint8, np.uint16])
+def test_nv12_split_device_equals_jax(dt):
+    """nv12_split_device (the JAX package's name) on an NV12 or P010 buffer,
+    one frame and a batch of 2: the JAX function's planes, value for
+    value."""
+    rng = np.random.default_rng(3)
+    buf = rng.integers(0, np.iinfo(dt).max + 1, (2, W * H * 3 // 2),
+                       dtype=np.uint32).astype(dt)
+    for b in (buf[0], buf):
+        got = tud.nv12_split_device(torch.from_numpy(b.copy()), W, H)
+        jgot = jud.nv12_split_device(jnp.asarray(b), W, H)
+        for g, j in zip(got, jgot):
+            assert g.numpy().dtype == np.asarray(j).dtype
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+
+
 def test_device_unpacker_top_bits():
     """r210 and b64a words with the top bit set, and v210/Y410 dwords with
     the padding bits set: the byte swaps and masks are those of numpy's

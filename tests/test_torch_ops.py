@@ -138,6 +138,32 @@ def test_dither_and_quantize(bits):
                        tdither.ordered_dither_iota(tx, bits))
 
 
+@pytest.mark.parametrize("bits", [8, 10])
+def test_random_dither_rule_equals_jax(bits, monkeypatch):
+    """random_dither's rule, floor(img Q + U) requantized, equal to the JAX
+    package's on the same uniform noise (JAX's own draw from its key, fed
+    to the port in place of its generator's); the generator decides the
+    noise."""
+    x = _x(lo=0.0, hi=1.0, shape=(2, 3, 24, 40))
+    key = jax.random.PRNGKey(bits)
+    noise = np.asarray(jax.random.uniform(key, x.shape, dtype=jnp.float32))
+    want = np.asarray(jdither.random_dither(jnp.asarray(x), bits, key))
+    with monkeypatch.context() as m:
+        m.setattr(torch, "rand", lambda shape, generator, dtype, device:
+                  torch.from_numpy(noise).to(dtype))
+        got = tdither.random_dither(torch.from_numpy(x), bits,
+                                    torch.Generator().manual_seed(0))
+    assert np.array_equal(got.numpy(), want)
+    tx = torch.from_numpy(x)
+    a, b, c = (tdither.random_dither(tx, bits,
+                                     torch.Generator().manual_seed(s))
+               for s in (1, 1, 2))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    codes = a * (2 ** bits - 1)    # on the grid, up to the reciprocal's
+    assert float((codes - torch.round(codes)).abs().max()) < 1e-3
+    assert float((a - tx).abs().max()) <= 1.0 / (2 ** bits - 1)
+
+
 @pytest.fixture(scope="module")
 def bench_mod():
     # bench.py points JAX's compilation cache at a directory outside the

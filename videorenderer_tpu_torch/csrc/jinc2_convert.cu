@@ -17,7 +17,10 @@
 //   3. each thread resolves 4 adjacent outputs of one row with the direct
 //      4x4-tap Jinc2 of jinc2.cuh: one set of 16 weights for the three
 //      channels, anti-ringing on the RGB taps (as _make_kernel3:636-644);
-//   4. dither from the GLOBAL pre-rotation row and column, or rounding;
+//   4. dither from the GLOBAL pre-rotation row and column, or rounding (a
+//      launch that makes a band of a larger frame's rows, a row shard of
+//      parallel/spatial, gets that band's rows of the tap tables and
+//      row0, the band's first row in the frame);
 //   5. store: planar float RGB or one RGBA8 / R10G10B10A2 dword, 4 outputs
 //      as one 16-byte store, at (row, col), or with out_transpose at
 //      (col, row), through a shared-memory tile so that the transposed
@@ -83,6 +86,7 @@ struct Params {
   float m[12];  // row-major 3 x (m0 m1 m2 c)
   float y_scale, c_scale;
   vrt::Quant quant;
+  int row0;  // the frame row of output row 0 (the dither's)
   int pack, transpose;
 };
 
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) jinc2_convert_kernel(
           for (int io = 0; io < 4; ++io) t[jo * 4 + io] = win[jo * G.win_w + io];
         }
         res[k][i] = vrt::quantize(vrt::jinc2_resolve(t, wt, wsum), P.quant,
-                                  row, col);
+                                  row + P.row0, col);
       }
     }
   }
@@ -377,7 +381,7 @@ extern "C" int vrt_jinc2_convert(
     const void* bx, const void* d2x, const void* ux_starts,
     const void* ux_taps, int n_ux, const void* uy_starts, const void* uy_taps,
     int n_uy, float y_scale, float c_scale, const void* host_cmat,
-    int dither_bits, int pack, int transpose, int win_h, int win_w,
+    int dither_bits, int row0, int pack, int transpose, int win_h, int win_w,
     const void* row_cls, const void* col_cls, const void* table,
     int n_col_cls, void* out, void* stream) {
   Geometry G{h, w, ch, cw, oh, ow,
@@ -401,6 +405,7 @@ extern "C" int vrt_jinc2_convert(
   P.y_scale = y_scale;
   P.c_scale = c_scale;
   P.quant = vrt::make_quant(dither_bits);
+  P.row0 = row0;
   P.pack = pack;
   P.transpose = transpose;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

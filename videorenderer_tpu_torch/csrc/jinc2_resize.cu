@@ -7,7 +7,10 @@
 // cutoff) because Mosaic has no gather; here each output gathers its 16
 // source taps directly, weights them (jinc2.cuh), normalises, applies
 // anti-ringing, then the optional epilogue: ordered dither from the GLOBAL
-// row and column, or rounding.
+// row and column, or rounding.  A launch may make a band of a larger
+// frame's rows (a row shard, parallel/spatial): the wrapper passes that
+// band's rows of the tap tables and row0, the band's first row in the
+// frame, so the dither keeps the frame's pattern.
 //
 // Design.  A block of 256 threads makes one 32-row x 128-column output
 // tile of one plane; a thread makes 4 adjacent outputs of a row, in 4 rows
@@ -79,6 +82,7 @@ struct Geometry {
   const float* table;                // (n_row_cls, n_col_cls, kJ2Entry)
   int n_col_cls;
   int win_h, pitch;                  // staged window: rows, floats a row
+  int row0;                          // the frame row of output row 0
 };
 
 template <int kWeights, int kTaps>
@@ -179,8 +183,8 @@ __global__ void __launch_bounds__(kThreads) jinc2_resize_kernel(
           }
         }
       }
-      return vrt::quantize(vrt::jinc2_resolve(t, wt, wsum), quant, row,
-                           cols[k]);
+      return vrt::quantize(vrt::jinc2_resolve(t, wt, wsum), quant,
+                           row + G.row0, cols[k]);
     };
     float res[kVec];
     if constexpr (kWeights == kTable) {
@@ -240,20 +244,22 @@ int launch(const float* x, int planes, const Geometry& G, vrt::Quant quant,
 // route.  win_h > 0: the staged route, every tile's window within win_h
 // rows of ``pitch`` floats (a multiple of 4, kernels/jinc2.k5_window);
 // win_h 0: the direct route.  dither_bits: +b ordered dither, -b rounding,
-// 0 none.
+// 0 none; row0: the frame row the dither pattern gives output row 0.
 extern "C" int vrt_jinc2_resize(const void* x, int planes, int h, int w,
                                 int oh, int ow, const void* by,
                                 const void* d2y, const void* bx,
                                 const void* d2x, const void* row_cls,
                                 const void* col_cls, const void* table,
                                 int n_col_cls, int win_h, int pitch,
-                                int dither_bits, void* out, void* stream) {
+                                int dither_bits, int row0, void* out,
+                                void* stream) {
   const Geometry G{h, w, oh, ow,
                    static_cast<const int*>(by), static_cast<const float*>(d2y),
                    static_cast<const int*>(bx), static_cast<const float*>(d2x),
                    static_cast<const int*>(row_cls),
                    static_cast<const int*>(col_cls),
-                   static_cast<const float*>(table), n_col_cls, win_h, pitch};
+                   static_cast<const float*>(table), n_col_cls, win_h, pitch,
+                   row0};
   if ((table != nullptr &&
        (row_cls == nullptr || col_cls == nullptr || n_col_cls < 1 ||
         (reinterpret_cast<uintptr_t>(table) % 16) != 0)) ||

@@ -89,17 +89,18 @@ SIGNATURES = {
                              _F, _I, _I, _P, _P, _P, _P),
     # x, planes, h, w, oh, ow, by, d2y, bx, d2x, row_cls, col_cls, table
     # (NULL: per-output weights), n_col_cls, win_h (0: taps through L1),
-    # pitch, dither_bits, out, stream
+    # pitch, dither_bits, row0, out, stream
     "vrt_jinc2_resize": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _P, _P),
+                         _I, _I, _I, _I, _I, _P, _P),
     # y, u, v, dtype, batch, h, w, ch, cw, oh, ow, by, d2y, bx, d2x,
     # ux_starts, ux_taps, n_ux, uy_starts, uy_taps, n_uy, y_scale, c_scale,
-    # cmat (host, 12 floats), dither_bits, pack, transpose, win_h, win_w,
-    # row_cls, col_cls, table (NULL: per-output weights), n_col_cls, out,
-    # stream
+    # cmat (host, 12 floats), dither_bits, row0, pack, transpose, win_h,
+    # win_w, row_cls, col_cls, table (NULL: per-output weights), n_col_cls,
+    # out, stream
     "vrt_jinc2_convert": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _F,
-                          _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P),
+                          _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
+                          _P),
     # d2y (4, n_row_cls), n_row_cls, d2x (4, n_col_cls), n_col_cls, table,
     # stream
     "vrt_jinc2_weight_table": (_P, _I, _P, _I, _P, _P),

@@ -26,6 +26,12 @@ geometry whose table would pass TABLE_CAP computes each output's weights
 (:func:`weight_route`).  The table holds the weights the per-output route
 computes, bit for bit.
 
+Both kernels can make a band of a larger frame's rows from a block of its
+source rows (:class:`Jinc2Rows`, a row shard of ``parallel/spatial``):
+the band's rows of the frame's tap tables, its weight table and the
+dither's pattern at the frame's rows, so the band's outputs are the frame's
+bit for bit.
+
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises.  Each launch adds one to the launch counter
 that every kernel of the package shares, ``kernels.resize.launches``.
@@ -68,7 +74,7 @@ class Jinc2Epilogue:
     versions."""
 
     dither_bits: int
-    plain: Callable[[torch.Tensor], torch.Tensor]
+    plain: Callable[..., torch.Tensor]
 
     def validate(self) -> None:
         if self.dither_bits not in (0, 8, 10, -8, -10):
@@ -79,18 +85,74 @@ class Jinc2Epilogue:
 def dither_epilogue(dither_bits: int) -> Jinc2Epilogue:
     """The final pass of ``pipeline._final_pass`` as a Jinc2 epilogue:
     ordered dither (+b) or rounding (-b) of the clipped output; 0 leaves
-    the output as it is."""
-    def plain(x: torch.Tensor) -> torch.Tensor:
+    the output as it is.  ``plain(x, row0)``: the pattern's row at x's
+    row 0."""
+    def plain(x: torch.Tensor, row0: int = 0) -> torch.Tensor:
         if dither_bits == 0:
             return x
         x = torch.clamp(x, 0.0, 1.0)
         if dither_bits < 0:
             return dither_ops.quantize(x, -dither_bits)
-        return dither_ops.ordered_dither_iota(x, dither_bits)
+        return dither_ops.ordered_dither_iota(x, dither_bits, row0=row0)
 
     epi = Jinc2Epilogue(dither_bits=dither_bits, plain=plain)
     epi.validate()
     return epi
+
+
+@dataclass(frozen=True)
+class Jinc2Rows:
+    """A launch that makes output rows ``out_row0`` .. ``out_row0 + out_h``
+    of the ``full_h -> full_out_h`` row geometry, from a block of source
+    rows whose first is the geometry's row ``src_row0`` (it may be
+    negative, or past the end: the block holds the clamped rows the frame's
+    taps would read).  Every tap row of those outputs lies in the block."""
+    full_h: int
+    full_out_h: int
+    out_row0: int
+    src_row0: int
+
+
+def _band_base(h: int, out_h: int, rows: Jinc2Rows | None) -> np.ndarray:
+    """The first tap row of each output row of a launch (int, numpy),
+    relative to its block of source rows; checked to reach only rows of
+    the block."""
+    if rows is None:
+        return scale_ops.jinc2_axis_tables(h, out_h)[0]
+    base, _ = scale_ops.jinc2_axis_tables(rows.full_h, rows.full_out_h)
+    o0 = rows.out_row0
+    if o0 < 0 or o0 + out_h > rows.full_out_h:
+        raise ValueError(f"rows {o0} .. {o0 + out_h} are not rows of a "
+                         f"{rows.full_out_h}-row output")
+    band = base[o0:o0 + out_h] - rows.src_row0
+    if band.size and (band.min() < 1 or band.max() + 2 > h - 1):
+        raise ValueError(f"the taps of rows {o0} .. {o0 + out_h} reach past "
+                         f"the {h} source rows from row {rows.src_row0}")
+    return band
+
+
+def _row_tables(h: int, out_h: int, rows: Jinc2Rows | None, device
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(base (out_h,) int32, d2 (4, out_h) float32) of a launch's rows on
+    ``device``: the geometry's tables, or the band's rows of the frame's
+    with the bases relative to the block."""
+    if rows is None:
+        return _axis_on(h, out_h, device)
+    by, dy = _axis_on(rows.full_h, rows.full_out_h, device)
+    o0 = rows.out_row0
+    band = torch.tensor(_band_base(h, out_h, rows), dtype=torch.int32,
+                        device=device)
+    return band, dy[:, o0:o0 + out_h].contiguous()
+
+
+def _row_geometry(h: int, out_h: int, rows: Jinc2Rows | None
+                  ) -> tuple[int, int, int]:
+    """(rows of the frame's source, rows of the frame's output, the frame
+    row of output row 0): the geometry whose weight table a launch reads
+    and its dither's origin."""
+    if rows is None:
+        return h, out_h, 0
+    return rows.full_h, rows.full_out_h, rows.out_row0
 
 
 @functools.lru_cache(maxsize=32)
@@ -215,19 +277,21 @@ def clear_weight_tables() -> None:
     _weight_table.cache_clear()
 
 
-def _jinc2_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def _jinc2_plain(x: torch.Tensor, out_h: int, out_w: int,
+                 rows: Jinc2Rows | None = None) -> torch.Tensor:
     """Direct 4x4-tap Jinc2 with anti-ringing of float32 (..., H, W), a port
     of the JAX package's ``ops/scale._jinc2_gather``: one gathered
-    (..., out_h, out_w) tensor and one weight field per tap."""
+    (..., out_h, out_w) tensor and one weight field per tap; ``rows``: a
+    band of a larger frame (:class:`Jinc2Rows`)."""
     h, w = x.shape[-2], x.shape[-1]
-    by, dy = _axis_on(h, out_h, x.device)
+    by, dy = _row_tables(h, out_h, rows, x.device)
     bx, dx = _axis_on(w, out_w, x.device)
-    rows = [torch.clamp(by + o, 0, h - 1) for o in range(-1, 3)]
+    tap_rows = [torch.clamp(by + o, 0, h - 1) for o in range(-1, 3)]
     cols = [torch.clamp(bx + o, 0, w - 1) for o in range(-1, 3)]
 
     out = wsum = None
     center = []
-    for jo, r in enumerate(rows):
+    for jo, r in enumerate(tap_rows):
         xr = torch.index_select(x, -2, r)
         for io, c in enumerate(cols):
             tap = torch.index_select(xr, -1, c)
@@ -252,49 +316,61 @@ def _jinc2_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 
 def jinc2_resize_fused_plain(x: torch.Tensor, out_h: int, out_w: int,
-                             epilogue: Jinc2Epilogue | None = None
-                             ) -> torch.Tensor:
+                             epilogue: Jinc2Epilogue | None = None,
+                             rows: Jinc2Rows | None = None) -> torch.Tensor:
     """Plain K5: the direct gather, then the epilogue."""
-    out = _jinc2_plain(x, out_h, out_w)
-    return out if epilogue is None else epilogue.plain(out)
+    out = _jinc2_plain(x, out_h, out_w, rows)
+    return out if epilogue is None else epilogue.plain(
+        out, _row_geometry(x.shape[-2], out_h, rows)[2])
 
 
 @functools.lru_cache(maxsize=32)
 def _window(in_size: int, out_size: int, tile: int = TILE) -> int:
     """The largest source window (taps of ``tile`` consecutive outputs)
     along an axis."""
-    base, _ = scale_ops.jinc2_axis_tables(in_size, out_size)
-    first = np.arange(0, out_size, tile)
-    last = np.minimum(first + tile, out_size) - 1
+    return _window_of(scale_ops.jinc2_axis_tables(in_size, out_size)[0], tile)
+
+
+def _window_of(base: np.ndarray, tile: int) -> int:
+    """The largest source window of ``tile`` consecutive outputs whose
+    first tap rows are ``base``."""
+    first = np.arange(0, base.size, tile)
+    last = np.minimum(first + tile, base.size) - 1
     return int((base[last] - base[first]).max()) + 4
 
 
-def k5_window(h: int, w: int, out_h: int, out_w: int
-              ) -> tuple[int, int, int]:
+def k5_window(h: int, w: int, out_h: int, out_w: int,
+              rows: Jinc2Rows | None = None) -> tuple[int, int, int]:
     """(rows, pitch, shared-memory bytes) of a K5 block's staged source
     window: the rows and columns the taps of a K5_TILE_ROWS x K5_TILE_COLS
-    output tile reach at most (:func:`_window`), each row staged from a
-    column rounded down to 4 floats, so ``pitch`` is the columns plus 3,
-    rounded up to 4."""
-    win_h = _window(h, out_h, K5_TILE_ROWS)
+    output tile reach at most (:func:`_window`; for a band of rows, its
+    own tiles'), each row staged from a column rounded down to 4 floats, so
+    ``pitch`` is the columns plus 3, rounded up to 4."""
+    win_h = (_window(h, out_h, K5_TILE_ROWS) if rows is None else
+             _window_of(_band_base(h, out_h, rows), K5_TILE_ROWS))
     pitch = -(-(_window(w, out_w, K5_TILE_COLS) + 3) // 4) * 4
     return win_h, pitch, 4 * win_h * pitch
 
 
-def k5_route(h: int, w: int, out_h: int, out_w: int) -> tuple[str, str]:
+def k5_route(h: int, w: int, out_h: int, out_w: int,
+             rows: Jinc2Rows | None = None) -> tuple[str, str]:
     """The route K5 takes at this geometry: (the weights,
-    :func:`weight_route`; the taps, "staged" in shared memory where the
-    tile's window fits the budget, else "direct", read through L1)."""
-    taps = ("staged" if k5_window(h, w, out_h, out_w)[2] <= _SMEM_LIMIT
+    :func:`weight_route` of the frame's geometry; the taps, "staged" in
+    shared memory where the tile's window fits the budget, else "direct",
+    read through L1)."""
+    taps = ("staged" if k5_window(h, w, out_h, out_w, rows)[2] <= _SMEM_LIMIT
             else "direct")
-    return weight_route(h, w, out_h, out_w), taps
+    fh, foh, _ = _row_geometry(h, out_h, rows)
+    return weight_route(fh, w, foh, out_w), taps
 
 
 def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
-                       epilogue: Jinc2Epilogue | None = None) -> torch.Tensor:
+                       epilogue: Jinc2Epilogue | None = None,
+                       rows: Jinc2Rows | None = None) -> torch.Tensor:
     """float32 (..., H, W) -> (..., out_h, out_w): the 2D Jinc2 with
     anti-ringing and the optional epilogue, leading dims flattened into
-    planes.
+    planes; ``rows``: the band of a larger frame's rows these are
+    (:class:`Jinc2Rows`).
 
     Kernel K5 (``csrc/jinc2_resize.cu``), replacing
     ``jinc2_pallas.jinc2_resize_fused``.  A block makes a K5_TILE_ROWS x
@@ -312,28 +388,29 @@ def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
     if epilogue is not None:
         epilogue.validate()
     if not rk._kernel_device(x):
-        return jinc2_resize_fused_plain(x, out_h, out_w, epilogue)
+        return jinc2_resize_fused_plain(x, out_h, out_w, epilogue, rows)
     h, w = x.shape[-2], x.shape[-1]
     planes = x.numel() // (h * w)
     if planes == 0 or planes > 65535 or out_h > K5_TILE_ROWS * 65535:
         raise ValueError(f"K5 cannot take {planes} planes of {out_h} rows")
     out = torch.empty(x.shape[:-2] + (out_h, out_w), dtype=torch.float32,
                       device=x.device)
-    by, dy = _axis_on(h, out_h, x.device)
+    by, dy = _row_tables(h, out_h, rows, x.device)
     bx, dx = _axis_on(w, out_w, x.device)
-    weights, taps = k5_route(h, w, out_h, out_w)
+    fh, foh, row0 = _row_geometry(h, out_h, rows)
+    weights, taps = k5_route(h, w, out_h, out_w, rows)
     if weights == "table":
-        rcls, ccls, table = _weight_table(h, out_h, w, out_w, x.device)
-        wargs = (rcls.data_ptr(), ccls.data_ptr(), table.data_ptr(),
-                 table.shape[1])
+        rcls, ccls, table = _weight_table(fh, foh, w, out_w, x.device)
+        wargs = (rcls[row0:row0 + out_h].data_ptr(), ccls.data_ptr(),
+                 table.data_ptr(), table.shape[1])
     else:
         wargs = (None, None, None, 0)
-    win_h, pitch, _ = k5_window(h, w, out_h, out_w)
+    win_h, pitch, _ = k5_window(h, w, out_h, out_w, rows)
     rk._launch("jinc2_resize_fused", "vrt_jinc2_resize", x.device,
                x.data_ptr(), planes, h, w, out_h, out_w, by.data_ptr(),
                dy.data_ptr(), bx.data_ptr(), dx.data_ptr(), *wargs,
                win_h if taps == "staged" else 0, pitch,
-               0 if epilogue is None else epilogue.dither_bits,
+               0 if epilogue is None else epilogue.dither_bits, row0,
                out.data_ptr())
     return out
 
@@ -343,12 +420,18 @@ def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
 # ---------------------------------------------------------------------------
 
 
+def _k6_win_h(h: int, out_h: int, rows: Jinc2Rows | None) -> int:
+    return (_window(h, out_h) if rows is None
+            else _window_of(_band_base(h, out_h, rows), TILE))
+
+
 def k6_smem_bytes(h: int, w: int, out_h: int, out_w: int,
-                  out_transpose: bool) -> int:
+                  out_transpose: bool, rows: Jinc2Rows | None = None) -> int:
     """Shared memory of a K6 block: the float32 RGB source window of the
-    widest tile along each axis (:func:`_window`), and with the transposed
-    store its 3 x TILE x (TILE + 1) staging tile."""
-    return 4 * (3 * _window(h, out_h) * _window(w, out_w)
+    widest tile along each axis (:func:`_window`; for a band of rows, its
+    own tiles'), and with the transposed store its 3 x TILE x (TILE + 1)
+    staging tile."""
+    return 4 * (3 * _k6_win_h(h, out_h, rows) * _window(w, out_w)
                 + (3 * TILE * (TILE + 1) if out_transpose else 0))
 
 
@@ -358,7 +441,8 @@ def jinc2_convert_fused_plain(y, u, v, comp_y: rk.BandedMatrix | None,
                               y_scale: float, c_scale: float,
                               epilogue: Jinc2Epilogue | None = None,
                               pack_format: str | None = None,
-                              out_transpose: bool = False) -> torch.Tensor:
+                              out_transpose: bool = False,
+                              rows: Jinc2Rows | None = None) -> torch.Tensor:
     """Plain K6: normalise, upsample the chroma by dense float32 products
     (W then H), the colour matrix, the direct Jinc2 on the RGB planes, the
     epilogue, the pack, the transpose."""
@@ -378,7 +462,7 @@ def jinc2_convert_fused_plain(y, u, v, comp_y: rk.BandedMatrix | None,
     rgb = torch.stack(
         [float(m[i, 0]) * yf + float(m[i, 1]) * uf + float(m[i, 2]) * vf
          + float(m[i, 3]) for i in range(3)], dim=-3)
-    out = jinc2_resize_fused_plain(rgb, out_h, out_w, epilogue)
+    out = jinc2_resize_fused_plain(rgb, out_h, out_w, epilogue, rows)
     if pack_format is not None:
         out = rk.pack_surface(out, pack_format)
     return out.transpose(-2, -1).contiguous() if out_transpose else out
@@ -391,7 +475,8 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                         c_scale: float,
                         epilogue: Jinc2Epilogue | None = None,
                         pack_format: str | None = None,
-                        out_transpose: bool = False) -> torch.Tensor:
+                        out_transpose: bool = False,
+                        rows: Jinc2Rows | None = None) -> torch.Tensor:
     """Raw luma (..., H, W) and chroma (..., Hc, Wc) planes (uint8, uint16 or
     float32, one dtype) -> the Jinc2-upscaled RGB: chroma upsample by
     ``comp_y`` (Hc, H) and ``comp_x`` (Wc, W) (None: that axis is not
@@ -400,6 +485,9 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     RGB taps, the epilogue.  Returns (..., 3, out_h, out_w) float32, or with
     ``pack_format`` ("rgba8"/"rgb10a2") (..., out_h, out_w) int32 dwords;
     ``out_transpose`` swaps the last two dims of either, bit for bit.
+    ``rows``: the planes are a block of a larger frame's rows and the
+    output a band of its output rows (:class:`Jinc2Rows`; ``comp_y`` maps
+    the block's chroma rows to its luma rows).
 
     Kernel K6 (``csrc/jinc2_convert.cu``), replacing
     ``jinc2_pallas.jinc2_convert_fused``.  One block per (frame, 32x32
@@ -436,10 +524,11 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if not rk._kernel_device(y, u, v):
         return jinc2_convert_fused_plain(y, u, v, comp_y, comp_x, cmat,
                                          out_h, out_w, y_scale, c_scale,
-                                         epilogue, pack_format, out_transpose)
+                                         epilogue, pack_format, out_transpose,
+                                         rows)
     batch = y.numel() // (h * w)
-    win_h, win_w = _window(h, out_h), _window(w, out_w)
-    smem = k6_smem_bytes(h, w, out_h, out_w, out_transpose)
+    win_h, win_w = _k6_win_h(h, out_h, rows), _window(w, out_w)
+    smem = k6_smem_bytes(h, w, out_h, out_w, out_transpose, rows)
     if batch == 0 or batch > 65535 or smem > _SMEM_LIMIT:
         raise ValueError(f"K6 cannot take batch {batch} with a {win_h}x"
                          f"{win_w} source window ({smem} bytes of shared "
@@ -452,12 +541,13 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     else:
         out = torch.empty(lead + (oh_, ow_), dtype=torch.int32,
                           device=y.device)
-    by, dy = _axis_on(h, out_h, y.device)
+    by, dy = _row_tables(h, out_h, rows, y.device)
     bx, dx = _axis_on(w, out_w, y.device)
-    if weight_route(h, w, out_h, out_w) == "table":
-        rcls, ccls, table = _weight_table(h, out_h, w, out_w, y.device)
-        weights = (rcls.data_ptr(), ccls.data_ptr(), table.data_ptr(),
-                   table.shape[1])
+    fh, foh, row0 = _row_geometry(h, out_h, rows)
+    if weight_route(fh, w, foh, out_w) == "table":
+        rcls, ccls, table = _weight_table(fh, foh, w, out_w, y.device)
+        weights = (rcls[row0:row0 + out_h].data_ptr(), ccls.data_ptr(),
+                   table.data_ptr(), table.shape[1])
     else:
         weights = (None, None, None, 0)
 
@@ -474,7 +564,7 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                dy.data_ptr(), bx.data_ptr(), dx.data_ptr(), *taps(comp_x),
                *taps(comp_y), float(y_scale), float(c_scale),
                host_cmat.ctypes.data,
-               0 if epilogue is None else epilogue.dither_bits,
+               0 if epilogue is None else epilogue.dither_bits, row0,
                rk.PACK_CODES[pack_format], int(out_transpose), win_h, win_w,
                *weights, out.data_ptr())
     return out

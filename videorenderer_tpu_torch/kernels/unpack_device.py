@@ -184,6 +184,12 @@ def p01x_split_device(buf: torch.Tensor, width: int, height: int,
     return _plane(y), _plane(uv[..., 0]), _plane(uv[..., 1])
 
 
+def nv12_split_device(buf: torch.Tensor, width: int, height: int):
+    """(..., H*W*3/2) uint8/uint16 NV12/P010 buffer -> (Y, U, V) planes (the
+    JAX package's name for :func:`p01x_split_device` with 4:2:0 chroma)."""
+    return p01x_split_device(buf, width, height)
+
+
 def yuy2_unpack_device(buf: torch.Tensor, width: int, height: int,
                        order: str = "yuy2"):
     """(..., H*W*2) uint8 YUY2 (Y0 U Y1 V) or UYVY (U Y0 V Y1) -> planar."""

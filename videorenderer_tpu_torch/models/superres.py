@@ -155,29 +155,54 @@ def he_init(layer: nn.Conv2d, generator: torch.Generator) -> None:
             * float(np.sqrt(2.0 / (9 * w.shape[1]))))
 
 
-def _trunk(model: SuperRes, h0: torch.Tensor) -> torch.Tensor:
-    """Head + residual body + tail on s2d-grid features (N, C, hh, ww)."""
-    h = torch.relu(conv(h0, model.head))
+def row_valid_mask(hh: int, row_valid, dtype: torch.dtype,
+                   device) -> torch.Tensor | None:
+    """(hh, 1) 0/1 mask of the s2d-grid rows inside ``row_valid=(lo, hi)``
+    (the block's own rows), or None without bounds (the JAX
+    ``_row_valid_mask``).  The spatially sharded path
+    (``parallel/spatial.make_spatial_learned_fn``) zeroes each conv's
+    output rows outside the frame with it, which gives the whole frame's
+    zero padding at the frame's edges layer by layer: without it, halo
+    rows outside the frame carry relu(bias) activations that the whole
+    frame never has, and the edge shards drift."""
+    if row_valid is None:
+        return None
+    lo, hi = row_valid
+    r = torch.arange(hh, device=device)
+    return ((r >= lo) & (r < hi)).to(dtype)[:, None]
+
+
+def _trunk(model: SuperRes, h0: torch.Tensor,
+           row_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Head + residual body + tail on s2d-grid features (N, C, hh, ww);
+    ``row_mask`` (:func:`row_valid_mask`) zeroes the head's, each block's
+    and each residual's rows outside the frame."""
+    mk = (lambda a: a) if row_mask is None else (lambda a: a * row_mask)
+    h = mk(torch.relu(conv(h0, model.head)))
     for blk in model.body:
-        r = torch.relu(conv(h, blk.c1))
-        h = h + conv(r, blk.c2)
+        r = mk(torch.relu(conv(h, blk.c1)))
+        h = h + mk(conv(r, blk.c2))
     return conv(h, model.tail)
 
 
-def _enhance(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
+def _enhance(model: SuperRes, rgb_chw: torch.Tensor,
+             row_valid=None) -> torch.Tensor:
     """The model's function, differentiable: (..., 3, H, W) float in
     [0, 1] -> (..., 3, H s, W s) float32.  Space-to-depth by ``s2d``, the
     trunk, depth-to-space by ``scale s2d``, plus the nearest-upsampled base
     (added in the model's dtype).  Sizes that are not multiples of ``s2d``
-    are edge-padded to the grid and cropped."""
+    are edge-padded to the grid and cropped.  ``row_valid``: the frame's
+    (lo, hi) s2d rows for the sharded path (:func:`row_valid_mask`)."""
     cfg = model.cfg
     k, s = cfg.s2d, cfg.scale
     lead, (in_h, in_w) = rgb_chw.shape[:-3], rgb_chw.shape[-2:]
     x = pad_to_grid(rgb_chw.reshape((-1,) + rgb_chw.shape[-3:]), k)
     x = x.to(cfg.dtype)
     n, _, hp, wp = x.shape
+    row_mask = row_valid_mask(hp // k, row_valid, cfg.dtype, x.device)
     with exact_convs():
-        res = _trunk(model, F.pixel_unshuffle(x, k) if k > 1 else x)
+        res = _trunk(model, F.pixel_unshuffle(x, k) if k > 1 else x,
+                     row_mask)
     res = F.pixel_shuffle(res, s * k)                # (n, 3, hp s, wp s)
     # the nearest-upsampled base, added by broadcasting
     out = (res.view(n, 3, hp, s, wp, s) + x.view(n, 3, hp, 1, wp, 1)) \
@@ -187,11 +212,13 @@ def _enhance(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def enhance_plane_chw(model: SuperRes, rgb_chw: torch.Tensor) -> torch.Tensor:
+def enhance_plane_chw(model: SuperRes, rgb_chw: torch.Tensor,
+                      row_valid=None) -> torch.Tensor:
     """Pipeline hook: (..., 3, H, W) float in [0, 1] -> (..., 3, H s, W s)
     float32 — the function of the JAX ``enhance_plane_chw`` (the model's
-    function without a graph)."""
-    return _enhance(model, rgb_chw)
+    function without a graph).  ``row_valid``: optional (lo, hi) s2d-row
+    frame bounds for the sharded path (:func:`row_valid_mask`)."""
+    return _enhance(model, rgb_chw, row_valid)
 
 
 def apply_fn(model: SuperRes, lr_rgb: torch.Tensor) -> torch.Tensor:

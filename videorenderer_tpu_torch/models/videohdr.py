@@ -29,7 +29,8 @@ from torch import nn
 
 from .. import csputils
 from ..ops import transfer
-from .superres import conv, conv3x3, exact_convs, he_init, pad_to_grid
+from .superres import (conv, conv3x3, exact_convs, he_init, pad_to_grid,
+                       row_valid_mask)
 
 
 @dataclass(frozen=True)
@@ -101,26 +102,34 @@ def init_params(generator: torch.Generator,
     return model
 
 
-def _gain_s2d(model: VideoHDR, h0: torch.Tensor) -> torch.Tensor:
+def _gain_s2d(model: VideoHDR, h0: torch.Tensor,
+              row_mask: torch.Tensor | None = None) -> torch.Tensor:
     """(n, 3 k^2, hh, ww) s2d pixels in pixel_unshuffle's order -> (n, k^2,
-    hh, ww) raw (pre-tanh) gain logits, channel order (d, e)."""
-    h = torch.relu(conv(h0, model.c1))
-    h = torch.relu(conv(h, model.c2))
+    hh, ww) raw (pre-tanh) gain logits, channel order (d, e).
+    ``row_mask`` (``superres.row_valid_mask``) zeroes each hidden conv's
+    rows outside the frame (the sharded path)."""
+    mk = (lambda a: a) if row_mask is None else (lambda a: a * row_mask)
+    h = mk(torch.relu(conv(h0, model.c1)))
+    h = mk(torch.relu(conv(h, model.c2)))
     return conv(h, model.c3)
 
 
-def _enhance(model: VideoHDR, rgb_chw: torch.Tensor) -> torch.Tensor:
+def _enhance(model: VideoHDR, rgb_chw: torch.Tensor,
+             row_valid=None) -> torch.Tensor:
     """The model's function, differentiable: (..., 3, H, W) sRGB in
     [0, 1] -> PQ/BT.2020 float32.  The gain logits on the s2d grid,
     depth-to-space, ``2 tanh`` as the log-gain, applied to the base
-    expansion's linear light, then PQ."""
+    expansion's linear light, then PQ.  ``row_valid``: the frame's (lo,
+    hi) s2d rows for the sharded path."""
     cfg = model.cfg
     k = cfg.s2d
     x = rgb_chw.reshape((-1,) + rgb_chw.shape[-3:])
     in_h, in_w = x.shape[-2:]
     xp = pad_to_grid(x, k).to(cfg.dtype)
+    row_mask = row_valid_mask(xp.shape[-2] // k, row_valid, cfg.dtype,
+                              xp.device)
     with exact_convs():
-        g = _gain_s2d(model, F.pixel_unshuffle(xp, k))
+        g = _gain_s2d(model, F.pixel_unshuffle(xp, k), row_mask)
     g = F.pixel_shuffle(g, k)[:, 0, :in_h, :in_w]   # (n, H, W)
     log_gain = torch.tanh(g.float()) * 2.0            # gain in [e^-2, e^2]
     base_lin = inverse_tonemap_base_linear(x.float(), cfg, axis=-3)
@@ -130,11 +139,13 @@ def _enhance(model: VideoHDR, rgb_chw: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def enhance_plane_chw(model: VideoHDR, rgb_chw: torch.Tensor) -> torch.Tensor:
+def enhance_plane_chw(model: VideoHDR, rgb_chw: torch.Tensor,
+                      row_valid=None) -> torch.Tensor:
     """Pipeline hook: (..., 3, H, W) sRGB in [0, 1] -> PQ/BT.2020 float32 —
     the function of the JAX ``enhance_plane_chw`` (the model's function
-    without a graph)."""
-    return _enhance(model, rgb_chw)
+    without a graph).  ``row_valid``: optional (lo, hi) s2d-row frame
+    bounds for the sharded path (``superres.row_valid_mask``)."""
+    return _enhance(model, rgb_chw, row_valid)
 
 
 def apply_fn(model: VideoHDR, sdr_rgb_nhwc: torch.Tensor) -> torch.Tensor:

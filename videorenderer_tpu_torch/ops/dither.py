@@ -77,6 +77,18 @@ def ordered_dither_iota(img: torch.Tensor, bits: int, row0: int = 0,
     return _requantize(torch.floor(img * q + d), q)
 
 
+def random_dither(img: torch.Tensor, bits: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Per-pixel uniform random dither (the JAX package's "random dither"):
+    ``floor(img * Q + U) / Q`` with U[0, 1) noise drawn from ``generator``
+    (on ``img``'s device) in place of the tiled pattern.  The two packages
+    draw different noise from one seed; the rule is the same."""
+    q = float(2 ** bits - 1)
+    noise = torch.rand(img.shape, generator=generator, dtype=img.dtype,
+                       device=img.device)
+    return _requantize(torch.floor(img * q + noise), q)
+
+
 def quantize(img: torch.Tensor, bits: int) -> torch.Tensor:
     """Round-to-nearest-even quantization (the ``use_dither=False`` path)."""
     q = float(2 ** bits - 1)
