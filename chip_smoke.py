@@ -103,14 +103,20 @@ Phases, one line each:
               source in (2, 1, 1918, 1079), a column offset that is not a
               multiple of 4.
  19. K4       the whole fused pipeline in one kernel on the fused plans'
-              own maps and tails, the headline (PQ -> SDR) and c7 (BT.2390
-              with scene 2's values), on 2 frames: against mega3_tail_plain
-              and against the two-stage route with float32 intermediates
-              (TexFormat.FLOAT16: K1 then K2, unpacked), dithered float
-              within 1 code on < 2% of the channels; with the colour matrix
-              only, float32 within 1e-5; then at batch 16, one launch per
-              plan counted, timed beside the two-stage route (mid16,
-              unpacked and packed) on the same inputs;
+              own maps and tails, the headline (PQ -> SDR), c7 (BT.2390
+              with scene 2's values) and the headline source to a 160 x 90
+              Lanczos thumbnail (K4's long-window route), on 2 frames:
+              against mega3_tail_plain and against the two-stage route with
+              float32 intermediates (TexFormat.FLOAT16: K1 then K2,
+              unpacked), dithered float within 1 code on < 2% of the
+              channels; with the colour matrix only, float32 within 1e-5;
+              the compiled tail route each takes; the long-window route
+              forced on the headline and c7, bit-equal to the staged one;
+              then at batch 16, one launch per plan counted, timed (one
+              launch a call checked) on each route and at each staged
+              tile height of K4_TILES that fits (bit-equal across them)
+              beside the two-stage route (mid16, unpacked and packed) on
+              the same inputs;
  20. c7       make_serving_fn of 4K P010 HDR10 -> 4K RGB10 PQ for a
               600-nit display (BT.2390 local tone map): four scenes of 16
               frames, each its own HDR10 values, K1 x2 + K2 x1 per call and
@@ -123,8 +129,9 @@ Phases, one line each:
               p90 of 15 calls, the plain path's ms/frame (>= 55 dB too).
  21. probe    K10, the W-pass probe, against its plain versions on 2
               headline frames (wpass_floor bit-equal, wpass_bf16 within
-              1e-5); then at batch 16 torch_headline_micro.py's W-pass
-              probe (yW, yW1, yWsplit, memcpy) and its stage split of the
+              1e-5, its digest); then at batch 16
+              torch_headline_micro.py's W-pass probe (yW, yW1, yWsplit,
+              memcpy) and its stage split of the
               headline and of c7 (yW, cW, tail, tailID, tailH, tailNoPack,
               full, the tower, matrix and pack attribution), each run counted: K1 + K10
               x2 per probe round, K1 and K2 per stage; tail on the yW/cW
@@ -424,6 +431,7 @@ PILLAR_W = 2880                           # a 4:3 film, 2160 high ...
 PILLAR_RECT = (240, 0, 1680, 1080)        # ... pillarboxed into 1920 x 1080
 ODD_RECT = (2, 1, 1918, 1079)             # a column offset not a multiple of 4
 THUMB_W, THUMB_H = 160, 90                # a 4K thumbnail
+K4_TILES = (32, 24, 16, 8)                # phase 19: K4's tile rows timed
 SMALL_W, SMALL_H = 320, 180               # a 4K preview
 C8_RECT = (320, 180, 1600, 900)           # c8 into a rect of the 1080p surface
 C8_SCENES = 4
@@ -465,6 +473,9 @@ PEAK_BF16_S = 989e12      # dense bf16 in the tensor cores (K10's products)
 # weights)
 TABLES = hasattr(jk, "jinc2_weight_table")
 K5_ROUTES = hasattr(jk, "k5_route")
+# K4 has routes (a tree without them: one kernel, 32-row tiles, which
+# refuses the thumbnail's windows)
+K4_ROUTES = hasattr(rk, "k4_route")
 C3R270_PLANES = 3 * BATCH                 # K5's planes at c3r270's batch
 # phases 43-50: parallel/spatial (c6, c9, four shards of c6 on one card, the
 # Dolby Vision, learned and Jinc2 forms) and c2, c4
@@ -837,6 +848,45 @@ def one_call(module, name: str, fn):
     if len(calls[name]) != 1:
         raise AssertionError(f"{name} was called {len(calls[name])} times")
     return calls[name][0]
+
+
+def k4_timed(fn) -> float:
+    """ms of one K4 call ``fn()`` (CUDA events), after checking that such a
+    call launches K4 once and no other kernel."""
+    _, n = count_launches(fn)
+    if n != only(mega3_tail=1):
+        raise AssertionError(f"a K4 call launched {n}")
+    return cuda_ms(fn)
+
+
+def k4_tiles(fn, frames, sizes, maps):
+    """K4's staged route at each tile height of K4_TILES whose layout fits
+    shared memory (rk.k4_route replaced for the call): ms of ``fn(None)``
+    at each (k4_timed), and whether ``fn(frames)`` is bit-equal across them
+    (the tile changes no FMA)."""
+    chosen, ms, outs = rk.k4_route, {}, []
+    try:
+        for rows in K4_TILES:
+            if rk.k4_smem_bytes(*sizes, *maps, rows) > rk.SMEM_BUDGET:
+                continue
+            rk.k4_route = lambda *a, _rows=rows: ("staged", _rows, 0)
+            ms[str(rows)] = k4_timed(lambda: fn(None))
+            outs.append(fn(frames))
+    finally:
+        rk.k4_route = chosen
+    torch.cuda.synchronize()
+    return ms, all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def thumb_k4_args(tex_format: TexFormat = TexFormat.AUTOINT):
+    """The headline source -> a 160 x 90 RGB10 thumbnail, Lanczos: K4's
+    long-window route (its windows do not fit shared memory)."""
+    return (Settings(downscaling=Downscaling.LANCZOS,
+                     chroma_scaling=ChromaScaling.BILINEAR,
+                     convert_to_sdr=True, use_dither=True,
+                     tex_format=tex_format),
+            headline_args()[0],
+            OutputDescriptor(width=THUMB_W, height=THUMB_H, bits=10))
 
 
 def timed_calls(fn, batches) -> float:
@@ -2931,6 +2981,143 @@ def coverage_phases(dev) -> dict:
     return res
 
 
+def k4_phase(dev) -> tuple[dict, dict]:
+    """Phase 19: K4 (see the module's docstring); returns the headline
+    case's numbers (ms, plain_ms, bound; max_abs_err the worst case's) and
+    the launches of the counted run."""
+    # 19. K4 on the fused plans' own maps and tails: the headline (2:1
+    #     Lanczos3, PQ -> SDR, 10-bit dither), c7 (1:1, the chroma
+    #     upsample, BT.2390 with scene 2's values) and the headline source
+    #     to a 160 x 90 Lanczos thumbnail (the long-window route).  On
+    #     PLAIN_FRAMES frames against mega3_tail_plain, against the
+    #     two-stage route with float32 intermediates (TexFormat.FLOAT16: K1
+    #     then K2, unpacked), and with the colour matrix only against the
+    #     plain version; the long-window route forced, bit-equal to the
+    #     staged one; then at batch 16, one launch a call counted, timed on
+    #     each route and at each staged tile height beside the two-stage
+    #     route (mid16, as the main path runs it: unpacked like K4, and
+    #     packed) on the same inputs
+    scene2 = c7_rt(2)
+    k4_cases, k4_runs = {}, []
+    for key, args, f16_args, rt, seed in (
+            ("headline", (headline_settings(True), *headline_args()),
+             (headline_settings(True, TexFormat.FLOAT16), *headline_args()),
+             None, SEED + 40),
+            ("c7", c7_args(), c7_args(tex_format=TexFormat.FLOAT16), scene2,
+             SEED + 41),
+            ("thumb", thumb_k4_args(), thumb_k4_args(TexFormat.FLOAT16),
+             None, SEED + 42))[:3 if K4_ROUTES else 2]:
+        p = plan_pipeline(*args)
+        mx_y, my_y, mx_c, my_c, nrm = fused_maps(p)
+        (ky, hy), (kc, hc) = (rk.mega_maps(mx_y, my_y, nrm),
+                              rk.mega_maps(mx_c, my_c, nrm))
+        oh, ow = p.dst.video_size[1], p.dst.video_size[0]
+        maps = (ky, kc, hy, hc, oh)
+        epi = _make_tail_epilogue(p, hdr=None if rt is None else rt["hdr"])
+        b16 = p010_batch(BATCH, seed, dev)
+        two = tuple(q[:PLAIN_FRAMES] for q in b16)
+        got = rk.mega3_tail(*two, *maps, epi, nrm)
+        torch.cuda.synchronize()
+        c = {"vs_plain": float_code_diff(
+            got, rk.mega3_tail_plain(*two, *maps, epi, nrm), 1023),
+             "digest": digest(got)}
+        long_window = False
+        if K4_ROUTES:
+            route = rk.k4_route(2, 2, ky, kc, hy, hc)
+            long_window = route[0] == "long-window"
+            if long_window != (key == "thumb"):
+                raise AssertionError(f"K4 {key}: route {route}")
+            c["k4_route"] = list(route)
+            c["route"] = rk.mega3_tail_route(b16[0].dtype, b16[1].dtype, epi,
+                                             long_window)
+        if K4_ROUTES and not long_window:
+            c["long_window_bit_equal"] = torch.equal(got, forced_long(
+                rk, "K4_LONG_WINDOW",
+                lambda: rk.mega3_tail(*two, *maps, epi, nrm)))
+        f16 = make_serving_fn(plan_pipeline(*f16_args))
+        ts_out, ts_launches = count_launches(lambda: f16(two, rt))
+        if ts_launches != only(banded_resize_last_axis=3 if mx_y is not None
+                               else 2, rows3_tail=1):
+            raise AssertionError(f"K4 {key}: the two-stage route launched "
+                                 f"{ts_launches}")
+        c["vs_two_stage_float16"] = float_code_diff(got, ts_out, 1023)
+        c["two_stage_float16_digest"] = digest(ts_out)
+        del got, ts_out
+        cm = cmat_epilogue(np.concatenate(
+            [np.asarray(p.cmat_m, np.float32),
+             np.asarray(p.cmat_c, np.float32)[:, None]], 1))
+        got = rk.mega3_tail(*two, *maps, cm, nrm)
+        torch.cuda.synchronize()
+        c["max_abs_err_cmat"] = (got - rk.mega3_tail_plain(
+            *two, *maps, cm, nrm)).abs().max().item()
+        c["cmat_digest"] = digest(got)
+        if K4_ROUTES:
+            c["cmat_route"] = rk.mega3_tail_route(b16[0].dtype, b16[1].dtype,
+                                                  cm, long_window)
+        del got
+        worst = max(c["vs_plain"]["max_code_diff"],
+                    c["vs_two_stage_float16"]["max_code_diff"])
+        if worst > 1 or c["vs_plain"]["frac_differing"] >= 0.02 \
+                or c["vs_two_stage_float16"]["frac_differing"] >= 0.02 \
+                or c["max_abs_err_cmat"] > 1e-5 \
+                or not c.get("long_window_bit_equal", True):
+            raise AssertionError(f"K4 {key} disagrees: {c}")
+        c["max_abs_err"] = max(worst / 1023.0, c["max_abs_err_cmat"])
+        c["ms"] = k4_timed(lambda: rk.mega3_tail(*b16, *maps, epi, nrm))
+        # the same call with the colour matrix alone: the input, W, H and
+        # store without the tail's transfer functions and dither
+        c["cmat_ms"] = k4_timed(lambda: rk.mega3_tail(*b16, *maps, cm, nrm))
+        if K4_ROUTES and not long_window:
+            c["long_window_ms"] = forced_long(
+                rk, "K4_LONG_WINDOW",
+                lambda: k4_timed(lambda: rk.mega3_tail(*b16, *maps, epi,
+                                                       nrm)))
+            c["tile_ms"], c["tiles_bit_equal"] = k4_tiles(
+                lambda f: rk.mega3_tail(*(b16 if f is None else f), *maps,
+                                        epi, nrm), two, (2, 2),
+                (ky, kc, hy, hc))
+            if not c["tiles_bit_equal"]:
+                raise AssertionError(f"K4 {key}: tiles differ")
+        del two
+        c["plain_ms"] = cuda_ms(
+            lambda: rk.mega3_tail_plain(*b16, *maps, epi, nrm), reps=1)
+        mid16_fn = make_serving_fn(p)
+        packed_fn = make_serving_fn(p, pack_surface=True)
+        c["two_stage_ms"] = cuda_ms(lambda: mid16_fn(b16, rt))
+        c["two_stage_packed_ms"] = cuda_ms(lambda: packed_fn(b16, rt))
+        # the raw planes read once, float32 RGB written once; operations:
+        # the W taps once per W output, the H taps once per output, the
+        # colour matrix (the tail's transcendentals are not counted)
+        hy_in, hc_in = b16[0].shape[-2], b16[1].shape[-2]
+        c.update(bound(tbytes(*b16) + BATCH * 3 * oh * ow * 4
+                       + mbytes(ky, kc, hy, hc),
+                       map_flops(ky, BATCH * hy_in)
+                       + 2 * map_flops(kc, BATCH * hc_in)
+                       + map_flops(hy, BATCH * ow) + 2 * map_flops(hc, BATCH * ow)
+                       + 18 * BATCH * oh * ow), library_ms=None)
+        k4_cases[key] = c
+        k4_runs.append((b16, maps, epi, nrm))
+        del mid16_fn, packed_fn, f16
+    k4_outs, k4_launches = count_launches(
+        lambda: [rk.mega3_tail(*b, *m, e, n) for b, m, e, n in k4_runs])
+    if k4_launches != only(mega3_tail=len(k4_runs)):
+        raise AssertionError(f"K4 launches {k4_launches}")
+    for o, (b, m, _, _) in zip(k4_outs, k4_runs):
+        if o.shape != (BATCH, 3, m[4], b[0].shape[-1] if m[0] is None
+                       else m[0].out_size) or not torch.isfinite(o).all():
+            raise AssertionError(f"K4 output {tuple(o.shape)}")
+    del k4_outs, k4_runs
+    k4 = dict(k4_cases["headline"],
+              max_abs_err=max(c["max_abs_err"] for c in k4_cases.values()))
+    line("K4", frames=PLAIN_FRAMES, timed_batch=BATCH, launches=k4_launches,
+         tolerance="dithered float <= 1 code on < 2% of channels vs plain and "
+                   "vs the FLOAT16 two-stage route; matrix only f32 <= 1e-5; "
+                   "the long-window route and every tile bit-equal",
+         **k4_cases)
+    torch.cuda.empty_cache()
+    return k4, k4_launches
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -3915,96 +4102,7 @@ def main() -> None:
     del lb_batches, vp_b
     torch.cuda.empty_cache()
 
-    # 19. K4 on the fused plans' own maps and tails: the headline (2:1
-    #     Lanczos3, PQ -> SDR, 10-bit dither) and c7 (1:1, the chroma
-    #     upsample, BT.2390 with scene 2's values).  On PLAIN_FRAMES frames
-    #     against mega3_tail_plain, against the two-stage route with float32
-    #     intermediates (TexFormat.FLOAT16: K1 then K2, unpacked), and with
-    #     the colour matrix only against the plain version; then at batch
-    #     16, counted and timed beside the two-stage route (mid16, as the
-    #     main path runs it: unpacked like K4, and packed) on the same inputs
-    scene2 = c7_rt(2)
-    k4_cases, k4_runs = {}, []
-    for key, args, f16_args, rt, seed in (
-            ("headline", (headline_settings(True), *headline_args()),
-             (headline_settings(True, TexFormat.FLOAT16), *headline_args()),
-             None, SEED + 40),
-            ("c7", c7_args(), c7_args(tex_format=TexFormat.FLOAT16), scene2,
-             SEED + 41)):
-        p = plan_pipeline(*args)
-        mx_y, my_y, mx_c, my_c, nrm = fused_maps(p)
-        (ky, hy), (kc, hc) = (rk.mega_maps(mx_y, my_y, nrm),
-                              rk.mega_maps(mx_c, my_c, nrm))
-        oh, ow = p.dst.video_size[1], p.dst.video_size[0]
-        maps = (ky, kc, hy, hc, oh)
-        epi = _make_tail_epilogue(p, hdr=None if rt is None else rt["hdr"])
-        b16 = p010_batch(BATCH, seed, dev)
-        two = tuple(q[:PLAIN_FRAMES] for q in b16)
-        got = rk.mega3_tail(*two, *maps, epi, nrm)
-        torch.cuda.synchronize()
-        c = {"vs_plain": float_code_diff(
-            got, rk.mega3_tail_plain(*two, *maps, epi, nrm), 1023),
-             "digest": digest(got)}
-        f16 = make_serving_fn(plan_pipeline(*f16_args))
-        ts_out, ts_launches = count_launches(lambda: f16(two, rt))
-        if ts_launches != only(banded_resize_last_axis=3 if mx_y is not None
-                               else 2, rows3_tail=1):
-            raise AssertionError(f"K4 {key}: the two-stage route launched "
-                                 f"{ts_launches}")
-        c["vs_two_stage_float16"] = float_code_diff(got, ts_out, 1023)
-        c["two_stage_float16_digest"] = digest(ts_out)
-        del got, ts_out
-        cm = cmat_epilogue(np.concatenate(
-            [np.asarray(p.cmat_m, np.float32),
-             np.asarray(p.cmat_c, np.float32)[:, None]], 1))
-        got = rk.mega3_tail(*two, *maps, cm, nrm)
-        torch.cuda.synchronize()
-        c["max_abs_err_cmat"] = (got - rk.mega3_tail_plain(
-            *two, *maps, cm, nrm)).abs().max().item()
-        c["cmat_digest"] = digest(got)
-        del got, two
-        worst = max(c["vs_plain"]["max_code_diff"],
-                    c["vs_two_stage_float16"]["max_code_diff"])
-        if worst > 1 or c["vs_plain"]["frac_differing"] >= 0.02 \
-                or c["vs_two_stage_float16"]["frac_differing"] >= 0.02 \
-                or c["max_abs_err_cmat"] > 1e-5:
-            raise AssertionError(f"K4 {key} disagrees: {c}")
-        c["max_abs_err"] = max(worst / 1023.0, c["max_abs_err_cmat"])
-        c["ms"] = cuda_ms(lambda: rk.mega3_tail(*b16, *maps, epi, nrm))
-        c["plain_ms"] = cuda_ms(
-            lambda: rk.mega3_tail_plain(*b16, *maps, epi, nrm), reps=1)
-        mid16_fn = make_serving_fn(p)
-        packed_fn = make_serving_fn(p, pack_surface=True)
-        c["two_stage_ms"] = cuda_ms(lambda: mid16_fn(b16, rt))
-        c["two_stage_packed_ms"] = cuda_ms(lambda: packed_fn(b16, rt))
-        # the raw planes read once, float32 RGB written once; operations:
-        # the W taps once per W output, the H taps once per output, the
-        # colour matrix (the tail's transcendentals are not counted)
-        hy_in, hc_in = b16[0].shape[-2], b16[1].shape[-2]
-        c.update(bound(tbytes(*b16) + BATCH * 3 * oh * ow * 4
-                       + mbytes(ky, kc, hy, hc),
-                       map_flops(ky, BATCH * hy_in)
-                       + 2 * map_flops(kc, BATCH * hc_in)
-                       + map_flops(hy, BATCH * ow) + 2 * map_flops(hc, BATCH * ow)
-                       + 18 * BATCH * oh * ow), library_ms=None)
-        k4_cases[key] = c
-        k4_runs.append((b16, maps, epi, nrm))
-        del mid16_fn, packed_fn, f16
-    k4_outs, k4_launches = count_launches(
-        lambda: [rk.mega3_tail(*b, *m, e, n) for b, m, e, n in k4_runs])
-    if k4_launches != only(mega3_tail=len(k4_runs)):
-        raise AssertionError(f"K4 launches {k4_launches}")
-    for o, (b, m, _, _) in zip(k4_outs, k4_runs):
-        if o.shape != (BATCH, 3, m[4], b[0].shape[-1] if m[0] is None
-                       else m[0].out_size) or not torch.isfinite(o).all():
-            raise AssertionError(f"K4 output {tuple(o.shape)}")
-    del k4_outs, k4_runs
-    k4 = dict(k4_cases["headline"])
-    line("K4", frames=PLAIN_FRAMES, timed_batch=BATCH, launches=k4_launches,
-         tolerance="dithered float <= 1 code on < 2% of channels vs plain and "
-                   "vs the FLOAT16 two-stage route; matrix only f32 <= 1e-5",
-         **k4_cases)
-    torch.cuda.empty_cache()
+    k4, k4_launches = k4_phase(dev)
 
     # 20. c7 served: one make_serving_fn, C7_SCENES scenes of batch 16 (each
     #     its own frames and HDR10 values), K1 x2 + K2 x1 per call, no build
@@ -4152,7 +4250,7 @@ def main() -> None:
     got = pk.wpass_bf16(y2, kw10)
     torch.cuda.synchronize()
     k10 = {"max_abs_err": (got - pk.wpass_bf16_plain(y2, kw10)).abs().max()
-           .item()}
+           .item(), "digest": digest(got)}
     del got, y2
     if not k10f["bit_equal"] or k10["max_abs_err"] > 1e-5:
         raise AssertionError(f"K10 disagrees with its plain versions: "
@@ -4209,6 +4307,7 @@ def main() -> None:
                    "FLOAT16 make_frame_fn",
          wpass_floor_bit_equal=k10f["bit_equal"],
          wpass_bf16_max_abs_err=k10["max_abs_err"],
+         wpass_bf16_digest=k10["digest"],
          wpass_ms_per_frame={k: v / BATCH for k, v in probe_ms.items()},
          wpass_launches={k: v for k, v in probe_launches.items() if v},
          memcpy_note=thm.MEMCPY_NOTE, stages=split,
@@ -4279,7 +4378,7 @@ def main() -> None:
          "runtime_route": hdr["runtime"]["rows3_tail"]},
         entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",
               k4_launches["mega3_tail"], k4,
-              max(c["max_abs_err"] for c in k4_cases.values())),
+              k4["max_abs_err"]),
         {**entry("banded_resize_rows", "banded_resize_rows.cu",
                  "resize_pallas.py:340", new_launches("banded_resize_rows"),
                  new["k3"], max(k3["max_abs_err"], k3["max_abs_err_u16"],

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Registers, spills, occupancy and the per-pixel SASS counts of kernels K1
 (``banded_resize.cu``), K2 (``rows3_tail*.cu``), K3
-(``banded_resize_rows.cu``), K5 (``jinc2_resize.cu``), K6
-(``jinc2_convert.cu``), K7 (``deint3_rows_dual.cu``), K8 (``rows3_mid*.cu``)
-and K9 (``cols3_tail*.cu``), on a machine with the CUDA toolkit.
+(``banded_resize_rows.cu``), K4 (``mega3_tail*.cu``), K5
+(``jinc2_resize.cu``), K6 (``jinc2_convert.cu``), K7
+(``deint3_rows_dual.cu``), K8 (``rows3_mid*.cu``), K9 (``cols3_tail*.cu``)
+and K10 (``probe_wpass.cu``), on a machine with the CUDA toolkit.
 
     python3 kernel_report.py [--csrc DIR] [--launch NAME=THREADS,SMEM ...]
                              [--pixels NAME=N ...]
@@ -20,7 +21,11 @@ Per function it prints one JSON line:
   * ``registers``, ``stack_bytes``, ``spill_store_bytes``,
     ``spill_load_bytes`` (ptxas);
   * ``blocks_per_sm``: resident blocks an SM holds at ``--launch``'s block
-    size and dynamic shared memory (by default the long-window kernels of
+    size and dynamic shared memory (by default K4's staged kernel at the
+    headline's tile (its c7 route at c7's) and its long-window kernel at
+    the 160 x 90 Lanczos thumbnail's chunks, K10's ``wpass_bf16`` at the
+    headline luma's span and ``wpass_floor`` with its 32 KB tile, the
+    long-window kernels of
     K2, K3, K7, K8 and K9 at 256 threads and none, K7's and K9's at c5,
     K9's c8 route's and K8's at c8 (its heavy routes' at 16-row tiles),
     K6's at c3, K5's at c3r270 (c3's geometry), K3's on the letterbox's
@@ -41,9 +46,10 @@ Per function it prints one JSON line:
     route runs only when CheckedDiv refuses a group); ``tail_mufu``: the
     MUFU instructions among them; ``h_pass_ffma``: the FFMAs attributed to
     the kernel's own source;
-  * for K2 (``rows3_tail``) and K9 (``cols3_tail``), the issue bound of
-    the tail at their cells (PIXELS: K2 at the headline, 16 x 1080 x 1920
-    pixels, and c7, 16 x 2160 x 3840; K9 at c5, both fields of 16 frames,
+  * for K2 (``rows3_tail``), K4 (``mega3_tail``) and K9 (``cols3_tail``),
+    the issue bound of the tail at their cells (PIXELS: K2 and K4 at the
+    headline, 16 x 1080 x 1920 pixels, and c7, 16 x 2160 x 3840; K9 at c5,
+    both fields of 16 frames,
     32 x 1080 x 1920, and c8, 16 x 1080 x 1920): tail instructions a pixel
     x pixels / (132 SMs x 4 schedulers x 32 lanes x the SM clock), and the
     MUFU part at 16 a clock an SM;
@@ -66,8 +72,8 @@ Per function it prints one JSON line:
     once beside the passes it repeats).
   Instructions a pixel are the static
     ``tail`` count without the second pass over ``--pixels`` (the pixels a
-    thread makes in one unrolled pass: 4 for K2's and K9's kernels unless
-    given), or the whole ``tail`` where a function has only the one-pixel
+    thread makes in one unrolled pass: 4 for K2's, K4's and K9's kernels
+    unless given), or the whole ``tail`` where a function has only the one-pixel
     pass.  That is the dynamic count where the tail is one straight route
     (no runtime flags); a runtime-flag instantiation holds every route, so
     its static count is not one route's.  The MUFU count still holds the
@@ -97,17 +103,23 @@ from videorenderer_tpu_torch.kernels import build  # noqa: E402
 
 SOURCE_GLOBS = ("banded_resize.cu", "rows3_tail*.cu", "deint3_rows_dual.cu",
                 "cols3_tail*.cu", "rows3_mid*.cu", "jinc2_convert.cu",
-                "jinc2_resize.cu", "banded_resize_rows.cu")
+                "jinc2_resize.cu", "banded_resize_rows.cu", "mega3_tail*.cu",
+                "probe_wpass.cu")
 TAIL_FILES = ("tail.cuh", "epilogue.cuh")
 SMS, SCHEDULERS, LANES, MUFU_PER_CLK = 132, 4, 32, 16
 # the cells each tail kernel's issue bound is given at, by source prefix
 PIXELS = {"rows3_tail": {"headline": 16 * 1080 * 1920,
                          "c7": 16 * 2160 * 3840},
+          "mega3_tail": {"headline": 16 * 1080 * 1920,
+                         "c7": 16 * 2160 * 3840},
           "cols3_tail": {"c5": 32 * 1080 * 1920, "c8": 16 * 1080 * 1920}}
-# the pixels a thread makes in one pass of the compiled routes
-GROUP = {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4}
+# the pixels a thread makes in one pass of the compiled routes (K4: both
+# its kernels)
+GROUP = {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4, "mega3_tail": 4}
 # c8's K9 route as the demangled name spells it (route.cuh: C8)
 C8_ROUTE = "Route<0, 1, 0, 1, 1>"
+# K4's staged kernel on c7's route (route.cuh: C7Float), likewise
+K4_C7_ROUTE = "mega3_tail_kernel<vrt::Route<1, 0, 5, 1, 0,"
 # the per-pixel parts of K8, K6 and K5, by source prefix: part -> (the
 # files that may define its functions, the first one that does counting;
 # the functions whose inlined instructions it counts)
@@ -138,10 +150,11 @@ LONG_WINDOW = "_long_kernel"
 
 
 def default_launches() -> list[tuple[str, tuple[int, int]]]:
-    """(name substring, (threads, dynamic shared memory)) of the
-    long-window kernels (no shared memory), and of K7 and K9 at the cells
-    their paths run, from kernels/deint's formulas on c5's and c8's maps;
-    the first substring a function's name contains applies."""
+    """(name substring, (threads, dynamic shared memory)) of K4's kernels
+    (:func:`k4_launches`), K10's, the long-window kernels (no shared
+    memory), and K7 and K9 at the cells their paths run, from
+    kernels/deint's formulas on c5's and c8's maps; the first substring a
+    function's name contains applies."""
     from videorenderer_tpu_torch import config as C, csputils as S
     from videorenderer_tpu_torch.kernels import deint as dk
     from videorenderer_tpu_torch.kernels import resize as rk
@@ -156,7 +169,16 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
     k8h = rk.BandedMatrix(scale.upscale_matrix(C.Upscaling.CATMULL_ROM, 2160,
                                                1080))
     n16 = 1 / 65535.0
+    k4 = k4_launches(wx, wy, ux, uy, n16)
+    kw = rk.BandedMatrix(wx, pre_scale=n16)
+    span = kw.row_windows(rk.K1_SPAN)[1]
     return [
+        # K4 (before the long-window entry, whose name its long-window
+        # kernel's contains) and K10
+        *k4,
+        ("wpass_bf16_kernel", (128, rk.k1_smem_bytes(
+            2, span, rk.k1_rows(2, span)))),
+        ("wpass_floor_kernel", (256, 32768)),   # its static tile
         # the long-window routes of K2, K3, K7, K8 and K9: 256 threads, no
         # shared memory (matched before the staged kernels' routes)
         (LONG_WINDOW, (256, 0)),
@@ -182,6 +204,33 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
             4, rk.BandedMatrix(scale.upscale_matrix(C.Upscaling.LANCZOS3,
                                                     1608, 804))))),
     ]
+
+def k4_launches(wx, wy, ux, uy, norm) -> list[tuple[str, tuple[int, int]]]:
+    """K4's kernels at the shared memory kernels/resize.k4_route and
+    k4_smem_bytes give: the staged kernel at the headline's maps (the W and
+    H maps ``wx``, ``wy``, the chroma composed with the upsample ``ux``,
+    ``uy``), its c7 route at c7's (luma direct, the chroma upsample) and
+    the long-window kernel at the headline source to a 160 x 90 Lanczos
+    thumbnail; 256 threads."""
+    from videorenderer_tpu_torch import config as C, csputils as S
+    from videorenderer_tpu_torch.kernels import resize as rk
+    from videorenderer_tpu_torch.ops import chroma, scale
+
+    def smem(mx_y, my_y, mx_c, my_c):
+        (ky, hy), (kc, hc) = (rk.mega_maps(mx_y, my_y, norm),
+                              rk.mega_maps(mx_c, my_c, norm))
+        route, rows, chunk = rk.k4_route(2, 2, ky, kc, hy, hc)
+        return 256, rk.k4_smem_bytes(2, 2, ky, kc, hy, hc, rows, chunk,
+                                     route == "long-window")
+
+    tx = scale.downscale_matrix(C.Downscaling.LANCZOS, 3840, 160)
+    ty = scale.downscale_matrix(C.Downscaling.LANCZOS, 2160, 90)
+    tux, tuy = chroma.chroma_upsample_matrices(
+        1920, 1080, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    return [("mega3_tail_long_kernel", smem(tx, ty, tux @ tx, tuy @ ty)),
+            (K4_C7_ROUTE, smem(None, None, ux, uy)),
+            ("mega3_tail_kernel", smem(wx, wy, ux @ wx, uy @ wy))]
+
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

@@ -275,6 +275,56 @@ def smoke_on_cpu(monkeypatch):
     return cs
 
 
+def test_chip_smoke_k4_phase_rehearsal(smoke_on_cpu, monkeypatch, capsys):
+    """Phase 19 end to end on the CPU at 128 x 64: K4 on the headline's,
+    c7's and a 16 x 8 Lanczos thumbnail's maps (with the shared memory cut
+    to 60000 bytes, the thumbnail's windows take the long-window route and
+    the others the staged one, as the 160 x 90 thumbnail and the full-size
+    plans do on the card), one K4 call a plan in the counted run, one a
+    timed call on each route and tile shape that fits, the two-stage
+    routes' K1 x3
+    + K2; every band, bit-equality and digest of the line."""
+    from videorenderer_tpu_torch.kernels import resize as rk
+    cs = smoke_on_cpu
+    monkeypatch.setattr(cs, "THUMB_W", 16)
+    monkeypatch.setattr(cs, "THUMB_H", 8)
+    monkeypatch.setattr(rk, "SMEM_BUDGET", 60000)
+    routes = []
+
+    def route(y_dtype, c_dtype, epi, long_window=False):
+        routes.append(long_window)   # the library's query, stubbed
+        return "long-window runtime" if long_window else "compiled"
+
+    monkeypatch.setattr(rk, "mega3_tail_route", route)
+
+    def counted(*a, _real=rk.mega3_tail, **kw):
+        rk.launches["mega3_tail"] += 1
+        return _real(*a, **kw)
+
+    monkeypatch.setattr(rk, "mega3_tail", counted)
+    k4, launches = cs.k4_phase("cpu")
+    assert launches == cs.only(mega3_tail=3)
+    assert routes == [False, False, False, False, True, True]
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+               if x.startswith('{"phase": "K4"')]
+    assert [line[k]["k4_route"][0] for k in ("headline", "c7", "thumb")] \
+        == ["staged", "staged", "long-window"]
+    for key in ("headline", "c7"):
+        assert line[key]["long_window_bit_equal"]
+        assert line[key]["tiles_bit_equal"]
+        assert set(line[key]["tile_ms"]) <= {str(r) for r in cs.K4_TILES}
+        assert line[key]["tile_ms"]
+    assert "tile_ms" not in line["thumb"]
+    for key in ("headline", "c7", "thumb"):
+        c = line[key]
+        assert c["vs_plain"]["max_code_diff"] == 0
+        assert c["vs_two_stage_float16"]["max_code_diff"] <= 1
+        assert len(c["digest"]) == len(c["cmat_digest"]) == 64
+    assert k4["ms"] == line["headline"]["ms"] and k4["bound_ms"] > 0
+    assert k4["max_abs_err"] == max(line[k]["max_abs_err"]
+                                    for k in ("headline", "c7", "thumb"))
+
+
 def test_chip_smoke_model_cli_phases_rehearsal(smoke_on_cpu, capsys):
     """Phases 36-38 end to end on the CPU: the launch counts of each path,
     every bit-equality, the PSNR bars and the CLI's files."""

@@ -1775,17 +1775,144 @@ def test_k4_kernel_matches_plain(dev, kind, tail):
          np.asarray(plan.cmat_c, np.float32)[:, None]], 1))
         if tail == "cmat" else P._make_tail_epilogue(plan))
     args = (*(p.to(dev) for p in planes), *maps, epi, 1 / 65535.0)
+    assert rk.k4_route(2, 2, *maps[:4])[0] == "staged"
+    assert rk.mega3_tail_route(torch.uint16, torch.uint16, epi) == K4_ROUTES[
+        "matrix" if tail == "cmat" else kind]
     before = rk.launches["mega3_tail"]
     got = rk.mega3_tail(*args)
     torch.cuda.synchronize()
     assert rk.launches["mega3_tail"] == before + 1
-    ref = rk.mega3_tail_plain(*args)
+    _k4_close(got, rk.mega3_tail_plain(*args), tail)
+
+
+# the compiled route each of phase 19's tails takes on the raw P010 planes
+K4_ROUTES = {"headline": "headline planar uint16", "c7": "c7 planar uint16",
+             "matrix": "matrix planar uint16"}
+
+
+def _k4_close(got, ref, tail):
+    """K4's bands: float32 within 1e-5 with the colour matrix only, dithered
+    float within 1 code on < 2% of the channels with a whole tail."""
     assert got.shape == ref.shape and got.dtype == torch.float32
     if tail == "cmat":
         assert (got - ref).abs().max().item() <= 1e-5
     else:
         d = ((got - ref).abs() * 1023).round().cpu().numpy()
         assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def _k4_both(monkeypatch, args):
+    """K4 on its staged route and with the long-window route forced, one
+    launch each; the two outputs must be bit-equal."""
+    before = rk.launches["mega3_tail"]
+    staged = rk.mega3_tail(*args)
+    with monkeypatch.context() as mp:
+        mp.setattr(rk, "K4_LONG_WINDOW", True)
+        got = rk.mega3_tail(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["mega3_tail"] == before + 2
+    assert torch.equal(got, staged)
+    return staged
+
+
+@pytest.mark.parametrize("tail", ["cmat", "full"])
+@pytest.mark.parametrize("kind", ["headline", "c7"])
+def test_k4_long_window_bit_equal_to_staged(dev, kind, tail, monkeypatch):
+    """On maps both routes take, K4's long-window route (forced) gives the
+    staged route's bits, and both the plain version's band."""
+    rng = np.random.default_rng(43)
+    planes, maps, plan = _k4_case(rng, kind)
+    epi = (P.cmat_epilogue(np.concatenate(
+        [np.asarray(plan.cmat_m, np.float32),
+         np.asarray(plan.cmat_c, np.float32)[:, None]], 1))
+        if tail == "cmat" else P._make_tail_epilogue(plan))
+    args = (*(p.to(dev) for p in planes), *maps, epi, 1 / 65535.0)
+    _k4_close(_k4_both(monkeypatch, args), rk.mega3_tail_plain(*args), tail)
+
+
+def _k4_ragged(rng, dev, dtype, h, w, oh, ow, w_map, h_map, unaligned):
+    """Planes of ``dtype`` (4:2:0: chroma h/2 x w/2) and their K4 maps at
+    ``oh`` x ``ow`` (Lanczos3, the chroma composed with a bilinear
+    upsample), without the W or the H maps where ``w_map``/``h_map`` are
+    False (that axis keeps its size: ow = w or oh = h, the chroma upsample
+    alone)."""
+    norm = NORM[dtype]
+    ux, uy = chroma.chroma_upsample_matrices(
+        w // 2, h // 2, 420, C.ChromaScaling.BILINEAR,
+        S.ChromaLocation.MPEG2)
+    wx = _lanczos(w, ow) if w_map else None
+    wy = _lanczos(h, oh) if h_map else None
+    (ky, hy) = rk.mega_maps(wx, wy, norm)
+    (kc, hc) = rk.mega_maps(ux if wx is None else ux @ wx,
+                            uy if wy is None else uy @ wy, norm)
+    planes = [_planes(rng, dtype, s).to(dev)
+              for s in ((2, h, w), (2, h // 2, w // 2), (2, h // 2, w // 2))]
+    if unaligned:
+        planes = [_unaligned(q) for q in planes]
+    return planes, (ky, kc, hy, hc, oh), norm
+
+
+K4_RAGGED = [
+    # dtype, h, w, oh, ow, W map, H map, unaligned pointers
+    (torch.uint16, 90, 250, 45, 125, True, True, False),
+    (torch.uint16, 88, 256, 44, 128, True, True, True),
+    (torch.uint8, 72, 202, 36, 101, True, True, False),
+    (torch.int16, 100, 300, 50, 150, True, True, False),
+    (torch.float32, 70, 198, 35, 99, True, True, False),
+    (torch.uint16, 72, 250, 72, 125, True, False, False),
+    (torch.uint8, 90, 202, 45, 202, False, True, False),
+    (torch.float32, 66, 134, 66, 134, False, False, False),
+]
+
+
+@pytest.mark.parametrize("tail", ["cmat", "full"])
+@pytest.mark.parametrize("case", K4_RAGGED,
+                         ids=[f"{c[0]}".split(".")[-1] + f"-{c[2]}x{c[1]}-"
+                              f"{c[4]}x{c[3]}-w{int(c[5])}h{int(c[6])}"
+                              f"{'-unaligned' if c[7] else ''}"
+                              for c in K4_RAGGED])
+def test_k4_ragged_edges_dtypes_and_missing_maps(dev, case, tail,
+                                                 monkeypatch):
+    """K4 where w_out is no multiple of the strip or of 4, h_out no
+    multiple of the tile, rows not 16-byte aligned (odd byte widths,
+    pointers one element in), uint8, int16 and float32 planes (the runtime
+    tail), and planes without a W map, an H map or both (read directly):
+    the staged and the forced long-window route bit-equal, both within the
+    plain version's band."""
+    rng = np.random.default_rng(44)
+    dtype, h, w, oh, ow, w_map, h_map, unaligned = case
+    planes, maps, norm = _k4_ragged(rng, dev, dtype, h, w, oh, ow, w_map,
+                                    h_map, unaligned)
+    epi = (P.cmat_epilogue(np.asarray(
+        [[1.0, 0.0, 1.4, -0.7], [1.0, -0.2, -0.7, 0.45],
+         [1.0, 1.8, 0.0, -0.9]], np.float32)) if tail == "cmat"
+        else P._make_tail_epilogue(_k4_case(rng, "headline")[2]))
+    args = (*planes, *maps, epi, norm)
+    if dtype != torch.uint16:
+        assert rk.mega3_tail_route(dtype, dtype, epi) == "runtime"
+    _k4_close(_k4_both(monkeypatch, args), rk.mega3_tail_plain(*args), tail)
+
+
+@pytest.mark.parametrize("down", [C.Downscaling.HAMMING,
+                                  C.Downscaling.LANCZOS])
+def test_k4_strong_downscale_takes_the_long_window_route(dev, down):
+    """A 4K thumbnail's row ratio (2160 -> 68, as a 120 x 68 thumbnail) at a
+    narrower width: K4 picks its long-window route on its own, in one
+    launch, within the plain version's band with the headline's tail."""
+    rng = np.random.default_rng(45)
+    h, w, oh, ow = 2160, 960, 68, 40
+    wx, wy, cwx, cwy = _thumb_maps(h, w, oh, ow, down)
+    (ky, hy), (kc, hc) = (rk.mega_maps(wx, wy, 1 / 65535.0),
+                          rk.mega_maps(cwx, cwy, 1 / 65535.0))
+    assert rk.k4_route(2, 2, ky, kc, hy, hc)[0] == "long-window"
+    planes = tuple(p.to(dev) for p in _p010(rng, 2, w, h))
+    epi = P._make_tail_epilogue(_k4_case(rng, "headline")[2])
+    args = (*planes, ky, kc, hy, hc, oh, epi, 1 / 65535.0)
+    before = rk.launches["mega3_tail"]
+    got = rk.mega3_tail(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["mega3_tail"] == before + 1
+    _k4_close(got, rk.mega3_tail_plain(*args), "full")
 
 
 def test_c7_serving_on_card_matches_cpu(dev):
@@ -1815,11 +1942,14 @@ def test_c7_serving_on_card_matches_cpu(dev):
     assert not torch.equal(outs[0], outs[1])
 
 
-@pytest.mark.parametrize("sizes", [(3840, 1920), (600, 250), (1000, 333)])
+@pytest.mark.parametrize("sizes", [(3840, 1920), (600, 250), (1000, 333),
+                                   (1001, 500), (999, 333), (517, 250)])
 def test_k10_kernels_match_plain(dev, sizes):
     """K10's two forms on raw uint16 codes: wpass_floor bit-equal to its
     plain version, wpass_bf16 within 1e-5 (outputs ~[-0.3, 1.3]; the
-    products are exact, only the order of the sum differs)."""
+    products are exact, only the order of the sum differs), at widths
+    whose rows are not 16-byte aligned (1001, 999, 517 codes) and output
+    widths that are odd or no multiple of the block's span."""
     from videorenderer_tpu_torch.kernels import probe as pk
     rng = np.random.default_rng(24)
     mat = rk.BandedMatrix(_lanczos(*sizes), pre_scale=1 / 65535.0)

@@ -16,6 +16,11 @@ store, on the CPU.
    the port's kernel route (its plain versions): within 1 code on >= 99.9%
    of the channels, at most 3, or no further from the JAX XLA route than
    the JAX kernel route is (``_code_band``).
+ * K4 (``k4_route``) on the same plans' fused maps, the headline source's
+   thumbnails (160 x 90 Lanczos, 120 x 68 Hamming: the long-window route,
+   over the 200 KB the kernel before the routes refused), its plain version
+   against the JAX ``mega3_tail`` in interpret mode at 24:1 and 5:1, and
+   its compiled tail routes read from the source.
  * The offset store's index math (route.cuh's ``store_group`` with a
    ``Place``) replayed in numpy: the stores of an aligned and an unaligned
    column offset cover the rect once, the 16-byte stores are aligned, the
@@ -488,6 +493,21 @@ ROUTE_CASES = {
                lambda: _hdr_epilogue("c8x"), "runtime"),
     "k9_c8hdr": ("cols3_tail.cu", torch.float32, torch.float32,
                  lambda: _hdr_epilogue("c8hdr"), "runtime"),
+    # K4 stores planar float (no pack): phase 19's three tails on the raw
+    # P010 planes take their compiled routes, c7p the runtime route
+    "k4_headline": ("mega3_tail.cu", torch.uint16, torch.uint16,
+                    lambda: tpipe._make_tail_epilogue(_plan(
+                        128, 64, 64, 32, tcfg.Downscaling.HAMMING)),
+                    "headline planar uint16", None),
+    "k4_c7": ("mega3_tail.cu", torch.uint16, torch.uint16, _c7_epilogue,
+              "c7 planar uint16", None),
+    "k4_matrix": ("mega3_tail.cu", torch.uint16, torch.uint16,
+                  lambda: tpipe.cmat_epilogue(np.asarray(
+                      [[1.0, 0.0, 1.4, 0.0], [1.0, -0.2, -0.7, 0.0],
+                       [1.0, 1.8, 0.0, 0.0]], np.float32)),
+                  "matrix planar uint16", None),
+    "k4_c7p": ("mega3_tail.cu", torch.uint16, torch.uint16,
+               lambda: _hdr_epilogue("c7p"), "runtime", None),
 }
 
 
@@ -503,18 +523,129 @@ def _trims():
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_tail_route_choice(case):
-    """K2's and K9's route for the paths' epilogues: c7, the headline and
-    c8 keep their compiled routes; c7p (selection 7), c7 with L2 trims,
-    c8x (PQ-domain trims) and c8hdr (trims in nits, ST 2094-10 general)
+    """K2's, K9's and K4's route for the paths' epilogues: c7, the headline
+    and c8 keep their compiled routes (K4's planar ones on uint16 planes:
+    the headline, c7 and the colour matrix alone); c7p (selection 7), c7
+    with L2 trims, c8x (PQ-domain trims) and c8hdr (trims in nits, ST
+    2094-10 general)
     match no compiled route (route.cuh's ``matches`` refuses trims and no
     route has selection 7), so they take the runtime route.  The card's
-    tests ask the library the same question (rows3_tail_route)."""
-    source, ytype, ctype, make, want = ROUTE_CASES[case]
+    tests ask the library the same question (rows3_tail_route,
+    mega3_tail_route)."""
+    source, ytype, ctype, make, want, *pack = ROUTE_CASES[case]
     epi = make()
-    flags = trk.route_flags(ytype, ctype, epi, "rgb10a2")
+    flags = trk.route_flags(ytype, ctype, epi,
+                            pack[0] if pack else "rgb10a2")
     assert _route_of(source, flags) == want
     assert flags[5] == int(epi.trims is not None)
     if want == "runtime":
         assert epi.trims is not None or epi.tonemap == 7
     else:
         assert epi.trims is None and epi.tonemap != 7
+
+
+# --- K4's routes: every map, the thumbnails, the JAX kernel at 24:1 -----------
+
+@pytest.mark.parametrize("out", OUTPUTS, ids=[f"{w}x{h}" for w, h in OUTPUTS])
+@pytest.mark.parametrize("down", list(tcfg.Downscaling),
+                         ids=[d.name for d in tcfg.Downscaling])
+@pytest.mark.parametrize("src", SOURCES, ids=[f"{w}x{h}" for w, h in SOURCES])
+def test_k4_route_takes_every_map(src, down, out):
+    """K4 refuses none of these plans' fused maps (uint16 and float32
+    planes): staged where its layout (the whole windows) fits at
+    K4_MIN_TILE_ROWS, at the most tile rows that let three blocks share an
+    SM where any do, else the long-window route, whose ring fits."""
+    (sw, sh), (ow, oh) = src, out
+    wx, wy, cwx, cwy, norm = tpipe.fused_maps(_plan(sw, sh, ow, oh, down))
+    maps = (*trk.mega_maps(wx, wy, norm), *trk.mega_maps(cwx, cwy, norm))
+    maps = (maps[0], maps[2], maps[1], maps[3])    # mx_y, mx_c, my_y, my_c
+    for size in (2, 4):
+        route, rows, chunk = trk.k4_route(size, size, *maps)
+        fits = _fits(trk.k4_smem_bytes(size, size, *maps,
+                                       trk.K4_MIN_TILE_ROWS, 1))
+        assert (route == "staged") == fits and chunk is not None
+        assert _fits(trk.k4_smem_bytes(size, size, *maps, rows, chunk,
+                                       route == "long-window"))
+        if route == "long-window":
+            assert rows == trk.K4_LONG_TILE_ROWS
+            continue
+        assert trk.K4_MIN_TILE_ROWS <= rows <= trk.K4_TILE_ROWS
+        three = trk.SMEM_BUDGET // trk.K4_BLOCKS_PER_SM - 1024
+
+        def fits3(r):
+            return trk.k4_smem_bytes(size, size, *maps, r) <= three
+
+        if trk.k4_smem_bytes(size, size, *maps, rows, chunk) <= three:
+            # three blocks an SM, at the most tile rows that allow it
+            assert chunk == 0 and fits3(rows)
+            assert not any(fits3(r) for r in range(
+                rows + 8, trk.K4_TILE_ROWS + 1, 8))
+        else:
+            assert not any(fits3(r) for r in range(
+                trk.K4_MIN_TILE_ROWS, trk.K4_TILE_ROWS + 1, 8))
+
+
+@pytest.mark.parametrize("down,ow,oh,want,refused", [
+    ("LANCZOS", 160, 90, "long-window", True),
+    ("HAMMING", 120, 68, "long-window", True),
+    ("HAMMING", 160, 90, "long-window", False),
+    ("LANCZOS", 1920, 1080, "staged", False)])
+def test_k4_route_of_the_headline_source(down, ow, oh, want, refused):
+    """The headline source (3840 x 2160 P010) to thumbnails takes the
+    long-window route, in two blocks an SM: 160 x 90 Lanczos and 120 x 68
+    Hamming, which the kernel before the routes refused (its float windows
+    of 32-row tiles past 200 KB, 1600 rows: 888 luma rows at 2160 -> 90
+    Lanczos), and chip_smoke.py's 160 x 90 Hamming thumbnail, just under
+    that limit; the headline's own 2:1 the staged route with each plane's
+    whole window at once, at 16 tile rows, three blocks an SM."""
+    wx, wy, cwx, cwy, norm = tpipe.fused_maps(
+        _plan(3840, 2160, ow, oh, getattr(tcfg.Downscaling, down)))
+    (ky, hy), (kc, hc) = trk.mega_maps(wx, wy, norm), trk.mega_maps(
+        cwx, cwy, norm)
+    route, rows, chunk = trk.k4_route(2, 2, ky, kc, hy, hc)
+    assert route == want
+    smem = trk.k4_smem_bytes(2, 2, ky, kc, hy, hc, rows, chunk,
+                             route == "long-window")
+    assert smem <= trk.SMEM_BUDGET // 2 - 1024
+    if want == "staged":
+        assert (rows, chunk) == (16, 0)
+        assert smem <= trk.SMEM_BUDGET // trk.K4_BLOCKS_PER_SM - 1024
+    assert (hy.row_windows(32)[1] + 2 * hc.row_windows(32)[1]
+            > 1600) == refused
+
+
+def test_k4_long_window_flag_forces_the_route(monkeypatch):
+    """K4_LONG_WINDOW forces the long-window route on a map the staged
+    route takes (chip_smoke.py compares the two)."""
+    mat = trk.BandedMatrix(tscale.upscale_matrix(tcfg.Upscaling.LANCZOS3,
+                                                 216, 108))
+    assert trk.k4_route(2, 2, mat, mat, mat, mat)[0] == "staged"
+    monkeypatch.setattr(trk, "K4_LONG_WINDOW", True)
+    assert trk.k4_route(2, 2, mat, mat, mat, mat)[:2] == (
+        "long-window", trk.K4_LONG_TILE_ROWS)
+
+
+@pytest.mark.parametrize("out", [(53, 30), (256, 144)], ids=["24x", "5x"])
+@pytest.mark.parametrize("down", ["HAMMING", "LANCZOS"])
+def test_k4_strong_downscale_plain_matches_jax_kernel(down, out):
+    """1280 x 720 P010 PQ to a thumbnail through K4 (the fused maps, the
+    headline's PQ -> SDR tail, 10-bit dither): the port's plain version
+    against the JAX mega3_tail in interpret mode, 10-bit codes within 1 on
+    >= 99.9% of the channels, at most 3."""
+    jplan, tplan = _both(1280, 720, *out, down)
+    wx, wy, cwx, cwy, norm = tpipe.fused_maps(tplan)
+    planes = _p010(1280, 720, 34)
+    (ky, hy), (kc, hc) = trk.mega_maps(wx, wy, norm), trk.mega_maps(
+        cwx, cwy, norm)
+    got = trk.mega3_tail(*(torch.from_numpy(p) for p in planes), ky, kc, hy,
+                         hc, out[1], tpipe._make_tail_epilogue(tplan),
+                         norm).numpy()
+    f32 = [np.asarray(m, np.float32) for m in (wx, cwx, wy, cwy)]
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jrp.mega3_tail(
+            *(jnp.asarray(p) for p in planes), *f32, out[1],
+            jpipe._make_tail_epilogue(jplan), norm))
+    assert got.shape == ref.shape == (1, 3, out[1], out[0])
+    d = np.abs(np.round(got * 1023) - np.round(ref * 1023))
+    assert (d <= 1).mean() >= 0.999 and d.max() <= 3, (d.max(),
+                                                       (d > 1).mean())

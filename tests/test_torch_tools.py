@@ -192,7 +192,8 @@ def test_second_pass_lines_in_sources_without_route_cuh(tmp_path):
 
 
 def test_default_launches_are_k7s_and_k9s_at_their_cells():
-    """The long-window kernels first (no shared memory), then K7's block at
+    """K4's and K10's kernels first (test_default_launches_of_k4_and_k10),
+    then the long-window kernels (no shared memory), then K7's block at
     c5 (uint16), K9's c8 route at c8 and its other instantiations at c5
     (float32), K8's at c8, K6's at c3, K5's at c3r270 and K3's on the
     letterbox's luma map: 256 threads and the shared memory
@@ -209,10 +210,13 @@ def test_default_launches_are_k7s_and_k9s_at_their_cells():
         assert next(v for k, v in kr.default_launches() if k in name) \
             == (256, 0)
     assert [k for k, _ in kr.default_launches()] == [
+        "mega3_tail_long_kernel", kr.K4_C7_ROUTE, "mega3_tail_kernel",
+        "wpass_bf16_kernel", "wpass_floor_kernel",
         kr.LONG_WINDOW, "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel",
         *kr.K8_HEAVY_ROUTES, "rows3_mid_kernel", "jinc2_convert_kernel",
         "jinc2_resize_kernel", "banded_resize_rows_kernel"]
-    assert all(t == 256 for t, _ in got.values())
+    assert all(t == 256 for k, (t, _) in got.items()
+               if k != "wpass_bf16_kernel")
     assert got["deint3_kernel"][1] == 62080
     assert got["rows3_mid_kernel"][1] == 69984
     assert all(got[r][1] == 36672 for r in kr.K8_HEAVY_ROUTES)
@@ -236,7 +240,46 @@ def test_issue_bound_cells_of_k2_and_k9():
                                        "c8": 16 * 1080 * 1920}
     assert kr.PIXELS["rows3_tail"] == {"headline": 16 * 1080 * 1920,
                                        "c7": 16 * 2160 * 3840}
-    assert kr.GROUP == {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4}
+    assert kr.PIXELS["mega3_tail"] == kr.PIXELS["rows3_tail"]
+    assert kr.GROUP == {"rows3_tail_kernel": 4, "cols3_tail_kernel": 4,
+                        "mega3_tail": 4}
+
+
+K4_K10_NAMES = {
+    # demangled names as cu++filt spells them, "(int)" dropped
+    "headline": ("void vrt::k4::mega3_tail_kernel<vrt::Route<1, 1, 0, 1, 0, "
+                 "false>, unsigned short, unsigned short>(const T2 *)"),
+    "c7": ("void vrt::k4::mega3_tail_kernel<vrt::Route<1, 0, 5, 1, 0, "
+           "false>, unsigned short, unsigned short>(const T2 *)"),
+    "long": ("void vrt::k4::mega3_tail_long_kernel<vrt::Route<-1, -1, -1, "
+             "-1, -1, false>, unsigned short, unsigned short>(const T2 *)"),
+    "wpass_bf16": "void (anonymous namespace)::wpass_bf16_kernel<true>()",
+    "wpass_floor": "(anonymous namespace)::wpass_floor_kernel(const T1 *)"}
+
+
+@pytest.mark.parametrize("name", list(K4_K10_NAMES))
+def test_default_launches_of_k4_and_k10(name):
+    """K4's staged kernel at the headline's layout (16-row tiles, three
+    blocks an SM at 80 registers), its c7 route at c7's (64-row tiles), its
+    long-window kernel at the 160 x 90 Lanczos thumbnail's chunks (two
+    blocks an SM at 128 registers), K10's
+    wpass_bf16 at 16 rows of the headline luma's span and wpass_floor with
+    its 32 KB tile: 256 threads for K4 and wpass_floor, 128 for
+    wpass_bf16, matched before the long-window entry."""
+    from videorenderer_tpu_torch.kernels import resize as rk
+    threads, smem = next(v for k, v in kr.default_launches()
+                         if k in K4_K10_NAMES[name])
+    want = {"headline": (256, 70848), "c7": (256, 45376),
+            "wpass_bf16": (128, rk.k1_smem_bytes(2, 516, 16)),
+            "wpass_floor": (256, 32768)}
+    if name == "long":
+        assert threads == 256 and 0 < smem <= rk.SMEM_BUDGET // 2 - 1024
+    else:
+        assert (threads, smem) == want[name]
+    if name in ("headline", "c7"):
+        assert kr.blocks_per_sm(80, threads, smem) == 3
+    if name == "long":
+        assert kr.blocks_per_sm(128, threads, smem) == 2
 
 
 def _log(tmp_path, name, k2_digest="ab", psnr=76.0, ms=1.0):

@@ -1,0 +1,7 @@
+// K4 (csrc/mega3_tail.cu): the extended runtime route of the long-window
+// kernel at every pair of plane dtypes, in a translation unit of its own,
+// so that the build compiles it in parallel with the others.
+
+#include "mega3_tail.cuh"
+
+template VRT_K4_LAUNCH_ANY(RuntimeExtended, true);

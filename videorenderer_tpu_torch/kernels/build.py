@@ -59,15 +59,16 @@ SIGNATURES = {
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _F, _F, _P, _I, _I, _I, _F, _I, _I,
                        _I, _I, _I, _I, _I, _P, _P),
-    # y, y_dtype, u, v, c_dtype, batch, hy, wy, hc, wc, h_out, w_out, the
-    # (starts, taps, n_taps) of the W maps of y and c, the (starts, taps,
-    # n_taps, tile_lo, win) of their H maps, y_scale, c_scale, mats (host,
-    # 59 floats), apply_matrix, correction, tonemap, luminance_scale,
-    # dither_bits, out, stream
+    # y, y_dtype, u, v, c_dtype, batch, hy, wy, hc, wc, h_out, w_out,
+    # tile_rows, chunk_rows, the (starts, taps, n_taps, span_lo, span) of
+    # the W maps of y and c, the (starts, taps, n_taps, tile_lo, win) of
+    # their H maps, y_scale, c_scale, mats (host, 59 floats), apply_matrix,
+    # correction, tonemap, luminance_scale, dither_bits, long_window, out,
+    # stream
     "vrt_mega3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _I, _P, _P, _I,
+                       _I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
-                       _F, _F, _P, _I, _I, _I, _F, _I, _P, _P),
+                       _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
     # x, x_dtype, starts, taps, tile_lo, win, out, batch, h_in, h_out, w,
     # n_taps, tile_rows, long_window, stream
     "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
@@ -104,8 +105,9 @@ SIGNATURES = {
     # d2y (4, n_row_cls), n_row_cls, d2x (4, n_col_cls), n_col_cls, table,
     # stream
     "vrt_jinc2_weight_table": (_P, _I, _P, _I, _P, _P),
-    # x, starts, taps (bf16), out, rows, w_in, w_out, n_taps, stream
-    "vrt_wpass_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, starts, taps (bf16), span_lo, win, out, rows, w_in, w_out, n_taps,
+    # rows_per_block, stream
+    "vrt_wpass_bf16": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     # x, out, rows, w_in, w_out, stream
     "vrt_wpass_floor": (_P, _P, _I, _I, _I, _P),
 }
@@ -117,6 +119,8 @@ STRING_SIGNATURES = {
     "vrt_rows3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I, _I),
     # the same flags, for K9
     "vrt_cols3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I, _I),
+    # the same flags without the pack (K4 stores planar float), for K4
+    "vrt_mega3_tail_route": (_I, _I, _I, _I, _I, _I, _I, _I),
     # y_dtype, c_dtype, vals (host), n_vals, structure (host), lms_identity
     "vrt_rows3_mid_route": (_I, _I, _P, _I, _P, _I),
 }

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from .resize import BandedMatrix, _kernel_device, _launch, _no_tf32
+from .resize import (K1_SPAN, BandedMatrix, _kernel_device, _launch,
+                     _no_tf32, k1_rows, k1_smem_bytes)
 
 FLOOR_MAX_WIDTH = 16384   # kTileElems: the widest row a floor block stages
 
@@ -64,8 +65,11 @@ def wpass_bf16(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
     in float32: (..., W_out) float32.  A bf16 x bf16 product is exact in
     float32, so only the order of the sum differs from the Pallas ``k1``.
 
-    Kernel K10 ``vrt_wpass_bf16`` (``csrc/probe_wpass.cu``): K1's
-    per-column tap table with bf16 taps, one thread per output."""
+    Kernel K10 ``vrt_wpass_bf16`` (``csrc/probe_wpass.cu``), on K1's
+    design: a block stages :func:`resize.k1_rows` rows of the input span
+    its K1_SPAN output columns reach in shared memory (16-byte copies);
+    each thread keeps its 2 columns' starts and bf16 taps in registers for
+    all those rows and stores its 2 outputs at once."""
     _check_u16(x)
     if x.shape[-1] != mat.in_size:
         raise ValueError(f"x has {x.shape[-1]} columns, the matrix "
@@ -73,16 +77,21 @@ def wpass_bf16(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
     if not _kernel_device(x):
         return wpass_bf16_plain(x, mat)
     rows = x.numel() // mat.in_size
-    if rows >= 2 ** 31 or mat.out_size >= 128 * 65535:
+    lo, win = mat.row_windows(K1_SPAN, x.device)
+    block_rows = k1_rows(2, win)
+    if block_rows is None or rows >= 2 ** 31 \
+            or mat.out_size > K1_SPAN * 65535:
         raise ValueError(f"K10 cannot take {rows} rows x {mat.out_size} "
-                         "output columns")
+                         f"output columns (a span of {win} input columns "
+                         f"needs {k1_smem_bytes(2, win, 1)} bytes a row)")
     out = torch.empty(x.shape[:-1] + (mat.out_size,), dtype=torch.float32,
                       device=x.device)
     starts, _ = mat.taps_on(x.device)
     taps = _bf16_taps_on(mat, x.device)
     _launch("wpass_bf16", "vrt_wpass_bf16", x.device, x.data_ptr(),
-            starts.data_ptr(), taps.data_ptr(), out.data_ptr(), rows,
-            mat.in_size, mat.out_size, mat.n_taps)
+            starts.data_ptr(), taps.data_ptr(), lo.data_ptr(), win,
+            out.data_ptr(), rows, mat.in_size, mat.out_size, mat.n_taps,
+            block_rows)
     return out
 
 

@@ -17,16 +17,18 @@ its own contiguous tap range instead: a start index and T float32 weights,
 zero-padded to the matrix's widest band (:func:`plan_taps`).  The kernels
 run T fp32 FMAs per output, so there is no bf16 split error at all.
 
-K1, K2 and K3 are tiled for the H100: a block stages the window of inputs
-its outputs' taps reach (:meth:`BandedMatrix.row_windows`) in shared memory
-with 16-byte copies, and each thread makes several outputs with vector
-stores.  :func:`k1_smem_bytes`, :func:`k2_smem_bytes` and
-:func:`k3_smem_bytes` give a block's shared memory.  A map whose window does
-not fit SMEM_BUDGET (a strong downscale: a thumbnail of a 4K frame) takes
-fewer rows a block (K1, K3) or a long-window route (K2, K3: the same
-kernel reading its taps through the read-only cache, bit-equal to the
-staged route; :func:`k2_route`, :func:`k3_route`), so no map is refused for
-its shared memory.  What bounds each is in their docstrings and in
+K1, K2, K3 and K4 are tiled for the H100: a block stages the window of
+inputs its outputs' taps reach (:meth:`BandedMatrix.row_windows`) in shared
+memory with 16-byte copies, and each thread makes several outputs with
+vector stores.  :func:`k1_smem_bytes`, :func:`k2_smem_bytes`,
+:func:`k3_smem_bytes` and :func:`k4_smem_bytes` give a block's shared
+memory.  A map whose window does not fit SMEM_BUDGET (a strong downscale: a
+thumbnail of a 4K frame) takes fewer rows a block (K1, K3) or a
+long-window route (K2, K3: the same kernel reading its taps through the
+read-only cache; K4: the rows streamed through a ring, the H sums in
+registers; each bit-equal to its staged route; :func:`k2_route`,
+:func:`k3_route`, :func:`k4_route`), so no map is refused for its shared
+memory.  What bounds each is in their docstrings and in
 ``PERF.md`` section 6.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
@@ -759,7 +761,89 @@ def rows3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
 # K4: W map + H map of three planes + the tail, in one kernel
 # ---------------------------------------------------------------------------
 
-K4_TILE_ROWS = 32     # output rows of a block (kTileRows, csrc/mega3_tail.cu)
+K4_TILE_COLS = 128     # output columns of a K4 block (kTileCols,
+                       # csrc/mega3_tail.cuh)
+K4_TILE_ROWS = 64      # the most output rows of a staged K4 tile
+K4_MIN_TILE_ROWS = 8   # the fewest: one a row of threads (kRowThreads)
+K4_LONG_TILE_ROWS = 16  # output rows of a long-window tile (kLongTileRows)
+K4_CHUNK_ROWS = 16     # raw input rows a chunk of K4's long-window ring,
+                       # at most
+K4_RING_SLOTS = 3      # chunks of that ring (kRingSlots)
+K4_BLOCKS_PER_SM = 3   # staged blocks an SM holds at the kernel's launch
+                       # bounds (registers), where shared memory allows
+K4_LONG_WINDOW = False
+"""True forces K4's long-window route on every map (its outputs are the
+staged route's bit for bit; ``chip_smoke.py`` compares the two)."""
+
+
+def _k4_pitch_bytes(itemsize: int, mx: BandedMatrix | None) -> int:
+    """Bytes a staged row of one plane takes in a K4 block (pitch_of,
+    mega3_tail.cuh): the W map's widest span over K4_TILE_COLS outputs from
+    a start rounded down to 16 bytes, or the strip's own columns."""
+    if mx is None:
+        return K4_TILE_COLS * itemsize
+    chunk = 16 // itemsize
+    span = mx.row_windows(K4_TILE_COLS)[1]
+    return (span + 2 * chunk - 2) // chunk * chunk * itemsize
+
+
+def k4_smem_bytes(y_itemsize: int, c_itemsize: int,
+                  mx_y: BandedMatrix | None, mx_c: BandedMatrix | None,
+                  my_y: BandedMatrix | None, my_c: BandedMatrix | None,
+                  tile_rows: int, chunk_rows: int = 0,
+                  long_window: bool = False) -> int:
+    """Shared memory of a K4 block (Layout, csrc/mega3_tail.cuh).  Staged:
+    each plane's raw window (the H map's widest window at ``tile_rows``, or
+    ``tile_rows`` rows without one, x its pitch), its W-passed window (the
+    same rows x K4_TILE_COLS floats) and each H map's taps and starts.
+    Long-window: the ring of K4_RING_SLOTS chunks of ``chunk_rows`` raw
+    rows as wide as the widest staged plane's, then one chunk of W-passed
+    rows.  A plane with neither map is read directly and takes none."""
+    planes = [(mx, my, size, n) for mx, my, size, n in
+              ((mx_y, my_y, y_itemsize, 1), (mx_c, my_c, c_itemsize, 2))
+              if mx is not None or my is not None]
+    frow = 4 * K4_TILE_COLS
+    if long_window:
+        row = max([_k4_pitch_bytes(size, mx) for mx, _, size, _ in planes],
+                  default=0)
+        return (K4_RING_SLOTS * row + frow) * chunk_rows
+    total = 0
+    for mx, my, size, n in planes:
+        rows = tile_rows if my is None else my.row_windows(tile_rows)[1]
+        total += n * rows * (_k4_pitch_bytes(size, mx) + frow)
+    for my in (my_y, my_c):
+        if my is not None:
+            total += 4 * tile_rows * (my.n_taps + 1)
+    return total
+
+
+def k4_route(y_itemsize: int, c_itemsize: int, mx_y: BandedMatrix | None,
+             mx_c: BandedMatrix | None, my_y: BandedMatrix | None,
+             my_c: BandedMatrix | None) -> tuple[str, int, int | None]:
+    """K4's route, tile rows and ring chunk rows for these maps: "staged"
+    (chunk rows 0: each plane's whole window at once) at the most tile rows
+    (K4_TILE_ROWS down to K4_MIN_TILE_ROWS in steps of 8) whose layout
+    (:func:`k4_smem_bytes`) lets K4_BLOCKS_PER_SM blocks share an SM, else
+    fits SMEM_BUDGET; else "long-window" at K4_LONG_TILE_ROWS, the kernel
+    that streams the rows through a ring and keeps no window (also with
+    K4_LONG_WINDOW), with the most chunk rows (K4_CHUNK_ROWS halved) that
+    let two blocks share an SM, else that fit.  Both routes give the same
+    bits.  Chunk rows None: not even the long-window route's three raw rows
+    fit (a span of ~19000 float32 columns)."""
+    sizes, maps = (y_itemsize, c_itemsize), (mx_y, mx_c, my_y, my_c)
+    tiles = range(K4_TILE_ROWS, K4_MIN_TILE_ROWS - 1, -8)
+    for budget in ((SMEM_BUDGET // K4_BLOCKS_PER_SM - 1024, SMEM_BUDGET)
+                   if not K4_LONG_WINDOW else ()):
+        for rows in tiles:
+            if k4_smem_bytes(*sizes, *maps, rows) <= budget:
+                return "staged", rows, 0
+    chunks = [K4_CHUNK_ROWS >> i for i in range(K4_CHUNK_ROWS.bit_length())]
+    for budget in (SMEM_BUDGET // 2 - 1024, SMEM_BUDGET):
+        for cr in chunks:
+            if k4_smem_bytes(*sizes, *maps, K4_LONG_TILE_ROWS, cr,
+                             long_window=True) <= budget:
+                return "long-window", K4_LONG_TILE_ROWS, cr
+    return "long-window", K4_LONG_TILE_ROWS, None
 
 
 def mega_maps(mx: np.ndarray | None, my: np.ndarray | None,
@@ -817,10 +901,21 @@ def mega3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     matrix and tone-map scalars come with it.  No pack.
 
     Kernel K4 (``csrc/mega3_tail.cu``), replacing
-    ``resize_pallas.mega3_tail``.  One block per (frame, 32 columns, 32
-    output rows) runs the W pass of the input rows its outputs reach into
-    shared memory, then the H taps and the tail, so no intermediate plane
-    reaches device memory."""
+    ``resize_pallas.mega3_tail``.  A block makes :func:`k4_route`'s tile
+    rows x K4_TILE_COLS columns: it copies each plane's raw window (the
+    input rows its H taps reach, over the columns its W taps reach) into
+    shared memory at once (16-byte copies, one commit group a plane),
+    W-passes it into a float window there with each thread's taps in
+    registers, then runs the H taps, the tail of a route compiled for the
+    headline, c7 and the colour matrix alone (:func:`mega3_tail_route`; the
+    runtime route for the rest) and 16-byte stores; no intermediate plane
+    reaches device memory.  A map whose windows do not fit SMEM_BUDGET
+    even at K4_MIN_TILE_ROWS (a thumbnail of a 4K frame) takes the
+    long-window route: the rows streamed through a ring of three chunks,
+    each thread's H sums in registers as they pass, bit-equal.  Either
+    route is one launch.  Measured on one NVIDIA H100 80GB HBM3 at 700 W:
+    1.68 ms for 16 headline frames, 1.00 of it the input, W, H and stores
+    alone, the rest the tail (``PERF.md`` section 6)."""
     epilogue.validate()
     for name, p in (("y", y), ("u", u), ("v", v)):
         _check_plane(name, p)
@@ -845,21 +940,26 @@ def mega3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         return mega3_tail_plain(y, u, v, mx_y, mx_c, my_y, my_c, h_out,
                                 epilogue, norm)
     batch = y.numel() // (hy * wy) if y.numel() else 0
-    if batch == 0 or batch > 65535 or -(-h_out // K4_TILE_ROWS) > 65535:
-        raise ValueError(f"K4 cannot take batch {batch} x {h_out} rows")
+    route, tile_rows, chunk_rows = k4_route(y.element_size(),
+                                            u.element_size(), mx_y, mx_c,
+                                            my_y, my_c)
+    if batch == 0 or batch > 65535 or -(-h_out // tile_rows) > 65535 \
+            or chunk_rows is None:
+        raise ValueError(f"K4 cannot take batch {batch} x {h_out} rows x "
+                         f"{w_out} columns of these maps")
     dev = y.device
 
-    def h_args(my):   # (starts, taps, T, tile_lo, win); a plane's own rows
-        if my is None:
-            return None, None, 0, None, K4_TILE_ROWS
-        lo, win = my.row_windows(K4_TILE_ROWS, dev)
-        return (*_taps_args(my, dev), lo.data_ptr(), win)
+    def w_args(mx):   # (starts, taps, T, strip_lo, span); none: T = 0
+        if mx is None:
+            return None, None, 0, None, 0
+        lo, span = mx.row_windows(K4_TILE_COLS, dev)
+        return (*_taps_args(mx, dev), lo.data_ptr(), span)
 
-    hy_args, hc_args = h_args(my_y), h_args(my_c)
-    if 4 * 32 * (hy_args[4] + 2 * hc_args[4]) > 200 * 1024:
-        raise ValueError(f"K4: windows of {hy_args[4]} luma and "
-                         f"{hc_args[4]} chroma rows do not fit the shared "
-                         "memory of a block")
+    def h_args(my):   # (starts, taps, T, tile_lo, win); none: T = 0
+        if my is None:
+            return None, None, 0, None, 0
+        lo, win = my.row_windows(tile_rows, dev)
+        return (*_taps_args(my, dev), lo.data_ptr(), win)
 
     def direct_scale(mx, my):   # the scale of a plane read without maps
         return float(norm) if mx is None and my is None and norm else 1.0
@@ -870,8 +970,23 @@ def mega3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     _launch("mega3_tail", "vrt_mega3_tail", dev,
             y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
             DTYPE_CODES[u.dtype], batch, hy, wy, hc, wc, h_out, w_out,
-            *_taps_args(mx_y, dev), *_taps_args(mx_c, dev), *hy_args,
-            *hc_args, direct_scale(mx_y, my_y), direct_scale(mx_c, my_c),
-            *epilogue.launch_args(mats), epilogue.dither_bits,
+            tile_rows, chunk_rows, *w_args(mx_y), *w_args(mx_c),
+            *h_args(my_y), *h_args(my_c), direct_scale(mx_y, my_y),
+            direct_scale(mx_c, my_c), *epilogue.launch_args(mats),
+            epilogue.dither_bits, int(route == "long-window"),
             out.data_ptr())
     return out
+
+
+def mega3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
+                     epilogue: Epilogue, long_window: bool = False) -> str:
+    """The K4 instantiation a launch with these plane dtypes and epilogue
+    takes: the name of its compiled route, "runtime" for the staged one
+    that reads the tail's flags, or with ``long_window`` (the route
+    :func:`k4_route` picks for a map whose windows do not fit)
+    "long-window runtime" (vrt_mega3_tail_route over :func:`route_flags`
+    without the pack; loads the kernel library, so it needs the CUDA
+    toolkit)."""
+    return build.load().vrt_mega3_tail_route(
+        *route_flags(y_dtype, c_dtype, epilogue, None)[:7],
+        int(long_window)).decode()
