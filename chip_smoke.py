@@ -335,6 +335,24 @@ Phases, one line each:
               against their plain versions, >= 55 dB; ms/frame.
  50. c4       the 4K tone map 1:1 to RGB8 (:200-204): K1 x2 + K2 a call
               (K2 reads the luma directly), the same checks.
+ 51. c8_two_stage  c8 with VRT_TPU_DOVI_MID=0 (set in the phase, restored
+              after it): the two-stage Dolby Vision form, K1 x2 + K2's
+              Dolby Vision route (stage A: the H upsample and the convert
+              at source resolution, float32 PQ RGB) + K1 x3 + K2 (stage B)
+              a call, on c8's four scenes, the variant (stage A's LMS
+              route), c8x (stage B on K2's extended runtime route) and c8
+              in C8_RECT (K2's offset store): each call's kernels on 2
+              frames against their plain versions (stage A within 1e-5,
+              the variant 1e-4; K1 float32 within 2e-5; K2 within 1 code
+              on < 2%), the launch counts, no build between scenes,
+              >= 55 dB against oracle_dovi; against the one-intermediate
+              chain's surface (the switch at "1", the same function):
+              differing on < 2% of the channels, over 1 code on < 1e-5
+              of them and only near black (both codes under 32, where the
+              SDR gamma amplifies a rounding step of the PQ sums); the
+              bars the packed zero; ms/frame of both
+              forms, stage A's time at batch 16 beside its byte bound and
+              (c8) its plain version's.
 Then the kernels' JSON line (each kernel's launches on the main paths, its
 error against its plain version, its time, the plain version's, the bound
 from this run's bytes and FLOPs, and the library call's time where one
@@ -343,8 +361,9 @@ wpass_bf16 form's, and "forms" holds both; K5's "k5_route" and
 "table_launches" its route at c3r270 and the table launches of that path's
 first call; K6's "table" holds the weight table kernel, whose launches are
 the first calls of c3, c3rot and c3r270; K2's and K9's "runtime_route" their
-runtime routes' numbers at c7p, c8x and c8hdr), nvidia-smi's line, and last
-the result line.
+runtime routes' numbers at c7p, c8x and c8hdr; K2's "dovi_route" its Dolby
+Vision route at c8, phase 51), nvidia-smi's line, and last the result
+line.
 Any failure raises and the exit code is not 0.  Imports nothing of JAX.
 Trees from before the weight tables run this script too, so that
 smoke_diff.py compares the two: without K6's tables (TABLES) every output
@@ -2981,6 +3000,218 @@ def coverage_phases(dev) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def dovi_mid_setting(value: str):
+    """``VRT_TPU_DOVI_MID`` at ``value`` inside the block (the Dolby Vision
+    functions read it at every call), as it was after the block."""
+    old = os.environ.get("VRT_TPU_DOVI_MID")
+    os.environ["VRT_TPU_DOVI_MID"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["VRT_TPU_DOVI_MID"]
+        else:
+            os.environ["VRT_TPU_DOVI_MID"] = old
+
+
+NEAR_BLACK = 32   # 10-bit codes where the SDR gamma's slope passes ~30
+
+
+def chain_diff(outs, others, bits: int) -> dict:
+    """Two routes' surfaces (lists of packed dwords) channel by channel:
+    the largest code difference and the share of channels that differ, and
+    the channels more than 1 code apart: their share and the largest code
+    either route gives them.  Near black the SDR gamma's slope amplifies a
+    float32 rounding step of the PQ signal into several codes, so two
+    routes that sum their taps in other orders part there; elsewhere they
+    stay within 1 code."""
+    n = over = differing = 0
+    out = {"max_code_diff": 0, "frac_differing": 0.0, "frac_over_1": 0.0,
+           "over_1_max_code": 0}
+    for o, o1 in zip(outs, others):
+        ca, cb = codes(o, bits), codes(o1, bits)
+        d = (ca - cb).abs()
+        n += d.numel()
+        differing += int((d > 0).sum().item())
+        big = d > 1
+        over += int(big.sum().item())
+        out["max_code_diff"] = max(out["max_code_diff"], int(d.max().item()))
+        if big.any():
+            out["over_1_max_code"] = max(out["over_1_max_code"], int(
+                torch.maximum(ca[big], cb[big]).max().item()))
+    out["frac_differing"] = differing / n
+    out["frac_over_1"] = over / n
+    return out
+
+
+def two_stage_phase(dev) -> dict:
+    """Phase 51: c8 through the two-stage Dolby Vision form
+    (VRT_TPU_DOVI_MID=0): K1 x2 on the chroma, K2's Dolby Vision route
+    (stage A, the H upsample and the convert at source resolution), K1 x3
+    on R, G, B and K2 (stage B) a call.  c8's four scenes, the variant
+    where nothing folds (stage A's LMS route), c8x (the L2 trims: stage B
+    on K2's extended runtime route) and c8 in C8_RECT (stage B's offset
+    store), through make_serving_fn at batch 16: each call's kernels on
+    PLAIN_FRAMES frames against their plain versions (stage A within 1e-5,
+    1e-4 with the LMS step; K1 float32 within 2e-5; K2 within 1 code on
+    < 2%), the launch counts, no build between scenes, >= 55 dB against
+    oracle_dovi, the surface against the one-intermediate chain's (K1 x2 +
+    K8 + K9, the same function with the switch at "1") by
+    :func:`chain_diff`, the bars the packed zero; ms/frame of both forms; stage A's time at
+    batch 16 with its plain version's and its bound."""
+    dev = torch.device(dev)
+    res = {"launches": {}, "err": {"k1": 0.0, "k2": 0.0, "k2_dovi": 0.0}}
+
+    def err(k, x):
+        res["err"][k] = max(res["err"][k], float(x))
+
+    meta, variant = dovi_meta(), dovi_variant()
+    ext_args = c8ext_args(False)
+    st8, src8, _ = c8_args(meta)
+    exts = [dovi_extensions(i) for i in range(HDR_SCENES)]
+    cases = {
+        "c8": (c8_args(meta), meta, [{"dovi_curves": dovi_rt(i)}
+                                     for i in range(C8_SCENES)], None, 1e-5),
+        "variant": (c8_args(variant), variant,
+                    [{"dovi_curves": dovi_rt(1, variant)}], None, 1e-4),
+        "c8x": (ext_args, meta, [
+            {"dovi_curves": dovi_rt(i), "l2_trims":
+             dovi_ext.runtime_trims_from_extensions(e, 100.0)}
+            for i, e in enumerate(exts)], None, 1e-5),
+        "c8_rect": ((st8, src8, OutputDescriptor(
+            width=OW, height=OH, bits=10, video_rect=C8_RECT)), meta,
+            [{"dovi_curves": dovi_rt(i)} for i in range(C8_SCENES)],
+            C8_RECT, 1e-5)}
+    cells = {}
+    with dovi_mid_setting("0"):
+        for k, (name, (args, m, rts, rect, tol)) in enumerate(cases.items()):
+            n_sc = len(rts)
+            serve = make_serving_fn(plan_pipeline(*args), pack_surface=True)
+            bs = [p010_batch(BATCH, SEED + 140 + 10 * k + i, dev)
+                  for i in range(n_sc)]
+            # the path's kernels on PLAIN_FRAMES frames
+            with recording(rk, "banded_resize_last_axis", "rows3_tail_dovi",
+                           "rows3_tail") as calls:
+                serve(tuple(p[:PLAIN_FRAMES] for p in bs[0]), rts[0])
+            torch.cuda.synchronize()
+            chk = checked_calls(calls, err)
+            (aa, kwa, gota), = calls["rows3_tail_dovi"]
+            (ab, kwb, gotb), = calls["rows3_tail"]
+            ea = (gota - rk.rows3_tail_dovi_plain(*aa, **kwa)).abs().max()
+            ea = ea.item()
+            d2 = code_diff(gotb, rk.rows3_tail_plain(*ab, **kwb), 10)
+            err("k2_dovi", ea)
+            err("k2", d2["max_code_diff"] / 1023.0)
+            kern = {"stage_a_max_abs_err": ea, "stage_b_k2": d2,
+                    "k1_max_abs_err": chk["k1_max_abs_err"],
+                    "stage_a_route": dk.rows3_mid_route(aa[0].dtype,
+                                                        aa[1].dtype, aa[6]),
+                    "stage_b_route": rk.rows3_tail_route(
+                        ab[0].dtype, ab[1].dtype, ab[6],
+                        kwb.get("pack_format")),
+                    "stage_a_digest": digest(gota)}
+            del calls, aa, kwa, gota, ab, kwb, gotb
+            if ea > tol or d2["max_code_diff"] > 1 \
+                    or d2["frac_differing"] >= 0.02:
+                raise AssertionError(f"c8_two_stage {name}: a kernel "
+                                     f"disagrees with its plain version: "
+                                     f"{kern}")
+            # stage A at batch 16 (also the warm-up)
+            with recording(rk, "rows3_tail_dovi") as calls:
+                serve(bs[0], rts[0])
+            torch.cuda.synchronize()
+            (aa, kwa, _), = calls["rows3_tail_dovi"]
+            del calls
+            outs, n, times = serve_counted(serve, bs, rts, only(
+                banded_resize_last_axis=5 * n_sc, rows3_tail_dovi=n_sc,
+                rows3_tail=n_sc))
+            res["launches"][name] = n
+            for o in outs:
+                if o.shape != (BATCH, OH, OW) or o.dtype != torch.int32:
+                    raise AssertionError(f"c8_two_stage {name} output "
+                                         f"{tuple(o.shape)} {o.dtype}")
+
+            def want(i):
+                rt = rts[i]
+                return oracle_dovi(
+                    *(p[0] for p in bs[i]), OW, OH, curves=rt["dovi_curves"],
+                    structure=dovi.curve_structure(m),
+                    ycc_to_rgb=m.ycc_to_rgb_matrix,
+                    ycc_offset=m.ycc_to_rgb_offset,
+                    lms=dovi.lms_pipeline_matrix(m), video_rect=rect,
+                    trims=trim_list(rt) if "l2_trims" in rt else None)
+
+            db = {f"scene{i}": psnr(codes(outs[i][0], 10).double() / 1023.0,
+                                    want(i)) for i in sorted({0, n_sc - 1})}
+            with dovi_mid_setting("1"):
+                ones = [serve(b, rt) for b, rt in zip(bs, rts)]
+            vs_one = chain_diff(outs, ones, 10)
+            del ones
+            placed = {}
+            if rect is not None:
+                l, tp, r, bt = rect
+                mask = torch.ones((OH, OW), dtype=torch.bool, device=dev)
+                mask[tp:bt, l:r] = False
+                placed = {"rect": list(rect), "bars_black": all(
+                    bool(torch.all(o[..., mask]
+                                   == rk.PACKED_ZERO["rgb10a2"]).item())
+                    for o in outs)}
+            out_digest = digest(*outs)
+            del outs
+
+            def run():
+                return [serve(b, rt) for b, rt in zip(bs, rts)]
+
+            ms = cuda_ms(run, reps=1, warmup=0) / (n_sc * BATCH)
+            with dovi_mid_setting("1"):
+                ms_one = cuda_ms(run, reps=1) / (n_sc * BATCH)
+            # stage A: the luma and chroma read once, three float32 planes
+            # written, the maps' tap tables; operations: the H taps and the
+            # identity convert (4 a channel's reshape, 18 the matrix)
+            h_a, w_a = aa[0].shape[-2:]
+            frames = aa[0].numel() // (h_a * w_a)
+            k2a = {"ms": cuda_ms(lambda: rk.rows3_tail_dovi(*aa, **kwa))}
+            k2a.update(bound(
+                tbytes(*aa[:3]) + 3 * frames * h_a * w_a * 4
+                + mbytes(aa[3], aa[4]),
+                map_flops(aa[3], frames * w_a)
+                + 2 * map_flops(aa[4], frames * w_a)
+                + 30 * frames * h_a * w_a), library_ms=None)
+            if name == "c8":
+                k2a["plain_ms"] = cuda_ms(
+                    lambda: rk.rows3_tail_dovi_plain(*aa, **kwa), reps=1)
+                res["k2_dovi"] = k2a
+            del aa, kwa, bs, serve
+            torch.cuda.empty_cache()
+            cell = {"launches": n, "psnr_db": db, "ms_per_frame": ms,
+                    "ms_per_frame_synced": sum(times) / (n_sc * BATCH),
+                    "mid_chain_ms_per_frame": ms_one,
+                    "stage_a_ms": k2a["ms"],
+                    "stage_a_bound_ms": k2a["bound_ms"],
+                    "stage_a_bound_by": k2a["bound_by"],
+                    "vs_mid_chain": vs_one, "kernels": kern,
+                    "digest": out_digest, **placed}
+            cells[name] = cell
+            if n != only(banded_resize_last_axis=5 * n_sc,
+                         rows3_tail_dovi=n_sc, rows3_tail=n_sc) \
+                    or min(db.values()) < 55.0 \
+                    or vs_one["frac_differing"] >= 0.02 \
+                    or vs_one["frac_over_1"] >= 1e-5 \
+                    or vs_one["over_1_max_code"] >= NEAR_BLACK \
+                    or (rect is not None and not placed["bars_black"]):
+                raise AssertionError(f"c8_two_stage {name}: {cell}")
+    line("c8_two_stage", batch=BATCH, kernels_frames=PLAIN_FRAMES,
+         switch="VRT_TPU_DOVI_MID=0", stage_a_plain_ms=res["k2_dovi"][
+             "plain_ms"],
+         tolerance="stage A <= 1e-5 (variant 1e-4); K1 f32 <= 2e-5; K2 <= 1 "
+                   "code on < 2% of channels; the one-intermediate chain: "
+                   "differing on < 2% of channels, over 1 code on < 1e-5 "
+                   "and only below code 32 (near black); >= 55 dB",
+         **cells)
+    return res
+
+
 def k4_phase(dev) -> tuple[dict, dict]:
     """Phase 19: K4 (see the module's docstring); returns the headline
     case's numbers (ms, plain_ms, bound; max_abs_err the worst case's) and
@@ -4332,9 +4563,11 @@ def main() -> None:
     spa = spatial_phases(dev)
     # 49-50: c2 and c4
     cov = coverage_phases(dev)
+    # 51: c8 through the two-stage Dolby Vision form
+    ts = two_stage_phase(dev)
 
     def new_launches(name):
-        return sum(n[name] for phases in (new, hdr, ren, mc, tr, spa, cov)
+        return sum(n[name] for phases in (new, hdr, ren, mc, tr, spa, cov, ts)
                    for n in phases["launches"].values())
 
     def entry(name, source, replaces, n, k, err):
@@ -4364,7 +4597,7 @@ def main() -> None:
               max(k1["max_abs_err"], conv["k1_max_abs_err"],
                   sr_k["k1_max_abs_err"], new["err"]["k1"],
                   hdr["err"]["k1"], mc["err"]["k1"], spa["err"]["k1"],
-                  cov["err"]["k1"])),
+                  cov["err"]["k1"], ts["err"]["k1"])),
         {**entry("rows3_tail", "rows3_tail.cu", "resize_pallas.py:834",
                  launches["rows3_tail"] + c7_launches["rows3_tail"]
                  + sum(n["rows3_tail"] for n in split_launches.values())
@@ -4373,9 +4606,15 @@ def main() -> None:
                          sr_k["k2_max_abs_err"],
                          c7k["k2_max_code_diff"] / 1023.0, new["err"]["k2"],
                          hdr["err"]["k2"], mc["err"]["k2"],
-                         cov["err"]["k2"])),
+                         cov["err"]["k2"], ts["err"]["k2"])),
          # the runtime route (selection 7) at c7p, batch 16
-         "runtime_route": hdr["runtime"]["rows3_tail"]},
+         "runtime_route": hdr["runtime"]["rows3_tail"],
+         # the Dolby Vision route (stage A of the two-stage form) at c8,
+         # batch 16, its launches phase 51's
+         "dovi_route": entry("rows3_tail_dovi", "rows3_tail_dovi.cu",
+                             "resize_pallas.py:834",
+                             new_launches("rows3_tail_dovi"), ts["k2_dovi"],
+                             ts["err"]["k2_dovi"])},
         entry("mega3_tail", "mega3_tail.cu", "resize_pallas.py:704",
               k4_launches["mega3_tail"], k4,
               k4["max_abs_err"]),

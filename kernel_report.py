@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Registers, spills, occupancy and the per-pixel SASS counts of kernels K1
-(``banded_resize.cu``), K2 (``rows3_tail*.cu``), K3
+(``banded_resize.cu``), K2 (``rows3_tail*.cu``, its Dolby Vision route
+``rows3_tail_dovi*.cu`` too), K3
 (``banded_resize_rows.cu``), K4 (``mega3_tail*.cu``), K5
 (``jinc2_resize.cu``), K6 (``jinc2_convert.cu``), K7
 (``deint3_rows_dual.cu``), K8 (``rows3_mid*.cu``), K9 (``cols3_tail*.cu``)
@@ -55,8 +56,9 @@ Per function it prints one JSON line:
     MUFU part at 16 a clock an SM;
   * for K8, K6 and K5, ``parts``: the static instructions and MUFU of each
     per-pixel part, those whose source location, or any function they were
-    inlined from, lies in the part's functions (PARTS: K8's ``mid``, the
-    DoVi convert of ``rows3_mid.cuh``; K6's and K5's ``weights``,
+    inlined from, lies in the part's functions (PARTS: K8's ``mid`` and
+    K2's Dolby Vision route's ``convert``, the DoVi convert of
+    ``dovi_mid.cuh``; K6's and K5's ``weights``,
     ``jinc2.cuh``'s per-output weights, which the table route does not
     compute, and ``resolve``, the taps' weighted sums and anti-ringing;
     K5's ``quantize``, the dither or rounding of ``epilogue.cuh``), each
@@ -108,7 +110,8 @@ SOURCE_GLOBS = ("banded_resize.cu", "rows3_tail*.cu", "deint3_rows_dual.cu",
 TAIL_FILES = ("tail.cuh", "epilogue.cuh")
 SMS, SCHEDULERS, LANES, MUFU_PER_CLK = 132, 4, 32, 16
 # the cells each tail kernel's issue bound is given at, by source prefix
-PIXELS = {"rows3_tail": {"headline": 16 * 1080 * 1920,
+PIXELS = {"rows3_tail_dovi": {},   # no tail: its convert is a part
+          "rows3_tail": {"headline": 16 * 1080 * 1920,
                          "c7": 16 * 2160 * 3840},
           "mega3_tail": {"headline": 16 * 1080 * 1920,
                          "c7": 16 * 2160 * 3840},
@@ -125,8 +128,10 @@ K4_C7_ROUTE = "mega3_tail_kernel<vrt::Route<1, 0, 5, 1, 0,"
 # the functions whose inlined instructions it counts)
 _JINC2_PARTS = {"weights": (("jinc2.cuh",), ("jinc2_weight", "jinc2_weights")),
                 "resolve": (("jinc2.cuh",), ("jinc2_resolve",))}
-PARTS = {"rows3_mid": {"mid": (("rows3_mid.cuh", "rows3_mid.cu"),
-                               ("dovi_mid", "reshape", "mmr"))},
+_DOVI_PART = (("dovi_mid.cuh", "rows3_mid.cuh", "rows3_mid.cu"),
+              ("dovi_mid", "reshape", "mmr"))
+PARTS = {"rows3_mid": {"mid": _DOVI_PART},
+         "rows3_tail_dovi": {"convert": _DOVI_PART},
          "jinc2_convert": _JINC2_PARTS,
          "jinc2_resize": {**_JINC2_PARTS,
                           "quantize": (("epilogue.cuh",),
@@ -137,6 +142,7 @@ PARTS = {"rows3_mid": {"mid": (("rows3_mid.cuh", "rows3_mid.cu"),
 # outputs, its per-output routes and the one-output-a-thread kernel it
 # replaced make one at a time; 1 where none matches)
 PART_PIXELS = {"rows3_mid": {"c8": 16 * 2160 * 3840},
+               "rows3_tail_dovi": {"c8": 16 * 2160 * 3840},
                "jinc2_convert": {"c3": 16 * 2160 * 3840},
                "jinc2_resize": {"c3r270": 48 * 2160 * 3840}}
 PART_GROUP = {"MidRoute<0, 1>": 4, "jinc2_convert_kernel": 4,
@@ -196,6 +202,9 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
           for r in K8_HEAVY_ROUTES),
         ("rows3_mid_kernel", (256, dk.k8_smem_bytes(
             2, 4, None, rk.BandedMatrix(uy), k8h, 2160, 30))),
+        # K2's Dolby Vision route at c8's stage A (c8's 30 scalars)
+        ("rows3_tail_dovi_kernel", (256, rk.k2_dovi_smem_bytes(
+            2, 4, None, rk.BandedMatrix(uy), 30))),
         ("jinc2_convert_kernel", (256, jk.k6_smem_bytes(1080, 1920, 2160,
                                                         3840, False))),
         ("jinc2_resize_kernel", (256, jk.k5_window(1080, 1920, 2160,

@@ -464,3 +464,62 @@ def test_chip_smoke_spatial_coverage_phases_rehearsal(smoke_on_cpu,
     assert spa["k3_shard"]["ms"] > 0.0 and spa["k3_shard"]["bound_ms"] > 0.0
     assert min(by[k]["psnr_db"] for k in ("c6", "c9", "spatial_dovi", "c2",
                                           "c4", "spatial_c3_placed")) >= 55.0
+
+
+def test_chip_smoke_two_stage_phase_rehearsal(smoke_on_cpu, monkeypatch,
+                                              capsys):
+    """Phase 51 end to end on the CPU at 128 x 64 -> 64 x 32, batch 2: the
+    two-stage Dolby Vision form's launch counts in each case (K1 x5 + K2's
+    Dolby Vision route + K2 a call), the kernels against their plain
+    versions, the PSNR bar, the band against the one-intermediate chain,
+    the rect's bars; the switch restored after the phase."""
+    import os
+    import time
+    from videorenderer_tpu_torch import pipeline as tpipe
+    from videorenderer_tpu_torch.kernels import build
+    from videorenderer_tpu_torch.kernels import deint as dk
+    from videorenderer_tpu_torch.kernels import resize as rk
+
+    class HostEvent:            # torch.cuda.Event on the host clock
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) * 1e3
+
+    cs = smoke_on_cpu
+    monkeypatch.setattr(cs, "BATCH", 2)
+    monkeypatch.setattr(cs, "C8_RECT", (8, 4, 56, 28))
+    monkeypatch.setattr(torch.cuda, "Event", HostEvent)
+    monkeypatch.setattr(tpipe, "_on_card", lambda planes: True)
+    lib = object()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(dk, "rows3_mid_route", lambda *a: "stub")
+    monkeypatch.setattr(rk, "rows3_tail_route", lambda *a, **k: "stub")
+
+    def counted(*a, _real=rk.rows3_tail_dovi, **kw):
+        rk.launches["rows3_tail_dovi"] += 1
+        return _real(*a, **kw)
+
+    monkeypatch.setattr(rk, "rows3_tail_dovi", counted)
+    monkeypatch.delenv("VRT_TPU_DOVI_MID", raising=False)
+    res = cs.two_stage_phase("cpu")
+    assert "VRT_TPU_DOVI_MID" not in os.environ
+    per = {"c8": cs.C8_SCENES, "variant": 1, "c8x": cs.HDR_SCENES,
+           "c8_rect": cs.C8_SCENES}
+    assert res["launches"] == {
+        k: cs.only(banded_resize_last_axis=5 * n, rows3_tail_dovi=n,
+                   rows3_tail=n) for k, n in per.items()}
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+               if x.startswith('{"phase": "c8_two_stage"')]
+    for key in per:
+        c = line[key]
+        assert min(c["psnr_db"].values()) >= 55.0
+        assert c["vs_mid_chain"]["max_code_diff"] <= 1
+        assert c["kernels"]["stage_a_max_abs_err"] == 0.0
+        assert len(c["digest"]) == len(c["kernels"]["stage_a_digest"]) == 64
+    assert line["c8_rect"]["bars_black"]
+    assert res["k2_dovi"]["bound_ms"] > 0.0 and res["k2_dovi"]["ms"] > 0.0

@@ -26,6 +26,8 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
  * K8 float32 <= 1e-5 with c8's metadata (the identity LMS fold: only the
    tap sums differ) and <= 1e-4 with the non-identity variant (the PQ
    round trip of the LMS step amplifies the sums' rounding near black);
+   K2's Dolby Vision route (stage A of the two-stage form, the same
+   convert) likewise;
  * K2 with the local tone map (selections 1-6) or HLG -> PQ as K2 above;
  * K4 float32 <= 1e-5 with the colour matrix only; with a whole tail,
    dithered float within 1 code on < 2% of the channels, as K2;
@@ -1527,6 +1529,122 @@ def test_dovi_serving_on_card_matches_cpu(dev):
         assert got.shape == ref.shape == (2, 64, 128)
         d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
         assert d.max() <= 1 and (d > 0).mean() < 0.02
+
+
+def _stage_a_args(rng, kind, dtypes, h, w, batch, blend=False):
+    """A call of K2's Dolby Vision route (stage A of the two-stage form):
+    uint16 luma, read directly or through the blend map; "u16/f32": K1's
+    float32 chroma through the bilinear H upsample, "u16/u16": raw 4:4:4
+    chroma read directly; a scene's runtime curves (several pieces in the
+    variant)."""
+    meta = _dovi_meta(kind)
+    m, c = dovi.build_ycc_to_rgb_cmat(meta)
+    scene = {k: v * np.float32(0.98) for k, v in dovi.pack_curves(meta).items()}
+    mid = dovi.mid_stage(meta, m, c, scene)
+    norm = 1 / 65535.0
+    y = torch.from_numpy(rng.integers(64, 941, (batch, h, w), dtype=np.uint16)
+                         << 6)
+    if dtypes == "u16/u16":
+        u, v = (torch.from_numpy(rng.integers(64, 961, (batch, h, w),
+                                              dtype=np.uint16) << 6)
+                for _ in range(2))
+        kin_c, c_scale = None, norm
+    else:
+        u, v = (torch.from_numpy(rng.uniform(0.06, 0.94, (batch, h // 2, w))
+                                 .astype(np.float32)) for _ in range(2))
+        _, uy = chroma.chroma_upsample_matrices(
+            w // 2, h // 2, 420, C.ChromaScaling.BILINEAR,
+            S.ChromaLocation.MPEG2)
+        kin_c, c_scale = rk.BandedMatrix(uy), None
+    kin_y = (rk.BandedMatrix(chroma.blend_deinterlace_matrix(h),
+                             pre_scale=norm) if blend else None)
+    return ((y.to(dev_of()), u.to(dev_of()), v.to(dev_of()), kin_y, kin_c, h,
+             mid), dict(y_scale=None if blend else norm, c_scale=c_scale))
+
+
+@pytest.mark.parametrize("kind", ["c8", "variant"])
+@pytest.mark.parametrize("dtypes", ["u16/f32", "u16/u16"])
+@pytest.mark.parametrize("h,w,batch,blend,unaligned", [
+    (1080, 960, 2, False, False),   # c8's strip: 34 row tiles
+    (200, 1001, 3, False, False),   # ragged tiles, width not a multiple of 4
+    (96, 130, 2, True, True),       # the blend map; unaligned planes
+    (40, 64, 1, False, False),      # one frame, a last tile of 8 rows
+])
+def test_k2_dovi_route_matches_plain(dev, kind, dtypes, h, w, batch, blend,
+                                     unaligned):
+    """K2's Dolby Vision route against its plain version, one launch: c8's
+    metadata (the light route on uint16/float32) and the variant (the LMS
+    route), the runtime route on uint16/uint16; within 1e-5, 1e-4 with the
+    LMS step (K8's band)."""
+    rng = np.random.default_rng(20)
+    args, kw = _stage_a_args(rng, kind, dtypes, h, w, batch, blend)
+    if unaligned:
+        args = (*(_unaligned(p) for p in args[:3]), *args[3:])
+    before = rk.launches["rows3_tail_dovi"]
+    got = rk.rows3_tail_dovi(*args, **kw)
+    torch.cuda.synchronize()
+    assert rk.launches["rows3_tail_dovi"] == before + 1
+    ref = rk.rows3_tail_dovi_plain(*args, **kw)
+    assert got.shape == ref.shape == (batch, 3, h, w)
+    assert all(got[:, i].is_contiguous() for i in range(3))
+    tol = 1e-5 if kind == "c8" else 1e-4
+    assert (got - ref).abs().max().item() <= tol
+
+
+def test_k2_dovi_route_is_deterministic(dev):
+    rng = np.random.default_rng(21)
+    args, kw = _stage_a_args(rng, "variant", "u16/f32", 256, 512, 2)
+    a = rk.rows3_tail_dovi(*args, **kw)
+    b = rk.rows3_tail_dovi(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_k2_dovi_route_refuses_long_windows(dev):
+    """A map whose windows do not fit shared memory raises before a launch:
+    the route has no long-window form."""
+    rng = np.random.default_rng(22)
+    args, _ = _stage_a_args(rng, "c8", "u16/f32", 32, 64, 1)
+    full = rk.BandedMatrix(np.full((2160, 16), 1 / 2160, np.float32))
+    y = torch.zeros((1, 16, 64), dtype=torch.uint16, device=dev)
+    c = torch.zeros((1, 2160, 64), dtype=torch.float32, device=dev)
+    before = rk.launches["rows3_tail_dovi"]
+    with pytest.raises(ValueError, match="no long-window route"):
+        rk.rows3_tail_dovi(y, c, c, None, full, 16, args[6],
+                           y_scale=1 / 65535.0)
+    assert rk.launches["rows3_tail_dovi"] == before
+
+
+@pytest.mark.parametrize("placed", [False, True])
+def test_dovi_two_stage_serving_on_card_matches_cpu(dev, placed,
+                                                    monkeypatch):
+    """The two-stage form (VRT_TPU_DOVI_MID=0) at a small size over two
+    scenes: K1 ×5 + K2's Dolby Vision route + K2 per call on the card (the
+    offset store for a placed plan), within 1 code of the CPU's plain
+    route, the bars the packed zero."""
+    monkeypatch.setenv("VRT_TPU_DOVI_MID", "0")
+    rng = np.random.default_rng(23)
+    plan = _dovi_plan(256, 128, 128, 64)
+    if placed:
+        plan = P.plan_pipeline(plan.settings, plan.src, P.OutputDescriptor(
+            width=160, height=96, bits=10, video_rect=(16, 8, 144, 72)))
+    fn = P.make_serving_fn(plan, pack_surface=True)
+    planes = _p010(rng, 2, 256, 128)
+    for i in (0, 3):
+        rt = {"dovi_curves": {k: v * np.float32(1 - 0.01 * i) for k, v in
+                              fn.pack_curves(plan.dovi).items()}}
+        rk.reset_launches()
+        got = fn(tuple(p.to(dev) for p in planes), rt)
+        torch.cuda.synchronize()
+        assert rk.launches == only(banded_resize_last_axis=5,
+                                   rows3_tail_dovi=1, rows3_tail=1)
+        ref = fn(planes, rt)
+        assert got.shape == ref.shape
+        d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
+        assert d.max() <= 1 and (d > 0).mean() < 0.02
+        if placed:
+            bars = torch.cat([got[:, :8], got[:, 72:]], dim=1).cpu()
+            assert torch.all(bars == -1073741824)
 
 
 def test_letterbox_on_card_matches_cpu(dev):

@@ -254,7 +254,7 @@ def test_launch_counts_untouched_on_cpu(frames):
     trk.reset_launches()
     run_port(HEADLINE, frames, kernel=True)
     assert trk.launches == {"banded_resize_last_axis": 0, "rows3_tail": 0,
-                            "banded_resize_rows": 0,
+                            "rows3_tail_dovi": 0, "banded_resize_rows": 0,
                             "jinc2_resize_fused": 0, "jinc2_convert_fused": 0,
                             "jinc2_weight_table": 0, "deint3_rows_dual": 0,
                             "rows3_mid": 0, "cols3_tail": 0, "mega3_tail": 0,

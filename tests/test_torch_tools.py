@@ -160,13 +160,16 @@ def test_function_lines_find_k8s_and_k6s_parts(tmp_path):
 
 def test_part_groups_and_cells():
     """K8's c8 route converts 4 pixels a pass (its demangled route), its
-    other routes one; K6 and K5's table routes resolve 4 outputs a pass,
-    K5's per-output routes and the one-output-a-thread K5 it replaced one;
-    the cells are c8's mid pixels, c3's outputs at batch 16 and c3r270's
-    48 planes."""
-    c8 = ("void vrt::k8::rows3_mid_kernel<vrt::k8::MidRoute<(int)0, "
+    other routes one, and so does K2's Dolby Vision route; K6 and K5's
+    table routes resolve 4 outputs a pass, K5's per-output routes and the
+    one-output-a-thread K5 it replaced one; the cells are c8's mid pixels
+    (K8) and source pixels (K2's Dolby Vision route), c3's outputs at
+    batch 16 and c3r270's 48 planes."""
+    c8 = ("void vrt::k8::rows3_mid_kernel<vrt::dovi::MidRoute<(int)0, "
           "(int)1>, unsigned short, float>()").replace("(int)", "")
     lms = c8.replace("MidRoute<0, 1>", "MidRoute<1, -1>")
+    k2 = c8.replace("k8::rows3_mid_kernel", "k2::rows3_tail_dovi_kernel")
+    k2_lms = lms.replace("k8::rows3_mid_kernel", "k2::rows3_tail_dovi_kernel")
     grp = [next((v for k, v in kr.PART_GROUP.items() if k in n), 1)
            for n in (c8, lms, "void jinc2_convert_kernel<unsigned char, 1>",
                      "void (anonymous namespace)::jinc2_resize_kernel<1, 1>"
@@ -174,11 +177,15 @@ def test_part_groups_and_cells():
                      "void (anonymous namespace)::jinc2_resize_kernel<0, 1>"
                      "(const float *)",
                      "(anonymous namespace)::jinc2_resize_kernel("
-                     "const float *, int)")]
-    assert grp == [4, 1, 4, 4, 1, 1]
+                     "const float *, int)", k2, k2_lms)]
+    assert grp == [4, 1, 4, 4, 1, 1, 4, 1]
     assert kr.PART_PIXELS == {"rows3_mid": {"c8": 16 * 2160 * 3840},
+                              "rows3_tail_dovi": {"c8": 16 * 2160 * 3840},
                               "jinc2_convert": {"c3": 16 * 2160 * 3840},
                               "jinc2_resize": {"c3r270": 48 * 2160 * 3840}}
+    assert kr.PARTS["rows3_tail_dovi"]["convert"] == kr.PARTS["rows3_mid"][
+        "mid"]
+    assert kr.PARTS["rows3_mid"]["mid"][0][0] == "dovi_mid.cuh"
     assert set(kr.PARTS["jinc2_resize"]) == {"weights", "resolve",
                                              "quantize"}
 
@@ -195,8 +202,9 @@ def test_default_launches_are_k7s_and_k9s_at_their_cells():
     """K4's and K10's kernels first (test_default_launches_of_k4_and_k10),
     then the long-window kernels (no shared memory), then K7's block at
     c5 (uint16), K9's c8 route at c8 and its other instantiations at c5
-    (float32), K8's at c8, K6's at c3, K5's at c3r270 and K3's on the
-    letterbox's luma map: 256 threads and the shared memory
+    (float32), K8's at c8, K2's Dolby Vision route at c8's stage A, K6's
+    at c3, K5's at c3r270 and K3's on the letterbox's luma map: 256
+    threads and the shared memory
     kernels/deint's, kernels/jinc2's and kernels/resize's formulas give,
     the c8 route matched first."""
     from videorenderer_tpu_torch.kernels import deint as dk
@@ -213,12 +221,14 @@ def test_default_launches_are_k7s_and_k9s_at_their_cells():
         "mega3_tail_long_kernel", kr.K4_C7_ROUTE, "mega3_tail_kernel",
         "wpass_bf16_kernel", "wpass_floor_kernel",
         kr.LONG_WINDOW, "deint3_kernel", kr.C8_ROUTE, "cols3_tail_kernel",
-        *kr.K8_HEAVY_ROUTES, "rows3_mid_kernel", "jinc2_convert_kernel",
-        "jinc2_resize_kernel", "banded_resize_rows_kernel"]
+        *kr.K8_HEAVY_ROUTES, "rows3_mid_kernel", "rows3_tail_dovi_kernel",
+        "jinc2_convert_kernel", "jinc2_resize_kernel",
+        "banded_resize_rows_kernel"]
     assert all(t == 256 for k, (t, _) in got.items()
                if k != "wpass_bf16_kernel")
     assert got["deint3_kernel"][1] == 62080
     assert got["rows3_mid_kernel"][1] == 69984
+    assert got["rows3_tail_dovi_kernel"][1] == 19264
     assert all(got[r][1] == 36672 for r in kr.K8_HEAVY_ROUTES)
     assert got["jinc2_convert_kernel"][1] == 4800
     assert got["jinc2_resize_kernel"][1] == 5760

@@ -61,6 +61,62 @@ def dovi_meta(dovi):
         rgb_to_lms_matrix=np.linalg.inv(dovi.DOVI_LMS2RGB))
 
 
+YCC_TO_RGB = np.array([[1, 0, 1.4746], [1, -0.164553, -0.571353],
+                       [1, 1.8814, 0]])
+
+
+def _kind_curves(dovi, kind: str) -> tuple:
+    """The three reshape curves of ``kind``: c8's identity curves; the
+    variant's (a 2-piece polynomial on Y, polynomial + MMR order 2 on Cb,
+    MMR order 3 on Cr); tests/test_pallas_resize.py's (a 2-piece polynomial
+    luma curve, one order-2 MMR piece on each chroma)."""
+    if kind == "c8":
+        return (dovi.identity_curve(),) * 3
+    if kind == "mmr":
+        coef = np.random.default_rng(19).normal(0, 0.05, (1, 3, 7))
+        mmr = dovi.ReshapeCurve(pivots=(), method=(1,), poly=np.zeros((1, 3)),
+                                mmr_order=(2,), mmr_constant=(0.4,),
+                                mmr_coef=coef)
+        luma = dovi.ReshapeCurve(
+            pivots=(0.5,), method=(0, 0),
+            poly=np.array([[0.02, 0.9, 0.1], [0.0, 1.0, -0.05]]))
+        return luma, mmr, mmr
+    rng = np.random.default_rng(21)
+    y = dovi.ReshapeCurve(
+        pivots=(0.45,), method=(0, 0),
+        poly=np.array([[0.01, 0.95, 0.05], [-0.02, 1.05, -0.03]])
+        + rng.uniform(-0.005, 0.005, (2, 3)))
+    cb_coef = np.zeros((2, 3, 7))
+    cb_coef[1, 0] = [0.0, 0.98, 0.0, 0.02, 0.0, -0.01, 0.0]
+    cb_coef[1, 1] = [0.0, 0.01, 0.0, 0.0, 0.005, 0.0, 0.01]
+    cb = dovi.ReshapeCurve(pivots=(0.5,), method=(0, 1),
+                           poly=np.array([[0.0, 1.0, 0.0], [0.0, 0.0, 0.0]]),
+                           mmr_order=(0, 2), mmr_constant=(0.0, 0.01),
+                           mmr_coef=cb_coef)
+    cr_coef = np.zeros((1, 3, 7))
+    cr_coef[0, 0] = [0.0, 0.0, 0.97, 0.0, 0.02, 0.01, 0.0]
+    cr_coef[0, 1] = [0.0, 0.0, 0.02, 0.01, 0.0, 0.0, 0.0]
+    cr_coef[0, 2] = [0.0, 0.0, 0.005, 0.0, 0.0, 0.0, 0.003]
+    cr = dovi.ReshapeCurve(pivots=(), method=(1,),
+                           poly=np.array([[0.0, 1.0, 0.0]]), mmr_order=(3,),
+                           mmr_constant=(-0.005,), mmr_coef=cr_coef)
+    return y, cb, cr
+
+
+def dovi_kind_meta(m: dict, kind: str):
+    """The DoviMetadata of ``kind`` ("c8", "variant", "mmr") in package
+    ``m`` (:data:`JAX` or :data:`TORCH`): the variant's LMS product has 2%
+    crosstalk, so its LMS step does not fold away."""
+    dovi = m["dovi"]
+    lms = np.linalg.inv(dovi.DOVI_LMS2RGB)
+    if kind == "variant":
+        lms = lms @ (0.94 * np.eye(3) + 0.02)
+    return dovi.DoviMetadata(curves=_kind_curves(dovi, kind),
+                             ycc_to_rgb_matrix=YCC_TO_RGB,
+                             ycc_to_rgb_offset=np.array([0.0, 0.5, 0.5]),
+                             rgb_to_lms_matrix=lms)
+
+
 def dovi_extensions(ext, max_pq=3079, slope_100=1800):
     """c8x's extension blocks: L1 (62, ``max_pq``, 1229) and L2 trims for
     100-, 600- and 1000-nit targets (tests/test_dovi_ext.py's _l2)."""

@@ -91,62 +91,8 @@ extern template VRT_K8_LAUNCH(C8Mid, uint16_t, float);
 extern template VRT_K8_LAUNCH(LmsMid, uint16_t, float);
 
 using namespace vrt::k8;
-
-namespace {
-
-// The compiled route a launch takes: 1 c8's, 2 the LMS route, 0 runtime.
-int route_of(int y_dtype, int c_dtype, const MidParams& P) {
-  if (y_dtype != vrt::dtype_code<uint16_t>() ||
-      c_dtype != vrt::dtype_code<float>()) {
-    return 0;
-  }
-  if (P.lms_identity) {
-    for (int ch = 0; ch < 3; ++ch) {
-      if (P.curve[ch].pieces != 1 || P.curve[ch].kind[0] != 0) return 0;
-    }
-    return 1;
-  }
-  return 2;
-}
-
-const char* const kRouteNames[] = {"runtime", "c8 uint16/float32",
-                                   "lms uint16/float32"};
-
-// The launch's parameters from its host arrays; false for a structure the
-// kernel does not take.
-bool params_of(const void* host_vals, int n_vals, const void* host_structure,
-               int lms_identity, float y_scale, float c_scale,
-               MidParams* P) {
-  if (n_vals > kMaxVals || n_vals < kHead) return false;
-  *P = MidParams{};
-  const float* hv = static_cast<const float*>(host_vals);
-  for (int i = 0; i < n_vals; ++i) P->vals[i] = hv[i];
-  const int* hs = static_cast<const int*>(host_structure);
-  int o = kHead;
-  for (int ch = 0; ch < 3; ++ch) {
-    Curve& C = P->curve[ch];
-    const int* d = hs + ch * (1 + 2 * kMaxPieces);
-    C.pieces = d[0];
-    if (C.pieces < 1 || C.pieces > kMaxPieces) return false;
-    C.piv = o;
-    o += C.pieces - 1;
-    for (int p = 0; p < C.pieces; ++p) {
-      C.kind[p] = d[1 + p];
-      C.order[p] = d[1 + kMaxPieces + p];
-      if (C.kind[p] != 0 && (C.order[p] < 1 || C.order[p] > 3)) return false;
-      C.off[p] = o;
-      o += C.kind[p] == 0 ? 3 : 1 + 7 * C.order[p];
-    }
-  }
-  if (o != n_vals) return false;
-  P->lms_identity = lms_identity;
-  P->n_vals = n_vals;
-  P->y_scale = y_scale;
-  P->c_scale = c_scale;
-  return true;
-}
-
-}  // namespace
+using vrt::dovi::params_of;
+using vrt::dovi::route_of;
 
 // Dtype codes: 0 uint8, 1 uint16, 2 int16, 3 float32.  Per plane class (y,
 // c): its rows, the in map's starts, taps and n_taps, and each tile's first
@@ -223,5 +169,5 @@ extern "C" const char* vrt_rows3_mid_route(int y_dtype, int c_dtype,
                  &P)) {
     return "invalid";
   }
-  return kRouteNames[route_of(y_dtype, c_dtype, P)];
+  return vrt::dovi::kRouteNames[route_of(y_dtype, c_dtype, P)];
 }

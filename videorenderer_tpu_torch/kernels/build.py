@@ -50,6 +50,13 @@ SIGNATURES = {
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _F, _F, _P, _I, _I, _I, _F, _I, _I,
                        _I, _I, _I, _I, _I, _P, _P),
+    # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_out, tile_rows, the
+    # (starts, taps, n_taps, tile_lo, win) of the y and c H maps, y_scale,
+    # c_scale, vals (host), n_vals, structure (host), lms_identity, out,
+    # stream
+    "vrt_rows3_tail_dovi": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
+                            _F, _F, _P, _I, _P, _I, _P, _P),
     # y, y_dtype, u, v, c_dtype, batch, h, wy, wc, w_out, tile_rows, the
     # (starts, taps, n_taps, tile_lo, win) of the y and c W maps, y_scale,
     # c_scale, mats (host), apply_matrix, correction, tonemap,

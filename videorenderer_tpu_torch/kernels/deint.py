@@ -39,10 +39,11 @@ import torch
 
 from ..ops.dovi import MidStage
 from . import build
-from .resize import (DTYPE_CODES, PACK_CODES, SMEM_BUDGET, BandedMatrix,
-                     Epilogue, _check_plane, _h_plain, _kernel_device,
-                     _launch, _no_tf32, _taps_args, check_place, fill_bars,
-                     pack_surface, place_output, route_flags)
+from .resize import (DOVI_CURVES_BYTES, DTYPE_CODES, PACK_CODES,
+                     SMEM_BUDGET, BandedMatrix, Epilogue, _check_plane,
+                     _h_plain, _kernel_device, _launch, _no_tf32, _taps_args,
+                     _up16, check_place, fill_bars, pack_surface,
+                     place_output, route_flags)
 
 K7_TILE_ROWS = 32     # output rows a K7 block makes (its tile_rows)
 K7_TILE_COLS = 64     # columns a K7 block makes (kTileCols)
@@ -262,11 +263,6 @@ K8_TILE_ROWS = 32     # output rows of a tile (tile_rows, csrc/rows3_mid.cuh)
 K8_HEAVY_TILE_ROWS = 16  # ... on the routes other than c8's light one
 K8_TILE_COLS = 64     # columns a K8 block makes (kTileCols)
 K8_TILES_PER_BLOCK = 4  # consecutive tiles a K8 block walks (kTilesPerBlock)
-K8_CURVES_BYTES = 320   # the curve structure K8 copies (3 Curve structs)
-
-
-def _up16(n: int) -> int:
-    return -(-n // 16) * 16
 
 
 def k8_in_windows(mat: BandedMatrix, tile_lo: np.ndarray, win: int,
@@ -306,7 +302,7 @@ def k8_smem_bytes(y_itemsize: int, c_itemsize: int,
             total += _up16(4 * mat.n_taps * win) + _up16(4 * win)
     if my_out is not None:
         total += _up16(4 * my_out.n_taps * tile_rows) + _up16(4 * tile_rows)
-    return total + _up16(4 * n_vals) + K8_CURVES_BYTES
+    return total + _up16(4 * n_vals) + DOVI_CURVES_BYTES
 
 
 def _k8_windows(my_out: BandedMatrix | None, h_mid: int, tile_rows: int

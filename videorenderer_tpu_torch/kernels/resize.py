@@ -7,8 +7,9 @@ packer.
 Replaces ``videorenderer_tpu/kernels/resize_pallas.py``:
 ``banded_resize_last_axis`` (K1, ``csrc/banded_resize.cu``),
 ``banded_resize_rows`` (K3, ``csrc/banded_resize_rows.cu``),
-``rows3_tail`` (K2, ``csrc/rows3_tail.cu``) and ``mega3_tail`` (K4,
-``csrc/mega3_tail.cu``).
+``rows3_tail`` (K2, ``csrc/rows3_tail.cu``; with the Dolby Vision convert
+as its epilogue, :func:`rows3_tail_dovi`, ``csrc/rows3_tail_dovi.cu``) and
+``mega3_tail`` (K4, ``csrc/mega3_tail.cu``).
 
 The Pallas kernels packed each banded (in, out) matrix into 128-aligned
 windows and split the products into bf16 halves, for the TPU's lane tiling
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from . import build
+from ..ops.dovi import MidStage
 from ..ops.hdr10plus import guided_constants
 
 MID16_SCALE = 16384.0
@@ -81,12 +83,14 @@ PACK_CODES = {None: 0, "rgb10a2": 1, "rgba8": 2}
 # bars (int32, as pack_surface returns them)
 PACKED_ZERO = {"rgb10a2": -1073741824, "rgba8": -16777216}
 
-# launches of every kernel of the package, by name (K5 and K6 are
+# launches of every kernel of the package, by name ("rows3_tail_dovi" is
+# K2's Dolby Vision route, csrc/rows3_tail_dovi.cu; K5 and K6 are
 # kernels/jinc2.py's, with K6's weight tables, K7, K8 and K9
 # kernels/deint.py's, K10's two forms kernels/probe.py's)
 launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
-            "banded_resize_rows": 0, "jinc2_resize_fused": 0,
-            "jinc2_convert_fused": 0, "jinc2_weight_table": 0,
+            "rows3_tail_dovi": 0, "banded_resize_rows": 0,
+            "jinc2_resize_fused": 0, "jinc2_convert_fused": 0,
+            "jinc2_weight_table": 0,
             "deint3_rows_dual": 0, "rows3_mid": 0, "cols3_tail": 0,
             "mega3_tail": 0, "wpass_bf16": 0, "wpass_floor": 0}
 
@@ -617,6 +621,42 @@ def _h_plain(p: torch.Tensor, mat: BandedMatrix | None,
     return mat.dense_on(p.device).T @ pf
 
 
+def _check_rows3(y, u, v, my: BandedMatrix | None, mc: BandedMatrix | None,
+                 h_out: int, y_scale: float | None, c_scale: float | None
+                 ) -> None:
+    """K2's checks of its planes and H maps (every route)."""
+    for name, p in (("y", y), ("u", u), ("v", v)):
+        _check_plane(name, p)
+    if u.shape != v.shape or u.dtype != v.dtype:
+        raise ValueError("u and v must share shape and dtype")
+    lead, (hy, w) = y.shape[:-2], y.shape[-2:]
+    hc = u.shape[-2]
+    if u.shape[:-2] != lead or u.shape[-1] != w:
+        raise ValueError(f"y {tuple(y.shape)} and u {tuple(u.shape)} differ "
+                         "in batch or width")
+    for name, mat, h_in, scale in (("y", my, hy, y_scale),
+                                   ("c", mc, hc, c_scale)):
+        if mat is None and h_in != h_out:
+            raise ValueError(f"{name}: no H matrix, so its height {h_in} "
+                             f"must be h_out {h_out}")
+        if mat is not None and (mat.in_size, mat.out_size) != (h_in, h_out):
+            raise ValueError(f"{name}: H matrix {mat.in_size}->"
+                             f"{mat.out_size} for {h_in}->{h_out}")
+        if mat is not None and scale is not None:
+            raise ValueError(f"{name}: a scale goes into the H matrix, not "
+                             "beside it")
+
+
+def _k2_batch(y: torch.Tensor, h_out: int) -> int:
+    """The frames of a K2 launch (its grid's z); ValueError past the grid's
+    limits."""
+    hy, w = y.shape[-2:]
+    batch = y.numel() // (hy * w) if y.numel() else 0
+    if batch == 0 or batch > 65535 or -(-h_out // K2_TILE_ROWS) > 65535:
+        raise ValueError(f"K2 cannot take batch {batch} x {h_out} rows")
+    return batch
+
+
 def rows3_tail_plain(y, u, v, my: BandedMatrix | None,
                      mc: BandedMatrix | None, h_out: int, epilogue: Epilogue,
                      y_scale: float | None = None, c_scale: float | None = None,
@@ -672,33 +712,14 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     epilogue.validate()
     if pack_format not in PACK_CODES:
         raise NotImplementedError(f"K2: pack format {pack_format!r}")
-    for name, p in (("y", y), ("u", u), ("v", v)):
-        _check_plane(name, p)
-    if u.shape != v.shape or u.dtype != v.dtype:
-        raise ValueError("u and v must share shape and dtype")
+    _check_rows3(y, u, v, my, mc, h_out, y_scale, c_scale)
     lead, (hy, w) = y.shape[:-2], y.shape[-2:]
     hc = u.shape[-2]
-    if u.shape[:-2] != lead or u.shape[-1] != w:
-        raise ValueError(f"y {tuple(y.shape)} and u {tuple(u.shape)} differ "
-                         "in batch or width")
-    for name, mat, h_in, scale in (("y", my, hy, y_scale),
-                                   ("c", mc, hc, c_scale)):
-        if mat is None and h_in != h_out:
-            raise ValueError(f"{name}: no H matrix, so its height {h_in} "
-                             f"must be h_out {h_out}")
-        if mat is not None and (mat.in_size, mat.out_size) != (h_in, h_out):
-            raise ValueError(f"{name}: H matrix {mat.in_size}->"
-                             f"{mat.out_size} for {h_in}->{h_out}")
-        if mat is not None and scale is not None:
-            raise ValueError(f"{name}: a scale goes into the H matrix, not "
-                             "beside it")
     surface = check_place(place, h_out, w)
     if not _kernel_device(y, u, v):
         return rows3_tail_plain(y, u, v, my, mc, h_out, epilogue, y_scale,
                                 c_scale, pack_format, place)
-    batch = y.numel() // (hy * w) if y.numel() else 0
-    if batch == 0 or batch > 65535 or -(-h_out // K2_TILE_ROWS) > 65535:
-        raise ValueError(f"K2 cannot take batch {batch} x {h_out} rows")
+    batch = _k2_batch(y, h_out)
     long_window = k2_route(y.element_size(), u.element_size(), my,
                            mc) == "long-window"
     sh, sw = surface[:2]
@@ -755,6 +776,103 @@ def rows3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
     return build.load().vrt_rows3_tail_route(
         *route_flags(y_dtype, c_dtype, epilogue, pack_format),
         int(long_window)).decode()
+
+
+# ---------------------------------------------------------------------------
+# K2's Dolby Vision route: H resize of three planes + the DoVi convert
+# ---------------------------------------------------------------------------
+
+DOVI_CURVES_BYTES = 320   # the curve structure K8 and this route copy
+                          # (3 Curve structs, csrc/dovi_mid.cuh)
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def k2_dovi_smem_bytes(y_itemsize: int, c_itemsize: int,
+                       my: BandedMatrix | None, mc: BandedMatrix | None,
+                       n_vals: int) -> int:
+    """Shared memory of a block of K2's Dolby Vision route (DoviLayout,
+    csrc/rows3_tail_dovi.cuh): K2's windows, taps and starts
+    (:func:`k2_smem_bytes`), then the ``n_vals`` curve scalars and the
+    curve structure, each rounded up to 16 bytes.  The route has no
+    long-window form (stage A's maps, the chroma upsample and the blend
+    map, reach a few rows an output row): a launch over SMEM_BUDGET is
+    refused."""
+    return (_up16(k2_smem_bytes(y_itemsize, c_itemsize, my, mc))
+            + _up16(4 * n_vals) + DOVI_CURVES_BYTES)
+
+
+def rows3_tail_dovi_plain(y, u, v, my: BandedMatrix | None,
+                          mc: BandedMatrix | None, h_out: int,
+                          mid: MidStage, y_scale: float | None = None,
+                          c_scale: float | None = None) -> torch.Tensor:
+    """Plain K2 Dolby Vision route: each plane's H contraction as a dense
+    float32 product (or the direct read times its scale), then
+    :meth:`MidStage.plain`; (..., 3, h_out, W) with each channel
+    contiguous, as the kernel returns it."""
+    _no_tf32()
+    rgb = mid.plain(_h_plain(y, my, y_scale), _h_plain(u, mc, c_scale),
+                    _h_plain(v, mc, c_scale))
+    return torch.stack(rgb).movedim(0, -3)
+
+
+def rows3_tail_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    my: BandedMatrix | None, mc: BandedMatrix | None,
+                    h_out: int, mid: MidStage, y_scale: float | None = None,
+                    c_scale: float | None = None) -> torch.Tensor:
+    """H-resize the (luma, chroma, chroma) planes and run the Dolby Vision
+    convert ``mid`` (reshape, RPU matrix, LMS step) on each output pixel:
+    stage A of the two-stage Dolby Vision form.
+
+    The planes and maps as :func:`rows3_tail` takes them.  Returns the PQ
+    R, G, B as (..., 3, h_out, W) float32 whose channels ``out[..., i, :,
+    :]`` are each contiguous (the three planes of one (3, ..., h_out, W)
+    buffer), so that stage B's K1 reads each without a copy.  The values
+    in ``mid`` (the matrix and a scene's curves) ride the launch by value:
+    a new scene rebuilds nothing.
+
+    Kernel K2's Dolby Vision route (``csrc/rows3_tail_dovi.cu``),
+    replacing ``resize_pallas.rows3_tail`` with the DoVi epilogues
+    ``_epi_a`` and ``_epi_a_rt``.  K2's tiles (staged windows, 4 columns a
+    thread), then the convert of ``csrc/dovi_mid.cuh``, which K8 runs too,
+    on the route K8 would take for these dtypes and ``mid``
+    (:func:`~.deint.rows3_mid_route` names it).  It has no long-window
+    route: a map whose windows do not fit SMEM_BUDGET raises ValueError
+    (:func:`k2_dovi_smem_bytes`), as does a grid past its limits."""
+    _check_rows3(y, u, v, my, mc, h_out, y_scale, c_scale)
+    if not _kernel_device(y, u, v):
+        return rows3_tail_dovi_plain(y, u, v, my, mc, h_out, mid, y_scale,
+                                     c_scale)
+    batch = _k2_batch(y, h_out)
+    lead, (hy, w) = y.shape[:-2], y.shape[-2:]
+    vals, struct = mid.host_values(), mid.host_structure()
+    need = k2_dovi_smem_bytes(y.element_size(), u.element_size(), my, mc,
+                              vals.size)
+    if need > SMEM_BUDGET:
+        raise ValueError(f"K2's Dolby Vision route: the H maps' windows "
+                         f"need {need} bytes of shared memory, over "
+                         f"{SMEM_BUDGET}; it has no long-window route")
+    dev = y.device
+
+    def h_args(mat):    # (starts, taps, T, tile_lo, win); none: read directly
+        if mat is None:
+            return None, None, 0, None, 0
+        lo, win = mat.row_windows(K2_TILE_ROWS, dev)
+        return (*_taps_args(mat, dev), lo.data_ptr(), win)
+
+    out = torch.empty((3,) + lead + (h_out, w), dtype=torch.float32,
+                      device=dev)
+    _launch("rows3_tail_dovi", "vrt_rows3_tail_dovi", dev,
+            y.data_ptr(), DTYPE_CODES[y.dtype], u.data_ptr(), v.data_ptr(),
+            DTYPE_CODES[u.dtype], batch, hy, u.shape[-2], w, h_out,
+            K2_TILE_ROWS, *h_args(my), *h_args(mc),
+            1.0 if y_scale is None else float(y_scale),
+            1.0 if c_scale is None else float(c_scale),
+            vals.ctypes.data, vals.size, struct.ctypes.data,
+            int(mid.lms is None), out.data_ptr())
+    return out.movedim(0, -3)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ both packages.  The model holds its weights in the channel order of
 ``pixel_unshuffle`` / ``pixel_shuffle``; the checkpoint loader permutes
 the JAX order into it once.
 
-Training: :func:`apply_fn` is differentiable (the inference hook
-:func:`enhance_plane_chw` is the same arithmetic under ``no_grad``), and
+Training: :func:`apply_fn` and its channels-first form :func:`apply_fn_chw`
+are differentiable (the inference hook :func:`enhance_plane_chw` is the
+same arithmetic under ``no_grad``), and
 :func:`loss_fn`, :func:`sgd_train_step` and :func:`init_opt_state` are the
 JAX package's; the Adam trainer is :func:`.sr_train.train`.  A model whose
 parameters are float32 (the trainers' master weights) still computes in
@@ -226,6 +227,17 @@ def apply_fn(model: SuperRes, lr_rgb: torch.Tensor) -> torch.Tensor:
     the NHWC form of :func:`enhance_plane_chw` (the JAX ``apply_fn``);
     differentiable in the model's parameters."""
     return _enhance(model, lr_rgb.movedim(-1, -3)).movedim(-3, -1)
+
+
+def apply_fn_chw(model: SuperRes, rgb_chw: torch.Tensor,
+                 row_valid=None) -> torch.Tensor:
+    """(N, 3, H, W) in [0, 1] -> (N, 3, H scale, W scale) float32: the
+    channels-first form of :func:`apply_fn` (the JAX ``apply_fn_chw``,
+    whose tail-conv fold of the base and bias rounds once where this, like
+    ``apply_fn``, rounds twice: within 2 bf16 ulps of it);
+    differentiable in the model's parameters.  ``row_valid``: as
+    :func:`enhance_plane_chw`'s."""
+    return _enhance(model, rgb_chw, row_valid)
 
 
 def charbonnier(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

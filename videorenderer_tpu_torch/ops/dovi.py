@@ -449,6 +449,16 @@ def reshape_from_scalars(sig, scalars: np.ndarray, structure: tuple) -> list:
     return out
 
 
+def reshape_tiles_from_scalars(sig, read, base: int,
+                               structure: tuple) -> list:
+    """The JAX package's name and signature for :func:`reshape_from_scalars`:
+    the coefficients are ``read(base + i)`` for i over the structure's
+    :func:`curve_scalar_count` scalars (host numbers, float32)."""
+    scalars = np.asarray([float(read(base + i)) for i in
+                          range(curve_scalar_count(structure))], np.float32)
+    return reshape_from_scalars(sig, scalars, structure)
+
+
 @dataclass(frozen=True)
 class MidStage:
     """What kernel K8 runs on each pixel at the mid resolution: the

@@ -1,7 +1,7 @@
 """Rotation and flip of rendered frames.
 
 Port of ``videorenderer_tpu.ops.geometry`` (``rotate_flip``, ``rf_decompose``,
-``rotated_size``, ``half_overunder_to_interlace``).  The reference exposes rotation and flip through
+``transform_axis_maps``, ``rotated_size``, ``half_overunder_to_interlace``).  The reference exposes rotation and flip through
 IExFilterConfig ("rotation", "flip", Source/VideoRenderer.cpp:1335-1559) and
 applies them during the resize pass by vertex permutation (FillVertices,
 Source/DX11VideoProcessor.cpp:130-179).  Here they are layout operations on
@@ -11,6 +11,7 @@ pure-transpose case as a transposed store (``kernels/jinc2.py``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,6 +41,26 @@ def rf_decompose(rotation: int, flip: bool) -> tuple[bool, bool, bool]:
     if flip:
         fc = not fc
     return tr, fr, fc
+
+
+def transform_axis_maps(wy, wx, rotation: int, flip: bool):
+    """Transform separable (row map, column map) (in, out) matrices so that
+    running the pipeline on ``rotate_flip``-ed input planes with the
+    returned maps gives ``rotate_flip`` of its output: for ``OUT = Wy^T P
+    Wx`` and an axis permutation or reversal ``T``, ``T(OUT) = Wy'^T T(P)
+    Wx'``, the transpose swapping the maps and each output axis's reversal
+    reversing its map in both indices.  None maps (identity axes) stay
+    None.  Host numpy, as in the JAX package; no path calls it (the port
+    rotates the finished surface, or stores K6's output transposed)."""
+    tr, fr, fc = rf_decompose(rotation, flip)
+    if tr:
+        wy, wx = wx, wy
+    rr = lambda m: None if m is None else np.asarray(m)[::-1, ::-1]
+    if fr:
+        wy = rr(wy)
+    if fc:
+        wx = rr(wx)
+    return wy, wx
 
 
 def rotated_size(width: int, height: int, rotation: int) -> tuple[int, int]:

@@ -19,6 +19,11 @@ Sampling semantics (texel centres at +0.5, D3D CLAMP addressing folded onto
 the edge rows, the corrected 6-tap Lanczos3 with a ``reference_bug_compat``
 switch) are documented at the JAX original.
 
+The same-size stencil form of a narrow-band square map
+(:func:`band_diagonals`, :func:`stencil_resize_last_axis`,
+:func:`stencil_resize_rows`) is the JAX package's, held equal to it; no path
+runs it (the banded kernels take such maps).
+
 The one-pass 2D Jinc2 upscaler (Shaders/examples/resizer_onepass_jinc2.hlsl)
 is not separable: :func:`jinc2_resize` runs it as a direct 4x4-tap resample
 (kernel K5 of ``kernels/jinc2.py``), planned here per axis by
@@ -311,6 +316,76 @@ def resize_plane(x: torch.Tensor, out_h: int, out_w: int,
     if my is not None:
         x = resize_axis(x, _axis_tensor(my, x.device), -2)
     return x
+
+
+# ---------------------------------------------------------------------------
+# diagonal-band stencils: same-size narrow-band maps as shifted products
+# ---------------------------------------------------------------------------
+
+
+def band_diagonals(mat: np.ndarray, max_band: int = 16) -> dict | None:
+    """For a square matrix whose nonzeros hug the diagonal, {offset d:
+    weight vector w_d} with ``w_d[j] = mat[j + d, j]``; None where the band
+    is wider than ``max_band`` or the matrix is not square.  The JAX
+    package's same-size stencil form of a map like the composed chroma
+    upsample x resize at net scale 1; the port's paths run such maps
+    through the banded kernels instead."""
+    n, m = mat.shape
+    if n != m:
+        return None
+    nz_r, nz_c = np.nonzero(mat)
+    if len(nz_r) == 0:
+        return None
+    d = nz_r - nz_c
+    if d.max() - d.min() + 1 > max_band:
+        return None
+    diags = {}
+    for off in range(int(d.min()), int(d.max()) + 1):
+        w = np.zeros(m, mat.dtype)
+        idx = np.arange(max(0, -off), min(m, n - off))
+        w[idx] = mat[idx + off, idx]
+        if np.any(w):
+            diags[off] = w
+    return diags
+
+
+def _shifted(xf: torch.Tensor, off: int, axis: int) -> torch.Tensor:
+    """``xf`` moved by ``off`` along ``axis`` (-1 or -2): element j holds
+    x[j + off], zero past the edge."""
+    n = xf.shape[axis]
+    out = torch.zeros_like(xf)
+    if off >= 0:
+        out.narrow(axis, 0, n - off).copy_(xf.narrow(axis, off, n - off))
+    else:
+        out.narrow(axis, -off, n + off).copy_(xf.narrow(axis, 0, n + off))
+    return out
+
+
+def stencil_resize_last_axis(x: torch.Tensor, diags: dict,
+                             dtype=torch.float32) -> torch.Tensor:
+    """``out[..., j] = sum_d x[..., j + d] * w_d[j]`` (zero beyond the
+    edge: the matrix already folded the clamp into its edge weights), the
+    terms summed in the order of ``diags``."""
+    xf = x.to(dtype)
+    out = None
+    for off, w in diags.items():
+        term = _shifted(xf, off, -1) * torch.from_numpy(
+            np.asarray(w)).to(dtype=dtype, device=x.device)
+        out = term if out is None else out + term
+    return out
+
+
+def stencil_resize_rows(x: torch.Tensor, diags: dict,
+                        dtype=torch.float32) -> torch.Tensor:
+    """The row-axis (-2) form of :func:`stencil_resize_last_axis`."""
+    xf = x.to(dtype)
+    out = None
+    for off, w in diags.items():
+        wv = torch.from_numpy(np.asarray(w)).to(dtype=dtype,
+                                                device=x.device)[:, None]
+        term = _shifted(xf, off, -2) * wv
+        out = term if out is None else out + term
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,9 @@ resize and the tail), H first.
 
 Dolby Vision (``SourceDescriptor.dovi``) splits the fused path at the
 nonlinear reshape (:func:`_make_dovi_fused_fn`): K1 on the chroma, K8 (the
-H maps around the reshape, RPU matrix and LMS step), K9.
+H maps around the reshape, RPU matrix and LMS step), K9; with
+``VRT_TPU_DOVI_MID=0`` the two-stage form, K1 on the chroma and K2's Dolby
+Vision route at source resolution, then K1 ×3 and K2.
 An HDR passthrough with ``Settings.hdr_local_tone_mapping`` (c7: 4K HDR10
 to a 600-nit display, BT.2390) runs the local tone map inside K2's tail,
 its five scalars per launch; HDR10+ metadata (``SourceDescriptor.hdr10plus``)
@@ -59,6 +61,7 @@ corrections at source resolution, inside K2's convert on a card.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -990,6 +993,14 @@ def _make_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     return kernel_fn
 
 
+def dovi_mid_chain() -> bool:
+    """Whether a Dolby Vision plan on the card takes the one-intermediate
+    chain (K1 ×2 + K8 + K9; the default) or, with ``VRT_TPU_DOVI_MID=0``
+    in the environment, the two-stage form (K1 ×5 + K2 ×2): the JAX
+    package's switch, read at every call."""
+    return os.environ.get("VRT_TPU_DOVI_MID", "1") != "0"
+
+
 def _place_of(dst: OutputDescriptor) -> tuple | None:
     """The tail kernels' ``place`` for a placed output: (surface height,
     surface width, the rect's top, its left); None without a rect."""
@@ -997,6 +1008,40 @@ def _place_of(dst: OutputDescriptor) -> tuple | None:
         return None
     l, t, _, _ = dst.video_rect
     return dst.height, dst.width, t, l
+
+
+def _dovi_source_maps(plan: PipelinePlan) -> tuple:
+    """The source-side maps of a Dolby Vision plan, dense: (the chroma's W
+    and H upsample, the luma's blend map of an interlaced 4:2:0 source with
+    ``deint_blend``, each (in, out) or None; the normalisation of the
+    plane codes)."""
+    s, src, info = plan.settings, plan.src, plan.info
+    src_w, src_h, _, _ = _axis_choices(s, src, plan.src_rect, plan.dst)
+    dw, dh = info.chroma_div
+    ux, uy = chroma_ops.chroma_upsample_matrices(
+        src_w // dw, src_h // dh, info.subsampling, s.chroma_scaling,
+        src.chroma_location)
+    by = (chroma_ops.blend_deinterlace_matrix(src_h)
+          if s.deint_blend and src.interlaced and info.subsampling == 420
+          else None)
+    return ux, uy, by, 1.0 / (2.0 ** info.plane_bits - 1.0)
+
+
+def dovi_kernel_maps(plan: PipelinePlan) -> tuple:
+    """The kernel route's source-side maps of a Dolby Vision plan: (K1's
+    chroma W map, the luma's and the chroma's H maps into the source rows,
+    which K8 and K2's Dolby Vision route take, the luma's and the chroma's
+    scale), maps as :class:`~.kernels.resize.BandedMatrix` or None.  The
+    normalisation goes into the first map a plane meets (K1's chroma W
+    taps, the luma's blend map), or scales a plane read directly, as the
+    JAX package folds ``y_scale`` and ``c_scale`` into its maps."""
+    ux, uy, by, norm = _dovi_source_maps(plan)
+    return (None if ux is None else rk.BandedMatrix(ux, pre_scale=norm),
+            None if by is None else rk.BandedMatrix(by, pre_scale=norm),
+            None if uy is None else rk.BandedMatrix(
+                uy, pre_scale=norm if ux is None else None),
+            None if by is not None else norm,
+            None if uy is not None or ux is not None else norm)
 
 
 def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
@@ -1016,12 +1061,21 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     and the pack (or, for an HDR output, the local tone map), into the
     surface at the rect's origin for a placed output: K1 ×2 + K8 + K9, and
     the source-resolution RGB never reaches device memory.  As in the JAX
-    package, K9 takes the tone map's float32 serving scalars when ``rt``
-    holds "hdr" or "l2_trims", and the static ones otherwise.  (The JAX package runs a placed plan through its
-    two-stage form; the outputs agree within its kernel route's band.)  Otherwise (the CPU, or ``use_accel_backend``
-    off) the plain route: the chroma upsample as dense products, the
-    convert at source resolution, the resize of R, G and B, the torch
-    tail."""
+    package, the tail takes the tone map's float32 serving scalars when
+    ``rt`` holds "hdr" or "l2_trims", and the static ones otherwise.
+
+    ``VRT_TPU_DOVI_MID=0`` in the environment, read at every call as the
+    JAX package reads it, selects the two-stage form on the card instead:
+    after K1's chroma W upsample, K2's Dolby Vision route
+    (:func:`~.kernels.resize.rows3_tail_dovi`) runs the H upsample and the
+    convert at source resolution into float32 PQ R, G, B (stage A); then
+    K1 resizes each along W and K2 resizes H and runs the tail without the
+    colour matrix (stage B), into the rect of a placed output with K2's
+    offset store: K1 ×5 + K2 ×2 (K1 ×2 + K8 + K9 with the default "1").
+    (The JAX package runs a placed plan's stage B in XLA; the function is
+    the same.)  Otherwise (the CPU, or ``use_accel_backend`` off) the
+    plain route: the chroma upsample as dense products, the convert at
+    source resolution, the resize of R, G and B, the torch tail."""
     s, src, dst, info = plan.settings, plan.src, plan.dst, plan.info
     use_kernels = s.use_accel_backend and _vp_format_allowed(s, info)
 
@@ -1029,26 +1083,10 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
     vid_w, vid_h = dst.video_size
     wx = scale_ops.build_axis_matrix(cx, src_w, vid_w)
     wy = scale_ops.build_axis_matrix(cy, src_h, vid_h)
-    dw, dh = info.chroma_div
-    ux, uy = chroma_ops.chroma_upsample_matrices(
-        src_w // dw, src_h // dh, info.subsampling, s.chroma_scaling,
-        src.chroma_location)
-    by = (chroma_ops.blend_deinterlace_matrix(src_h)
-          if s.deint_blend and src.interlaced and info.subsampling == 420
-          else None)
-    norm = 1.0 / (2.0 ** info.plane_bits - 1.0)
+    ux, uy, by, norm = _dovi_source_maps(plan)
     structure = dovi_ops.curve_structure(plan.dovi)
     static_mid = dovi_ops.mid_stage(plan.dovi, plan.cmat_m, plan.cmat_c)
-
-    # the kernel route's maps: the normalisation goes into the first map a
-    # plane meets (K1's chroma W taps, the luma's blend map), or scales a
-    # plane K8 reads directly
-    kw_c = None if ux is None else rk.BandedMatrix(ux, pre_scale=norm)
-    kin_y = None if by is None else rk.BandedMatrix(by, pre_scale=norm)
-    kin_c = None if uy is None else rk.BandedMatrix(
-        uy, pre_scale=norm if ux is None else None)
-    y_scale = None if by is not None else norm
-    c_scale = None if uy is not None or ux is not None else norm
+    kw_c, kin_y, kin_c, y_scale, c_scale = dovi_kernel_maps(plan)
     k_out = None if wy is None else rk.BandedMatrix(wy)
     kx = None if wx is None else rk.BandedMatrix(wx)
     epi_rgb = _make_tail_epilogue(plan, with_cmat=False)
@@ -1063,12 +1101,21 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
             v = rk.banded_resize_last_axis(v, kw_c)
         mid = static_mid if not rt else dovi_ops.mid_stage(
             plan.dovi, *_rt_cmat(plan, rt.get("cmat")), rt.get("dovi_curves"))
-        r, g, b = dk.rows3_mid(y, u, v, kin_y, kin_c, src_h, mid, k_out,
-                               vid_h, y_scale=y_scale, c_scale=c_scale)
         epi = epi_rgb if not rt.keys() & {"hdr", "l2_trims"} else \
             _make_tail_epilogue(plan, with_cmat=False,
                                 hdr=rt.get("hdr") or {},
                                 trims=_resolve_rt_trims(plan, rt))
+        if not dovi_mid_chain():
+            # the two-stage form: stage A at source resolution, stage B
+            rgb = rk.rows3_tail_dovi(y, u, v, kin_y, kin_c, src_h, mid,
+                                     y_scale=y_scale, c_scale=c_scale)
+            chs = [rgb[..., i, :, :] for i in range(3)]
+            if kx is not None:
+                chs = [rk.banded_resize_last_axis(ch, kx) for ch in chs]
+            return rk.rows3_tail(*chs, k_out, k_out, vid_h, epi,
+                                 pack_format=pack_format, place=place)
+        r, g, b = dk.rows3_mid(y, u, v, kin_y, kin_c, src_h, mid, k_out,
+                               vid_h, y_scale=y_scale, c_scale=c_scale)
         return dk.cols3_tail(r, g, b, kx, kx, vid_w, epi,
                              pack_format=pack_format, place=place)
 
@@ -1298,8 +1345,9 @@ def make_serving_fn(plan: PipelinePlan, pack_surface: bool = False):
     An unknown key, or one whose stage the plan lacks, raises with the
     allowed set.  Routes: a fusable plan takes :func:`_make_fused_fn`
     (K2 takes the matrix, the tone map's scalars and the trims per
-    launch), a Dolby Vision plan :func:`_make_dovi_fused_fn` (K8 takes
-    matrix and curves per launch, K9 the tone map's scalars and trims),
+    launch), a Dolby Vision plan :func:`_make_dovi_fused_fn` (K8, or in the
+    two-stage form K2's Dolby Vision route, takes matrix and curves per
+    launch, K9 or K2 the tone map's scalars and trims),
     anything else :func:`_make_staged_fn` (its torch convert takes the
     runtime values).
 
