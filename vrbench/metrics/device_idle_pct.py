@@ -1,0 +1,8 @@
+"""Percent of the traced window in which no operation ran on the device:
+100 less the union of the device's operation intervals over the window."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0.0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
