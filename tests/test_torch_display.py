@@ -1,12 +1,11 @@
 """videorenderer_tpu_torch.display, .proppage and .utils.trace against the
 JAX package: the HDR-toggle state machine and the property page's model
 driven through the same operation sequences in both packages, with equal
-states (Settings compared as dicts) after every step; the tracing helpers
-on the CPU."""
+states (Settings compared as dicts) after every step; the device trace's
+export on the CPU."""
 
 import dataclasses
 import json
-import logging
 
 import numpy as np
 import pytest
@@ -19,7 +18,6 @@ import videorenderer_tpu.proppage as jpp
 import videorenderer_tpu_torch.config as tconfig
 import videorenderer_tpu_torch.display as tdisplay
 import videorenderer_tpu_torch.proppage as tpp
-from videorenderer_tpu_torch.stats import RenderStats
 from videorenderer_tpu_torch.utils import trace
 
 
@@ -139,25 +137,24 @@ def test_info_page_model():
         ["(info unavailable: no device)"]
 
 
-def test_stage_timer_and_dlog(caplog):
-    rs = RenderStats()
-    with trace.stage_timer(rs, "paint_s"):
-        sum(range(1000))
-    assert rs.paint_s > 0
-    with caplog.at_level(logging.DEBUG, logger="videorenderer_tpu"):
-        trace.dlog("frame %d", 7)
-    assert "frame 7" in caplog.text
-    assert trace.log.name == "videorenderer_tpu"
-
-
 def test_device_trace_and_annotate(tmp_path):
-    """A Chrome trace of the region, with the annotated range in it (CPU
-    activity here; CUDA activity and NVTX ranges are added on a card)."""
+    """A Chrome trace of the region with the program's span in it, on its
+    own track and around the CPU operation it enclosed (CPU activity here;
+    CUDA activity is added on a card), and the logger both packages
+    share."""
     with trace.device_trace(str(tmp_path)) as prof:
-        with trace.annotate("vrt_region"):
+        with trace.span("vrt.region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     files = list(tmp_path.glob("trace_*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
-    assert any(e.get("name") == "vrt_region" for e in events)
-    assert any(e.key == "vrt_region" for e in prof.key_averages())
+    region = [e for e in events if e.get("name") == "vrt.region"]
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert len(region) == 1 and mm
+    r = region[0]
+    assert r["ts"] <= mm[0]["ts"] and \
+        mm[0]["ts"] + mm[0]["dur"] <= r["ts"] + r["dur"]
+    # the span is the program's, not a profiler range
+    assert not any(e.key.startswith("vrt.") for e in prof.key_averages())
+    assert [s.name for s in trace.spans()] == ["vrt.region"]
+    assert trace.log.name == "videorenderer_tpu"

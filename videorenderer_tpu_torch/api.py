@@ -53,6 +53,7 @@ from .pipeline import (HDR10Metadata, OutputDescriptor, SourceDescriptor,
                        output_signal_info, plan_pipeline, surface_pack_format)
 from .runner import DeinterlaceSession
 from .stats import Metrics, precise_tick
+from .utils import trace
 
 # the CUDA runtime's own error (a lost or faulted device), the one error the
 # device-lost retry catches; a kernel's build error or a wrapper's refusal
@@ -586,6 +587,7 @@ class VideoRenderer:
                         8, 8)
         return out
 
+    @trace.spanned(trace.CALL)
     def process_frame(self, frame_or_planes, time: float | None = None):
         """ProcessSample analogue. Returns the processed (…,3,H,W) tensor —
         or, when settings-driven VP deinterlacing is active on an interlaced

@@ -42,8 +42,8 @@ from . import build
 from .resize import (DOVI_CURVES_BYTES, DTYPE_CODES, PACK_CODES,
                      SMEM_BUDGET, BandedMatrix, Epilogue, _check_plane,
                      _h_plain, _kernel_device, _launch, _no_tf32, _taps_args,
-                     _up16, check_place, fill_bars, pack_surface,
-                     place_output, route_flags)
+                     _up16, check_place, fill_bars, kernel_span,
+                     pack_surface, place_output, route_flags)
 
 K7_TILE_ROWS = 32     # output rows a K7 block makes (its tile_rows)
 K7_TILE_COLS = 64     # columns a K7 block makes (kTileCols)
@@ -173,6 +173,7 @@ def deint3_rows_dual_plain(prev, cur, nxt, my_y: BandedMatrix,
     return tuple(outs)
 
 
+@kernel_span("deint3_rows_dual")
 def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
                      h_out: int, thr: float, top_field_first: bool = True):
     """Deinterlace both fields of the (prev, cur, next) window and resize
@@ -372,6 +373,7 @@ def rows3_mid_plain(y, u, v, my_in_y: BandedMatrix | None,
     return tuple(_h_plain(c, my_out, None) for c in rgb)
 
 
+@kernel_span("rows3_mid")
 def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
               my_in_y: BandedMatrix | None, my_in_c: BandedMatrix | None,
               h_mid: int, mid: MidStage, my_out: BandedMatrix | None,
@@ -531,6 +533,7 @@ def cols3_tail_plain(y, u, v, mx_y: BandedMatrix | None,
     return place_output(out, place, pack_format)
 
 
+@kernel_span("cols3_tail")
 def cols3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                mx_y: BandedMatrix | None, mx_c: BandedMatrix | None,
                w_out: int, epilogue: Epilogue, y_scale: float | None = None,

@@ -228,6 +228,7 @@ def jinc2_weight_table_plain(dy: torch.Tensor, dx: torch.Tensor
     return torch.stack(cols + [wsum, zero, zero, zero], dim=-1)
 
 
+@rk.kernel_span("jinc2_weight_table")
 def jinc2_weight_table(dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
     """The weight table of the class vectors ``dy`` (4, n_row_cls) and
     ``dx`` (4, n_col_cls), float32: (n_row_cls, n_col_cls, TABLE_ENTRY).
@@ -364,6 +365,7 @@ def k5_route(h: int, w: int, out_h: int, out_w: int,
     return weight_route(fh, w, foh, out_w), taps
 
 
+@rk.kernel_span("jinc2_resize_fused")
 def jinc2_resize_fused(x: torch.Tensor, out_h: int, out_w: int,
                        epilogue: Jinc2Epilogue | None = None,
                        rows: Jinc2Rows | None = None) -> torch.Tensor:
@@ -468,6 +470,7 @@ def jinc2_convert_fused_plain(y, u, v, comp_y: rk.BandedMatrix | None,
     return out.transpose(-2, -1).contiguous() if out_transpose else out
 
 
+@rk.kernel_span("jinc2_convert_fused")
 def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                         comp_y: rk.BandedMatrix | None,
                         comp_x: rk.BandedMatrix | None, cmat: np.ndarray,

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .resize import (K1_SPAN, BandedMatrix, _kernel_device, _launch,
-                     _no_tf32, k1_rows, k1_smem_bytes)
+                     _no_tf32, k1_rows, k1_smem_bytes, kernel_span)
 
 FLOOR_MAX_WIDTH = 16384   # kTileElems: the widest row a floor block stages
 
@@ -59,6 +59,7 @@ def wpass_bf16_plain(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
     return _bf16(x) @ _bf16(mat.dense_on(x.device))
 
 
+@kernel_span("wpass_bf16")
 def wpass_bf16(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
     """W pass of raw uint16 codes ``x`` (..., W_in) by ``mat`` (its
     normalisation folded in) with both operands rounded to bf16 and the sum
@@ -105,6 +106,7 @@ def wpass_floor_plain(x: torch.Tensor, w_out: int) -> torch.Tensor:
     return _bf16(x[..., :w_out])
 
 
+@kernel_span("wpass_floor")
 def wpass_floor(x: torch.Tensor, w_out: int) -> torch.Tensor:
     """float32(bf16(x)) of the first ``w_out`` columns of raw uint16 codes
     ``x`` (..., W_in): (..., w_out) float32, bit-equal to the Pallas

@@ -33,7 +33,9 @@ memory.  What bounds each is in their docstrings and in
 ``PERF.md`` section 6.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
-launches the kernel or raises.  Each launch adds one to ``launches[name]``.
+launches the kernel or raises.  Each launch adds one to ``launches[name]``,
+and each call of a wrapper is the span ``vrt.kernel.<name>``
+(:func:`kernel_span`, ``utils/trace``) from its entry to its return.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 from . import build
 from ..ops.dovi import MidStage
 from ..ops.hdr10plus import guided_constants
+from ..utils import trace
 
 MID16_SCALE = 16384.0
 """W-pass intermediates may be int16 codes round(value * 16384) ("mid16"):
@@ -98,6 +101,14 @@ launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def kernel_span(name: str):
+    """Decorator of a kernel wrapper: each call inside the span
+    ``vrt.kernel.<name>``, ``name`` a key of :data:`launches`."""
+    if name not in launches:
+        raise KeyError(f"{name!r} is not a kernel of the launch counter")
+    return trace.spanned("vrt.kernel." + name)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +177,8 @@ class BandedMatrix:
         device = torch.device(device)
         t = self._on.get((key, device))
         if t is None:
-            t = torch.from_numpy(arr).to(device)
+            with trace.span("vrt.build.upload"):
+                t = torch.from_numpy(arr).to(device)
             self._on[(key, device)] = t
         return t
 
@@ -186,13 +198,14 @@ class BandedMatrix:
         of the widest window."""
         key = f"windows{tile}"
         if key not in self._windows:
-            hi = np.minimum(self.starts + self.n_taps, self.in_size)
-            lo_t, hi_t = [], []
-            for j in range(0, self.out_size, tile):
-                lo_t.append(int(self.starts[j:j + tile].min()))
-                hi_t.append(int(hi[j:j + tile].max()))
-            self._windows[key] = (np.asarray(lo_t, np.int32),
-                                  max(h - l for l, h in zip(lo_t, hi_t)))
+            with trace.span("vrt.build.windows"):
+                hi = np.minimum(self.starts + self.n_taps, self.in_size)
+                lo_t, hi_t = [], []
+                for j in range(0, self.out_size, tile):
+                    lo_t.append(int(self.starts[j:j + tile].min()))
+                    hi_t.append(int(hi[j:j + tile].max()))
+                self._windows[key] = (np.asarray(lo_t, np.int32),
+                                      max(h - l for l, h in zip(lo_t, hi_t)))
         lo, win = self._windows[key]
         return (lo if device is None else self._get(key, lo, device)), win
 
@@ -339,6 +352,7 @@ def banded_resize_last_axis_plain(x: torch.Tensor, mat: BandedMatrix,
     return _quant_mid16(out) if mid16 else out
 
 
+@kernel_span("banded_resize_last_axis")
 def banded_resize_last_axis(x: torch.Tensor, mat: BandedMatrix,
                             mid16: bool = False) -> torch.Tensor:
     """Resize ``x`` (..., W_in) — raw uint8/uint16 planes, int16 or float32
@@ -398,6 +412,7 @@ def banded_resize_rows_plain(x: torch.Tensor, mat: BandedMatrix
     return _h_plain(x, mat, None)
 
 
+@kernel_span("banded_resize_rows")
 def banded_resize_rows(x: torch.Tensor, mat: BandedMatrix) -> torch.Tensor:
     """Resize ``x`` (..., H_in, W) — raw uint8/uint16 planes, int16 or
     float32 — along its second-to-last axis by ``mat`` (whose normalisation
@@ -672,6 +687,7 @@ def rows3_tail_plain(y, u, v, my: BandedMatrix | None,
     return place_output(out, place, pack_format)
 
 
+@kernel_span("rows3_tail")
 def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                my: BandedMatrix | None, mc: BandedMatrix | None, h_out: int,
                epilogue: Epilogue, y_scale: float | None = None,
@@ -818,6 +834,7 @@ def rows3_tail_dovi_plain(y, u, v, my: BandedMatrix | None,
     return torch.stack(rgb).movedim(0, -3)
 
 
+@kernel_span("rows3_tail_dovi")
 def rows3_tail_dovi(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                     my: BandedMatrix | None, mc: BandedMatrix | None,
                     h_out: int, mid: MidStage, y_scale: float | None = None,
@@ -1002,6 +1019,7 @@ def mega3_tail_plain(y, u, v, mx_y: BandedMatrix | None,
                           _mega_plane_plain(v, mx_c, my_c, norm))
 
 
+@kernel_span("mega3_tail")
 def mega3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                mx_y: BandedMatrix | None, mx_c: BandedMatrix | None,
                my_y: BandedMatrix | None, my_c: BandedMatrix | None,

@@ -85,6 +85,7 @@ from .ops import hdr10plus as h10p_ops
 from .ops import scale as scale_ops
 from .ops import tonemap as tonemap_ops
 from .ops import transfer as transfer_ops
+from .utils import trace
 
 
 @dataclass(frozen=True)
@@ -669,12 +670,14 @@ def _tonemap_scalars(plan: PipelinePlan, hdr=None) -> np.ndarray | None:
     ``_pack_rt_all``)."""
     if not plan.local_tonemap:
         return None
-    if hdr is None:
-        return tonemap_ops.local_tonemap_static_scalars(plan.tonemap_type,
-                                                        plan.tonemap_params)
-    merged = {k: getattr(plan.tonemap_params, k) for k in tonemap_ops.HDR_KEYS}
-    merged.update(tonemap_ops.hdr_values(hdr))
-    return tonemap_ops.local_tonemap_rt_scalars(plan.tonemap_type, merged)
+    with trace.span("vrt.tonemap_scalars"):
+        if hdr is None:
+            return tonemap_ops.local_tonemap_static_scalars(
+                plan.tonemap_type, plan.tonemap_params)
+        merged = {k: getattr(plan.tonemap_params, k)
+                  for k in tonemap_ops.HDR_KEYS}
+        merged.update(tonemap_ops.hdr_values(hdr))
+        return tonemap_ops.local_tonemap_rt_scalars(plan.tonemap_type, merged)
 
 
 def _local_tonemap(plan: PipelinePlan, rgb: torch.Tensor,
@@ -745,6 +748,7 @@ def _kernel_trims(plan: PipelinePlan, trims: tonemap_ops.DoviTrims | None,
     return None, False
 
 
+@trace.spanned("vrt.build.epilogue")
 def _make_tail_epilogue(plan: PipelinePlan, with_cmat: bool = True,
                         cmat: tuple | None = None,
                         hdr: dict | None = None,
@@ -1099,8 +1103,13 @@ def _make_dovi_fused_fn(plan: PipelinePlan, pack_format: str | None = None):
         if kw_c is not None:
             u = rk.banded_resize_last_axis(u, kw_c)
             v = rk.banded_resize_last_axis(v, kw_c)
-        mid = static_mid if not rt else dovi_ops.mid_stage(
-            plan.dovi, *_rt_cmat(plan, rt.get("cmat")), rt.get("dovi_curves"))
+        if not rt:
+            mid = static_mid
+        else:
+            with trace.span("vrt.build.mid_stage"):
+                mid = dovi_ops.mid_stage(plan.dovi,
+                                         *_rt_cmat(plan, rt.get("cmat")),
+                                         rt.get("dovi_curves"))
         epi = epi_rgb if not rt.keys() & {"hdr", "l2_trims"} else \
             _make_tail_epilogue(plan, with_cmat=False,
                                 hdr=rt.get("hdr") or {},
@@ -1367,6 +1376,7 @@ def make_serving_fn(plan: PipelinePlan, pack_surface: bool = False):
     else:
         inner = _make_staged_fn(plan, fmt, 0, False)
 
+    @trace.spanned(trace.CALL)
     def checked(planes, rt=None):
         rt = rt or {}
         bad = set(rt) - allowed
@@ -1380,8 +1390,10 @@ def make_serving_fn(plan: PipelinePlan, pack_surface: bool = False):
     checked.allowed_rt_keys = frozenset(allowed)
     checked.dovi_structure = structure
     if structure is not None:
-        checked.pack_curves = (
-            lambda meta: dovi_ops.pack_curves(meta, like=structure))
+        @trace.spanned("vrt.pack_curves")
+        def pack_curves(meta):
+            return dovi_ops.pack_curves(meta, like=structure)
+        checked.pack_curves = pack_curves
     return checked
 
 
@@ -1525,6 +1537,7 @@ class VideoProcessor:
         self.pack_surface = pack_surface
         self._fn = make_frame_fn(self.plan, pack_surface=pack_surface)
 
+    @trace.spanned(trace.CALL)
     def process(self, planes) -> torch.Tensor:
         """planes: sequence of numpy arrays or tensors in canonical plane
         order (Y, U, V or R, G, B)."""
@@ -1535,6 +1548,7 @@ class VideoProcessor:
         """Process an unpacked frame (an object with ``.planes``)."""
         return self.process(frame.planes)
 
+    @trace.spanned(trace.CALL)
     def process_packed(self, buf) -> torch.Tensor:
         """Ship the PACKED frame bytes to ``self.device`` as one tensor (the
         smallest transfer) and unpack them there
