@@ -1396,7 +1396,7 @@ def offset_tail_phases(dev) -> dict:
     routes8 = {"k8": "/".join(map(str, dk.k8_route(
                    a8[0].element_size(), a8[1].element_size(), a8[3], a8[4],
                    a8[7], a8[5], vals,
-                   dk.k8_light_route(a8[0].dtype, a8[1].dtype, a8[6])))),
+                   dk.k8_compiled_route(a8[0].dtype, a8[1].dtype, a8[6])))),
                "k9": dk.k9_route(4, 4, a9[3], a9[4])}
     err("k8", max((g - r).abs().max().item() for g, r in zip(
         got8, dk.rows3_mid_plain(*a8, **kw8))))

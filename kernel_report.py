@@ -129,26 +129,50 @@ K4_C7_ROUTE = "mega3_tail_kernel<vrt::Route<1, 0, 5, 1, 0,"
 _JINC2_PARTS = {"weights": (("jinc2.cuh",), ("jinc2_weight", "jinc2_weights")),
                 "resolve": (("jinc2.cuh",), ("jinc2_resolve",))}
 _DOVI_PART = (("dovi_mid.cuh", "rows3_mid.cuh", "rows3_mid.cu"),
-              ("dovi_mid", "reshape", "mmr"))
-PARTS = {"rows3_mid": {"mid": _DOVI_PART},
-         "rows3_tail_dovi": {"convert": _DOVI_PART},
+              ("dovi_mid", "dovi_mid_group", "reshape", "reshape_group",
+               "mmr", "mmr_fixed", "lms_step", "lms_lanes"))
+# the convert's own parts (dovi_mid.cuh): the reshape; the RPU matrix and
+# the LMS step (the PQ EOTFs, the LMS matrix, the PQ OETFs), as the spans
+# from a line that matches the first pattern to the next that matches the
+# second; and the divisions, every instruction inlined from ExactDiv's or
+# CheckedDiv's operator (tail.cuh)
+_DOVI_PARTS = {
+    "reshape": (("dovi_mid.cuh",), ("reshape", "reshape_group", "mmr",
+                                    "mmr_fixed")),
+    "rpu": (("dovi_mid.cuh",), ((r"P\.vals \+ 4 \* i\b", r"m\[3\]\)"),)),
+    "lms": (("dovi_mid.cuh",), ((r"pq_to_linear\(",
+                                 r"fmaxf\(vrt::dot3\(m\[0\], m\[1\], m\[2\], "
+                                 r"x\["),)),
+    "divisions": (("tail.cuh",), ((r"^struct ExactDiv\b", r"^};"),
+                                  (r"^struct CheckedDiv\b", r"^};")))}
+PARTS = {"rows3_mid": {"mid": _DOVI_PART, **_DOVI_PARTS},
+         "rows3_tail_dovi": {"convert": _DOVI_PART, **_DOVI_PARTS},
          "jinc2_convert": _JINC2_PARTS,
          "jinc2_resize": {**_JINC2_PARTS,
                           "quantize": (("epilogue.cuh",),
                                        ("quantize", "bayer", "clip01"))}}
+# K8's staged kernel on its LMS route, which converts 4 adjacent columns a
+# thread side by side (rows3_mid.cuh: LmsMid; --part-group
+# "<this>=1" for a tree that converts one pixel a thread there)
+K8_LMS_ROUTE = "rows3_mid_kernel<vrt::dovi::MidRoute<1, -1>"
 # the pixels of each part's cell, and the pixels a thread converts in one
 # pass (by name substring; K8's c8 route as the demangled name spells it,
 # rows3_mid.cuh: C8Mid; K5's table routes, kWeights 1, unroll their 4
 # outputs, its per-output routes and the one-output-a-thread kernel it
 # replaced make one at a time; 1 where none matches)
-PART_PIXELS = {"rows3_mid": {"c8": 16 * 2160 * 3840},
+PART_PIXELS = {"rows3_mid": {"c8": 16 * 2160 * 3840,
+                             # p5's converts a call: 16-row tiles convert
+                             # 34 mid rows for 32
+                             "p5": 16 * 2160 * 3840 * 34 // 32},
                "rows3_tail_dovi": {"c8": 16 * 2160 * 3840},
                "jinc2_convert": {"c3": 16 * 2160 * 3840},
                "jinc2_resize": {"c3r270": 48 * 2160 * 3840}}
-PART_GROUP = {"MidRoute<0, 1>": 4, "jinc2_convert_kernel": 4,
-              "jinc2_resize_kernel<1,": 4}
-# K8's heavy routes as the demangled names spell them (LmsMid, RuntimeMid)
-K8_HEAVY_ROUTES = ("MidRoute<1, -1>", "MidRoute<-1, -1>")
+PART_GROUP = {"MidRoute<0, 1>": 4, K8_LMS_ROUTE: 4,
+              "jinc2_convert_kernel": 4, "jinc2_resize_kernel<1,": 4}
+# K8's heavy routes as the demangled names spell them (LmsMid, RuntimeMid;
+# K2's Dolby Vision route on the same routes is not K8's)
+K8_HEAVY_ROUTES = (K8_LMS_ROUTE,
+                   "rows3_mid_kernel<vrt::dovi::MidRoute<-1, -1>")
 # the long-window kernels' names: rows3_tail_long_kernel,
 # cols3_tail_long_kernel, deint3_long_kernel, banded_resize_rows_long_kernel,
 # rows3_mid_long_kernel
@@ -196,10 +220,14 @@ def default_launches() -> list[tuple[str, tuple[int, int]]]:
             4, 4, rk.BandedMatrix(wx), rk.BandedMatrix(ux @ wx)))),
         # K8 at c8: uint16 luma read directly, the chroma upsample's H map
         # on float32 chroma; the heavy routes (the variant's 69 curve
-        # scalars, 16-row tiles) before c8's light one (30, 32-row tiles)
+        # scalars; the LMS route's tiles, the runtime route's 16 rows)
+        # before c8's light one (30, 32-row tiles)
         *((r, (256, dk.k8_smem_bytes(2, 4, None, rk.BandedMatrix(uy), k8h,
-                                     2160, 69, dk.K8_HEAVY_TILE_ROWS)))
-          for r in K8_HEAVY_ROUTES),
+                                     2160, 69, rows)))
+          for r, rows in zip(K8_HEAVY_ROUTES,
+                             (getattr(dk, "K8_LMS_TILE_ROWS",
+                                      dk.K8_HEAVY_TILE_ROWS),
+                              dk.K8_HEAVY_TILE_ROWS))),
         ("rows3_mid_kernel", (256, dk.k8_smem_bytes(
             2, 4, None, rk.BandedMatrix(uy), k8h, 2160, 30))),
         # K2's Dolby Vision route at c8's stage A (c8's 30 scalars)
@@ -305,7 +333,10 @@ def function_lines(csrc: Path, names: tuple, funcs: tuple) -> list:
     """(file, first line, last line) of each function of ``funcs`` defined
     in the first file of ``names`` under ``csrc`` that defines any: from
     the line that starts with its signature (the name then "(", not
-    indented) to the first line that is "}" alone."""
+    indented) to the first line that is "}" alone.  An entry of ``funcs``
+    that is a (start, end) pair of patterns stands for every span from a
+    line that matches ``start`` to the first line from there on that
+    matches ``end``."""
     for name in names:
         found = _function_lines(csrc, name, funcs)
         if found:
@@ -320,6 +351,14 @@ def _function_lines(csrc: Path, name: str, funcs: tuple) -> list:
     lines = src.read_text().splitlines()
     out = []
     for fn in funcs:
+        if isinstance(fn, tuple):
+            start, end = (re.compile(p) for p in fn)
+            for i, ln in enumerate(lines, 1):
+                if start.search(ln):
+                    last = next(j for j, x in enumerate(lines, 1) if j >= i
+                                and end.search(x))
+                    out.append((name, i, last))
+            continue
         pat = re.compile(r"\b" + re.escape(fn) + r"\(")
         for i, ln in enumerate(lines, 1):
             if not pat.search(ln) or ln.strip().startswith(("//", "return")) \
@@ -444,6 +483,16 @@ def _pairs(items: list[str], conv) -> dict:
     return out
 
 
+def part_groups(given: dict) -> dict:
+    """The pixels a thread converts in one pass of the parts of the kernels
+    whose name contains each key: ``given`` (--part-group) matched first,
+    then PART_GROUP."""
+    out = dict(given)
+    for k, v in PART_GROUP.items():
+        out.setdefault(k, v)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=Path, default=build.CSRC)
@@ -453,11 +502,15 @@ def main(argv=None) -> None:
     ap.add_argument("--pixels", action="append", metavar="NAME=N",
                     help="pixels a thread makes in one pass of the kernels "
                          "whose name contains NAME")
+    ap.add_argument("--part-group", action="append", metavar="NAME=N",
+                    help="pixels a thread converts in one pass of the parts "
+                         "of the kernels whose name contains NAME")
     args = ap.parse_args(argv)
     launch = list(_pairs(args.launch,
                          lambda v: tuple(int(x) for x in v.split(","))
                          ).items()) + default_launches()
     pixels = {**GROUP, **_pairs(args.pixels, int)}
+    part_group = part_groups(_pairs(args.part_group, int))
     dev = smi()
     lib_counts = {}
     if args.csrc.resolve() == build.CSRC.resolve():
@@ -518,7 +571,7 @@ def main(argv=None) -> None:
                         r[f"mufu_bound_ms_{cell}"] = 1e3 * mufu * n / (
                             SMS * MUFU_PER_CLK * clk)
                 if "parts" in r:
-                    grp = next((v for k, v in PART_GROUP.items()
+                    grp = next((v for k, v in part_group.items()
                                 if k in bare), 1)
                     r["part_pixels_per_pass"] = grp
                     r["per_pixel"] = r["instructions"] / grp

@@ -24,8 +24,10 @@ elsewhere.  The file imports no JAX, so it runs on a machine without it:
    <= 1e-5);
  * K3 float32 <= 2e-6, as K1;
  * K8 float32 <= 1e-5 with c8's metadata (the identity LMS fold: only the
-   tap sums differ) and <= 1e-4 with the non-identity variant (the PQ
-   round trip of the LMS step amplifies the sums' rounding near black);
+   tap sums differ) and <= 1e-4 with the non-identity variant and the
+   curve structure's limits (the PQ round trip of the LMS step amplifies
+   the sums' rounding near black); its LMS route bit-equal to its
+   long-window route;
    K2's Dolby Vision route (stage A of the two-stage form, the same
    convert) likewise;
  * K2 with the local tone map (selections 1-6) or HLG -> PQ as K2 above;
@@ -1292,10 +1294,35 @@ def test_k3_is_deterministic(dev):
     assert torch.equal(a, b)
 
 
+def _mmr_curve(ch, pivots, method, order):
+    """A curve of channel ``ch`` with these pivots, kinds and MMR orders:
+    each polynomial piece near the identity, each MMR piece the channel's
+    own linear term near 1 at order 1 with small linear and cross terms
+    at each order, its constant and coefficients apart from piece to
+    piece."""
+    n = len(method)
+    poly = np.array([[0.01 * p, 0.97 + 0.01 * p, -0.02] for p in range(n)])
+    coef = np.zeros((n, 3, 7))
+    for p in range(n):
+        coef[p, 0] = [0.01, 0.01, 0.01, 0.02, -0.01, 0.01, 0.005]
+        coef[p, 0, ch] = 0.96 + 0.005 * p
+        coef[p, 1] = [0.02, -0.01, 0.01, 0.01, 0.005, 0, 0.01]
+        coef[p, 2] = [0.005, 0, 0.003, 0, 0, 0.002, 0.003]
+    return dovi.ReshapeCurve(
+        pivots=pivots, method=method, poly=poly, mmr_order=order,
+        mmr_constant=tuple(0.002 * p - 0.005 for p in range(n)),
+        mmr_coef=coef)
+
+
 def _dovi_meta(kind):
-    """c8's metadata (identity curves, LMS matrices mutual inverses) or a
-    variant where nothing folds: a 2-piece polynomial on Y, a polynomial +
-    MMR order-2 curve on Cb, an MMR order-3 curve on Cr, 2% crosstalk."""
+    """c8's metadata (identity curves, LMS matrices mutual inverses), a
+    variant where nothing folds (p5's structure: a 2-piece polynomial on
+    Y, a polynomial + MMR order-2 curve on Cb, an MMR order-3 curve on Cr,
+    2% crosstalk), or "limits", the curve structure's limits with the
+    variant's LMS step: 8 pieces on Y, polynomial and MMR pieces of orders
+    1, 2 and 3 side by side on every channel, so that the pixels of one
+    warp (and of one thread's group) fall on different pieces and
+    kinds."""
     ycc = np.array([[1, 0, 1.4746], [1, -0.164553, -0.571353],
                     [1, 1.8814, 0]])
     inv = np.linalg.inv(dovi.DOVI_LMS2RGB)
@@ -1304,6 +1331,16 @@ def _dovi_meta(kind):
                                  ycc_to_rgb_matrix=ycc,
                                  ycc_to_rgb_offset=np.array([0, 0.5, 0.5]),
                                  rgb_to_lms_matrix=inv)
+    if kind == "limits":
+        curves = (_mmr_curve(0, (0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8),
+                             (0, 1, 1, 1, 0, 1, 0, 1),
+                             (0, 1, 2, 3, 0, 3, 0, 2)),
+                  _mmr_curve(1, (0.4, 0.6), (1, 0, 1), (3, 0, 1)),
+                  _mmr_curve(2, (0.5,), (1, 1), (2, 3)))
+        return dovi.DoviMetadata(
+            curves=curves, ycc_to_rgb_matrix=ycc,
+            ycc_to_rgb_offset=np.array([0, 0.5, 0.5]),
+            rgb_to_lms_matrix=inv @ (0.94 * np.eye(3) + 0.02))
     cb = np.zeros((2, 3, 7))
     cb[1, 0] = [0, 0.98, 0, 0.02, 0, -0.01, 0]
     cb[1, 1] = [0, 0.01, 0, 0, 0.005, 0, 0.01]
@@ -1327,7 +1364,7 @@ def _dovi_meta(kind):
 
 
 @pytest.mark.parametrize("maps", ["c8", "blend_no_out", "direct"])
-@pytest.mark.parametrize("kind", ["c8", "variant"])
+@pytest.mark.parametrize("kind", ["c8", "variant", "limits"])
 def test_k8_kernel_matches_plain(dev, kind, maps):
     """c8's geometry (luma read directly, chroma H upsample 540 -> 1080,
     2:1 Catmull-Rom out) on a 1080-row strip, the blend map on the luma
@@ -1407,43 +1444,53 @@ def _k8_args(rng, kind, h=1080, w=960, batch=2, out_map="c8"):
 
 
 @pytest.mark.parametrize("kind,route", [("c8", "c8 uint16/float32"),
-                                        ("variant", "lms uint16/float32")])
+                                        ("variant", "lms uint16/float32"),
+                                        ("limits", "lms uint16/float32")])
 def test_k8_routes_match_plain(dev, kind, route):
     """c8's metadata takes the compiled c8 route (identity curves, the LMS
-    step folded), the variant the compiled LMS route; raw chroma read
-    directly takes the runtime route.  Each agrees with the plain version
-    within K8's band, one launch each."""
+    step folded), the variant and the structure's limits the compiled LMS
+    route; raw chroma read directly takes the runtime route.  Each agrees
+    with the plain version within K8's band, one launch each, counted
+    under its route."""
     rng = np.random.default_rng(16)
     args, kw = _k8_args(rng, kind)
     y, u, mid = args[0], args[1], args[6]
     assert dk.rows3_mid_route(y.dtype, u.dtype, mid) == route
     assert dk.rows3_mid_route(y.dtype, torch.uint16, mid) == "runtime"
     # the wrapper's tile rows follow the same choice of route
-    assert dk.k8_light_route(y.dtype, u.dtype, mid) == (kind == "c8")
-    assert not dk.k8_light_route(y.dtype, torch.uint16, mid)
+    assert dk.k8_compiled_route(y.dtype, u.dtype, mid) == route
+    assert dk.k8_compiled_route(y.dtype, torch.uint16, mid) == "runtime"
     rk.reset_launches()
     got = dk.rows3_mid(*args, **kw)
     torch.cuda.synchronize()
     assert rk.launches == only(rows3_mid=1)
+    assert dk.k8_route_launches == {r: int(r == route)
+                                    for r in dk.k8_route_launches}
     ref = dk.rows3_mid_plain(*args, **kw)
     tol = 1e-5 if kind == "c8" else 1e-4
     for g, r in zip(got, ref):
         assert (g - r).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("kind", ["c8", "variant"])
+@pytest.mark.parametrize("kind", ["c8", "variant", "limits"])
 @pytest.mark.parametrize("h,w,batch,out_map,unaligned", [
-    (1080, 960, 1, "c8", False),     # 34 tiles: a last group of 2
+    (1080, 960, 1, "c8", False),     # 34 16-row tiles: a last group of 2
+    (1000, 960, 1, "c8", False),     # 17 31-row tiles, the last of 4 rows
     (200, 200, 3, "c8", False),      # a ragged column tile
     (96, 1001, 2, "c8", False),      # width not a multiple of 4
     (96, 130, 2, "edge", True),      # taps past h_mid; unaligned planes
     (2048, 128, 1, "box16", False),  # windows that need 16-row tiles
 ])
-def test_k8_tiled_edges(dev, kind, h, w, batch, out_map, unaligned):
-    """The tiled K8 at shapes the path's tiles do not divide, unaligned
-    pointers (element copies and scalar loads), an out map whose last taps
-    run past h_mid, and a steep downscale whose window shrinks the tile;
-    within K8's band of the plain version."""
+def test_k8_tiled_edges(dev, monkeypatch, kind, h, w, batch, out_map,
+                        unaligned):
+    """The tiled K8 at shapes the path's tiles do not divide (a last group
+    of tiles shorter than K8_TILES_PER_BLOCK, a ragged last tile, a ragged
+    column tile, a width that is not a multiple of the 4 columns a thread
+    converts), unaligned pointers (element copies and scalar loads), an
+    out map whose last taps run past h_mid, and a steep downscale whose
+    window shrinks the tile; within K8's band of the plain version.  The
+    LMS route (the variant, the structure's limits) gives the bits of the
+    long-window route, whose runtime convert takes one pixel at a time."""
     rng = np.random.default_rng(17)
     args, kw = _k8_args(rng, kind, h=h, w=w, batch=batch, out_map=out_map)
     if unaligned:
@@ -1451,6 +1498,10 @@ def test_k8_tiled_edges(dev, kind, h, w, batch, out_map, unaligned):
     if out_map == "box16":
         n_vals = args[6].host_values().size
         assert dk.k8_tile_rows(2, 4, None, args[4], args[7], h, n_vals) < 32
+    if (h, out_map) == (1000, "c8"):
+        n_tiles = -(-args[8] // dk.K8_LMS_TILE_ROWS)
+        assert n_tiles % dk.K8_TILES_PER_BLOCK == 1
+        assert args[8] % dk.K8_LMS_TILE_ROWS == 4
     got = dk.rows3_mid(*args, **kw)
     torch.cuda.synchronize()
     ref = dk.rows3_mid_plain(*args, **kw)
@@ -1458,6 +1509,15 @@ def test_k8_tiled_edges(dev, kind, h, w, batch, out_map, unaligned):
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.is_contiguous()
         assert (g - r).abs().max().item() <= tol
+    if kind != "c8":
+        assert dk.k8_compiled_route(args[0].dtype, args[1].dtype,
+                                    args[6]) == dk.K8_LMS
+        monkeypatch.setattr(dk, "K8_LONG_WINDOW", True)
+        rk.reset_launches()
+        lw = dk.rows3_mid(*args, **kw)
+        torch.cuda.synchronize()
+        assert dk.k8_route_launches[dk.K8_LONG] == 1
+        assert all(torch.equal(g, z) for g, z in zip(got, lw))
 
 
 def test_k8_is_deterministic(dev):
@@ -1510,11 +1570,15 @@ def _p010(rng, n, w, h):
         rng.integers(64, 961, (n, h // 2, w // 2), dtype=np.uint16) << 6))
 
 
-def test_dovi_serving_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("kind,route", [("variant", "lms uint16/float32"),
+                                        ("c8", "c8 uint16/float32")])
+def test_dovi_serving_on_card_matches_cpu(dev, kind, route):
     """The serving function at a small size over two scenes: K1 ×2 + K8 +
-    K9 per call on the card, within 1 code of the CPU's plain route."""
+    K9 per call on the card, within 1 code of the CPU's plain route; a
+    call of the variant (p5's structure) makes one launch of K8's LMS
+    route, a call of c8's metadata one of its c8 route."""
     rng = np.random.default_rng(15)
-    plan = _dovi_plan(256, 128, 128, 64)
+    plan = _dovi_plan(256, 128, 128, 64, kind)
     fn = P.make_serving_fn(plan, pack_surface=True)
     planes = _p010(rng, 2, 256, 128)
     for i in (0, 3):
@@ -1525,6 +1589,8 @@ def test_dovi_serving_on_card_matches_cpu(dev):
         torch.cuda.synchronize()
         assert rk.launches == only(banded_resize_last_axis=2, rows3_mid=1,
                                    cols3_tail=1)
+        assert dk.k8_route_launches == {r: int(r == route)
+                                        for r in dk.k8_route_launches}
         ref = fn(planes, rt)
         assert got.shape == ref.shape == (2, 64, 128)
         d = np.abs(_codes(got, "rgb10a2") - _codes(ref, "rgb10a2"))
@@ -2200,7 +2266,7 @@ def test_k3_k7_k8_k9_long_window_bit_equal_to_staged(dev, long_window):
     for tff in (True, False):
         both(lambda: dk.deint3_rows_dual(prev, cur, nxt, mat, my_c, oh,
                                          64.0 * 64, tff))
-    for kind in ("c8", "variant"):
+    for kind in ("c8", "variant", "limits"):
         args, kw = _k8_args(rng, kind, h=h, w=w)
         both(lambda: dk.rows3_mid(*args, **kw))
     mx = rk.BandedMatrix(_lanczos(w, ow))

@@ -29,6 +29,7 @@ from videorenderer_tpu_torch.kernels import resize as rk
 from videorenderer_tpu_torch.ops import chroma, dovi, scale
 
 N16 = 1 / 65535.0
+GROUP = 4   # adjacent columns a thread converts together (rows3_mid.cuh: kVec)
 
 
 def _dovi_meta(kind):
@@ -230,14 +231,15 @@ def _tiled_replay(y, u, v, my_in_y, my_in_c, h_mid, mid_rows, my_out, h_out,
     return out
 
 
-@pytest.mark.parametrize("tile_rows", [dk.K8_TILE_ROWS, 1, 5])
+@pytest.mark.parametrize("tile_rows", [dk.K8_TILE_ROWS, dk.K8_LMS_TILE_ROWS,
+                                       dk.K8_HEAVY_TILE_ROWS, 1, 5])
 @pytest.mark.parametrize("kind", ["c8", "variant"])
 @pytest.mark.parametrize("which", ["c8", "blend_no_out", "edge"])
 def test_k8_tiled_replay_matches_tap_replay_and_plain(which, kind, tile_rows):
     """K8's tiled indexing gives the bits of the tap replay on c8's maps
     (every tile of the 1080 output rows), the blend map without an out map
-    and the edge maps, for the kernel's tile rows and two others; both
-    within K8's band of the plain version."""
+    and the edge maps, for the tile rows of each of the kernel's routes
+    and two others; both within K8's band of the plain version."""
     rng = np.random.default_rng(50)
     args = _case(which, rng)
     mid = _mid(kind)
@@ -298,24 +300,37 @@ def test_k8_smem_at_c8_fits_three_blocks():
     assert dk.k8_smem_bytes(2, 4, by, bc, None, hb, 30) <= rk.SMEM_BUDGET
 
 
-def test_k8_light_route_and_heavy_tiles():
+@pytest.mark.parametrize("route,rows,win,smem,blocks", [
+    (dk.K8_LMS, 31, 64, 68048, 3),       # 80 registers a thread
+    (dk.K8_RUNTIME, 16, 34, 36672, 6)])  # 40
+def test_k8_light_route_and_heavy_tiles(route, rows, win, smem, blocks):
     """c8's metadata on uint16 luma and float32 chroma takes the light
     route, 32-row tiles and 3 blocks an SM; the variant (non-identity LMS,
-    several pieces, MMR) or raw chroma takes a heavy route, whose 16-row
-    tiles (36672 bytes with the variant's 69 scalars) fit 6 blocks."""
+    several pieces, MMR) takes the LMS route, whose 31-row tiles reach 64
+    mid rows at c8's 2:1 (4 rows of groups a thread) in 68048 bytes with
+    the variant's 69 scalars (3 blocks an SM, as its 80 registers allow);
+    raw chroma takes the runtime route, whose
+    16-row tiles (36672 bytes) fit 6 blocks.  The host's route is the one
+    route_of names (csrc/dovi_mid.cuh)."""
     rng = np.random.default_rng(53)
     _, _, _, my_in_y, my_in_c, h_mid, my_out, _, _, _ = _case("c8", rng)
     c8, var = _mid("c8"), _mid("variant")
-    assert dk.k8_light_route(torch.uint16, torch.float32, c8)
-    assert not dk.k8_light_route(torch.uint16, torch.float32, var)
-    assert not dk.k8_light_route(torch.uint16, torch.uint16, c8)
-    assert not dk.k8_light_route(torch.float32, torch.float32, c8)
+    assert dk.k8_compiled_route(torch.uint16, torch.float32, c8) == dk.K8_C8
+    assert dk.k8_compiled_route(torch.uint16, torch.float32,
+                                var) == dk.K8_LMS
+    for y, c in ((torch.uint16, torch.uint16), (torch.float32, torch.float32),
+                 (torch.int16, torch.float32)):
+        for m in (c8, var):
+            assert dk.k8_compiled_route(y, c, m) == dk.K8_RUNTIME
     n = var.host_values().size
     assert n == 69
-    tr = dk.k8_tile_rows(2, 4, my_in_y, my_in_c, my_out, h_mid, n, False)
-    assert tr == dk.K8_HEAVY_TILE_ROWS == 16
-    smem = dk.k8_smem_bytes(2, 4, my_in_y, my_in_c, my_out, h_mid, n, tr)
-    assert smem == 36672 and 6 * (smem + 1024) <= 228 * 1024
+    tr = dk.k8_tile_rows(2, 4, my_in_y, my_in_c, my_out, h_mid, n, route)
+    assert tr == rows == dk.K8_ROUTE_TILE_ROWS[route]
+    assert my_out.row_windows(tr)[1] == win
+    got = dk.k8_smem_bytes(2, 4, my_in_y, my_in_c, my_out, h_mid, n, tr)
+    assert got == smem and blocks * (got + 1024) <= 228 * 1024
+    assert dk.k8_route(2, 4, my_in_y, my_in_c, my_out, h_mid, n,
+                       route) == ("staged", rows)
 
 
 def test_k8_tile_rows_shrink_for_long_windows():
@@ -336,29 +351,80 @@ def test_k8_tile_rows_shrink_for_long_windows():
     assert dk.k8_tile_rows(4, 4, None, None, full, 8192, 30) == 0
 
 
-def test_k8_thread_mapping_covers_the_tile_once():
-    """A block's 256 threads as 16 across x 16 down (c8's route and every
-    out pass): 4 adjacent columns a thread cover the 64 columns of a row
-    once; the mid rows of a 66-row window and the rows of a 32-row tile
-    each fall to one thread row; a quarter warp's 16-byte reads of one row
-    span 128 contiguous bytes.  The other routes deal a 34-row window's
-    pixels out one a thread: 9 or 8 each, every pixel once."""
+def _mid_pass(route, n_win):
+    """The window pixels (mid row, column of the tile) each thread of a
+    block converts in the mid pass, as lists of the groups it converts
+    together: on the side-by-side routes (c8's, the LMS route) thread
+    (tx, ty) = (tid % 16, tid // 16) converts columns 4 tx .. 4 tx + 3 of
+    mid rows ty, ty + 16, ... as one group a row; the runtime route deals
+    the window's pixels out one a thread."""
+    cols = dk.K8_TILE_COLS
+    out = []
+    for tid in range(256):
+        if route == dk.K8_RUNTIME:
+            out.append([[divmod(p, cols)]
+                        for p in range(tid, n_win * cols, 256)])
+        else:
+            tx, ty = tid % 16, tid // 16
+            out.append([[(m, GROUP * tx + j)
+                         for j in range(GROUP)]
+                        for m in range(ty, n_win, 16)])
+    return out
+
+
+@pytest.mark.parametrize("route,rows,groups", [
+    (dk.K8_C8, dk.K8_TILE_ROWS, {4, 5}),     # a 66-row window
+    (dk.K8_LMS, dk.K8_LMS_TILE_ROWS, {4}),   # 64: 4 groups every thread
+    (dk.K8_RUNTIME, dk.K8_HEAVY_TILE_ROWS, {8, 9})])   # 34: pixels
+def test_k8_thread_mapping_covers_the_tile_once(route, rows, groups):
+    """Each route's mid pass over its window at c8's maps converts every
+    mid pixel of the window exactly once: the side-by-side routes in
+    groups of GROUP adjacent columns of one mid row (the LMS route's
+    64-row window: 4 groups every thread, none idle), the runtime route
+    one pixel at a time (8 or 9 a thread).  The out pass (16 across x 16
+    down): 4 adjacent columns a thread cover the 64 columns of a row once,
+    the tile's rows each fall to one thread row, and a quarter warp's
+    16-byte reads of one row span 128 contiguous bytes."""
+    rng = np.random.default_rng(54)
+    _, _, _, _, _, h_mid, my_out, h_out, _, _ = _case("c8", rng)
+    tile_lo, win = my_out.row_windows(rows)
+    seen = np.zeros((win, dk.K8_TILE_COLS), int)
+    per_thread = set()
+    for mine in _mid_pass(route, win):
+        per_thread.add(len(mine))
+        for group in mine:
+            (m0, c0), size = group[0], len(group)
+            assert size == (1 if route == dk.K8_RUNTIME else GROUP)
+            assert group == [(m0, c0 + j) for j in range(size)]
+            assert c0 % size == 0
+            for m, c in group:
+                seen[m, c] += 1
+    assert (seen == 1).all() and per_thread == groups
+    # every tile's window, clipped at h_mid, lies inside the widest one
+    n_win = np.minimum(win, h_mid - tile_lo)
+    assert (n_win >= 1).all() and n_win.max() == win
     cols = np.zeros(64, int)
     for tid in range(256):
         tx = tid % 16
         cols[4 * tx:4 * tx + 4] += 1
     assert (cols == 16).all()
-    for n in (66, 32):
-        owners = [[m for m in range(n) if m % 16 == ty] for ty in range(16)]
-        assert sorted(sum(owners, [])) == list(range(n))
+    owners = [[r for r in range(rows) if r % 16 == ty] for ty in range(16)]
+    assert sorted(sum(owners, [])) == list(range(rows))
     for q in range(4):
         lanes = range(8 * q, 8 * q + 8)
         starts = sorted({((lane % 16) * 4 * 4) for lane in lanes})
         assert starts[-1] - starts[0] + 16 == 128
-    dealt = np.zeros(34 * 64, int)
-    counts = []
-    for tid in range(256):
-        mine = list(range(tid, 34 * 64, 256))
-        dealt[mine] += 1
-        counts.append(len(mine))
-    assert (dealt == 1).all() and set(counts) == {8, 9}
+
+
+def test_k8_route_counter_resets_with_the_launch_counters():
+    """K8's launches by route are keyed by rows3_mid_route's names and
+    "long-window", registered with kernels/resize, and reset_launches
+    zeroes them with the launch counters."""
+    assert set(dk.k8_route_launches) == {dk.K8_C8, dk.K8_LMS, dk.K8_RUNTIME,
+                                         dk.K8_LONG}
+    assert rk.route_launches["rows3_mid"] is dk.k8_route_launches
+    dk.k8_route_launches[dk.K8_LMS] += 3
+    rk.launches["rows3_mid"] += 3
+    rk.reset_launches()
+    assert set(dk.k8_route_launches.values()) == {0}
+    assert rk.launches["rows3_mid"] == 0

@@ -136,9 +136,9 @@ def test_every_route_choice_takes_every_map(src, down, out):
     mid = tdovi.mid_stage(_identity_dovi(), np.eye(3), np.zeros(3))
     kin_c = trk.BandedMatrix(uy)
     k_out = trk.BandedMatrix(wy)
-    for light in (True, False):
+    for compiled in tdk.K8_ROUTE_TILE_ROWS:
         route, rows = tdk.k8_route(2, 4, None, kin_c, k_out, sh,
-                                   mid.host_values().size, light)
+                                   mid.host_values().size, compiled)
         assert route in ("staged", "long-window") and rows >= 1
         if route == "staged":
             assert _fits(tdk.k8_smem_bytes(2, 4, None, kin_c, k_out, sh,

@@ -158,13 +158,75 @@ def test_function_lines_find_k8s_and_k6s_parts(tmp_path):
         == []
 
 
+def test_k8_convert_parts_in_this_tree_and_a_one_pixel_tree(tmp_path):
+    """The parts of K8's convert: the reshape's functions, the RPU matrix
+    and the LMS step as spans between two patterns (in dovi_mid and in the
+    LMS route's dovi_mid_group alike), the divisions as ExactDiv's and
+    CheckedDiv's operators in tail.cuh; a tree whose convert is dovi_mid
+    alone (the one-pixel form) gives one span each."""
+    parts = kr.PARTS["rows3_mid"]
+    assert set(parts) == {"mid", "reshape", "rpu", "lms", "divisions"}
+    assert kr.PARTS["rows3_tail_dovi"] == {
+        "convert": parts["mid"], **{k: v for k, v in parts.items()
+                                    if k != "mid"}}
+    got = {p: kr.function_lines(kr.build.CSRC, *parts[p]) for p in parts}
+    lines = (kr.build.CSRC / "dovi_mid.cuh").read_text().splitlines()
+    for p in ("rpu", "lms"):
+        assert len(got[p]) == 2 and all(f == "dovi_mid.cuh" and a <= b
+                                        for f, a, b in got[p])
+    for f, a, b in got["rpu"]:
+        assert "P.vals + 4 * i" in lines[a - 1] and "m[3])" in lines[b - 1]
+    for f, a, b in got["lms"]:
+        assert "pq_to_linear(" in lines[a - 1]
+        assert "linear_to_pq(" in "\n".join(lines[a - 1:b])
+        assert "vrt::dot3(" in lines[b - 1]
+    assert [f for f, _, _ in got["divisions"]] == ["tail.cuh", "tail.cuh"]
+    tail = (kr.build.CSRC / "tail.cuh").read_text().splitlines()
+    assert [tail[a - 1].split()[1] for _, a, _ in got["divisions"]] == [
+        "ExactDiv", "CheckedDiv"]
+    assert all(tail[b - 1] == "};" for _, _, b in got["divisions"])
+    assert len(got["reshape"]) == 4
+    (tmp_path / "dovi_mid.cuh").write_text(
+        "// one pixel\n"
+        "__device__ void dovi_mid(const float* v, float c[3]) {\n"
+        "    const float* m = P.vals + 4 * i;\n"
+        "    c[i] = add(vrt::dot3(m[0], m[1], m[2], y[0], y[1], y[2]), m[3]);\n"
+        "  for (int i = 0; i < 3; ++i) x[i] = vrt::pq_to_linear(c[i], 1.f);\n"
+        "    c[i] = vrt::linear_to_pq(\n"
+        "        fmaxf(vrt::dot3(m[0], m[1], m[2], x[0], x[1], x[2]), 0.f));\n"
+        "}\n")
+    assert kr.function_lines(tmp_path, *parts["rpu"]) == [
+        ("dovi_mid.cuh", 3, 4)]
+    assert kr.function_lines(tmp_path, *parts["lms"]) == [
+        ("dovi_mid.cuh", 5, 7)]
+    assert kr.function_lines(tmp_path, ("dovi_mid.cuh",),
+                             ((r"^never", r"^}"),)) == []
+
+
+def test_part_group_option_comes_first():
+    """--part-group NAME=N is matched before PART_GROUP's defaults, so a
+    tree whose LMS route converts one pixel a thread reads per pixel."""
+    lms = ("void vrt::k8::rows3_mid_kernel<vrt::dovi::MidRoute<1, -1>, "
+           "unsigned short, float>()")
+    c8 = lms.replace("MidRoute<1, -1>", "MidRoute<0, 1>")
+
+    def group(groups, name):
+        return next((v for k, v in groups.items() if k in name), 1)
+
+    given = kr.part_groups(kr._pairs([kr.K8_LMS_ROUTE + "=1"], int))
+    assert (group(given, lms), group(given, c8)) == (1, 4)
+    assert (group(kr.part_groups({}), lms), group(kr.part_groups({}), c8)) \
+        == (4, 4)
+
+
 def test_part_groups_and_cells():
-    """K8's c8 route converts 4 pixels a pass (its demangled route), its
-    other routes one, and so does K2's Dolby Vision route; K6 and K5's
-    table routes resolve 4 outputs a pass, K5's per-output routes and the
-    one-output-a-thread K5 it replaced one; the cells are c8's mid pixels
-    (K8) and source pixels (K2's Dolby Vision route), c3's outputs at
-    batch 16 and c3r270's 48 planes."""
+    """K8's c8 and LMS routes convert 4 pixels a pass (their demangled
+    routes), its runtime route one, and so does K2's Dolby Vision route on
+    every route; K6 and K5's table routes resolve 4 outputs a pass, K5's
+    per-output routes and the one-output-a-thread K5 it replaced one; the
+    cells are c8's mid pixels and p5's converts (K8), c8's source pixels
+    (K2's Dolby Vision route), c3's outputs at batch 16 and c3r270's 48
+    planes."""
     c8 = ("void vrt::k8::rows3_mid_kernel<vrt::dovi::MidRoute<(int)0, "
           "(int)1>, unsigned short, float>()").replace("(int)", "")
     lms = c8.replace("MidRoute<0, 1>", "MidRoute<1, -1>")
@@ -178,8 +240,11 @@ def test_part_groups_and_cells():
                      "(const float *)",
                      "(anonymous namespace)::jinc2_resize_kernel("
                      "const float *, int)", k2, k2_lms)]
-    assert grp == [4, 1, 4, 4, 1, 1, 4, 1]
-    assert kr.PART_PIXELS == {"rows3_mid": {"c8": 16 * 2160 * 3840},
+    assert grp == [4, 4, 4, 4, 1, 1, 4, 1]
+    assert next((v for k, v in kr.PART_GROUP.items() if k in c8.replace(
+        "MidRoute<0, 1>", "MidRoute<-1, -1>")), 1) == 1
+    assert kr.PART_PIXELS == {"rows3_mid": {"c8": 16 * 2160 * 3840,
+                                            "p5": 16 * 2160 * 3840 * 34 // 32},
                               "rows3_tail_dovi": {"c8": 16 * 2160 * 3840},
                               "jinc2_convert": {"c3": 16 * 2160 * 3840},
                               "jinc2_resize": {"c3r270": 48 * 2160 * 3840}}
@@ -229,13 +294,18 @@ def test_default_launches_are_k7s_and_k9s_at_their_cells():
     assert got["deint3_kernel"][1] == 62080
     assert got["rows3_mid_kernel"][1] == 69984
     assert got["rows3_tail_dovi_kernel"][1] == 19264
-    assert all(got[r][1] == 36672 for r in kr.K8_HEAVY_ROUTES)
+    # the LMS route at its 31-row tiles, the runtime route at 16
+    assert [got[r][1] for r in kr.K8_HEAVY_ROUTES] == [68048, 36672]
     assert got["jinc2_convert_kernel"][1] == 4800
     assert got["jinc2_resize_kernel"][1] == 5760
     assert got["banded_resize_rows_kernel"][1] == 35712
-    lms = ("void vrt::k8::rows3_mid_kernel<vrt::k8::MidRoute<(int)1, "
+    lms = ("void vrt::k8::rows3_mid_kernel<vrt::dovi::MidRoute<(int)1, "
            "(int)-1>, unsigned short, float>()").replace("(int)", "")
-    assert next(v for k, v in kr.default_launches() if k in lms)[1] == 36672
+    assert next(v for k, v in kr.default_launches() if k in lms)[1] == 68048
+    # K2's Dolby Vision route on the LMS route takes its own block
+    k2_lms = lms.replace("k8::rows3_mid_kernel", "k2::rows3_tail_dovi_kernel")
+    assert next(v for k, v in kr.default_launches() if k in k2_lms) \
+        == got["rows3_tail_dovi_kernel"]
     assert 0 < got["cols3_tail_kernel"][1] < got[kr.C8_ROUTE][1] \
         <= dk.SMEM_BUDGET
     name = ("void vrt::k9::cols3_tail_kernel<vrt::Route<(int)0, (int)1, "

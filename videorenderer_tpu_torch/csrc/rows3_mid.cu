@@ -20,9 +20,9 @@
 //
 // Design (rows3_mid.cuh).  A block of 256 threads makes 64 columns of
 // kTilesPerBlock consecutive tiles of tile_rows output rows (32 on c8's
-// light route, 16 on the others, fewer where the window does not fit
-// shared memory; kernels/deint.k8_tile_rows) of one frame, walking its
-// tiles in order:
+// light route, 31 on the LMS route, 16 on the runtime route, fewer where
+// the window does not fit shared memory; kernels/deint.k8_tile_rows) of
+// one frame, walking its tiles in order:
 //   * staging.  The rows of each plane with an in map that the tile's mid
 //     window reaches (kernels/deint.k8_in_windows: c8's chroma, 34 rows
 //     for 66 mid rows) are copied into shared memory with 16-byte cp.async
@@ -35,23 +35,30 @@
 //   * the mid pass.  Each mid row of the window (66 for 32 output rows at
 //     c8's Catmull-Rom 2:1) is computed once and kept in shared memory as
 //     three float32 planes, so the full-resolution RGB never reaches
-//     device memory: on c8's route 4 adjacent columns a thread, written as
-//     16-byte vectors (a warp's row of the planes is 256 bytes); on the
-//     others the window's pixels dealt out one a thread.
+//     device memory: on c8's and the LMS route 4 adjacent columns a
+//     thread, written as 16-byte vectors (a warp's row of the planes is
+//     256 bytes); on the runtime route the window's pixels dealt out one a
+//     thread.
 //   * the out pass.  Each thread runs the out taps of 4 columns from the
 //     window as 16-byte reads, and stores the three channels as 16-byte
 //     vectors; a scalar edge path takes widths that are not a multiple of
 //     4 and unaligned pointers.
-//   * the convert.  The route is a template parameter (rows3_mid.cuh:
+//   * the convert.  The route is a template parameter (dovi_mid.cuh:
 //     MidRoute): c8's (identity curves, an LMS product that folds away)
 //     runs a thread's 4 pixels side by side and reads the curve scalars
 //     from the launch's __grid_constant__ parameter at fixed offsets, so a
 //     block copies nothing; the non-identity LMS route (a stream whose LMS
-//     matrices are not mutual inverses, c8's variant) and the runtime route
-//     (every other combination of plane dtypes, LMS flag and curve
-//     structure) copy the curve scalars and structure into shared memory
-//     once a block.  c8's and the LMS route are compiled in rows3_mid_c8.cu
-//     and rows3_mid_lms.cu, in parallel with this file.
+//     matrices are not mutual inverses: Dolby Vision profile 5, c8's
+//     variant) converts a thread's 4 pixels as one group (dovi_mid.cuh:
+//     dovi_mid_group), each stage across the group before the next: the
+//     curves' scalars in fixed slots of the launch's parameter (to_slots),
+//     read as operands, their dispatch compiled (the piece search and the
+//     pieces unrolled, the MMR body unrolled for each order), the
+//     divisions of the group's LMS steps with one range check; the
+//     runtime route (every other combination of plane dtypes, LMS flag and
+//     curve structure) copies the curve scalars and structure into shared
+//     memory once a block.  c8's and the LMS route are compiled in
+//     rows3_mid_c8.cu and rows3_mid_lms.cu, in parallel with this file.
 //   * the long-window route (rows3_mid_long.cu).  A map whose window does
 //     not fit shared memory even at one output row a tile (2160 mid rows to
 //     16 output rows: 275-824 KB) takes a kernel that keeps no window: each
@@ -59,12 +66,12 @@
 //     read through the read-only cache, in the staged route's order, on
 //     the runtime route, bit-equal to the staged route.
 // c8's route holds 80 registers a thread and its 70 KB of shared memory 3
-// blocks an SM; the others, whose convert is long dependent chains of
-// accurate pows and divisions, 40 registers and their 16-row tiles'
-// ~37 KB 6 blocks (on one H100 that took c8's variant from 6.4 to 5.7 ms
-// per 16 frames; PERF.md section 6).  Every output is bit-equal to the
-// one-column-a-thread kernel this replaces: the same operations in the
-// same order.
+// blocks an SM, and so do the LMS route's 80 registers and its 31-row
+// tiles' 68 KB (a 64-row window at c8's 2:1: 4 groups a thread); the
+// runtime route, whose convert is long dependent chains of accurate pows
+// and divisions, 40 registers and its 16-row tiles' ~37 KB 6 blocks.  Every
+// output is bit-equal to the one-column-a-thread kernel this replaces:
+// the same operations in the same order.
 //
 // Runtime values: the colour matrix, the combined LMS matrix and the curve
 // scalars (at most 12 + 9 + 549 floats) and the curve structure (pieces,
@@ -76,8 +83,10 @@
 // delivers the luma (uint16) and the two K1-upsampled chroma planes
 // (float32) about once and takes the three float32 output planes: 0.475 ms
 // on one H100.  The identity route's convert is a few dozen operations a
-// pixel, under that; the LMS route's six accurate pows a pixel come near
-// the line between the two bounds.
+// pixel, under that.  The LMS route's is bound by its issue: the twelve
+// accurate pows a pixel of the LMS step (log2f in software, ~35
+// instructions a pow) take ~2.8 of its 4.7 ms at c8's variant, 16
+// frames, on one H100 (PERF.md, section 6).
 // The TPU kernel's split-bf16 products and full-height column stripes in
 // VMEM do not carry over.
 
@@ -143,7 +152,9 @@ extern "C" int vrt_rows3_mid(
   }
   switch (route_of(y_dtype, c_dtype, P)) {
     case 1: return launch<C8Mid, uint16_t, float>(y, u, v, G, P, batch, out, st);
-    case 2: return launch<LmsMid, uint16_t, float>(y, u, v, G, P, batch, out, st);
+    case 2:
+      vrt::dovi::to_slots(&P);
+      return launch<LmsMid, uint16_t, float>(y, u, v, G, P, batch, out, st);
     default: break;
   }
   int err = 0;

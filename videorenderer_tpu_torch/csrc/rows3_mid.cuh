@@ -57,8 +57,8 @@ __host__ __device__ inline size_t up16(size_t x) { return (x + 15) / 16 * 16; }
 // of y, u and v (a plane read directly has none), the in taps and starts
 // of each in map over the window's mid rows, the out taps and starts of
 // the tile's rows, then the curve scalars and structure (filled by the
-// routes that read them at run time).  kernels/deint.k8_smem_bytes
-// mirrors ``bytes``.
+// runtime route; the LMS route reads them from the launch's parameter and
+// leaves them unused).  kernels/deint.k8_smem_bytes mirrors ``bytes``.
 struct Layout {
   size_t window, y, u, v, ty, sy, tc, sc, to, so, vals, curves, bytes;
 };
@@ -225,8 +225,8 @@ __device__ __forceinline__ void stage_in_taps(const InMap& M, const Geometry& G,
   }
 }
 
-// At most 80 registers a thread on the light route (3 blocks of 256 an
-// SM), 40 on the others (6).
+// At most 80 registers a thread on the light route and the LMS route (3
+// blocks of 256 an SM), 40 on the runtime route (6).
 template <typename R, typename TY, typename TC>
 __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
     const TY* __restrict__ y, const TC* __restrict__ u,
@@ -268,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
   const bool out_vec = in_row && G.w % kVec == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
 
-  if constexpr (R::kRuntimeCurves) {
+  if constexpr (R::kRuntimeCurves && !R::kGroupMid) {
     for (int i = tid; i < P.n_vals; i += kThreads) vals[i] = P.vals[i];
     const int* src = reinterpret_cast<const int*>(P.curve);
     int* dst = reinterpret_cast<int*>(curves);
@@ -297,10 +297,10 @@ __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
   stage(T);
   for (int k = 0; k < n_tiles; ++k) {
     // a luma plane read directly: the thread's first row's values, loaded
-    // before the wait (the side-by-side route)
+    // before the wait (the side-by-side routes)
     const int m0 = tyd;
     Vec<TY> y_next{};
-    if (R::kSideBySide && !G.y.n_taps && m0 < T.n_win) {
+    if ((R::kSideBySide || R::kGroupMid) && !G.y.n_taps && m0 < T.n_win) {
       y_next = load4(yb, G.w, T.lo + m0, col, y_vec);
     }
     vrt::cp_async_wait<0>();
@@ -317,7 +317,7 @@ __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
 
     // the mid pass: each mid pixel of the window once
     const int plane = G.win * kTileCols;
-    if constexpr (R::kSideBySide) {
+    if constexpr (R::kSideBySide || R::kGroupMid) {
       // 4 adjacent columns a thread, a mid row each 16 rows
       for (int m = m0; m < T.n_win; m += kRowThreads) {
         const int row = T.lo + m;
@@ -349,9 +349,13 @@ __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
           }
         }
         float c[kVec][3];
+        if constexpr (R::kGroupMid) {
+          dovi_mid_group(P, yv, uv, vv, c);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          dovi_mid<R>(P, vals, curves, yv[j], uv[j], vv[j], c[j]);
+          for (int j = 0; j < kVec; ++j) {
+            dovi_mid<R>(P, vals, curves, yv[j], uv[j], vv[j], c[j]);
+          }
         }
         float* wrow = window + m * kTileCols + cl;
 #pragma unroll

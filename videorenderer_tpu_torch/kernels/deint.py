@@ -44,6 +44,7 @@ from .resize import (DOVI_CURVES_BYTES, DTYPE_CODES, PACK_CODES,
                      _h_plain, _kernel_device, _launch, _no_tf32, _taps_args,
                      _up16, check_place, fill_bars, kernel_span,
                      pack_surface, place_output, route_flags)
+from .resize import route_launches as rk_route_launches
 
 K7_TILE_ROWS = 32     # output rows a K7 block makes (its tile_rows)
 K7_TILE_COLS = 64     # columns a K7 block makes (kTileCols)
@@ -261,9 +262,23 @@ def deint3_rows_dual(prev, cur, nxt, my_y: BandedMatrix, my_c: BandedMatrix,
 # ---------------------------------------------------------------------------
 
 K8_TILE_ROWS = 32     # output rows of a tile (tile_rows, csrc/rows3_mid.cuh)
-K8_HEAVY_TILE_ROWS = 16  # ... on the routes other than c8's light one
+K8_LMS_TILE_ROWS = 31  # ... on the LMS route: a 64-row window at 2:1
+K8_HEAVY_TILE_ROWS = 16  # ... on the runtime route and the long-window one
 K8_TILE_COLS = 64     # columns a K8 block makes (kTileCols)
 K8_TILES_PER_BLOCK = 4  # consecutive tiles a K8 block walks (kTilesPerBlock)
+# K8's routes (csrc/dovi_mid.cuh: route_of, kRouteNames; rows3_mid_route's
+# names) and the kernel that keeps no mid window
+K8_C8, K8_LMS, K8_RUNTIME = ("c8 uint16/float32", "lms uint16/float32",
+                             "runtime")
+K8_LONG = "long-window"
+# the output rows of a tile on each staged route, before the budget halves
+# them
+K8_ROUTE_TILE_ROWS = {K8_C8: K8_TILE_ROWS, K8_LMS: K8_LMS_TILE_ROWS,
+                      K8_RUNTIME: K8_HEAVY_TILE_ROWS}
+k8_route_launches = rk_route_launches.setdefault(
+    "rows3_mid", dict.fromkeys((K8_C8, K8_LMS, K8_RUNTIME, K8_LONG), 0))
+"""K8's launches by route, reset with ``resize.launches``
+(``resize.reset_launches``)."""
 
 
 def k8_in_windows(mat: BandedMatrix, tile_lo: np.ndarray, win: int,
@@ -315,27 +330,33 @@ def _k8_windows(my_out: BandedMatrix | None, h_mid: int, tile_rows: int
     return my_out.row_windows(tile_rows)
 
 
-def k8_light_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
-                   mid: MidStage) -> bool:
-    """Whether K8 takes its light route (rows3_mid.cuh: C8Mid; route_of in
-    csrc/rows3_mid.cu): uint16 luma, float32 chroma, the LMS step folded
-    away and one polynomial piece a channel (c8's metadata)."""
-    return (y_dtype == torch.uint16 and c_dtype == torch.float32
-            and mid.lms is None
-            and all(pieces == 1 and kinds[0] == 0
-                    for pieces, kinds, _ in mid.structure))
+def k8_compiled_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
+                      mid: MidStage) -> str:
+    """The route K8's staged kernel takes (csrc/dovi_mid.cuh: route_of;
+    the names of :func:`rows3_mid_route`, without loading the library):
+    K8_C8 (C8Mid, c8's metadata: uint16 luma, float32 chroma, the LMS step
+    folded away and one polynomial piece a channel), K8_LMS (LmsMid: those
+    dtypes and a non-identity LMS step, any curves) or K8_RUNTIME."""
+    if y_dtype != torch.uint16 or c_dtype != torch.float32:
+        return K8_RUNTIME
+    if mid.lms is not None:
+        return K8_LMS
+    return (K8_C8 if all(pieces == 1 and kinds[0] == 0
+                         for pieces, kinds, _ in mid.structure)
+            else K8_RUNTIME)
 
 
 @functools.lru_cache(maxsize=64)
 def k8_tile_rows(y_itemsize: int, c_itemsize: int,
                  my_in_y: BandedMatrix | None, my_in_c: BandedMatrix | None,
                  my_out: BandedMatrix | None, h_mid: int, n_vals: int,
-                 light: bool = True) -> int:
-    """The output rows of a K8 tile: K8_TILE_ROWS on the light route,
-    K8_HEAVY_TILE_ROWS on the others (more blocks an SM), halved until the
-    block's shared memory fits SMEM_BUDGET (a steep downscale's long
-    windows); 0 when not even one row fits."""
-    tile_rows = K8_TILE_ROWS if light else K8_HEAVY_TILE_ROWS
+                 route: str = K8_C8) -> int:
+    """The output rows of a K8 tile on the staged ``route`` (a
+    :func:`k8_compiled_route`): K8_ROUTE_TILE_ROWS's (32 on c8's light
+    route, 31 on the LMS route, 16 on the runtime route: more blocks an
+    SM), halved until the block's shared memory fits SMEM_BUDGET (a steep
+    downscale's long windows); 0 when not even one row fits."""
+    tile_rows = K8_ROUTE_TILE_ROWS[route]
     while tile_rows >= 1:
         if k8_smem_bytes(y_itemsize, c_itemsize, my_in_y, my_in_c, my_out,
                          h_mid, n_vals, tile_rows) <= SMEM_BUDGET:
@@ -347,16 +368,15 @@ def k8_tile_rows(y_itemsize: int, c_itemsize: int,
 def k8_route(y_itemsize: int, c_itemsize: int,
              my_in_y: BandedMatrix | None, my_in_c: BandedMatrix | None,
              my_out: BandedMatrix | None, h_mid: int, n_vals: int,
-             light: bool = True) -> tuple[str, int]:
-    """K8's route and tile rows: ("staged", :func:`k8_tile_rows`) where the
-    window fits at some tile, else ("long-window", K8_HEAVY_TILE_ROWS), the
-    kernel that keeps no mid window (also with K8_LONG_WINDOW).  Both give
-    the same bits."""
+             route: str = K8_C8) -> tuple[str, int]:
+    """K8's route and tile rows: ("staged", :func:`k8_tile_rows` on the
+    compiled ``route``) where the window fits at some tile, else
+    ("long-window", K8_HEAVY_TILE_ROWS), the kernel that keeps no mid
+    window (also with K8_LONG_WINDOW).  Both give the same bits."""
     rows = 0 if K8_LONG_WINDOW else k8_tile_rows(
         y_itemsize, c_itemsize, my_in_y, my_in_c, my_out, h_mid, n_vals,
-        light)
-    return ("long-window", K8_HEAVY_TILE_ROWS) if rows == 0 else ("staged",
-                                                                  rows)
+        route)
+    return (K8_LONG, K8_HEAVY_TILE_ROWS) if rows == 0 else ("staged", rows)
 
 
 def rows3_mid_plain(y, u, v, my_in_y: BandedMatrix | None,
@@ -403,10 +423,12 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     once into shared memory, then runs the out taps, 4 columns a thread,
     and stores 16-byte vectors, so the full-resolution RGB never reaches
     device memory.  The convert's route is compiled in for c8's metadata
-    (:func:`k8_light_route`: 32-row tiles, 4 pixels a thread side by
-    side) and for a non-identity LMS step (16-row tiles, twice the blocks
-    an SM, pixels dealt out one a thread); :func:`rows3_mid_route` names
-    the route a launch takes.  A map whose window does not fit
+    (K8_C8: 32-row tiles, 4 pixels a thread side by side) and for a
+    non-identity LMS step (K8_LMS: 31-row tiles, a thread's 4 pixels
+    converted as one group); :func:`rows3_mid_route` names the route a
+    launch takes, :func:`k8_compiled_route` likewise on the host, and each
+    launch adds one to :data:`k8_route_launches` under its route (or
+    "long-window").  A map whose window does not fit
     SMEM_BUDGET at one row a tile takes the long-window route
     (:func:`k8_route`: each out tap's mid pixel from inputs read through
     the read-only cache, bit-equal, on the runtime route); a grid past its
@@ -442,10 +464,11 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                                h_out, y_scale, c_scale)
     vals = mid.host_values()
     struct = mid.host_structure()
+    compiled = k8_compiled_route(y.dtype, u.dtype, mid)
     route, tile_rows = k8_route(y.element_size(), u.element_size(),
                                 my_in_y, my_in_c, my_out, h_mid, vals.size,
-                                k8_light_route(y.dtype, u.dtype, mid))
-    long_window = route == "long-window"
+                                compiled)
+    long_window = route == K8_LONG
     batch = y.numel() // (hy * w) if y.numel() else 0
     n_tiles = -(-h_out // tile_rows)
     if batch == 0 or batch > GRID_YZ_MAX \
@@ -477,6 +500,7 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             1.0 if c_scale is None else float(c_scale),
             vals.ctypes.data, vals.size, struct.ctypes.data,
             int(mid.lms is None), int(long_window), out.data_ptr())
+    k8_route_launches[K8_LONG if long_window else compiled] += 1
     return out[0], out[1], out[2]
 
 
@@ -497,7 +521,7 @@ def rows3_mid_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
     takes: "c8 uint16/float32" (identity curves and LMS fold), "lms
     uint16/float32" (a non-identity LMS step), or "runtime"
     (vrt_rows3_mid_route; loads the kernel library, so it needs the CUDA
-    toolkit)."""
+    toolkit; :func:`k8_compiled_route` is its host replay)."""
     vals, struct = mid.host_values(), mid.host_structure()
     return build.load().vrt_rows3_mid_route(
         DTYPE_CODES[y_dtype], DTYPE_CODES[c_dtype], vals.ctypes.data,

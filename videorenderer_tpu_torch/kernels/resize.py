@@ -98,9 +98,15 @@ launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
             "mega3_tail": 0, "wpass_bf16": 0, "wpass_floor": 0}
 
 
+# launches by route of the kernels that count them (kernels/deint's K8,
+# "rows3_mid": its routes' names), by kernel
+route_launches: dict[str, dict[str, int]] = {}
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counter in (launches, *route_launches.values()):
+        for k in counter:
+            counter[k] = 0
 
 
 def kernel_span(name: str):
