@@ -2126,6 +2126,54 @@ def test_c7_serving_on_card_matches_cpu(dev):
     assert not torch.equal(outs[0], outs[1])
 
 
+def _bench_config(name, w, h, ow, oh):
+    """A configuration of the port's benchmark (``vrbench/configs``) at a
+    small size."""
+    from vrbench import spec
+    c = spec.load_json(spec.HERE / "configs" / f"{name}.json")
+    c["video_source"].update(width=w, height=h)
+    c["output"].update(width=ow, height=oh)
+    return c
+
+
+def test_k2_route_counter(dev):
+    """K2's launches by route (``rk.k2_route_launches``): serving calls of
+    the HDR10 passthrough cell's configuration at 128 x 72 with two
+    scenes' HDR10 values take the compiled c7 route only; a call of the
+    HDR10 -> SDR cell's configuration (128 x 72 -> 64 x 36) its headline
+    route only; ``reset_launches`` zeroes both counters."""
+    from vrbench.entries import common, serving_hdr10
+    rng = np.random.default_rng(25)
+    c7 = _bench_config("hdr10_uhd_to_hdr600_bt2390", 128, 72, 128, 72)
+    fn = P.make_serving_fn(P.plan_pipeline(
+        serving_hdr10.settings(c7), common.source(c7), common.output(c7)),
+        pack_surface=True)
+    planes = tuple(p.to(dev) for p in _p010(rng, 2, 128, 72))
+    rk.reset_launches()
+    for max_cll in (3000.0, 2820.0):
+        fn(planes, {"hdr": {"mastering_min_nits": 0.005,
+                            "mastering_max_nits": 4000.0,
+                            "max_cll": max_cll, "max_fall": 800.0}})
+    torch.cuda.synchronize()
+    assert rk.launches == only(banded_resize_last_axis=4, rows3_tail=2)
+    assert {k: v for k, v in rk.k2_route_launches.items() if v} == {
+        "c7 uint16/int16": 2}
+    hl = _bench_config("hdr10_uhd_to_sdr1080", 128, 72, 64, 36)
+    fn = P.make_serving_fn(P.plan_pipeline(
+        common.settings(hl), common.source(hl), common.output(hl)),
+        pack_surface=True)
+    rk.reset_launches()
+    assert set(rk.k2_route_launches.values()) == {0}
+    fn(planes)
+    torch.cuda.synchronize()
+    assert rk.launches == only(banded_resize_last_axis=3, rows3_tail=1)
+    assert {k: v for k, v in rk.k2_route_launches.items() if v} == {
+        "headline int16": 1}
+    rk.reset_launches()
+    assert set(rk.k2_route_launches.values()) == {0}
+    assert set(rk.launches.values()) == {0}
+
+
 @pytest.mark.parametrize("sizes", [(3840, 1920), (600, 250), (1000, 333),
                                    (1001, 500), (999, 333), (517, 250)])
 def test_k10_kernels_match_plain(dev, sizes):

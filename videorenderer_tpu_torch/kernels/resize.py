@@ -98,9 +98,15 @@ launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
             "mega3_tail": 0, "wpass_bf16": 0, "wpass_floor": 0}
 
 
-# launches by route of the kernels that count them (kernels/deint's K8,
-# "rows3_mid": its routes' names), by kernel
+# launches by route of the kernels that count them, by kernel
+# (kernels/deint's K8, "rows3_mid", and K2, "rows3_tail": their routes'
+# names)
 route_launches: dict[str, dict[str, int]] = {}
+K2_LONG = "long-window"
+k2_route_launches = route_launches.setdefault("rows3_tail", {})
+"""K2's launches by :func:`rows3_tail_route`'s name of the compiled or
+runtime route each took, or ``K2_LONG``; keys appear at their first launch
+and are reset with ``launches`` (:func:`reset_launches`)."""
 
 
 def reset_launches() -> None:
@@ -721,13 +727,14 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     the local tone map, the dither from the global row and column and one
     vector store, so no intermediate RGB reaches device memory.  The tail's
     route is compiled in for the paths' epilogues (:func:`rows3_tail_route`
-    names it).  A placed output goes straight into its surface, 16-byte
-    stores where the column offset is a multiple of 4, scalar stores
-    otherwise; torch writes only the bars.  A map whose window does not fit
-    SMEM_BUDGET takes the long-window route (:func:`k2_route`): the same
-    sums, tail and store with every tap read through the read-only cache,
-    bit-equal, on the runtime tail.  Measured on one NVIDIA H100 80GB HBM3
-    at 700 W, the H taps
+    names it; each launch adds one to :data:`k2_route_launches` under that
+    name, or under ``K2_LONG``).  A placed output goes straight into its
+    surface, 16-byte stores where the column offset is a multiple of 4,
+    scalar stores otherwise; torch writes only the bars.  A map whose
+    window does not fit SMEM_BUDGET takes the long-window route
+    (:func:`k2_route`): the same sums, tail and store with every tap read
+    through the read-only cache, bit-equal, on the runtime tail.  Measured
+    on one NVIDIA H100 80GB HBM3 at 700 W, the H taps
     and the store reach 61% (headline) and 79% (c7) of their byte bound;
     the tail, 65% and 86% of K2's time, is bound by its instruction issue
     (96% of that bound at the headline; ``PERF.md`` section 6)."""
@@ -770,6 +777,9 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             *epilogue.launch_args(mats), epilogue.dither_bits,
             PACK_CODES[pack_format], *surface, int(long_window),
             out.data_ptr())
+    route = K2_LONG if long_window else _route_name(
+        route_flags(y.dtype, u.dtype, epilogue, pack_format), False)
+    k2_route_launches[route] = k2_route_launches.get(route, 0) + 1
     return out
 
 
@@ -795,9 +805,22 @@ def rows3_tail_route(y_dtype: torch.dtype, c_dtype: torch.dtype,
     picks for a map whose windows do not fit) "long-window runtime"
     (vrt_rows3_tail_route over :func:`route_flags`; loads the kernel
     library, so it needs the CUDA toolkit)."""
-    return build.load().vrt_rows3_tail_route(
-        *route_flags(y_dtype, c_dtype, epilogue, pack_format),
-        int(long_window)).decode()
+    return _route_name(route_flags(y_dtype, c_dtype, epilogue, pack_format),
+                       long_window)
+
+
+_ROUTE_NAMES: dict[tuple, str] = {}
+
+
+def _route_name(flags: tuple, long_window: bool) -> str:
+    """vrt_rows3_tail_route's name for ``flags``, asked of the library once
+    a key."""
+    key = (*flags, bool(long_window))
+    name = _ROUTE_NAMES.get(key)
+    if name is None:
+        name = _ROUTE_NAMES[key] = build.load().vrt_rows3_tail_route(
+            *flags, int(long_window)).decode()
+    return name
 
 
 # ---------------------------------------------------------------------------
