@@ -71,7 +71,12 @@ Per function it prints one JSON line:
     c3r270, 48 planes of 2160 x 3840); and ``per_pixel``, all of the
     function's static instructions over the same pass, with its issue
     bound (an upper estimate: it holds the set-up and staging a block runs
-    once beside the passes it repeats).
+    once beside the passes it repeats);
+  * for K2 and K4, the ``pow`` part: the instructions inlined from the
+    tail's pows (tail.cuh's pow_pos, and the c7 routes' checked pow,
+    CheckedPow with log2_normal, and pow_of where the sources have them),
+    their ``second_pass`` share, and ``per_pixel``, counted as the tail's
+    instructions a pixel are (below).
   Instructions a pixel are the static
     ``tail`` count without the second pass over ``--pixels`` (the pixels a
     thread makes in one unrolled pass: 4 for K2's, K4's and K9's kernels
@@ -145,8 +150,17 @@ _DOVI_PARTS = {
                                  r"x\["),)),
     "divisions": (("tail.cuh",), ((r"^struct ExactDiv\b", r"^};"),
                                   (r"^struct CheckedDiv\b", r"^};")))}
+# the tail's pows (tail.cuh): pow_pos (libdevice's log2f and exp2f), and
+# where the sources have them the checked pow of the c7 routes (CheckedPow,
+# log2_normal) and the policy's dispatch (pow_of)
+_POW_PART = (("tail.cuh",), ("pow_pos", "log2_normal",
+                             (r"^struct CheckedPow\b", r"^};"),
+                             (r"^__device__ __forceinline__ float pow_of\(",
+                              r"^}")))
 PARTS = {"rows3_mid": {"mid": _DOVI_PART, **_DOVI_PARTS},
          "rows3_tail_dovi": {"convert": _DOVI_PART, **_DOVI_PARTS},
+         "rows3_tail": {"pow": _POW_PART},
+         "mega3_tail": {"pow": _POW_PART},
          "jinc2_convert": _JINC2_PARTS,
          "jinc2_resize": {**_JINC2_PARTS,
                           "quantize": (("epilogue.cuh",),
@@ -392,8 +406,10 @@ def sass_counts(text: str, second: tuple = (None, 0, -1),
                        "tail": 0, "tail_mufu": 0, "tail_second_pass": 0,
                        "h_pass_ffma": 0}
             if parts:
-                out[fn]["parts"] = {p: {"instructions": 0, "mufu": 0}
-                                    for p in parts}
+                out[fn]["parts"] = {
+                    p: {"instructions": 0, "mufu": 0,
+                        **({"second_pass": 0} if second[0] else {})}
+                    for p in parts}
             continue
         if s.startswith("//##"):
             # one comment line per inlining level, innermost first
@@ -412,12 +428,12 @@ def sass_counts(text: str, second: tuple = (None, 0, -1),
         c["instructions"] += 1
         c["branches"] += op == "BRA"
         c["fchk"] += op == "FCHK"
+        in_second = any(f == second[0] and second[1] <= n <= second[2]
+                        for f, n in locs)
         if any(f in TAIL_FILES for f, _ in locs):
             c["tail"] += 1
             c["tail_mufu"] += op.startswith("MUFU")
-            c["tail_second_pass"] += any(
-                f == second[0] and second[1] <= n <= second[2]
-                for f, n in locs)
+            c["tail_second_pass"] += in_second
         elif op.startswith("FFMA"):
             c["h_pass_ffma"] += 1
         for p, ranges in parts.items():
@@ -425,6 +441,8 @@ def sass_counts(text: str, second: tuple = (None, 0, -1),
                    for rf, a, b in ranges):
                 c["parts"][p]["instructions"] += 1
                 c["parts"][p]["mufu"] += op.startswith("MUFU")
+                if second[0]:
+                    c["parts"][p]["second_pass"] += in_second
     return out
 
 
@@ -556,11 +574,17 @@ def main(argv=None) -> None:
                         "instructions")
                 cells = next((c for k, c in PIXELS.items()
                               if src.startswith(k)), None)
+                if cells and r.get("tail"):
+                    # a compiled route's tail (and its parts, the pows) for
+                    # ppt pixels, without its rare second pass; else one
+                    # pixel at a time
+                    first = r["tail"] - r["tail_second_pass"]
+                    for c in r.get("parts", {}).values():
+                        c["per_pixel"] = ((c["instructions"]
+                                           - c.get("second_pass", 0)) / ppt
+                                          if first else c["instructions"])
                 if cells and dev and r.get("tail"):
                     clk = dev["clock_max_mhz"] * 1e6
-                    first = r["tail"] - r["tail_second_pass"]
-                    # a compiled route's tail for ppt pixels, without its
-                    # rare second pass; else one pixel at a time
                     per = first / ppt if first else r["tail"]
                     mufu = r["tail_mufu"] / (ppt if first else 1)
                     r["tail_per_pixel"] = per
@@ -570,7 +594,7 @@ def main(argv=None) -> None:
                             SMS * SCHEDULERS * LANES * clk)
                         r[f"mufu_bound_ms_{cell}"] = 1e3 * mufu * n / (
                             SMS * MUFU_PER_CLK * clk)
-                if "parts" in r:
+                if "parts" in r and not cells:
                     grp = next((v for k, v in part_group.items()
                                 if k in bare), 1)
                     r["part_pixels_per_pass"] = grp

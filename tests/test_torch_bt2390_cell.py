@@ -392,6 +392,27 @@ def test_k2_route_names_are_asked_once_a_key(monkeypatch):
                                                epi, "rgb10a2")
 
 
+def test_redo_counters_register_and_reset(monkeypatch):
+    """The c7 routes' redo counters (``rk.redo_counter``): one int64 a
+    kernel and device, made at its first use and kept; ``redo_groups`` sums
+    a kernel's over its devices, ``k2_redo_groups`` is K2's;
+    ``reset_launches`` zeroes them and keeps them."""
+    monkeypatch.setattr(rk, "redo_counters", {})
+    assert rk.k2_redo_groups() == 0
+    k2 = rk.redo_counter("rows3_tail", "cpu")
+    assert k2.dtype == torch.int64 and k2.shape == (1,) and int(k2) == 0
+    assert rk.redo_counter("rows3_tail", torch.device("cpu")) is k2
+    k4 = rk.redo_counter("mega3_tail", "cpu")
+    k2 += 7
+    k4 += 2
+    assert rk.k2_redo_groups() == 7 and rk.redo_groups("mega3_tail") == 2
+    rk.reset_launches()
+    assert rk.k2_redo_groups() == 0 and rk.redo_groups("mega3_tail") == 0
+    assert rk.redo_counter("rows3_tail", "cpu") is k2
+    assert set(rk.redo_counters) == {("rows3_tail", torch.device("cpu")),
+                                     ("mega3_tail", torch.device("cpu"))}
+
+
 def test_reset_launches_zeroes_k2s_routes():
     assert rk.route_launches["rows3_tail"] is rk.k2_route_launches
     rk.k2_route_launches["c7 uint16/int16"] = 3

@@ -2174,6 +2174,238 @@ def test_k2_route_counter(dev):
     assert set(rk.launches.values()) == {0}
 
 
+# --- the c7 routes' checked pow (csrc/tail.cuh CheckedPow) --------------------
+
+ST2084_M1, ST2084_M2 = 2610.0 / 16384.0, 2523.0 / 4096.0 * 128.0
+ST2084_C1 = 3424.0 / 4096.0
+# the exponents of the BT.2390 tail's pows, as float32 (tail.cuh's f())
+POW_EXPONENTS = {"1/m2": 1.0 / ST2084_M2, "1/m1": 1.0 / ST2084_M1,
+                 "m1": ST2084_M1, "m2": ST2084_M2}
+POW_CHUNK = 1 << 27
+
+
+def _checked_pow(x, e):
+    """The card's checked pow of the float32 values ``x`` at exponent ``e``
+    beside pow_pos (``vrt_checked_pow``): (checked, exact, ok, v), v the
+    value its range test compares with 126."""
+    from videorenderer_tpu_torch.kernels import build
+    checked, exact, v = (torch.empty_like(x) for _ in range(3))
+    ok = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    err = build.load().vrt_checked_pow(
+        x.data_ptr(), x.numel(), float(np.float32(e)), checked.data_ptr(),
+        exact.data_ptr(), ok.data_ptr(), v.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return checked, exact, ok.bool(), v
+
+
+def _f32_bits(x: float) -> int:
+    return int(np.array(x, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("name", list(POW_EXPONENTS))
+def test_checked_pow_bit_equal_to_pow_pos(dev, name):
+    """Every non-negative float32 bit pattern (2^31, in chunks), and every
+    128th negative one with -0, -inf and a negative NaN, at each exponent
+    of the BT.2390 tail: wherever the range flag holds, the checked pow is
+    pow_pos's bits.  The flag is false exactly where its test says: x > 0
+    or NaN, and |v| >= 126 (v = e * log2(x) for e > 1, else log2(x)).  So
+    it is false on every subnormal, inf and NaN, true on every x <= 0, and
+    false on the normals outside the bounds 2^(+-126 / max(e, 1)) (counted
+    against float64's, within the patterns whose v rounds across 126: one
+    float step of 126, 2^-17 in log2, is ~22 patterns above a power of two
+    and ~44 below one, at either bound)."""
+    e = float(np.float32(POW_EXPONENTS[name]))
+    off_normal = 0
+    for start in range(0, 1 << 31, POW_CHUNK):
+        bits = torch.arange(start, start + POW_CHUNK, device=dev).int()
+        x = bits.view(torch.float32)
+        checked, exact, ok, v = _checked_pow(x, e)
+        same = checked.view(torch.int32) == exact.view(torch.int32)
+        assert bool((same | ~ok).all())
+        assert torch.equal(ok, (x <= 0) | (v.abs() < 126))
+        special = (bits > 0) & ((bits < 0x800000) | (bits >= 0x7F800000))
+        assert not bool(ok[special].any())
+        normal = (bits >= 0x800000) & (bits < 0x7F800000)
+        off_normal += int((normal & ~ok).sum())
+    bound = max(e, 1.0)
+    lo, hi = _f32_bits(2.0 ** (-126 / bound)), _f32_bits(2.0 ** (126 / bound))
+    expected = (lo - 0x800000) + (0x7F800000 - hi)
+    assert abs(off_normal - expected) <= 132, (off_normal, expected)
+    neg = torch.cat([torch.arange(-(1 << 31), 0, 128, device=dev),
+                     torch.tensor([-(1 << 31), _f32_bits(-np.inf), -1],
+                                  device=dev)]).int()
+    x = neg.view(torch.float32)
+    checked, exact, ok, _ = _checked_pow(x, e)
+    assert torch.equal(ok, ~torch.isnan(x))
+    assert not bool(checked[ok].any()) and not bool(exact[ok].any())
+
+
+BT2390_HDR = {"mastering_min_nits": 0.005, "mastering_max_nits": 4000.0,
+              "max_cll": 3000.0, "max_fall": 800.0}
+# codes outside the gamut (PERF.md section 2: R at PQ 1.42, B at 0, a luma
+# of 257,000 nits), as 10-bit P010 codes
+FAR_GAMUT = (757, 126, 918)
+C7_ROUTES = ["c7 uint16/int16", "c7 uint16/float32",
+             "c7 planar uint16/float32", "c7 planar uint16"]
+
+
+def _bt2390_cell_epilogue(w=3840, h=2160):
+    """The HDR10 passthrough cell's plan at w x h and its K2 / K4 epilogue
+    with the first scene's HDR10 values."""
+    from vrbench.entries import common, serving_hdr10
+    cfg = _bench_config("hdr10_uhd_to_hdr600_bt2390", w, h, w, h)
+    plan = P.plan_pipeline(serving_hdr10.settings(cfg), common.source(cfg),
+                           common.output(cfg))
+    return plan, P._make_tail_epilogue(plan, hdr=BT2390_HDR)
+
+
+def _far_gamut_p010(rng, n, w, h, r0, c0):
+    """The cell's raw P010 planes (luma codes 64-940, chroma 64-960; numpy)
+    with an 8 x 16 block of FAR_GAMUT codes in frame 0 at luma row r0,
+    column c0 (and the chroma rows and columns every tap of its pixels
+    reaches)."""
+    y = rng.integers(64, 941, (n, h, w), dtype=np.uint16) << 6
+    u, v = (rng.integers(64, 961, (n, h // 2, w // 2), dtype=np.uint16) << 6
+            for _ in range(2))
+    y[0, r0:r0 + 8, c0:c0 + 16] = FAR_GAMUT[0] << 6
+    rc, cc = r0 // 2, c0 // 2
+    u[0, rc - 2:rc + 6, cc - 2:cc + 10] = FAR_GAMUT[1] << 6
+    v[0, rc - 2:rc + 6, cc - 2:cc + 10] = FAR_GAMUT[2] << 6
+    return y, u, v
+
+
+def _c7_route_call(route, planes, epi):
+    """A call of ``route`` (K2's c7 routes, K4's "c7 planar uint16") on the
+    raw P010 ``planes`` of the cell's shape: K2 reads the raw luma and the
+    chroma after K1's W upsample (mid16 codes, or float32 for the float32
+    routes) with the bilinear H upsample; K4 reads all three raw.  Returns
+    (kernel, fn), fn() making the call."""
+    y, u, v = planes
+    n, h, w = y.shape
+    ux, uy = chroma.chroma_upsample_matrices(
+        w // 2, h // 2, 420, C.ChromaScaling.BILINEAR, S.ChromaLocation.MPEG2)
+    if route == "c7 planar uint16":
+        (ky, hy), (kc, hc) = (rk.mega_maps(None, None, 1 / 65535.0),
+                              rk.mega_maps(ux, uy, 1 / 65535.0))
+        args = (y, u, v, ky, kc, hy, hc, h, epi, 1 / 65535.0)
+        assert rk.mega3_tail_route(torch.uint16, torch.uint16, epi) == route
+        return "mega3_tail", lambda: rk.mega3_tail(*args)
+    kx = rk.BandedMatrix(ux, pre_scale=1 / 65535.0)
+    mid = [rk.banded_resize_last_axis(c, kx, mid16=True) for c in (u, v)]
+    if route == "c7 uint16/int16":
+        cu, cv = mid
+        mc = rk.BandedMatrix(uy, pre_scale=1.0 / rk.MID16_SCALE)
+    else:
+        cu, cv = (m.float() / rk.MID16_SCALE for m in mid)
+        mc = rk.BandedMatrix(uy)
+    pack = None if "planar" in route else "rgb10a2"
+    assert rk.rows3_tail_route(torch.uint16, cu.dtype, epi, pack) == route
+    kw = dict(y_scale=1 / 65535.0, pack_format=pack)
+    return "rows3_tail", lambda: rk.rows3_tail(y, cu, cv, None, mc, h, epi,
+                                               **kw)
+
+
+def _staged_and_runtime(monkeypatch, kernel, call):
+    """``call`` on its compiled route, then on the long-window route, which
+    runs every pixel through tail_exact (the runtime route); the groups
+    the compiled route ran again exactly."""
+    flag = "K2_LONG_WINDOW" if kernel == "rows3_tail" else "K4_LONG_WINDOW"
+    rk.reset_launches()
+    staged = call()
+    torch.cuda.synchronize()
+    redo = rk.redo_groups(kernel)
+    with monkeypatch.context() as mp:
+        mp.setattr(rk, flag, True)
+        runtime = call()
+    torch.cuda.synchronize()
+    assert rk.launches[kernel] == 2
+    assert rk.redo_groups(kernel) == redo
+    return staged, runtime, redo
+
+
+@pytest.mark.parametrize("route", C7_ROUTES)
+def test_c7_routes_bit_equal_to_runtime_route(dev, route, monkeypatch):
+    """K2's three c7 routes and K4's at the cell's frame shape (2 frames of
+    3840 x 2160, the cell's codes: luma 64-940, chroma 64-960, the cell's
+    BT.2390 epilogue), with blocks of far-gamut codes: bit-equal to the
+    runtime route (tail_exact on every pixel, the long-window route
+    forced), the groups run again exactly under 1e-4 of a call's."""
+    rng = np.random.default_rng(90)
+    _, epi = _bt2390_cell_epilogue()
+    planes = tuple(torch.from_numpy(p).to(dev) for p in
+                   _far_gamut_p010(rng, 2, 3840, 2160, 1000, 2000))
+    kernel, call = _c7_route_call(route, planes, epi)
+    staged, runtime, redo = _staged_and_runtime(monkeypatch, kernel, call)
+    assert torch.equal(staged, runtime)
+    assert redo < 1e-4 * 2 * 2160 * 3840 / 4, redo
+
+
+def _near_black_pq(code: int):
+    """(scale, PQ value): code * scale in float32 is a PQ value whose
+    1/m2 power lies ~9 float steps above c1, so that pq_to_p gives ~1.8e-7
+    and its 1/m1 power (the tail's lin) is subnormal: a value CheckedPow
+    refuses."""
+    target = (ST2084_C1 + 9 * 2.0 ** -24) ** ST2084_M2
+    sc = np.float32(target / code)
+    value = np.float32(np.float32(code) * sc)
+    steps = (float(value) ** (1 / ST2084_M2) - ST2084_C1) / 2.0 ** -24
+    assert 0 < value < 1e-6 and 5 < steps < 13
+    return float(sc), float(value)
+
+
+@pytest.mark.parametrize("route", C7_ROUTES)
+def test_c7_redo_counter_reads_the_planted_groups(dev, route, monkeypatch):
+    """The cell's epilogue with its colour matrix made a permutation (R the
+    first chroma plane, G the second, B the luma; the route is the same),
+    the planes read directly at the cell's frame shape: a frame whose R is
+    twice a near-black PQ value runs no group again; the same frame with
+    that value (0 < R < 1e-6, its lin subnormal) planted in one pixel of
+    each of 50 groups makes the counter read 50.  Both bit-equal to the
+    runtime route."""
+    import dataclasses
+    rng = np.random.default_rng(91)
+    _, epi = _bt2390_cell_epilogue()
+    epi = dataclasses.replace(epi, cmat=np.array(
+        [[0, 1, 0, 0], [0, 0, 1, 0], [1, 0, 0, 0]], np.float32))
+    n, h, w, code = 2, 2160, 3840, 10000
+    sc, value = _near_black_pq(code)
+    npt = {"c7 uint16/int16": np.int16,
+           "c7 planar uint16": np.uint16}.get(route, np.float32)
+    dtype = {np.int16: torch.int16, np.uint16: torch.uint16,
+             np.float32: torch.float32}[npt]
+    mark, clean = ((value, 2 * value) if npt == np.float32
+                   else (code, 2 * code))
+    planes = [np.zeros((n, h, w), np.uint16), np.full((n, h, w), clean, npt),
+              np.zeros((n, h, w), npt)]
+    scale_ = 1.0 if npt == np.float32 else sc
+    y, u, v = (torch.from_numpy(p).to(dev) for p in planes)
+    if route == "c7 planar uint16":
+        kernel = "mega3_tail"
+        assert rk.mega3_tail_route(torch.uint16, dtype, epi) == route
+
+        def call():
+            return rk.mega3_tail(y, u, v, None, None, None, None, h, epi,
+                                 scale_)
+    else:
+        kernel = "rows3_tail"
+        pack = None if "planar" in route else "rgb10a2"
+        assert rk.rows3_tail_route(torch.uint16, dtype, epi, pack) == route
+
+        def call():
+            return rk.rows3_tail(y, u, v, None, None, h, epi, y_scale=1.0,
+                                 c_scale=scale_, pack_format=pack)
+    staged, runtime, redo = _staged_and_runtime(monkeypatch, kernel, call)
+    assert torch.equal(staged, runtime) and redo == 0
+    groups = rng.choice(n * h * (w // 4), 50, replace=False)
+    b, rest = np.divmod(groups, h * (w // 4))
+    r, g = np.divmod(rest, w // 4)
+    planes[1][b, r, 4 * g + rng.integers(0, 4, 50)] = mark
+    u = torch.from_numpy(planes[1]).to(dev)
+    staged, runtime, redo = _staged_and_runtime(monkeypatch, kernel, call)
+    assert torch.equal(staged, runtime) and redo == 50
+
+
 @pytest.mark.parametrize("sizes", [(3840, 1920), (600, 250), (1000, 333),
                                    (1001, 500), (999, 333), (517, 250)])
 def test_k10_kernels_match_plain(dev, sizes):

@@ -81,6 +81,36 @@ def test_sass_counts_attribute_the_tail_and_its_second_pass():
     assert kr.sass_counts(SASS)["_Z1kPf"]["tail_second_pass"] == 0
 
 
+def test_sass_counts_attribute_a_parts_second_pass():
+    """Given the second pass's lines, each part counts the instructions
+    inlined through it too (K2's and K4's ``pow``): here the LG2 inlined
+    through rows3_tail.cuh's lines 190-210 of the three pow instructions."""
+    c = kr.sass_counts(SASS, ("rows3_tail.cuh", 190, 210),
+                       {"pow": [("tail.cuh", 90, 95)]})["_Z1kPf"]
+    assert c["parts"] == {"pow": {"instructions": 3, "mufu": 2,
+                                  "second_pass": 1}}
+
+
+def test_pow_part_of_k2_and_k4(tmp_path):
+    """K2's and K4's ``pow`` part in this tree's tail.cuh: pow_pos,
+    log2_normal, CheckedPow's body and both pow_of overloads; in a tree
+    without the checked pow, pow_pos alone."""
+    files, funcs = kr.PARTS["rows3_tail"]["pow"]
+    assert kr.PARTS["mega3_tail"]["pow"] == (files, funcs)
+    got = kr.function_lines(kr.build.CSRC, files, funcs)
+    lines = (kr.build.CSRC / "tail.cuh").read_text().splitlines()
+    heads = [lines[a - 1] for _, a, _ in got]
+    assert len(got) == 5 and all(f == "tail.cuh" for f, _, _ in got)
+    assert "pow_pos(" in heads[0] and "log2_normal(" in heads[1]
+    assert heads[2].startswith("struct CheckedPow")
+    assert all("pow_of(" in h for h in heads[3:])
+    assert [lines[b - 1] for _, _, b in got] == ["}", "}", "};", "}", "}"]
+    (tmp_path / "tail.cuh").write_text(
+        "// t\n__device__ __forceinline__ float pow_pos(float x, float e) "
+        "{\n  return x;\n}\n")
+    assert kr.function_lines(tmp_path, files, funcs) == [("tail.cuh", 2, 4)]
+
+
 def test_second_pass_lines_find_tail_exact():
     name, first, last = kr.second_pass_lines(kr.build.CSRC)
     lines = (kr.build.CSRC / name).read_text().splitlines()

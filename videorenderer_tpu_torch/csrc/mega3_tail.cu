@@ -124,7 +124,9 @@ const auto kSpecs = std::make_tuple(
 // fix's gamma, the L2 trims and the guided curve (tail.cuh's make_tail).
 // ``long_window``: the long-window kernel (tile_rows must be 16), else the
 // staged one.  Returns cudaErrorInvalidValue for a layout over
-// kSmemBudget.  ``out`` is (batch, 3, h_out, w_out) float32.
+// kSmemBudget.  ``redo_groups``: a device int64 to which the c7 route
+// (route.cuh's CheckedPow policy) adds the groups it runs again exactly, or
+// NULL.  ``out`` is (batch, 3, h_out, w_out) float32.
 extern "C" int vrt_mega3_tail(
     const void* y, int y_dtype, const void* u, const void* v, int c_dtype,
     int batch, int hy, int wy, int hc, int wc, int h_out, int w_out,
@@ -135,11 +137,12 @@ extern "C" int vrt_mega3_tail(
     int win_y, const void* sy_c, const void* ty_c, int nty_c,
     const void* lo_c, int win_c, float y_scale, float c_scale,
     const void* host_mats, int apply_matrix, int correction, int tonemap,
-    float luminance_scale, int dither_bits, int long_window, void* out,
-    void* stream) {
-  const vrt::TailParams P = vrt::make_tail_params(
+    float luminance_scale, int dither_bits, int long_window,
+    void* redo_groups, void* out, void* stream) {
+  vrt::TailParams P = vrt::make_tail_params(
       host_mats, apply_matrix, correction, tonemap, luminance_scale, y_scale,
       c_scale, dither_bits, vrt::kPackNone);
+  P.set_redo(redo_groups);
   auto maps = [](int h, int w, const void* sx, const void* tx, int ntx,
                  const void* span_lo, int span, const void* sy,
                  const void* ty, int nty, const void* lo, int win) {

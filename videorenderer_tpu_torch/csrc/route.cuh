@@ -7,9 +7,14 @@
 // A route (colour matrix, correction, tone map, quantization, pack) is a
 // set of template parameters of tail.cuh's and epilogue.cuh's functions: a
 // compiled route keeps only its own path, its branches and its registers,
-// and runs its thread's 4 pixels' tails side by side, dividing with
-// CheckedDiv; the rare group with an operand out of CheckedDiv's range runs
-// its tail again, one pixel at a time, with __fdiv_rn (tail_exact).
+// and runs its thread's 4 pixels' tails side by side under one arithmetic
+// policy with one range flag for the group (Policy below): CheckedDiv, its
+// pows libdevice's pow_pos, on every compiled route but c7's; CheckedPow,
+// which also takes the pows without libdevice's arms for non-normal values,
+// on C7 and C7Float (K2's three c7 routes, K4's c7 route).  The rare group
+// with a value out of the policy's range runs its tail again, one pixel at
+// a time, with __fdiv_rn and pow_pos (tail_exact); on CheckedPow's routes
+// it adds one to the launch's redo counter (TailParams::redo()).
 // RuntimeRoute reads the flags from the launch's parameters and runs every
 // pixel through tail_exact.  All of them run the same operations in the same
 // order, so they give the same bits.
@@ -20,6 +25,7 @@
 #include <stdint.h>
 
 #include <tuple>
+#include <type_traits>
 
 #include "epilogue.cuh"
 #include "tail.cuh"
@@ -75,6 +81,23 @@ using MatrixRgb10 = Route<1, kCorrNone, kTmNone, kQuantNone, kPackRgb10a2>;
 // no matrix: the taps and the store (the stage split's tailH)
 using PlanesRgb10 = Route<0, kCorrNone, kTmNone, kQuantNone, kPackRgb10a2>;
 
+// The arithmetic policy of a compiled route's first pass (tail.cuh):
+// CheckedDiv, or CheckedPow on the routes named below.  A route takes
+// CheckedPow by one line here; the others keep their code, and their
+// registers.
+template <typename R>
+struct Policy {
+  using type = CheckedDiv;
+};
+template <>
+struct Policy<C7> {
+  using type = CheckedPow;
+};
+template <>
+struct Policy<C7Float> {
+  using type = CheckedPow;
+};
+
 // a[k] through selects, so an array indexed by a loop that is not unrolled
 // stays in registers
 __device__ __forceinline__ float pick(const float a[kGroup], int k) {
@@ -108,10 +131,22 @@ __device__ __forceinline__ void tail_exact(const TailParams& P,
   }
 }
 
+// Adds the number of a warp's threads whose groups run tail_exact again to
+// the launch's counter, one atomic by the first of them (kernels/resize
+// gives K2's and K4's launches a counter; none where the address is 0).
+__device__ __forceinline__ void count_redo(unsigned long long* redo) {
+  const unsigned active = __activemask();
+  unsigned lane;
+  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+  if (redo != nullptr && lane == __ffs(active) - 1) {
+    atomicAdd(redo, static_cast<unsigned long long>(__popc(active)));
+  }
+}
+
 // The tail of a thread's 4 pixels: a compiled route runs them side by side
-// with one check for all their divisions, and a group with an operand out
-// of CheckedDiv's range runs its tail again, exactly; the runtime route
-// runs tail_exact.
+// under its Policy with one check for all their divisions (and CheckedPow's
+// pows), and a group with a value out of the policy's range runs its tail
+// again, exactly; the runtime route runs tail_exact.
 template <typename R>
 __device__ __forceinline__ void tail_group(const TailParams& P,
                                            const float yv[kGroup],
@@ -121,13 +156,17 @@ __device__ __forceinline__ void tail_group(const TailParams& P,
   if constexpr (R::kReadsFlags) {
     tail_exact<R>(P, yv, uv, vv, c);
   } else {
-    CheckedDiv div;
+    using D = typename Policy<R>::type;
+    D div;
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
       color_tail<R::kMat, R::kCorr, R::kTm, R::kExt>(P.tail, yv[k], uv[k],
                                                      vv[k], c[k], div);
     }
-    if (!div.ok) tail_exact<R>(P, yv, uv, vv, c);
+    if (!div.ok) {
+      if constexpr (std::is_same_v<D, CheckedPow>) count_redo(P.redo());
+      tail_exact<R>(P, yv, uv, vv, c);
+    }
   }
 }
 

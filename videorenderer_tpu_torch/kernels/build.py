@@ -45,11 +45,11 @@ SIGNATURES = {
     # constants; kernels/resize.Epilogue.host_mats), apply_matrix,
     # correction, tonemap,
     # luminance_scale, dither_bits, pack, surface_h, surface_w, off_y,
-    # off_x, long_window, out, stream
+    # off_x, long_window, redo_groups (device int64 or NULL), out, stream
     "vrt_rows3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _F, _F, _P, _I, _I, _I, _F, _I, _I,
-                       _I, _I, _I, _I, _I, _P, _P),
+                       _I, _I, _I, _I, _I, _P, _P, _P),
     # y, y_dtype, u, v, c_dtype, batch, hy, hc, w, h_out, tile_rows, the
     # (starts, taps, n_taps, tile_lo, win) of the y and c H maps, y_scale,
     # c_scale, vals (host), n_vals, structure (host), lms_identity, out,
@@ -70,12 +70,12 @@ SIGNATURES = {
     # tile_rows, chunk_rows, the (starts, taps, n_taps, span_lo, span) of
     # the W maps of y and c, the (starts, taps, n_taps, tile_lo, win) of
     # their H maps, y_scale, c_scale, mats (host, 59 floats), apply_matrix,
-    # correction, tonemap, luminance_scale, dither_bits, long_window, out,
-    # stream
+    # correction, tonemap, luminance_scale, dither_bits, long_window,
+    # redo_groups (device int64 or NULL), out, stream
     "vrt_mega3_tail": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
                        _P, _P, _I, _P, _I, _P, _P, _I, _P, _I,
-                       _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P),
+                       _F, _F, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P),
     # x, x_dtype, starts, taps, tile_lo, win, out, batch, h_in, h_out, w,
     # n_taps, tile_rows, long_window, stream
     "vrt_banded_resize_rows": (_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
@@ -117,6 +117,8 @@ SIGNATURES = {
     "vrt_wpass_bf16": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     # x, out, rows, w_in, w_out, stream
     "vrt_wpass_floor": (_P, _P, _I, _I, _I, _P),
+    # x, n (64-bit), e, checked, exact, ok (uint8), v, stream
+    "vrt_checked_pow": (_P, _L, _F, _P, _P, _P, _P, _P),
 }
 # entry points that return a string, not an error code
 STRING_SIGNATURES = {

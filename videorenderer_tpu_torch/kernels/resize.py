@@ -109,10 +109,43 @@ runtime route each took, or ``K2_LONG``; keys appear at their first launch
 and are reset with ``launches`` (:func:`reset_launches`)."""
 
 
+redo_counters: dict[tuple[str, torch.device], torch.Tensor] = {}
+"""The groups of 4 pixels that the c7 routes (``csrc/route.cuh``'s
+CheckedPow policy) of K2 ("rows3_tail") and K4 ("mega3_tail") ran again
+exactly, by kernel and device: one int64 on the device each, to which the
+kernel adds (:func:`redo_counter`); read with :func:`redo_groups`, zeroed
+with ``launches`` (:func:`reset_launches`)."""
+
+
 def reset_launches() -> None:
     for counter in (launches, *route_launches.values()):
         for k in counter:
             counter[k] = 0
+    for c in redo_counters.values():
+        c.zero_()
+
+
+def redo_counter(name: str, device) -> torch.Tensor:
+    """The redo counter of kernel ``name`` on ``device``, made at its first
+    use."""
+    key = (name, torch.device(device))
+    c = redo_counters.get(key)
+    if c is None:
+        c = redo_counters[key] = torch.zeros(1, dtype=torch.int64,
+                                             device=key[1])
+    return c
+
+
+def redo_groups(name: str) -> int:
+    """The groups kernel ``name``'s c7 routes ran again exactly since the
+    last reset, over every device (reads the counters: a sync of each)."""
+    return sum(int(c.item()) for (n, _), c in redo_counters.items()
+               if n == name)
+
+
+def k2_redo_groups() -> int:
+    """K2's (:func:`rows3_tail`'s) redone groups: :func:`redo_groups`."""
+    return redo_groups("rows3_tail")
 
 
 def kernel_span(name: str):
@@ -737,7 +770,10 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     on one NVIDIA H100 80GB HBM3 at 700 W, the H taps
     and the store reach 61% (headline) and 79% (c7) of their byte bound;
     the tail, 65% and 86% of K2's time, is bound by its instruction issue
-    (96% of that bound at the headline; ``PERF.md`` section 6)."""
+    (96% of that bound at the headline; ``PERF.md`` section 6).  The c7
+    routes take their pows without libdevice's arms for non-normal values,
+    under the group's one range flag (``csrc/route.cuh``'s CheckedPow), and
+    add the groups they run again exactly to :func:`redo_counter`'s."""
     epilogue.validate()
     if pack_format not in PACK_CODES:
         raise NotImplementedError(f"K2: pack format {pack_format!r}")
@@ -776,7 +812,7 @@ def rows3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             1.0 if c_scale is None else float(c_scale),
             *epilogue.launch_args(mats), epilogue.dither_bits,
             PACK_CODES[pack_format], *surface, int(long_window),
-            out.data_ptr())
+            redo_counter("rows3_tail", y.device).data_ptr(), out.data_ptr())
     route = K2_LONG if long_window else _route_name(
         route_flags(y.dtype, u.dtype, epilogue, pack_format), False)
     k2_route_launches[route] = k2_route_launches.get(route, 0) + 1
@@ -1139,7 +1175,7 @@ def mega3_tail(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             *h_args(my_y), *h_args(my_c), direct_scale(mx_y, my_y),
             direct_scale(mx_c, my_c), *epilogue.launch_args(mats),
             epilogue.dither_bits, int(route == "long-window"),
-            out.data_ptr())
+            redo_counter("mega3_tail", dev).data_ptr(), out.data_ptr())
     return out
 
 
