@@ -3244,7 +3244,8 @@ def k4_phase(dev) -> tuple[dict, dict]:
                               rk.mega_maps(mx_c, my_c, nrm))
         oh, ow = p.dst.video_size[1], p.dst.video_size[0]
         maps = (ky, kc, hy, hc, oh)
-        epi = _make_tail_epilogue(p, hdr=None if rt is None else rt["hdr"])
+        epi = _make_tail_epilogue(
+            p, rt=None if rt is None else {"hdr": rt["hdr"]})
         b16 = p010_batch(BATCH, seed, dev)
         two = tuple(q[:PLAIN_FRAMES] for q in b16)
         got = rk.mega3_tail(*two, *maps, epi, nrm)

@@ -381,7 +381,7 @@ def test_k2_route_names_are_asked_once_a_key(monkeypatch):
     from videorenderer_tpu_torch import pipeline
     plan = plan_pipeline(serving_hdr10.settings(cfg), common.source(cfg),
                          common.output(cfg))
-    epi = pipeline._make_tail_epilogue(plan, hdr=scenes()["scene0"])
+    epi = pipeline._make_tail_epilogue(plan, rt={"hdr": scenes()["scene0"]})
     for _ in range(3):
         assert rk.rows3_tail_route(torch.uint16, torch.int16, epi,
                                    "rgb10a2") == "c7 uint16/int16"

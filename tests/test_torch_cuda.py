@@ -351,7 +351,8 @@ K2_ROUTES = [
     ("c7 uint16/int16", torch.uint16, torch.int16,
      lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108)), "rgb10a2"),
     ("c7 uint16/float32", torch.uint16, torch.float32,
-     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108), hdr=SCENE),
+     lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108),
+                                   rt={"hdr": SCENE}),
      "rgb10a2"),
     ("c7 planar uint16/float32", torch.uint16, torch.float32,
      lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108)), None),
@@ -380,7 +381,7 @@ K2_ROUTES = [
      "rgb10a2"),
     ("runtime", torch.uint16, torch.float32,
      lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, hdr10plus=GUIDED),
-                                   hdr=SCENE), "rgb10a2"),
+                                   rt={"hdr": SCENE}), "rgb10a2"),
     ("runtime", torch.uint16, torch.int16,
      lambda: P._make_tail_epilogue(_c7_plan(w=200, h=108, dovi_trims=TRIMS)),
      "rgb10a2"),
@@ -1844,7 +1845,8 @@ def test_k2_local_tonemap_matches_plain(dev, sel, route, passthrough):
     hdr = None
     if route == "serving":
         hdr = dict(SCENE, display_max_nits=1500.0) if passthrough else SCENE
-    epi = P._make_tail_epilogue(plan, hdr=hdr)
+    epi = P._make_tail_epilogue(
+        plan, rt=None if hdr is None else {"hdr": hdr})
     assert epi.tonemap == C.ToneMapType[sel]
     y, u, v, mc = _c7_k2_inputs(rng)
     args = (y.to(dev), u.to(dev), v.to(dev), None, mc, 36, epi)
@@ -1879,7 +1881,8 @@ def test_k2_guided_and_trims_match_plain(dev, case):
     kw = dict(GUIDED_CASES[case])
     hdr = kw.pop("hdr", None)
     plan = _c7_plan(**kw)
-    epi = P._make_tail_epilogue(plan, hdr=hdr)
+    epi = P._make_tail_epilogue(
+        plan, rt=None if hdr is None else {"hdr": hdr})
     assert (epi.tonemap == 7) == ("hdr10plus" in kw)
     assert (epi.trims is not None) == ("dovi_trims" in kw)
     y, u, v, mc = _c7_k2_inputs(rng)
@@ -2257,7 +2260,7 @@ def _bt2390_cell_epilogue(w=3840, h=2160):
     cfg = _bench_config("hdr10_uhd_to_hdr600_bt2390", w, h, w, h)
     plan = P.plan_pipeline(serving_hdr10.settings(cfg), common.source(cfg),
                            common.output(cfg))
-    return plan, P._make_tail_epilogue(plan, hdr=BT2390_HDR)
+    return plan, P._make_tail_epilogue(plan, rt={"hdr": BT2390_HDR})
 
 
 def _far_gamut_p010(rng, n, w, h, r0, c0):

@@ -450,7 +450,8 @@ def test_c5_plan_and_maps_equal_jax():
     assert np.array_equal(jplan.cmat_c, tplan.cmat_c)
     for f in ("apply_matrix", "convert_to_sdr", "hlg_to_pq", "dither_bits"):
         assert getattr(jplan, f) == getattr(tplan, f), f
-    assert tpipe._can_fuse(tplan) and tpipe._can_kernel_deint(tplan)
+    assert tpipe.route_of(tplan) == "fused"
+    assert tpipe._can_kernel_deint(tplan)
     s = jplan.settings
     cy = jscale.select_scaler(2160, 1080, s.upscaling, s.downscaling,
                               s.interpolate_at_50pct)

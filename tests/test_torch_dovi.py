@@ -506,8 +506,8 @@ def test_plan_matches_jax(kind, transfer):
     for f in ("apply_matrix", "convert_to_sdr", "hlg_to_pq", "dither_bits"):
         assert getattr(tplan, f) == getattr(jplan, f), f
     assert tplan.convert_to_sdr
-    assert tpipe._can_split_fuse(tplan) == jpipe._can_split_fuse(jplan) is True
-    assert not tpipe._can_fuse(tplan) and not jpipe._can_fuse(jplan)
+    assert tpipe.route_of(tplan) == "dovi_fused"
+    assert jpipe._can_split_fuse(jplan) and not jpipe._can_fuse(jplan)
     assert tpipe._make_tail_epilogue(tplan, with_cmat=False).correction \
         == trk.CORR_PQ_TO_SDR
 

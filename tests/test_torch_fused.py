@@ -155,7 +155,7 @@ def test_fused_matches_staged(case):
                          dict(st, tex_format=tcfg.TexFormat.FLOAT16),
                          src_over)
     _, mid16_plan = _both(fmt, w, h, ow, oh, st, src_over)
-    assert tpipe._can_fuse(tplan) and jpipe._can_fuse(jplan)
+    assert tpipe.route_of(tplan) == "fused" and jpipe._can_fuse(jplan)
     planes = _planes(fmt, w, h, bits=bits)
     staged = tpipe.make_frame_fn(tplan, fused=False)(_t(planes)).numpy()
     fused = tpipe.make_frame_fn(tplan, fused=True)(_t(planes)).numpy()
@@ -173,12 +173,12 @@ def test_fused_matches_staged(case):
 def test_jinc2_not_fused():
     _, tplan = _both("NV12", 32, 32, 64, 64,
                      dict(upscaling=tcfg.Upscaling.JINC2))
-    assert not tpipe._can_fuse(tplan)
+    assert tpipe.route_of(tplan) != "fused"
 
 
 def test_shader_order_not_fused():
     jplan, tplan = _both("NV12", 32, 32, 64, 64, dict(vp_scaling=False))
-    assert not tpipe._can_fuse(tplan) and not jpipe._can_fuse(jplan)
+    assert tpipe.route_of(tplan) != "fused" and not jpipe._can_fuse(jplan)
 
 
 def test_fused_with_dither_matches():
@@ -255,13 +255,13 @@ def test_config_fuzz_fused_vs_staged(trial):
     jplan, tplan = _both(fmt, w, h, ow, oh,
                          dict(st, tex_format=tcfg.TexFormat.FLOAT16))
     _, mid16_plan = _both(fmt, w, h, ow, oh, st)
-    assert tpipe._can_fuse(tplan) == jpipe._can_fuse(jplan)
+    assert (tpipe.route_of(tplan) == "fused") == jpipe._can_fuse(jplan)
     planes = _planes(fmt, w, h, seed=trial, bits=10 if fmt == "P010" else 8)
     staged = tpipe.make_frame_fn(tplan, fused=False)(_t(planes)).numpy()
     assert staged.shape == (3, oh, ow), (trial, fmt, w, h, ow, oh)
     assert np.isfinite(staged).all(), (trial, fmt)
     auto = tpipe.make_frame_fn(tplan)(_t(planes)).numpy()
-    if tpipe._can_fuse(tplan):
+    if tpipe.route_of(tplan) == "fused":
         d = np.abs(auto - staged)
         assert (d > 1.5 / 255).mean() == 0, (trial, fmt, st)
         assert (d > 0.5 / 255).mean() < 5e-3, (trial, fmt, st)
@@ -316,7 +316,7 @@ def test_shader_order_matches_jax(transfer, kernel, monkeypatch):
     convert in interpret mode, and its torch convert against the JAX XLA
     convert; PQ -> SDR, HLG -> SDR and the SDR BT.2020 fix."""
     jplan, tplan = _hdr_both(transfer=transfer, vp_scaling=False)
-    assert not tpipe._can_fuse(tplan)
+    assert tpipe.route_of(tplan) != "fused"
     planes = _planes("P010", 128, 64, seed=22, bits=10, n=2)
     fn = jpipe.make_frame_fn(jplan)
     if kernel:

@@ -293,8 +293,9 @@ def test_formerly_unported_plans_match_jax(case):
     assert (tpipe.output_signal_info(tplan).to_dict()
             == jpipe.output_signal_info(jplan).to_dict())
     assert tpipe.serving_rt_keys(tplan) == jpipe.serving_rt_keys(jplan)
-    assert tpipe._can_fuse(tplan) == jpipe._can_fuse(jplan)
-    assert tpipe._can_split_fuse(tplan) == jpipe._can_split_fuse(jplan)
+    assert (tpipe.route_of(tplan) == "fused") == jpipe._can_fuse(jplan)
+    assert ((tpipe.route_of(tplan) == "dovi_fused")
+            == jpipe._can_split_fuse(jplan))
 
 
 @pytest.mark.parametrize("case", [

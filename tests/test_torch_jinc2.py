@@ -354,7 +354,7 @@ def test_jinc2_plans_take_the_staged_path():
     for up, fused in (("JINC2", False), ("LANCZOS3", True)):
         plan = tpipe.plan_pipeline(*_plan_args(tcfg, tcsp, tpipe, TFmt,
                                                upscaling=up))
-        assert tpipe._can_fuse(plan) is fused
+        assert (tpipe.route_of(plan) == "fused") is fused
 
 
 @pytest.mark.parametrize("port_kernel,jax_kernel", [

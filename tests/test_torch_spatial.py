@@ -614,7 +614,7 @@ def test_spatial_dovi_matches_single(gloo, out, n):
     """The split-fused chain under sharding: the reshape, matrix and LMS
     step are row-local, only the chroma upsample's and the resize's H
     contractions exchange halos."""
-    assert tpipe._can_split_fuse(_plans(f"dovi_{out}")[1])
+    assert tpipe.route_of(_plans(f"dovi_{out}")[1]) == "dovi_fused"
     check_dovi(gloo, f"dovi_{out}", n)
 
 
@@ -704,7 +704,7 @@ def test_spatial_jinc2_plans_equal_jax():
         j = jpipe.plan_pipeline(*_descs(JPKG, "NV12", w, h, ow, oh,
                                         dict(upscaling="JINC2"), {}, dst))
         assert jsp._jinc2_spatial_ok(j) and tsp._jinc2_spatial_ok(t)
-        assert not tpipe._can_fuse(t)
+        assert tpipe.route_of(t) != "fused"
 
 
 def test_spatial_jinc2_mixed_axes_raise():

@@ -324,7 +324,7 @@ def test_plan_tonemap_fields_match_jax(case):
     assert (ttm.HDRParams(**vars(jplan.tonemap_params))
             == tplan.tonemap_params)
     assert tpipe.serving_rt_keys(tplan) == jpipe.serving_rt_keys(jplan)
-    assert tpipe._can_fuse(tplan) == jpipe._can_fuse(jplan) is True
+    assert tpipe.route_of(tplan) == "fused" and jpipe._can_fuse(jplan)
 
 
 def test_formerly_refused_tonemap_plans_match_jax():
@@ -389,7 +389,7 @@ def test_k2_plain_c7_epilogue_matches_pallas(route):
                                  rt_scalars=jpipe._pack_rt_all(jplan, rt),
                                  pack_format="rgb10a2")
     epi = tpipe._make_tail_epilogue(
-        tplan, hdr=None if route == "static" else rt["hdr"])
+        tplan, rt=None if route == "static" else {"hdr": rt["hdr"]})
     assert epi.tonemap == 5 and epi.correction == trk.CORR_NONE
     got = trk.rows3_tail(t(y), t(u), t(v), None,
                          trk.BandedMatrix(uy, pre_scale=UNSCALE), H, epi,
@@ -521,7 +521,7 @@ def test_k4_plain_with_c7_tail_matches_pallas(route):
                 *(jnp.asarray(p) for p in planes), *f32, H,
                 jpipe._make_tail_epilogue_rt(jplan), NORM,
                 rt_scalars=jpipe._pack_rt_all(jplan, rt)))
-        tepi = tpipe._make_tail_epilogue(tplan, hdr=rt["hdr"])
+        tepi = tpipe._make_tail_epilogue(tplan, rt={"hdr": rt["hdr"]})
     got = _port_mega(planes, maps, H, NORM, tepi)
     assert got.shape == ref.shape == (2, 3, H, W)
     assert_codes_close(np.round(got * 1023), np.round(ref * 1023))

@@ -230,7 +230,7 @@ def test_epilogue_rebuild_holds_the_tone_map_scalars():
                  hdr_local_tone_mapping_type=ToneMapType.BT2390,
                  hdr_display_max_nits=600),
         source(), OutputDescriptor(width=OW, height=OH, bits=10, hdr=True))
-    assert plan.local_tonemap and tpipe._can_fuse(plan)
+    assert plan.local_tonemap and tpipe.route_of(plan) == "fused"
     fn = tpipe.make_serving_fn(plan, pack_surface=True)
     planes = tuple(torch.from_numpy(p) for p in p010(6))
     fn(planes)

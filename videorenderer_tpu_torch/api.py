@@ -49,8 +49,8 @@ from .ops import geometry as geo_ops
 from .ops import scale as scale_ops
 from .ops.overlay import blend_in_rect, blend_in_rect_packed, sdr_bitmap_to_pq
 from .pipeline import (HDR10Metadata, OutputDescriptor, SourceDescriptor,
-                       _can_fuse, check_device, make_frame_fn,
-                       output_signal_info, plan_pipeline, surface_pack_format)
+                       check_device, make_frame_fn, output_signal_info,
+                       plan_pipeline, route_of, surface_pack_format)
 from .runner import DeinterlaceSession
 from .stats import Metrics, precise_tick
 from .utils import trace
@@ -162,7 +162,8 @@ class VideoRenderer:
                          f"Upscaling: {s.upscaling.name}; "
                          f"Downscaling: {s.downscaling.name}; "
                          f"Dither: {'ordered' if s.use_dither else 'round'}")
-            path = "fused linear-prefix" if _can_fuse(p) else "staged"
+            path = ("fused linear-prefix" if route_of(p) == "fused"
+                    else "staged")
             if s.use_accel_backend and cuda:
                 backend = "CUDA kernels (sm_90a)"
             else:
