@@ -72,11 +72,25 @@ Per function it prints one JSON line:
     function's static instructions over the same pass, with its issue
     bound (an upper estimate: it holds the set-up and staging a block runs
     once beside the passes it repeats);
-  * for K2 and K4, the ``pow`` part: the instructions inlined from the
-    tail's pows (tail.cuh's pow_pos, and the c7 routes' checked pow,
-    CheckedPow with log2_normal, and pow_of where the sources have them),
-    their ``second_pass`` share, and ``per_pixel``, counted as the tail's
-    instructions a pixel are (below).
+  * for K2, K4 and K8 (and K2's Dolby Vision route), the ``pow`` part:
+    the instructions inlined from the tail's pows (tail.cuh's pow_pos, and
+    the checked pow of the c7 routes and of K8's LMS route, CheckedPow with
+    log2_normal, and pow_of where the sources have them), their
+    ``second_pass`` share, and ``per_pixel``, counted as the tail's
+    instructions a pixel are (below).  K8's second pass is the LMS steps
+    its LMS route runs again exactly for a group the range flag refused
+    (dovi_mid.cuh: dovi_mid_group's ``if (!div.ok)`` block); its parts'
+    ``per_pixel`` leave that pass out, and its LMS-step parts (``lms``,
+    ``pow``, ``divisions``: a loop that is not unrolled, kLmsLanes pixels
+    a pass, read from dovi_mid.cuh as ``lms_lanes``) count over that
+    loop's pass (``mid`` too for its LMS steps);
+  * ``sass_sha256``: a digest of the function's SASS instructions (opcodes
+    and operands, without addresses and line information, the labels and
+    subroutines nvdisasm numbers over the whole cubin renumbered within
+    the function, its own name in a return written ``<self>``), so that
+    two trees' reports show which functions' code is the same (a kernel
+    that gains a parameter it does not read keeps its digest, though its
+    mangled name changes).
   Instructions a pixel are the static
     ``tail`` count without the second pass over ``--pixels`` (the pixels a
     thread makes in one unrolled pass: 4 for K2's, K4's and K9's kernels
@@ -94,6 +108,7 @@ card (then no clock line and no bound).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -157,8 +172,9 @@ _POW_PART = (("tail.cuh",), ("pow_pos", "log2_normal",
                              (r"^struct CheckedPow\b", r"^};"),
                              (r"^__device__ __forceinline__ float pow_of\(",
                               r"^}")))
-PARTS = {"rows3_mid": {"mid": _DOVI_PART, **_DOVI_PARTS},
-         "rows3_tail_dovi": {"convert": _DOVI_PART, **_DOVI_PARTS},
+PARTS = {"rows3_mid": {"mid": _DOVI_PART, **_DOVI_PARTS, "pow": _POW_PART},
+         "rows3_tail_dovi": {"convert": _DOVI_PART, **_DOVI_PARTS,
+                             "pow": _POW_PART},
          "rows3_tail": {"pow": _POW_PART},
          "mega3_tail": {"pow": _POW_PART},
          "jinc2_convert": _JINC2_PARTS,
@@ -343,6 +359,25 @@ def second_pass_lines(csrc: Path) -> tuple:
     return None, 0, -1
 
 
+# the LMS steps that K8's LMS route runs again exactly, one pixel at a
+# time, for a group whose range flag is false (dovi_mid.cuh:
+# dovi_mid_group)
+_LMS_REDO = (("dovi_mid.cuh",), ((r"^  if \(!div\.ok\) \{", r"^  \}$"),))
+
+
+def lms_second_pass_lines(csrc: Path) -> tuple:
+    """(file, first line, last line) of K8's second pass, the block of
+    dovi_mid_group that runs a refused group's LMS steps again exactly;
+    (None, 0, -1) where the sources have none."""
+    found = function_lines(csrc, *_LMS_REDO)
+    return found[0] if found else (None, 0, -1)
+
+
+# the second pass of each source prefix's kernels (default: tail_exact)
+SECOND_PASS = {"rows3_mid": lms_second_pass_lines,
+               "rows3_tail_dovi": lms_second_pass_lines}
+
+
 def function_lines(csrc: Path, names: tuple, funcs: tuple) -> list:
     """(file, first line, last line) of each function of ``funcs`` defined
     in the first file of ``names`` under ``csrc`` that defines any: from
@@ -446,6 +481,34 @@ def sass_counts(text: str, second: tuple = (None, 0, -1),
     return out
 
 
+# the names nvdisasm numbers across a whole cubin, so that one function's
+# numbers move with the functions before it: branch labels and the
+# internal subroutines (__fdiv_rn's slow path)
+_NUMBERED = re.compile(r"\.L_x_\d+|\$__internal_\d+_")
+
+
+def sass_digests(text: str) -> dict:
+    """Per function of nvdisasm output: the SHA-256 of its instructions'
+    text, one line each with the whitespace collapsed (no addresses, no
+    line information), each numbered label or subroutine name replaced by
+    the order of its first use in the function, and the function's own
+    name (the target of a return from a subroutine) by ``<self>``."""
+    out, fn, names = {}, None, {}
+    for ln in text.splitlines():
+        m = re.match(r"^\.text\.(\S+):$", ln.strip())
+        if m:
+            fn, names = m.group(1), {}
+            out[fn] = hashlib.sha256()
+            continue
+        m = _INSN.search(ln)
+        if fn is not None and m:
+            insn = _NUMBERED.sub(
+                lambda x: f"<{names.setdefault(x.group(0), len(names))}>",
+                " ".join(m.group(1).split())).replace(fn, "<self>")
+            out[fn].update((insn + "\n").encode())
+    return {k: h.hexdigest() for k, h in out.items()}
+
+
 def library_counts(lib: Path) -> dict:
     """Instructions of each function in the built library."""
     text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
@@ -501,6 +564,41 @@ def _pairs(items: list[str], conv) -> dict:
     return out
 
 
+# the parts of K8's LMS route inside its LMS-step loop, which is not
+# unrolled and converts kLmsLanes pixels a pass (dovi_mid.cuh: lms_lanes)
+LMS_LOOP_PARTS = ("lms", "pow", "divisions")
+
+
+def lms_lanes(csrc: Path) -> int | None:
+    """dovi_mid.cuh's kLmsLanes under ``csrc``: the pixels a pass of K8's
+    LMS-step loop converts; None where the sources have none."""
+    src = csrc / "dovi_mid.cuh"
+    m = src.exists() and re.search(r"^constexpr int kLmsLanes = (\d+);",
+                                   src.read_text(), re.M)
+    return int(m.group(1)) if m else None
+
+
+def parts_per_pixel(parts: dict, grp: int, lanes: int | None = None) -> None:
+    """Each part's static instructions a pixel, without the second pass
+    where there is one, and its MUFU a pixel, in place: over the ``grp``
+    pixels a pass converts; given ``lanes`` (K8's LMS route), the parts of
+    LMS_LOOP_PARTS over the ``lanes`` pixels of their loop's pass, and the
+    whole convert (``mid``) as its LMS steps so plus the rest over
+    ``grp``."""
+    def first(c):
+        return c["instructions"] - c.get("second_pass", 0)
+
+    for p, c in parts.items():
+        n = lanes if lanes and p in LMS_LOOP_PARTS else grp
+        c["per_pixel"] = first(c) / n
+        c["mufu_per_pixel"] = c["mufu"] / n
+    if lanes and "mid" in parts and "lms" in parts:
+        mid, lms = parts["mid"], parts["lms"]
+        mid["per_pixel"] = (first(mid) - first(lms)) / grp + first(lms) / lanes
+        mid["mufu_per_pixel"] = (mid["mufu"] - lms["mufu"]) / grp \
+            + lms["mufu"] / lanes
+
+
 def part_groups(given: dict) -> dict:
     """The pixels a thread converts in one pass of the parts of the kernels
     whose name contains each key: ``given`` (--part-group) matched first,
@@ -553,7 +651,9 @@ def main(argv=None) -> None:
             prefix = next((k for k in PARTS if src.startswith(k)), None)
             parts = {p: function_lines(args.csrc, files, fns)
                      for p, (files, fns) in PARTS.get(prefix, {}).items()}
-            counts = sass_counts(text, second_pass_lines(args.csrc), parts)
+            second = SECOND_PASS.get(prefix, second_pass_lines)(args.csrc)
+            counts = sass_counts(text, second, parts)
+            digests = sass_digests(text)
             names = demangle(sorted(regs))
             for fn in sorted(regs):
                 nice = names[fn]
@@ -564,7 +664,8 @@ def main(argv=None) -> None:
                 ppt = next((v for k, v in pixels.items() if k in nice), 1)
                 r = {"source": src, "function": nice, **regs[fn],
                      **counts.get(fn, {}), "threads": threads,
-                     "dynamic_smem": smem, "pixels_per_thread": ppt}
+                     "dynamic_smem": smem, "pixels_per_thread": ppt,
+                     "sass_sha256": digests.get(fn)}
                 r["blocks_per_sm"] = blocks_per_sm(r.get("registers", 0),
                                                    threads, smem)
                 r["warps_per_sm"] = r["blocks_per_sm"] * (-(-threads // 32))
@@ -604,9 +705,12 @@ def main(argv=None) -> None:
                         r[f"issue_bound_ms_{cell}"] = 1e3 * r[
                             "per_pixel"] * n / (SMS * SCHEDULERS * LANES
                                                 * dev["clock_max_mhz"] * 1e6)
+                    lanes = (lms_lanes(args.csrc) if K8_LMS_ROUTE in bare
+                             else None)
+                    if lanes:
+                        r["lms_lanes"] = lanes
+                    parts_per_pixel(r["parts"], grp, lanes)
                     for p, c in r["parts"].items():
-                        c["per_pixel"] = c["instructions"] / grp
-                        c["mufu_per_pixel"] = c["mufu"] / grp
                         for cell, n in (PART_PIXELS.get(prefix, {}).items()
                                         if dev else ()):
                             clk = dev["clock_max_mhz"] * 1e6

@@ -1444,6 +1444,17 @@ def _k8_args(rng, kind, h=1080, w=960, batch=2, out_map="c8"):
             kout.out_size), dict(y_scale=1 / 65535.0)
 
 
+def _k8_runtime(args, kw):
+    """K8 on the launch ``args`` with the uint16 luma as float32 (the same
+    values, read with the same scale or in map): the staged runtime route,
+    which converts every pixel alone with ExactDiv and pow_pos."""
+    before = dk.k8_route_launches[dk.K8_RUNTIME]
+    out = dk.rows3_mid(args[0].float(), *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert dk.k8_route_launches[dk.K8_RUNTIME] == before + 1
+    return out
+
+
 @pytest.mark.parametrize("kind,route", [("c8", "c8 uint16/float32"),
                                         ("variant", "lms uint16/float32"),
                                         ("limits", "lms uint16/float32")])
@@ -1471,6 +1482,11 @@ def test_k8_routes_match_plain(dev, kind, route):
     tol = 1e-5 if kind == "c8" else 1e-4
     for g, r in zip(got, ref):
         assert (g - r).abs().max().item() <= tol
+    if route == dk.K8_LMS:
+        # exactly the runtime route's bits (ExactDiv and pow_pos on every
+        # pixel), which the same luma as float32 takes
+        runtime = _k8_runtime(args, kw)
+        assert all(torch.equal(g, r) for g, r in zip(got, runtime))
 
 
 @pytest.mark.parametrize("kind", ["c8", "variant", "limits"])
@@ -2407,6 +2423,124 @@ def test_c7_redo_counter_reads_the_planted_groups(dev, route, monkeypatch):
     u = torch.from_numpy(planes[1]).to(dev)
     staged, runtime, redo = _staged_and_runtime(monkeypatch, kernel, call)
     assert torch.equal(staged, runtime) and redo == 50
+
+
+# --- K8's LMS route under CheckedPow (csrc/dovi_mid.cuh dovi_mid_group) -----
+
+P5_CELL = "dovi_1080.p5_b16"
+
+
+def _p5_k8_call(dev, monkeypatch, batch=2, seed=2**31 + 2026):
+    """The p5 cell's K8 call at its shape (vrbench's configuration, its
+    traffic's first scene, ``batch`` frames of 3840 x 2160 from its frame
+    generator), recorded from the serving function: (args, kw)."""
+    from vrbench import gen, spec
+    from vrbench.entries import common
+    cell = spec.load_cell(P5_CELL)
+    meta = common.dovi_metadata(gen.scene(cell.traffic, 0))
+    fn = P.make_serving_fn(P.plan_pipeline(
+        common.settings(cell.config), common.source(cell.config, dovi=meta),
+        common.output(cell.config)), pack_surface=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    planes = spec.module("frames", "p010").batch(cell.config, cell.traffic,
+                                                 batch, g, dev)
+    calls, real = [], dk.rows3_mid
+    with monkeypatch.context() as mp:
+        mp.setattr(dk, "rows3_mid",
+                   lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+        fn(planes, {"dovi_curves": fn.pack_curves(meta)})
+    torch.cuda.synchronize()
+    (args, kw), = calls
+    return args, kw
+
+
+def _lms_route_and_runtime(args, kw):
+    """K8 on its LMS route (one launch, counted under it) and on the
+    runtime route; the groups the LMS route ran again exactly."""
+    assert dk.rows3_mid_route(args[0].dtype, args[1].dtype,
+                              args[6]) == dk.K8_LMS
+    rk.reset_launches()
+    got = dk.rows3_mid(*args, **kw)
+    torch.cuda.synchronize()
+    redo = dk.k8_redo_groups()
+    assert dk.k8_route_launches[dk.K8_LMS] == 1
+    runtime = _k8_runtime(args, kw)
+    assert dk.k8_redo_groups() == redo
+    return got, runtime, redo
+
+
+def test_k8_lms_route_bit_equal_to_runtime_route_at_the_p5_cell(
+        dev, monkeypatch):
+    """The p5 cell's K8 call (2 frames of 3840 x 2160 -> 1080 rows,
+    Catmull-Rom, the cell's curves and LMS matrix, its frame generator):
+    the LMS route, pows and divisions checked once a group, gives the
+    runtime route's bits, within K8's band of rows3_mid_plain, and runs no
+    group again."""
+    args, kw = _p5_k8_call(dev, monkeypatch)
+    y, u = args[0], args[1]
+    assert y.shape == (2, 2160, 3840) and y.dtype == torch.uint16
+    assert u.shape == (2, 1080, 3840) and u.dtype == torch.float32
+    assert (args[5], args[8]) == (2160, 1080)
+    got, runtime, redo = _lms_route_and_runtime(args, kw)
+    assert all(torch.equal(g, r) for g, r in zip(got, runtime))
+    assert redo == 0
+    for g, r in zip(got, dk.rows3_mid_plain(*args, **kw)):
+        assert g.shape == (2, 1080, 3840)
+        assert (g - r).abs().max().item() <= 1e-4
+
+
+def test_k8_redo_counter_reads_the_planted_groups(dev):
+    """The p5 cell's curves with the RPU matrix and offsets made R = Cb,
+    G = Cb + 0.3, B = Cb + 0.4 and the combined LMS matrix diag(2^-100, 1,
+    1), the planes read directly at the cell's frame shape (no out map, so
+    each mid pixel is converted once): a frame of Cb 0.25 runs no group
+    again; with one of three Cb values that CheckedPow refuses planted in
+    one pixel of each of 51 groups (17 of each) the counter reads 51.  Both
+    bit-equal to the runtime route and within K8's band of
+    rows3_mid_plain."""
+    import dataclasses
+    from vrbench import gen, spec
+    from vrbench.entries import common
+    cell = spec.load_cell(P5_CELL)
+    meta = common.dovi_metadata(gen.scene(cell.traffic, 0))
+    mid = dataclasses.replace(
+        dovi.mid_stage(meta, *dovi.build_ycc_to_rgb_cmat(meta)),
+        cmat=np.array([[0, 1, 0, 0], [0, 1, 0, 0.3], [0, 1, 0, 0.4]],
+                      np.float32),
+        lms=np.diag([2.0 ** -100, 1, 1]).astype(np.float32))
+    n, h, w = 2, 2160, 3840
+    rng = np.random.default_rng(92)
+    y = torch.from_numpy(rng.integers(64, 941, (n, h, w), dtype=np.uint16)
+                         << 6).to(dev)
+    cb = np.full((n, h, w), 0.25, np.float32)
+    v = torch.full((n, h, w), 0.4, dtype=torch.float32, device=dev)
+    kw = dict(y_scale=1 / 65535.0, c_scale=1.0)
+
+    def call():
+        u = torch.from_numpy(cb).to(dev)
+        return (y, u, v, None, None, h, mid, None, h), kw
+
+    got, runtime, redo = _lms_route_and_runtime(*call())
+    assert all(torch.equal(g, r) for g, r in zip(got, runtime))
+    assert redo == 0
+    # R is Cb's reshaped value (the p5 curves' Cb piece below 0.5 is the
+    # identity): a subnormal PQ code; a PQ code whose p (~1.7e-7) sends the
+    # 1/m1 power's product under -126; a PQ code (~2^-39 linear) clean
+    # through the EOTF, whose LMS value, 2^-100 times that, is subnormal
+    # at the OETF
+    plants = np.float32([1e-40, _near_black_pq(10000)[1], 2e-5])
+    assert 0 < plants[0] < np.finfo(np.float32).tiny
+    groups = rng.choice(n * h * (w // 4), 51, replace=False)
+    frame, rest = np.divmod(groups, h * (w // 4))
+    row, group = np.divmod(rest, w // 4)
+    cb[frame, row, 4 * group + rng.integers(0, 4, 51)] = np.repeat(plants, 17)
+    args, kw = call()
+    got, runtime, redo = _lms_route_and_runtime(args, kw)
+    assert all(torch.equal(g, r) for g, r in zip(got, runtime))
+    assert redo == 51
+    for g, r in zip(got, dk.rows3_mid_plain(*args, **kw)):
+        assert (g - r).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("sizes", [(3840, 1920), (600, 250), (1000, 333),

@@ -428,3 +428,53 @@ def test_k8_route_counter_resets_with_the_launch_counters():
     rk.reset_launches()
     assert set(dk.k8_route_launches.values()) == {0}
     assert rk.launches["rows3_mid"] == 0
+
+
+def test_k8_redo_counter_resets_with_the_launch_counters(monkeypatch):
+    """The LMS route's redo counter (``rk.redo_counter("rows3_mid",
+    device)``): one int64 a device, made at its first use and kept, apart
+    from K2's; ``dk.k8_redo_groups`` reads K8's, and ``reset_launches``
+    zeroes it with the launch counters and keeps it."""
+    monkeypatch.setattr(rk, "redo_counters", {})
+    assert dk.k8_redo_groups() == 0
+    k8 = rk.redo_counter("rows3_mid", "cpu")
+    assert k8.dtype == torch.int64 and k8.shape == (1,) and int(k8) == 0
+    assert rk.redo_counter("rows3_mid", torch.device("cpu")) is k8
+    k2 = rk.redo_counter("rows3_tail", "cpu")
+    k8 += 5
+    k2 += 2
+    rk.launches["rows3_mid"] += 1
+    assert dk.k8_redo_groups() == 5 and rk.k2_redo_groups() == 2
+    rk.reset_launches()
+    assert dk.k8_redo_groups() == 0 and rk.k2_redo_groups() == 0
+    assert rk.launches["rows3_mid"] == 0
+    assert rk.redo_counter("rows3_mid", "cpu") is k8
+    assert set(rk.redo_counters) == {("rows3_mid", torch.device("cpu")),
+                                     ("rows3_tail", torch.device("cpu"))}
+
+
+@pytest.mark.parametrize("kind,route", [("variant", dk.K8_LMS),
+                                        ("c8", dk.K8_C8)])
+def test_k8_launch_passes_its_devices_redo_counter(monkeypatch, kind, route):
+    """Every K8 launch (the kernel call stubbed: the wrapper's arguments as
+    it would pass them) hands vrt_rows3_mid its device's rows3_mid redo
+    counter just before the output, one argument short of the entry
+    point's signature (the stream follows), on the LMS route and on c8's,
+    which ignores it."""
+    from videorenderer_tpu_torch.kernels import build
+    monkeypatch.setattr(rk, "redo_counters", {})
+    seen = []
+    monkeypatch.setattr(dk, "_kernel_device", lambda *p: True)
+    monkeypatch.setattr(dk, "_launch", lambda *a: seen.append(a))
+    rng = np.random.default_rng(55)
+    y, u, v, my_in_y, my_in_c, h_mid, my_out, h_out, ys, cs = _case("c8", rng)
+    rk.reset_launches()
+    out = dk.rows3_mid(y, u, v, my_in_y, my_in_c, h_mid, _mid(kind), my_out,
+                       h_out, y_scale=ys, c_scale=cs)
+    (name, fn, dev, *args), = seen
+    assert (name, fn, dev) == ("rows3_mid", "vrt_rows3_mid", y.device)
+    assert len(args) == len(build.SIGNATURES[fn]) - 1
+    assert args[-1] == out[0].data_ptr()
+    assert args[-2] == rk.redo_counter("rows3_mid", "cpu").data_ptr()
+    assert set(rk.redo_counters) == {("rows3_mid", torch.device("cpu"))}
+    assert dk.k8_route_launches[route] == 1

@@ -111,6 +111,92 @@ def test_pow_part_of_k2_and_k4(tmp_path):
     assert kr.function_lines(tmp_path, files, funcs) == [("tail.cuh", 2, 4)]
 
 
+def test_pow_part_and_second_pass_of_k8(tmp_path):
+    """K8's LMS route (and K2's Dolby Vision route) take K2's ``pow`` part;
+    their second pass is dovi_mid_group's block that runs a refused
+    group's LMS steps again exactly and counts it; a tree without that
+    block has none."""
+    assert kr.PARTS["rows3_mid"]["pow"] == kr.PARTS["rows3_tail"]["pow"]
+    assert kr.PARTS["rows3_tail_dovi"]["pow"] == kr.PARTS["rows3_tail"]["pow"]
+    for prefix in ("rows3_mid", "rows3_tail_dovi"):
+        assert kr.SECOND_PASS[prefix] is kr.lms_second_pass_lines
+    assert "rows3_tail" not in kr.SECOND_PASS
+    name, first, last = kr.lms_second_pass_lines(kr.build.CSRC)
+    lines = (kr.build.CSRC / name).read_text().splitlines()
+    assert name == "dovi_mid.cuh" and lines[first - 1] == "  if (!div.ok) {"
+    body = "\n".join(lines[first - 1:last])
+    assert "lms_lanes<1>(" in body and "count_redo(" in body
+    assert lines[last - 1] == "  }"
+    # the block lies inside dovi_mid_group
+    (_, a, b), = kr.function_lines(kr.build.CSRC, ("dovi_mid.cuh",),
+                                   ("dovi_mid_group",))
+    assert a < first <= last < b
+    assert kr.lms_second_pass_lines(tmp_path) == (None, 0, -1)
+
+
+def test_k8_lms_parts_a_pixel_count_their_loops_pass(tmp_path):
+    """K8's LMS route runs its LMS steps in a loop of kLmsLanes pixels a
+    pass (read from this tree's dovi_mid.cuh), the rest of its convert 4
+    pixels a pass: the LMS-step parts a pixel are their first pass over
+    the loop's pixels, the whole convert its LMS steps so plus the rest
+    over 4; without lanes every part counts over the group."""
+    assert kr.lms_lanes(kr.build.CSRC) == 1
+    assert kr.lms_lanes(tmp_path) is None
+    (tmp_path / "dovi_mid.cuh").write_text("constexpr int kLmsLanes = 2;\n")
+    assert kr.lms_lanes(tmp_path) == 2
+
+    def parts():
+        return {"mid": {"instructions": 1000, "mufu": 40, "second_pass": 100},
+                "reshape": {"instructions": 400, "mufu": 0, "second_pass": 0},
+                "lms": {"instructions": 500, "mufu": 24, "second_pass": 100},
+                "pow": {"instructions": 300, "mufu": 24, "second_pass": 50}}
+
+    p = parts()
+    kr.parts_per_pixel(p, 4, 2)
+    assert {k: c["per_pixel"] for k, c in p.items()} == {
+        "mid": 500 / 4 + 400 / 2, "reshape": 100, "lms": 200, "pow": 125}
+    assert p["mid"]["mufu_per_pixel"] == 16 / 4 + 24 / 2
+    assert p["pow"]["mufu_per_pixel"] == 12
+    p = parts()
+    kr.parts_per_pixel(p, 4)
+    assert {k: c["per_pixel"] for k, c in p.items()} == {
+        "mid": 225, "reshape": 100, "lms": 100, "pow": 62.5}
+
+
+def test_sass_digests_read_the_code_alone():
+    """A function's SASS digest covers its instructions' text: the same
+    code at other addresses and with other line information keeps it,
+    another operand changes it."""
+    d = kr.sass_digests(SASS)
+    assert set(d) == {"_Z1kPf", "_Z1gPf"} and len(d["_Z1kPf"]) == 64
+    moved = SASS.replace("/*0010*/", "/*0110*/").replace("line 150",
+                                                         "line 151")
+    assert kr.sass_digests(moved) == d
+    other = kr.sass_digests(SASS.replace("FFMA R4, R2, R5, R4",
+                                         "FFMA R4, R2, R6, R4"))
+    assert other["_Z1kPf"] != d["_Z1kPf"] and other["_Z1gPf"] == d["_Z1gPf"]
+    assert kr.sass_digests(SASS_K9)["_Z9cols3Pf"] == d["_Z1kPf"]
+    # labels and subroutines numbered over the cubin: only their order in
+    # the function counts
+    calls = SASS.replace("(.L_x_1)", "(.L_x_7) ;\n        /*0090*/   "
+                         "CALL.REL.NOINC `($__internal_3_$__cuda_div)")
+    shifted = calls.replace(".L_x_7", ".L_x_12").replace("internal_3_",
+                                                         "internal_5_")
+    assert kr.sass_digests(shifted) == kr.sass_digests(calls) != d
+    branch = SASS.replace("(.L_x_1) ;", "(.L_x_1) ;\n        /*0090*/   "
+                          "BRA `(.L_x_{}) ;")
+    assert kr.sass_digests(branch.format(2)) != kr.sass_digests(
+        branch.format(1))
+    # a return into the function names it: a kernel renamed by a parameter
+    # it does not read keeps its digest
+    ret = SASS.replace("EXIT ;", "RET.REL.NODEC R4 `({}) ;")
+    renamed = ret.format("_Z1gPf").replace("_Z1gPf", "_Z1gPfPy")
+    assert kr.sass_digests(renamed)["_Z1gPfPy"] == kr.sass_digests(
+        ret.format("_Z1gPf"))["_Z1gPf"]
+    assert kr.sass_digests(ret.format("_Z1kPf"))["_Z1gPf"] != \
+        kr.sass_digests(ret.format("_Z1gPf"))["_Z1gPf"]
+
+
 def test_second_pass_lines_find_tail_exact():
     name, first, last = kr.second_pass_lines(kr.build.CSRC)
     lines = (kr.build.CSRC / name).read_text().splitlines()
@@ -195,7 +281,7 @@ def test_k8_convert_parts_in_this_tree_and_a_one_pixel_tree(tmp_path):
     CheckedDiv's operators in tail.cuh; a tree whose convert is dovi_mid
     alone (the one-pixel form) gives one span each."""
     parts = kr.PARTS["rows3_mid"]
-    assert set(parts) == {"mid", "reshape", "rpu", "lms", "divisions"}
+    assert set(parts) == {"mid", "reshape", "rpu", "lms", "divisions", "pow"}
     assert kr.PARTS["rows3_tail_dovi"] == {
         "convert": parts["mid"], **{k: v for k, v in parts.items()
                                     if k != "mid"}}

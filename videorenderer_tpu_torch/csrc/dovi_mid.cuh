@@ -202,14 +202,19 @@ __device__ __forceinline__ void dovi_mid(const MidParams& P, const float* vals,
 //     kind and MMR order one switch to a body unrolled for its order
 //     (mmr_fixed);
 //   * the RPU matrix of the group; then the LMS steps (the 3 PQ EOTFs, the
-//     LMS matrix, the 3 PQ OETFs of a pixel) kLmsLanes pixels side by side,
-//     their divisions as CheckedDiv with one range flag for the group; a
-//     group out of its range runs its LMS steps again, one pixel at a
-//     time, with ExactDiv (__fdiv_rn).
+//     LMS matrix, the 3 PQ OETFs of a pixel) kLmsLanes pixels at a time
+//     under tail.cuh's CheckedPow: their 12 pows a pixel without
+//     libdevice's arms for non-normal values, their 6 divisions as
+//     CheckedDiv, all with one range flag for the group; a group out of
+//     its range runs its LMS steps again, one pixel at a time, with
+//     ExactDiv (__fdiv_rn and pow_pos), and adds one to the launch's redo
+//     counter.
 // Every operation and its order are dovi_mid's, so the bits are too.  The
-// LMS steps take kLmsLanes and not the whole group at once: on one H100
-// the four side by side ran slower than two (PERF.md, section 6).
-constexpr int kLmsLanes = 2;
+// LMS steps take one pixel a pass and not more side by side: on one H100
+// at the p5 cell's call, with CheckedPow, K8 took 4.14 ms with one, 4.38
+// with two and 4.97 with four, whose 80 registers spill (PERF.md,
+// section 6).
+constexpr int kLmsLanes = 1;
 
 // mmr with its order fixed at compile time: the same products and sums in
 // the same order, unrolled.
@@ -371,14 +376,17 @@ __device__ __forceinline__ void lms_lanes(const MidParams& P,
 
 // The LMS route's convert of a thread's kGroup pixels (c pixel-major, as
 // dovi_mid's): the reshapes and the RPU matrix of the kGroup pixels side
-// by side, then their LMS steps kLmsLanes pixels at a time, the divisions
-// of all of them with one CheckedDiv flag; a group out of its range runs
-// its LMS steps again, one pixel at a time, with __fdiv_rn.
+// by side, then their LMS steps kLmsLanes pixels a pass, the pows and
+// divisions of all of them with one CheckedPow flag; a group out of its
+// range runs its LMS steps again, one pixel at a time, with __fdiv_rn and
+// pow_pos, and is counted in ``redo`` (route.cuh's count_redo; none
+// counted where it is null).
 __device__ __forceinline__ void dovi_mid_group(const MidParams& P,
                                                const float (&yv)[kGroup],
                                                const float (&uv)[kGroup],
                                                const float (&vv)[kGroup],
-                                               float (&c)[kGroup][3]) {
+                                               float (&c)[kGroup][3],
+                                               unsigned long long* redo) {
   float sig[kGroup][3];
 #pragma unroll
   for (int j = 0; j < kGroup; ++j) {
@@ -400,9 +408,10 @@ __device__ __forceinline__ void dovi_mid_group(const MidParams& P,
     }
   }
   float o[3][kGroup];
-  vrt::CheckedDiv div;
+  vrt::CheckedPow div;
   lms_lanes<kLmsLanes>(P, rgb, o, div);
   if (!div.ok) {
+    vrt::count_redo(redo);
     vrt::ExactDiv exact;
     lms_lanes<1>(P, rgb, o, exact);
   }

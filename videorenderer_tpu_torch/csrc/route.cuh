@@ -131,9 +131,10 @@ __device__ __forceinline__ void tail_exact(const TailParams& P,
   }
 }
 
-// Adds the number of a warp's threads whose groups run tail_exact again to
-// the launch's counter, one atomic by the first of them (kernels/resize
-// gives K2's and K4's launches a counter; none where the address is 0).
+// Adds the number of a warp's threads whose groups run again exactly
+// (tail_exact; K8's LMS steps in dovi_mid.cuh) to the launch's counter, one
+// atomic by the first of them (kernels/resize gives K2's, K4's and K8's
+// launches a counter; none where the address is 0).
 __device__ __forceinline__ void count_redo(unsigned long long* redo) {
   const unsigned active = __activemask();
   unsigned lane;

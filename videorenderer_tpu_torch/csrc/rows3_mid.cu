@@ -53,8 +53,10 @@
 //     dovi_mid_group), each stage across the group before the next: the
 //     curves' scalars in fixed slots of the launch's parameter (to_slots),
 //     read as operands, their dispatch compiled (the piece search and the
-//     pieces unrolled, the MMR body unrolled for each order), the
-//     divisions of the group's LMS steps with one range check; the
+//     pieces unrolled, the MMR body unrolled for each order), the pows
+//     and divisions of the group's LMS steps with one range check
+//     (tail.cuh's CheckedPow; a group out of its range runs its LMS steps
+//     again exactly and is counted in ``redo_groups``); the
 //     runtime route (every other combination of plane dtypes, LMS flag and
 //     curve structure) copies the curve scalars and structure into shared
 //     memory once a block.  c8's and the LMS route are compiled in
@@ -83,10 +85,11 @@
 // delivers the luma (uint16) and the two K1-upsampled chroma planes
 // (float32) about once and takes the three float32 output planes: 0.475 ms
 // on one H100.  The identity route's convert is a few dozen operations a
-// pixel, under that.  The LMS route's is bound by its issue: the twelve
-// accurate pows a pixel of the LMS step (log2f in software, ~35
-// instructions a pow) take ~2.8 of its 4.7 ms at c8's variant, 16
-// frames, on one H100 (PERF.md, section 6).
+// pixel, under that.  The LMS route's is bound by its issue, most of it
+// the LMS step's twelve pows a pixel (log2 in software): libdevice's
+// log2f and exp2f took ~38 SASS instructions a pow and ~2.8 of K8's
+// 4.7 ms at c8's variant, 16 frames, on one H100; CheckedPow takes ~28,
+// and K8 4.14 ms at the p5 cell's call (PERF.md, section 6).
 // The TPU kernel's split-bf16 products and full-height column stripes in
 // VMEM do not carry over.
 
@@ -118,8 +121,10 @@ using vrt::dovi::route_of;
 // then 8 kinds and 8 MMR orders.  ``out`` is (3, batch, h_out, w).
 // ``long_window``: the long-window kernel (no shared memory, the runtime
 // route; one tile of ``tile_rows`` output rows a block, ``tile_lo`` and the
-// in maps' windows unused).  Returns cudaErrorInvalidValue for a structure
-// or a layout it does not take.
+// in maps' windows unused).  ``redo_groups``: a device int64 to which the
+// LMS route (dovi_mid.cuh's CheckedPow) adds the groups it runs again
+// exactly, or NULL; the other routes ignore it.  Returns
+// cudaErrorInvalidValue for a structure or a layout it does not take.
 extern "C" int vrt_rows3_mid(
     const void* y, int y_dtype, const void* u, const void* v, int c_dtype,
     int batch, int hy, int hc, int w, int h_mid, int h_out, int tile_rows,
@@ -128,7 +133,8 @@ extern "C" int vrt_rows3_mid(
     const void* lo_c, int win_c, const void* starts_o, const void* taps_o,
     int n_taps_o, const void* tile_lo, int win, float y_scale, float c_scale,
     const void* host_vals, int n_vals, const void* host_structure,
-    int lms_identity, int long_window, void* out, void* stream) {
+    int lms_identity, int long_window, void* redo_groups, void* out,
+    void* stream) {
   MidParams P;
   if (!params_of(host_vals, n_vals, host_structure, lms_identity, y_scale,
                  c_scale, &P) ||
@@ -151,10 +157,13 @@ extern "C" int vrt_rows3_mid(
     return launch_long(y_dtype, c_dtype, y, u, v, G, P, batch, out, st);
   }
   switch (route_of(y_dtype, c_dtype, P)) {
-    case 1: return launch<C8Mid, uint16_t, float>(y, u, v, G, P, batch, out, st);
+    case 1:
+      return launch<C8Mid, uint16_t, float>(y, u, v, G, P, batch, out,
+                                            nullptr, st);
     case 2:
       vrt::dovi::to_slots(&P);
-      return launch<LmsMid, uint16_t, float>(y, u, v, G, P, batch, out, st);
+      return launch<LmsMid, uint16_t, float>(y, u, v, G, P, batch, out,
+                                             redo_groups, st);
     default: break;
   }
   int err = 0;
@@ -163,7 +172,8 @@ extern "C" int vrt_rows3_mid(
     using TY = decltype(y_tag);
     using TC = decltype(c_tag);
     known = true;
-    err = launch<RuntimeMid, TY, TC>(y, u, v, G, P, batch, out, st);
+    err = launch<RuntimeMid, TY, TC>(y, u, v, G, P, batch, out, nullptr,
+                                     st);
   });
   return known ? err : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -226,12 +226,17 @@ __device__ __forceinline__ void stage_in_taps(const InMap& M, const Geometry& G,
 }
 
 // At most 80 registers a thread on the light route and the LMS route (3
-// blocks of 256 an SM), 40 on the runtime route (6).
+// blocks of 256 an SM), 40 on the runtime route (6).  ``redo``: the device
+// counter of the groups the LMS route runs again exactly (dovi_mid_group;
+// null: none counted), the last parameter, so that no other parameter's
+// offset moves and the other routes, which do not read it, keep their
+// code.
 template <typename R, typename TY, typename TC>
 __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
     const TY* __restrict__ y, const TC* __restrict__ u,
     const TC* __restrict__ v, const Geometry G,
-    const __grid_constant__ MidParams P, float* __restrict__ out) {
+    const __grid_constant__ MidParams P, float* __restrict__ out,
+    unsigned long long* redo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout<TY, TC>(G, P.n_vals);
   float* window = reinterpret_cast<float*>(smem + L.window);
@@ -350,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, R::kMinBlocks) rows3_mid_kernel(
         }
         float c[kVec][3];
         if constexpr (R::kGroupMid) {
-          dovi_mid_group(P, yv, uv, vv, c);
+          dovi_mid_group(P, yv, uv, vv, c, redo);
         } else {
 #pragma unroll
           for (int j = 0; j < kVec; ++j) {
@@ -577,7 +582,8 @@ int launch_long(int y_dtype, int c_dtype, const void* y, const void* u,
 
 template <typename R, typename TY, typename TC>
 int launch(const void* y, const void* u, const void* v, const Geometry& G,
-           const MidParams& P, int batch, void* out, cudaStream_t st) {
+           const MidParams& P, int batch, void* out, void* redo,
+           cudaStream_t st) {
   const size_t smem = layout<TY, TC>(G, P.n_vals).bytes;
   if (smem > kSmemBudget || G.tile_rows < 1 || G.n_tiles < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -592,7 +598,8 @@ int launch(const void* y, const void* u, const void* v, const Geometry& G,
                   (G.n_tiles + kTilesPerBlock - 1) / kTilesPerBlock, batch);
   rows3_mid_kernel<R, TY, TC><<<grid, kThreads, smem, st>>>(
       static_cast<const TY*>(y), static_cast<const TC*>(u),
-      static_cast<const TC*>(v), G, P, static_cast<float*>(out));
+      static_cast<const TC*>(v), G, P, static_cast<float*>(out),
+      static_cast<unsigned long long*>(redo));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,4 +612,4 @@ int launch(const void* y, const void* u, const void* v, const Geometry& G,
 #define VRT_K8_LAUNCH(R, TY, TC)                                          \
   int vrt::k8::launch<vrt::k8::R, TY, TC>(                                 \
       const void*, const void*, const void*, const vrt::k8::Geometry&,     \
-      const vrt::k8::MidParams&, int, void*, cudaStream_t)
+      const vrt::k8::MidParams&, int, void*, void*, cudaStream_t)

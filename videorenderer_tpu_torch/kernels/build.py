@@ -84,10 +84,10 @@ SIGNATURES = {
     # tile_rows, the (starts, taps, n_taps, lo, win) of the y and c in maps,
     # (starts, taps, n_taps) of the out map, tile_lo, win, y_scale,
     # c_scale, vals (host), n_vals, structure (host), lms_identity,
-    # long_window, out, stream
+    # long_window, redo_groups (device int64 or NULL), out, stream
     "vrt_rows3_mid": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I,
-                      _P, _I, _F, _F, _P, _I, _P, _I, _I, _P, _P),
+                      _P, _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P),
     # planes (host array of 9 pointers), dtype, batch, hy, wy, hc, wc,
     # h_out, tile_rows, the (starts, taps, n_taps, tile_lo, win) of the y
     # and c H maps, thr, top_field_first, long_window, out_y, out_u, out_v,

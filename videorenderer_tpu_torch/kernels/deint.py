@@ -43,7 +43,8 @@ from .resize import (DOVI_CURVES_BYTES, DTYPE_CODES, PACK_CODES,
                      SMEM_BUDGET, BandedMatrix, Epilogue, _check_plane,
                      _h_plain, _kernel_device, _launch, _no_tf32, _taps_args,
                      _up16, check_place, fill_bars, kernel_span,
-                     pack_surface, place_output, route_flags)
+                     pack_surface, place_output, redo_counter, redo_groups,
+                     route_flags)
 from .resize import route_launches as rk_route_launches
 
 K7_TILE_ROWS = 32     # output rows a K7 block makes (its tile_rows)
@@ -281,6 +282,15 @@ k8_route_launches = rk_route_launches.setdefault(
 (``resize.reset_launches``)."""
 
 
+def k8_redo_groups() -> int:
+    """The groups of 4 pixels whose LMS steps K8's LMS route ran again
+    exactly since the last ``resize.reset_launches`` (``csrc/dovi_mid.cuh``:
+    dovi_mid_group under CheckedPow; the counter ``resize.redo_counter
+    ("rows3_mid", device)``); a mid row that two tiles' windows share is
+    converted, and counted, in each.  Reads the counters: a sync."""
+    return redo_groups("rows3_mid")
+
+
 def k8_in_windows(mat: BandedMatrix, tile_lo: np.ndarray, win: int,
                   h_mid: int) -> tuple[np.ndarray, int]:
     """The input rows of an in map that each K8 tile stages: for the tile
@@ -425,10 +435,12 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     device memory.  The convert's route is compiled in for c8's metadata
     (K8_C8: 32-row tiles, 4 pixels a thread side by side) and for a
     non-identity LMS step (K8_LMS: 31-row tiles, a thread's 4 pixels
-    converted as one group); :func:`rows3_mid_route` names the route a
-    launch takes, :func:`k8_compiled_route` likewise on the host, and each
-    launch adds one to :data:`k8_route_launches` under its route (or
-    "long-window").  A map whose window does not fit
+    converted as one group, the 12 pows and 6 divisions of a pixel's LMS
+    step checked once a group, a group out of range converted again
+    exactly and counted, :func:`k8_redo_groups`); :func:`rows3_mid_route`
+    names the route a launch takes, :func:`k8_compiled_route` likewise on
+    the host, and each launch adds one to :data:`k8_route_launches` under
+    its route (or "long-window").  A map whose window does not fit
     SMEM_BUDGET at one row a tile takes the long-window route
     (:func:`k8_route`: each out tap's mid pixel from inputs read through
     the read-only cache, bit-equal, on the runtime route); a grid past its
@@ -499,7 +511,8 @@ def rows3_mid(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             1.0 if y_scale is None else float(y_scale),
             1.0 if c_scale is None else float(c_scale),
             vals.ctypes.data, vals.size, struct.ctypes.data,
-            int(mid.lms is None), int(long_window), out.data_ptr())
+            int(mid.lms is None), int(long_window),
+            redo_counter("rows3_mid", dev).data_ptr(), out.data_ptr())
     k8_route_launches[K8_LONG if long_window else compiled] += 1
     return out[0], out[1], out[2]
 

@@ -110,11 +110,12 @@ and are reset with ``launches`` (:func:`reset_launches`)."""
 
 
 redo_counters: dict[tuple[str, torch.device], torch.Tensor] = {}
-"""The groups of 4 pixels that the c7 routes (``csrc/route.cuh``'s
-CheckedPow policy) of K2 ("rows3_tail") and K4 ("mega3_tail") ran again
-exactly, by kernel and device: one int64 on the device each, to which the
-kernel adds (:func:`redo_counter`); read with :func:`redo_groups`, zeroed
-with ``launches`` (:func:`reset_launches`)."""
+"""The groups of 4 pixels that the routes under ``csrc/tail.cuh``'s
+CheckedPow ran again exactly, by kernel and device: the c7 routes
+(``csrc/route.cuh``'s Policy) of K2 ("rows3_tail") and K4 ("mega3_tail"),
+and K8's LMS route ("rows3_mid", ``csrc/dovi_mid.cuh``).  One int64 on the
+device each, to which the kernel adds (:func:`redo_counter`); read with
+:func:`redo_groups`, zeroed with ``launches`` (:func:`reset_launches`)."""
 
 
 def reset_launches() -> None:
@@ -137,8 +138,9 @@ def redo_counter(name: str, device) -> torch.Tensor:
 
 
 def redo_groups(name: str) -> int:
-    """The groups kernel ``name``'s c7 routes ran again exactly since the
-    last reset, over every device (reads the counters: a sync of each)."""
+    """The groups kernel ``name``'s checked routes ran again exactly since
+    the last reset, over every device (reads the counters: a sync of
+    each)."""
     return sum(int(c.item()) for (n, _), c in redo_counters.items()
                if n == name)
 
