@@ -2193,6 +2193,71 @@ def test_k2_route_counter(dev):
     assert set(rk.launches.values()) == {0}
 
 
+def _k6_counted(fn):
+    """``fn()`` under a profiler from zeroed counters: (its output, the
+    ``vrt.build.jinc2_table`` spans it opened, K6's launches by route)."""
+    from videorenderer_tpu_torch.utils import trace
+    rk.reset_launches()
+    trace.clear_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    torch.cuda.synchronize()
+    builds = sum(s.name == "vrt.build.jinc2_table" for s in trace.spans())
+    trace.clear_spans()
+    return out, builds, {k: v for k, v in rk.k6_route_launches.items() if v}
+
+
+def test_k6_route_counter_and_table_build(dev, monkeypatch):
+    """K6's launches by route (``rk.k6_route_launches``) and the weight
+    table's build span, through ``VideoProcessor.process`` of the Jinc2
+    cell's configuration at 480 x 270 -> 960 x 540: the first call takes
+    one "table" launch and builds its table (one ``vrt.build.jinc2_table``
+    span, one table launch), the second builds nothing; the surface is
+    within 1 code of the benchmark's reference on under 0.2% of the
+    channels (tests/test_torch_jinc2_cell.py's band).  c3rot's plan
+    (rotation 90 + flip) takes "table transposed"; with the cap at 0,
+    "per-output"."""
+    from vrbench.entries import common
+    from vrbench.reference import sdr_jinc2
+    from vrbench.surfaces import rgba8
+    cfg = _bench_config("sdr1080_nv12_to_uhd_jinc2", 480, 270, 960, 540)
+    vp = P.VideoProcessor(common.settings(cfg), common.source(cfg),
+                          common.output(cfg), device=dev, pack_surface=True)
+    assert P.route_of(vp.plan) == "staged"
+    rng = np.random.default_rng(27)
+    planes = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(16, 236, (2, 270, 480), dtype=np.uint8),
+        rng.integers(16, 241, (2, 135, 240), dtype=np.uint8),
+        rng.integers(16, 241, (2, 135, 240), dtype=np.uint8)))
+    jk.clear_weight_tables()
+    first, builds, routes = _k6_counted(lambda: vp.process(planes))
+    assert builds == 1 and routes == {"table": 1}
+    assert rk.launches == only(jinc2_convert_fused=1, jinc2_weight_table=1)
+    second, builds, routes = _k6_counted(lambda: vp.process(planes))
+    assert builds == 0 and routes == {"table": 1}
+    assert rk.launches == only(jinc2_convert_fused=1)
+    assert torch.equal(first, second) and first.shape == (2, 540, 960)
+    for f in range(2):
+        want = sdr_jinc2.frame(cfg, tuple(p[f] for p in planes), None)
+        d = (rgba8.codes(first[f]) - want).abs()
+        assert int(d.max()) <= 1 and (d > 0).double().mean().item() < 2e-3
+    rot = _bench_config("sdr1080_nv12_to_uhd_jinc2", 480, 270, 540, 960)
+    rot_fn = P.make_frame_fn(P.plan_pipeline(
+        common.settings(rot), common.source(rot), common.output(rot)),
+        pack_surface=True, rotation=90, flip=True)
+    out, builds, routes = _k6_counted(lambda: rot_fn(planes))
+    assert routes == {"table transposed": 1} and builds == 1
+    assert out.shape == (2, 540, 960)
+    monkeypatch.setattr(jk, "TABLE_CAP", 0)
+    out, builds, routes = _k6_counted(lambda: vp.process(planes))
+    assert routes == {"per-output": 1} and builds == 0
+    assert rk.launches == only(jinc2_convert_fused=1)
+    assert torch.equal(out, first)
+    rk.reset_launches()
+    assert set(rk.k6_route_launches.values()) == {0}
+
+
 # --- the c7 routes' checked pow (csrc/tail.cuh CheckedPow) --------------------
 
 ST2084_M1, ST2084_M2 = 2610.0 / 16384.0, 2523.0 / 4096.0 * 128.0

@@ -48,6 +48,7 @@ import torch
 
 from ..ops import dither as dither_ops
 from ..ops import scale as scale_ops
+from ..utils import trace
 from . import resize as rk
 
 TILE = 32                       # K6's output tile edge (csrc/jinc2_convert.cu)
@@ -263,13 +264,16 @@ def _weight_table(h: int, out_h: int, w: int, out_w: int,
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(row classes, column classes, table) of one geometry on ``device``:
     the table is built there by :func:`jinc2_weight_table` at the
-    geometry's first K5 or K6 call and kept, so the two kernels share it."""
-    rcls, rrep = axis_classes(h, out_h)
-    ccls, crep = axis_classes(w, out_w)
-    table = jinc2_weight_table(torch.tensor(rrep, device=device),
-                               torch.tensor(crep, device=device))
-    return (torch.tensor(rcls, device=device),
-            torch.tensor(ccls, device=device), table)
+    geometry's first K5 or K6 call and kept, so the two kernels share it.
+    A build (a miss of the cache: the classes, their upload and the table's
+    launch) runs inside the span ``vrt.build.jinc2_table``."""
+    with trace.span("vrt.build.jinc2_table"):
+        rcls, rrep = axis_classes(h, out_h)
+        ccls, crep = axis_classes(w, out_w)
+        table = jinc2_weight_table(torch.tensor(rrep, device=device),
+                                   torch.tensor(crep, device=device))
+        return (torch.tensor(rcls, device=device),
+                torch.tensor(ccls, device=device), table)
 
 
 def clear_weight_tables() -> None:
@@ -502,7 +506,10 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     (:func:`jinc2_weight_table` of its :func:`axis_classes`, built on the
     card at the geometry's first call and cached), or, where
     :func:`weight_route` says "per-output", are computed for each output
-    with accurate sqrtf/sinf/division; both routes give the same bits."""
+    with accurate sqrtf/sinf/division; both routes give the same bits.
+    Each launch adds one to ``resize.k6_route_launches`` under its weight
+    route, with " transposed" for ``out_transpose`` and " band" for
+    ``rows``."""
     if epilogue is not None:
         epilogue.validate()
     if pack_format not in rk.PACK_CODES:
@@ -547,7 +554,8 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     by, dy = _row_tables(h, out_h, rows, y.device)
     bx, dx = _axis_on(w, out_w, y.device)
     fh, foh, row0 = _row_geometry(h, out_h, rows)
-    if weight_route(fh, w, foh, out_w) == "table":
+    route = weight_route(fh, w, foh, out_w)
+    if route == "table":
         rcls, ccls, table = _weight_table(fh, foh, w, out_w, y.device)
         weights = (rcls[row0:row0 + out_h].data_ptr(), ccls.data_ptr(),
                    table.data_ptr(), table.shape[1])
@@ -570,4 +578,7 @@ def jinc2_convert_fused(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                0 if epilogue is None else epilogue.dither_bits, row0,
                rk.PACK_CODES[pack_format], int(out_transpose), win_h, win_w,
                *weights, out.data_ptr())
+    key = route + (" transposed" if out_transpose else "") \
+        + (" band" if rows is not None else "")
+    rk.k6_route_launches[key] = rk.k6_route_launches.get(key, 0) + 1
     return out

@@ -99,14 +99,19 @@ launches = {"banded_resize_last_axis": 0, "rows3_tail": 0,
 
 
 # launches by route of the kernels that count them, by kernel
-# (kernels/deint's K8, "rows3_mid", and K2, "rows3_tail": their routes'
-# names)
+# (kernels/deint's K8, "rows3_mid", K2, "rows3_tail", and kernels/jinc2's
+# K6, "jinc2_convert": their routes' names)
 route_launches: dict[str, dict[str, int]] = {}
 K2_LONG = "long-window"
 k2_route_launches = route_launches.setdefault("rows3_tail", {})
 """K2's launches by :func:`rows3_tail_route`'s name of the compiled or
 runtime route each took, or ``K2_LONG``; keys appear at their first launch
 and are reset with ``launches`` (:func:`reset_launches`)."""
+k6_route_launches = route_launches.setdefault("jinc2_convert", {})
+"""K6's launches by the weight route each took (``kernels/jinc2
+.weight_route``: "table" or "per-output"), with " transposed" for a
+transposed store and " band" for a band of a frame's rows; keys appear at
+their first launch and are reset with ``launches``."""
 
 
 redo_counters: dict[tuple[str, torch.device], torch.Tensor] = {}
